@@ -1,0 +1,89 @@
+"""Model + params builders for the benchmark configurations.
+
+``build_case(name)`` returns ``(model, params)`` with data saving
+suppressed, ready for ``pt.run_time_dependent_model``.
+
+Configurations ported so far:
+  - ``md``/``md256``: Mpfa single-phase md flow, 2d, 6 crossing
+    fractures, mortar coupling, 0d intersections (1/128 and 1/256), run as
+    fused 8-step time blocks with the device block-preconditioned FGMRES.
+
+The other ``porepy_tpu`` cases (``3d``, ``biot``, ``tracer``, ``thm``,
+``berre3d``) follow in later slices of the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+FRACTURES_2D = [
+    np.array([[0.125, 0.875], [0.25, 0.25]]),
+    np.array([[0.125, 0.875], [0.5, 0.5]]),
+    np.array([[0.125, 0.875], [0.75, 0.75]]),
+    np.array([[0.25, 0.25], [0.125, 0.875]]),
+    np.array([[0.5, 0.5], [0.125, 0.875]]),
+    np.array([[0.75, 0.75], [0.125, 0.875]]),
+]
+
+
+def _mat_flow():
+    import porepy_tpu_torch as pt
+
+    return {
+        "solid": pt.SolidConstants(
+            permeability=1.0,
+            porosity=0.1,
+            residual_aperture=0.01,
+            normal_permeability=1.0,
+        ),
+        "fluid": pt.FluidComponent(
+            compressibility=1e-6, viscosity=1e-3, density=1000.0
+        ),
+    }
+
+
+def _nosave(base):
+    class NoSave(base):
+        def initialize_data_saving(self):
+            pass
+
+        def save_data_time_step(self):
+            pass
+
+    return NoSave
+
+
+def build_md_flow(cell_size: float = 1.0 / 128, device: str = "cuda"):
+    """The md flow case at ``cell_size`` on ``device``."""
+    import porepy_tpu_torch as pt
+
+    class Model(_nosave(pt.SinglePhaseFlow)):
+        def set_fractures(self):
+            self._fractures = [pt.LineFracture(f) for f in FRACTURES_2D]
+
+        def bc_values_pressure(self, bg):
+            return 1.0 - bg.cell_centers[1]
+
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "material_constants": _mat_flow(),
+        "time_manager": pt.TimeManager([0, 26.0], 1.0, constant_dt=True),
+        "linear_solver": "device_gmres",
+        "fused_time_steps": 8,
+        "fused_commit_states": "tail",
+        "device": device,
+    }
+    return Model, params
+
+
+CASE_BUILDERS = {
+    "md": build_md_flow,
+    "md256": lambda: build_md_flow(1.0 / 256),
+}
+
+
+def build_case(name: str):
+    """Instantiate the case's model: ``(model, params)``."""
+    cls, params = CASE_BUILDERS[name]()
+    return cls(params), params

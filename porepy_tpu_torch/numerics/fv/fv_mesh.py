@@ -1,0 +1,153 @@
+"""Finite-volume mesh data as tensors.
+
+All topology is flattened to static-shape integer index tensors at setup,
+geometry to dense float64 tensors. Transmissibilities, fluxes and
+divergences are gathers and segment sums over these tensors; nothing
+touches scipy.
+
+Conceptual counterpart of what the reference framework recomputes from its
+scipy CSC ``cell_faces`` matrix at each discretization call
+(``/root/reference/src/porepy/numerics/fv/tpfa.py:113`` uses
+``sparse_array_to_row_col_data(sd.cell_faces)``); here it is extracted once.
+
+Half-face convention: entry ``k`` couples face ``fi[k]`` with adjacent cell
+``ci[k]``; ``sgn[k]`` is +1 when the stored face normal points out of that
+cell. Interior faces own two half-faces, boundary faces one. The ordering is
+the CSC order of the originating grid.
+
+The md path builds these on the host CPU at setup (TPFA on the 1d fracture
+grids). The segment sums use ``index_add_``, which is deterministic on the
+CPU; on a CUDA tensor it accumulates with atomics in no fixed order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import numpy as np
+import scipy.sparse as sps
+import torch
+
+__all__ = ["FvMesh", "BoundaryMasks"]
+
+
+def _bool(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, dtype=bool), device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundaryMasks:
+    """Face-wise boundary-condition masks.
+
+    ``is_dir``/``is_neu`` are the *effective* masks after internal
+    (fracture) boundary faces have been forced to Neumann, matching the
+    primal-FV convention (reference ``numerics/fv/tpfa.py:204-206``).
+    ``is_dir_raw``/``is_neu_raw`` keep the user-assigned flags, which the
+    pressure-trace reconstruction uses.
+    """
+
+    is_dir: torch.Tensor
+    is_neu: torch.Tensor
+    is_dir_raw: torch.Tensor
+    is_neu_raw: torch.Tensor
+    is_rob: torch.Tensor
+    is_internal: torch.Tensor
+
+    @staticmethod
+    def from_bc(bc, device: Union[str, torch.device] = "cpu") -> "BoundaryMasks":
+        is_internal = np.asarray(bc.is_internal, dtype=bool)
+        is_dir_raw = np.asarray(bc.is_dir, dtype=bool)
+        is_neu_raw = np.asarray(bc.is_neu, dtype=bool)
+        return BoundaryMasks(
+            is_dir=_bool(is_dir_raw & ~is_internal, device),
+            is_neu=_bool(is_neu_raw | is_internal, device),
+            is_dir_raw=_bool(is_dir_raw, device),
+            is_neu_raw=_bool(is_neu_raw, device),
+            is_rob=_bool(bc.is_rob, device),
+            is_internal=_bool(is_internal, device),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class FvMesh:
+    """Static-shape finite-volume view of a
+    :class:`~porepy_tpu_torch.grids.grid.Grid`.
+
+    Data fields are tensors; ``dim``/``num_cells``/``num_faces``/
+    ``num_half_faces`` are plain ints.
+    """
+
+    # Half-face topology (num_half_faces,)
+    fi: torch.Tensor  # face index of each half-face (int64)
+    ci: torch.Tensor  # cell index of each half-face (int64)
+    sgn: torch.Tensor  # +-1.0: normal out of cell ci -> +1
+
+    # Geometry
+    face_normals: torch.Tensor  # (3, num_faces), area weighted
+    face_centers: torch.Tensor  # (3, num_faces)
+    face_areas: torch.Tensor  # (num_faces,)
+    cell_centers: torch.Tensor  # (3, num_cells)
+    cell_volumes: torch.Tensor  # (num_cells,)
+
+    dim: int
+    num_cells: int
+    num_faces: int
+    num_half_faces: int
+
+    @staticmethod
+    def from_grid(sd, device: Union[str, torch.device] = "cpu") -> "FvMesh":
+        """Extract half-face arrays from a host grid (CSC order, i.e. sorted
+        by cell then face within cell — identical traversal order to the
+        reference's ``sparse_array_to_row_col_data``)."""
+        cf: sps.csc_matrix = sd.cell_faces.tocsc()
+        ci = np.repeat(np.arange(sd.num_cells), np.diff(cf.indptr))
+        fi = cf.indices
+
+        def f64(a):
+            return torch.tensor(np.asarray(a, dtype=float), dtype=torch.float64, device=device)
+
+        return FvMesh(
+            fi=torch.tensor(fi, dtype=torch.int64, device=device),
+            ci=torch.tensor(ci, dtype=torch.int64, device=device),
+            sgn=f64(cf.data),
+            face_normals=f64(sd.face_normals),
+            face_centers=f64(sd.face_centers),
+            face_areas=f64(sd.face_areas),
+            cell_centers=f64(sd.cell_centers),
+            cell_volumes=f64(sd.cell_volumes),
+            dim=int(sd.dim),
+            num_cells=int(sd.num_cells),
+            num_faces=int(sd.num_faces),
+            num_half_faces=int(fi.size),
+        )
+
+    # -- derived quantities -------------------------------------------------
+
+    def fc_cc(self) -> torch.Tensor:
+        """(3, num_half_faces) distance vectors face-center minus
+        cell-center per half-face."""
+        return self.face_centers[:, self.fi] - self.cell_centers[:, self.ci]
+
+    def divergence_apply(self, face_field: torch.Tensor) -> torch.Tensor:
+        """Apply the divergence operator to a face field: per cell the
+        signed sum over its faces. Input ``(num_faces,)`` or
+        ``(..., num_faces)``; reduces the last axis to ``num_cells``."""
+        contrib = self.sgn * face_field[..., self.fi]
+        return _segment_sum_last(contrib, self.ci, self.num_cells)
+
+    def boundary_faces(self) -> np.ndarray:
+        """Host-side indices of faces with exactly one adjacent cell."""
+        counts = np.bincount(self.fi.cpu().numpy(), minlength=self.num_faces)
+        return np.where(counts == 1)[0]
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
+    """Sum of ``x`` (first axis) into ``num`` segments given by ``seg``."""
+    out = torch.zeros((num,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg, x)
+
+
+def _segment_sum_last(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
+    moved = torch.movedim(x, -1, 0)
+    return torch.movedim(segment_sum(moved, seg, num), 0, -1)

@@ -1,0 +1,264 @@
+"""The hand-written kernels of porepy_tpu_torch against porepy_tpu.
+
+On the CPU each kernel operator runs its plain PyTorch version; these
+tests hold that version against the jax code it replaces, on the same
+inputs made with numpy from a seed. The tests marked ``cuda`` hold each
+CUDA kernel against its plain version on the card and skip without one;
+they need no jax, so on a machine with a card and without jax they run as
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sps
+import torch
+
+from porepy_tpu_torch import kernels
+from porepy_tpu_torch.kernels import ops, reference
+from porepy_tpu_torch.numerics.ad.compiler import _EllMatvec
+from porepy_tpu_torch.numerics.linalg import device_solver as ds_torch
+
+torch.set_num_threads(1)
+
+# |port - jax| <= TOL * (row sum of |terms|): float64 agrees to rounding,
+# float32 to a few ulps of the row's magnitude (sums run in another order).
+TOL = {np.float64: 1e-13, np.float32: 1e-5}
+TORCH = {np.float64: torch.float64, np.float32: torch.float32}
+
+
+@pytest.fixture
+def jx():
+    """The jax reference: ``(jax, jnp, amg, device_solver)`` of porepy_tpu."""
+    jax = pytest.importorskip("jax")
+    from porepy_tpu.numerics.linalg import amg, device_solver
+
+    return jax, jax.numpy, amg, device_solver
+
+
+def _ell(n_rows, n_cols, K, dtype, seed):
+    """Random padded-row operator with ~10% padding slots (col == n_cols)."""
+    rng = np.random.default_rng(seed)
+    val = rng.standard_normal((n_rows, K)).astype(dtype)
+    col = rng.integers(0, n_cols, (n_rows, K)).astype(np.int32)
+    pad = rng.random((n_rows, K)) < 0.1
+    val[pad] = 0
+    col[pad] = n_cols
+    return val, col
+
+
+def _rowsum(val, col, x):
+    x_p = np.concatenate([np.abs(x), np.zeros(x.shape[:-1] + (1,))], axis=-1)
+    return (np.abs(val) * x_p[..., col]).sum(-1)
+
+
+@pytest.mark.parametrize("batch", [None, 11], ids=["vector", "batched"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_ell_spmv_matches_amg_ell_matvec(jx, dtype, batch):
+    jax, jnp, amg_jax, _ = jx
+    n_rows, n_cols, K = 257, 301, 9
+    val, col = _ell(n_rows, n_cols, K, dtype, 0)
+    shape = (n_cols,) if batch is None else (batch, n_cols)
+    x = np.random.default_rng(1).standard_normal(shape).astype(dtype)
+    mv = lambda xx: amg_jax.ell_matvec(jnp.asarray(val), jnp.asarray(col), xx)
+    want = np.asarray(mv(jnp.asarray(x)) if batch is None else jax.vmap(mv)(jnp.asarray(x)))
+    got = kernels.ell_spmv(torch.tensor(val), torch.tensor(col), torch.tensor(x))
+    assert got.dtype == TORCH[dtype] and got.shape == want.shape
+    err = np.abs(got.numpy() - want)
+    assert np.all(err <= TOL[dtype] * _rowsum(val, col, x))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_ell_jacobi_sweep_matches_cycle_smoother(jx, dtype):
+    _, jnp, amg_jax, _ = jx
+    n, K = 263, 9
+    val, col = _ell(n, n, K, dtype, 2)
+    rng = np.random.default_rng(3)
+    sinv, r, y = (rng.standard_normal(n).astype(dtype) for _ in range(3))
+    # The smoother line of porepy_tpu Hierarchy._cycle (amg.py:336/340).
+    A = lambda v: amg_jax.ell_matvec(jnp.asarray(val), jnp.asarray(col), v)
+    want = np.asarray(
+        jnp.asarray(y) + jnp.asarray(sinv) * (jnp.asarray(r) - A(jnp.asarray(y)))
+    )
+    got = kernels.ell_jacobi_sweep(*(torch.tensor(a) for a in (val, col, sinv, r, y)))
+    scale = np.abs(y) + np.abs(sinv) * (np.abs(r) + _rowsum(val, col, y))
+    assert np.all(np.abs(got.numpy() - want) <= TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("j", [0, 1, 6])
+def test_fgmres_givens_plain_matches_recurrence(j):
+    """One Givens step against device_solver.py:198-210 written in numpy."""
+    restart = 8
+    rng = np.random.default_rng(4 + j)
+    h = np.zeros(restart + 1)
+    h[: j + 2] = rng.standard_normal(j + 2)
+    theta = rng.random(restart) * 2 * np.pi
+    cs, sn = np.cos(theta), np.sin(theta)
+    g = np.zeros(restart + 1)
+    g[: j + 1] = rng.standard_normal(j + 1)
+    hv, gv, csv, snv = h.copy(), g.copy(), cs.copy(), sn.copy()
+    for i in range(j):
+        t = csv[i] * hv[i] + snv[i] * hv[i + 1]
+        hv[i + 1] = -snv[i] * hv[i] + csv[i] * hv[i + 1]
+        hv[i] = t
+    denom = np.sqrt(hv[j] ** 2 + hv[j + 1] ** 2)
+    c, s = hv[j] / max(denom, 1e-30), hv[j + 1] / max(denom, 1e-30)
+    csv[j], snv[j] = c, s
+    hv[j], hv[j + 1] = denom, 0.0
+    gv[j + 1], gv[j] = -s * gv[j], c * gv[j]
+
+    args = [torch.tensor(a) for a in (h, cs, sn, g)]
+    j_t = torch.tensor(j, dtype=torch.int32)
+    flag = torch.zeros((), dtype=torch.int32)
+    atol = torch.tensor(1e-3, dtype=torch.float64)
+    kernels.fgmres_givens(*args, j_t, atol, flag)
+    for got, want in zip(args, (hv, csv, snv, gv)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=1e-15)
+    assert int(j_t) == j + 1
+    assert int(flag) == int(j + 1 < restart and abs(gv[j + 1]) > 1e-3)
+
+
+def test_fgmres_givens_past_last_column_only_clears_flag():
+    h, g = torch.ones(5, dtype=torch.float64), torch.ones(5, dtype=torch.float64)
+    cs, sn = torch.ones(4, dtype=torch.float64), torch.zeros(4, dtype=torch.float64)
+    j = torch.tensor(4, dtype=torch.int32)
+    flag = torch.ones((), dtype=torch.int32)
+    kernels.fgmres_givens(h, cs, sn, g, j, torch.tensor(0.0, dtype=torch.float64), flag)
+    assert int(flag) == 0 and int(j) == 4
+    assert bool(torch.all(h == 1)) and bool(torch.all(g == 1))
+
+
+def _test_system(n=60, seed=5):
+    """Nonsymmetric, diagonally dominant sparse matrix in ELL form."""
+    from porepy_tpu_torch.numerics.linalg.amg import _ell_arrays
+
+    rng = np.random.default_rng(seed)
+    A = sps.random(n, n, density=0.08, random_state=seed, format="csr")
+    A = (A - A.T * 0.5 + sps.diags(4.0 + rng.random(n))).tocsr()
+    val, col = _ell_arrays(A, np.float64)
+    b = rng.standard_normal(n)
+    return A, val, col, b
+
+
+@pytest.mark.parametrize("restart,max_cycles", [(40, 1), (6, 8)], ids=["one-cycle", "restarted"])
+def test_fgmres_matches_jax(jx, restart, max_cycles):
+    """The whole _fgmres (CGS2, Givens via the K4g operator, early exit,
+    back-substitution) on a fixed matrix, float64, against porepy_tpu."""
+    _, jnp, amg_jax, ds_jax = jx
+    A, val, col, b = _test_system()
+    dinv = 1.0 / A.diagonal()
+    atol = 1e-10 * np.linalg.norm(b)
+
+    mv_j = lambda x: amg_jax.ell_matvec(jnp.asarray(val), jnp.asarray(col), x)
+    x_j, res_j, it_j = ds_jax._fgmres(
+        mv_j, lambda r: jnp.asarray(dinv) * r, jnp.asarray(b),
+        jnp.zeros_like(jnp.asarray(b)), atol, restart, max_cycles,
+    )
+    val_t, col_t = torch.tensor(val), torch.tensor(col)
+    dinv_t = torch.tensor(dinv)
+    x_t, res_t, it_t = ds_torch._fgmres(
+        lambda x: kernels.ell_spmv(val_t, col_t, x), lambda r: dinv_t * r,
+        torch.tensor(b), torch.zeros(b.size, dtype=torch.float64), atol,
+        restart, max_cycles,
+    )
+    x_j = np.asarray(x_j)
+    assert it_t == int(it_j)
+    assert np.abs(x_t.numpy() - x_j).max() <= 1e-12 * np.abs(x_j).max()
+    assert abs(float(res_t) - float(res_j)) <= 1e-12 * np.linalg.norm(b)
+
+
+def test_vmap_jvp_through_ell_function_matches_plain_torch():
+    """Colored JVPs of a nonlinear residual through the K1 autograd
+    Function equal those of the same residual written in plain torch."""
+    n, K = 40, 5
+    val, col = _ell(n, n, K, np.float64, 6)
+    val_t, col_t = torch.tensor(val), torch.tensor(col)
+    x = torch.tensor(np.random.default_rng(7).standard_normal(n))
+    seeds = torch.tensor(np.random.default_rng(8).standard_normal((11, n)))
+
+    def f(xx):
+        return torch.exp(0.1 * _EllMatvec.apply(val_t, col_t, xx)) * xx
+
+    def f_plain(xx):
+        return torch.exp(0.1 * reference.ell_spmv(val_t, col_t, xx)) * xx
+
+    def colored(fn):
+        return torch.func.vmap(lambda s: torch.func.jvp(fn, (x,), (s,)))(seeds)
+
+    (v1, j1), (v2, j2) = colored(f), colored(f_plain)
+    torch.testing.assert_close(v1, v2, rtol=0, atol=0)
+    torch.testing.assert_close(j1, j2, rtol=1e-15, atol=1e-15)
+
+
+def test_csr_constant_matrix_path_matches_dense():
+    """A constant matrix with a near-dense row takes the sparse-CSR layout
+    instead of ELL; its matvec is linear and batchable like K1's."""
+    from porepy_tpu_torch.numerics.ad.compiler import _device_const_matrix, _CsrMat
+
+    rng = np.random.default_rng(12)
+    A = sps.random(200, 200, density=0.01, random_state=12, format="lil")
+    A[3, :] = rng.standard_normal(200)
+    A = A.tocsr()
+    mat = _device_const_matrix(A, torch.device("cpu"))
+    assert isinstance(mat, _CsrMat)
+    x = torch.tensor(rng.standard_normal(200))
+    seeds = torch.tensor(rng.standard_normal((4, 200)))
+    val, tangents = torch.func.vmap(
+        lambda s: torch.func.jvp(lambda xx: mat.matvec(xx) ** 2, (x,), (s,))
+    )(seeds)
+    Ad = A.toarray()
+    y = Ad @ x.numpy()
+    np.testing.assert_allclose(val[0].numpy(), y**2, rtol=1e-13)
+    np.testing.assert_allclose(
+        tangents.numpy(), 2 * y * (seeds.numpy() @ Ad.T), rtol=1e-12, atol=1e-12
+    )
+
+
+def test_cuda_wrappers_refuse_cpu_tensors_without_falling_back():
+    """The CUDA path raises on a non-CUDA tensor (it never silently runs the
+    plain version) and the CPU path launches no kernel."""
+    val, col = _ell(5, 5, 3, np.float64, 9)
+    x = torch.zeros(5, dtype=torch.float64)
+    before = dict(kernels.LAUNCHES)
+    kernels.ell_spmv(torch.tensor(val), torch.tensor(col), x)
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="expected cuda"):
+        ops._ell_spmv_cuda(torch.tensor(val), torch.tensor(col), x)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cuda_kernels_match_plain(cuda, dtype):
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    val, col = _ell(18157, 18157, 9, np.float64, 10)
+    val = torch.tensor(val, dtype=dtype, device=cuda)
+    col = torch.tensor(col, device=cuda)
+    gen = np.random.default_rng(11)
+    x = torch.tensor(gen.standard_normal((11, 18157)), dtype=dtype, device=cuda)
+    scale = reference.ell_spmv(val.abs(), col, x.abs())
+    err = (kernels.ell_spmv(val, col, x) - reference.ell_spmv(val, col, x)).abs()
+    assert bool(torch.all(err <= tol * scale))
+    sinv, r, y = x[0], x[1], x[2]
+    out = kernels.ell_jacobi_sweep(val, col, sinv, r, y)
+    want = reference.ell_jacobi_sweep(val, col, sinv, r, y)
+    bound = tol * (y.abs() + sinv.abs() * (r.abs() + reference.ell_spmv(val.abs(), col, y.abs())))
+    assert bool(torch.all((out - want).abs() <= bound))
+    h = torch.tensor(gen.standard_normal(71), dtype=dtype, device=cuda)
+    h[37:] = 0
+    got = [h.clone(), torch.ones(70, dtype=dtype, device=cuda) * 0.6,
+           torch.ones(70, dtype=dtype, device=cuda) * 0.8, h.clone()]
+    want = [t.clone() for t in got]
+    ints = [torch.tensor(35, dtype=torch.int32, device=cuda) for _ in range(4)]
+    atol = torch.tensor(1e-6, dtype=dtype, device=cuda)
+    kernels.fgmres_givens(*got, ints[0], atol, ints[1])
+    reference.fgmres_givens(*want, ints[2], atol, ints[3])
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().sum() + 1)
+    assert int(ints[0]) == int(ints[2]) and int(ints[1]) == int(ints[3])
