@@ -4,11 +4,15 @@
 suppressed, ready for ``pt.run_time_dependent_model``.
 
 Configurations ported so far:
+  - ``3d``: compressible single-phase flow on a 3d Cartesian 32^3 grid, no
+    fractures, whole-boundary Dirichlet; pass ``dense_precond=True`` in
+    the params for the dense frozen block inverse (K6) that ``porepy_tpu``
+    used on the TPU at this size.
   - ``md``/``md256``: Mpfa single-phase md flow, 2d, 6 crossing
     fractures, mortar coupling, 0d intersections (1/128 and 1/256), run as
     fused 8-step time blocks with the device block-preconditioned FGMRES.
 
-The other ``porepy_tpu`` cases (``3d``, ``biot``, ``tracer``, ``thm``,
+The other ``porepy_tpu`` cases (``biot``, ``tracer``, ``thm``,
 ``berre3d``) follow in later slices of the port.
 """
 
@@ -77,7 +81,61 @@ def build_md_flow(cell_size: float = 1.0 / 128, device: str = "cuda"):
     return Model, params
 
 
+def build_3d_flow(cell_size: float = 1.0 / 32, device: str = "cuda"):
+    """The 3d single-phase flow case at ``cell_size`` on ``device``."""
+    import porepy_tpu_torch as pt
+
+    class Model(_nosave(pt.SinglePhaseFlow)):
+        def set_domain(self):
+            self._domain = pt.Domain(
+                {"xmin": 0.0, "xmax": 1.0, "ymin": 0.0, "ymax": 1.0,
+                 "zmin": 0.0, "zmax": 1.0}
+            )
+
+        def set_fractures(self):
+            self._fractures = []
+
+        def bc_type_darcy_flux(self, sd):
+            return pt.BoundaryCondition(
+                sd, self.domain_boundary_sides(sd).all_bf, "dir"
+            )
+
+        def bc_values_pressure(self, bg):
+            return 1.0e5 + 1.0e4 * (1.0 - bg.cell_centers[0])
+
+        def ic_values_pressure(self, sd):
+            return np.full(sd.num_cells, 2.0e5)
+
+        def initial_condition(self):
+            super().initial_condition()
+            for sd in self.mdg.subdomains():
+                self.equation_system.set_variable_values(
+                    self.ic_values_pressure(sd),
+                    ["pressure"],
+                    time_step_index=0,
+                    iterate_index=0,
+                )
+
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "material_constants": {
+            "solid": pt.SolidConstants(permeability=1.0, porosity=0.1),
+            "fluid": pt.FluidComponent(
+                compressibility=1e-6, viscosity=1e-3, density=1000.0
+            ),
+        },
+        "time_manager": pt.TimeManager([0, 26.0], 1.0, constant_dt=True),
+        "linear_solver": "device_gmres",
+        "fused_time_steps": 8,
+        "fused_commit_states": "tail",
+        "device": device,
+    }
+    return Model, params
+
+
 CASE_BUILDERS = {
+    "3d": build_3d_flow,
     "md": build_md_flow,
     "md256": lambda: build_md_flow(1.0 / 256),
 }

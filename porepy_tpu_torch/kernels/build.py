@@ -18,7 +18,14 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "library", "build_seconds"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("ell_spmv.cu", "ell_jacobi_sweep.cu", "fgmres_givens.cu")
+SOURCES = (
+    "ell_spmv.cu",
+    "ell_jacobi_sweep.cu",
+    "fgmres_givens.cu",
+    "dense_block.cu",
+    "structured_flow.cu",
+    "tpfa_flow.cu",
+)
 _NAME = "porepy_tpu_torch_kernels"
 _CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
@@ -28,6 +35,13 @@ _SIGNATURES = {
     "ppt_ell_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ppt_ell_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ppt_fgmres_givens": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "ppt_dense_block_scatter": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "ppt_gj_pivot_inverse": [_P, _P, _P, _I, _I, _P],
+    "ppt_dense_block_apply": [_P, _P, _P, _I, _I, _P],
+    "ppt_structured_residual": [_P] * 11 + [_I] * 3 + [_P],
+    "ppt_structured_jvp": [_P] * 11 + [_I] * 3 + [_P],
+    "ppt_tpfa_residual": [_P] * 13 + [_I] * 2 + [_P],
+    "ppt_tpfa_jvp": [_P] * 13 + [_I] * 2 + [_P],
 }
 
 _LIB = None

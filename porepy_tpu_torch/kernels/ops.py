@@ -20,10 +20,28 @@ __all__ = [
     "ell_spmv",
     "ell_jacobi_sweep",
     "fgmres_givens",
+    "dense_block_scatter",
+    "gj_pivot_inverse",
+    "dense_block_apply",
+    "structured_residual",
+    "structured_jvp",
+    "tpfa_residual",
+    "tpfa_jvp",
 ]
 
 #: Kernel launches per operator since the last :func:`reset_launches`.
-LAUNCHES = {"ell_spmv": 0, "ell_jacobi_sweep": 0, "fgmres_givens": 0}
+LAUNCHES = {
+    "ell_spmv": 0,
+    "ell_jacobi_sweep": 0,
+    "fgmres_givens": 0,
+    "dense_block_scatter": 0,
+    "gj_pivot_inverse": 0,
+    "dense_block_apply": 0,
+    "structured_residual": 0,
+    "structured_jvp": 0,
+    "tpfa_residual": 0,
+    "tpfa_jvp": 0,
+}
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
@@ -182,3 +200,285 @@ def _fgmres_givens_cuda(hcol, cs, sn, g, j, atol, flag):
 @fgmres_givens.register_fake
 def _(hcol, cs, sn, g, j, atol, flag):
     return None
+
+
+# -- K6 ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("porepy_tpu_torch::dense_block_scatter", mutates_args=())
+def dense_block_scatter(
+    vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, ni: int, n_pad: int
+) -> torch.Tensor:
+    """Coalesced COO entries into a zero ``(n_pad, n_pad)`` matrix, with
+    ones on the diagonal of the pad rows ``ni <= i < n_pad``."""
+    return reference.dense_block_scatter(vals, rows, cols, ni, n_pad)
+
+
+@dense_block_scatter.register_kernel("cuda")
+def _dense_block_scatter_cuda(vals, rows, cols, ni, n_pad):
+    if rows.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise TypeError("dense_block_scatter: rows and cols must be int32")
+    nnz = vals.shape[0]
+    if vals.dim() != 1 or rows.shape != (nnz,) or cols.shape != (nnz,):
+        raise ValueError("dense_block_scatter: needs (nnz,) vals, rows, cols")
+    if not 0 <= ni <= n_pad:
+        raise ValueError("dense_block_scatter: needs 0 <= ni <= n_pad")
+    _check("dense_block_scatter", {"vals": vals, "rows": rows, "cols": cols}, vals.dtype)
+    D = torch.zeros((n_pad, n_pad), dtype=vals.dtype, device=vals.device)
+    _launch(
+        "dense_block_scatter", vals.dtype,
+        vals.data_ptr(), rows.data_ptr(), cols.data_ptr(), nnz, ni, n_pad,
+        D.data_ptr(),
+    )
+    return D
+
+
+@dense_block_scatter.register_fake
+def _(vals, rows, cols, ni, n_pad):
+    return vals.new_empty((n_pad, n_pad))
+
+
+@torch.library.custom_op("porepy_tpu_torch::gj_pivot_inverse", mutates_args=("flag",))
+def gj_pivot_inverse(a: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
+    """Inverses of the ``(B, b, b)`` matrices ``a`` (partial pivoting
+    inside each); sets ``flag[m] = 1`` where matrix ``m`` is singular or its
+    inverse is not finite, and never clears it."""
+    return reference.gj_pivot_inverse(a, flag)
+
+
+@gj_pivot_inverse.register_kernel("cuda")
+def _gj_pivot_inverse_cuda(a, flag):
+    if flag.dtype != torch.int32:
+        raise TypeError("gj_pivot_inverse: flag must be int32")
+    if a.dim() != 3 or a.shape[1] != a.shape[2] or flag.shape != (a.shape[0],):
+        raise ValueError("gj_pivot_inverse: needs (B, b, b) matrices and a (B,) flag")
+    b = a.shape[1]
+    if not 1 <= b <= 128:
+        raise ValueError(f"gj_pivot_inverse: b = {b} outside 1..128")
+    _check("gj_pivot_inverse", {"a": a, "flag": flag}, a.dtype)
+    out = torch.empty_like(a)
+    _launch(
+        "gj_pivot_inverse", a.dtype,
+        a.data_ptr(), out.data_ptr(), flag.data_ptr(), a.shape[0], b,
+    )
+    return out
+
+
+@gj_pivot_inverse.register_fake
+def _(a, flag):
+    return torch.empty_like(a)
+
+
+@torch.library.custom_op("porepy_tpu_torch::dense_block_apply", mutates_args=())
+def dense_block_apply(D: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``D[:ni, :ni] @ r`` for float32 ``D`` of shape ``(n_pad, n_pad)``,
+    accumulated in float32 and returned in ``r``'s dtype (``ni = r.numel()``)."""
+    return reference.dense_block_apply(D, r)
+
+
+@dense_block_apply.register_kernel("cuda")
+def _dense_block_apply_cuda(D, r):
+    if D.dtype != torch.float32:
+        raise TypeError("dense_block_apply: D must be float32")
+    if D.dim() != 2 or D.shape[0] != D.shape[1] or r.dim() != 1 or r.shape[0] > D.shape[0]:
+        raise ValueError("dense_block_apply: needs a square D and r of length <= D's")
+    _check("dense_block_apply", {"D": D, "r": r}, r.dtype)
+    if D.data_ptr() % 16 or D.shape[1] % 4:
+        raise ValueError("dense_block_apply: D needs 16-byte aligned rows")
+    y = torch.empty_like(r)
+    _launch(
+        "dense_block_apply", r.dtype,
+        D.data_ptr(), r.data_ptr(), y.data_ptr(), r.shape[0], D.shape[1],
+    )
+    return y
+
+
+@dense_block_apply.register_fake
+def _(D, r):
+    return torch.empty_like(r)
+
+
+# -- K12 --------------------------------------------------------------------------
+
+
+def _structured_cuda(name, p, q, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    dtype = p.dtype
+    tensors = {
+        "p": p, "q": q, "tx": tx, "ty": ty, "tz": tz, "pbc_x": pbc_x,
+        "pbc_y": pbc_y, "pbc_z": pbc_z, "pv": pv, "coef": coef,
+    }
+    if any(t.dtype != dtype for t in tensors.values()):
+        raise TypeError(f"{name}: every tensor needs p's dtype")
+    if p.dim() != 3:
+        raise ValueError(f"{name}: p must be (nx, ny, nz)")
+    nx, ny, nz = p.shape
+    shapes = {
+        "q": (nx, ny, nz), "tx": (nx + 1, ny, nz), "ty": (nx, ny + 1, nz),
+        "tz": (nx, ny, nz + 1), "pbc_x": (2, ny, nz), "pbc_y": (2, nx, nz),
+        "pbc_z": (2, nx, ny), "pv": (nx, ny, nz), "coef": (5,),
+    }
+    for arg, shape in shapes.items():
+        if tuple(tensors[arg].shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(tensors[arg].shape)}, expected {shape}")
+    _check(name, tensors, dtype)
+    out = torch.empty_like(p)
+    _launch(
+        name, dtype,
+        *(t.data_ptr() for t in tensors.values()), out.data_ptr(), nx, ny, nz,
+    )
+    return out
+
+
+@torch.library.custom_op("porepy_tpu_torch::structured_residual", mutates_args=())
+def structured_residual(
+    p: torch.Tensor,
+    p_prev: torch.Tensor,
+    tx: torch.Tensor,
+    ty: torch.Tensor,
+    tz: torch.Tensor,
+    pbc_x: torch.Tensor,
+    pbc_y: torch.Tensor,
+    pbc_z: torch.Tensor,
+    pv: torch.Tensor,
+    coef: torch.Tensor,
+) -> torch.Tensor:
+    """Structured 7-point TPFA mass-balance residual (see
+    :func:`porepy_tpu_torch.kernels.reference.structured_residual`)."""
+    return reference.structured_residual(p, p_prev, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef)
+
+
+@structured_residual.register_kernel("cuda")
+def _structured_residual_cuda(p, p_prev, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    return _structured_cuda(
+        "structured_residual", p, p_prev, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef
+    )
+
+
+@structured_residual.register_fake
+def _(p, p_prev, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    return torch.empty_like(p)
+
+
+@torch.library.custom_op("porepy_tpu_torch::structured_jvp", mutates_args=())
+def structured_jvp(
+    p: torch.Tensor,
+    dp: torch.Tensor,
+    tx: torch.Tensor,
+    ty: torch.Tensor,
+    tz: torch.Tensor,
+    pbc_x: torch.Tensor,
+    pbc_y: torch.Tensor,
+    pbc_z: torch.Tensor,
+    pv: torch.Tensor,
+    coef: torch.Tensor,
+) -> torch.Tensor:
+    """``J(p) dp`` of :func:`structured_residual`, upwind side frozen."""
+    return reference.structured_jvp(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef)
+
+
+@structured_jvp.register_kernel("cuda")
+def _structured_jvp_cuda(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    return _structured_cuda(
+        "structured_jvp", p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef
+    )
+
+
+@structured_jvp.register_fake
+def _(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    return torch.empty_like(p)
+
+
+# -- K13 --------------------------------------------------------------------------
+
+
+def _tpfa_cuda(name, p, q, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
+    dtype = p.dtype
+    if any(x.dtype != dtype for x in (q, t, bc_val, pv, coef)):
+        raise TypeError(f"{name}: p, q, t, bc_val, pv, coef need one dtype")
+    if any(x.dtype != torch.int32 for x in (lo, hi, cell_ptr, cell_faces)):
+        raise TypeError(f"{name}: lo, hi, cell_ptr, cell_faces must be int32")
+    if is_neu.dtype != torch.bool:
+        raise TypeError(f"{name}: is_neu must be bool")
+    nc, nf = p.shape[0], t.shape[0]
+    if (
+        p.dim() != 1 or q.shape != (nc,) or pv.shape != (nc,)
+        or any(x.shape != (nf,) for x in (lo, hi, t, is_neu, bc_val))
+        or cell_ptr.shape != (nc + 1,) or cell_faces.dim() != 1 or coef.shape != (5,)
+    ):
+        raise ValueError(f"{name}: inconsistent cell/face shapes")
+    tensors = {
+        "p": p, "q": q, "lo": lo, "hi": hi, "t": t, "is_neu": is_neu,
+        "bc_val": bc_val, "pv": pv, "cell_ptr": cell_ptr,
+        "cell_faces": cell_faces, "coef": coef,
+    }
+    _check(name, tensors, dtype)
+    m = torch.empty(nf, dtype=dtype, device=p.device)
+    out = torch.empty_like(p)
+    _launch(
+        name, dtype,
+        *(x.data_ptr() for x in tensors.values()), m.data_ptr(), out.data_ptr(), nc, nf,
+    )
+    return out
+
+
+@torch.library.custom_op("porepy_tpu_torch::tpfa_residual", mutates_args=())
+def tpfa_residual(
+    p: torch.Tensor,
+    p_prev: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    t: torch.Tensor,
+    is_neu: torch.Tensor,
+    bc_val: torch.Tensor,
+    pv: torch.Tensor,
+    cell_ptr: torch.Tensor,
+    cell_faces: torch.Tensor,
+    coef: torch.Tensor,
+) -> torch.Tensor:
+    """Unstructured TPFA mass-balance residual (see
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_residual`)."""
+    return reference.tpfa_residual(
+        p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef
+    )
+
+
+@tpfa_residual.register_kernel("cuda")
+def _tpfa_residual_cuda(p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
+    return _tpfa_cuda(
+        "tpfa_residual", p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef
+    )
+
+
+@tpfa_residual.register_fake
+def _(p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
+    return torch.empty_like(p)
+
+
+@torch.library.custom_op("porepy_tpu_torch::tpfa_jvp", mutates_args=())
+def tpfa_jvp(
+    p: torch.Tensor,
+    dp: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    t: torch.Tensor,
+    is_neu: torch.Tensor,
+    bc_val: torch.Tensor,
+    pv: torch.Tensor,
+    cell_ptr: torch.Tensor,
+    cell_faces: torch.Tensor,
+    coef: torch.Tensor,
+) -> torch.Tensor:
+    """``J(p) dp`` of :func:`tpfa_residual`, upwind side frozen."""
+    return reference.tpfa_jvp(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef)
+
+
+@tpfa_jvp.register_kernel("cuda")
+def _tpfa_jvp_cuda(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
+    return _tpfa_cuda(
+        "tpfa_jvp", p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef
+    )
+
+
+@tpfa_jvp.register_fake
+def _(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
+    return torch.empty_like(p)

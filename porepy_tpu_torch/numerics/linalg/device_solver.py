@@ -29,7 +29,9 @@ right-preconditioned FGMRES where
   host reads the flag to end the cycle early.
 
 Falls back (counted + logged) to host spsolve if the device iteration misses
-tolerance. Dense frozen block inverses (``dense=True``, K6) are not ported.
+tolerance. With ``dense=True`` each field block of at most
+``PPT_DENSE_PRECOND_MAX`` rows takes a dense frozen inverse instead (K6,
+below), applied as one GEMV per Krylov step.
 """
 
 from __future__ import annotations
@@ -48,6 +50,105 @@ from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
 __all__ = ["DeviceLinearSolver"]
 
 logger = logging.getLogger(__name__)
+
+# -- dense frozen block inverses (K6) --------------------------------------------
+#
+# A field block of at most PPT_DENSE_PRECOND_MAX rows may be replaced by its
+# dense inverse, built once per preconditioner refresh: per-block Ruiz
+# equilibration, a host condition-number gate, the coalesced COO block
+# scattered into a padded f32 matrix (identity pad) by the
+# ``dense_block_scatter`` kernel, a blocked Gauss-Jordan inverse of it, and
+# the Ruiz diagonals folded back so the stored matrix is the raw-space
+# inverse. Every Krylov apply is then one ``dense_block_apply`` GEMV, and
+# FGMRES converges in a few iterations because the block solve is exact to
+# f32 rounding. As in ``porepy_tpu``, the elimination is unpivoted at the
+# block level (the caller hands in an equilibrated block, gated by its
+# condition estimate); inside each 128-row pivot block the
+# ``gj_pivot_inverse`` kernel pivots by rows, as ``jax.numpy.linalg.inv``
+# does. A singular or non-finite pivot sets a device flag that the build
+# reads once and turns into FloatingPointError, so the block demotes to its
+# sparse method like a block the condition gate rejects.
+
+#: Rows of a pivot block: a power of two, at most 128, so that one pivot
+#: (66 KB in f32) fits the shared memory of one SM. porepy_tpu uses 1024,
+#: which suits XLA's LU on the TPU.
+_DENSE_GJ_BLOCK = 128
+
+
+def _dense_block_inv(
+    A: torch.Tensor, pivot_inverse=None, flag: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Inverse of the square matrix ``A`` by blocked Gauss-Jordan
+    elimination without pivoting between blocks, in place (``A`` is
+    overwritten and returned, so no second n x n buffer is made).
+
+    Per block step: the ``b x b`` pivot is inverted by ``pivot_inverse``
+    (default :func:`~porepy_tpu_torch.kernels.gj_pivot_inverse`, which sets
+    ``flag`` on a singular pivot), then the row strip ``Pi R``, the rank-b
+    update ``M -= C (Pi R)`` and the column strip ``-C Pi`` are dense
+    products in full f32 (``porepy_tpu`` asks XLA for
+    ``Precision.HIGHEST``). ``A.shape[0]`` must be a multiple of
+    :data:`_DENSE_GJ_BLOCK`."""
+    if pivot_inverse is None:
+        pivot_inverse = kernels.gj_pivot_inverse
+    if A.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "dense block inverse needs full f32 products: "
+            "torch.backends.cuda.matmul.allow_tf32 must be False"
+        )
+    n = A.shape[0]
+    b = _DENSE_GJ_BLOCK
+    if n % b:
+        raise ValueError(f"matrix size {n} is not a multiple of the pivot block {b}")
+    if flag is None:
+        flag = torch.zeros(1, dtype=torch.int32, device=A.device)
+    M = A
+    for i0 in range(0, n, b):
+        s = slice(i0, i0 + b)
+        Pi = pivot_inverse(M[s, s].contiguous()[None], flag)[0]
+        C = M[:, s].clone()
+        C[s] = 0.0
+        R = Pi @ M[s, :]
+        R[:, s] = 0.0
+        M.addmm_(C, R, alpha=-1.0)
+        M[:, s] = -(C @ Pi)
+        R[:, s] = Pi
+        M[s, :] = R
+    return M
+
+
+def _dense_precond_limit() -> int:
+    """Per-block size threshold below which a dense frozen block inverse is
+    built when ``dense=True`` (env ``PPT_DENSE_PRECOND_MAX``, default 36864,
+    as in ``porepy_tpu``). 36864^2 f32 is 5.4 GB; a failed build demotes
+    the block to its sparse method."""
+    import os
+
+    return int(os.environ.get("PPT_DENSE_PRECOND_MAX", "36864"))
+
+
+def _dense_inv_fn(
+    ni: int,
+    n_pad: int,
+    vals: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+) -> torch.Tensor:
+    """Scatter of an ``ni``-sized coalesced COO block into a zero
+    ``(n_pad, n_pad)`` matrix with an identity pad diagonal, then its
+    blocked Gauss-Jordan inverse. Reads the pivot flag once and raises
+    ``FloatingPointError`` if a pivot was singular or the inverse is not
+    finite."""
+    D = kernels.dense_block_scatter(vals, rows, cols, ni, n_pad)
+    flag = torch.zeros(1, dtype=torch.int32, device=D.device)
+    D = _dense_block_inv(D, flag=flag)
+    bad = (flag[0] != 0) | ~torch.isfinite(D).all()
+    if bool(bad):
+        raise FloatingPointError(
+            f"dense block inverse failed: singular or non-finite pivot "
+            f"(n = {ni}, pivot block {_DENSE_GJ_BLOCK})"
+        )
+    return D
 
 
 def _fgmres(matvec, M, b, x0, atol, restart, max_cycles):
@@ -255,6 +356,95 @@ class _BlockPrecondBuilder:
         # Per-block Jacobi sweep counts, frozen at the FIRST build so value
         # refreshes keep the apply structure.
         self._jac_sweeps: dict[int, int] = {}
+        # Per-block dense upgrade: sweep blocks of at most this size get a
+        # dense frozen inverse instead of their AMG/Jacobi method. 0
+        # disables. Decisions are sticky per block (a failed build demotes
+        # the block for good).
+        self.dense_limit: int = 0
+        self._block_dense: dict[int, bool] = {}
+
+    @staticmethod
+    def _cond_estimate(S_eq: sps.csr_matrix, iters: int = 8) -> float:
+        """Host-side 2-norm condition estimate of the equilibrated block:
+        power iteration for sigma_max, splu-backed inverse power iteration
+        for sigma_min (both on ``S^T S``; deterministic seed). Returns
+        ``inf`` for (numerically) singular blocks."""
+        n = S_eq.shape[0]
+        rng = np.random.default_rng(0xC0ED)
+        v = rng.standard_normal(n)
+        v /= np.linalg.norm(v)
+        nw = 0.0
+        for _ in range(iters):
+            w = S_eq.T @ (S_eq @ v)
+            nw = float(np.linalg.norm(w))
+            if not np.isfinite(nw) or nw == 0.0:
+                return np.inf
+            v = w / nw
+        smax = np.sqrt(nw)
+        try:
+            import warnings
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                lu = sps.linalg.splu(S_eq.tocsc())
+            u = rng.standard_normal(n)
+            u /= np.linalg.norm(u)
+            for _ in range(iters):
+                w = lu.solve(lu.solve(u), trans="T")
+                nw = float(np.linalg.norm(w))
+                if not np.isfinite(nw) or nw == 0.0:
+                    return np.inf
+                u = w / nw
+        except Exception:
+            return np.inf
+        smin = 1.0 / np.sqrt(nw)
+        return float(smax / smin)
+
+    def _build_dense_block(self, Sii: sps.csr_matrix) -> torch.Tensor:
+        """Dense frozen inverse of one sweep block: per-block Ruiz
+        equilibration, a host condition gate, the blocked Gauss-Jordan
+        inverse of the equilibrated block on the device, and the diagonals
+        folded back so the stored ``(n_pad, n_pad)`` f32 matrix is the
+        RAW-space inverse (one GEMV per apply, consistent with the
+        raw-space block sweep). Raises to let the caller demote the block.
+
+        The gate: an f32 Gauss-Jordan inverse of an equilibrated block with
+        condition number kappa carries a relative error of about
+        kappa * eps_f32, so kappa <= 1e5 (``PPT_DENSE_COND_MAX``) keeps it
+        within 5%. A mis-predicted block is caught downstream by FGMRES's
+        true residual and the counted host fallback, never silently. The
+        pivot flag of the inverse catches a pivot block that the gate
+        passes but Gauss-Jordan cannot invert."""
+        import os
+
+        ni = Sii.shape[0]
+        b = _DENSE_GJ_BLOCK
+        n_pad = -(-ni // b) * b
+        dr, dc = _ruiz_scaling(Sii)
+        coo = Sii.tocoo()
+        # Coalesced entries make the device scatter a plain store.
+        coo.sum_duplicates()
+        eq_vals = dr[coo.row] * coo.data * dc[coo.col]
+        S_eq = sps.csr_matrix((eq_vals, (coo.row, coo.col)), shape=Sii.shape)
+        cond = self._cond_estimate(S_eq)
+        cond_max = float(os.environ.get("PPT_DENSE_COND_MAX", "1e5"))
+        if not np.isfinite(cond) or cond > cond_max:
+            raise FloatingPointError(
+                f"dense block inverse gated off: equilibrated cond estimate "
+                f"{cond:.2e} > {cond_max:.0e} (n = {ni}; f32 Gauss-Jordan "
+                f"error ~ cond * eps_f32 would breach the 5% contract)"
+            )
+        inv = _dense_inv_fn(
+            ni,
+            n_pad,
+            self._tensor(eq_vals.astype(np.float32)),
+            self._tensor(coo.row.astype(np.int32)),
+            self._tensor(coo.col.astype(np.int32)),
+        )
+        # Raw-space inverse Minv = Dc inv_eq Dr (pad scales are 1), in place.
+        dcp = self._tensor(np.pad(dc, (0, n_pad - ni), constant_values=1.0).astype(np.float32))
+        drp = self._tensor(np.pad(dr, (0, n_pad - ni), constant_values=1.0).astype(np.float32))
+        return inv.mul_(dcp[:, None]).mul_(drp[None, :])
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.asarray(a), device=self.device)
@@ -352,6 +542,7 @@ class _BlockPrecondBuilder:
             "cpl": {},
             "amg": {},
             "jac": {},
+            "dense": {},
             "perm_rows": self._rows_concat,
             "perm_inv": self._scatter_inv,
             "mdr": self._tensor(mdr.astype(np.float32)),
@@ -382,6 +573,21 @@ class _BlockPrecondBuilder:
                 Sii = Sii + sps.diags(
                     np.asarray(self.stab[i], dtype=np.float64)
                 )
+            want_dense = self._block_dense.get(
+                i, 0 < Sii.shape[0] <= self.dense_limit
+            )
+            if want_dense:
+                try:
+                    state["dense"][i] = self._build_dense_block(Sii)
+                    self._block_dense[i] = True
+                    continue
+                except Exception:
+                    logger.exception(
+                        "Dense inverse of block %d failed; demoting to %s",
+                        i,
+                        self.methods[i],
+                    )
+                    self._block_dense[i] = False
             if self.methods[i] == "amg":
                 nns = self.nns.get(i)
                 B, bs = (nns if nns is not None else (None, 1))
@@ -435,6 +641,7 @@ class _BlockPrecondBuilder:
         sizes = self._sizes
         methods = list(self.methods)
         jac_sweeps = dict(self._jac_sweeps)
+        dense_set = frozenset(i for i in sweep if self._block_dense.get(i))
 
         def apply(state, r):
             # Equilibrated residual in -> raw space; block GS runs raw.
@@ -460,7 +667,9 @@ class _BlockPrecondBuilder:
                     cpl = state["cpl"].get((i, k))
                     if cpl is not None:
                         ri = ri - amg.ell_matvec(cpl[0], cpl[1], y[k])
-                if methods[i] == "amg":
+                if i in dense_set:
+                    y[i] = kernels.dense_block_apply(state["dense"][i], ri.contiguous())
+                elif methods[i] == "amg":
                     y[i] = hierarchies[i].apply(state["amg"][i], ri)
                 else:
                     jb = state["jac"][i]
@@ -508,8 +717,10 @@ class DeviceLinearSolver:
         near-nullspace modes for the block's AMG (rigid body modes for
         displacement blocks).
     dense:
-        Dense frozen block inverses (K6). Not ported: ``True`` raises
-        ``NotImplementedError``; ``None`` and ``False`` mean off.
+        Dense frozen block inverses (K6): ``True`` gives every sweep block
+        of at most ``PPT_DENSE_PRECOND_MAX`` rows a dense inverse (demoted
+        to its sparse method if the build fails); ``None`` and ``False``
+        mean off.
     """
 
     def __init__(
@@ -527,10 +738,6 @@ class DeviceLinearSolver:
     ) -> None:
         if system.num_rows != system.shape[1]:
             raise ValueError("Device solve needs a square assembled system")
-        if dense:
-            raise NotImplementedError(
-                "dense frozen block inverses (K6) are not ported; pass dense=False"
-            )
         self.system = system
         self.device = system.device
         self.method = method
@@ -572,8 +779,20 @@ class DeviceLinearSolver:
         self._m_apply = None
         self._hierarchies: Optional[dict] = None
         self.last_stats: Optional[dict] = None
+        # Unlike porepy_tpu, which turns dense inverses on by itself on the
+        # TPU below the size threshold, the port builds them only when asked.
+        if dense:
+            self._builder.dense_limit = _dense_precond_limit()
 
     # -- preconditioner lifecycle ---------------------------------------------
+
+    @property
+    def _dense(self) -> bool:
+        """True when dense frozen block inverses are active (before the
+        first build: configured to be attempted)."""
+        if self._builder._block_dense:
+            return any(self._builder._block_dense.values())
+        return self._builder.dense_limit > 0
 
     def _host_matrix(self, data) -> sps.csr_matrix:
         if torch.is_tensor(data):
@@ -721,7 +940,7 @@ class DeviceLinearSolver:
             "refreshed": refreshed,
             "nnz": int(self.system.indices_np.shape[0]),
             "n": self.n,
-            "dense": False,
+            "dense": self._dense,
         }
         return x * b_norm, res * b_norm
 

@@ -31,6 +31,9 @@ PORTED = {
     "numerics/linalg/device_solver.py",
     "numerics/linalg/krylov.py",
     "numerics/linalg/matrix_operations.py",
+    "parallel/__init__.py",
+    "parallel/flow_step.py",
+    "parallel/structured_flow.py",
     "utils/device_policy.py",
 }
 

@@ -262,3 +262,78 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= tol * float(b.abs().sum() + 1)
     assert int(ints[0]) == int(ints[2]) and int(ints[1]) == int(ints[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cuda_dense_block_kernels_match_plain(cuda, dtype):
+    """K6: scatter, pivot inverse (with a zero leading entry and a singular
+    matrix in the batch) and apply against their plain versions."""
+    ni, n_pad, b = 300, 384, 128
+    gen = np.random.default_rng(13)
+    S = sps.random(ni, ni, density=0.05, random_state=13, format="coo")
+    S.sum_duplicates()
+    vals = torch.tensor(S.data, dtype=dtype, device=cuda)
+    rows = torch.tensor(S.row.astype(np.int32), device=cuda)
+    cols = torch.tensor(S.col.astype(np.int32), device=cuda)
+    D = kernels.dense_block_scatter(vals, rows, cols, ni, n_pad)
+    assert bool(torch.equal(D, reference.dense_block_scatter(vals, rows, cols, ni, n_pad)))
+
+    a = gen.standard_normal((3, b, b)) / np.sqrt(b) + 4 * np.eye(b)
+    a[0, [0, 1]] = a[0, [1, 0]]
+    a[0, 0, 0] = 0.0
+    a[2] = np.outer(np.arange(1.0, b + 1), np.arange(1.0, b + 1))
+    a = torch.tensor(a, dtype=dtype, device=cuda)
+    flag = torch.zeros(3, dtype=torch.int32, device=cuda)
+    inv = kernels.gj_pivot_inverse(a, flag)
+    torch.cuda.synchronize()
+    assert flag.tolist() == [0, 0, 1]
+    want = reference.gj_pivot_inverse(a[:2], torch.zeros(2, dtype=torch.int32, device=cuda))
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert float((inv[:2] - want).abs().max()) <= tol * float(want.abs().max())
+
+    D32 = D.to(torch.float32)
+    r = torch.tensor(gen.standard_normal(ni), dtype=dtype, device=cuda)
+    y = kernels.dense_block_apply(D32, r)
+    y_ref = reference.dense_block_apply(D32, r)
+    bound = 1e-5 * (D32[:ni, :ni].abs() @ r.abs().to(torch.float32)).to(dtype)
+    assert y.dtype == dtype and bool(torch.all((y - y_ref).abs() <= bound))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cuda_flow_kernels_match_plain(cuda, dtype):
+    """K12 and K13: residual and tangent against their plain versions on a
+    (9, 7, 5) box, to 1e-13 (f64) / 1e-5 (f32) of the largest entry."""
+    from porepy_tpu_torch.parallel.flow_step import build_cart_flow_kernel
+    from porepy_tpu_torch.parallel.structured_flow import build_structured_flow_kernel
+
+    shape = (9, 7, 5)
+    fluid = dict(compressibility=1e-6, viscosity=1e-3, rho_ref=1000.0, p_ref=1e5)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    gen = np.random.default_rng(14)
+    ks, _ = build_structured_flow_kernel(
+        shape, (1, 1, 1), bc_pressure=lambda x, y, z: 1e5 + 1e4 * x, device=cuda, **fluid
+    )
+    ks = ks._as_dtype(dtype)
+    ku, _ = build_cart_flow_kernel(
+        list(shape), [1, 1, 1], bc_pressure=lambda fc: 1e5 + 1e4 * fc[0], device=cuda, **fluid
+    )
+    u_args = list(ku._arrays()) + [ku._coef()]
+    for i in (2, 4, 5):  # t, bc_val, pv
+        u_args[i] = u_args[i].to(dtype)
+    u_args[-1] = u_args[-1].to(dtype)
+    s_args = (*ks._arrays(), ks._coef())
+    for n_shape, args, ops_pair in (
+        (shape, s_args, ("structured_residual", "structured_jvp")),
+        ((ku.num_cells,), tuple(u_args), ("tpfa_residual", "tpfa_jvp")),
+    ):
+        p, q, v = (
+            torch.tensor(2e5 + 1e4 * gen.standard_normal(n_shape), dtype=dtype, device=cuda)
+            for _ in range(3)
+        )
+        for name, second in zip(ops_pair, (q, v)):
+            got = getattr(kernels, name)(p, second, *args)
+            want = getattr(reference, name)(p, second, *args)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max()), name

@@ -126,8 +126,22 @@ def test_solves_meet_tolerance_with_close_krylov_counts(solvers, tol):
     assert abs(s_t.last_stats["krylov_iters"] - s_j.last_stats["krylov_iters"]) <= 2
 
 
-def test_dense_preconditioner_is_not_ported(solvers):
+def test_dense_preconditioner_builds_and_reports(solvers):
+    """``dense=True`` on the md field split (pressure block dense after the
+    mortar elimination): the solve meets its tolerance without host
+    fallback and ``last_stats["dense"]`` reports the dense block."""
     from porepy_tpu_torch.numerics.linalg.device_solver import DeviceLinearSolver
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER as fb_torch
 
-    with pytest.raises(NotImplementedError, match="K6"):
-        DeviceLinearSolver(solvers["torch"].system, dense=True)
+    s_t = solvers["torch"]
+    solver = DeviceLinearSolver(
+        s_t.system, blocks=s_t._builder.blocks, methods=["amg", "eliminate"], dense=True
+    )
+    assert solver._dense
+    before = fb_torch["count"]
+    A, b = solvers["A"], solvers["b"]
+    x = solver.solve(torch.tensor(solvers["data"]), torch.tensor(b), tol=1e-8)
+    assert fb_torch["count"] == before
+    assert np.linalg.norm(A @ x - b) <= 1e-8 * np.linalg.norm(b)
+    assert solver.last_stats["dense"] is True
+    assert solver._builder._block_dense == {0: True}
