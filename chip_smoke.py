@@ -42,7 +42,27 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    bench case runs it: 7 chained Newton steps from p = 2e5 (median ms),
    then Newton to |r| < 1e-6 or to the residual's rounding floor, on the
    card and on the host (plain path, 1e-6 abs apart), and the unstructured
-   step (K13) on the same problem (1e-4 abs from the structured one).
+   step (K13) on the same problem (1e-4 abs from the structured one);
+11. hold the batched interaction-region solve (K10) against its plain
+   version on the chunks that the discretization of the biot 1/64 model
+   (MPSA/Biot and MPFA) and of a 3d 16^3 Biot problem build (the largest
+   bucket (81, 32, 80) at the chunk size ``max_batch_elements`` gives), on
+   a batch with a zero leading entry and on one too large for shared
+   memory: |kernel - plain| <= 1e-12 max |plain| per bucket, with
+   CUDA-event times of kernel, plain version and the host-device copies;
+12. run the biot case at 1/64 (12,288 dofs) for 26 steps, its
+   discretization by K10 (``PPT_LOCAL_SOLVE_DEVICE=1`` set just before
+   ``prepare_simulation`` and removed after), once with the SA-AMG field
+   split (rigid-body modes on u, fixed-stress stabilization) and once with
+   dense frozen block inverses: 3 blocks, no host fallback, K10 launched in
+   the discretization, the block kernels launched, a finite state and one
+   more host Newton increment <= 1e-10; prints setup seconds, the
+   discretization seconds by K10 and by host LAPACK, ms per Newton
+   iteration and the reference's 567 ms;
+13. biot 1/16 (10 steps) and the fractured poromechanics "contact" case
+   (``device_gmres``) on the card against the host plain path (1e-8 of
+   each field's max), and every Biot matrix at 1/64 by K10 against the
+   host LAPACK route (1e-12 relative).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -52,7 +72,9 @@ before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -679,6 +701,317 @@ def run_flow_steps(dev) -> dict:
     return out
 
 
+# -- K10 and the biot case --------------------------------------------------------
+
+BIOT_MECH_KEYS = ("stress", "bound_stress", "bound_displacement_cell", "bound_displacement_face")
+BIOT_COUPLING_KEYS = (
+    "scalar_gradient", "displacement_divergence", "boundary_displacement_divergence",
+    "mpsa_consistency", "bound_displacement_pressure",
+)
+
+
+@contextlib.contextmanager
+def _local_solves(route: str):
+    """Region solves by ``route`` inside the block: ``"k10"`` sets
+    ``PPT_LOCAL_SOLVE_DEVICE=1`` and removes it after, ``"host"`` leaves the
+    default."""
+    if route == "host":
+        yield
+        return
+    os.environ["PPT_LOCAL_SOLVE_DEVICE"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["PPT_LOCAL_SOLVE_DEVICE"]
+
+
+def _capture_chunks(run) -> dict:
+    """The dense ``(a, rhs, w)`` chunks that ``iter_solve_and_contract``
+    builds while ``run()`` discretizes by the host route: the first chunk of
+    each ``(n, m, q)`` bucket."""
+    from porepy_tpu_torch.numerics.fv import local_solves as ls
+
+    chunks = {}
+    solve = ls._solve_chunk
+
+    def record(a, rhs, w):
+        chunks.setdefault((a.shape[1], rhs.shape[2], w.shape[1]), (a, rhs, w))
+        return ls._solve_chunk_host(a, rhs, w)
+
+    ls._solve_chunk = record
+    try:
+        run()
+    finally:
+        ls._solve_chunk = solve
+    return chunks
+
+
+def _biot_problem(pt, nx):
+    """Grid and data of a ``Biot("mechanics")`` discretization on a unit
+    Cartesian grid, with the inputs of the Biot matrix parity test: seeded
+    moduli, alternating Dirichlet/Neumann boundary faces."""
+    g = pt.CartGrid(list(nx), [1.0] * len(nx))
+    g.compute_geometry()
+    rng = np.random.default_rng(5 + len(nx))
+    nc = g.num_cells
+    bf = g.get_boundary_faces()
+    d = pt.initialize_data(
+        {},
+        "mechanics",
+        {
+            "fourth_order_tensor": pt.FourthOrderTensor(rng.uniform(0.5, 2.0, nc), rng.uniform(0.5, 2.0, nc)),
+            "bc": pt.BoundaryConditionVectorial(g, bf, ["dir" if i % 2 == 0 else "neu" for i in range(bf.size)]),
+            "scalar_vector_mappings": {"flow": 0.8},
+        },
+    )
+    return g, d
+
+
+def _biot_matrices(g, d) -> dict:
+    import porepy_tpu_torch as pt
+
+    pt.Biot("mechanics").discretize(g, d)
+    md = d[pt.DISCRETIZATION_MATRICES]["mechanics"]
+    out = {k: md[k] for k in BIOT_MECH_KEYS}
+    out.update({k: md[k]["flow"] for k in BIOT_COUPLING_KEYS})
+    return out
+
+
+def check_region_kernel(dev) -> dict:
+    """K10 against its plain version on real and synthetic region batches."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import build_biot
+    from porepy_tpu_torch.kernels import ops, reference
+
+    print("phase 11: the region-solve kernel (K10) against its plain version")
+    Model, params = build_biot(1.0 / 64, device=str(dev))
+    batches = [("biot 1/64", k, v) for k, v in _capture_chunks(lambda: Model(params).prepare_simulation()).items()]
+    g3, d3 = _biot_problem(pt, [16, 16, 16])
+    batches += [("biot 3d 16^3", k, v) for k, v in _capture_chunks(lambda: _biot_matrices(g3, d3)).items()]
+    gen = np.random.default_rng(11)
+    for B, n, m, q, what in ((64, 20, 12, 20, "zero leading entry"), (3, 180, 20, 30, "device workspace")):
+        a = gen.standard_normal((B, n, n)) + 0.5 * n * np.eye(n)
+        a *= 10.0 ** gen.uniform(-3, 3, (B, n, 1))
+        a[0, 0, 0] = 0.0
+        batches.append(("synthetic, " + what, (n, m, q), (a, gen.standard_normal((B, n, m)), gen.standard_normal((B, q, n)))))
+
+    main_bucket = max(k for src, k, _ in batches if src == "biot 1/64")
+    report = {"err": 0.0, "buckets": []}
+    for source, (n, m, q), arrays in batches:
+        B = arrays[0].shape[0]
+        host = [torch.from_numpy(x) for x in arrays]
+        a, rhs, w = (x.to(dev) for x in host)
+        got = ops.region_solve(a, rhs, w)
+        want = reference.region_solve_contract(a, rhs, w)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        tag = f"region_solve {source}: B {B}, n {n}, m {m}, q {q}"
+        _check(tag, torch.tensor(err), 1e-12 * scale)
+        report["err"] = max(report["err"], err)
+        reps = 20
+        ms = _cuda_ms(lambda: ops.region_solve(a, rhs, w), reps)
+        plain_ms = _cuda_ms(lambda: reference.region_solve_contract(a, rhs, w), reps)
+        h2d_ms = _cuda_ms(lambda: [x.to(dev) for x in host], reps)
+        d2h_ms = _cuda_ms(lambda: got.cpu(), reps)
+        print(
+            f"    rel err {err / scale:.3e}; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain; "
+            f"copies {h2d_ms:.4f} ms to the card, {d2h_ms:.4f} ms back"
+        )
+        report["buckets"].append(dict(source=source, B=B, n=n, m=m, q=q, ms=ms, plain_ms=plain_ms))
+        if source == "biot 1/64" and (n, m, q) == main_bucket:
+            report["ms"], report["plain_ms"] = ms, plain_ms
+    return report
+
+
+def run_biot(dev, dense: bool) -> dict:
+    """The biot case at 1/64 for 26 steps on ``dev``, discretized by K10."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import build_biot
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    print(f"phase 12: biot at cell size 1/64, 26 steps on {dev}, dense_precond={dense}, discretized by K10")
+    Model, params = build_biot(1.0 / 64, device=str(dev))
+    params["dense_precond"] = dense
+    model = timed_model(Model)(params)
+    model.block_log = []
+    disc_s = []
+    discretize = model.discretize
+
+    def timed_discretize():
+        tic = time.perf_counter()
+        discretize()
+        torch.cuda.synchronize()
+        disc_s.append(time.perf_counter() - tic)
+
+    model.discretize = timed_discretize
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    reset_launches()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with _local_solves("k10"):
+        model.prepare_simulation()
+    model._prepared = True
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - tic
+    disc_launches = LAUNCHES["region_solve"]
+    tic = time.perf_counter()
+    pt.run_time_dependent_model(model, params)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - tic
+    launches = dict(LAUNCHES)
+    model.discretize = discretize
+
+    eq_sys = model.equation_system
+    x = eq_sys.get_variable_values(time_step_index=0)
+    solver = next(iter(model._device_solvers.values()))
+    print(
+        f"  dofs {eq_sys.num_dofs()}, setup {setup_s:.3f} s (discretization by K10 "
+        f"{sum(disc_s):.3f} s, {disc_launches} launches), 26 steps {run_s:.3f} s"
+    )
+    for i, (secs, rec) in enumerate(model.block_log):
+        print(
+            f"  block {i}: {secs:.4f} s, {rec['steps']} steps, "
+            f"{rec['newton_iters']} Newton, {rec['krylov_iters']} Krylov, "
+            f"{1e3 * secs / max(rec['newton_iters'], 1):.2f} ms per Newton iteration"
+        )
+    print(f"  kernel launches in the run: {launches}")
+    _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
+    _require(disc_launches > 0, "region_solve not launched in the discretization")
+    needed = ("ell_spmv", "fgmres_givens") + (DENSE_KERNELS if dense else ("ell_jacobi_sweep",))
+    _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
+    _require(solver._dense == dense, f"dense {solver._dense}")
+    if dense:
+        _require(solver._builder._block_dense == {0: True, 1: True}, f"dense blocks {solver._builder._block_dense}")
+    _require(bool(np.all(np.isfinite(x))), "non-finite state")
+    res, inc = last_step_check(model)
+    tol = 1e-10
+    print(
+        f"  last step on the host, plain path: |F|/sqrt(n) {res:.3e}, "
+        f"next Newton increment |dx|/sqrt(n) {inc:.3e}, tolerance {tol:.0e}"
+    )
+    _require(inc <= tol, f"Newton increment {inc} > {tol}")
+    newton = sum(rec["newton_iters"] for _s, rec in model.block_log)
+    krylov = sum(rec["krylov_iters"] for _s, rec in model.block_log)
+    block_s = sum(s for s, _rec in model.block_log)
+    out = {
+        "launches": launches,
+        "setup_s": setup_s,
+        "disc_k10_s": sum(disc_s),
+        "ms_per_newton": 1e3 * block_s / max(newton, 1),
+        "newton": newton,
+        "krylov": krylov,
+    }
+    if not dense:
+        # Both routes once more on the prepared model, in turns.
+        for route in ("host", "k10", "host", "k10"):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            with _local_solves(route):
+                model.discretize()
+            torch.cuda.synchronize()
+            out.setdefault(f"disc_{route}_turns", []).append(time.perf_counter() - tic)
+        print(
+            f"  discretization again, in turns: host LAPACK {out['disc_host_turns']} s, "
+            f"K10 {out['disc_k10_turns']} s"
+        )
+    return out
+
+
+def build_fractured_poromechanics(device: str):
+    """The fractured poromechanics case of the poromechanics parity tests:
+    a unit square at cell size 1/4 with one horizontal fracture, the north
+    side sheared and compressed ("contact" boundary data), one time step."""
+    import porepy_tpu_torch as pt
+
+    class Model(pt.Poromechanics):
+        def set_fractures(self):
+            self._fractures = [pt.LineFracture(np.array([[0.25, 0.75], [0.5, 0.5]]))]
+
+        def bc_values_displacement(self, bg):
+            vals = np.zeros((self.nd, bg.num_cells))
+            north = self.domain_boundary_sides(bg).north
+            vals[0, north] = 0.01
+            vals[1, north] = -0.005
+            return vals.ravel("F")
+
+        def bc_values_pressure(self, bg):
+            return 1e-3 * (1.0 - bg.cell_centers[1])
+
+        def initialize_data_saving(self):
+            pass
+
+        def save_data_time_step(self):
+            pass
+
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": 0.25},
+        "material_constants": {
+            "solid": pt.SolidConstants(
+                residual_aperture=0.01, normal_permeability=1.0, permeability=1.0, porosity=0.1,
+            ),
+            "fluid": pt.FluidComponent(compressibility=1e-3, viscosity=1.0, density=1.0),
+        },
+        "time_manager": pt.TimeManager([0, 1.0], 1.0, constant_dt=True),
+        "linear_solver": "device_gmres",
+        "device": device,
+    }
+    return Model(params), params
+
+
+def compare_poro_small(dev) -> None:
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import build_biot
+
+    print("phase 13: poromechanics on the card against the host plain path")
+    runs = {}
+    for device in (str(dev), "cpu"):
+        Model, params = build_biot(1.0 / 16, device=device)
+        # Ten steps: at t = 26 the pressure has decayed to ~7e-12, below
+        # the Newton tolerance, where a relative bound measures rounding.
+        params["time_manager"] = pt.TimeManager([0, 10.0], 1.0, constant_dt=True)
+        params["dense_precond"] = False
+        model = Model(params)
+        with _local_solves("host" if device == "cpu" else "k10"):
+            model.prepare_simulation()
+        model._prepared = True
+        pt.run_time_dependent_model(model, params)
+        _require(model._ftb_blocks_committed == 1, f"{device}: blocks committed")
+        runs[device] = model
+    for var in ("u", "pressure"):
+        got, want = (
+            runs[d].equation_system.get_variable_values([var], time_step_index=0) for d in (str(dev), "cpu")
+        )
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"  biot 1/16 {var}: max |card - host| {err:.3e}, max |{var}| {scale:.3e}")
+        _require(err <= 1e-8 * scale, f"biot 1/16 {var}: card and host differ by {err}")
+
+    finals = {}
+    for device in (str(dev), "cpu"):
+        model, params = build_fractured_poromechanics(device)
+        pt.run_time_dependent_model(model, params)
+        finals[device] = model
+    for var in ("pressure", "u", "contact_traction", "u_interface", "interface_darcy_flux"):
+        got, want = (finals[d].equation_system.get_variable_values([var], iterate_index=0) for d in (str(dev), "cpu"))
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"  fractured, contact: {var}: max |card - host| {err:.3e}, max |{var}| {scale:.3e}")
+        _require(bool(np.all(np.isfinite(got))), f"fractured {var} not finite")
+        _require(err <= 1e-8 * scale, f"fractured {var}: card and host differ by {err}")
+
+    mats = {}
+    for route in ("k10", "host"):
+        with _local_solves(route):
+            mats[route] = _biot_matrices(*_biot_problem(pt, [64, 64]))
+    for key, want in mats["host"].items():
+        diff = abs(mats["k10"][key] - want)
+        err = diff.max() if diff.nnz else 0.0
+        scale = abs(want).max()
+        print(f"  Biot 1/64 {key}: max |K10 - host| / max |host| {err / scale:.3e}")
+        _require(err <= 1e-12 * scale, f"Biot matrix {key}: K10 and host differ by {err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -707,6 +1040,10 @@ def main() -> int:
     d3_amg = run_3d(dev, dense=False)
     compare_3d_small(dev)
     flow = run_flow_steps(dev)
+    report["region_solve"] = check_region_kernel(dev)
+    biot = run_biot(dev, dense=False)
+    biot_dense = run_biot(dev, dense=True)
+    compare_poro_small(dev)
 
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {
@@ -720,6 +1057,7 @@ def main() -> int:
         "structured_jvp": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:116", flow["structured_launches"]),
         "tpfa_residual": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:72", flow["tpfa_launches"]),
         "tpfa_jvp": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]),
+        "region_solve": ("region_solve.cu", "porepy_tpu/numerics/fv/local_solves.py:168", biot["launches"]),
     }
     kernels_line = {
         "kernels": [
@@ -748,6 +1086,13 @@ def main() -> int:
         f"(reference CPU: 6691 ms)"
     )
     print(f"structured 32^3 on {smi}: {flow['structured_ms']:.3f} ms per Newton step (median of 7)")
+    for tag, b in (("AMG", biot), ("dense", biot_dense)):
+        print(
+            f"biot 1/64 on {smi}, {tag}: setup {b['setup_s']:.3f} s (discretization by K10 "
+            f"{b['disc_k10_s']:.3f} s), {b['ms_per_newton']:.2f} ms per Newton iteration, "
+            f"{b['newton']} Newton / {b['krylov']} Krylov in the blocks (reference CPU: 567 ms)"
+        )
+    print(f"biot 1/64 discretization in turns on {smi}: host LAPACK {biot['disc_host_turns']} s, K10 {biot['disc_k10_turns']} s")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({

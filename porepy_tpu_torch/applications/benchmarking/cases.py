@@ -11,9 +11,13 @@ Configurations ported so far:
   - ``md``/``md256``: Mpfa single-phase md flow, 2d, 6 crossing
     fractures, mortar coupling, 0d intersections (1/128 and 1/256), run as
     fused 8-step time blocks with the device block-preconditioned FGMRES.
+  - ``biot``: 2d poromechanics (MPSA/Biot displacement, MPFA pressure) on
+    a 1/64 Cartesian grid, compressed from the north side, as fused 8-step
+    time blocks with the device block-preconditioned FGMRES (SA-AMG with
+    rigid-body modes on the displacement, fixed-stress stabilization).
 
-The other ``porepy_tpu`` cases (``biot``, ``tracer``, ``thm``,
-``berre3d``) follow in later slices of the port.
+The other ``porepy_tpu`` cases (``tracer``, ``thm``, ``berre3d``) follow
+in later slices of the port.
 """
 
 from __future__ import annotations
@@ -134,8 +138,48 @@ def build_3d_flow(cell_size: float = 1.0 / 32, device: str = "cuda"):
     return Model, params
 
 
+def build_biot(cell_size: float = 1.0 / 64, device: str = "cuda"):
+    """The 2d poromechanics case at ``cell_size`` on ``device``."""
+    import porepy_tpu_torch as pt
+
+    class Model(_nosave(pt.Poromechanics)):
+        def bc_values_displacement(self, bg):
+            vals = np.zeros((self.nd, bg.num_cells))
+            north = self.domain_boundary_sides(bg).north
+            vals[1, north] = -0.001
+            return vals.ravel("F")
+
+        def bc_values_pressure(self, bg):
+            return np.zeros(bg.num_cells)
+
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "material_constants": {
+            "solid": pt.SolidConstants(
+                shear_modulus=1.0,
+                lame_lambda=1.0,
+                permeability=1e-2,
+                porosity=0.1,
+                biot_coefficient=0.8,
+                specific_storage=0.1,
+            ),
+            "fluid": pt.FluidComponent(
+                viscosity=1.0, density=1.0, compressibility=1e-2
+            ),
+        },
+        "time_manager": pt.TimeManager([0, 26.0], 1.0, constant_dt=True),
+        "linear_solver": "device_gmres",
+        "fused_time_steps": 8,
+        "fused_commit_states": "tail",
+        "device": device,
+    }
+    return Model, params
+
+
 CASE_BUILDERS = {
     "3d": build_3d_flow,
+    "biot": build_biot,
     "md": build_md_flow,
     "md256": lambda: build_md_flow(1.0 / 256),
 }

@@ -13,6 +13,7 @@ K12       :func:`structured_residual`    ``parallel/structured_flow.py:69-100``
 K12       :func:`structured_jvp`         ``parallel/structured_flow.py:116,124`` (linearize)
 K13       :func:`tpfa_residual`          ``parallel/flow_step.py:64-97``
 K13       :func:`tpfa_jvp`               ``parallel/flow_step.py:104`` (linearize)
+K10       :func:`region_solve`           ``numerics/fv/local_solves.py:168-187``
 ========  =============================  =====================================================
 
 The CUDA sources live in ``csrc/`` and are built at first use (see
@@ -28,6 +29,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     ell_spmv,
     fgmres_givens,
     gj_pivot_inverse,
+    region_solve,
     reset_launches,
     structured_jvp,
     structured_residual,

@@ -25,6 +25,7 @@ SOURCES = (
     "dense_block.cu",
     "structured_flow.cu",
     "tpfa_flow.cu",
+    "region_solve.cu",
 )
 _NAME = "porepy_tpu_torch_kernels"
 _CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
@@ -42,7 +43,10 @@ _SIGNATURES = {
     "ppt_structured_jvp": [_P] * 11 + [_I] * 3 + [_P],
     "ppt_tpfa_residual": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_tpfa_jvp": [_P] * 13 + [_I] * 2 + [_P],
+    "ppt_region_solve": [_P] * 5 + [_I] * 4 + [_P],
 }
+# The dtypes each kernel is built for (default: both).
+_SUFFIXES = {"ppt_region_solve": ("_f64",)}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -69,7 +73,7 @@ def library() -> ctypes.CDLL:
             )
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, _NAME + ".so"))
             for base, argtypes in _SIGNATURES.items():
-                for suffix in ("_f32", "_f64"):
+                for suffix in _SUFFIXES.get(base, ("_f32", "_f64")):
                     fn = getattr(lib, base + suffix)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int

@@ -27,6 +27,7 @@ __all__ = [
     "structured_jvp",
     "tpfa_residual",
     "tpfa_jvp",
+    "region_solve",
 ]
 
 #: Kernel launches per operator since the last :func:`reset_launches`.
@@ -41,6 +42,7 @@ LAUNCHES = {
     "structured_jvp": 0,
     "tpfa_residual": 0,
     "tpfa_jvp": 0,
+    "region_solve": 0,
 }
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
@@ -482,3 +484,48 @@ def _tpfa_jvp_cuda(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, c
 @tpfa_jvp.register_fake
 def _(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
     return torch.empty_like(p)
+
+
+# -- K10 --------------------------------------------------------------------------
+
+# Dynamic shared memory the region-solve kernel may take (``kSmemMax`` in
+# ``csrc/region_solve.cu``); larger regions work from a device workspace.
+_REGION_SMEM_MAX = 231424
+
+
+@torch.library.custom_op("porepy_tpu_torch::region_solve", mutates_args=())
+def region_solve(a: torch.Tensor, rhs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``W @ solve(A / s, RHS / s)`` per region, ``s`` the row maxima of
+    ``|A|`` (see :func:`porepy_tpu_torch.kernels.reference.region_solve_contract`);
+    ``(B, n, n)``, ``(B, n, m)``, ``(B, q, n)`` float64 in, ``(B, q, m)`` out."""
+    return reference.region_solve_contract(a, rhs, w)
+
+
+@region_solve.register_kernel("cuda")
+def _region_solve_cuda(a, rhs, w):
+    if any(t.dtype != torch.float64 for t in (a, rhs, w)):
+        raise TypeError("region_solve: a, rhs and w must be float64")
+    if a.dim() != 3 or rhs.dim() != 3 or w.dim() != 3:
+        raise ValueError("region_solve: needs (B, n, n) a, (B, n, m) rhs, (B, q, n) w")
+    B, n = a.shape[0], a.shape[1]
+    m, q = rhs.shape[2], w.shape[1]
+    if a.shape != (B, n, n) or rhs.shape != (B, n, m) or w.shape != (B, q, n):
+        raise ValueError("region_solve: needs (B, n, n) a, (B, n, m) rhs, (B, q, n) w")
+    _check("region_solve", {"a": a, "rhs": rhs, "w": w}, a.dtype)
+    out = torch.empty((B, q, m), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    work = None
+    if 8 * n * (n + m + 1) > _REGION_SMEM_MAX:
+        work = torch.empty((B, n, n + m), dtype=a.dtype, device=a.device)
+    _launch(
+        "region_solve", a.dtype,
+        a.data_ptr(), rhs.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), B, n, m, q,
+    )
+    return out
+
+
+@region_solve.register_fake
+def _(a, rhs, w):
+    return a.new_empty((a.shape[0], w.shape[1], rhs.shape[2]))

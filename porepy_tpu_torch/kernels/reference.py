@@ -21,6 +21,7 @@ __all__ = [
     "structured_jvp",
     "tpfa_residual",
     "tpfa_jvp",
+    "region_solve_contract",
 ]
 
 
@@ -233,3 +234,16 @@ def tpfa_jvp(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
     dmass = torch.where(is_neu, dq, dw * q + w * dq)
     div = _tpfa_divergence(dmass, cell_ptr, cell_faces, pv.shape[0])
     return pv * (comp * _density(p, coef) * dp) / dt + div
+
+
+# -- K10 --------------------------------------------------------------------------
+
+
+def region_solve_contract(a: torch.Tensor, rhs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per region of the batch: ``W @ solve(A / s, RHS / s)``, with ``s``
+    the row maxima of ``|A|`` (1 for a zero row). ``a`` is ``(B, n, n)``,
+    ``rhs`` ``(B, n, m)``, ``w`` ``(B, q, n)``; returns ``(B, q, m)``."""
+    scale = a.abs().amax(dim=2, keepdim=True)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    x = torch.linalg.solve(a / scale, rhs / scale)
+    return w @ x

@@ -7,13 +7,21 @@ through one giant block-diagonal sparse matrix inverted by a numba loop
 Here the regions are *sorted by size, padded within buckets, and solved as
 dense (B, n, n) batches* — one batched solve / matmul pair per bucket.
 
-The solves run on the host: ``np.linalg.solve`` (LAPACK) on the stacked
-batch, one ``dgesv`` per region. Discretization is one-time setup; the
-per-Newton-iteration path (assembly and Krylov) runs on the model's
-device. The batched device solve of ``porepy_tpu`` (f32 LU with f64
-refinement, behind ``PPT_LOCAL_SOLVE_DEVICE=1``, K10) and its region-batch
-sharding (K19) have no kernel in this package yet: asking for them raises
-``NotImplementedError``.
+Two routes solve a chunk, chosen at call time by ``PPT_LOCAL_SOLVE_DEVICE``
+as in ``porepy_tpu``:
+
+- the default, the host: ``np.linalg.solve`` (LAPACK) on the stacked
+  batch, one ``dgesv`` per region, then a stacked GEMM;
+- ``PPT_LOCAL_SOLVE_DEVICE=1``, the card: the chunk is copied to the
+  first CUDA device and solved there by the hand-written batched LU and
+  contraction of :func:`porepy_tpu_torch.kernels.region_solve` (K10), in
+  f64; its output comes back for the host scatter. Without CUDA this
+  raises: it never falls back to the host.
+
+Discretization is one-time setup; the per-Newton-iteration path (assembly
+and Krylov) runs on the model's device either way. Sharding the region
+batches over several devices (K19) is not ported: ``set_batch_mesh``
+raises for a mesh.
 
 The contract solved per region ``r``::
 
@@ -33,6 +41,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from porepy_tpu_torch.utils.array_operations import expand_index_pointers
 
@@ -101,11 +110,18 @@ def set_batch_mesh(mesh) -> None:
         raise NotImplementedError("sharded local solves (K19) are not ported")
 
 
-def _solve_chunk_device(a_dense, rhs_dense, w_dense):
-    """Batched device LU (K10): not ported; see the module docstring."""
-    raise NotImplementedError(
-        "device local solves (K10, PPT_LOCAL_SOLVE_DEVICE=1) are not ported"
-    )
+def _solve_chunk_device(a_dense, rhs_dense, w_dense, device=None):
+    """The chunk on ``device`` (default: the first CUDA device, which must
+    exist) through the K10 operator: f64 LU with partial pivoting of the
+    row-equilibrated systems and the contraction, as the host route
+    computes them. On a CUDA device the kernel runs; on an explicit CPU
+    device its plain version."""
+    from porepy_tpu_torch.kernels import ops
+    from porepy_tpu_torch.utils import device_policy
+
+    dev = device_policy.accelerator() if device is None else torch.device(device)
+    a, rhs, w = (torch.from_numpy(x).to(dev) for x in (a_dense, rhs_dense, w_dense))
+    return ops.region_solve(a, rhs, w).cpu().numpy()
 
 
 def _solve_chunk(a_dense, rhs_dense, w_dense):

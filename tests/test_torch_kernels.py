@@ -337,3 +337,30 @@ def test_cuda_flow_kernels_match_plain(cuda, dtype):
             want = getattr(reference, name)(p, second, *args)
             torch.cuda.synchronize()
             assert float((got - want).abs().max()) <= tol * float(want.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(4, 8, 7, 9), (64, 20, 12, 20), (16, 81, 32, 80), (3, 180, 20, 30)],
+    ids=["n8", "n20", "n81", "n180-workspace"],
+)
+def test_cuda_region_solve_matches_plain(cuda, shape):
+    """K10: the batched region solve and contraction against its plain
+    version, 1e-12 of the largest output entry; region 0 has a zero leading
+    entry (a row swap), and n = 180 exceeds shared memory, so that batch
+    runs on the device workspace."""
+    B, n, m, q = shape
+    gen = np.random.default_rng(15)
+    a = gen.standard_normal((B, n, n)) + 0.5 * n * np.eye(n)
+    a *= 10.0 ** gen.uniform(-3, 3, (B, n, 1))
+    a[0, 0, 0] = 0.0
+    a, rhs, w = (
+        torch.tensor(x, device=cuda)
+        for x in (a, gen.standard_normal((B, n, m)), gen.standard_normal((B, q, n)))
+    )
+    before = kernels.LAUNCHES["region_solve"]
+    got = kernels.region_solve(a, rhs, w)
+    want = reference.region_solve_contract(a, rhs, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["region_solve"] == before + 1
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
