@@ -62,9 +62,30 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 13. biot 1/16 (10 steps) and the fractured poromechanics "contact" case
    (``device_gmres``) on the card against the host plain path (1e-8 of
    each field's max), and every Biot matrix at 1/64 by K10 against the
-   host LAPACK route (1e-12 relative).
+   host LAPACK route (1e-12 relative);
+14. the Jacobi-Krylov route (K18) on the first Newton system of biot 1/64
+   (12,288 dofs): every K18 operator call of three BiCGStab iterations and
+   of one GMRES(30) restart held against its plain version (1e-12 of the
+   plain result's largest entry), whole solves by kernels and by the plain
+   iterations (1e-9 of max |x|), the times of one iteration's and one
+   restart's kernels; then biot 1/64 for 26 steps with
+   ``linear_solver="jax_bicgstab"`` and ``"jax_gmres"`` (the host Newton
+   loop): 0 host fallbacks, K1 and K18 launched, u and p within 1e-8 of
+   each field's largest value of phase 12's AMG run at t = 10, 18, 26, one
+   more host Newton increment <= 1e-10; ms per Newton iteration, host
+   assembly and solve ms, Krylov iterations per solve;
+15. the constant-K flash (K17) at 2048^2 points, nc = 2 and 3, against its
+   plain version (V, x, y within 1e-12, equal flags and iteration counts),
+   and ``ConstantKFlash.compute_flash`` on the card;
+16. the table lookup (K16) of a 201 x 201 table at 2048^2 points, inside
+   and outside the table: value and four tangents against the plain
+   version (1e-13 of the largest value), then ``tab(p, T)`` in an
+   ``EquationSystem`` on a 1024^2 grid, evaluated and assembled on the
+   card against the CPU (1e-12), with K16 launched.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (ms,
+plain ms, the bound and what sets it, the time of one PyTorch call of the
+same function where there is one); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the rest of the repository beside it, the script exits non-zero
 before printing either.
@@ -92,6 +113,20 @@ FLUID_3D = dict(
     permeability=1.0, porosity=0.1, viscosity=1e-3, compressibility=1e-6,
     rho_ref=1000.0, p_ref=1.0e5, dt=1.0,
 )
+# The least time of a kernel's work: its bytes (each input read once, each
+# output written once) over the H100's 3.35 TB/s, or its operations over the
+# card's peak for the type outside the tensor cores, which none of these
+# kernels use: 67 TFLOP/s in f32, 34 TFLOP/s in f64 (NVIDIA's H100 SXM data
+# sheet).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def _bound(nbytes: float, flops: float, dtype=torch.float64) -> tuple[float, str]:
+    """``(bound_ms, bound_by)`` of work in ``dtype`` that moves ``nbytes``
+    and does ``flops`` operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _cuda_ms(fn, repeats=REPEATS) -> float:
@@ -155,7 +190,17 @@ def check_kernels(dev) -> dict:
             plain_ms = _cuda_ms(lambda: reference.ell_spmv(val, col, x))
             print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
             if dtype == torch.float32 and batch is None:
-                k1["ms"], k1["plain_ms"] = ms, plain_ms
+                # The yardstick: torch.mv of the same matrix in CSR (cuSPARSE).
+                real = col < N_ROWS
+                crow = torch.zeros(N_ROWS + 1, dtype=torch.int64, device=dev)
+                crow[1:] = torch.cumsum(real.sum(1), 0)
+                csr = torch.sparse_csr_tensor(crow, col[real].long(), val[real], size=(N_ROWS, N_ROWS))
+                k1.update(
+                    ms=ms, plain_ms=plain_ms, library_ms=_cuda_ms(lambda: torch.mv(csr, x)),
+                    bytes=val.numel() * 8 + 2 * N_ROWS * 4, flops=2 * int(real.sum()),
+                    dtype=torch.float32,
+                )
+                print(f"    {k1['library_ms']:.4f} ms torch.mv on the CSR matrix")
     report["ell_spmv"] = k1
 
     k2 = {"err": 0.0}
@@ -175,7 +220,10 @@ def check_kernels(dev) -> dict:
         plain_ms = _cuda_ms(lambda: reference.ell_jacobi_sweep(val, col, sinv, r, y))
         print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
         if dtype == torch.float32:
-            k2["ms"], k2["plain_ms"] = ms, plain_ms
+            nnz = int((col < N_ROWS).sum())
+            k2.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                      bytes=val.numel() * 8 + 4 * N_ROWS * 4, flops=2 * nnz + 3 * N_ROWS,
+                      dtype=torch.float32)
     report["ell_jacobi_sweep"] = k2
 
     k4 = {"err": 0.0}
@@ -217,7 +265,11 @@ def check_kernels(dev) -> dict:
             plain_ms = _cuda_ms(lambda: step(reference.fgmres_givens))
             print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain (both reset j)")
             if dtype == torch.float32 and j0 == 35:
-                k4["ms"], k4["plain_ms"] = ms, plain_ms
+                # hcol, g read and written, cs, sn read (j entries) and one
+                # of each written; 6 operations per rotation applied.
+                k4.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bytes=4 * (4 * (RESTART + 1) + 2 * j0 + 2), flops=6 * (j0 + 1) + 8,
+                          dtype=torch.float32)
     report["fgmres_givens"] = k4
     return report
 
@@ -265,6 +317,10 @@ def timed_model(base):
             torch.cuda.synchronize()
             if n:
                 self.block_log.append((time.perf_counter() - tic, dict(self._ftb_last)))
+                # The state at the end of each block, by its time.
+                self.block_states[self.time_manager.time] = self.equation_system.get_variable_values(
+                    time_step_index=0
+                )
             return n
 
         def _build_fused_time_block(self, *args, **kwargs):
@@ -290,6 +346,7 @@ def run_md(dev, cell_size: float = 1.0 / 128) -> dict:
     Model, params = build_md_flow(cell_size, device=str(dev))
     model = timed_model(Model)(params)
     model.block_log = []
+    model.block_states = {}
     fallbacks0 = FALLBACK_COUNTER["count"]
     reset_launches()
     torch.cuda.synchronize()
@@ -404,7 +461,15 @@ def check_flow_kernels(dev) -> dict:
                 plain_ms = _cuda_ms(lambda: plain(p, second, *args))
                 print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
                 if dtype == torch.float64:
-                    report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
+                    inputs = [p, second] + [a for a in args if torch.is_tensor(a)]
+                    n_cells = p.numel()
+                    report[name].update(
+                        ms=ms, plain_ms=plain_ms, library_ms=None,
+                        bytes=sum(a.numel() * a.element_size() for a in inputs) + 8 * n_cells,
+                        # ~40 operations per cell (3 face fluxes with their
+                        # densities, the divergence, the accumulation).
+                        flops=40 * n_cells,
+                    )
     return report
 
 
@@ -423,6 +488,7 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
     params["dense_precond"] = dense
     model = timed_model(Model)(params)
     model.block_log = []
+    model.block_states = {}
     times = {"build": [], "inverse": [], "gj": []}
 
     def timed(fn, key):
@@ -538,7 +604,10 @@ def check_dense_kernels(dev, d3) -> dict:
     ms = _cuda_ms(lambda: ops.dense_block_scatter(vals, rows_t, cols_t, ni, n_pad), 10)
     plain_ms = _cuda_ms(lambda: reference.dense_block_scatter(vals, rows_t, cols_t, ni, n_pad), 10)
     print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain (each includes zeroing {n_pad}^2 f32)")
-    report["dense_block_scatter"] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+    report["dense_block_scatter"] = {
+        "err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bytes": 4.0 * n_pad * n_pad + 12 * rows.size, "flops": 0, "dtype": torch.float32,
+    }
 
     # Pivot inverses: well-conditioned blocks, one with a zero leading entry
     # (needs a row swap) and one singular (must be flagged).
@@ -568,7 +637,13 @@ def check_dense_kernels(dev, d3) -> dict:
         plain_ms = _cuda_ms(lambda: reference.gj_pivot_inverse(ad, flag_ref))
         print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain (torch.linalg.inv_ex)")
         if dtype == torch.float32:
-            report["gj_pivot_inverse"].update(ms=ms, plain_ms=plain_ms)
+            lib_ms = _cuda_ms(lambda: torch.linalg.inv_ex(ad))
+            print(f"    {lib_ms:.4f} ms torch.linalg.inv_ex alone")
+            report["gj_pivot_inverse"].update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes=2 * ad.numel() * 4 + batch * 4, flops=2.0 * batch * b**3,
+                dtype=torch.float32,
+            )
 
     # The whole blocked inverse at n = 4096, kernel route against plain
     # route. Bound: f32 and cond(S) ~ 3 give |S X - I| ~ n eps_f32 cond at
@@ -607,7 +682,12 @@ def check_dense_kernels(dev, d3) -> dict:
         gbs = 4.0 * ni * ni / (ms * 1e-3) / 1e9
         print(f"    {ms:.4f} ms kernel ({gbs:.0f} GB/s of D), {plain_ms:.4f} ms plain")
         if dtype == torch.float32:
-            report["dense_block_apply"].update(ms=ms, plain_ms=plain_ms, gb_s=gbs)
+            lib_ms = _cuda_ms(lambda: torch.mv(D, r), 20) if D.shape[0] == ni else None
+            print(f"    {lib_ms} ms torch.mv")
+            report["dense_block_apply"].update(
+                ms=ms, plain_ms=plain_ms, gb_s=gbs, library_ms=lib_ms,
+                bytes=4.0 * ni * ni + 8 * ni, flops=2.0 * ni * ni, dtype=torch.float32,
+            )
     return report
 
 
@@ -819,7 +899,14 @@ def check_region_kernel(dev) -> dict:
         )
         report["buckets"].append(dict(source=source, B=B, n=n, m=m, q=q, ms=ms, plain_ms=plain_ms))
         if source == "biot 1/64" and (n, m, q) == main_bucket:
-            report["ms"], report["plain_ms"] = ms, plain_ms
+            # The yardstick: torch.linalg.solve and the contraction, unscaled.
+            lib_ms = _cuda_ms(lambda: w @ torch.linalg.solve(a, rhs), reps)
+            print(f"    {lib_ms:.4f} ms torch.linalg.solve + w @ x")
+            report.update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes=8.0 * B * (n * n + n * m + q * n + q * m),
+                flops=B * (2.0 / 3.0 * n**3 + 2.0 * n * n * m + 2.0 * q * n * m),
+            )
     return report
 
 
@@ -835,6 +922,7 @@ def run_biot(dev, dense: bool) -> dict:
     params["dense_precond"] = dense
     model = timed_model(Model)(params)
     model.block_log = []
+    model.block_states = {}
     disc_s = []
     discretize = model.discretize
 
@@ -902,6 +990,8 @@ def run_biot(dev, dense: bool) -> dict:
         "ms_per_newton": 1e3 * block_s / max(newton, 1),
         "newton": newton,
         "krylov": krylov,
+        "states": {**model.block_states, 26.0: eq_sys.get_variable_values(time_step_index=0)},
+        "dofs": {v: eq_sys.dofs_of([v]) for v in ("u", "pressure")},
     }
     if not dense:
         # Both routes once more on the prepared model, in turns.
@@ -1012,6 +1102,459 @@ def compare_poro_small(dev) -> None:
         _require(err <= 1e-12 * scale, f"Biot matrix {key}: K10 and host differ by {err}")
 
 
+# -- K18, K17, K16 ----------------------------------------------------------------
+
+
+def _first_newton_system(dev, cell_size: float = 1.0 / 64):
+    """The first Newton system of the biot case, host-assembled (scipy)."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_biot
+
+    Model, params = build_biot(cell_size, device=str(dev))
+    params.pop("fused_time_steps")
+    params.pop("fused_commit_states")
+    params["linear_solver"] = "jax_bicgstab"
+    model = Model(params)
+    model.prepare_simulation()
+    model.before_nonlinear_loop()
+    model.before_nonlinear_iteration()
+    model.assemble_linear_system()
+    A, b = model.linear_system
+    return A.tocsr(), np.asarray(b)
+
+
+class _Holding:
+    """A ``run`` hook for the fused Krylov loops: the first ``limit`` K18
+    calls run by the kernel and by its plain version on copies of the same
+    inputs, every tensor argument is compared (1e-12 of the plain result's
+    largest entry; integer flags exactly), and the loop continues with the
+    kernel's results; later calls run the kernel alone."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.held = 0
+        self.err = {}
+
+    def __call__(self, name, *args):
+        from porepy_tpu_torch.kernels import ops, reference
+
+        if self.held >= self.limit:
+            getattr(ops, name)(*args)
+            return
+        self.held += 1
+        copies = [[a.clone() if torch.is_tensor(a) else a for a in args] for _ in range(2)]
+        getattr(ops, name)(*copies[0])
+        getattr(reference, name)(*copies[1])
+        for a, k, w in zip(args, *copies):
+            if not torch.is_tensor(a):
+                continue
+            if a.dtype == torch.float64:
+                err = float((k - w).abs().max()) if a.numel() else 0.0
+                bound = 1e-12 * float(w.abs().max()) if a.numel() else 0.0
+                _require(err <= bound, f"{name}: kernel and plain differ by {err} (bound {bound})")
+                self.err[name] = max(self.err.get(name, 0.0), err)
+            else:
+                _require(torch.equal(k, w), f"{name}: integer outputs differ")
+            a.copy_(k)
+
+
+def check_krylov(dev, A, b) -> dict:
+    """K18a and K18b on the biot 1/64 system: every pass of three BiCGStab
+    iterations and of one GMRES restart held against its plain version,
+    whole solves against the plain iterations, and times."""
+    from porepy_tpu_torch.kernels import ops, reference
+    from porepy_tpu_torch.numerics.ad.compiler import _device_const_matrix, _EllMat
+    from porepy_tpu_torch.numerics.linalg import krylov
+
+    n = A.shape[0]
+    print(f"phase 14: the Krylov kernels (K18a, K18b) on the biot 1/64 system, n {n}, nnz {A.nnz}")
+    mat = _device_const_matrix(A, dev)
+    _require(isinstance(mat, _EllMat), "biot 1/64 is not in ELL layout")
+
+    def mv(v):
+        return ops.ell_spmv(mat.val, mat.col, v)
+
+    dinv = torch.tensor(krylov._inverse_diagonal(A), device=dev)
+    bt = torch.tensor(b, device=dev)
+    b_dot = float(b @ b)
+    tol, maxiter = 1e-12, max(200, 4 * n)
+    report = {}
+    for method, names, limit in (("bicgstab", ops.K18A, 2 + 3 * 8), ("gmres", ops.K18B, 2 + 94)):
+        hold = _Holding(limit)
+        if method == "bicgstab":
+            krylov._bicgstab_fused(mv, bt, dinv, tol**2 * b_dot, maxiter, run=hold)
+        else:
+            krylov._gmres_fused(mv, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30, run=hold)
+        _require(all(name in hold.err for name in names), f"{method}: not every K18 operator was held")
+        print(f"  {method}: {hold.held} calls held, max |kernel - plain| per operator {hold.err}")
+
+        def fused():
+            if method == "bicgstab":
+                return krylov._bicgstab_fused(mv, bt, dinv, tol**2 * b_dot, maxiter)
+            return krylov._gmres_fused(mv, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30)
+
+        def plain():
+            solve = krylov.gmres if method == "gmres" else krylov.bicgstab
+            kwargs = {"restart": 30} if method == "gmres" else {}
+            return solve(mv, bt, tol=tol, maxiter=maxiter, M=lambda v: dinv * v, **kwargs)[0]
+
+        times = {}
+        for route in ("kernel", "plain", "kernel", "plain"):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out = fused() if route == "kernel" else plain()
+            torch.cuda.synchronize()
+            times.setdefault(route, []).append(time.perf_counter() - tic)
+            if route == "kernel":
+                x_k, iters = out
+            else:
+                x_p = out
+        err = float((x_k - x_p).abs().max())
+        scale = float(x_p.abs().max())
+        res = np.linalg.norm(b - A @ x_k.cpu().numpy()) / np.linalg.norm(b)
+        print(
+            f"  {method} whole solve: {iters} iterations, |b - A x| / |b| {res:.3e}, "
+            f"max |kernel - plain| {err:.3e} of max |x| {scale:.3e}; "
+            f"in turns kernel {times['kernel']} s, plain {times['plain']} s"
+        )
+        _require(err <= 1e-9 * scale, f"{method}: kernel and plain solves differ by {err}")
+        report[method] = {"err": max([err] + list(hold.err.values())), "iters": iters,
+                          "solve_s": times}
+
+    # Times of one iteration's vector work (K18a) and of one restart's
+    # Arnoldi and restart work (K18b), matvecs excluded, on a live state.
+    nb = -(-n // reference.KRYLOV_BLOCK)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    vec = [torch.randn(n, generator=gen, dtype=torch.float64, device=dev) for _ in range(10)]
+    x, r, rhat, p, q, phat, s_, shat, t, q2 = vec
+    st = torch.rand(reference.BICG_SLOTS, generator=gen, dtype=torch.float64, device=dev) + 0.5
+    st[reference.BICG_EXIT] = 0.0
+    partials = torch.zeros(3, nb, dtype=torch.float64, device=dev)
+    cont = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def bicgstab_iteration(lib):
+        lib.bicgstab_p(r, q, dinv, st, p, phat)
+        lib.krylov_dots(rhat, q2, rhat, q2, partials, 1)
+        lib.bicgstab_scalars(partials, st, cont, reference.STAGE_ALPHA)
+        lib.bicgstab_s(r, q2, dinv, st, s_, shat, partials)
+        lib.krylov_dots(t, s_, t, t, partials[1:], 2)
+        lib.bicgstab_scalars(partials, st, cont, reference.STAGE_OMEGA)
+        lib.bicgstab_xr(x, r, phat, shat, s_, t, rhat, st, partials)
+        lib.bicgstab_scalars(partials, st, cont, reference.STAGE_NEXT)
+
+    snapshot = [v.clone() for v in vec] + [st.clone()]
+
+    def restore():
+        for v, v0 in zip(vec + [st], snapshot):
+            v.copy_(v0)
+
+    ms_a = _cuda_ms(lambda: (restore(), bicgstab_iteration(ops)), 50)
+    plain_a = _cuda_ms(lambda: (restore(), bicgstab_iteration(reference)), 20)
+    restore_ms = _cuda_ms(restore, 50)
+    ms_a, plain_a = ms_a - restore_ms, plain_a - restore_ms
+    # 8 input vectors (r, p, q, the new q, t, dinv, rhat, x) read and 6
+    # output vectors (p, phat, s, shat, x, r) written; ~24 operations per
+    # entry.
+    bound_a = _bound(14 * 8.0 * n, 24.0 * n)
+    print(f"  K18a, one BiCGStab iteration without its 2 matvecs: {ms_a:.4f} ms kernels (8 launches), "
+          f"{plain_a:.4f} ms plain; bound {bound_a[0]:.6f} ms ({bound_a[1]})")
+    report["bicgstab_step"] = {"err": report["bicgstab"]["err"], "ms": ms_a, "plain_ms": plain_a,
+                               "library_ms": None, "bound": bound_a}
+
+    R = 30
+    V = torch.linalg.qr(torch.randn(n, R + 1, generator=gen, dtype=torch.float64, device=dev))[0].T.contiguous()
+    av = [torch.randn(n, generator=gen, dtype=torch.float64, device=dev) for _ in range(R)]
+    H = torch.empty(R, R + 1, dtype=torch.float64, device=dev)
+    y = torch.empty(R, dtype=torch.float64, device=dev)
+    w = torch.empty(n, dtype=torch.float64, device=dev)
+    gparts = torch.zeros(R + 3, nb, dtype=torch.float64, device=dev)
+    flags = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+    gst = torch.tensor([1e-12, 1.0], dtype=torch.float64, device=dev)
+    xg = torch.zeros(n, dtype=torch.float64, device=dev)
+    V0 = V.clone()
+
+    def restart_work(lib):
+        V.copy_(V0)
+        flags.zero_()
+        for j in range(R):
+            lib.cgs_project(av[j], dinv, V, w, gparts, flags, j)
+            lib.cgs_update(V, w, gparts, flags, j)
+            lib.cgs_normalize(w, V, H, gparts, flags, j)
+        lib.gmres_lstsq(H, gst, y)
+        lib.gmres_correct(V, y, xg)
+        lib.gmres_residual(bt, av[0], dinv, w, gparts)
+        lib.gmres_restart(w, V, H, gparts, flags, gst, cont)
+
+    copy_ms = _cuda_ms(lambda: (V.copy_(V0), flags.zero_()), 20)
+    ms_b = _cuda_ms(lambda: restart_work(ops), 20) - copy_ms
+    plain_b = _cuda_ms(lambda: restart_work(reference), 5) - copy_ms
+    # In: V[0], the 30 matvec outputs, dinv, b, A x, x; out: V[1..30], x,
+    # H, y. Operations: the projections and updates, 4 (k + 1) n per step.
+    bound_b = _bound(8.0 * (65 * n + 2 * R * (R + 1)), 4.0 * n * R * (R + 1) / 2 + 6.0 * n * R)
+    w29 = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
+    proj_ms = _cuda_ms(lambda: ops.cgs_project(w29, dinv, V, w, gparts, flags, R - 1))
+    mv_ms = _cuda_ms(lambda: torch.mv(V, w29))
+    print(f"  K18b, one GMRES(30) restart without its 31 matvecs: {ms_b:.4f} ms kernels (94 launches), "
+          f"{plain_b:.4f} ms plain; bound {bound_b[0]:.6f} ms ({bound_b[1]}); "
+          f"cgs_project at k = 29 {proj_ms:.4f} ms, torch.mv(V, w) {mv_ms:.4f} ms")
+    report["gmres_arnoldi"] = {"err": report["gmres"]["err"], "ms": ms_b, "plain_ms": plain_b,
+                               "library_ms": None, "bound": bound_b}
+    return report
+
+
+def run_biot_krylov(dev, method: str, device_gmres: dict, cell_size: float = 1.0 / 64) -> dict:
+    """biot 1/64 for 26 steps with ``linear_solver="jax_<method>"``: the
+    per-step host Newton loop, host assembly, K18 solves on the card; its
+    states against those of the ``device_gmres`` run (phase 12) at the ends
+    of that run's fused blocks (t = 10, 18, 26)."""
+    import scipy.sparse.linalg as sps_linalg
+
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import build_biot
+    from porepy_tpu_torch.kernels import LAUNCHES, ops, reset_launches
+    from porepy_tpu_torch.numerics.linalg import krylov
+
+    solver = "jax_" + method
+    print(f"phase 14: biot at cell size {cell_size:g}, 26 steps on {dev}, linear_solver={solver}")
+    Model, params = build_biot(cell_size, device=str(dev))
+    params.pop("fused_time_steps")
+    params.pop("fused_commit_states")
+    params["linear_solver"] = solver
+    log = {"assemble": [], "solve": [], "iters": [], "steps": 0, "states": {}}
+    reference_states = device_gmres["states"]
+
+    class Logged(Model):
+        def assemble_linear_system(self):
+            tic = time.perf_counter()
+            super().assemble_linear_system()
+            log["assemble"].append(time.perf_counter() - tic)
+
+        def solve_linear_system(self):
+            tic = time.perf_counter()
+            x = super().solve_linear_system()
+            log["solve"].append(time.perf_counter() - tic)
+            log["iters"].append(krylov.LAST_SOLVE["iterations"])
+            return x
+
+        def after_nonlinear_convergence(self):
+            log["steps"] += 1
+            if log["steps"] == 26:
+                # One more Newton increment at the converged state of the
+                # last step, by a direct host solve.
+                A, b = self.equation_system.assemble()
+                dx = sps_linalg.spsolve(A.tocsc(), b)
+                log["increment"] = float(np.linalg.norm(dx) / np.sqrt(dx.size))
+            super().after_nonlinear_convergence()
+            if float(self.time_manager.time) in reference_states:
+                log["states"][float(self.time_manager.time)] = self.equation_system.get_variable_values(
+                    time_step_index=0
+                )
+
+    model = Logged(params)
+    fallbacks0 = krylov.FALLBACK_COUNTER["count"]
+    tic = time.perf_counter()
+    model.prepare_simulation()
+    model._prepared = True
+    setup_s = time.perf_counter() - tic
+    reset_launches()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    pt.run_time_dependent_model(model, params)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - tic
+    launches = dict(LAUNCHES)
+    eq_sys = model.equation_system
+    newton = len(log["solve"])
+    iters = np.array(log["iters"])
+    print(
+        f"  dofs {eq_sys.num_dofs()}, setup {setup_s:.3f} s, 26 steps {run_s:.3f} s, {newton} Newton iterations, "
+        f"{1e3 * run_s / max(newton, 1):.2f} ms per Newton iteration; per Newton iteration host assembly "
+        f"{1e3 * np.mean(log['assemble']):.2f} ms, solve {1e3 * np.mean(log['solve']):.2f} ms; Krylov "
+        f"iterations per solve mean {iters.mean():.1f}, min {iters.min()}, max {iters.max()}"
+    )
+    print(f"  kernel launches in the run: {launches}")
+    names = ops.K18A if method == "bicgstab" else ops.K18B
+    _require(krylov.FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {krylov.FALLBACK_COUNTER}")
+    _require(launches["ell_spmv"] > 0 and all(launches[k] > 0 for k in names), f"kernel not launched: {launches}")
+    _require(log["steps"] == 26, f"{log['steps']} steps")
+    # Each field within 1e-8 of its largest value over the three states: by
+    # t = 26 the pressure has decayed to ~7e-12, below what the Newton
+    # tolerance (1e-10) resolves, and a bound relative to that state's own
+    # maximum would measure rounding (1e-17 absolute apart on the CPU at
+    # 1/16 and 1/64), so the pressure's scale is its t = 10 maximum.
+    _require(sorted(log["states"]) == sorted(reference_states), f"states at {sorted(log['states'])}")
+    for var, dofs in device_gmres["dofs"].items():
+        scale = max(float(np.abs(x[dofs]).max()) for x in reference_states.values())
+        for t, want in sorted(reference_states.items()):
+            got = log["states"][t][dofs]
+            err = float(np.abs(got - want[dofs]).max())
+            print(f"  t = {t:g}, {var}: max |{solver} - device_gmres| {err:.3e}, max |{var}| "
+                  f"{float(np.abs(want[dofs]).max()):.3e} (scale {scale:.3e})")
+            _require(err <= 1e-8 * scale, f"{solver} {var} at t = {t} differs from device_gmres by {err}")
+    tol = 1e-10
+    print(f"  last step on the host: next Newton increment |dx|/sqrt(n) {log['increment']:.3e}, tolerance {tol:.0e}")
+    _require(log["increment"] <= tol, f"Newton increment {log['increment']} > {tol}")
+    return {
+        "launches": sum(launches[k] for k in names), "ms_per_newton": 1e3 * run_s / max(newton, 1),
+        "newton": newton, "iters_mean": float(iters.mean()), "assemble_ms": 1e3 * np.mean(log["assemble"]),
+        "solve_ms": 1e3 * np.mean(log["solve"]), "run_s": run_s,
+    }
+
+
+N_POINTS = 2048 * 2048
+NX_TABLE = 1024
+
+
+def _fluid(pt, nc):
+    from porepy_tpu_torch.compositional._core import PhysicalState
+    from porepy_tpu_torch.compositional.base import Fluid, Phase
+
+    comps = [pt.FluidComponent(name=f"c{i}") for i in range(nc)]
+    phases = [Phase(PhysicalState.liquid, "liquid"), Phase(PhysicalState.gas, "gas")]
+    for ph in phases:
+        ph.components = comps
+    return Fluid(comps, phases)
+
+
+def check_flash(dev) -> dict:
+    """K17 at 2048^2 points against its plain version, and ConstantKFlash
+    through its public entry point on the card."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.kernels import LAUNCHES, ops, reference, reset_launches
+
+    print(f"phase 15: the constant-K flash (K17) at {N_POINTS} points")
+    report = {"err": 0.0}
+    for K in ([2.5, 0.3], [3.0, 0.8, 0.2]):
+        nc = len(K)
+        raw = np.random.default_rng(15 + nc).random((nc, N_POINTS)) + 0.02
+        z_host = raw / raw.sum(axis=0)
+        zs = torch.tensor(z_host, device=dev)
+        Kt = torch.tensor(K, dtype=torch.float64, device=dev)
+        got = ops.rachford_rice(zs, Kt, 150, 1e-8)
+        want = reference.rachford_rice(zs, Kt, 150, 1e-8)
+        for tag, g, w in zip(("V", "x", "y"), got[:3], want[:3]):
+            err = _check(f"rachford_rice nc {nc} {tag}", (g - w).abs(), torch.tensor(1e-12, device=dev))
+            report["err"] = max(report["err"], err)
+        _require(torch.equal(got[3], want[3]), f"nc {nc}: converged flags differ")
+        _require(torch.equal(got[4], want[4]), f"nc {nc}: iteration counts differ")
+        iters = got[4].long()
+        ms = _cuda_ms(lambda: ops.rachford_rice(zs, Kt, 150, 1e-8), 10)
+        plain_ms = _cuda_ms(lambda: reference.rachford_rice(zs, Kt, 150, 1e-8), 2)
+        copy_ms = _cuda_ms(lambda: torch.tensor(z_host, device=dev), 5)
+        back_ms = _cuda_ms(lambda: [a.cpu() for a in got[:4]], 5)
+        # Per iteration 9 nc + 5 operations, per point 11 nc + 12 around the
+        # iterations; bytes: z in, V, x, y, the flags and counts out.
+        flops = float(iters.sum()) * (9 * nc + 5) + N_POINTS * (11 * nc + 12)
+        bound = _bound(8.0 * (3 * nc + 1) * N_POINTS + 5.0 * N_POINTS, flops)
+        two_phase = int(((got[0] > 0) & (got[0] < 1)).sum())
+        print(
+            f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, copies {copy_ms:.4f} ms to the card, "
+            f"{back_ms:.4f} ms back; {two_phase} two-phase points, {int(iters.sum())} iterations "
+            f"(mean {float(iters.float().mean()):.2f}, max {int(iters.max())}); bound {bound[0]:.4f} ms ({bound[1]})"
+        )
+        if nc == 3:
+            report.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound)
+        reset_launches()
+        flash = pt.ConstantKFlash(_fluid(pt, nc), K)
+        state, success, _ = flash.compute_flash(list(z_host))
+        launches = LAUNCHES["rachford_rice"]
+        _require(launches > 0, "ConstantKFlash did not launch K17")
+        _require(np.array_equal(state.y[1], got[0].cpu().numpy()), "compute_flash V differs from the kernel's")
+        _require(np.array_equal(success == 0, got[3].cpu().numpy()), "compute_flash flags differ")
+        print(f"  ConstantKFlash.compute_flash on {flash.device}, nc {nc}: {launches} launch, "
+              f"{int((success == 0).sum())} of {success.size} converged")
+        report["launches"] = launches
+    return report
+
+
+def _table_fn(p, T):
+    return np.log(p + 1e6) * np.exp(-T / 300.0) + 1e-8 * p * np.sin(T / 20.0)
+
+
+TABLE = ([1e5, 280.0], [5e7, 480.0], [201, 201])
+
+
+def _table_system(pt, nx, device):
+    from porepy_tpu_torch.grids.md_grid import MixedDimensionalGrid
+
+    g = pt.CartGrid([nx, nx], physdims=[1.0, 1.0])
+    g.compute_geometry()
+    mdg = MixedDimensionalGrid()
+    mdg.add_subdomains(g)
+    mdg.compute_geometry()
+    es = pt.ad.EquationSystem(mdg, device=device)
+    p = es.create_variables("pressure", dof_info={"cells": 1}, subdomains=[g])
+    T = es.create_variables("temperature", dof_info={"cells": 1}, subdomains=[g])
+    rng = np.random.default_rng(16)
+    (lo_p, lo_T), (hi_p, hi_T), _ = TABLE
+    # A tenth of the span beyond each side of the table on both axes.
+    es.set_variable_values(rng.uniform(lo_p - 0.1 * (hi_p - lo_p), hi_p + 0.1 * (hi_p - lo_p), g.num_cells), ["pressure"], iterate_index=0)
+    es.set_variable_values(rng.uniform(lo_T - 0.1 * (hi_T - lo_T), hi_T + 0.1 * (hi_T - lo_T), g.num_cells), ["temperature"], iterate_index=0)
+    fun = pt.ad.InterpolatedFunction(_table_fn, "tab", *TABLE)
+    op = fun(p, T)
+    op.set_name("table_equation")
+    es.set_equation(op, [g], {"cells": 1})
+    return es, op, fun
+
+
+def check_lookup(dev) -> dict:
+    """K16 at 2048^2 points against its plain version, then inside an
+    EquationSystem on a 1024^2 grid on the card against the CPU."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.kernels import LAUNCHES, ops, reference, reset_launches
+
+    print(f"phase 16: the table lookup (K16), a 201 x 201 table at {N_POINTS} points")
+    fun = pt.ad.InterpolatedFunction(_table_fn, "tab", *TABLE)
+    tab = fun.device_table(dev)
+    rng = np.random.default_rng(17)
+    lo, hi = np.array(TABLE[0]), np.array(TABLE[1])
+    span = hi - lo
+    x = torch.tensor(rng.uniform(lo - 0.1 * span, hi + 0.1 * span, (N_POINTS, 2)).T.copy(), device=dev)
+    dx = torch.tensor(rng.standard_normal((4, 2, N_POINTS)) * span[None, :, None] * 1e-3, device=dev)
+    args = (tab["values"], tab["fgeom"], tab["igeom"], x)
+    outside = int(((x < torch.tensor(lo, device=dev)[:, None]) | (x > torch.tensor(hi, device=dev)[:, None])).any(0).sum())
+    report = {"err": 0.0}
+    for tag, kern, plain in (
+        ("value", lambda: ops.interp_lookup(*args), lambda: reference.interp_lookup(*args)),
+        ("tangent B=4", lambda: ops.interp_tangent(*args, dx), lambda: reference.interp_tangent(*args, dx)),
+    ):
+        got, want = kern(), plain()
+        err = _check(f"interp_lookup {tag} ({outside} points outside the table)",
+                     (got - want).abs(), 1e-13 * want.abs().max())
+        report["err"] = max(report["err"], err)
+        ms, plain_ms = _cuda_ms(kern, 20), _cuda_ms(plain, 5)
+        n_seeds = dx.shape[0] if tag != "value" else 0
+        # Bytes: the 2 coordinates and 2 B seed entries in, 1 or B results
+        # out, the table once. Operations: ~20 per point for the cell and
+        # the 4 weights, ~36 per seed for the weight tangents and sums.
+        bound = _bound(
+            8.0 * N_POINTS * (2 + 2 * n_seeds + max(n_seeds, 1)) + tab["values"].numel() * 8,
+            N_POINTS * (20.0 + 36.0 * n_seeds),
+        )
+        print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain; bound {bound[0]:.4f} ms ({bound[1]})")
+        if tag != "value":
+            report.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound)
+
+    nx = NX_TABLE
+    out = {}
+    for device in (str(dev), "cpu"):
+        es, op, _fun = _table_system(pt, nx, device)
+        reset_launches()
+        tic = time.perf_counter()
+        val = es.evaluate(op)
+        data, b, _cs = es.assemble_device()
+        data = data.cpu().numpy()
+        out[device] = (val, data, b.cpu().numpy(), time.perf_counter() - tic, LAUNCHES["interp_lookup"])
+    for i, tag in ((0, "evaluate"), (1, "Jacobian"), (2, "residual")):
+        got, want = out[str(dev)][i], out["cpu"][i]
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"  EquationSystem {nx}^2, {tag}: max |card - cpu| {err:.3e}, max {scale:.3e}")
+        _require(err <= 1e-12 * scale, f"{tag}: card and cpu differ by {err}")
+    launches = out[str(dev)][4]
+    print(f"  evaluate + assembly on the card {out[str(dev)][3]:.3f} s, on the CPU {out['cpu'][3]:.3f} s; K16 launches {launches}")
+    _require(launches > 0, "the EquationSystem run did not launch K16")
+    report["launches"] = launches
+    return report
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1044,36 +1587,42 @@ def main() -> int:
     biot = run_biot(dev, dense=False)
     biot_dense = run_biot(dev, dense=True)
     compare_poro_small(dev)
+    report.update(check_krylov(dev, *_first_newton_system(dev)))
+    bicg = run_biot_krylov(dev, "bicgstab", biot)
+    gmres = run_biot_krylov(dev, "gmres", biot)
+    report["rachford_rice"] = check_flash(dev)
+    report["interp_lookup"] = check_lookup(dev)
 
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {
-        "ell_spmv": ("ell_spmv.cu", "porepy_tpu/numerics/linalg/amg.py:59", md["launches"]),
-        "ell_jacobi_sweep": ("ell_jacobi_sweep.cu", "porepy_tpu/numerics/linalg/amg.py:334", md["launches"]),
-        "fgmres_givens": ("fgmres_givens.cu", "porepy_tpu/numerics/linalg/device_solver.py:198", md["launches"]),
-        "dense_block_scatter": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:141", d3["launches"]),
-        "gj_pivot_inverse": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:104", d3["launches"]),
-        "dense_block_apply": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:702", d3["launches"]),
-        "structured_residual": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:69", flow["structured_launches"]),
-        "structured_jvp": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:116", flow["structured_launches"]),
-        "tpfa_residual": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:72", flow["tpfa_launches"]),
-        "tpfa_jvp": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]),
-        "region_solve": ("region_solve.cu", "porepy_tpu/numerics/fv/local_solves.py:168", biot["launches"]),
+        "ell_spmv": ("ell_spmv.cu", "porepy_tpu/numerics/linalg/amg.py:59", md["launches"]["ell_spmv"]),
+        "ell_jacobi_sweep": ("ell_jacobi_sweep.cu", "porepy_tpu/numerics/linalg/amg.py:334", md["launches"]["ell_jacobi_sweep"]),
+        "fgmres_givens": ("fgmres_givens.cu", "porepy_tpu/numerics/linalg/device_solver.py:198", md["launches"]["fgmres_givens"]),
+        "dense_block_scatter": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:141", d3["launches"]["dense_block_scatter"]),
+        "gj_pivot_inverse": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:104", d3["launches"]["gj_pivot_inverse"]),
+        "dense_block_apply": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:702", d3["launches"]["dense_block_apply"]),
+        "structured_residual": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:69", flow["structured_launches"]["structured_residual"]),
+        "structured_jvp": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:116", flow["structured_launches"]["structured_jvp"]),
+        "tpfa_residual": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:72", flow["tpfa_launches"]["tpfa_residual"]),
+        "tpfa_jvp": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]["tpfa_jvp"]),
+        "region_solve": ("region_solve.cu", "porepy_tpu/numerics/fv/local_solves.py:168", biot["launches"]["region_solve"]),
+        "bicgstab_step": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", bicg["launches"]),
+        "gmres_arnoldi": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", gmres["launches"]),
+        "rachford_rice": ("flash.cu", "porepy_tpu/compositional/flash.py:80", report["rachford_rice"]["launches"]),
+        "interp_lookup": ("interp_lookup.cu", "porepy_tpu/numerics/ad/operator_functions.py:117", report["interp_lookup"]["launches"]),
     }
-    kernels_line = {
-        "kernels": [
-            {
-                "name": k,
-                "route": "cuda",
-                "source": csrc + src,
-                "replaces": replaces,
-                "launches": launches[k],
-                "max_abs_err": report[k]["err"],
-                "ms": report[k]["ms"],
-                "plain_ms": report[k]["plain_ms"],
-            }
-            for k, (src, replaces, launches) in kernels.items()
-        ]
-    }
+    entries = []
+    for k, (src, replaces, launches) in kernels.items():
+        r = report[k]
+        bound_ms, bound_by = r["bound"] if "bound" in r else _bound(
+            r["bytes"], r["flops"], r.get("dtype", torch.float64)
+        )
+        entries.append({
+            "name": k, "route": "cuda", "source": csrc + src, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
+        })
+    kernels_line = {"kernels": entries}
     print(
         f"md 1/128 on {smi}: setup {md['setup_s']:.3f} s, "
         f"{md['ms_per_newton']:.2f} ms per Newton iteration (fused blocks)"
@@ -1093,6 +1642,15 @@ def main() -> int:
             f"{b['newton']} Newton / {b['krylov']} Krylov in the blocks (reference CPU: 567 ms)"
         )
     print(f"biot 1/64 discretization in turns on {smi}: host LAPACK {biot['disc_host_turns']} s, K10 {biot['disc_k10_turns']} s")
+    for tag, r in (("jax_bicgstab", bicg), ("jax_gmres", gmres)):
+        print(
+            f"biot 1/64 on {smi}, {tag}: {r['ms_per_newton']:.2f} ms per Newton iteration ({r['newton']} "
+            f"Newton, {r['iters_mean']:.1f} Krylov iterations per solve), host assembly {r['assemble_ms']:.2f} ms, "
+            f"solve {r['solve_ms']:.2f} ms per Newton iteration"
+        )
+    for e in entries:
+        print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+              f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({

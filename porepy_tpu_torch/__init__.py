@@ -5,7 +5,8 @@ the part ported so far: single-phase flow in fractured 2d and 3d domains
 (TPFA/MPFA, mortar coupling) and poromechanics (MPSA/Biot, momentum
 balance, frictional contact mechanics), assembled and solved on a
 ``torch.device`` with the hand-written kernels of
-:mod:`porepy_tpu_torch.kernels`::
+:mod:`porepy_tpu_torch.kernels`, and the constant-K and Peng-Robinson
+flashes::
 
     import porepy_tpu_torch as pp
 
@@ -20,10 +21,16 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
+from porepy_tpu_torch.compositional.flash import ConstantKFlash, Flash  # noqa: F401
 from porepy_tpu_torch.compositional.materials import (  # noqa: F401
     FluidComponent,
     SolidConstants,
 )
+from porepy_tpu_torch.compositional.peng_robinson import (  # noqa: F401
+    PengRobinsonEoS,
+    PengRobinsonFlash,
+)
+from porepy_tpu_torch.compositional.states import FluidState, PhaseState  # noqa: F401
 from porepy_tpu_torch.fracs.fracture import LineFracture  # noqa: F401
 from porepy_tpu_torch.geometry.domain import Domain  # noqa: F401
 from porepy_tpu_torch.grids.structured import CartGrid  # noqa: F401
@@ -66,4 +73,10 @@ __all__ = [
     "BoundaryCondition",
     "run_time_dependent_model",
     "ad",
+    "Flash",
+    "ConstantKFlash",
+    "PengRobinsonFlash",
+    "PengRobinsonEoS",
+    "FluidState",
+    "PhaseState",
 ]

@@ -14,6 +14,21 @@ K12       :func:`structured_jvp`         ``parallel/structured_flow.py:116,124``
 K13       :func:`tpfa_residual`          ``parallel/flow_step.py:64-97``
 K13       :func:`tpfa_jvp`               ``parallel/flow_step.py:104`` (linearize)
 K10       :func:`region_solve`           ``numerics/fv/local_solves.py:168-187``
+K18a      :func:`bicgstab_p`,            ``numerics/linalg/krylov.py:42-61`` (jax BiCGStab)
+          :func:`krylov_dots`,
+          :func:`bicgstab_s`,
+          :func:`bicgstab_xr`,
+          :func:`bicgstab_scalars`
+K18b      :func:`cgs_project`,           ``numerics/linalg/krylov.py:42-61`` (jax GMRES)
+          :func:`cgs_update`,
+          :func:`cgs_normalize`,
+          :func:`gmres_lstsq`,
+          :func:`gmres_correct`,
+          :func:`gmres_residual`,
+          :func:`gmres_restart`
+K17       :func:`rachford_rice`          ``compositional/flash.py:80-122``
+K16       :func:`interp_lookup`,         ``numerics/ad/operator_functions.py:117-134``
+          :func:`interp_tangent`
 ========  =============================  =====================================================
 
 The CUDA sources live in ``csrc/`` and are built at first use (see
@@ -22,7 +37,24 @@ The CUDA sources live in ``csrc/`` and are built at first use (see
 """
 
 from porepy_tpu_torch.kernels.ops import (  # noqa: F401
+    K18A,
+    K18B,
     LAUNCHES,
+    bicgstab_p,
+    bicgstab_s,
+    bicgstab_scalars,
+    bicgstab_xr,
+    cgs_normalize,
+    cgs_project,
+    cgs_update,
+    gmres_correct,
+    gmres_lstsq,
+    gmres_residual,
+    gmres_restart,
+    interp_lookup,
+    interp_tangent,
+    krylov_dots,
+    rachford_rice,
     dense_block_apply,
     dense_block_scatter,
     ell_jacobi_sweep,

@@ -26,12 +26,17 @@ SOURCES = (
     "structured_flow.cu",
     "tpfa_flow.cu",
     "region_solve.cu",
+    "krylov.cu",
+    "flash.cu",
+    "interp_lookup.cu",
 )
 _NAME = "porepy_tpu_torch_kernels"
 _CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     "ppt_ell_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ppt_ell_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -44,9 +49,30 @@ _SIGNATURES = {
     "ppt_tpfa_residual": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_tpfa_jvp": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_region_solve": [_P] * 5 + [_I] * 4 + [_P],
+    "ppt_bicgstab_p": [_P] * 6 + [_I, _P],
+    "ppt_krylov_dots": [_P] * 5 + [_I, _I, _P],
+    "ppt_bicgstab_s": [_P] * 7 + [_I, _P],
+    "ppt_bicgstab_xr": [_P] * 9 + [_I, _P],
+    "ppt_bicgstab_scalars": [_P] * 3 + [_I, _I, _P],
+    "ppt_cgs_project": [_P] * 6 + [_I, _I, _P],
+    "ppt_cgs_update": [_P] * 4 + [_I, _I, _P],
+    "ppt_cgs_normalize": [_P] * 5 + [_I, _I, _I, _P],
+    "ppt_gmres_lstsq": [_P] * 3 + [_I, _P],
+    "ppt_gmres_correct": [_P] * 3 + [_I, _I, _P],
+    "ppt_gmres_residual": [_P] * 5 + [_I, _P],
+    "ppt_gmres_restart": [_P] * 7 + [_I, _I, _P],
+    "ppt_rachford_rice": [_P] * 7 + [_I, _L, _I, _D, _P],
+    "ppt_interp_lookup": [_P] * 7 + [_I, _L, _I, _P],
 }
-# The dtypes each kernel is built for (default: both).
-_SUFFIXES = {"ppt_region_solve": ("_f64",)}
+# The dtypes each kernel is built for (default: both). K10, K16, K17 and
+# K18 are float64 only.
+_F64_ONLY = (
+    "ppt_region_solve", "ppt_bicgstab_p", "ppt_krylov_dots", "ppt_bicgstab_s",
+    "ppt_bicgstab_xr", "ppt_bicgstab_scalars", "ppt_cgs_project", "ppt_cgs_update",
+    "ppt_cgs_normalize", "ppt_gmres_lstsq", "ppt_gmres_correct", "ppt_gmres_residual",
+    "ppt_gmres_restart", "ppt_rachford_rice", "ppt_interp_lookup",
+)
+_SUFFIXES = {name: ("_f64",) for name in _F64_ONLY}
 
 _LIB = None
 _LOCK = threading.Lock()

@@ -28,6 +28,23 @@ __all__ = [
     "tpfa_residual",
     "tpfa_jvp",
     "region_solve",
+    "bicgstab_p",
+    "krylov_dots",
+    "bicgstab_s",
+    "bicgstab_xr",
+    "bicgstab_scalars",
+    "cgs_project",
+    "cgs_update",
+    "cgs_normalize",
+    "gmres_lstsq",
+    "gmres_correct",
+    "gmres_residual",
+    "gmres_restart",
+    "K18A",
+    "K18B",
+    "rachford_rice",
+    "interp_lookup",
+    "interp_tangent",
 ]
 
 #: Kernel launches per operator since the last :func:`reset_launches`.
@@ -43,7 +60,29 @@ LAUNCHES = {
     "tpfa_residual": 0,
     "tpfa_jvp": 0,
     "region_solve": 0,
+    "bicgstab_p": 0,
+    "krylov_dots": 0,
+    "bicgstab_s": 0,
+    "bicgstab_xr": 0,
+    "bicgstab_scalars": 0,
+    "cgs_project": 0,
+    "cgs_update": 0,
+    "cgs_normalize": 0,
+    "gmres_lstsq": 0,
+    "gmres_correct": 0,
+    "gmres_residual": 0,
+    "gmres_restart": 0,
+    "rachford_rice": 0,
+    "interp_lookup": 0,
 }
+
+#: The operators of the fused BiCGStab step (K18a) and of the GMRES Arnoldi
+#: and restart work (K18b), all in ``csrc/krylov.cu``.
+K18A = ("bicgstab_p", "krylov_dots", "bicgstab_s", "bicgstab_xr", "bicgstab_scalars")
+K18B = (
+    "cgs_project", "cgs_update", "cgs_normalize", "gmres_lstsq", "gmres_correct",
+    "gmres_residual", "gmres_restart",
+)
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
@@ -529,3 +568,418 @@ def _region_solve_cuda(a, rhs, w):
 @region_solve.register_fake
 def _(a, rhs, w):
     return a.new_empty((a.shape[0], w.shape[1], rhs.shape[2]))
+
+
+# -- K18 --------------------------------------------------------------------------
+
+
+def _check_f64(name: str, tensors: dict, ints=()) -> None:
+    """Contiguous CUDA tensors, float64 (int32 for the names in ``ints``)."""
+    for arg, t in tensors.items():
+        want = torch.int32 if arg in ints else torch.float64
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}")
+    _check(name, tensors, torch.float64)
+
+
+def _nb(n: int) -> int:
+    return -(-n // reference.KRYLOV_BLOCK)
+
+
+def _vectors(name: str, n: int, **vectors) -> None:
+    for arg, t in vectors.items():
+        if t.shape != (n,):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected ({n},)")
+
+
+def _partials(name: str, partials: torch.Tensor, rows: int, n: int) -> None:
+    if partials.dim() != 2 or partials.shape[0] < rows or partials.shape[1] != _nb(n):
+        raise ValueError(f"{name}: partials must be (>= {rows}, {_nb(n)})")
+
+
+@torch.library.custom_op("porepy_tpu_torch::bicgstab_p", mutates_args=("p", "phat"))
+def bicgstab_p(
+    r: torch.Tensor, q: torch.Tensor, dinv: torch.Tensor, st: torch.Tensor,
+    p: torch.Tensor, phat: torch.Tensor,
+) -> None:
+    """In place: ``p <- r + beta (p - omega q)``, ``phat = dinv p``."""
+    reference.bicgstab_p(r, q, dinv, st, p, phat)
+
+
+@bicgstab_p.register_kernel("cuda")
+def _bicgstab_p_cuda(r, q, dinv, st, p, phat):
+    n = r.shape[0]
+    _vectors("bicgstab_p", n, r=r, q=q, dinv=dinv, p=p, phat=phat)
+    _check_f64("bicgstab_p", {"r": r, "q": q, "dinv": dinv, "st": st, "p": p, "phat": phat})
+    _launch("bicgstab_p", torch.float64, r.data_ptr(), q.data_ptr(), dinv.data_ptr(),
+            st.data_ptr(), p.data_ptr(), phat.data_ptr(), n)
+
+
+@torch.library.custom_op("porepy_tpu_torch::krylov_dots", mutates_args=("partials",))
+def krylov_dots(
+    a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+    partials: torch.Tensor, ndots: int,
+) -> None:
+    """Block partials of ``<a, b>`` into ``partials[0]`` and, with
+    ``ndots == 2``, of ``<c, d>`` into ``partials[1]``."""
+    reference.krylov_dots(a, b, c, d, partials, ndots)
+
+
+@krylov_dots.register_kernel("cuda")
+def _krylov_dots_cuda(a, b, c, d, partials, ndots):
+    n = a.shape[0]
+    if ndots not in (1, 2):
+        raise ValueError("krylov_dots: ndots must be 1 or 2")
+    _vectors("krylov_dots", n, a=a, b=b, c=c, d=d)
+    _partials("krylov_dots", partials, ndots, n)
+    _check_f64("krylov_dots", {"a": a, "b": b, "c": c, "d": d, "partials": partials})
+    _launch("krylov_dots", torch.float64, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            d.data_ptr(), partials.data_ptr(), n, ndots)
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::bicgstab_s", mutates_args=("s", "shat", "partials")
+)
+def bicgstab_s(
+    r: torch.Tensor, q: torch.Tensor, dinv: torch.Tensor, st: torch.Tensor,
+    s: torch.Tensor, shat: torch.Tensor, partials: torch.Tensor,
+) -> None:
+    """In place: ``s = r - alpha_ q``, ``shat = dinv s``, partials of
+    ``<s, s>`` into ``partials[0]``."""
+    reference.bicgstab_s(r, q, dinv, st, s, shat, partials)
+
+
+@bicgstab_s.register_kernel("cuda")
+def _bicgstab_s_cuda(r, q, dinv, st, s, shat, partials):
+    n = r.shape[0]
+    _vectors("bicgstab_s", n, r=r, q=q, dinv=dinv, s=s, shat=shat)
+    _partials("bicgstab_s", partials, 1, n)
+    _check_f64("bicgstab_s", {"r": r, "q": q, "dinv": dinv, "st": st, "s": s,
+                              "shat": shat, "partials": partials})
+    _launch("bicgstab_s", torch.float64, r.data_ptr(), q.data_ptr(), dinv.data_ptr(),
+            st.data_ptr(), s.data_ptr(), shat.data_ptr(), partials.data_ptr(), n)
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::bicgstab_xr", mutates_args=("x", "r", "partials")
+)
+def bicgstab_xr(
+    x: torch.Tensor, r: torch.Tensor, phat: torch.Tensor, shat: torch.Tensor,
+    s: torch.Tensor, t: torch.Tensor, rhat: torch.Tensor, st: torch.Tensor,
+    partials: torch.Tensor,
+) -> None:
+    """In place: the update of ``x`` and ``r`` that ends a BiCGStab
+    iteration, partials of ``<r, r>`` and ``<rhat, r>`` into rows 0, 1."""
+    reference.bicgstab_xr(x, r, phat, shat, s, t, rhat, st, partials)
+
+
+@bicgstab_xr.register_kernel("cuda")
+def _bicgstab_xr_cuda(x, r, phat, shat, s, t, rhat, st, partials):
+    n = x.shape[0]
+    vec = {"x": x, "r": r, "phat": phat, "shat": shat, "s": s, "t": t, "rhat": rhat}
+    _vectors("bicgstab_xr", n, **vec)
+    _partials("bicgstab_xr", partials, 2, n)
+    _check_f64("bicgstab_xr", {**vec, "st": st, "partials": partials})
+    _launch("bicgstab_xr", torch.float64, *(v.data_ptr() for v in vec.values()),
+            st.data_ptr(), partials.data_ptr(), n)
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::bicgstab_scalars", mutates_args=("st", "cont")
+)
+def bicgstab_scalars(
+    partials: torch.Tensor, st: torch.Tensor, cont: torch.Tensor, stage: int
+) -> None:
+    """One block: finish the partial rows of ``stage`` (``reference.STAGE_*``)
+    and run that stage of the scalar recurrence on ``st`` and ``cont``."""
+    reference.bicgstab_scalars(partials, st, cont, stage)
+
+
+@bicgstab_scalars.register_kernel("cuda")
+def _bicgstab_scalars_cuda(partials, st, cont, stage):
+    rows = {reference.STAGE_INIT: 1, reference.STAGE_ALPHA: 1,
+            reference.STAGE_OMEGA: 3, reference.STAGE_NEXT: 2}
+    if stage not in rows:
+        raise ValueError(f"bicgstab_scalars: unknown stage {stage}")
+    if partials.dim() != 2 or partials.shape[0] < rows[stage]:
+        raise ValueError(f"bicgstab_scalars: stage {stage} needs {rows[stage]} partial rows")
+    if st.shape != (reference.BICG_SLOTS,) or cont.shape != (1,):
+        raise ValueError("bicgstab_scalars: needs the state and a (1,) flag")
+    n = partials.shape[1] * reference.KRYLOV_BLOCK
+    _check_f64("bicgstab_scalars", {"partials": partials, "st": st, "cont": cont}, ints=("cont",))
+    _launch("bicgstab_scalars", torch.float64, partials.data_ptr(), st.data_ptr(),
+            cont.data_ptr(), n, stage)
+
+
+def _arnoldi_shapes(name, V, w, partials, flags, k, H=None):
+    n = w.shape[0]
+    restart = V.shape[0] - 1
+    if V.dim() != 2 or V.shape[1] != n or not 0 <= k < restart:
+        raise ValueError(f"{name}: needs V (restart + 1, n) and 0 <= k < restart")
+    if restart > 30:
+        raise ValueError(f"{name}: restart {restart} above 30")
+    _partials(name, partials, restart + 3, n)
+    if flags.shape != (restart + 1,):
+        raise ValueError(f"{name}: flags must be (restart + 1,)")
+    if H is not None and H.shape != (restart, restart + 1):
+        raise ValueError(f"{name}: H must be (restart, restart + 1)")
+    return n, restart
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::cgs_project", mutates_args=("w", "partials")
+)
+def cgs_project(
+    av: torch.Tensor, dinv: torch.Tensor, V: torch.Tensor, w: torch.Tensor,
+    partials: torch.Tensor, flags: torch.Tensor, k: int,
+) -> None:
+    """Arnoldi step ``k``: ``w = dinv av``, partials of ``V[:k+1] w`` and of
+    ``<w, w>``; nothing after a breakdown (``flags[k]``)."""
+    reference.cgs_project(av, dinv, V, w, partials, flags, k)
+
+
+@cgs_project.register_kernel("cuda")
+def _cgs_project_cuda(av, dinv, V, w, partials, flags, k):
+    n, _ = _arnoldi_shapes("cgs_project", V, w, partials, flags, k)
+    _vectors("cgs_project", n, av=av, dinv=dinv)
+    _check_f64("cgs_project", {"av": av, "dinv": dinv, "V": V, "w": w,
+                               "partials": partials, "flags": flags}, ints=("flags",))
+    _launch("cgs_project", torch.float64, av.data_ptr(), dinv.data_ptr(), V.data_ptr(),
+            w.data_ptr(), partials.data_ptr(), flags.data_ptr(), n, k)
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::cgs_update", mutates_args=("w", "partials")
+)
+def cgs_update(
+    V: torch.Tensor, w: torch.Tensor, partials: torch.Tensor, flags: torch.Tensor, k: int
+) -> None:
+    """``w <- w - V[:k+1]^T h`` with ``h`` finished from the partials, and
+    the partials of ``<w, w>``."""
+    reference.cgs_update(V, w, partials, flags, k)
+
+
+@cgs_update.register_kernel("cuda")
+def _cgs_update_cuda(V, w, partials, flags, k):
+    n, _ = _arnoldi_shapes("cgs_update", V, w, partials, flags, k)
+    _check_f64("cgs_update", {"V": V, "w": w, "partials": partials, "flags": flags}, ints=("flags",))
+    _launch("cgs_update", torch.float64, V.data_ptr(), w.data_ptr(), partials.data_ptr(),
+            flags.data_ptr(), n, k)
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::cgs_normalize", mutates_args=("V", "H", "flags")
+)
+def cgs_normalize(
+    w: torch.Tensor, V: torch.Tensor, H: torch.Tensor, partials: torch.Tensor,
+    flags: torch.Tensor, k: int,
+) -> None:
+    """``V[k + 1] = w / |w|``, Hessenberg row ``k``, breakdown flag ``k + 1``."""
+    reference.cgs_normalize(w, V, H, partials, flags, k)
+
+
+@cgs_normalize.register_kernel("cuda")
+def _cgs_normalize_cuda(w, V, H, partials, flags, k):
+    n, restart = _arnoldi_shapes("cgs_normalize", V, w, partials, flags, k, H)
+    _check_f64("cgs_normalize", {"w": w, "V": V, "H": H, "partials": partials,
+                                 "flags": flags}, ints=("flags",))
+    _launch("cgs_normalize", torch.float64, w.data_ptr(), V.data_ptr(), H.data_ptr(),
+            partials.data_ptr(), flags.data_ptr(), n, k, restart)
+
+
+@torch.library.custom_op("porepy_tpu_torch::gmres_lstsq", mutates_args=("y",))
+def gmres_lstsq(H: torch.Tensor, st: torch.Tensor, y: torch.Tensor) -> None:
+    """One block: ``y`` from the normal equations ``H H^T y = beta H[:, 0]``
+    (Cholesky), jax's ``_lstsq`` of a GMRES restart."""
+    reference.gmres_lstsq(H, st, y)
+
+
+@gmres_lstsq.register_kernel("cuda")
+def _gmres_lstsq_cuda(H, st, y):
+    restart = H.shape[0]
+    if H.dim() != 2 or H.shape[1] != restart + 1 or y.shape != (restart,) or not 1 <= restart <= 30:
+        raise ValueError("gmres_lstsq: needs H (restart, restart + 1), y (restart,), restart <= 30")
+    if st.shape != (reference.GMRES_SLOTS,):
+        raise ValueError("gmres_lstsq: needs the GMRES state")
+    _check_f64("gmres_lstsq", {"H": H, "st": st, "y": y})
+    _launch("gmres_lstsq", torch.float64, H.data_ptr(), st.data_ptr(), y.data_ptr(), restart)
+
+
+@torch.library.custom_op("porepy_tpu_torch::gmres_correct", mutates_args=("x",))
+def gmres_correct(V: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> None:
+    """``x <- x + V[:restart]^T y``."""
+    reference.gmres_correct(V, y, x)
+
+
+@gmres_correct.register_kernel("cuda")
+def _gmres_correct_cuda(V, y, x):
+    n, restart = x.shape[0], y.shape[0]
+    if V.dim() != 2 or V.shape != (restart + 1, n):
+        raise ValueError("gmres_correct: needs V (restart + 1, n), y (restart,), x (n,)")
+    _check_f64("gmres_correct", {"V": V, "y": y, "x": x})
+    _launch("gmres_correct", torch.float64, V.data_ptr(), y.data_ptr(), x.data_ptr(), n, restart)
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::gmres_residual", mutates_args=("w", "partials")
+)
+def gmres_residual(
+    b: torch.Tensor, ax: torch.Tensor, dinv: torch.Tensor, w: torch.Tensor,
+    partials: torch.Tensor,
+) -> None:
+    """``w = dinv (b - ax)``, partials of ``<w, w>`` into row 0."""
+    reference.gmres_residual(b, ax, dinv, w, partials)
+
+
+@gmres_residual.register_kernel("cuda")
+def _gmres_residual_cuda(b, ax, dinv, w, partials):
+    n = b.shape[0]
+    _vectors("gmres_residual", n, b=b, ax=ax, dinv=dinv, w=w)
+    _partials("gmres_residual", partials, 1, n)
+    _check_f64("gmres_residual", {"b": b, "ax": ax, "dinv": dinv, "w": w,
+                                  "partials": partials})
+    _launch("gmres_residual", torch.float64, b.data_ptr(), ax.data_ptr(), dinv.data_ptr(),
+            w.data_ptr(), partials.data_ptr(), n)
+
+
+@torch.library.custom_op(
+    "porepy_tpu_torch::gmres_restart",
+    mutates_args=("V", "H", "flags", "st", "cont"),
+)
+def gmres_restart(
+    w: torch.Tensor, V: torch.Tensor, H: torch.Tensor, partials: torch.Tensor,
+    flags: torch.Tensor, st: torch.Tensor, cont: torch.Tensor,
+) -> None:
+    """Start of a restart: ``V[0] = w / |w|``, the residual norm and the
+    continue flag ``|w| > atol``, ``H = eye``, breakdown flags cleared."""
+    reference.gmres_restart(w, V, H, partials, flags, st, cont)
+
+
+@gmres_restart.register_kernel("cuda")
+def _gmres_restart_cuda(w, V, H, partials, flags, st, cont):
+    n = w.shape[0]
+    restart = H.shape[0]
+    if V.shape != (restart + 1, n) or H.shape != (restart, restart + 1) or not 1 <= restart <= 30:
+        raise ValueError("gmres_restart: needs V (restart + 1, n), H (restart, restart + 1)")
+    if flags.shape != (restart + 1,) or st.shape != (reference.GMRES_SLOTS,) or cont.shape != (1,):
+        raise ValueError("gmres_restart: needs flags (restart + 1,), the state, a (1,) flag")
+    _partials("gmres_restart", partials, 1, n)
+    _check_f64("gmres_restart", {"w": w, "V": V, "H": H, "partials": partials,
+                                 "flags": flags, "st": st, "cont": cont}, ints=("flags", "cont"))
+    _launch("gmres_restart", torch.float64, w.data_ptr(), V.data_ptr(), H.data_ptr(),
+            partials.data_ptr(), flags.data_ptr(), st.data_ptr(), cont.data_ptr(), n, restart)
+
+
+# -- K17 --------------------------------------------------------------------------
+
+
+@torch.library.custom_op("porepy_tpu_torch::rachford_rice", mutates_args=())
+def rachford_rice(
+    zs: torch.Tensor, K: torch.Tensor, max_iter: int, tol: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The constant-K flash at the points ``zs`` ``(nc, N)``: ``(V, x, y,
+    converged, iters)`` (see :func:`porepy_tpu_torch.kernels.reference.rachford_rice`)."""
+    return reference.rachford_rice(zs, K, max_iter, tol)
+
+
+@rachford_rice.register_kernel("cuda")
+def _rachford_rice_cuda(zs, K, max_iter, tol):
+    if zs.dtype != torch.float64 or K.dtype != torch.float64:
+        raise TypeError("rachford_rice: zs and K must be float64")
+    if zs.dim() != 2 or K.shape != (zs.shape[0],) or not 1 <= zs.shape[0] <= 8:
+        raise ValueError("rachford_rice: needs zs (nc, N), K (nc,), 1 <= nc <= 8")
+    _check("rachford_rice", {"zs": zs, "K": K}, zs.dtype)
+    nc, n = zs.shape
+    V = torch.empty(n, dtype=zs.dtype, device=zs.device)
+    x, y = torch.empty_like(zs), torch.empty_like(zs)
+    converged = torch.empty(n, dtype=torch.bool, device=zs.device)
+    iters = torch.empty(n, dtype=torch.int32, device=zs.device)
+    _launch(
+        "rachford_rice", zs.dtype,
+        zs.data_ptr(), K.data_ptr(), V.data_ptr(), x.data_ptr(), y.data_ptr(),
+        converged.data_ptr(), iters.data_ptr(), nc, n, max_iter, float(tol),
+    )
+    return V, x, y, converged, iters
+
+
+@rachford_rice.register_fake
+def _(zs, K, max_iter, tol):
+    n = zs.shape[1]
+    return (
+        zs.new_empty(n), torch.empty_like(zs), torch.empty_like(zs),
+        zs.new_empty(n, dtype=torch.bool), zs.new_empty(n, dtype=torch.int32),
+    )
+
+
+# -- K16 --------------------------------------------------------------------------
+
+
+def _interp_cuda(values, fgeom, igeom, x, dx):
+    d, n = x.shape
+    if not 1 <= d <= 3:
+        raise ValueError(f"interp_lookup: {d} parameters, the kernel takes 1 to 3")
+    if any(t.dtype != torch.float64 for t in (values, fgeom, x)) or igeom.dtype != torch.int32 or (
+        dx is not None and dx.dtype != torch.float64
+    ):
+        raise TypeError("interp_lookup: needs float64 values, fgeom, x, dx and int32 igeom")
+    if values.dim() != 1 or fgeom.shape != (2 * d,) or igeom.shape != (2 * d,):
+        raise ValueError("interp_lookup: needs flat values, fgeom = [low, h], igeom = [npt, strides]")
+    tensors = {"values": values, "fgeom": fgeom, "igeom": igeom, "x": x}
+    if dx is not None:
+        if dx.dim() != 3 or dx.shape[1:] != (d, n):
+            raise ValueError("interp_lookup: dx must be (B, d, N)")
+        tensors["dx"] = dx
+    _check("interp_lookup", tensors, torch.float64)
+    if dx is None:
+        out = torch.empty(n, dtype=x.dtype, device=x.device)
+        ptrs = (0, out.data_ptr(), 0, 0)
+    else:
+        out = torch.empty((dx.shape[0], n), dtype=x.dtype, device=x.device)
+        ptrs = (dx.data_ptr(), 0, out.data_ptr(), dx.shape[0])
+    dx_ptr, out_ptr, dout_ptr, batch = ptrs
+    _launch(
+        "interp_lookup", torch.float64,
+        values.data_ptr(), fgeom.data_ptr(), igeom.data_ptr(), x.data_ptr(),
+        dx_ptr or None, out_ptr or None, dout_ptr or None, d, n, batch,
+    )
+    return out
+
+
+@torch.library.custom_op("porepy_tpu_torch::interp_lookup", mutates_args=())
+def interp_lookup(
+    values: torch.Tensor, fgeom: torch.Tensor, igeom: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """Multilinear table lookup at the points ``x`` ``(d, N)``, ``d <= 3``;
+    ``fgeom = [low, h]`` float64, ``igeom = [npt, strides]`` int32."""
+    return reference.interp_lookup(values, fgeom, igeom, x)
+
+
+@interp_lookup.register_kernel("cuda")
+def _interp_lookup_cuda(values, fgeom, igeom, x):
+    return _interp_cuda(values, fgeom, igeom, x, None)
+
+
+@interp_lookup.register_fake
+def _(values, fgeom, igeom, x):
+    return x.new_empty(x.shape[1])
+
+
+@torch.library.custom_op("porepy_tpu_torch::interp_tangent", mutates_args=())
+def interp_tangent(
+    values: torch.Tensor, fgeom: torch.Tensor, igeom: torch.Tensor, x: torch.Tensor,
+    dx: torch.Tensor,
+) -> torch.Tensor:
+    """Tangents ``(B, N)`` of :func:`interp_lookup` at ``x`` for the seeds
+    ``dx`` ``(B, d, N)``; the same kernel as the lookup, so its launches
+    count under ``interp_lookup``."""
+    return reference.interp_tangent(values, fgeom, igeom, x, dx)
+
+
+@interp_tangent.register_kernel("cuda")
+def _interp_tangent_cuda(values, fgeom, igeom, x, dx):
+    return _interp_cuda(values, fgeom, igeom, x, dx)
+
+
+@interp_tangent.register_fake
+def _(values, fgeom, igeom, x, dx):
+    return x.new_empty((dx.shape[0], x.shape[1]))

@@ -22,6 +22,22 @@ __all__ = [
     "tpfa_residual",
     "tpfa_jvp",
     "region_solve_contract",
+    "KRYLOV_BLOCK",
+    "block_partials",
+    "bicgstab_p",
+    "krylov_dots",
+    "bicgstab_s",
+    "bicgstab_xr",
+    "bicgstab_scalars",
+    "cgs_project",
+    "cgs_update",
+    "cgs_normalize",
+    "gmres_lstsq",
+    "gmres_correct",
+    "gmres_residual",
+    "gmres_restart",
+    "rachford_rice",
+    "interp_lookup",
 ]
 
 
@@ -247,3 +263,280 @@ def region_solve_contract(a: torch.Tensor, rhs: torch.Tensor, w: torch.Tensor) -
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     x = torch.linalg.solve(a / scale, rhs / scale)
     return w @ x
+
+
+# -- K18 --------------------------------------------------------------------------
+
+#: Threads per block of the K18 kernels (``kBlock`` in ``csrc/krylov.cu``): a
+#: dot product over ``n`` entries leaves ``ceil(n / KRYLOV_BLOCK)`` partials.
+KRYLOV_BLOCK = 128
+
+# Scalar slots of the BiCGStab state ``st`` and its stages.
+BICG_RHO, BICG_ALPHA, BICG_OMEGA, BICG_RHO_NEW, BICG_BETA, BICG_ATOL2 = range(6)
+BICG_ALPHA_NEW, BICG_OMEGA_NEW, BICG_EXIT, BICG_RR = range(6, 10)
+BICG_SLOTS = 10
+STAGE_INIT, STAGE_ALPHA, STAGE_OMEGA, STAGE_NEXT = range(4)
+# Scalar slots of the GMRES state.
+GMRES_ATOL, GMRES_RESNORM = range(2)
+GMRES_SLOTS = 2
+
+_EPS = torch.finfo(torch.float64).eps
+
+
+def block_partials(v: torch.Tensor) -> torch.Tensor:
+    """The per-block partial sums of ``v`` (length ``n``) in the kernels'
+    blocking: ``ceil(n / KRYLOV_BLOCK)`` sums of consecutive entries."""
+    nb = -(-v.shape[0] // KRYLOV_BLOCK)
+    return torch.nn.functional.pad(v, (0, nb * KRYLOV_BLOCK - v.shape[0])).view(nb, KRYLOV_BLOCK).sum(1)
+
+
+def bicgstab_p(r, q, dinv, st, p, phat) -> None:
+    """In place: ``p <- r + beta (p - omega q)``, ``phat = dinv p``."""
+    p.copy_(r + st[BICG_BETA] * (p - st[BICG_OMEGA] * q))
+    phat.copy_(dinv * p)
+
+
+def krylov_dots(a, b, c, d, partials, ndots: int) -> None:
+    """Partials of ``<a, b>`` into ``partials[0]`` and, with ``ndots == 2``,
+    of ``<c, d>`` into ``partials[1]``."""
+    partials[0] = block_partials(a * b)
+    if ndots > 1:
+        partials[1] = block_partials(c * d)
+
+
+def bicgstab_s(r, q, dinv, st, s, shat, partials) -> None:
+    """In place: ``s = r - alpha_ q``, ``shat = dinv s``, partials of
+    ``<s, s>`` into ``partials[0]``."""
+    s.copy_(r - st[BICG_ALPHA_NEW] * q)
+    shat.copy_(dinv * s)
+    partials[0] = block_partials(s * s)
+
+
+def bicgstab_xr(x, r, phat, shat, s, t, rhat, st, partials) -> None:
+    """In place: the BiCGStab update of ``x`` and ``r`` (the half step alone
+    on the early exit), partials of ``<r, r>`` and ``<rhat, r>``."""
+    alpha, omega = st[BICG_ALPHA_NEW], st[BICG_OMEGA_NEW]
+    if bool(st[BICG_EXIT] != 0):
+        x.copy_(x + alpha * phat)
+        r.copy_(s)
+    else:
+        x.copy_(x + (alpha * phat + omega * shat))
+        r.copy_(s - omega * t)
+    partials[0] = block_partials(r * r)
+    partials[1] = block_partials(rhat * r)
+
+
+def bicgstab_scalars(partials, st, cont, stage: int) -> None:
+    """In place: finish the partial rows of ``stage`` and run that stage of
+    the BiCGStab scalar recurrence on ``st`` and the continue flag."""
+    sums = partials.sum(1)
+    if stage == STAGE_INIT:
+        rr = sums[0]
+        st[BICG_RHO_NEW] = rr
+        st[BICG_RR] = rr
+        st[BICG_BETA] = rr / st[BICG_RHO] * st[BICG_ALPHA] / st[BICG_OMEGA]
+        cont.fill_(int(bool(rr > st[BICG_ATOL2])))
+    elif stage == STAGE_ALPHA:
+        st[BICG_ALPHA_NEW] = st[BICG_RHO_NEW] / sums[0]
+    elif stage == STAGE_OMEGA:
+        st[BICG_EXIT] = float(bool(sums[0] < st[BICG_ATOL2]))
+        st[BICG_OMEGA_NEW] = sums[1] / sums[2]
+    else:
+        rr, hr = sums[0], sums[1]
+        alpha, omega, rho = st[BICG_ALPHA_NEW].clone(), st[BICG_OMEGA_NEW].clone(), st[BICG_RHO_NEW].clone()
+        breakdown = bool((omega == 0) | (alpha == 0) | (rho == 0))
+        cont.fill_(int(bool(rr > st[BICG_ATOL2]) and not breakdown))
+        st[BICG_RR] = rr
+        st[BICG_RHO], st[BICG_ALPHA], st[BICG_OMEGA] = rho, alpha, omega
+        st[BICG_RHO_NEW] = hr
+        st[BICG_BETA] = hr / rho * alpha / omega
+
+
+def cgs_project(av, dinv, V, w, partials, flags, k: int) -> None:
+    """Arnoldi step ``k``, first pass: ``w = dinv av``; partials of
+    ``<V[j], w>`` (rows ``j <= k``) and of ``<w, w>`` (row ``k + 1``).
+    Nothing once ``flags[k]`` is set (a breakdown earlier in the restart)."""
+    if bool(flags[k]):
+        return
+    w.copy_(dinv * av)
+    partials[: k + 1] = torch.stack([block_partials(V[j] * w) for j in range(k + 1)])
+    partials[k + 1] = block_partials(w * w)
+
+
+def cgs_update(V, w, partials, flags, k: int) -> None:
+    """``h = V[:k+1] w`` from the partials, ``w <- w - V[:k+1]^T h``,
+    partials of ``<w, w>`` into row ``k + 2``."""
+    if bool(flags[k]):
+        return
+    h = partials[: k + 1].sum(1)
+    w.copy_(w - V[: k + 1].T @ h)
+    partials[k + 2] = block_partials(w * w)
+
+
+def cgs_normalize(w, V, H, partials, flags, k: int) -> None:
+    """``V[k + 1] = w / |w|`` (0 at or below ``eps |w_0|``), Hessenberg row
+    ``k`` and the breakdown flag ``flags[k + 1]``, as jax's
+    ``_kth_arnoldi_iteration`` with ``_safe_normalize``."""
+    restart = H.shape[0]
+    if bool(flags[k]):
+        V[k + 1] = 0.0
+        flags[k + 1] = 1
+        return
+    sums = partials[: k + 3].sum(1)
+    norm0 = torch.sqrt(sums[k + 1])
+    norm0 = torch.where(norm0 > _EPS, norm0, torch.zeros_like(norm0))
+    norm = torch.sqrt(sums[k + 2])
+    use = bool(norm > _EPS * norm0)
+    V[k + 1] = w / norm if use else 0.0
+    row = torch.zeros(restart + 1, dtype=H.dtype, device=H.device)
+    row[: k + 1] = sums[: k + 1]
+    row[k + 1] = norm if use else 0.0
+    H[k] = row
+    flags[k + 1] = int(not use or bool(norm == 0))
+
+
+def gmres_lstsq(H, st, y) -> None:
+    """``y`` of jax's ``_lstsq(H^T, beta e_0)``: the normal equations
+    ``H H^T y = beta H[:, 0]`` by Cholesky."""
+    a2 = H @ H.T
+    b2 = H[:, 0] * st[GMRES_RESNORM]
+    L = torch.linalg.cholesky(a2)
+    y.copy_(torch.cholesky_solve(b2[:, None], L)[:, 0])
+
+
+def gmres_correct(V, y, x) -> None:
+    """``x <- x + V[:restart]^T y``."""
+    x.copy_(x + V[: y.shape[0]].T @ y)
+
+
+def gmres_residual(b, ax, dinv, w, partials) -> None:
+    """``w = dinv (b - ax)``, partials of ``<w, w>`` into row 0."""
+    w.copy_(dinv * (b - ax))
+    partials[0] = block_partials(w * w)
+
+
+def gmres_restart(w, V, H, partials, flags, st, cont) -> None:
+    """Start of a restart: ``V[0] = w / |w|`` (0 at or below eps), the
+    residual norm, ``cont = |w| > atol``, ``H = eye``, flags cleared."""
+    norm = torch.sqrt(partials[0].sum())
+    use = bool(norm > _EPS)
+    V[0] = w / norm if use else 0.0
+    H.copy_(torch.eye(H.shape[0], H.shape[1], dtype=H.dtype, device=H.device))
+    flags.zero_()
+    st[GMRES_RESNORM] = norm if use else 0.0
+    cont.fill_(int(bool(st[GMRES_RESNORM] > st[GMRES_ATOL])))
+
+
+# -- K17 --------------------------------------------------------------------------
+
+
+def rachford_rice(zs: torch.Tensor, K: torch.Tensor, max_iter: int, tol: float):
+    """The constant-K Rachford-Rice flash of ``ConstantKFlash``: ``zs``
+    ``(nc, N)``, ``K`` ``(nc,)``. Returns ``(V, x, y, converged, iters)``:
+    the vapor fraction ``(N,)``, the normalised liquid and vapor
+    compositions ``(nc, N)``, the convergence flags and, per point, the
+    number of guarded Newton iterations until one left ``V`` unchanged
+    (``max_iter`` if none did; the later iterations repeat it; 0 for a
+    single-phase point, whose ``V`` the corners set)."""
+    Kc = K[:, None]
+    km1 = Kc - 1.0
+    all_liquid = torch.sum(zs * Kc, dim=0) <= 1.0
+    all_vapor = torch.sum(zs / Kc, dim=0) <= 1.0
+
+    def h_fun(V):
+        return torch.sum(zs * km1 / (1.0 + V * km1), dim=0)
+
+    def dh_fun(V):
+        return -torch.sum(zs * (km1 * km1) / ((1.0 + V * km1) * (1.0 + V * km1)), dim=0)
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    one = torch.ones((), dtype=zs.dtype, device=zs.device)
+    Kmax, Kmin = torch.max(Kc), torch.min(Kc)
+    lo = torch.where(Kmax > 1.0, 1.0 / (1.0 - Kmax), -1e10 * one) + 1e-12
+    hi = torch.where(Kmin < 1.0, 1.0 / (1.0 - Kmin), 1e10 * one) - 1e-12
+    V = clip(torch.full((zs.shape[1],), 0.5, dtype=zs.dtype, device=zs.device), lo, hi)
+    # A single-phase point's V is replaced by 0 or 1 after the iterations:
+    # the kernel skips them there and counts 0.
+    single = all_liquid | all_vapor
+    iters = torch.where(single, 0, max_iter).to(torch.int32)
+    running = ~single
+    for it in range(max_iter):
+        dh = dh_fun(V)
+        step = h_fun(V) / torch.where(torch.abs(dh) > 1e-30, dh, -one)
+        Vn = clip(V - step, lo, hi)
+        fixed = running & (Vn == V)
+        iters = torch.where(fixed, torch.full_like(iters, it + 1), iters)
+        running = running & ~fixed
+        V = Vn
+    V = torch.where(all_liquid, 0.0 * one, torch.where(all_vapor, one, V))
+    V = clip(V, 0.0 * one, one)
+    x = zs / (1.0 + V[None] * km1)
+    y = Kc * x
+    x = x / torch.sum(x, dim=0)
+    y = y / torch.sum(y, dim=0)
+    resid = torch.abs(h_fun(clip(V, lo, hi)))
+    two_phase = ~(all_liquid | all_vapor)
+    converged = torch.where(two_phase, resid < tol, torch.ones_like(two_phase))
+    return V, x, y, converged, iters
+
+
+# -- K16 --------------------------------------------------------------------------
+
+
+def _interp_corners(values, fgeom, igeom, x):
+    """``frac`` of each axis and, per corner (itertools.product order), its
+    bits and table value; ``fgeom = [low, h]``, ``igeom = [npt, strides]``."""
+    d = x.shape[0]
+    low, h = fgeom[:d], fgeom[d:]
+    npt, strides = igeom[:d].long(), igeom[d:].long()
+    rel = (x - low[:, None]) / h[:, None]
+    base = torch.clamp(
+        torch.floor(rel).to(torch.int64),
+        min=torch.zeros_like(npt)[:, None],
+        max=(npt - 2)[:, None],
+    )
+    frac = rel - base
+    corners = []
+    for c in range(1 << d):
+        bits = [(c >> (d - 1 - k)) & 1 for k in range(d)]
+        flat = sum((base[k] + bits[k]) * strides[k] for k in range(d))
+        corners.append((bits, values[flat]))
+    return frac, corners
+
+
+def interp_lookup(values, fgeom, igeom, x):
+    """Multilinear lookup (extrapolating outside the table) at the points
+    ``x`` ``(d, N)``: a table of ``npt`` points per axis from ``low`` at
+    spacing ``h`` (``fgeom = [low, h]``, float64), flat ``values`` with
+    ``strides`` (``igeom = [npt, strides]``, int32). Returns ``(N,)``."""
+    frac, corners = _interp_corners(values, fgeom, igeom, x)
+    out = torch.zeros(x.shape[1], dtype=x.dtype, device=x.device)
+    for bits, v in corners:
+        w = torch.ones_like(out)
+        for k, bk in enumerate(bits):
+            w = w * (frac[k] if bk else 1 - frac[k])
+        out = out + w * v
+    return out
+
+
+def interp_tangent(values, fgeom, igeom, x, dx):
+    """Forward-mode tangent of :func:`interp_lookup` at ``x`` for the seeds
+    ``dx`` ``(B, d, N)``: ``d frac_k = dx_k / h_k``, the integer cell index
+    carries none. Returns ``(B, N)``."""
+    d = x.shape[0]
+    frac, corners = _interp_corners(values, fgeom, igeom, x)
+    df = dx / fgeom[d:][None, :, None]
+    out = torch.zeros(dx.shape[0], x.shape[1], dtype=x.dtype, device=x.device)
+    for bits, v in corners:
+        f = [frac[k] if bits[k] else 1 - frac[k] for k in range(d)]
+        dw = torch.zeros_like(out)
+        for k in range(d):
+            term = df[:, k] if bits[k] else -df[:, k]
+            for m in range(d):
+                if m != k:
+                    term = term * f[m]
+            dw = dw + term
+        out = out + dw * v
+    return out

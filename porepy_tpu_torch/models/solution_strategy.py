@@ -3,8 +3,10 @@
 Parity counterpart of reference ``models/solution_strategy.py:24``:
 ``prepare_simulation`` orchestration, Newton callbacks, assembly and linear
 solve, convergence checks, rediscretization hooks. Linear solve backends:
-``scipy_sparse`` (host direct, default) and ``device_gmres`` (the
-device-resident block-preconditioned FGMRES on the assembled Jacobian).
+``scipy_sparse`` (host direct, default), ``jax_bicgstab``/``jax_gmres``
+(Jacobi-preconditioned Krylov on the model's device, K18; the names are
+``porepy_tpu``'s) and ``device_gmres`` (the device-resident
+block-preconditioned FGMRES on the assembled Jacobian).
 
 The model computes on ``params["device"]`` (default ``"cuda"``); pass
 ``"cpu"`` to run on the host.
@@ -405,7 +407,7 @@ class SolutionStrategy(FluidMixin):
         elif solver in ("jax_bicgstab", "jax_gmres"):
             from porepy_tpu_torch.numerics.linalg.krylov import solve_sparse
 
-            x = solve_sparse(A, b, method=solver.split("_")[1])
+            x = solve_sparse(A, b, method=solver.split("_")[1], device=self.device)
         elif solver.startswith("device"):
             data, b_dev, cs = self._device_assembly
             x = self._device_solver_for(cs).solve(

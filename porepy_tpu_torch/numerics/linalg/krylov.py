@@ -4,36 +4,62 @@
 tolerance and fell back to the host direct solver (observable from
 SolverStatistics, the tests and ``chip_smoke.py``).
 
-:func:`bicgstab` is the matrix-free BiCGStab of ``jax.scipy.sparse.linalg``
-(jax 0.9), which the structured and unstructured flow steps
-(:mod:`porepy_tpu_torch.parallel`) solve with.
+:func:`bicgstab` and :func:`gmres` are the matrix-free BiCGStab and GMRES
+(``solve_method="batched"``) of ``jax.scipy.sparse.linalg`` (jax 0.9) in
+plain PyTorch. The structured and unstructured flow steps
+(:mod:`porepy_tpu_torch.parallel`) solve with :func:`bicgstab`.
 
-``porepy_tpu``'s ``solve_sparse`` (K18: a Jacobi-preconditioned
-``jax.scipy`` GMRES/BiCGStab behind the ``jax_gmres``/``jax_bicgstab``
-linear-solver options) is not ported: it raises ``NotImplementedError``.
-The md path uses :mod:`porepy_tpu_torch.numerics.linalg.device_solver`.
+:func:`solve_sparse` (K18, behind the ``jax_bicgstab``/``jax_gmres``
+linear-solver options) solves an assembled scipy matrix with the same two
+iterations and a Jacobi preconditioner on the device: the matrix goes over
+once per solve in K1's ELL layout, and the vector work between the matvecs
+runs in the hand-written K18 kernels (``kernels/csrc/krylov.cu``; their
+plain versions on the CPU). A solve that misses its tolerance on the host
+check falls back to ``spsolve`` and counts in :data:`FALLBACK_COUNTER`.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Optional
 
 import numpy as np
 import scipy.sparse as sps
+import scipy.sparse.linalg  # noqa: F401  (sps.linalg.spsolve)
 import torch
 
-__all__ = ["bicgstab", "solve_sparse", "jacobi_preconditioner", "FALLBACK_COUNTER"]
+from porepy_tpu_torch import kernels
+from porepy_tpu_torch.kernels import reference as _ref
+from porepy_tpu_torch.utils import device_policy
+
+__all__ = [
+    "bicgstab", "gmres", "solve_sparse", "jacobi_preconditioner", "FALLBACK_COUNTER",
+    "LAST_SOLVE",
+]
+
+logger = logging.getLogger(__name__)
 
 #: Number of times a device Krylov solve missed tolerance and fell back to
 #: the host direct solver (observable from SolverStatistics and tests).
 FALLBACK_COUNTER = {"count": 0}
 
+#: The last :func:`solve_sparse` call: its method and Krylov iterations
+#: (BiCGStab iterations; GMRES Arnoldi steps, ``restart`` per restart).
+LAST_SOLVE = {"method": None, "iterations": 0}
 
-def jacobi_preconditioner(A: sps.spmatrix, device="cpu"):
-    """``x -> D^{-1} x`` with ``D`` the (guarded) diagonal of ``A``."""
+
+def _inverse_diagonal(A: sps.spmatrix) -> np.ndarray:
+    """``1 / diag(A)``, with the diagonal's zeros (|d| <= 1e-300) taken as 1."""
     d = np.asarray(A.diagonal())
-    d = np.where(np.abs(d) > 1e-300, d, 1.0)
-    inv = torch.tensor(1.0 / d, dtype=torch.float64, device=device)
+    return 1.0 / np.where(np.abs(d) > 1e-300, d, 1.0)
+
+
+def jacobi_preconditioner(A: sps.spmatrix, device=None):
+    """``x -> D^{-1} x`` with ``D`` the (guarded) diagonal of ``A``, on
+    ``device`` (default: the card, :func:`device_policy.resolve`)."""
+    inv = torch.tensor(
+        _inverse_diagonal(A), dtype=torch.float64, device=device_policy.resolve(device)
+    )
 
     def M(x):
         return inv * x
@@ -101,15 +127,199 @@ def bicgstab(
     return x, None
 
 
+def _safe_normalize(x: torch.Tensor, thresh=None):
+    """jax's ``_safe_normalize``: ``(x / |x|, |x|)``, or ``(0, 0)`` where
+    ``|x|`` is at or below ``thresh`` (default eps)."""
+    norm = torch.sqrt(_vdot(x, x))
+    if thresh is None:
+        thresh = torch.finfo(x.dtype).eps
+    use = norm > thresh
+    return torch.where(use, x / norm, torch.zeros_like(x)), torch.where(use, norm, torch.zeros_like(norm))
+
+
+def gmres(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-5,
+    atol: float = 0.0,
+    restart: int = 20,
+    maxiter: Optional[int] = None,
+    M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> tuple[torch.Tensor, None]:
+    """Restarted GMRES for ``A x = b`` with ``b`` of shape ``(n,)``, the
+    iteration of ``jax.scipy.sparse.linalg.gmres(solve_method="batched")``
+    (jax 0.9 ``_gmres_solve``/``_gmres_batched``): restart while
+    ``|M (b - A x)| > max(tol |b|, atol)``, at most ``maxiter`` restarts
+    (default ``10 n``). Each restart builds ``restart`` Arnoldi vectors of
+    ``M A`` by one classical Gram-Schmidt pass (what jax's
+    ``_iterative_classical_gram_schmidt`` with ``max_iterations=2`` runs),
+    stops early on a breakdown, and solves the least squares by the normal
+    equations and a Cholesky factorization (jax's ``_lstsq``). Returns
+    ``(x, None)``."""
+    if M is None:
+        M = lambda v: v  # noqa: E731
+    n = b.shape[0]
+    if maxiter is None:
+        maxiter = 10 * n
+    restart = min(restart, n)
+    x = torch.zeros_like(b) if x0 is None else x0
+    eps = torch.finfo(b.dtype).eps
+    atol = torch.clamp(tol * torch.sqrt(_vdot(b, b)), min=atol)
+    unit, rnorm = _safe_normalize(M(b - A(x)))
+    k = 0
+    while k < maxiter and bool(rnorm > atol):
+        V = torch.zeros(restart + 1, n, dtype=b.dtype, device=b.device)
+        V[0] = unit
+        H = torch.eye(restart, restart + 1, dtype=b.dtype, device=b.device)
+        for j in range(restart):
+            v = M(A(V[j]))
+            _, norm0 = _safe_normalize(v)
+            h = V @ v
+            v = v - V.T @ h
+            unit_v, norm1 = _safe_normalize(v, thresh=eps * norm0)
+            V[j + 1] = unit_v
+            h[j + 1] = norm1
+            H[j] = h
+            if bool(norm1 == 0):
+                break
+        beta = torch.zeros(restart + 1, dtype=b.dtype, device=b.device)
+        beta[0] = rnorm
+        L = torch.linalg.cholesky(H @ H.T)
+        y = torch.cholesky_solve((H @ beta)[:, None], L)[:, 0]
+        x = x + V[:-1].T @ y
+        unit, rnorm = _safe_normalize(M(b - A(x)))
+        k += 1
+    return x, None
+
+
+def _op(name: str, *args) -> None:
+    """Call the K18 operator ``name`` (kernel on the card, plain on the CPU)."""
+    getattr(kernels, name)(*args)
+
+
+def _bicgstab_fused(matvec, b: torch.Tensor, dinv: torch.Tensor, atol2: float, maxiter: int,
+                    run=_op):
+    """:func:`bicgstab` with ``M = dinv *``, the vector work of each
+    iteration in the K18a kernels and its scalars on the device; the host
+    reads the continue flag once per iteration. ``run(name, *args)`` calls
+    each K18 operator (a check may wrap it). Returns ``(x, iterations)``."""
+    n = b.shape[0]
+    f64 = dict(dtype=torch.float64, device=b.device)
+    nb = -(-n // _ref.KRYLOV_BLOCK)
+    x = torch.zeros(n, **f64)
+    r = b - matvec(x)
+    rhat, p, q = r.clone(), r.clone(), r.clone()
+    phat, s, shat = (torch.empty(n, **f64) for _ in range(3))
+    partials = torch.zeros(3, nb, **f64)
+    st = torch.zeros(_ref.BICG_SLOTS, **f64)
+    st[[_ref.BICG_RHO, _ref.BICG_ALPHA, _ref.BICG_OMEGA]] = 1.0
+    st[_ref.BICG_ATOL2] = atol2
+    cont = torch.zeros(1, dtype=torch.int32, device=b.device)
+    run("krylov_dots", r, r, r, r, partials, 1)
+    run("bicgstab_scalars", partials, st, cont, _ref.STAGE_INIT)
+    k = 0
+    while k < maxiter and bool(cont):
+        run("bicgstab_p", r, q, dinv, st, p, phat)
+        q = matvec(phat)
+        run("krylov_dots", rhat, q, rhat, q, partials, 1)
+        run("bicgstab_scalars", partials, st, cont, _ref.STAGE_ALPHA)
+        run("bicgstab_s", r, q, dinv, st, s, shat, partials)
+        t = matvec(shat)
+        run("krylov_dots", t, s, t, t, partials[1:], 2)
+        run("bicgstab_scalars", partials, st, cont, _ref.STAGE_OMEGA)
+        run("bicgstab_xr", x, r, phat, shat, s, t, rhat, st, partials)
+        run("bicgstab_scalars", partials, st, cont, _ref.STAGE_NEXT)
+        k += 1
+    return x, k
+
+
+def _gmres_fused(matvec, b: torch.Tensor, dinv: torch.Tensor, atol: float, maxiter: int,
+                 restart: int, run=_op):
+    """:func:`gmres` with ``M = dinv *``, the Arnoldi and restart work in the
+    K18b kernels; a breakdown is handled on the device, and the host reads
+    the continue flag once per restart. ``run`` as for
+    :func:`_bicgstab_fused`. Returns ``(x, arnoldi_steps)``."""
+    n = b.shape[0]
+    restart = min(restart, n)
+    f64 = dict(dtype=torch.float64, device=b.device)
+    nb = -(-n // _ref.KRYLOV_BLOCK)
+    V = torch.zeros(restart + 1, n, **f64)
+    H = torch.empty(restart, restart + 1, **f64)
+    y = torch.empty(restart, **f64)
+    w = torch.empty(n, **f64)
+    partials = torch.zeros(restart + 3, nb, **f64)
+    flags = torch.zeros(restart + 1, dtype=torch.int32, device=b.device)
+    st = torch.zeros(_ref.GMRES_SLOTS, **f64)
+    st[_ref.GMRES_ATOL] = atol
+    cont = torch.zeros(1, dtype=torch.int32, device=b.device)
+    x = torch.zeros(n, **f64)
+    run("gmres_residual", b, matvec(x), dinv, w, partials)
+    run("gmres_restart", w, V, H, partials, flags, st, cont)
+    k = 0
+    while k < maxiter and bool(cont):
+        for j in range(restart):
+            run("cgs_project", matvec(V[j]), dinv, V, w, partials, flags, j)
+            run("cgs_update", V, w, partials, flags, j)
+            run("cgs_normalize", w, V, H, partials, flags, j)
+        run("gmres_lstsq", H, st, y)
+        run("gmres_correct", V, y, x)
+        run("gmres_residual", b, matvec(x), dinv, w, partials)
+        run("gmres_restart", w, V, H, partials, flags, st, cont)
+        k += 1
+    return x, k * restart
+
+
 def solve_sparse(
     A: sps.spmatrix,
     b: np.ndarray,
     method: str = "bicgstab",
     tol: float = 1e-12,
     maxiter: Optional[int] = None,
+    device=None,
 ) -> np.ndarray:
-    """Jacobi-preconditioned GMRES/BiCGStab (K18): not ported."""
-    raise NotImplementedError(
-        f"solve_sparse ({method}, K18) is not ported; use linear_solver="
-        "'device_gmres' or 'scipy_sparse'"
-    )
+    """Solve ``A x = b`` with Jacobi-preconditioned GMRES(30) (``method
+    "gmres"``) or BiCGStab (any other method) on ``device`` (default: the
+    card); falls back to host ``spsolve``, and counts it in
+    :data:`FALLBACK_COUNTER`, when ``|b - A x| > max(tol max(|b|, 1) 1e3,
+    1e-8)`` on the host. ``maxiter`` (default ``max(200, 4 n)``) counts
+    BiCGStab iterations or GMRES restarts, as in jax."""
+    A = A.tocsr()
+    n = A.shape[0]
+    if maxiter is None:
+        maxiter = max(200, 4 * n)
+    from porepy_tpu_torch.numerics.ad.compiler import _device_const_matrix, _EllMat
+
+    dev = device_policy.resolve(device)
+    mat = _device_const_matrix(A, dev)
+    if isinstance(mat, _EllMat):
+        def matvec(v):
+            return kernels.ell_spmv(mat.val, mat.col, v)
+    else:
+        matvec = mat.matvec
+    dinv = torch.tensor(_inverse_diagonal(A), dtype=torch.float64, device=dev)
+    b = np.asarray(b, dtype=np.float64)
+    b_dev = torch.tensor(b, dtype=torch.float64, device=dev)
+    b_dot = float(b @ b)
+    if method == "gmres":
+        x, iters = _gmres_fused(matvec, b_dev, dinv, tol * np.sqrt(b_dot), maxiter, 30)
+    else:
+        x, iters = _bicgstab_fused(matvec, b_dev, dinv, tol**2 * b_dot, maxiter)
+    LAST_SOLVE.update(method=method, iterations=iters)
+    x_np = x.cpu().numpy()
+    res = np.linalg.norm(b - A @ x_np)
+    b_norm = np.linalg.norm(b)
+    if not np.isfinite(res) or res > max(tol * max(b_norm, 1.0) * 1e3, 1e-8):
+        FALLBACK_COUNTER["count"] += 1
+        logger.warning(
+            "Device %s missed tolerance (|r|=%.2e, |b|=%.2e); falling back "
+            "to host spsolve (fallback #%d). Consider a stronger "
+            "preconditioner or the block-preconditioned solver.",
+            method,
+            res,
+            b_norm,
+            FALLBACK_COUNTER["count"],
+        )
+        x_np = sps.linalg.spsolve(A, b)
+    return x_np

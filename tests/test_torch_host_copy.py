@@ -16,6 +16,7 @@ SOURCE = os.path.join(REPO, "porepy_tpu")
 PORTED = {
     "__init__.py",
     "applications/benchmarking/cases.py",
+    "compositional/flash.py",
     "models/constitutive_laws.py",
     "models/contact_mechanics.py",
     "models/solution_strategy.py",
@@ -58,7 +59,7 @@ COPIED = _copied_modules()
 def test_ported_modules_exist():
     for rel in PORTED:
         assert os.path.exists(os.path.join(PORT, rel)), rel
-    assert len(COPIED) >= 78
+    assert len(COPIED) >= 80
 
 
 @pytest.mark.parametrize("rel", COPIED)

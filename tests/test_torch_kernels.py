@@ -364,3 +364,84 @@ def test_cuda_region_solve_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["region_solve"] == before + 1
     assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+def _diag_dominant(n, seed):
+    """A seeded nonsymmetric, diagonally dominant CSR matrix, 5-15 entries
+    per row."""
+    rng = np.random.default_rng(seed)
+    A = sps.random(n, n, density=10.0 / n, random_state=seed, format="csr")
+    A = A - 0.5 * A.T
+    return sps.csr_matrix(A + sps.diags(np.abs(A).sum(axis=1).A1 + rng.uniform(0.5, 2.0, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 12288])
+def test_cuda_krylov_kernels_match_plain(cuda, n):
+    """K18a and K18b: whole Jacobi-preconditioned solves through the
+    kernels (``solve_sparse`` on the card) against the plain iterations
+    (``krylov.bicgstab``/``krylov.gmres`` with the same K1 matvec), x within
+    1e-9 of max |x|; every K18 kernel launched."""
+    from porepy_tpu_torch.numerics.ad.compiler import _EllMat
+    from porepy_tpu_torch.numerics.linalg import krylov
+
+    A = _diag_dominant(n, 16)
+    b = np.random.default_rng(17).standard_normal(n)
+    ell = _EllMat.from_scipy(A, cuda)
+    dinv = torch.tensor(krylov._inverse_diagonal(A), device=cuda)
+    for method, names, plain in (
+        ("bicgstab", kernels.K18A, krylov.bicgstab),
+        ("gmres", kernels.K18B, krylov.gmres),
+    ):
+        before = {k: kernels.LAUNCHES[k] for k in names}
+        got = krylov.solve_sparse(A, b, method=method, device=cuda)
+        torch.cuda.synchronize()
+        assert all(kernels.LAUNCHES[k] > before[k] for k in names), method
+        kwargs = {"restart": 30} if method == "gmres" else {}
+        want, _ = plain(
+            lambda v: kernels.ell_spmv(ell.val, ell.col, v), torch.tensor(b, device=cuda),
+            tol=1e-12, maxiter=max(200, 4 * n), M=lambda v: dinv * v, **kwargs,
+        )
+        want = want.cpu().numpy()
+        assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max(), method
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [2, 3])
+def test_cuda_flash_matches_plain(cuda, nc):
+    """K17: V, x and y within 1e-12 of the plain version (fractions in
+    [0, 1]); the same converged flags and iteration counts."""
+    K = torch.tensor([2.5, 0.3] if nc == 2 else [3.0, 0.8, 0.2], dtype=torch.float64, device=cuda)
+    raw = np.random.default_rng(18 + nc).random((nc, 20000)) + 0.02
+    zs = torch.tensor(raw / raw.sum(axis=0), device=cuda)
+    before = kernels.LAUNCHES["rachford_rice"]
+    got = kernels.rachford_rice(zs, K, 150, 1e-8)
+    want = reference.rachford_rice(zs, K, 150, 1e-8)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rachford_rice"] == before + 1
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g - w).abs().max()) <= 1e-12
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+def test_cuda_interp_lookup_matches_plain(cuda, d):
+    """K16: the value and four tangents at points in and around the table
+    against the plain version, 1e-13 of the largest magnitude."""
+    from porepy_tpu_torch.numerics.ad.operator_functions import InterpolatedFunction
+
+    lo, hi, npt = [1.0, 280.0, 0.0][:d], [5.0, 400.0, 1.0][:d], [41, 61, 9][:d]
+    fun = InterpolatedFunction(lambda *a: np.sin(a[0]) * np.cos(a[1]) + sum(a), "t", lo, hi, npt)
+    tab = fun.device_table(cuda)
+    rng = np.random.default_rng(19 + d)
+    span = np.array(hi) - np.array(lo)
+    x = torch.tensor(rng.uniform(np.array(lo) - 0.2 * span, np.array(hi) + 0.2 * span, (5000, d)).T.copy(), device=cuda)
+    dx = torch.tensor(rng.standard_normal((4, d, 5000)), device=cuda)
+    args = (tab["values"], tab["fgeom"], tab["igeom"], x)
+    for got, want in (
+        (kernels.interp_lookup(*args), reference.interp_lookup(*args)),
+        (kernels.interp_tangent(*args, dx), reference.interp_tangent(*args, dx)),
+    ):
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
