@@ -81,7 +81,29 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    and outside the table: value and four tangents against the plain
    version (1e-13 of the largest value), then ``tab(p, T)`` in an
    ``EquationSystem`` on a 1024^2 grid, evaluated and assembled on the
-   card against the CPU (1e-12), with K16 launched.
+   card against the CPU (1e-12), with K16 launched;
+17. the batched block inverse (K11) on the interaction-region matrices of
+   phase 11 (3,969 blocks of 20 from biot 1/64, 1,374 of 81 from the 3d
+   16^3 Biot problem), a batch with a zero leading entry and one of 160
+   (device workspace): the kernel against its plain version (1e-12 of the
+   plain result's largest entry), max |A X - I| per block within 1e-10
+   ||A|| ||X|| (max-row-sum norms), CUDA-event times of kernel, plain
+   version, ``torch.linalg.inv_ex`` and the copies; then a block-diagonal
+   matrix of sizes 1-12, 20, 81 and 160 through ``invert_diagonal_blocks``
+   on the card (one launch per size) against ``method="python"``;
+18. the dof-sharded Newton solve (K19) on md 1/128: (a) its first Jacobian
+   in the solver's ELL layout split into 4 row shards on the card, halo
+   plans built in one process, ``halo_pack`` and ``ell_spmv_split`` per
+   shard against K1's global product and the plain versions (phase 3's
+   rule), halo sizes with and without the spatial dof permutation, times
+   against ``torch.mv`` on each shard's CSR; (b) ``ShardedNewton`` in a
+   one-rank NCCL group (a ``FileStore`` in a temporary directory):
+   ``solve_once`` three times beside the unsharded solve of the same system
+   (increments within 1e-12 relative), one time step by ``step()`` to the
+   Newton tolerance against the unsharded Newton loop (1e-10), 0 host
+   fallbacks, ``ell_spmv_split`` launched and K1 launched in the
+   preconditioner; (c) the first K10 chunk of biot 1/64 through
+   ``set_batch_mesh`` against the unsharded route (1e-12).
 
 The line before the last is a JSON object with one entry per kernel (ms,
 plain ms, the bound and what sets it, the time of one PyTorch call of the
@@ -876,7 +898,14 @@ def check_region_kernel(dev) -> dict:
         batches.append(("synthetic, " + what, (n, m, q), (a, gen.standard_normal((B, n, m)), gen.standard_normal((B, q, n)))))
 
     main_bucket = max(k for src, k, _ in batches if src == "biot 1/64")
-    report = {"err": 0.0, "buckets": []}
+    # For phases 17 and 18: the region matrices of the two real buckets
+    # that K11 inverts, and the first and the largest chunks of the biot
+    # discretization.
+    chunks = [arrays for src, k, arrays in batches if src == "biot 1/64" and k in (batches[0][1], main_bucket)]
+    report = {"err": 0.0, "buckets": [], "chunks": chunks, "real_a": [
+        (src, arrays[0]) for src, k, arrays in batches
+        if (src, k) == ("biot 1/64", main_bucket) or (src == "biot 3d 16^3" and k[0] == 81)
+    ]}
     for source, (n, m, q), arrays in batches:
         B = arrays[0].shape[0]
         host = [torch.from_numpy(x) for x in arrays]
@@ -1555,6 +1584,308 @@ def check_lookup(dev) -> dict:
     report["launches"] = launches
     return report
 
+
+# -- K11, K19 ---------------------------------------------------------------------
+
+
+def _inf_norm(m: torch.Tensor) -> torch.Tensor:
+    return m.abs().sum(2).amax(1)
+
+
+def check_block_inverse(dev, real) -> dict:
+    """K11 on the real region matrices and two synthetic batches against
+    its plain version, then ``invert_diagonal_blocks`` on the card."""
+    import scipy.sparse as sps
+
+    from porepy_tpu_torch.kernels import LAUNCHES, ops, reference, reset_launches
+    from porepy_tpu_torch.numerics.linalg.matrix_operations import invert_diagonal_blocks
+
+    print("phase 17: the batched block inverse (K11) against its plain version")
+    gen = np.random.default_rng(17)
+    batches = list(real)
+    a = gen.standard_normal((64, 20, 20)) + 10.0 * np.eye(20)
+    a[0, 0, 0] = 0.0
+    batches.append(("synthetic, zero leading entry", a))
+    batches.append(("synthetic, device workspace", gen.standard_normal((3, 160, 160)) + 80.0 * np.eye(160)))
+    report = {"err": 0.0}
+    for source, arr in batches:
+        B, n = arr.shape[0], arr.shape[1]
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        A = host.to(dev)
+        X = ops.block_inverse(A)
+        W = reference.block_inverse(A)
+        err = float((X - W).abs().max())
+        scale = float(W.abs().max())
+        _check(f"block_inverse {source}: B {B}, n {n}", torch.tensor(err), 1e-12 * scale)
+        report["err"] = max(report["err"], err)
+        eye = torch.eye(n, dtype=A.dtype, device=dev)
+        resid = (A @ X - eye).abs().amax(dim=(1, 2))
+        worst = float((resid / (_inf_norm(A) * _inf_norm(X))).max())
+        print(f"    max |A X - I| / (||A|| ||X||) {worst:.3e} (bound 1e-10)")
+        _require(worst <= 1e-10, f"block_inverse {source}: residual {worst}")
+        reps = 20
+        ms = _cuda_ms(lambda: ops.block_inverse(A), reps)
+        plain_ms = _cuda_ms(lambda: reference.block_inverse(A), reps)
+        lib_ms = _cuda_ms(lambda: torch.linalg.inv_ex(A), reps)
+        h2d_ms = _cuda_ms(lambda: host.to(dev), reps)
+        d2h_ms = _cuda_ms(lambda: X.cpu(), reps)
+        nbytes, flops = 2 * 8.0 * B * n * n, 2.0 * B * n**3
+        bound = _bound(nbytes, flops)
+        print(
+            f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms torch.linalg.inv_ex; "
+            f"bound {bound[0]:.4f} ms ({bound[1]}); copies {h2d_ms:.4f} ms to the card, {d2h_ms:.4f} ms back"
+        )
+        if source == "biot 3d 16^3":
+            report.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bound)
+
+    # The entry point on one block-diagonal matrix of both real sizes and
+    # a few odd ones, seeded and well conditioned (cond < 10), so that
+    # Gauss-Jordan and LAPACK's LU inverse agree to rounding.
+    sizes = np.array(list(range(1, 13)) + [20] * 6 + [81] * 4 + [160])
+    sizes = sizes[gen.permutation(sizes.size)]
+    mat = sps.block_diag([sps.csr_matrix(gen.standard_normal((k, k)) + k * np.eye(k)) for k in sizes], format="csr")
+    reset_launches()
+    got = invert_diagonal_blocks(mat, sizes)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["block_inverse"]
+    want = invert_diagonal_blocks(mat, sizes, method="python")
+    err = float(abs(got - want).max())
+    scale = float(abs(want).max())
+    print(f"  invert_diagonal_blocks, {sizes.size} blocks of {np.unique(sizes).size} sizes (n {mat.shape[0]}): "
+          f"max |card - python| {err:.3e}, max {scale:.3e}; K11 launches {launches}")
+    _require(err <= 1e-12 * scale, f"invert_diagonal_blocks: card and python differ by {err}")
+    _require(launches == np.unique(sizes).size, f"K11 launches {launches}")
+    report["launches"] = launches
+    return report
+
+
+def check_halo_kernels(dev, model, n_shards: int = 4) -> dict:
+    """Phase 18a: md 1/128's first Jacobian in 4 row shards on the card."""
+    from porepy_tpu_torch.kernels import LAUNCHES, ops, reference, reset_launches
+    from porepy_tpu_torch.numerics.linalg.device_solver import DeviceLinearSolver
+    from porepy_tpu_torch.parallel import halo
+    from porepy_tpu_torch.parallel.placement import PermutedSystem, nnz_locality, spatial_dof_permutation
+
+    eq = model.equation_system
+    cs = eq.compiled_system()
+    solver = model._device_solver_for(cs)
+    data, _b = cs.assemble(eq)
+    n = solver.n
+    val64 = torch.cat([data, data.new_zeros(1)])[solver._ell_sel]
+    col = solver._ell_col
+    plans = halo.local_plans(col.cpu().numpy(), n, n_shards)
+    print(f"phase 18a: md 1/128's Jacobian (n {n}, K {col.shape[1]}) in {n_shards} row shards on the card")
+    perm, _ = spatial_dof_permutation(eq, model.mdg, n_shards)
+    psys = PermutedSystem(cs, perm)
+    psys.device = cs.device
+    pplans = halo.local_plans(DeviceLinearSolver(psys)._ell_col.cpu().numpy(), n, n_shards)
+    print(f"  rows per shard {[p.n_own for p in plans]}; halo entries per shard {[p.n_halo for p in plans]}, "
+          f"with the spatial permutation {[p.n_halo for p in pplans]}; nnz locality "
+          f"{nnz_locality(cs, n_shards):.4f}, with it {nnz_locality(cs, n_shards, perm):.4f}")
+    cols = [torch.tensor(p.col, device=dev) for p in plans]
+    idx = [torch.tensor(p.send_idx, device=dev) for p in plans]
+    gen = torch.Generator().manual_seed(18)
+    report = {"halo_pack": {"err": 0.0}, "ell_spmv_split": {"err": 0.0}}
+    for dtype in (torch.float64, torch.float32):
+        val = val64.to(dtype)
+        x = torch.randn(n, generator=gen, dtype=torch.float64).to(dtype).to(dev)
+        own = [x[p.lo : p.hi] for p in plans]
+        vals = [val[p.lo : p.hi] for p in plans]
+
+        def run(pack, spmv):
+            sends = [pack(o, i) for o, i in zip(own, idx)]
+            halos = halo.exchange_local(plans, sends)
+            return sends, halos, [spmv(v, c, o, h) for v, c, o, h in zip(vals, cols, own, halos)]
+
+        reset_launches()
+        sends, halos, ys = run(ops.halo_pack, ops.ell_spmv_split)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        p_sends, _p_halos, p_ys = run(reference.halo_pack, reference.ell_spmv_split)
+        tag = str(dtype)[6:]
+        pack_err = max(float((a - b).abs().max()) for a, b in zip(sends, p_sends))
+        _check(f"halo_pack {tag}, {n_shards} shards", torch.tensor(pack_err), 0.0)
+        got = torch.cat(ys)
+        absx = torch.cat([x.abs(), x.new_zeros(1)])
+        rowsum = (val.abs() * absx[col]).sum(-1)
+        k1 = ops.ell_spmv(val, col, x)
+        err = max(
+            _check(f"ell_spmv_split {tag}, {n_shards} shards, against K1", (got - k1).abs(), TOL[dtype] * rowsum),
+            _check(f"ell_spmv_split {tag} against its plain version", (got - torch.cat(p_ys)).abs(), TOL[dtype] * rowsum),
+        )
+        report["halo_pack"]["err"] = max(report["halo_pack"]["err"], pack_err)
+        report["ell_spmv_split"]["err"] = max(report["ell_spmv_split"]["err"], err)
+        if dtype != torch.float32:
+            continue
+        # The inner Krylov matvec is f32: time it, per call over the shards.
+        csrs = []
+        for p, v, c in zip(plans, vals, cols):
+            real = c < p.n_own + p.n_halo
+            crow = torch.zeros(p.n_own + 1, dtype=torch.int64, device=dev)
+            crow[1:] = torch.cumsum(real.sum(1), 0)
+            csrs.append(torch.sparse_csr_tensor(crow, c[real].long(), v[real], size=(p.n_own, p.n_own + p.n_halo)))
+        xcat = [torch.cat([o, h]) for o, h in zip(own, halos)]
+        per = 1.0 / n_shards
+        t = {
+            "split": _cuda_ms(lambda: [ops.ell_spmv_split(v, c, o, h) for v, c, o, h in zip(vals, cols, own, halos)]) * per,
+            "split_plain": _cuda_ms(lambda: [reference.ell_spmv_split(v, c, o, h) for v, c, o, h in zip(vals, cols, own, halos)]) * per,
+            "split_lib": _cuda_ms(lambda: [torch.mv(m, xc) for m, xc in zip(csrs, xcat)]) * per,
+            "pack": _cuda_ms(lambda: [ops.halo_pack(o, i) for o, i in zip(own, idx)]) * per,
+            "pack_plain": _cuda_ms(lambda: [reference.halo_pack(o, i) for o, i in zip(own, idx)]) * per,
+            "pack_lib": _cuda_ms(lambda: [torch.index_select(o, 0, i) for o, i in zip(own, idx)]) * per,
+        }
+        print(f"    per shard call, f32: ell_spmv_split {t['split']:.4f} ms, plain {t['split_plain']:.4f}, "
+              f"torch.mv on the CSR {t['split_lib']:.4f}; halo_pack {t['pack']:.4f} ms, plain {t['pack_plain']:.4f}, "
+              f"torch.index_select {t['pack_lib']:.4f}")
+        nnz = sum(int((c < p.n_own + p.n_halo).sum()) for p, c in zip(plans, cols))
+        n_send = sum(len(p.send_idx) for p in plans)
+        # Per call, the mean over the shards: val and col (K entries a row)
+        # read, x_own and the halo read, y written; 2 operations a nonzero.
+        report["ell_spmv_split"].update(
+            ms=t["split"], plain_ms=t["split_plain"], library_ms=t["split_lib"],
+            bound=_bound(per * (n * col.shape[1] * 8 + 2 * n * 4 + sum(p.n_halo for p in plans) * 4),
+                         per * 2 * nnz, torch.float32),
+        )
+        report["halo_pack"].update(
+            ms=t["pack"], plain_ms=t["pack_plain"], library_ms=t["pack_lib"],
+            bound=_bound(per * n_send * 12, 0, torch.float32), launches=launches["halo_pack"],
+        )
+    print(f"  launches of the four shards' matvec: halo_pack {report['halo_pack']['launches']}")
+    _require(report["halo_pack"]["launches"] > 0, "halo_pack not launched")
+    return report
+
+
+def _newton_time_step(model, step, max_iter: int = 10) -> tuple[np.ndarray, int]:
+    """Newton iterations by ``step()`` until the increment is below the
+    model's tolerance; returns the state and the iteration count."""
+    tol = model.params.get("nl_convergence_tol", 1e-10)
+    for it in range(1, max_iter + 1):
+        model.before_nonlinear_iteration()
+        dx, _res = step()
+        if model.compute_nonlinear_increment_norm(dx) < tol:
+            return model.equation_system.get_variable_values(iterate_index=0), it
+    raise RuntimeError(f"chip_smoke check failed: no Newton convergence in {max_iter} iterations")
+
+
+def run_sharded(dev, chunks) -> dict:
+    """Phase 18: the K19 kernels at 4 row shards, ``ShardedNewton`` on md
+    1/128 in a one-rank NCCL group, and the sharded region batches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from porepy_tpu_torch.applications.benchmarking.cases import build_md_flow
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+    from porepy_tpu_torch.numerics.fv import local_solves
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+    from porepy_tpu_torch.parallel.sharded import ShardedNewton, make_dof_mesh
+
+    print("phase 18: the dof-sharded Newton solve (K19) on md 1/128")
+    Model, params = build_md_flow(1.0 / 128, device=str(dev))
+    model = Model(params)
+    model.prepare_simulation()
+    model.before_nonlinear_loop()
+    model.before_nonlinear_iteration()
+    eq = model.equation_system
+    x0 = eq.get_variable_values(iterate_index=0)
+    kernels = check_halo_kernels(dev, model)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - tic)
+
+    # NCCL's bootstrap socket stays on the loopback: the group has one rank.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    launches = dict.fromkeys(LAUNCHES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_dof_mesh()
+            print(f"phase 18b: ShardedNewton in a one-rank NCCL group on {mesh.device}")
+            fallbacks0 = FALLBACK_COUNTER["count"]
+
+            def counted(fn):
+                """``fn()`` with the launches it makes added to the sharded
+                path's counts (the unsharded runs between are not)."""
+                reset_launches()
+                out = fn()
+                torch.cuda.synchronize()
+                for k, v in LAUNCHES.items():
+                    launches[k] += v
+                return out
+
+            sn = ShardedNewton(model, mesh)
+            (dx_s, res_s), first_ms = counted(lambda: timed(sn.solve_once))
+
+            def unsharded_once():
+                data, b = sn.assemble()
+                return sn.solver.solve(data, b)
+
+            dx_u, _ = timed(unsharded_once)
+            sharded_ms, unsharded_ms = [], []
+            for sharded_first in (True, False, True):
+                for is_sharded in (sharded_first, not sharded_first):
+                    if is_sharded:
+                        sharded_ms.append(counted(lambda: timed(sn.solve_once))[1])
+                    else:
+                        unsharded_ms.append(timed(unsharded_once)[1])
+            dx_diff = float(np.abs(dx_s - dx_u).max())
+            scale = float(np.abs(dx_u).max())
+            print(f"  solve_once {first_ms:.2f} ms first, then {[round(t, 2) for t in sharded_ms]} ms; unsharded "
+                  f"assembly + solve {[round(t, 2) for t in unsharded_ms]} ms; |r| {res_s:.3e}, "
+                  f"{sn.solver.last_stats['krylov_iters']} Krylov iterations")
+            print(f"  increments: max |sharded - unsharded| {dx_diff:.3e} (max |dx| {scale:.3e}; bit-equal: {dx_diff == 0.0})")
+            _require(dx_diff <= 1e-12 * scale, f"sharded and unsharded increments differ by {dx_diff}")
+
+            x_s, newton = counted(lambda: _newton_time_step(model, sn.step))
+            eq.set_variable_values(x0, iterate_index=0)
+            model.update_derived_quantities()
+
+            def unsharded_step():
+                data, b = sn.assemble()
+                dx = sn.solver.solve(data, b)
+                model.after_nonlinear_iteration(dx)
+                return dx, None
+
+            x_u, newton_u = _newton_time_step(model, unsharded_step)
+            state_diff = float(np.abs(x_s - x_u).max())
+            fallbacks = FALLBACK_COUNTER["count"] - fallbacks0
+            print(f"  one time step: {newton} Newton iterations sharded, {newton_u} unsharded; max |state "
+                  f"difference| {state_diff:.3e}; host fallbacks {fallbacks}")
+            print(f"  kernel launches of the sharded runs: ell_spmv_split {launches['ell_spmv_split']}, "
+                  f"ell_spmv (K1, the preconditioner) {launches['ell_spmv']}, halo_pack {launches['halo_pack']}")
+            _require(state_diff <= 1e-10, f"sharded and unsharded states differ by {state_diff}")
+            _require(fallbacks == 0, f"host fallbacks {fallbacks}")
+            _require(launches["ell_spmv_split"] > 0, "ell_spmv_split not launched")
+            _require(launches["ell_spmv"] > 0, "K1 not launched in the preconditioner")
+
+            print("phase 18c: the first and the largest K10 chunks of biot 1/64 through set_batch_mesh")
+            for chunk in chunks:
+                local_solves.set_batch_mesh(mesh)
+                try:
+                    got = local_solves._solve_chunk_device(*chunk)
+                finally:
+                    local_solves.set_batch_mesh(None)
+                want = local_solves._solve_chunk_device(*chunk)
+                err = float(np.abs(got - want).max())
+                print(f"  B {chunk[0].shape[0]}, n {chunk[0].shape[1]}: max |sharded - unsharded| {err:.3e}")
+                _require(err <= 1e-12 * float(np.abs(want).max()), f"sharded region batch differs by {err}")
+        finally:
+            dist.destroy_process_group()
+    return {
+        "kernels": kernels,
+        "launches": launches,
+        "sharded_ms": float(np.median(sharded_ms)),
+        "unsharded_ms": float(np.median(unsharded_ms)),
+        "dx_diff": dx_diff,
+        "newton": newton,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1592,6 +1923,11 @@ def main() -> int:
     gmres = run_biot_krylov(dev, "gmres", biot)
     report["rachford_rice"] = check_flash(dev)
     report["interp_lookup"] = check_lookup(dev)
+    tic = time.perf_counter()
+    report["block_inverse"] = check_block_inverse(dev, report["region_solve"].pop("real_a"))
+    sharded = run_sharded(dev, report["region_solve"].pop("chunks"))
+    report.update(sharded["kernels"])
+    print(f"phases 17-18 took {time.perf_counter() - tic:.1f} s")
 
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {
@@ -1610,6 +1946,11 @@ def main() -> int:
         "gmres_arnoldi": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", gmres["launches"]),
         "rachford_rice": ("flash.cu", "porepy_tpu/compositional/flash.py:80", report["rachford_rice"]["launches"]),
         "interp_lookup": ("interp_lookup.cu", "porepy_tpu/numerics/ad/operator_functions.py:117", report["interp_lookup"]["launches"]),
+        "block_inverse": ("block_inverse.cu", "porepy_tpu/numerics/linalg/matrix_operations.py:105", report["block_inverse"]["launches"]),
+        # A one-rank group has no halo: halo_pack's launches are those of
+        # the four row shards of phase 18a.
+        "halo_pack": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", report["halo_pack"]["launches"]),
+        "ell_spmv_split": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", sharded["launches"]["ell_spmv_split"]),
     }
     entries = []
     for k, (src, replaces, launches) in kernels.items():
@@ -1648,6 +1989,11 @@ def main() -> int:
             f"Newton, {r['iters_mean']:.1f} Krylov iterations per solve), host assembly {r['assemble_ms']:.2f} ms, "
             f"solve {r['solve_ms']:.2f} ms per Newton iteration"
         )
+    print(
+        f"md 1/128 sharded on {smi}, one-rank NCCL group: solve_once {sharded['sharded_ms']:.2f} ms "
+        f"(median of 3) against the unsharded assembly and solve {sharded['unsharded_ms']:.2f} ms, "
+        f"increments {sharded['dx_diff']:.3e} apart; a time step in {sharded['newton']} Newton iterations"
+    )
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

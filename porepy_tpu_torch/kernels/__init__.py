@@ -29,6 +29,9 @@ K18b      :func:`cgs_project`,           ``numerics/linalg/krylov.py:42-61`` (ja
 K17       :func:`rachford_rice`          ``compositional/flash.py:80-122``
 K16       :func:`interp_lookup`,         ``numerics/ad/operator_functions.py:117-134``
           :func:`interp_tangent`
+K11       :func:`block_inverse`          ``numerics/linalg/matrix_operations.py:105-142``
+K19       :func:`halo_pack`,             ``numerics/linalg/device_solver.py:947-953`` (the
+          :func:`ell_spmv_split`         matvec under ``parallel/sharded.py``'s dof sharding)
 ========  =============================  =====================================================
 
 The CUDA sources live in ``csrc/`` and are built at first use (see
@@ -44,6 +47,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     bicgstab_s,
     bicgstab_scalars,
     bicgstab_xr,
+    block_inverse,
     cgs_normalize,
     cgs_project,
     cgs_update,
@@ -51,6 +55,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     gmres_lstsq,
     gmres_residual,
     gmres_restart,
+    halo_pack,
     interp_lookup,
     interp_tangent,
     krylov_dots,
@@ -59,6 +64,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     dense_block_scatter,
     ell_jacobi_sweep,
     ell_spmv,
+    ell_spmv_split,
     fgmres_givens,
     gj_pivot_inverse,
     region_solve,

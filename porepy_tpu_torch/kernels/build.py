@@ -29,6 +29,8 @@ SOURCES = (
     "krylov.cu",
     "flash.cu",
     "interp_lookup.cu",
+    "block_inverse.cu",
+    "halo_spmv.cu",
 )
 _NAME = "porepy_tpu_torch_kernels"
 _CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
@@ -63,14 +65,17 @@ _SIGNATURES = {
     "ppt_gmres_restart": [_P] * 7 + [_I, _I, _P],
     "ppt_rachford_rice": [_P] * 7 + [_I, _L, _I, _D, _P],
     "ppt_interp_lookup": [_P] * 7 + [_I, _L, _I, _P],
+    "ppt_block_inverse": [_P] * 3 + [_I, _I, _P],
+    "ppt_halo_pack": [_P] * 3 + [_I, _P],
+    "ppt_ell_spmv_split": [_P] * 5 + [_I] * 4 + [_P],
 }
-# The dtypes each kernel is built for (default: both). K10, K16, K17 and
-# K18 are float64 only.
+# The dtypes each kernel is built for (default: both). K10, K11, K16, K17
+# and K18 are float64 only.
 _F64_ONLY = (
     "ppt_region_solve", "ppt_bicgstab_p", "ppt_krylov_dots", "ppt_bicgstab_s",
     "ppt_bicgstab_xr", "ppt_bicgstab_scalars", "ppt_cgs_project", "ppt_cgs_update",
     "ppt_cgs_normalize", "ppt_gmres_lstsq", "ppt_gmres_correct", "ppt_gmres_residual",
-    "ppt_gmres_restart", "ppt_rachford_rice", "ppt_interp_lookup",
+    "ppt_gmres_restart", "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
 )
 _SUFFIXES = {name: ("_f64",) for name in _F64_ONLY}
 

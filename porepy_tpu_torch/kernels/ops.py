@@ -45,6 +45,9 @@ __all__ = [
     "rachford_rice",
     "interp_lookup",
     "interp_tangent",
+    "block_inverse",
+    "halo_pack",
+    "ell_spmv_split",
 ]
 
 #: Kernel launches per operator since the last :func:`reset_launches`.
@@ -74,6 +77,9 @@ LAUNCHES = {
     "gmres_restart": 0,
     "rachford_rice": 0,
     "interp_lookup": 0,
+    "block_inverse": 0,
+    "halo_pack": 0,
+    "ell_spmv_split": 0,
 }
 
 #: The operators of the fused BiCGStab step (K18a) and of the GMRES Arnoldi
@@ -527,9 +533,10 @@ def _(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
 
 # -- K10 --------------------------------------------------------------------------
 
-# Dynamic shared memory the region-solve kernel may take (``kSmemMax`` in
-# ``csrc/region_solve.cu``); larger regions work from a device workspace.
-_REGION_SMEM_MAX = 231424
+# Dynamic shared memory the region-solve and block-inverse kernels may take
+# (``kSmemMax`` in ``csrc/region_solve.cu`` and ``csrc/block_inverse.cu``);
+# larger systems work from a device workspace.
+_SMEM_MAX = 231424
 
 
 @torch.library.custom_op("porepy_tpu_torch::region_solve", mutates_args=())
@@ -555,7 +562,7 @@ def _region_solve_cuda(a, rhs, w):
     if out.numel() == 0:
         return out
     work = None
-    if 8 * n * (n + m + 1) > _REGION_SMEM_MAX:
+    if 8 * n * (n + m + 1) > _SMEM_MAX:
         work = torch.empty((B, n, n + m), dtype=a.dtype, device=a.device)
     _launch(
         "region_solve", a.dtype,
@@ -983,3 +990,104 @@ def _interp_tangent_cuda(values, fgeom, igeom, x, dx):
 @interp_tangent.register_fake
 def _(values, fgeom, igeom, x, dx):
     return x.new_empty((dx.shape[0], x.shape[1]))
+
+
+# -- K11 --------------------------------------------------------------------------
+
+
+@torch.library.custom_op("porepy_tpu_torch::block_inverse", mutates_args=())
+def block_inverse(a: torch.Tensor) -> torch.Tensor:
+    """Inverses of the ``(B, n, n)`` float64 matrices ``a`` by Gauss-Jordan
+    elimination with partial pivoting (see
+    :func:`porepy_tpu_torch.kernels.reference.block_inverse`)."""
+    return reference.block_inverse(a)
+
+
+@block_inverse.register_kernel("cuda")
+def _block_inverse_cuda(a):
+    if a.dtype != torch.float64:
+        raise TypeError("block_inverse: a must be float64")
+    if a.dim() != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError("block_inverse: needs (B, n, n) matrices")
+    _check("block_inverse", {"a": a}, a.dtype)
+    B, n = a.shape[0], a.shape[1]
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    work = None
+    if 8 * n * (2 * n + 1) > _SMEM_MAX:
+        work = torch.empty((B, n, 2 * n), dtype=a.dtype, device=a.device)
+    _launch(
+        "block_inverse", a.dtype,
+        a.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(), B, n,
+    )
+    return out
+
+
+@block_inverse.register_fake
+def _(a):
+    return torch.empty_like(a)
+
+
+# -- K19 --------------------------------------------------------------------------
+
+
+@torch.library.custom_op("porepy_tpu_torch::halo_pack", mutates_args=())
+def halo_pack(x_own: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
+    """The send buffer ``x_own[send_idx]`` of a halo exchange; ``send_idx``
+    int32, grouped by destination rank."""
+    return reference.halo_pack(x_own, send_idx)
+
+
+@halo_pack.register_kernel("cuda")
+def _halo_pack_cuda(x_own, send_idx):
+    if send_idx.dtype != torch.int32:
+        raise TypeError("halo_pack: send_idx must be int32")
+    if x_own.dim() != 1 or send_idx.dim() != 1:
+        raise ValueError("halo_pack: needs (n_own,) x_own and (n_send,) send_idx")
+    _check("halo_pack", {"x_own": x_own, "send_idx": send_idx}, x_own.dtype)
+    send = torch.empty(send_idx.shape[0], dtype=x_own.dtype, device=x_own.device)
+    if send.numel():
+        _launch("halo_pack", x_own.dtype, x_own.data_ptr(), send_idx.data_ptr(),
+                send.data_ptr(), send.numel())
+    return send
+
+
+@halo_pack.register_fake
+def _(x_own, send_idx):
+    return x_own.new_empty(send_idx.shape[0])
+
+
+@torch.library.custom_op("porepy_tpu_torch::ell_spmv_split", mutates_args=())
+def ell_spmv_split(
+    val: torch.Tensor, col: torch.Tensor, x_own: torch.Tensor, x_halo: torch.Tensor
+) -> torch.Tensor:
+    """The owned rows of ``A @ x`` from ``x_own`` and the received halo
+    ``x_halo``, not concatenated: ``col`` below ``n_own`` reads ``x_own``,
+    from ``n_own`` ``x_halo``, ``n_own + n_halo`` is padding (see
+    :func:`porepy_tpu_torch.kernels.reference.ell_spmv_split`)."""
+    return reference.ell_spmv_split(val, col, x_own, x_halo)
+
+
+@ell_spmv_split.register_kernel("cuda")
+def _ell_spmv_split_cuda(val, col, x_own, x_halo):
+    dtype = x_own.dtype
+    if col.dtype != torch.int32 or val.dtype != dtype or x_halo.dtype != dtype:
+        raise TypeError("ell_spmv_split: needs val, x_own, x_halo of one dtype and int32 col")
+    if val.dim() != 2 or col.shape != val.shape or x_own.dim() != 1 or x_halo.dim() != 1:
+        raise ValueError("ell_spmv_split: needs (n, K) val and col, 1-d x_own and x_halo")
+    _check("ell_spmv_split", {"val": val, "col": col, "x_own": x_own, "x_halo": x_halo}, dtype)
+    n_rows, K = val.shape
+    y = torch.empty(n_rows, dtype=dtype, device=x_own.device)
+    if n_rows:
+        _launch(
+            "ell_spmv_split", dtype,
+            val.data_ptr(), col.data_ptr(), x_own.data_ptr(), x_halo.data_ptr(),
+            y.data_ptr(), n_rows, K, x_own.shape[0], x_halo.shape[0],
+        )
+    return y
+
+
+@ell_spmv_split.register_fake
+def _(val, col, x_own, x_halo):
+    return x_own.new_empty(val.shape[0])

@@ -38,6 +38,9 @@ __all__ = [
     "gmres_restart",
     "rachford_rice",
     "interp_lookup",
+    "block_inverse",
+    "halo_pack",
+    "ell_spmv_split",
 ]
 
 
@@ -540,3 +543,47 @@ def interp_tangent(values, fgeom, igeom, x, dx):
             dw = dw + term
         out = out + dw * v
     return out
+
+
+# -- K11 --------------------------------------------------------------------------
+
+
+def block_inverse(a: torch.Tensor) -> torch.Tensor:
+    """Inverses of the ``(B, n, n)`` matrices ``a`` by Gauss-Jordan
+    elimination with partial pivoting on ``[A | I]``: per column ``k``, the
+    first row ``i >= k`` of largest ``|M[i, k]|`` is swapped into row ``k``,
+    row ``k`` is divided by its pivot and ``M[i, k]`` times it is subtracted
+    from every other row. A singular matrix gives non-finite entries."""
+    B, n, _ = a.shape
+    eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(B, n, n)
+    M = torch.cat([a, eye], dim=2)
+    batch = torch.arange(B, device=a.device)
+    for k in range(n):
+        p = k + torch.argmax(M[:, k:, k].abs(), dim=1)
+        row_k = M[:, k].clone()
+        M[:, k] = M[batch, p]
+        M[batch, p] = row_k
+        M[:, k] = M[:, k] / M[:, k, k : k + 1]
+        f = M[:, :, k].clone()
+        f[:, k] = 0.0
+        M -= f[:, :, None] * M[:, None, k, :]
+    return M[:, :, n:].contiguous()
+
+
+# -- K19 --------------------------------------------------------------------------
+
+
+def halo_pack(x_own: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
+    """The send buffer of a halo exchange: ``x_own[send_idx]``."""
+    return x_own[send_idx.long()]
+
+
+def ell_spmv_split(
+    val: torch.Tensor, col: torch.Tensor, x_own: torch.Tensor, x_halo: torch.Tensor
+) -> torch.Tensor:
+    """``y_i = sum_k val[i, k] src(col[i, k])`` over a row shard: ``src``
+    reads ``x_own`` below ``n_own = x_own.numel()``, ``x_halo`` from there,
+    and zero at the padding column ``n_own + x_halo.numel()``. Written as
+    :func:`ell_spmv` on ``[x_own, x_halo]``, so that one shard holding every
+    row gives :func:`ell_spmv`'s result bit for bit."""
+    return ell_spmv(val, col, torch.cat([x_own, x_halo]))

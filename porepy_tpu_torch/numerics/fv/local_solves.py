@@ -19,9 +19,10 @@ as in ``porepy_tpu``:
   raises: it never falls back to the host.
 
 Discretization is one-time setup; the per-Newton-iteration path (assembly
-and Krylov) runs on the model's device either way. Sharding the region
-batches over several devices (K19) is not ported: ``set_batch_mesh``
-raises for a mesh.
+and Krylov) runs on the model's device either way. With a dof mesh set by
+:func:`set_batch_mesh` (K19), the device route splits each chunk's region
+batch over the mesh's ranks: each rank solves its contiguous slice on its
+own device and the slices are all-gathered.
 
 The contract solved per region ``r``::
 
@@ -103,11 +104,45 @@ def _solve_chunk_host(a_dense, rhs_dense, w_dense):
     return w_dense @ x
 
 
+# The dof mesh the device route splits region batches over (set by
+# set_batch_mesh; None: one device).
+_BATCH_MESH = None
+
+
 def set_batch_mesh(mesh) -> None:
-    """Shard the batched local solves over a device mesh (K19). Not
-    available in this package; ``None`` (single process) is accepted."""
+    """Shard subsequent batched local solves of the device route over
+    ``mesh`` (a :class:`~porepy_tpu_torch.parallel.sharded.DofMesh`; every
+    rank of it must discretize together): the region batch is an
+    embarrassingly parallel axis, so each rank solves a contiguous slice
+    and no collective but the final gather is needed. ``None`` restores
+    single-device execution."""
+    global _BATCH_MESH
     if mesh is not None:
-        raise NotImplementedError("sharded local solves (K19) are not ported")
+        from porepy_tpu_torch.parallel.sharded import DofMesh
+
+        if not isinstance(mesh, DofMesh):
+            raise TypeError(f"set_batch_mesh needs a DofMesh or None, not {type(mesh).__name__}")
+    _BATCH_MESH = mesh
+
+
+def _shard_batch(a_dense, rhs_dense, w_dense):
+    """Pad the batch to a multiple of the mesh size with identity systems
+    (zero ``rhs`` and ``w``) and return this rank's contiguous slice of
+    each operand on its device, with ``pad``, the rows to drop from the
+    gathered result."""
+    mesh = _BATCH_MESH
+    B = a_dense.shape[0]
+    pad = (-B) % mesh.size
+    if pad:
+        n = a_dense.shape[1]
+        eye = np.broadcast_to(np.eye(n, a_dense.shape[2]), (pad, n, a_dense.shape[2]))
+        a_dense = np.concatenate([a_dense, eye])  # identity pad: finite LU
+        rhs_dense = np.concatenate([rhs_dense, np.zeros((pad,) + rhs_dense.shape[1:])])
+        w_dense = np.concatenate([w_dense, np.zeros((pad,) + w_dense.shape[1:])])
+    per = (B + pad) // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x[rows])).to(mesh.device)
+    return put(a_dense), put(rhs_dense), put(w_dense), pad
 
 
 def _solve_chunk_device(a_dense, rhs_dense, w_dense, device=None):
@@ -115,10 +150,21 @@ def _solve_chunk_device(a_dense, rhs_dense, w_dense, device=None):
     exist) through the K10 operator: f64 LU with partial pivoting of the
     row-equilibrated systems and the contraction, as the host route
     computes them. On a CUDA device the kernel runs; on an explicit CPU
-    device its plain version."""
+    device its plain version. With a batch mesh set, each rank solves its
+    slice on the mesh's device and the whole result is gathered."""
     from porepy_tpu_torch.kernels import ops
     from porepy_tpu_torch.utils import device_policy
 
+    if _BATCH_MESH is not None:
+        import torch.distributed as dist
+
+        mesh = _BATCH_MESH
+        a, rhs, w, pad = _shard_batch(a_dense, rhs_dense, w_dense)
+        out = ops.region_solve(a, rhs, w)
+        parts = [torch.empty_like(out) for _ in range(mesh.size)]
+        dist.all_gather(parts, out, group=mesh.group)
+        out = torch.cat(parts).cpu().numpy()
+        return out[: out.shape[0] - pad] if pad else out
     dev = device_policy.accelerator() if device is None else torch.device(device)
     a, rhs, w = (torch.from_numpy(x).to(dev) for x in (a_dense, rhs_dense, w_dense))
     return ops.region_solve(a, rhs, w).cpu().numpy()

@@ -34,6 +34,7 @@ import scipy.sparse as sps
 import torch
 
 from porepy_tpu_torch import kernels
+from porepy_tpu_torch.utils import device_policy
 
 __all__ = ["build_hierarchy", "Hierarchy"]
 
@@ -257,7 +258,8 @@ class Hierarchy:
     ``structure`` (aggregates, transfer sparsity, level sizes) is frozen at
     build time; ``state`` (the dict of value tensors consumed by
     :meth:`apply`) can be refreshed from a new fine matrix via
-    :meth:`update_values` with every shape unchanged.
+    :meth:`update_values` with every shape unchanged. Its tensors live on
+    ``device`` (default: the CUDA card).
     """
 
     def __init__(
@@ -266,11 +268,11 @@ class Hierarchy:
         coarse_inv: np.ndarray,
         dtype: torch.dtype,
         nu: int = 2,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device, None] = None,
     ) -> None:
         self._levels_host = levels_host
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = device_policy.resolve(device)
         self.nu = nu
         self.level_sizes = [lv["A"].shape[0] for lv in levels_host] + [
             coarse_inv.shape[0]
@@ -363,7 +365,7 @@ def build_hierarchy(
     omega: float = 4.0 / 3.0,
     dtype: torch.dtype = torch.float32,
     nu: int = 2,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device, None] = None,
 ) -> Hierarchy:
     """Build a smoothed-aggregation hierarchy on host.
 
@@ -386,8 +388,10 @@ def build_hierarchy(
         approximate inverse — half the gather bytes, no loss of final
         accuracy since the outer Krylov runs in the system dtype).
     device:
-        Device of the hierarchy's tensors.
+        Device of the hierarchy's tensors (default: the CUDA card; pass
+        ``"cpu"`` for the host).
     """
+    device = device_policy.resolve(device)
     A = A.tocsr()
     n = A.shape[0]
     if B is None:

@@ -26,7 +26,12 @@ right-preconditioned FGMRES where
   f64; whether plain f64 FGMRES is faster here is an open measurement,
 - each Arnoldi step's Givens update and convergence flag is one launch of
   the K4g kernel (:func:`~porepy_tpu_torch.kernels.fgmres_givens`); the
-  host reads the flag to end the cycle early.
+  host reads the flag to end the cycle early,
+- with a dof mesh set (:meth:`DeviceLinearSolver.set_dof_sharding`, K19)
+  the solves of :meth:`DeviceLinearSolver.solve_device` run row-sharded
+  over a ``torch.distributed`` group: halo-exchange matvecs and
+  all-reduced norms and dot products
+  (:class:`porepy_tpu_torch.parallel.halo.DofShard`).
 
 Falls back (counted + logged) to host spsolve if the device iteration misses
 tolerance. With ``dense=True`` each field block of at most
@@ -151,7 +156,20 @@ def _dense_inv_fn(
     return D
 
 
-def _fgmres(matvec, M, b, x0, atol, restart, max_cycles):
+class _Local:
+    """The reductions of a solve whose vectors lie whole on one device
+    (a :class:`~porepy_tpu_torch.parallel.halo.DofShard` has the same
+    methods over a process group)."""
+
+    norm = staticmethod(torch.linalg.vector_norm)
+    dot = staticmethod(torch.matmul)
+
+    @staticmethod
+    def all_finite(d: torch.Tensor) -> torch.Tensor:
+        return torch.all(torch.isfinite(d))
+
+
+def _fgmres(matvec, M, b, x0, atol, restart, max_cycles, red=_Local):
     """Right-preconditioned restarted FGMRES: CGS2 orthogonalization as
     matrix-vector products, the Givens least squares in the K4g kernel,
     early exit on ``|g[j]| <= atol``. Right preconditioning keeps the
@@ -159,7 +177,9 @@ def _fgmres(matvec, M, b, x0, atol, restart, max_cycles):
     needs no extra matvec and a frozen/approximate ``M`` cannot distort
     convergence reporting. ``atol`` is a scalar (tensor or float).
     Returns ``(x, residual_norm, total_iterations)``; the norm is a 0-d
-    device tensor, the count a host int.
+    device tensor, the count a host int. ``red`` supplies the norms and
+    dot products (:class:`_Local`, or a dof shard's all-reduced ones: then
+    ``b``, ``x0`` and the Krylov bases hold the rank's rows only).
 
     Guard constants stay at 1e-30, as in ``porepy_tpu``, so that both
     packages take the same branches."""
@@ -172,7 +192,7 @@ def _fgmres(matvec, M, b, x0, atol, restart, max_cycles):
 
     def cycle(x):
         r = b - matvec(x)
-        beta = torch.linalg.vector_norm(r)
+        beta = red.norm(r)
         V = zeros(restart + 1, n)
         V[0] = r / torch.clamp(beta, min=1e-30)
         Z = zeros(restart, n)
@@ -191,11 +211,11 @@ def _fgmres(matvec, M, b, x0, atol, restart, max_cycles):
             w = matvec(z)
             # CGS2: rows of V beyond j are zero, so only V[:j+1] enters.
             Vj = V[: j + 1]
-            h = Vj @ w
+            h = red.dot(Vj, w)
             w = w - Vj.T @ h
-            h2 = Vj @ w
+            h2 = red.dot(Vj, w)
             w = w - Vj.T @ h2
-            hj1 = torch.linalg.vector_norm(w)
+            hj1 = red.norm(w)
             V[j + 1] = w / torch.clamp(hj1, min=1e-30)
             Z[j] = z
             hcol = Ht[j]
@@ -215,7 +235,7 @@ def _fgmres(matvec, M, b, x0, atol, restart, max_cycles):
         return x, torch.abs(g[j]), j
 
     x = x0
-    res = torch.linalg.vector_norm(b - matvec(x0))
+    res = red.norm(b - matvec(x0))
     iters = 0
     k = 0
     while k < max_cycles and bool(res > atol):
@@ -779,6 +799,7 @@ class DeviceLinearSolver:
         self._m_apply = None
         self._hierarchies: Optional[dict] = None
         self.last_stats: Optional[dict] = None
+        self._shard = None
         # Unlike porepy_tpu, which turns dense inverses on by itself on the
         # TPU below the size threshold, the port builds them only when asked.
         if dense:
@@ -829,10 +850,28 @@ class DeviceLinearSolver:
         """Force a rebuild at the next solve (call after rediscretization)."""
         self._m_state = None
 
-    def set_dof_sharding(self, sharding) -> None:
-        """Dof-sharded solves (K19) are not ported; ``None`` is accepted."""
-        if sharding is not None:
-            raise NotImplementedError("dof-sharded solves (K19) are not ported")
+    def set_dof_sharding(self, mesh) -> None:
+        """Shard the rows of :meth:`solve_device`'s solves over ``mesh``
+        (a :class:`~porepy_tpu_torch.parallel.sharded.DofMesh` whose device
+        is the solver's); ``None`` removes the sharding. Builds this rank's
+        halo plan once, on the host, exchanging it with the other ranks
+        (every rank must call this together). :meth:`solve` and the fused
+        Newton loop stay single-device either way."""
+        if mesh is None:
+            self._shard = None
+            return
+        from porepy_tpu_torch.parallel import halo
+
+        if not halo.same_device(mesh.device, self.device):
+            raise ValueError(f"the solver runs on {self.device}, the mesh's rank on {mesh.device}")
+        plan = halo.exchange_plan(self._ell_col.cpu().numpy(), self.n, mesh)
+        self._shard = halo.DofShard(mesh, plan, self.n, self._ell_sel, self._ell_col)
+
+    @property
+    def dof_shard(self):
+        """The :class:`~porepy_tpu_torch.parallel.halo.DofShard` of this
+        rank, or ``None`` without a dof mesh."""
+        return self._shard
 
     @property
     def solve_args(self) -> tuple:
@@ -841,41 +880,63 @@ class DeviceLinearSolver:
 
     # -- the solve ---------------------------------------------------------------
 
-    def _solve(self, data, b, x0, m_state, tol):
+    def _solve(self, data, b, x0, m_state, tol, shard=None):
         """FGMRES-IR (K5): float32 inner FGMRES cycles on the Ruiz-scaled
         operator, float64 true residual and refinement between cycles, and
         a NaN guard. Returns ``(x, residual_norm, krylov_iterations)``; the
         norm is measured in the EQUILIBRATED space and rescaled to ``|b|``
         (the diagonal scaling spans ~10 orders on contact systems, so the
-        raw-residual norm is dominated by a few wild rows)."""
+        raw-residual norm is dominated by a few wild rows).
+
+        With a dof ``shard``, ``b``, ``x0`` and the result are this rank's
+        rows: the matvecs exchange halos, every norm and dot product (and
+        the NaN guard) is all-reduced, and the preconditioner runs on the
+        gathered residual, of which the rank keeps its rows."""
         restart = self._restart
         max_cycles = max(-(-self.maxiter // restart), 1)
-        ell_col = self._ell_col
         data_p = torch.cat([data, data.new_zeros(1)])
-        val = data_p[self._ell_sel]
         dr, dc, dc1 = m_state["dr"], m_state["dc"], m_state["dc1"]
+        if shard is None:
+            red, ell_sel, ell_col = _Local, self._ell_sel, self._ell_col
+        else:
+            red, ell_sel, ell_col = shard, shard.ell_sel, shard.ell_col
+            dr, dc = shard.own(dr), shard.own(dc)
+        val = data_p[ell_sel]
         # Solve the Ruiz-equilibrated system (Dr A Dc) y = Dr b, x = Dc y;
         # the preconditioner was built in this space.
         val_eq = dr[:, None] * val * dc1[ell_col]
         val32 = val_eq.to(torch.float32)
 
-        def mv_eq(y):
-            return kernels.ell_spmv(val_eq, ell_col, y)
+        if shard is None:
 
-        def mv32(y):
-            return kernels.ell_spmv(val32, ell_col, y)
+            def mv_eq(y):
+                return kernels.ell_spmv(val_eq, ell_col, y)
 
-        def M(r):
-            return self._m_apply(m_state, r)
+            def mv32(y):
+                return kernels.ell_spmv(val32, ell_col, y)
+
+            def M(r):
+                return self._m_apply(m_state, r)
+
+        else:
+
+            def mv_eq(y):
+                return shard.matvec(val_eq, y)
+
+            def mv32(y):
+                return shard.matvec(val32, y)
+
+            def M(r):
+                return shard.own(self._m_apply(m_state, shard.gather(r)))
 
         b_eq = dr * b
-        b_eq_norm = torch.clamp(torch.linalg.vector_norm(b_eq), min=1e-30)
+        b_eq_norm = torch.clamp(red.norm(b_eq), min=1e-30)
         atol = tol * b_eq_norm
         n = b.shape[0]
 
         y = x0 / dc
         r = b_eq - mv_eq(y)
-        rn = torch.linalg.vector_norm(r)
+        rn = red.norm(r)
         iters = 0
         k = 0
         while k < max_cycles and bool((rn > atol) & torch.isfinite(rn)):
@@ -891,40 +952,42 @@ class DeviceLinearSolver:
                 inner_atol,
                 restart,
                 1,
+                red,
             )
             d = rs * d32.to(y.dtype)
             # Guard: a NaN/Inf inner result must not poison y — keep the
             # old iterate and let the outer loop exit on rn.
-            ok = torch.all(torch.isfinite(d))
+            ok = red.all_finite(d)
             y = torch.where(ok, y + d, y)
             r = b_eq - mv_eq(y)
-            rn = torch.where(
-                ok, torch.linalg.vector_norm(r), torch.full_like(rn, float("nan"))
-            )
+            rn = torch.where(ok, red.norm(r), torch.full_like(rn, float("nan")))
             iters += it
             k += 1
         x = dc * y
-        res = rn / b_eq_norm * torch.linalg.vector_norm(b)
+        res = rn / b_eq_norm * red.norm(b)
         return x, res, iters
 
     # -- driver ----------------------------------------------------------------
 
-    def _solve_device(self, data, b, tol=None):
+    def _solve_device(self, data, b, tol=None, shard=None):
         """Device solve returning ``(x, residual_norm)`` at the caller's
         scale; builds the preconditioner on first use and refreshes it
-        once when a solve stalls."""
+        once when a solve stalls. With a dof ``shard``, ``b`` and ``x`` are
+        the rank's rows and every decision is taken from all-reduced
+        values, the same on every rank (the refresh too: the whole
+        Jacobian ``data`` is on every rank)."""
         target = float(tol) if tol is not None else self.tol
         data = torch.as_tensor(data, dtype=torch.float64, device=self.device)
         if self._m_state is None:
             self.refresh_preconditioner(data)
-        b_norm = float(torch.linalg.vector_norm(b))
+        b_norm = float((_Local if shard is None else shard).norm(b))
         if b_norm == 0.0 or not np.isfinite(b_norm):
-            return torch.zeros(self.n, dtype=b.dtype, device=b.device), b_norm
+            return torch.zeros(b.shape[0], dtype=b.dtype, device=b.device), b_norm
         # Solve at unit rhs scale: near-converged Newton steps hand in
         # |b| ~ 1e-7..1e-13; normalizing makes the solve scale-invariant.
         b_unit = b / b_norm
-        x = torch.zeros(self.n, dtype=b.dtype, device=b.device)
-        x, res_dev, iters = self._solve(data, b_unit, x, self._m_state, target)
+        x = torch.zeros(b.shape[0], dtype=b.dtype, device=b.device)
+        x, res_dev, iters = self._solve(data, b_unit, x, self._m_state, target, shard)
         res = float(res_dev)
         refreshed = False
         if np.isfinite(res) and res > target:
@@ -932,7 +995,7 @@ class DeviceLinearSolver:
             # Jacobian values and retry once, warm-started.
             self.refresh_preconditioner(data)
             refreshed = True
-            x, res_dev, it2 = self._solve(data, b_unit, x, self._m_state, target)
+            x, res_dev, it2 = self._solve(data, b_unit, x, self._m_state, target, shard)
             res = float(res_dev)
             iters = iters + it2
         self.last_stats = {
@@ -974,5 +1037,8 @@ class DeviceLinearSolver:
 
     def solve_device(self, data, b):
         """Device-only solve: returns (x, residual_norm) without host checks
-        (for device-resident loops)."""
-        return self._solve_device(data, b)
+        (for device-resident loops). With a dof mesh set, ``b`` is this
+        rank's rows of the right-hand side (``data`` the whole Jacobian's
+        nonzeros) and ``x`` its rows of the solution; the residual norm is
+        global."""
+        return self._solve_device(data, b, shard=self._shard)

@@ -5,17 +5,18 @@ Parity counterpart of (a subset of) reference
 :func:`invert_diagonal_blocks`: where the reference JIT-compiles a numba
 loop over variable-size local systems (``matrix_operations.py:1283-1376``),
 this implementation groups the blocks by size and inverts each group as one
-batched dense ``np.linalg.inv`` on the host (K11: a device kernel is later
-work) — the "sort-and-batch" form of the interaction-region solves at the
-heart of MPFA/MPSA.
+batched dense inverse on the card, the hand-written Gauss-Jordan kernel K11
+(:func:`porepy_tpu_torch.kernels.block_inverse`) — the "sort-and-batch" form
+of the interaction-region solves at the heart of MPFA/MPSA.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import scipy.sparse as sps
+import torch
 
 __all__ = [
     "rlencode",
@@ -71,20 +72,29 @@ def diagonal_scaling_matrix(mat: sps.spmatrix) -> sps.dia_matrix:
 
 
 def invert_diagonal_blocks(
-    mat: sps.spmatrix, s: np.ndarray, method: Optional[str] = None
+    mat: sps.spmatrix,
+    s: np.ndarray,
+    method: Optional[str] = None,
+    device: Union[str, torch.device, None] = None,
 ) -> sps.csr_matrix:
     """Invert a block-diagonal matrix with blocks of sizes ``s``.
 
-    ``method``: ``"jax"`` (default, the name kept for API parity;
-    size-grouped batched dense inverses) or ``"python"`` (numpy loop,
-    reference fallback).
+    ``method``: ``None``, ``"jax"`` or ``"numba"`` (the names kept for API
+    parity) take the size-grouped batched inverses (K11) on ``device``
+    (default: the CUDA card; ``"cpu"`` runs the kernel's plain version);
+    ``"python"`` is the numpy loop, the reference fallback. A singular
+    block gives non-finite entries on the batched route, as the TPU
+    package's batched inverse does; the numpy loop raises. The result is a
+    host CSR matrix either way.
     """
     s = np.asarray(s, dtype=int)
     n = int(s.sum())
     if mat.shape[0] != n:
         raise ValueError("Block sizes do not match matrix dimension")
     if method in (None, "jax", "numba"):
-        return _invert_blocks_batched(mat.tocsr(), s)
+        from porepy_tpu_torch.utils import device_policy
+
+        return _invert_blocks_batched(mat.tocsr(), s, device_policy.resolve(device))
     if method == "python":
         return _invert_blocks_python(mat.tocsr(), s)
     raise ValueError(f"Unknown inverter {method!r}")
@@ -104,9 +114,15 @@ def _block_entry_layout(s: np.ndarray):
     return np.concatenate(rows), np.concatenate(cols), offsets
 
 
-def _invert_blocks_batched(mat: sps.csr_matrix, s: np.ndarray) -> sps.csr_matrix:
-    """Group blocks by size; one batched f64 dense inverse per group, on the
-    host (assembly-time work)."""
+def _invert_blocks_batched(
+    mat: sps.csr_matrix, s: np.ndarray, device: torch.device
+) -> sps.csr_matrix:
+    """Group blocks by size; one batched f64 dense inverse per group: the
+    host builds the dense batch, which is copied to ``device`` once,
+    inverted there by :func:`porepy_tpu_torch.kernels.block_inverse` and
+    copied back."""
+    from porepy_tpu_torch.kernels import block_inverse
+
     coo = mat.tocoo()
     offsets = np.concatenate([[0], np.cumsum(s)])
     # Block id per entry, local indices.
@@ -126,7 +142,7 @@ def _invert_blocks_batched(mat: sps.csr_matrix, s: np.ndarray) -> sps.csr_matrix
         batch_index_of_block[members] = np.arange(members.size)
         dense = np.zeros((members.size, size, size))
         dense[batch_index_of_block[blk[sel]], lr[sel], lc[sel]] = coo.data[sel]
-        inv = np.linalg.inv(dense)
+        inv = block_inverse(torch.from_numpy(dense).to(device)).cpu().numpy()
         for k, b in enumerate(members):
             inv_data_per_block[b] = inv[k].ravel()
 

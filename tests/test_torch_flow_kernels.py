@@ -103,7 +103,7 @@ def _rel_err(got, want):
 def test_structured_residual_and_jvp_match_linearize(structured, dtype):
     kj, _ = structured
     kj = kj._as_dtype(jnp.dtype(dtype))
-    kt = structured_flow_kernel_from(kj)
+    kt = structured_flow_kernel_from(kj, "cpu")
     p, p_prev, v = (a.astype(dtype) for a in _states(SHAPE, 1))
     r_j, lin = jax.linearize(lambda q: kj.residual(q, jnp.asarray(p_prev)), jnp.asarray(p))
     r_t = kt.residual(torch.tensor(p), torch.tensor(p_prev))
@@ -121,7 +121,7 @@ def test_tpfa_residual_and_jvp_match_linearize(unstructured, dtype):
     kj = dataclasses.replace(
         unstructured[0], **{f: jnp.asarray(getattr(unstructured[0], f), dtype) for f in floats}
     )
-    kt = tpfa_flow_kernel_from(kj)
+    kt = tpfa_flow_kernel_from(kj, "cpu")
     args = [
         x.to(TORCH[dtype]) if x.is_floating_point() else x
         for x in (*kt._arrays(), kt._coef())

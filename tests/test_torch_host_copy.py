@@ -35,6 +35,7 @@ PORTED = {
     "numerics/linalg/matrix_operations.py",
     "parallel/__init__.py",
     "parallel/flow_step.py",
+    "parallel/sharded.py",
     "parallel/structured_flow.py",
     "utils/device_policy.py",
 }

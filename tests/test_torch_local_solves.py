@@ -161,9 +161,12 @@ def test_route_switch_is_read_at_call_time(monkeypatch):
 
 
 def test_batch_mesh_is_refused():
+    """Anything but a dof mesh (or ``None``) is refused as a batch mesh
+    (the sharded batches themselves: ``tests/test_torch_sharded.py``)."""
     ls_torch.set_batch_mesh(None)
-    with pytest.raises(NotImplementedError, match="K19"):
+    with pytest.raises(TypeError, match="DofMesh"):
         ls_torch.set_batch_mesh(object())
+    assert ls_torch._BATCH_MESH is None
 
 
 def test_region_solve_cuda_wrapper_refuses_without_falling_back():
