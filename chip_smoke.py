@@ -103,7 +103,37 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    Newton tolerance against the unsharded Newton loop (1e-10), 0 host
    fallbacks, ``ell_spmv_split`` launched and K1 launched in the
    preconditioner; (c) the first K10 chunk of biot 1/64 through
-   ``set_batch_mesh`` against the unsharded route (1e-12).
+   ``set_batch_mesh`` against the unsharded route (1e-12);
+19. hold the upstream-selection kernels (K15: ``upwind_flux``,
+   ``upwind_select``) at the tracer 1/64 shapes (about 8,600 faces, 4,400
+   cells, 16 seeds, faces with ``q = 0.0`` and ``-0.0`` among them) and the
+   differentiable-TPFA kernels (K14: ``tpfa_ad_flux``, ``tpfa_ad_trace``,
+   ``segment_sum_sorted``) at the 3d 32^3 shapes (32,768 cells, 101,376
+   faces, 196,608 half-faces, full tensors, 16 seeds) against their plain
+   versions on the card: values and tangents within 1e-12 of the plain
+   result's largest entry, the same bits from two launches, CUDA-event
+   times, the bound, and the time of ``torch.where`` + ``index_select``
+   and of ``index_add_`` for the two that one PyTorch call matches;
+20. run the tracer case at 1/64 (8,710 dofs) for 26 steps of 60 s, with
+   the AMG preconditioner and with dense frozen block inverses: 3 fused
+   blocks, no host fallback, the K15 kernels launched, ``pressure`` and
+   ``z_tracer`` within 1e-8 of each field's largest value of the same case
+   run on the host (plain path), one more host Newton increment within
+   the case's Newton tolerance, ``z_tracer`` in [0, 0.2]; ms per Newton
+   iteration beside the reference's 132 ms, the time steps outside the
+   blocks with their Krylov counts, and one assembly at the final state
+   through the kernels and through their plain versions, in turns;
+21. run the differentiable-permeability flow model of
+   ``tests/models/test_darcys_law_ad.py`` at md width: ``DarcysLawAd`` +
+   cubic-law fracture permeability + ``k(p) = k0 (1 + 0.3 p)`` over
+   single-phase flow with TPFA, one fracture, cell size 1/128 (16,384 +
+   128 cells), 26 steps, the md case's solver parameters, its TPFA
+   discretization on the card (``PPT_LOCAL_SOLVE_DEVICE=1``, so the
+   transmissibilities' sums run in ``segment_sum_sorted``): 3 fused blocks,
+   no host fallback, the K14 kernels launched, the Jacobian at the first
+   iterate and the final pressure against the same model on the host
+   (plain path; 1e-10 and 1e-8 of the largest entry), one more host Newton
+   increment <= 1e-10, and the assembly in turns as in phase 20.
 
 The line before the last is a JSON object with one entry per kernel (ms,
 plain ms, the bound and what sets it, the time of one PyTorch call of the
@@ -1886,6 +1916,421 @@ def run_sharded(dev, chunks) -> dict:
     }
 
 
+# -- K15, K14: tracer and the differentiable TPFA ---------------------------------
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-300))
+
+
+def _same_bits(name: str, fn) -> None:
+    a, b = fn(), fn()
+    _require(torch.equal(a, b), f"{name}: two launches differ")
+
+
+def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) -> dict:
+    """Phase 19: the K15 kernels at the tracer 1/64 shapes and the K14
+    kernels at the 3d 32^3 shapes against their plain versions."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import build_tracer
+    from porepy_tpu_torch.kernels import ops, reference
+    from porepy_tpu_torch.models.darcys_law_ad import _DiffTpfaGeometry
+
+    print("phase 19: K15 at the tracer 1/64 shapes, K14 at the 3d 32^3 shapes, 16 seeds")
+    B, tol = 16, 1e-12
+    rng = np.random.default_rng(19)
+    f64 = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    report = {}
+
+    Model, params = build_tracer(cell_size, device=str(dev))
+    model = Model(params)
+    model.prepare_simulation()
+    geom, _pattern = model._upwind_geometry(model.mdg.subdomains())
+    g = geom.on(dev)
+    geo = (g["lo"], g["hi"], g["is_dir"], g["is_neu"], g["sgn_div"])
+    nf, nc = geom.lo.size, geom.num_cells
+    q_np = rng.standard_normal(nf)
+    q_np[::5] = 0.0
+    q_np[2::7] = -0.0
+    q, w, bc = f64(q_np), f64(rng.standard_normal(nc)), f64(rng.standard_normal(nf))
+    dq, dw, dbc = (f64(rng.standard_normal((B, n))) for n in (nf, nc, nf))
+    print(f"  tracer {cell_size:g}: {nf} faces, {nc} cells, {int((q == 0).sum())} faces with q = +-0")
+
+    def flux_pair(mod):
+        return (
+            mod.upwind_flux(q, w, bc, *geo),
+            mod.upwind_flux_tangent(q, w, bc, dq, dw, dbc, *geo),
+        )
+
+    got, want = flux_pair(ops), flux_pair(reference)
+    err = max(_rel_err(a, b) for a, b in zip(got, want))
+    print(f"  upwind_flux: value and {B} tangents, max rel err {err:.3e}")
+    _require(err <= tol, "upwind_flux disagrees with its plain version")
+    _same_bits("upwind_flux", lambda: torch.cat([t.reshape(-1) for t in flux_pair(ops)]))
+    nbytes = 8 * (2 * nf + nc) + 16 * nf + 2 * nf + 8 * nf + 8 * B * (2 * nf + nc) + 8 * (1 + B) * nf
+    report["upwind_flux"] = {
+        "err": err, "ms": _cuda_ms(lambda: flux_pair(ops)), "plain_ms": _cuda_ms(lambda: flux_pair(reference)),
+        "bytes": nbytes, "flops": 8 * (1 + B) * nf, "library_ms": None,
+    }
+
+    # up(w) and the two-candidate selection, value and tangent rows at once.
+    ws = torch.cat([w[None], dw])
+    a2, b2 = dq, dbc
+
+    def select_pair(mod):
+        return mod.upwind_select(q, ws, *geo[:4]), mod.upwind_select_pair(q, a2, b2)
+
+    got, want = select_pair(ops), select_pair(reference)
+    _require(all(torch.equal(a, b) for a, b in zip(got, want)), "upwind_select disagrees with its plain version")
+    _require(torch.equal(ops.upwind_select_pair(q, a2, None), reference.upwind_select_pair(q, a2, None)),
+             "upwind_select_pair with a missing candidate")
+    interior = (g["lo"] >= 0) & (g["hi"] >= 0) & ~g["is_neu"] & (q == 0)
+    _require(bool(interior.any()) and torch.equal(got[0][0][interior], w[g["lo"][interior]]),
+             "q = +-0 does not pick lo")
+    _same_bits("upwind_select", lambda: select_pair(ops)[0])
+    print(f"  upwind_select: up(w) on {1 + B} rows and the pair selection on {B} rows, equal to the plain version")
+    lo_c, hi_c = g["lo"].clamp_min(0), g["hi"].clamp_min(0)
+
+    def select_library():
+        return torch.where(q >= 0, ws.index_select(1, lo_c), ws.index_select(1, hi_c)), torch.where(q >= 0, a2, b2)
+
+    report["upwind_select"] = {
+        "err": 0.0, "ms": _cuda_ms(lambda: select_pair(ops)), "plain_ms": _cuda_ms(lambda: select_pair(reference)),
+        "bytes": 8 * nf + 16 * nf + 2 * nf + 8 * (1 + B) * (nc + nf) + 8 * nf + 8 * 3 * B * nf,
+        "flops": (1 + 2 * B) * nf, "library_ms": _cuda_ms(select_library),
+    }
+    del model
+
+    # K14 at 32^3: Dirichlet on the x faces, Neumann elsewhere, full tensors.
+    grid = pt.CartGrid(np.array([n3d] * 3), np.array([1.0, 1.0, 1.0]))
+    grid.compute_geometry()
+    bf = grid.get_all_boundary_faces()
+    x_faces = bf[(grid.face_centers[0, bf] < 1e-9) | (grid.face_centers[0, bf] > 1 - 1e-9)]
+    dgeom = _DiffTpfaGeometry([grid], lambda sd: pt.BoundaryCondition(sd, x_faces, "dir"))
+    kg = dgeom.kernel_geometry(dev)[0]
+    ncell, nface, nhf = grid.num_cells, grid.num_faces, kg.num_half_faces
+
+    def tensors(scale):
+        sym = rng.standard_normal((ncell, 3, 3))
+        return (scale[:, None, None] * (np.eye(3)[None] + 0.1 * (sym + sym.transpose(0, 2, 1)))).reshape(-1)
+
+    sizes = (9 * ncell, ncell, ncell, nface, nface)
+    primals = (
+        f64(tensors(0.5 + rng.random(ncell))), f64(0.5 + rng.random(ncell)),
+        f64(rng.standard_normal(ncell)), f64(rng.standard_normal(nface)), f64(rng.standard_normal(nface)),
+    )
+    seeds = tuple(f64(rng.standard_normal((B, n))) for n in sizes)
+    print(f"  3d {n3d}^3: {ncell} cells, {nface} faces, {nhf} half-faces")
+    geom_bytes = 4 * (nface + 1) + 8 * nhf + 8 * nhf + 48 * nhf + 2 * nface
+    field_bytes = 8 * sum(sizes)
+    for name, value_op, tangent_op, plain in (
+        ("tpfa_ad_flux", ops.tpfa_ad_flux, ops.tpfa_ad_flux_tangent, reference.tpfa_ad_flux),
+        ("tpfa_ad_trace", ops.tpfa_ad_trace, ops.tpfa_ad_trace_tangent, reference.tpfa_ad_trace),
+    ):
+        def kernel_pair():
+            return value_op(kg, *primals), tangent_op(kg, primals, seeds)
+
+        def plain_pair():
+            return plain(kg, *primals), reference.tpfa_ad_tangent(plain, kg, primals, seeds)
+
+        got, want = kernel_pair(), plain_pair()
+        err = max(_rel_err(a, b) for a, b in zip(got, want))
+        print(f"  {name}: value and {B} tangents, max rel err {err:.3e}")
+        _require(err <= tol, f"{name} disagrees with its plain version")
+        _same_bits(name, lambda: torch.cat([t.reshape(-1) for t in kernel_pair()]))
+        report[name] = {
+            "err": err, "ms": _cuda_ms(kernel_pair), "plain_ms": _cuda_ms(plain_pair, repeats=10),
+            # Value launch and tangent launch each read fields and geometry.
+            "bytes": 2 * (geom_bytes + field_bytes) + B * field_bytes + 8 * (1 + B) * nface,
+            "flops": (1 + B) * 60 * nhf, "library_ms": None,
+        }
+
+    mesh = dgeom.meshes[0]
+    x_hf = f64(rng.standard_normal((B, nhf)))
+    face_ptr, face_hf, cell_ptr = (t.to(dev) for t in (mesh.face_ptr, mesh.face_hf, mesh.cell_ptr))
+    fi_dev, ci_dev = mesh.fi.to(dev), mesh.ci.to(dev)
+
+    def sums(mod):
+        return (mod.segment_sum_sorted(x_hf, face_ptr, face_hf, nface),
+                mod.segment_sum_sorted(x_hf, cell_ptr, None, ncell))
+
+    def sums_library():
+        return (torch.zeros(B, nface, dtype=torch.float64, device=dev).index_add_(1, fi_dev, x_hf),
+                torch.zeros(B, ncell, dtype=torch.float64, device=dev).index_add_(1, ci_dev, x_hf))
+
+    got, want = sums(ops), sums(reference)
+    err = max(_rel_err(a, b) for a, b in zip(got, want))
+    print(f"  segment_sum_sorted: {B} rows over faces and over cells, max rel err {err:.3e}")
+    _require(err <= tol, "segment_sum_sorted disagrees with its plain version")
+    _same_bits("segment_sum_sorted", lambda: torch.cat(sums(ops), dim=1))
+    report["segment_sum_sorted"] = {
+        "err": err, "ms": _cuda_ms(lambda: sums(ops)), "plain_ms": _cuda_ms(lambda: sums(reference)),
+        "bytes": 2 * 8 * B * nhf + 4 * (nface + 1 + nhf + ncell + 1) + 8 * B * (nface + ncell),
+        "flops": 2 * B * nhf, "library_ms": _cuda_ms(sums_library),
+    }
+    for name in ("upwind_flux", "upwind_select", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted"):
+        r = report[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
+    return report
+
+
+@contextlib.contextmanager
+def _plain_k14_k15():
+    """The K14 and K15 operators swapped for their plain versions (behind
+    the same autograd functions), to time an assembly both ways."""
+    from porepy_tpu_torch.kernels import ops, reference
+
+    plain = {
+        "upwind_flux": reference.upwind_flux,
+        "upwind_flux_tangent": reference.upwind_flux_tangent,
+        "upwind_select": reference.upwind_select,
+        "upwind_select_pair": reference.upwind_select_pair,
+        "segment_sum_sorted": reference.segment_sum_sorted,
+        "tpfa_ad_flux": reference.tpfa_ad_flux,
+        "tpfa_ad_trace": reference.tpfa_ad_trace,
+        "tpfa_ad_flux_tangent": lambda g, p, s: reference.tpfa_ad_tangent(reference.tpfa_ad_flux, g, p, s),
+        "tpfa_ad_trace_tangent": lambda g, p, s: reference.tpfa_ad_tangent(reference.tpfa_ad_trace, g, p, s),
+    }
+    kernels = {name: getattr(ops, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in kernels.items():
+            setattr(ops, name, fn)
+
+
+def _assembly_in_turns(model, label: str, repeats: int = 5) -> dict:
+    """The model's device assembly (Jacobian data and residual) at its final
+    state, through the K14/K15 kernels and through their plain versions, in
+    turns (plain, kernels, kernels, plain): median ms of each turn, and the
+    two results held together (1e-12 of the largest entry)."""
+    eq_sys = model.equation_system
+    cs = eq_sys.compiled_system()
+    turns = {"plain": [], "kernels": []}
+    results = {}
+    for route in ("plain", "kernels", "kernels", "plain"):
+        with (_plain_k14_k15() if route == "plain" else contextlib.nullcontext()):
+            results[route] = cs.assemble(eq_sys)
+            times = []
+            for _ in range(repeats):
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                cs.assemble(eq_sys)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - tic))
+        turns[route].append(float(np.median(times)))
+    for got, want in zip(results["kernels"], results["plain"]):
+        _require(_rel_err(got, want) <= 1e-12, f"{label}: assembly by kernels differs from the plain versions")
+    print(
+        f"  {label} assembly in turns, median ms: plain versions {turns['plain']}, "
+        f"kernels {turns['kernels']}; results within 1e-12"
+    )
+    return turns
+
+
+def _run_fused_case(dev, Model, params, local_solves: str = "host"):
+    """``Model(params)`` prepared (its discretization by ``local_solves``)
+    and run on ``dev`` with launch counts reset just before; the model, the
+    counts and the times."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    class Logged(timed_model(Model)):
+        """Keeps the Newton and Krylov counts and the wall time of every
+        time step that ran outside a fused block."""
+
+        def after_nonlinear_convergence(self, *args, **kwargs):
+            stats = next(iter(self._device_solvers.values())).last_stats
+            if not stats.get("block"):
+                # The host-orchestrated Newton loop keeps only its last
+                # solve's count.
+                krylov = stats.get("krylov_iters_per_newton", [stats["krylov_iters"]])
+                self.step_log.append((
+                    time.perf_counter() - self.step_tic,
+                    self.nonlinear_solver_statistics.num_iteration,
+                    "device" if stats.get("fused") else "host",
+                    list(krylov),
+                ))
+            self.step_tic = time.perf_counter()
+            return super().after_nonlinear_convergence(*args, **kwargs)
+
+    model = Logged(params)
+    model.block_log = []
+    model.block_states = {}
+    model.step_log = []
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    tic = time.perf_counter()
+    with _local_solves(local_solves):
+        model.prepare_simulation()
+    model._prepared = True
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - tic
+    setup_launches = dict(LAUNCHES)
+    tic = model.step_tic = time.perf_counter()
+    pt.run_time_dependent_model(model, params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - tic
+    launches = dict(LAUNCHES)
+    print(f"  on {dev}: dofs {model.equation_system.num_dofs()}, setup {setup_s:.3f} s, 26 steps {run_s:.3f} s")
+    for i, (secs, newton, loop, krylov) in enumerate(model.step_log):
+        print(
+            f"  step {i + 1} outside the blocks: {secs:.3f} s, {newton} Newton iterations in the "
+            f"{loop} Newton loop, Krylov iterations {krylov}"
+        )
+    for i, (secs, rec) in enumerate(model.block_log):
+        print(
+            f"  block {i}: {secs:.4f} s, {rec['steps']} steps, "
+            f"{rec['newton_iters']} Newton, {rec['krylov_iters']} Krylov, "
+            f"{1e3 * secs / max(rec['newton_iters'], 1):.2f} ms per Newton iteration"
+        )
+    _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
+    newton = sum(rec["newton_iters"] for _s, rec in model.block_log)
+    block_s = sum(s for s, _rec in model.block_log)
+    return model, {
+        "launches": launches, "setup_launches": setup_launches, "setup_s": setup_s,
+        "ms_per_newton": 1e3 * block_s / max(newton, 1), "newton": newton,
+        "krylov": sum(rec["krylov_iters"] for _s, rec in model.block_log),
+    }
+
+
+def _fields_close(model, host_model, names, tol) -> None:
+    for name in names:
+        a = model.equation_system.get_variable_values([name], time_step_index=0)
+        b = host_model.equation_system.get_variable_values([name], time_step_index=0)
+        diff, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+        print(f"  {name}: card against host max |diff| {diff:.3e} (largest value {scale:.3e})")
+        _require(diff <= tol * scale, f"{name} differs from the host plain path by {diff}")
+
+
+def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64):
+    """Phase 20: the tracer case at 1/64 for 26 steps on ``dev``."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_tracer
+
+    print(f"phase 20: tracer at cell size {cell_size:g}, 26 steps of 60 s, dense_precond={dense}")
+    if host_model is None:
+        Model, params = build_tracer(cell_size, device="cpu")
+        params["dense_precond"] = False
+        host_model, _ = _run_fused_case(torch.device("cpu"), Model, params)
+    Model, params = build_tracer(cell_size, device=str(dev))
+    params["dense_precond"] = dense
+    model, out = _run_fused_case(dev, Model, params)
+    launches = out["launches"]
+    print(f"  kernel launches in the run: {launches}")
+    needed = ("ell_spmv", "fgmres_givens", "upwind_flux", "upwind_select")
+    _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
+    solver = next(iter(model._device_solvers.values()))
+    _require(solver._dense == dense, f"dense {solver._dense}")
+    x = model.equation_system.get_variable_values(time_step_index=0)
+    _require(bool(np.all(np.isfinite(x))), "non-finite state")
+    z = model.equation_system.get_variable_values(["z_tracer"], time_step_index=0)
+    print(f"  z_tracer in [{z.min():.3e}, {z.max():.6f}]")
+    _require(z.min() >= -1e-8 and z.max() <= 0.2 + 1e-8, f"z_tracer {z.min()}..{z.max()}")
+    _fields_close(model, host_model, ("pressure", "z_tracer"), 1e-8)
+    res, inc = last_step_check(model)
+    tol = float(params["nl_convergence_tol"])
+    print(
+        f"  last step on the host, plain path: |F|/sqrt(n) {res:.3e}, "
+        f"next Newton increment |dx|/sqrt(n) {inc:.3e}, tolerance {tol:.0e}"
+    )
+    _require(inc <= tol, f"Newton increment {inc} > {tol}")
+    if not dense:
+        out["assembly_turns"] = _assembly_in_turns(model, "tracer")
+    return out, host_model
+
+
+def build_darcy_ad_model(cell_size: float, device: str):
+    """The differentiable-permeability flow model: ``DarcysLawAd`` with
+    cubic-law fracture permeability and ``k(p) = k0 (1 + 0.3 p)`` in the
+    matrix and the fracture, one fracture, TPFA, the md case's materials and
+    solver parameters."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import _mat_flow, _nosave
+
+    class PressureDependentPerm:
+        def permeability(self, subdomains):
+            size = sum(sd.num_cells for sd in subdomains)
+            k0 = pt.ad.wrap_as_dense_ad_array(self.solid.permeability, size)
+            k = k0 * (pt.ad.Scalar(1.0) + pt.ad.Scalar(0.3) * self.pressure(subdomains))
+            return self.isotropic_second_order_tensor(subdomains, k)
+
+    class Model(
+        PressureDependentPerm,
+        pt.DarcysLawAd,
+        pt.constitutive_laws.CubicLawPermeability,
+        _nosave(pt.SinglePhaseFlow),
+    ):
+        def set_fractures(self):
+            self._fractures = [pt.LineFracture(np.array([[0.25, 0.75], [0.5, 0.5]]))]
+
+        def bc_values_pressure(self, bg):
+            return 1.0 - bg.cell_centers[0]
+
+        def darcy_flux_discretization(self, subdomains):
+            return pt.ad.TpfaAd(self.darcy_keyword, subdomains, self.mdg)
+
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "material_constants": _mat_flow(),
+        "time_manager": pt.TimeManager([0, 26.0], 1.0, constant_dt=True),
+        "linear_solver": "device_gmres",
+        "fused_time_steps": 8,
+        "fused_commit_states": "tail",
+        "device": device,
+    }
+    return Model, params
+
+
+def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
+    """Phase 21: the ``DarcysLawAd`` model at 1/128 for 26 steps on ``dev``."""
+    print(f"phase 21: DarcysLawAd + cubic law + k(p) at cell size {cell_size:g}, 26 steps, TPFA discretized on the card")
+    first = {}
+    for device in ("cpu", str(dev)):
+        Model, params = build_darcy_ad_model(cell_size, device)
+        m = Model(params)
+        m.prepare_simulation()
+        first[device] = m.equation_system.assemble()
+    (A_h, b_h), (A_c, b_c) = first["cpu"], first[str(dev)]
+    jac_diff = float(abs(A_c - A_h).max() / abs(A_h).max())
+    rhs_diff = float(np.abs(b_c - b_h).max() / max(np.abs(b_h).max(), 1e-300))
+    print(f"  first iterate, card against host: Jacobian {jac_diff:.3e}, residual {rhs_diff:.3e} (relative to the largest entry)")
+    _require(jac_diff <= 1e-10 and rhs_diff <= 1e-10, "first Jacobian differs from the host plain path")
+
+    Model, params = build_darcy_ad_model(cell_size, "cpu")
+    host_model, _ = _run_fused_case(torch.device("cpu"), Model, params)
+    Model, params = build_darcy_ad_model(cell_size, str(dev))
+    model, out = _run_fused_case(dev, Model, params, local_solves="k10")
+    launches = out["launches"]
+    print(f"  kernel launches in the run: {launches}")
+    _require(out["setup_launches"]["segment_sum_sorted"] > 0, "segment_sum_sorted not launched in the discretization")
+    needed = ("ell_spmv", "fgmres_givens", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted")
+    _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
+    p = model.equation_system.get_variable_values(["pressure"], time_step_index=0)
+    _require(bool(np.all(np.isfinite(p))), "non-finite state")
+    print(f"  pressure in [{p.min():.6f}, {p.max():.6f}]")
+    _require(p.min() >= -1e-8 and p.max() <= 1.0 + 1e-8, f"pressure {p.min()}..{p.max()}")
+    _fields_close(model, host_model, ("pressure", "interface_darcy_flux"), 1e-8)
+    res, inc = last_step_check(model)
+    tol = 1e-10
+    print(
+        f"  last step on the host, plain path: |F|/sqrt(n) {res:.3e}, "
+        f"next Newton increment |dx|/sqrt(n) {inc:.3e}, tolerance {tol:.0e}"
+    )
+    _require(inc <= tol, f"Newton increment {inc} > {tol}")
+    out["assembly_turns"] = _assembly_in_turns(model, "DarcysLawAd")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1928,6 +2373,13 @@ def main() -> int:
     sharded = run_sharded(dev, report["region_solve"].pop("chunks"))
     report.update(sharded["kernels"])
     print(f"phases 17-18 took {time.perf_counter() - tic:.1f} s")
+    tic = time.perf_counter()
+    report.update(check_upwind_tpfa_kernels(dev))
+    tracer, tracer_host = run_tracer(dev, dense=False)
+    tracer_dense, _ = run_tracer(dev, dense=True, host_model=tracer_host)
+    del tracer_host
+    darcy_ad = run_darcy_ad(dev)
+    print(f"phases 19-21 took {time.perf_counter() - tic:.1f} s")
 
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {
@@ -1951,6 +2403,11 @@ def main() -> int:
         # the four row shards of phase 18a.
         "halo_pack": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", report["halo_pack"]["launches"]),
         "ell_spmv_split": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", sharded["launches"]["ell_spmv_split"]),
+        "upwind_flux": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer["launches"]["upwind_flux"]),
+        "upwind_select": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer["launches"]["upwind_select"]),
+        "tpfa_ad_flux": ("tpfa_ad.cu", "porepy_tpu/models/darcys_law_ad.py:71", darcy_ad["launches"]["tpfa_ad_flux"]),
+        "tpfa_ad_trace": ("tpfa_ad.cu", "porepy_tpu/models/darcys_law_ad.py:108", darcy_ad["launches"]["tpfa_ad_trace"]),
+        "segment_sum_sorted": ("tpfa_ad.cu", "porepy_tpu/numerics/fv/fv_mesh.py:129", darcy_ad["launches"]["segment_sum_sorted"]),
     }
     entries = []
     for k, (src, replaces, launches) in kernels.items():
@@ -1994,6 +2451,18 @@ def main() -> int:
         f"(median of 3) against the unsharded assembly and solve {sharded['unsharded_ms']:.2f} ms, "
         f"increments {sharded['dx_diff']:.3e} apart; a time step in {sharded['newton']} Newton iterations"
     )
+    for tag, r in (("AMG", tracer), ("dense", tracer_dense)):
+        print(
+            f"tracer 1/64 on {smi}, {tag}: setup {r['setup_s']:.3f} s, {r['ms_per_newton']:.2f} ms per Newton "
+            f"iteration, {r['newton']} Newton / {r['krylov']} Krylov in the blocks (reference CPU: 132 ms)"
+        )
+    print(
+        f"DarcysLawAd 1/128 on {smi}: setup {darcy_ad['setup_s']:.3f} s, {darcy_ad['ms_per_newton']:.2f} ms per "
+        f"Newton iteration, {darcy_ad['newton']} Newton / {darcy_ad['krylov']} Krylov in the blocks"
+    )
+    for tag, r in (("tracer 1/64", tracer), ("DarcysLawAd 1/128", darcy_ad)):
+        t = r["assembly_turns"]
+        print(f"{tag} assembly on {smi}, in turns: plain versions {t['plain']} ms, K14/K15 kernels {t['kernels']} ms")
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

@@ -3,10 +3,11 @@
 Same model framework and the same flat ``pp.`` names as ``porepy_tpu``, for
 the part ported so far: single-phase flow in fractured 2d and 3d domains
 (TPFA/MPFA, mortar coupling) and poromechanics (MPSA/Biot, momentum
-balance, frictional contact mechanics), assembled and solved on a
-``torch.device`` with the hand-written kernels of
-:mod:`porepy_tpu_torch.kernels`, and the constant-K and Peng-Robinson
-flashes::
+balance, frictional contact mechanics), tracer transport with upwinding
+inside the residual and the differentiable-permeability Darcy flux
+(``DarcysLawAd``), assembled and solved on a ``torch.device`` with the
+hand-written kernels of :mod:`porepy_tpu_torch.kernels`, and the constant-K
+and Peng-Robinson flashes::
 
     import porepy_tpu_torch as pp
 
@@ -34,7 +35,13 @@ from porepy_tpu_torch.compositional.states import FluidState, PhaseState  # noqa
 from porepy_tpu_torch.fracs.fracture import LineFracture  # noqa: F401
 from porepy_tpu_torch.geometry.domain import Domain  # noqa: F401
 from porepy_tpu_torch.grids.structured import CartGrid  # noqa: F401
+from porepy_tpu_torch.models import constitutive_laws  # noqa: F401
 from porepy_tpu_torch.models.contact_mechanics import ContactMechanics  # noqa: F401
+from porepy_tpu_torch.models.darcys_law_ad import (  # noqa: F401
+    AdTpfaFlux,
+    DarcysLawAd,
+    FouriersLawAd,
+)
 from porepy_tpu_torch.models.fluid_mass_balance import SinglePhaseFlow  # noqa: F401
 from porepy_tpu_torch.models.momentum_balance import MomentumBalance  # noqa: F401
 from porepy_tpu_torch.models.poromechanics import Poromechanics  # noqa: F401
@@ -54,6 +61,10 @@ from porepy_tpu_torch.utils.common_constants import (  # noqa: F401
 )
 
 __all__ = [
+    "constitutive_laws",
+    "AdTpfaFlux",
+    "DarcysLawAd",
+    "FouriersLawAd",
     "SinglePhaseFlow",
     "MomentumBalance",
     "Poromechanics",

@@ -15,9 +15,14 @@ Configurations ported so far:
     a 1/64 Cartesian grid, compressed from the north side, as fused 8-step
     time blocks with the device block-preconditioned FGMRES (SA-AMG with
     rigid-body modes on the displacement, fixed-stress stabilization).
+  - ``tracer``: single-phase two-component transport on the unit square
+    with two orthogonal fractures (1/64, 26 steps of 60 s); the advective
+    fluxes are upwinded inside the residual by the K15 kernels
+    (``kernels/csrc/upwind.cu``). ``device_gmres`` only: the Jacobi Krylov
+    route of ``porepy_tpu`` diverges on this case.
 
-The other ``porepy_tpu`` cases (``tracer``, ``thm``, ``berre3d``) follow
-in later slices of the port.
+The other ``porepy_tpu`` cases (``thm``, ``berre3d``) follow in later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -177,9 +182,38 @@ def build_biot(cell_size: float = 1.0 / 64, device: str = "cuda"):
     return Model, params
 
 
+def build_tracer(cell_size: float = 1.0 / 64, device: str = "cuda"):
+    """The tracer transport case at ``cell_size`` on ``device``."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.examples.tracer_flow import TracerFlowModel
+
+    Model = _nosave(TracerFlowModel)
+    params = {
+        "material_constants": {
+            "solid": pt.SolidConstants(
+                porosity=0.1, permeability=1e-7, normal_permeability=1e-7,
+                residual_aperture=1e-2,
+            ),
+        },
+        "fracture_indices": [0, 1],
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "time_manager": pt.TimeManager([0, 26 * 60.0], 60.0, constant_dt=True),
+        "max_iterations": 30,
+        "nl_convergence_tol": 1e-8,
+        "nl_convergence_tol_res": 1e-8,
+        "linear_solver": "device_gmres",
+        "fused_time_steps": 8,
+        "fused_commit_states": "tail",
+        "device": device,
+    }
+    return Model, params
+
+
 CASE_BUILDERS = {
     "3d": build_3d_flow,
     "biot": build_biot,
+    "tracer": build_tracer,
     "md": build_md_flow,
     "md256": lambda: build_md_flow(1.0 / 256),
 }

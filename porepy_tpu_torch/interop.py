@@ -9,8 +9,13 @@ frozen preconditioner state) to the port, so that both sides compute from
 identical inputs. :func:`structured_flow_kernel_from` and
 :func:`tpfa_flow_kernel_from` carry the flow-step kernels of
 ``porepy_tpu.parallel`` (any object with the same array attributes) into
-the port's dataclasses. Every function puts its tensors on the CUDA card
-unless the caller names another device (``"cpu"`` for the host).
+the port's dataclasses. :func:`set_model_state` writes variable values by
+name (as ``get_model_state`` of either package reads them) into a model, and
+:func:`tpfa_ad_geometry_from` carries the arrays of a ``porepy_tpu``
+differentiable-TPFA geometry into the K14 kernels' geometry, so that both
+packages evaluate the same flux from the same inputs. Every function puts
+its tensors on the CUDA card unless the caller names another device
+(``"cpu"`` for the host).
 """
 
 from __future__ import annotations
@@ -22,7 +27,14 @@ import torch
 
 from porepy_tpu_torch.utils import device_policy
 
-__all__ = ["tensors_from_numpy", "structured_flow_kernel_from", "tpfa_flow_kernel_from"]
+__all__ = [
+    "tensors_from_numpy",
+    "structured_flow_kernel_from",
+    "tpfa_flow_kernel_from",
+    "get_model_state",
+    "set_model_state",
+    "tpfa_ad_geometry_from",
+]
 
 
 def tensors_from_numpy(tree: Any, device: Union[str, torch.device, None] = None) -> Any:
@@ -75,3 +87,62 @@ def tpfa_flow_kernel_from(kernel: Any, device: Union[str, torch.device, None] = 
 
     fields = {f: np.asarray(getattr(kernel, f)) for f in _TPFA_FIELDS}
     return TpfaFlowKernel.from_numpy(**fields, device=device_policy.resolve(device))
+
+
+def get_model_state(model: Any, time_step_index=None, iterate_index=0) -> dict:
+    """The model's variable values by variable name, as numpy arrays
+    (each the concatenation over the variable's grids, in the equation
+    system's order). Works on a model of either package."""
+    es = model.equation_system
+    names = sorted({v.name for v in es.variables})
+    kwargs = (
+        {"time_step_index": time_step_index}
+        if time_step_index is not None
+        else {"iterate_index": iterate_index}
+    )
+    return {n: np.asarray(es.get_variable_values([n], **kwargs)) for n in names}
+
+
+def set_model_state(model: Any, state: dict, time_step_index=None, iterate_index=0) -> None:
+    """Write ``state`` (variable name to values, as :func:`get_model_state`
+    gives them, from a model of either package on the same grids) into
+    ``model``'s equation system."""
+    es = model.equation_system
+    kwargs = (
+        {"time_step_index": time_step_index}
+        if time_step_index is not None
+        else {"iterate_index": iterate_index}
+    )
+    for name, values in state.items():
+        es.set_variable_values(np.asarray(values, dtype=float), [name], **kwargs)
+
+
+def tpfa_ad_geometry_from(geometry: Any, device: Union[str, torch.device, None] = None) -> list:
+    """One :class:`~porepy_tpu_torch.kernels.TpfaAdGeometry` per subdomain
+    from a differentiable-TPFA geometry of ``porepy_tpu`` (anything with
+    ``meshes`` holding ``fi``, ``ci``, ``sgn``, ``face_normals``,
+    ``face_centers``, ``cell_centers``, ``num_faces`` and ``masks`` holding
+    ``is_dir``, ``is_neu``, ``is_dir_raw``, ``is_neu_raw``), on ``device``
+    (default: the CUDA card)."""
+    from porepy_tpu_torch.kernels import TpfaAdGeometry
+
+    dev = device_policy.resolve(device)
+    out = []
+    for mesh, bnd in zip(geometry.meshes, geometry.masks):
+        fi = np.asarray(mesh.fi).astype(np.int64)
+        ci = np.asarray(mesh.ci).astype(np.int64)
+        sgn = np.asarray(mesh.sgn, dtype=float)
+        face_ptr = np.concatenate([[0], np.cumsum(np.bincount(fi, minlength=int(mesh.num_faces)))])
+        arrays = {
+            "face_ptr": face_ptr.astype(np.int32),
+            "face_hf": np.argsort(fi, kind="stable").astype(np.int32),
+            "ci": ci.astype(np.int32),
+            "sgn": sgn,
+            "nrm": np.asarray(mesh.face_normals, dtype=float)[:, fi] * sgn,
+            "dvec": np.asarray(mesh.face_centers, dtype=float)[:, fi]
+            - np.asarray(mesh.cell_centers, dtype=float)[:, ci],
+        }
+        for name in ("is_dir", "is_neu", "is_dir_raw", "is_neu_raw"):
+            arrays[name] = np.asarray(getattr(bnd, name), dtype=bool)
+        out.append(TpfaAdGeometry(**_tensors(arrays, dev)))
+    return out

@@ -32,6 +32,13 @@ K16       :func:`interp_lookup`,         ``numerics/ad/operator_functions.py:117
 K11       :func:`block_inverse`          ``numerics/linalg/matrix_operations.py:105-142``
 K19       :func:`halo_pack`,             ``numerics/linalg/device_solver.py:947-953`` (the
           :func:`ell_spmv_split`         matvec under ``parallel/sharded.py``'s dof sharding)
+K15       :func:`upwind_flux`,           ``numerics/fv/upwind.py:76-99`` (the upstream
+          :func:`upwind_flux_tangent`,   selection and the advective face flux around it)
+          :func:`upwind_select`,
+          :func:`upwind_select_pair`
+K14       :func:`tpfa_ad_flux`,          ``models/darcys_law_ad.py:71-147`` (the differentiable
+          :func:`tpfa_ad_trace`,         TPFA flux and trace) and ``numerics/fv/fv_mesh.py:129-145``
+          :func:`segment_sum_sorted`     (the segment sums of ``numerics/fv/tpfa.py``)
 ========  =============================  =====================================================
 
 The CUDA sources live in ``csrc/`` and are built at first use (see
@@ -73,4 +80,14 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     structured_residual,
     tpfa_jvp,
     tpfa_residual,
+    TpfaAdGeometry,
+    segment_sum_sorted,
+    tpfa_ad_flux,
+    tpfa_ad_flux_tangent,
+    tpfa_ad_trace,
+    tpfa_ad_trace_tangent,
+    upwind_flux,
+    upwind_flux_tangent,
+    upwind_select,
+    upwind_select_pair,
 )

@@ -31,6 +31,8 @@ SOURCES = (
     "interp_lookup.cu",
     "block_inverse.cu",
     "halo_spmv.cu",
+    "upwind.cu",
+    "tpfa_ad.cu",
 )
 _NAME = "porepy_tpu_torch_kernels"
 _CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
@@ -68,14 +70,22 @@ _SIGNATURES = {
     "ppt_block_inverse": [_P] * 3 + [_I, _I, _P],
     "ppt_halo_pack": [_P] * 3 + [_I, _P],
     "ppt_ell_spmv_split": [_P] * 5 + [_I] * 4 + [_P],
+    "ppt_upwind_flux": [_P] * 6 + [_L] * 6 + [_P] * 6 + [_I] * 3 + [_P],
+    "ppt_upwind_select": [_P] * 2 + [_L] * 2 + [_P] * 5 + [_I] * 2 + [_P],
+    "ppt_upwind_select_pair": [_P] * 3 + [_L] * 3 + [_P] + [_I] * 2 + [_P],
+    "ppt_segment_sum_sorted": [_P, _L, _P, _P, _P, _I, _I, _P],
+    "ppt_tpfa_ad_flux": [_P] * 10 + [_L] * 5 + [_P] * 9 + [_I] * 3 + [_P],
+    "ppt_tpfa_ad_trace": [_P] * 10 + [_L] * 5 + [_P] * 9 + [_I] * 3 + [_P],
 }
-# The dtypes each kernel is built for (default: both). K10, K11, K16, K17
-# and K18 are float64 only.
+# The dtypes each kernel is built for (default: both). K10, K11, K14, K15,
+# K16, K17 and K18 are float64 only.
 _F64_ONLY = (
     "ppt_region_solve", "ppt_bicgstab_p", "ppt_krylov_dots", "ppt_bicgstab_s",
     "ppt_bicgstab_xr", "ppt_bicgstab_scalars", "ppt_cgs_project", "ppt_cgs_update",
     "ppt_cgs_normalize", "ppt_gmres_lstsq", "ppt_gmres_correct", "ppt_gmres_residual",
     "ppt_gmres_restart", "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
+    "ppt_upwind_flux", "ppt_upwind_select", "ppt_upwind_select_pair",
+    "ppt_segment_sum_sorted", "ppt_tpfa_ad_flux", "ppt_tpfa_ad_trace",
 )
 _SUFFIXES = {name: ("_f64",) for name in _F64_ONLY}
 

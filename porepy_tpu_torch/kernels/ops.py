@@ -5,6 +5,11 @@ launches its kernel from ``csrc/`` (and raises if the build or the launch
 fails); on a CPU tensor it runs the plain version from
 :mod:`porepy_tpu_torch.kernels.reference`. ``LAUNCHES`` counts kernel
 launches per operator, and only those.
+
+The K14 and K15 operators at the end are plain functions with the same
+rule (the kernel for a CUDA tensor, the plain version for a CPU tensor):
+they are only ever called from inside ``torch.autograd.Function``s, take
+optional seeds and row strides, and so gain nothing from the dispatcher.
 """
 
 from __future__ import annotations
@@ -48,6 +53,16 @@ __all__ = [
     "block_inverse",
     "halo_pack",
     "ell_spmv_split",
+    "upwind_flux",
+    "upwind_flux_tangent",
+    "upwind_select",
+    "upwind_select_pair",
+    "segment_sum_sorted",
+    "TpfaAdGeometry",
+    "tpfa_ad_flux",
+    "tpfa_ad_flux_tangent",
+    "tpfa_ad_trace",
+    "tpfa_ad_trace_tangent",
 ]
 
 #: Kernel launches per operator since the last :func:`reset_launches`.
@@ -80,6 +95,11 @@ LAUNCHES = {
     "block_inverse": 0,
     "halo_pack": 0,
     "ell_spmv_split": 0,
+    "upwind_flux": 0,
+    "upwind_select": 0,
+    "segment_sum_sorted": 0,
+    "tpfa_ad_flux": 0,
+    "tpfa_ad_trace": 0,
 }
 
 #: The operators of the fused BiCGStab step (K18a) and of the GMRES Arnoldi
@@ -108,12 +128,13 @@ def _check(name: str, tensors: dict, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: dtype {dtype} not supported (float32/float64)")
 
 
-def _launch(name: str, dtype: torch.dtype, *args) -> None:
+def _launch(name: str, dtype: torch.dtype, *args, count_as: str = "") -> None:
+    """Launch ``ppt_<name>`` and count it under ``count_as`` (default ``name``)."""
     fn = getattr(library(), "ppt_" + name + _SUFFIX[dtype])
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count_as or name] += 1
 
 
 # -- K1 ---------------------------------------------------------------------------
@@ -1091,3 +1112,289 @@ def _ell_spmv_split_cuda(val, col, x_own, x_halo):
 @ell_spmv_split.register_fake
 def _(val, col, x_own, x_halo):
     return x_own.new_empty(val.shape[0])
+
+
+# -- K15 --------------------------------------------------------------------------
+
+
+def _rows(name: str, n: int, **fields):
+    """Pointers and row strides of float64 fields of length ``n``, each
+    ``(n,)`` (row stride 0), ``(B, n)`` or ``None`` (a null pointer): ``(batch,
+    [ptr, ...], [stride, ...])``. Rows must be unit-strided and on the card."""
+    batch, ptrs, strides = 0, [], []
+    for arg, t in fields.items():
+        if t is None:
+            ptrs.append(None)
+            strides.append(0)
+            continue
+        if t.dtype != torch.float64 or not t.is_cuda:
+            raise TypeError(f"{name}: {arg} must be a float64 CUDA tensor")
+        if t.dim() not in (1, 2) or t.shape[-1] != n:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected (B?, {n})")
+        if n > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: {arg} needs unit-stride rows")
+        if t.dim() == 2:
+            if batch and t.shape[0] != batch:
+                raise ValueError(f"{name}: {arg} has {t.shape[0]} rows, others {batch}")
+            batch = t.shape[0]
+        ptrs.append(t.data_ptr())
+        strides.append(t.stride(0) if t.dim() == 2 else 0)
+    return batch, ptrs, strides
+
+
+def _check_upwind_geometry(name, nf, lo, hi, is_dir, is_neu, sgn_div=None):
+    tensors = {"lo": lo, "hi": hi, "is_dir": is_dir, "is_neu": is_neu}
+    if lo.dtype != torch.int64 or hi.dtype != torch.int64:
+        raise TypeError(f"{name}: lo and hi must be int64")
+    if is_dir.dtype != torch.bool or is_neu.dtype != torch.bool:
+        raise TypeError(f"{name}: is_dir and is_neu must be bool")
+    if sgn_div is not None:
+        if sgn_div.dtype != torch.float64:
+            raise TypeError(f"{name}: sgn_div must be float64")
+        tensors["sgn_div"] = sgn_div
+    for arg, t in tensors.items():
+        if t.shape != (nf,):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected ({nf},)")
+    _check(name, tensors, torch.float64)
+
+
+def _upwind_flux_cuda(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div, tangent):
+    nf, nc = q.shape[-1], w.shape[-1]
+    _check_upwind_geometry("upwind_flux", nf, lo, hi, is_dir, is_neu, sgn_div)
+    b_face, p_face, s_face = _rows("upwind_flux", nf, q=q, bc=bc, dq=dq, dbc=dbc)
+    b_cell, p_cell, s_cell = _rows("upwind_flux", nc, w=w, dw=dw)
+    if b_face and b_cell and b_face != b_cell:
+        raise ValueError("upwind_flux: face and cell fields differ in batch size")
+    batch = b_face or b_cell
+    shape = (batch, nf) if batch else (nf,)
+    out = torch.empty(shape, dtype=torch.float64, device=q.device)
+    if nf:
+        _launch(
+            "upwind_flux", torch.float64,
+            p_face[0], p_cell[0], p_face[1], p_face[2], p_cell[1], p_face[3],
+            s_face[0], s_cell[0], s_face[1], s_face[2], s_cell[1], s_face[3],
+            lo.data_ptr(), hi.data_ptr(), is_dir.data_ptr(), is_neu.data_ptr(),
+            sgn_div.data_ptr(), out.data_ptr(), nf, max(batch, 1), int(tangent),
+        )
+    return out
+
+
+def upwind_flux(q, w, bc, lo, hi, is_dir, is_neu, sgn_div):
+    """The upwinded advective face flux (see
+    :func:`porepy_tpu_torch.kernels.reference.upwind_flux`): ``q``, ``bc``
+    ``(nf,)`` or ``(B, nf)``, ``w`` ``(nc,)`` or ``(B, nc)``, float64; ``lo``,
+    ``hi`` int64, ``is_dir``, ``is_neu`` bool, ``sgn_div`` float64 ``(nf,)``."""
+    if not q.is_cuda:
+        return reference.upwind_flux(q, w, bc, lo, hi, is_dir, is_neu, sgn_div)
+    return _upwind_flux_cuda(q, w, bc, None, None, None, lo, hi, is_dir, is_neu, sgn_div, False)
+
+
+def upwind_flux_tangent(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div):
+    """Tangents of :func:`upwind_flux` for the seeds ``(dq, dw, dbc)``, each
+    ``(n,)``, ``(B, n)`` or ``None`` (zero), in one launch; the same kernel
+    as the flux, so its launches count under ``upwind_flux``."""
+    if dq is None and dw is None and dbc is None:
+        raise ValueError("upwind_flux_tangent: needs at least one seed")
+    if not q.is_cuda:
+        return reference.upwind_flux_tangent(
+            q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div
+        )
+    return _upwind_flux_cuda(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div, True)
+
+
+def upwind_select(q, w, lo, hi, is_dir, is_neu):
+    """The upstream value ``up(w)`` per face (see
+    :func:`porepy_tpu_torch.kernels.reference.upwind_select`); ``q`` ``(nf,)``
+    or ``(B, nf)``, ``w`` ``(nc,)`` or ``(B, nc)``."""
+    if not q.is_cuda:
+        return reference.upwind_select(q, w, lo, hi, is_dir, is_neu)
+    nf, nc = q.shape[-1], w.shape[-1]
+    _check_upwind_geometry("upwind_select", nf, lo, hi, is_dir, is_neu)
+    bq, (pq,), (sq,) = _rows("upwind_select", nf, q=q)
+    bw, (pw,), (sw,) = _rows("upwind_select", nc, w=w)
+    if bq and bw and bq != bw:
+        raise ValueError("upwind_select: q and w differ in batch size")
+    batch = bq or bw
+    out = torch.empty((batch, nf) if batch else (nf,), dtype=torch.float64, device=q.device)
+    if nf:
+        _launch(
+            "upwind_select", torch.float64,
+            pq, pw, sq, sw, lo.data_ptr(), hi.data_ptr(), is_dir.data_ptr(),
+            is_neu.data_ptr(), out.data_ptr(), nf, max(batch, 1),
+        )
+    return out
+
+
+def upwind_select_pair(s, a, b):
+    """``a`` where ``s >= 0`` else ``b``; each ``(n,)`` or ``(B, n)``, a
+    ``None`` candidate reads 0. Counts under ``upwind_select``."""
+    if not s.is_cuda:
+        return reference.upwind_select_pair(s, a, b)
+    if a is None and b is None:
+        raise ValueError("upwind_select_pair: needs at least one candidate")
+    n = s.shape[-1]
+    batch, ptrs, strides = _rows("upwind_select_pair", n, s=s, a=a, b=b)
+    out = torch.empty((batch, n) if batch else (n,), dtype=torch.float64, device=s.device)
+    if n:
+        _launch(
+            "upwind_select_pair", torch.float64,
+            *ptrs, *strides, out.data_ptr(), n, max(batch, 1), count_as="upwind_select",
+        )
+    return out
+
+
+# -- K14 --------------------------------------------------------------------------
+
+
+def segment_sum_sorted(x, ptr, idx, num):
+    """Segment sums of ``x`` (last axis) in fixed order (see
+    :func:`porepy_tpu_torch.kernels.reference.segment_sum_sorted`): ``x``
+    ``(n,)`` or ``(B, n)`` float64, ``ptr`` ``(num + 1,)`` and the optional
+    item list ``idx`` ``(n,)`` int32."""
+    if not x.is_cuda:
+        return reference.segment_sum_sorted(x, ptr, idx, num)
+    n = x.shape[-1]
+    if ptr.dtype != torch.int32 or ptr.shape != (num + 1,):
+        raise TypeError("segment_sum_sorted: ptr must be int32 of shape (num + 1,)")
+    tensors = {"ptr": ptr}
+    if idx is not None:
+        if idx.dtype != torch.int32 or idx.shape != (n,):
+            raise TypeError("segment_sum_sorted: idx must be int32 of shape (n,)")
+        tensors["idx"] = idx
+    _check("segment_sum_sorted", tensors, torch.float64)
+    batch, (px,), (sx,) = _rows("segment_sum_sorted", n, x=x)
+    out = torch.empty((batch, num) if batch else (num,), dtype=torch.float64, device=x.device)
+    if num:
+        _launch(
+            "segment_sum_sorted", torch.float64,
+            px, sx, ptr.data_ptr(), None if idx is None else idx.data_ptr(),
+            out.data_ptr(), num, max(batch, 1),
+        )
+    return out
+
+
+class TpfaAdGeometry:
+    """The constant arrays of one subdomain that the K14 flux and trace
+    kernels read, on one device: ``face_ptr`` ``(nf + 1,)``, ``face_hf``,
+    ``ci`` ``(nhf,)`` int32, ``sgn`` ``(nhf,)``, ``nrm``, ``dvec`` ``(3, nhf)``
+    float64 (outward area-weighted normal and face-minus-cell-center vector
+    per half-face) and the bool face masks ``is_dir``, ``is_neu``
+    (effective) and ``is_dir_raw``, ``is_neu_raw``."""
+
+    FIELDS = (
+        "face_ptr", "face_hf", "ci", "sgn", "nrm", "dvec",
+        "is_dir", "is_neu", "is_dir_raw", "is_neu_raw",
+    )
+    _DTYPES = (torch.int32,) * 3 + (torch.float64,) * 3 + (torch.bool,) * 4
+
+    def __init__(self, **arrays) -> None:
+        self.arrays = {}
+        for name, dtype in zip(self.FIELDS, self._DTYPES):
+            t = arrays[name]
+            if t.dtype != dtype:
+                raise TypeError(f"TpfaAdGeometry: {name} must be {dtype}")
+            self.arrays[name] = t.contiguous()
+        self.num_faces = self.arrays["face_ptr"].shape[0] - 1
+        self.num_half_faces = self.arrays["ci"].shape[0]
+        nf, nhf = self.num_faces, self.num_half_faces
+        shapes = ((nf + 1,), (nhf,), (nhf,), (nhf,), (3, nhf), (3, nhf)) + ((nf,),) * 4
+        for name, shape in zip(self.FIELDS, shapes):
+            if tuple(self.arrays[name].shape) != shape:
+                raise ValueError(f"TpfaAdGeometry: {name} must have shape {shape}")
+
+    @classmethod
+    def trusted(cls, tensors) -> "TpfaAdGeometry":
+        """A geometry over ``tensors`` (in ``FIELDS`` order) that a checked
+        instance gave out through :meth:`tensors`; nothing is checked again."""
+        self = cls.__new__(cls)
+        self.arrays = dict(zip(cls.FIELDS, tensors))
+        self.num_faces = tensors[0].shape[0] - 1
+        self.num_half_faces = tensors[2].shape[0]
+        return self
+
+    def tensors(self) -> tuple:
+        """The arrays in ``FIELDS`` order."""
+        return tuple(self.arrays.values())
+
+    def __getitem__(self, name):
+        return self.arrays[name]
+
+    @property
+    def device(self):
+        return self.arrays["sgn"].device
+
+
+def _tpfa_ad_cuda(name, geom, primals, seeds):
+    k9, vol, p, bco, lam = primals
+    nc, nf = vol.shape[0], geom.num_faces
+    sizes = (9 * nc, nc, nc, nf, nf)
+    for arg, t, n in zip(("k9", "vol", "p", "bco", "lam"), primals, sizes):
+        if t.dtype != torch.float64 or t.shape != (n,):
+            raise ValueError(f"{name}: {arg} must be float64 of shape ({n},)")
+    _check(name, dict(zip(("k9", "vol", "p", "bco", "lam"), primals)), torch.float64)
+    if geom.device != vol.device:
+        raise ValueError(f"{name}: geometry on {geom.device}, fields on {vol.device}")
+    raw = name == "tpfa_ad_trace"
+    masks = (geom["is_dir_raw"], geom["is_neu_raw"]) if raw else (geom["is_dir"], geom["is_neu"])
+    if seeds is None:
+        batch, s_ptrs, s_strides = 0, [None] * 5, [0] * 5
+        out = torch.empty(nf, dtype=torch.float64, device=vol.device)
+    else:
+        batch, s_ptrs, s_strides = 0, [], []
+        for arg, t, n in zip(("dk9", "dvol", "dp", "dbco", "dlam"), seeds, sizes):
+            b, (ptr,), (stride,) = _rows(name, n, **{arg: t})
+            if t is not None and t.dim() != 2:
+                raise ValueError(f"{name}: {arg} must be (B, {n})")
+            if b and batch and b != batch:
+                raise ValueError(f"{name}: seeds differ in batch size")
+            batch = batch or b
+            s_ptrs.append(ptr)
+            s_strides.append(stride)
+        if not batch:
+            raise ValueError(f"{name}: needs at least one seed")
+        out = torch.empty((batch, nf), dtype=torch.float64, device=vol.device)
+    if nf:
+        _launch(
+            name, torch.float64,
+            *(t.data_ptr() for t in primals), *s_ptrs, *s_strides,
+            geom["face_ptr"].data_ptr(), geom["face_hf"].data_ptr(), geom["ci"].data_ptr(),
+            geom["sgn"].data_ptr(), geom["nrm"].data_ptr(), geom["dvec"].data_ptr(),
+            masks[0].data_ptr(), masks[1].data_ptr(), out.data_ptr(),
+            nf, geom.num_half_faces, batch,
+        )
+    return out
+
+
+def tpfa_ad_flux(geom: TpfaAdGeometry, k9, vol, p, bco, lam):
+    """The differentiable TPFA face flux of one subdomain (see
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_ad_flux`): ``k9``
+    ``(9 nc,)`` cell-major, ``vol``, ``p`` ``(nc,)``, ``bco``, ``lam``
+    ``(nf,)``, float64."""
+    if not vol.is_cuda:
+        return reference.tpfa_ad_flux(geom, k9, vol, p, bco, lam)
+    return _tpfa_ad_cuda("tpfa_ad_flux", geom, (k9, vol, p, bco, lam), None)
+
+
+def tpfa_ad_flux_tangent(geom: TpfaAdGeometry, primals, seeds):
+    """Tangents ``(B, nf)`` of :func:`tpfa_ad_flux` at the five ``primals``
+    for the five ``seeds``, each ``(B, n)`` or ``None`` (zero), in one
+    launch of the flux kernel (counted under ``tpfa_ad_flux``)."""
+    if not primals[1].is_cuda:
+        return reference.tpfa_ad_tangent(reference.tpfa_ad_flux, geom, primals, seeds)
+    return _tpfa_ad_cuda("tpfa_ad_flux", geom, tuple(primals), tuple(seeds))
+
+
+def tpfa_ad_trace(geom: TpfaAdGeometry, k9, vol, p, bco, lam):
+    """The boundary pressure trace of one subdomain (see
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_ad_trace`)."""
+    if not vol.is_cuda:
+        return reference.tpfa_ad_trace(geom, k9, vol, p, bco, lam)
+    return _tpfa_ad_cuda("tpfa_ad_trace", geom, (k9, vol, p, bco, lam), None)
+
+
+def tpfa_ad_trace_tangent(geom: TpfaAdGeometry, primals, seeds):
+    """Tangents ``(B, nf)`` of :func:`tpfa_ad_trace`, as
+    :func:`tpfa_ad_flux_tangent`."""
+    if not primals[1].is_cuda:
+        return reference.tpfa_ad_tangent(reference.tpfa_ad_trace, geom, primals, seeds)
+    return _tpfa_ad_cuda("tpfa_ad_trace", geom, tuple(primals), tuple(seeds))

@@ -41,6 +41,15 @@ __all__ = [
     "block_inverse",
     "halo_pack",
     "ell_spmv_split",
+    "upwind_select",
+    "upwind_select_pair",
+    "upwind_masks",
+    "upwind_flux",
+    "upwind_flux_tangent",
+    "segment_sum_sorted",
+    "tpfa_ad_flux",
+    "tpfa_ad_trace",
+    "tpfa_ad_tangent",
 ]
 
 
@@ -587,3 +596,176 @@ def ell_spmv_split(
     :func:`ell_spmv` on ``[x_own, x_halo]``, so that one shard holding every
     row gives :func:`ell_spmv`'s result bit for bit."""
     return ell_spmv(val, col, torch.cat([x_own, x_halo]))
+
+
+# -- K15 --------------------------------------------------------------------------
+
+
+def _zeros_if_none(t, like):
+    return torch.zeros_like(like) if t is None else t
+
+
+def upwind_select(q, w, lo, hi, is_dir, is_neu):
+    """Upstream value of the cell field ``w`` on each face: ``w[lo]`` where
+    ``q >= 0`` else ``w[hi]`` (IEEE: ``-0.0 >= 0`` holds, NaN does not), 0
+    where that cell is missing (index -1), on Neumann faces and on Dirichlet
+    faces with inflow from outside. ``q`` is ``(nf,)`` or ``(B, nf)``, ``w``
+    ``(nc,)`` or ``(B, nc)``; the selection is taken from ``q`` as data."""
+    pos = q.detach() >= 0
+    up = torch.where(pos, lo, hi)
+    idx = torch.clamp(up, min=0)
+    if w.dim() == 2 and idx.dim() == 1:
+        w_sel = w[:, idx]
+    elif w.dim() == 2:
+        w_sel = torch.gather(w, 1, idx)
+    else:
+        w_sel = w[idx]
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    excluded = is_neu | (is_dir & (up < 0))
+    return torch.where((up < 0) | excluded, zero, w_sel)
+
+
+def upwind_select_pair(s, a, b):
+    """``a`` where ``s >= 0`` else ``b``, the selection taken from ``s`` as
+    data; a missing candidate (``None``) reads 0."""
+    if a is None and b is None:
+        raise ValueError("upwind_select_pair: needs at least one candidate")
+    a = _zeros_if_none(a, b)
+    b = _zeros_if_none(b, a)
+    return torch.where(s.detach() >= 0, a, b)
+
+
+def upwind_masks(q, lo, hi, is_dir, is_neu, sgn_div):
+    """``(dir_mask, neu_coeff)``: 1 on Dirichlet faces whose upstream side
+    lies outside the grid, and ``sgn_div`` on Neumann faces, else 0."""
+    pos = q.detach() >= 0
+    inflow_outside = torch.where(pos, lo < 0, hi < 0)
+    dir_mask = (is_dir & inflow_outside).to(q.dtype)
+    neu_coeff = torch.where(is_neu, sgn_div, torch.zeros_like(sgn_div))
+    return dir_mask, neu_coeff
+
+
+def upwind_flux(q, w, bc, lo, hi, is_dir, is_neu, sgn_div):
+    """The upwinded advective face flux ``q up(w) + dir_mask q bc +
+    neu_coeff bc`` (:func:`upwind_select`, :func:`upwind_masks`)."""
+    dir_mask, neu_coeff = upwind_masks(q, lo, hi, is_dir, is_neu, sgn_div)
+    return (
+        q * upwind_select(q, w, lo, hi, is_dir, is_neu)
+        + dir_mask * q * bc
+        + neu_coeff * bc
+    )
+
+
+def upwind_flux_tangent(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div):
+    """Forward-mode tangent of :func:`upwind_flux` at ``(q, w, bc)`` for the
+    seeds ``(dq, dw, dbc)`` (``None`` is a zero seed), the selection frozen:
+    ``dq (up(w) + dir_mask bc) + q up(dw) + (dir_mask q + neu_coeff) dbc``."""
+    dir_mask, neu_coeff = upwind_masks(q, lo, hi, is_dir, is_neu, sgn_div)
+    out = None
+    if dq is not None:
+        out = dq * (upwind_select(q, w, lo, hi, is_dir, is_neu) + dir_mask * bc)
+    if dw is not None:
+        term = q * upwind_select(q, dw, lo, hi, is_dir, is_neu)
+        out = term if out is None else out + term
+    if dbc is not None:
+        term = (dir_mask * q + neu_coeff) * dbc
+        out = term if out is None else out + term
+    if out is None:
+        raise ValueError("upwind_flux_tangent: needs at least one seed")
+    return out
+
+
+# -- K14 --------------------------------------------------------------------------
+
+
+def segment_sum_sorted(x, ptr, idx, num):
+    """Sums of ``x`` (last axis) over ``num`` segments in fixed order:
+    segment ``s`` holds the items ``idx[ptr[s]:ptr[s + 1]]``, or
+    ``ptr[s]:ptr[s + 1]`` themselves when ``idx`` is ``None``. Items are
+    added in ascending position, from zero."""
+    counts = (ptr[1:] - ptr[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(num, device=x.device), counts)
+    if idx is not None:
+        seg_of = torch.empty_like(seg)
+        seg_of[idx.long()] = seg
+        seg = seg_of
+    out = torch.zeros(x.shape[:-1] + (num,), dtype=x.dtype, device=x.device)
+    return torch.index_add(out, -1, seg, x)
+
+
+def _tpfa_ad_t_full(geom, k9, vol):
+    """Harmonic face transmissibilities ``1 / sum(1 / t_hf)`` with ``t_hf =
+    (n . (K vol) . d) / |d|^2`` per half-face; ``k9`` cell-major."""
+    ci = geom["ci"].long()
+    nc = vol.shape[-1]
+    kv = (k9.reshape(nc, 3, 3) * vol[:, None, None]).permute(1, 2, 0)
+    n, d = geom["nrm"], geom["dvec"]
+    nk = torch.einsum("ijh,jh->ih", kv[:, :, ci], n)
+    t_hf = torch.sum(nk * d, dim=0) / torch.sum(d * d, dim=0)
+    recip = segment_sum_sorted(
+        1.0 / t_hf, geom["face_ptr"], geom["face_hf"], geom["face_ptr"].shape[0] - 1
+    )
+    return 1.0 / recip
+
+
+def _face_from_half_faces(geom, x_hf):
+    """The face field that takes each face's last half-face value of ``x_hf``."""
+    last = geom["face_hf"].long()[(geom["face_ptr"][1:] - 1).long()]
+    return x_hf[last]
+
+
+def tpfa_ad_flux(geom, k9, vol, p, bco, lam):
+    """The differentiable TPFA face flux of one subdomain: ``t sum(sgn
+    p[ci]) + coeff (bco + lam)`` with ``t`` the harmonic transmissibility
+    (0 on effective Neumann faces) and ``coeff`` the boundary coefficient
+    (``-t sgn`` Dirichlet, ``sgn`` Neumann, on faces with one half-face).
+    ``geom`` holds ``face_ptr``, ``face_hf``, ``ci`` (int32), ``sgn``,
+    ``nrm``, ``dvec`` (float64) and the bool face masks."""
+    nf = geom["face_ptr"].shape[0] - 1
+    t_full = _tpfa_ad_t_full(geom, k9, vol)
+    zero = torch.zeros_like(t_full)
+    t = torch.where(geom["is_neu"], zero, t_full)
+    sgn_face = _face_from_half_faces(geom, geom["sgn"])
+    coeff = torch.where(
+        geom["is_dir"], -t * sgn_face, torch.where(geom["is_neu"], sgn_face, zero)
+    )
+    single = (geom["face_ptr"][1:] - geom["face_ptr"][:-1]) == 1
+    coeff = torch.where(single, coeff, zero)
+    cell_part = segment_sum_sorted(
+        geom["sgn"] * p[geom["ci"].long()], geom["face_ptr"], geom["face_hf"], nf
+    )
+    return t * cell_part + coeff * (bco + lam)
+
+
+def tpfa_ad_trace(geom, k9, vol, p, bco, lam):
+    """The boundary pressure trace of one subdomain: the boundary value on
+    (raw) Dirichlet faces, ``p_cell - (bco + lam) / t_full`` on raw Neumann
+    faces, 0 elsewhere."""
+    t_full = _tpfa_ad_t_full(geom, k9, vol)
+    b = bco + lam
+    p_face = _face_from_half_faces(geom, p[geom["ci"].long()])
+    neu, dirr = geom["is_neu_raw"], geom["is_dir_raw"]
+    zero = torch.zeros_like(t_full)
+    safe = torch.where(neu, t_full, torch.ones_like(t_full))
+    return torch.where(dirr, b, torch.where(neu, p_face - b / safe, zero))
+
+
+def tpfa_ad_tangent(fn, geom, primals, seeds):
+    """Forward-mode tangents ``(B, nf)`` of ``fn`` (:func:`tpfa_ad_flux` or
+    :func:`tpfa_ad_trace`) at the five ``primals`` for the ``(B, ...)``
+    ``seeds`` (``None`` is a zero seed), by ``torch.func.jvp`` of the plain
+    version."""
+    live = [i for i, s in enumerate(seeds) if s is not None]
+    if not live:
+        raise ValueError("tpfa_ad_tangent: needs at least one seed")
+
+    def partial(*args):
+        full = list(primals)
+        for i, a in zip(live, args):
+            full[i] = a
+        return fn(geom, *full)
+
+    def one(*tangents):
+        return torch.func.jvp(partial, tuple(primals[i] for i in live), tangents)[1]
+
+    return torch.func.vmap(one)(*(seeds[i] for i in live))

@@ -21,7 +21,8 @@ from porepy_tpu_torch.numerics.ad.discretizations import TpfaAd, UpwindAd
 from porepy_tpu_torch.numerics.fv.upwind import (
     UpwindGeometry,
     upwind_apply,
-    upwind_boundary_masks,
+    upwind_flux,
+    upwind_select_pair,
 )
 from porepy_tpu_torch.params.tensor import SecondOrderTensor
 
@@ -525,12 +526,7 @@ class AdvectiveFlux:
         geom, pattern = self._upwind_geometry(subdomains, bc_type)
 
         def f(q_v, w_v, bc_v):
-            dir_mask, neu_coeff = upwind_boundary_masks(geom, q_v)
-            return (
-                q_v * upwind_apply(geom, q_v, w_v)
-                + dir_mask * q_v * bc_v
-                + neu_coeff * bc_v
-            )
+            return upwind_flux(geom, q_v, w_v, bc_v)
 
         def pattern_fn(child_patterns, ndof):
             q_pat, w_pat, bc_pat = child_patterns
@@ -589,8 +585,6 @@ class AdvectiveFlux:
         times the upstream (primary trace / secondary) advected value
         (reference ``constitutive_laws.py:2571``). Upstream selection runs
         inside the traced residual, like the subdomain upwinding."""
-        import torch
-
         subdomains = self.interfaces_to_subdomains(interfaces)
         projection = ad.MortarProjections(self.mdg, subdomains, interfaces, dim=1)
         trace = ad.Trace(subdomains)
@@ -602,8 +596,7 @@ class AdvectiveFlux:
         lam = self.interface_darcy_flux(interfaces)
 
         def f(lam_v, wp, ws):
-            take_primary = lam_v.detach() >= 0
-            return lam_v * torch.where(take_primary, wp, ws)
+            return lam_v * upwind_select_pair(lam_v, wp, ws)
 
         def pattern_fn(child_patterns, ndof):
             from porepy_tpu_torch.numerics.ad.compiler import _union
@@ -1727,8 +1720,6 @@ class FluidBuoyancy:
         with ``w`` the density-driven flux of ``rho_g - rho_d`` (reference
         ``fluid_property_library.py:798``), plus the mortar pickup on
         internal boundaries when interfaces exist."""
-        from porepy_tpu_torch.numerics.fv.upwind import upwind_apply
-
         w = self.density_driven_flux(
             subdomains, gamma.density(subdomains) - delta.density(subdomains)
         )
@@ -1787,8 +1778,6 @@ class FluidBuoyancy:
         """Upwinded interface buoyant coupling ``(up_w[adv*f_g] *
         up_{-w}[f_d]) * w_intf`` with upstream sides selected in-kernel by
         the sign of the interface density-driven flux."""
-        import torch
-
         from porepy_tpu_torch.numerics.ad.grid_operators import (
             MortarProjections,
             Trace,
@@ -1807,9 +1796,8 @@ class FluidBuoyancy:
         ds = projection.secondary_to_mortar_avg() @ wd
 
         def f(w_v, gp_v, gs_v, dp_v, ds_v):
-            pos = w_v.detach() >= 0
-            up_g = torch.where(pos, gp_v, gs_v)
-            up_d = torch.where(pos, ds_v, dp_v)
+            up_g = upwind_select_pair(w_v, gp_v, gs_v)
+            up_d = upwind_select_pair(w_v, ds_v, dp_v)
             return up_g * up_d * w_v
 
         def pattern_fn(child_patterns, ndof):

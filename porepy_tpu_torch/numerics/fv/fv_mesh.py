@@ -15,9 +15,12 @@ Half-face convention: entry ``k`` couples face ``fi[k]`` with adjacent cell
 cell. Interior faces own two half-faces, boundary faces one. The ordering is
 the CSC order of the originating grid.
 
-The md path builds these on the host CPU at setup (TPFA on the 1d fracture
-grids). The segment sums use ``index_add_``, which is deterministic on the
-CPU; on a CUDA tensor it accumulates with atomics in no fixed order.
+The segment sums over the half-faces of a face or of a cell go through
+``face_ptr``/``face_hf`` and ``cell_ptr``, two CSR views of the half-face
+list built once on the host: each sum runs in the CSC order of its items,
+on a CUDA tensor in the K14 ``segment_sum_sorted`` kernel
+(``kernels/csrc/tpfa_ad.cu``, no atomics), on a CPU tensor in its plain
+version, so the result has the same bits on every run.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from typing import Union
 import numpy as np
 import scipy.sparse as sps
 import torch
+
+from porepy_tpu_torch.kernels import functions as kfn
 
 __all__ = ["FvMesh", "BoundaryMasks"]
 
@@ -83,6 +88,13 @@ class FvMesh:
     ci: torch.Tensor  # cell index of each half-face (int64)
     sgn: torch.Tensor  # +-1.0: normal out of cell ci -> +1
 
+    # CSR views of the half-face list (int32): the half-faces of face f are
+    # face_hf[face_ptr[f]:face_ptr[f + 1]], ascending; those of cell c are
+    # cell_ptr[c]:cell_ptr[c + 1] themselves (the list is in CSC order).
+    face_ptr: torch.Tensor  # (num_faces + 1,)
+    face_hf: torch.Tensor  # (num_half_faces,)
+    cell_ptr: torch.Tensor  # (num_cells + 1,)
+
     # Geometry
     face_normals: torch.Tensor  # (3, num_faces), area weighted
     face_centers: torch.Tensor  # (3, num_faces)
@@ -107,10 +119,17 @@ class FvMesh:
         def f64(a):
             return torch.tensor(np.asarray(a, dtype=float), dtype=torch.float64, device=device)
 
+        def i32(a):
+            return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+        face_ptr = np.concatenate([[0], np.cumsum(np.bincount(fi, minlength=sd.num_faces))])
         return FvMesh(
             fi=torch.tensor(fi, dtype=torch.int64, device=device),
             ci=torch.tensor(ci, dtype=torch.int64, device=device),
             sgn=f64(cf.data),
+            face_ptr=i32(face_ptr),
+            face_hf=i32(np.argsort(fi, kind="stable")),
+            cell_ptr=i32(cf.indptr),
             face_normals=f64(sd.face_normals),
             face_centers=f64(sd.face_centers),
             face_areas=f64(sd.face_areas),
@@ -133,21 +152,19 @@ class FvMesh:
         """Apply the divergence operator to a face field: per cell the
         signed sum over its faces. Input ``(num_faces,)`` or
         ``(..., num_faces)``; reduces the last axis to ``num_cells``."""
-        contrib = self.sgn * face_field[..., self.fi]
-        return _segment_sum_last(contrib, self.ci, self.num_cells)
+        return self.cell_sum(self.sgn * face_field[..., self.fi])
+
+    def face_sum(self, x_hf: torch.Tensor) -> torch.Tensor:
+        """Sum of a half-face field ``(..., num_half_faces)`` over the
+        half-faces of each face, in CSC order: ``(..., num_faces)``."""
+        return kfn.segment_sum_sorted(x_hf, self.face_ptr, self.face_hf, self.num_faces)
+
+    def cell_sum(self, x_hf: torch.Tensor) -> torch.Tensor:
+        """Sum of a half-face field ``(..., num_half_faces)`` over the
+        half-faces of each cell: ``(..., num_cells)``."""
+        return kfn.segment_sum_sorted(x_hf, self.cell_ptr, None, self.num_cells)
 
     def boundary_faces(self) -> np.ndarray:
         """Host-side indices of faces with exactly one adjacent cell."""
         counts = np.bincount(self.fi.cpu().numpy(), minlength=self.num_faces)
         return np.where(counts == 1)[0]
-
-
-def segment_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
-    """Sum of ``x`` (first axis) into ``num`` segments given by ``seg``."""
-    out = torch.zeros((num,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, seg, x)
-
-
-def _segment_sum_last(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
-    moved = torch.movedim(x, -1, 0)
-    return torch.movedim(segment_sum(moved, seg, num), 0, -1)

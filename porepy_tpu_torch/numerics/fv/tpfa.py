@@ -10,8 +10,12 @@ a segment sum. A solution-dependent permeability therefore differentiates
 through the discretization — the reference needs a dedicated
 ``DifferentiableTpfa`` (``numerics/fv/tpfa.py:281``) for that.
 
-On the md path this runs once at setup, on host CPU tensors, for the 1d
-fracture grids (``mpfa.py`` hands 1d MPFA to TPFA). The scipy matrices the
+On the md path this runs once at setup for the 1d fracture grids
+(``mpfa.py`` hands 1d MPFA to TPFA): on host CPU tensors, or on the card
+when ``PPT_LOCAL_SOLVE_DEVICE=1`` asks for the discretization there (the
+switch of the MPFA/MPSA region solves), where the segment sums run in the
+K14 ``segment_sum_sorted`` kernel. Inside the residual the same expressions
+run as the fused K14 kernels of ``models/darcys_law_ad.py``. The scipy matrices the
 reference stores (``flux``, ``bound_flux``, ``bound_pressure_cell/face``,
 ``vector_source``, ``bound_pressure_vector_source`` — see reference
 ``numerics/fv/tpfa.py:55-67``) are produced by :meth:`Tpfa.discretize`.
@@ -37,7 +41,7 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from porepy_tpu_torch.numerics.fv.fv_mesh import BoundaryMasks, FvMesh, segment_sum
+from porepy_tpu_torch.numerics.fv.fv_mesh import BoundaryMasks, FvMesh
 from porepy_tpu_torch.numerics.fv.fv_elliptic import FVElliptic
 from porepy_tpu_torch.utils import common_constants as cc
 
@@ -75,7 +79,7 @@ def half_face_transmissibilities(mesh: FvMesh, perm: torch.Tensor) -> torch.Tens
 def face_transmissibilities(mesh: FvMesh, perm: torch.Tensor) -> torch.Tensor:
     """Harmonic-average face transmissibilities, shape ``(num_faces,)``."""
     t_hf = half_face_transmissibilities(mesh, perm)
-    recip = segment_sum(1.0 / t_hf, mesh.fi, mesh.num_faces)
+    recip = mesh.face_sum(1.0 / t_hf)
     return 1.0 / recip
 
 
@@ -101,7 +105,7 @@ def apply_flux(
 
     ``flux[f] = t[f] * sum_halffaces sgn * p[cell]``.
     """
-    cell_part = segment_sum(mesh.sgn * p[mesh.ci], mesh.fi, mesh.num_faces)
+    cell_part = mesh.face_sum(mesh.sgn * p[mesh.ci])
     flux = t * cell_part
     if bound_flux_coeff is not None and bc_values is not None:
         flux = flux + bound_flux_coeff * bc_values
@@ -122,8 +126,8 @@ def boundary_flux_coefficients(
     coeff = torch.where(
         bnd.is_dir, -t * sgn_face, torch.where(bnd.is_neu, sgn_face, zero)
     )
-    # Only boundary faces carry coefficients.
-    n_adj = segment_sum(torch.ones_like(mesh.sgn), mesh.fi, mesh.num_faces)
+    # Only boundary faces (one half-face) carry coefficients.
+    n_adj = mesh.face_ptr[1:] - mesh.face_ptr[:-1]
     return torch.where(n_adj == 1, coeff, zero)
 
 
@@ -178,23 +182,29 @@ class Tpfa(FVElliptic):
         k = param["second_order_tensor"]
         bc = param["bc"]
 
-        mesh = FvMesh.from_grid(sd)
-        bnd = BoundaryMasks.from_bc(bc)
+        from porepy_tpu_torch.numerics.fv.local_solves import _use_device
+        from porepy_tpu_torch.utils.device_policy import accelerator
+
+        device = accelerator() if _use_device() else torch.device("cpu")
+        mesh = FvMesh.from_grid(sd, device=device)
+        bnd = BoundaryMasks.from_bc(bc, device=device)
 
         t, t_full = effective_transmissibilities(
-            mesh, torch.tensor(np.asarray(k.values), dtype=torch.float64), bnd
+            mesh,
+            torch.tensor(np.asarray(k.values), dtype=torch.float64, device=device),
+            bnd,
         )
 
         # Host-side assembly of the parity matrices.
-        fi = mesh.fi.numpy()
-        ci = mesh.ci.numpy()
-        sgn = mesh.sgn.numpy()
-        t_np = t.numpy()
-        t_full_np = t_full.numpy()
-        is_dir = bnd.is_dir.numpy()
-        is_neu = bnd.is_neu.numpy()
-        is_dir_raw = bnd.is_dir_raw.numpy()
-        is_neu_raw = bnd.is_neu_raw.numpy()
+        fi = mesh.fi.cpu().numpy()
+        ci = mesh.ci.cpu().numpy()
+        sgn = mesh.sgn.cpu().numpy()
+        t_np = t.cpu().numpy()
+        t_full_np = t_full.cpu().numpy()
+        is_dir = bnd.is_dir.cpu().numpy()
+        is_neu = bnd.is_neu.cpu().numpy()
+        is_dir_raw = bnd.is_dir_raw.cpu().numpy()
+        is_neu_raw = bnd.is_neu_raw.cpu().numpy()
         nf, nc = sd.num_faces, sd.num_cells
 
         flux = sps.coo_matrix(
@@ -228,7 +238,7 @@ class Tpfa(FVElliptic):
         ).tocsr()
 
         # Vector source (gravity) discretization.
-        fc_cc = mesh.fc_cc().numpy()
+        fc_cc = mesh.fc_cc().cpu().numpy()
         vals = (t_np[fi] * fc_cc * sgn)[:vs_dim].ravel("F")
         rows = np.tile(fi, (vs_dim, 1)).ravel("F")
         cols = (ci[:, None] * vs_dim + np.arange(vs_dim)).ravel()

@@ -13,7 +13,9 @@ Two faces of the same scheme:
   iteration (``models/solution_strategy.py:988-1015``), the residual
   switches directions for free. The direction is detached so the Jacobian
   matches the reference's frozen-matrix linearization exactly. Gathers
-  only: no scatter, so the result is deterministic on every device.
+  only: no scatter, so the result is deterministic on every device. On a
+  CUDA tensor these run the K15 kernels (``kernels/csrc/upwind.cu``), on a
+  CPU tensor their plain versions in :mod:`porepy_tpu_torch.kernels.reference`.
 """
 
 from __future__ import annotations
@@ -24,9 +26,18 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
+from porepy_tpu_torch.kernels import functions as kfn
+from porepy_tpu_torch.kernels import reference
 from porepy_tpu_torch.utils import common_constants as cc
 
-__all__ = ["Upwind", "UpwindGeometry", "upwind_apply", "UpwindCoupling"]
+__all__ = [
+    "Upwind",
+    "UpwindGeometry",
+    "upwind_apply",
+    "upwind_flux",
+    "upwind_select_pair",
+    "UpwindCoupling",
+]
 
 
 class UpwindGeometry:
@@ -92,26 +103,37 @@ def upwind_apply(geom: UpwindGeometry, q, w):
     through the boundary pickup terms, mirroring the reference's matrix
     split."""
     g = geom.on(q.device)
-    pos = q.detach() >= 0
-    up = torch.where(pos, g["lo"], g["hi"])
-    zero = torch.zeros((), dtype=w.dtype, device=w.device)
-    w_up = torch.where(up >= 0, w[torch.clamp(up, min=0)], zero)
-    inflow_outside = torch.where(pos, g["lo"] < 0, g["hi"] < 0)
-    excluded = g["is_neu"] | (g["is_dir"] & inflow_outside)
-    return torch.where(excluded, zero, w_up)
+    return kfn.upwind_select(q, w, g["lo"], g["hi"], g["is_dir"], g["is_neu"])
 
 
 def upwind_boundary_masks(geom: UpwindGeometry, q):
     """(dirichlet_inflow_mask, neumann_coeff) as in the reference's
-    ``rhs_dir``/``rhs_neu`` diagonals."""
+    ``rhs_dir``/``rhs_neu`` diagonals. Plain tensor code: the residual takes
+    these inside :func:`upwind_flux`."""
     g = geom.on(q.device)
-    pos = q.detach() >= 0
-    inflow_outside = torch.where(pos, g["lo"] < 0, g["hi"] < 0)
-    dir_mask = (g["is_dir"] & inflow_outside).to(q.dtype)
-    neu_coeff = torch.where(
-        g["is_neu"], g["sgn_div"], torch.zeros_like(g["sgn_div"])
+    return reference.upwind_masks(
+        q, g["lo"], g["hi"], g["is_dir"], g["is_neu"], g["sgn_div"]
     )
-    return dir_mask, neu_coeff
+
+
+def upwind_flux(geom: UpwindGeometry, q, w, bc):
+    """The upwinded advective face flux ``q up(w) + dir_mask q bc +
+    neu_coeff bc`` with :func:`upwind_apply`'s ``up`` and
+    :func:`upwind_boundary_masks`' masks, in one pass over the faces."""
+    g = geom.on(q.device)
+    nf = g["lo"].shape[0]
+    bc = torch.atleast_1d(bc)
+    if bc.shape[-1] != nf:
+        bc = bc.expand(nf)
+    return kfn.upwind_flux(
+        q, w, bc, g["lo"], g["hi"], g["is_dir"], g["is_neu"], g["sgn_div"]
+    )
+
+
+def upwind_select_pair(s, a, b):
+    """``a`` where ``s >= 0`` else ``b``, the choice taken from ``s`` as data
+    (detached): the interface form of the upstream selection."""
+    return kfn.upwind_select_pair(s, a, b)
 
 
 class Upwind:

@@ -17,8 +17,10 @@ PORTED = {
     "__init__.py",
     "applications/benchmarking/cases.py",
     "compositional/flash.py",
+    "examples/__init__.py",
     "models/constitutive_laws.py",
     "models/contact_mechanics.py",
+    "models/darcys_law_ad.py",
     "models/solution_strategy.py",
     "numerics/ad/compiler.py",
     "numerics/ad/equation_system.py",
