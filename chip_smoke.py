@@ -133,9 +133,32 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    no host fallback, the K14 kernels launched, the Jacobian at the first
    iterate and the final pressure against the same model on the host
    (plain path; 1e-10 and 1e-8 of the largest entry), one more host Newton
-   increment <= 1e-10, and the assembly in turns as in phase 20.
+   increment <= 1e-10, and the assembly in turns as in phase 20;
+22. hold the kernels of the hand-written forward-mode assembly (K8:
+   ``dual_ew``, ``dual_gather``, ``jac_gather``) against their plain
+   versions at the md 1/128 shapes (18,157 unknowns, 16,969 cells, 16 seeds,
+   90,261 nonzeros): values and tangents within 1e-13 of the largest entry
+   (the gathers equal), the same bits from two launches, CUDA-event times,
+   the bound (bytes read once and written once over 3.35 TB/s) and the time
+   of ``index_select`` for the two gathers;
+23. the assembly in turns (functorch, dual, dual, functorch: the K8 pass of
+   ``numerics/ad/forward.py`` against ``torch.func`` over the traced
+   residual, its plain version) at the final state of md 1/128, 3d 32^3, biot
+   1/64, tracer 1/64 and ``DarcysLawAd`` 1/128, inside their phases: both
+   results within 1e-12 of the largest entry, median ms of each turn, the
+   launches of one assembly by kernel, and the nodes without a dual rule per
+   equation, which must be 0; for tracer and ``DarcysLawAd`` phase 20's and
+   21's turns now time the dual route through the K15/K14 kernels against
+   the same route through their plain versions;
+24. run md at cell size 1/256 (the case ``cases.build_case("md256")`` makes; AMG,
+   as the system is above the dense limit) for 26 steps: 3 fused blocks, 0
+   host fallbacks, every md and K8 kernel launched, pressure in [0, 1], one
+   more host Newton increment <= 1e-10, and the final state within 1e-8 of
+   the same run through the functorch route; setup seconds, Newton and
+   Krylov counts, ms per Newton iteration of both.
 
-The line before the last is a JSON object with one entry per kernel (ms,
+All fused runs (phases 4-21) assemble through the K8 pass. The line before
+the last is a JSON object with one entry per kernel (ms,
 plain ms, the bound and what sets it, the time of one PyTorch call of the
 same function where there is one); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -159,6 +182,7 @@ N_ROWS, K_ELL, N_SEEDS, RESTART = 18157, 9, 11, 70
 REPEATS = 100
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 MD_KERNELS = ("ell_spmv", "ell_jacobi_sweep", "fgmres_givens")
+K8_KERNELS = ("dual_ew", "dual_gather", "jac_gather")
 DENSE_KERNELS = ("dense_block_scatter", "gj_pivot_inverse", "dense_block_apply")
 N3D = 32
 FLUID_3D = dict(
@@ -345,6 +369,7 @@ def last_step_check(model) -> tuple[float, float]:
     for ce, smap in zip(cs.ces, subst):
         env = ce.env_spec.fetch(eq_sys, device="cpu")
         env = [x_prev[smap[i][0] : smap[i][1]] if i in smap else e for i, e in enumerate(env)]
+        # The plain version of the assembly: torch.func over the traced residual.
         seeds = torch.tensor(ce.seeds, dtype=torch.float64)
         val, compressed = compiler.colored_jvps(ce.fn, x_last, env, seeds)
         data.append(compressed.numpy()[ce.gather_color, ce.rows])
@@ -388,14 +413,23 @@ def timed_model(base):
     return Timed
 
 
-def run_md(dev, cell_size: float = 1.0 / 128) -> dict:
+def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = False) -> dict:
+    """Phase 4: md at ``cell_size``; phase 24 with ``case="md256"`` (class
+    and parameters as ``cases.build_case`` takes them), once more through the
+    functorch route with ``functorch=True``."""
     import porepy_tpu_torch as pt
-    from porepy_tpu_torch.applications.benchmarking.cases import build_md_flow
+    from porepy_tpu_torch.applications.benchmarking.cases import CASE_BUILDERS, build_md_flow
     from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
     from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
 
-    print(f"phase 4: md at cell size {cell_size:g}, 26 steps on {dev}")
-    Model, params = build_md_flow(cell_size, device=str(dev))
+    if case:
+        Model, params = CASE_BUILDERS[case]()
+        cell_size = params["meshing_arguments"]["cell_size"]
+        route = "functorch route" if functorch else "dual route"
+        print(f"phase 24: {case} (md at cell size {cell_size:g}), 26 steps on {dev}, {route}")
+    else:
+        print(f"phase 4: md at cell size {cell_size:g}, 26 steps on {dev}")
+        Model, params = build_md_flow(cell_size, device=str(dev))
     model = timed_model(Model)(params)
     model.block_log = []
     model.block_states = {}
@@ -408,7 +442,8 @@ def run_md(dev, cell_size: float = 1.0 / 128) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - tic
     tic = time.perf_counter()
-    pt.run_time_dependent_model(model, params)
+    with (_functorch_route() if functorch else contextlib.nullcontext()):
+        pt.run_time_dependent_model(model, params)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - tic
     launches = dict(LAUNCHES)
@@ -434,17 +469,43 @@ def run_md(dev, cell_size: float = 1.0 / 128) -> dict:
 
     _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
-    _require(all(launches[k] > 0 for k in MD_KERNELS), f"kernel not launched: {launches}")
+    needed = MD_KERNELS + (() if functorch else K8_KERNELS)
+    _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     _require(bool(np.all(np.isfinite(x))), "non-finite state")
     _require(p.min() >= 0.0 and p.max() <= 1.0, f"pressure {p.min()}..{p.max()}")
     _require(inc <= tol, f"Newton increment {inc} > {tol}")
     newton = sum(rec["newton_iters"] for _s, rec in model.block_log)
     block_s = sum(s for s, _rec in model.block_log)
-    return {
+    out = {
         "launches": launches,
         "setup_s": setup_s,
         "ms_per_newton": 1e3 * block_s / max(newton, 1),
+        "newton": newton,
+        "krylov": sum(rec["krylov_iters"] for _s, rec in model.block_log),
+        "dofs": eq_sys.num_dofs(),
+        "state": x,
     }
+    if not functorch:
+        out["routes"] = _assembly_routes_in_turns(model, case or "md")
+    return out
+
+
+def run_md256(dev) -> dict:
+    """Phase 24: the ``md256`` bench case through the K8 pass and, for its
+    final state, once more through the functorch route."""
+    out = run_md(dev, case="md256")
+    ref = run_md(dev, case="md256", functorch=True)
+    diff = float(np.abs(out["state"] - ref["state"]).max())
+    scale = float(np.abs(ref["state"]).max())
+    print(
+        f"  md256 final state, dual route against functorch route: max |diff| {diff:.3e} "
+        f"(largest value {scale:.3e}); Newton {out['newton']} / {ref['newton']}, Krylov "
+        f"{out['krylov']} / {ref['krylov']}; {out['ms_per_newton']:.2f} / {ref['ms_per_newton']:.2f} ms "
+        f"per Newton iteration"
+    )
+    _require(diff <= 1e-8 * max(scale, 1.0), f"md256: the two routes' states differ by {diff}")
+    out["functorch"] = {k: ref[k] for k in ("ms_per_newton", "newton", "krylov", "setup_s")}
+    return out
 
 
 def compare_small(dev) -> None:
@@ -610,7 +671,9 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
         "ms_per_newton": 1e3 * block_s / max(newton, 1),
         "blocks": [(s, dict(rec)) for s, rec in model.block_log],
     }
+    _require(all(launches[k] > 0 for k in K8_KERNELS), f"K8 kernel not launched: {launches}")
     if not dense:
+        out["routes"] = _assembly_routes_in_turns(model, "3d")
         return out
     _require(solver._dense and solver._builder._block_dense == {0: True}, "dense demoted")
     needed = ("ell_spmv", "fgmres_givens") + DENSE_KERNELS
@@ -1052,7 +1115,9 @@ def run_biot(dev, dense: bool) -> dict:
         "states": {**model.block_states, 26.0: eq_sys.get_variable_values(time_step_index=0)},
         "dofs": {v: eq_sys.dofs_of([v]) for v in ("u", "pressure")},
     }
+    _require(all(launches[k] > 0 for k in K8_KERNELS), f"K8 kernel not launched: {launches}")
     if not dense:
+        out["routes"] = _assembly_routes_in_turns(model, "biot")
         # Both routes once more on the prepared model, in turns.
         for route in ("host", "k10", "host", "k10"):
             torch.cuda.synchronize()
@@ -2102,6 +2167,69 @@ def _plain_k14_k15():
             setattr(ops, name, fn)
 
 
+@contextlib.contextmanager
+def _functorch_route():
+    """The device assembly through ``torch.func`` over the traced residuals
+    (``_data_and_rhs_plain``, ``_rhs_only_plain``): the plain version of the
+    K8 pass, swapped in as :func:`_plain_k14_k15` swaps operators."""
+    from porepy_tpu_torch.numerics.ad.equation_system import _CompiledSystem as cls
+
+    dual = (cls._data_and_rhs, cls._rhs_only)
+    cls._data_and_rhs, cls._rhs_only = cls._data_and_rhs_plain, cls._rhs_only_plain
+    try:
+        yield
+    finally:
+        cls._data_and_rhs, cls._rhs_only = dual
+
+
+def _timed_assemblies(cs, eq_sys, repeats: int) -> float:
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        cs.assemble(eq_sys)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - tic))
+    return float(np.median(times))
+
+
+def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
+    """Phase 23: the model's device assembly at its final state through
+    ``torch.func`` and through the K8 pass, in turns (functorch, dual, dual,
+    functorch): median ms of each turn, the two results held together (1e-12
+    of the largest entry), the launches of one assembly by kernel, and the
+    nodes without a dual rule per equation (which must be none)."""
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    eq_sys = model.equation_system
+    cs = eq_sys.compiled_system()
+    turns = {"functorch": [], "dual": []}
+    results = {}
+    for route in ("functorch", "dual", "dual", "functorch"):
+        with (_functorch_route() if route == "functorch" else contextlib.nullcontext()):
+            results[route] = cs.assemble(eq_sys)
+            turns[route].append(_timed_assemblies(cs, eq_sys, repeats))
+    errs = [_rel_err(got, want) for got, want in zip(results["dual"], results["functorch"])]
+    _require(max(errs) <= 1e-12, f"{label}: the dual route's assembly differs from functorch's by {errs}")
+    before = dict(LAUNCHES)
+    reset_launches()
+    cs.assemble(eq_sys)
+    per_assembly = {k: v for k, v in LAUNCHES.items() if v}
+    for k, v in before.items():
+        LAUNCHES[k] = v + LAUNCHES[k]
+    ruleless = {name: list(ce.fn.dual.ruleless) for name, ce in zip(cs.names, cs.ces)}
+    print(
+        f"  phase 23, {label} assembly in turns, median ms: functorch {turns['functorch']}, dual "
+        f"{turns['dual']}; Jacobian and residual within {max(errs):.1e} of the largest entry"
+    )
+    print(
+        f"  phase 23, {label}: launches of one assembly {per_assembly} (sum {sum(per_assembly.values())}); "
+        f"nodes without a dual rule {ruleless}"
+    )
+    _require(not any(ruleless.values()), f"{label}: nodes without a dual rule: {ruleless}")
+    return {"turns": turns, "launches": per_assembly, "err": max(errs)}
+
+
 def _assembly_in_turns(model, label: str, repeats: int = 5) -> dict:
     """The model's device assembly (Jacobian data and residual) at its final
     state, through the K14/K15 kernels and through their plain versions, in
@@ -2212,8 +2340,9 @@ def _fields_close(model, host_model, names, tol) -> None:
         _require(diff <= tol * scale, f"{name} differs from the host plain path by {diff}")
 
 
-def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64):
-    """Phase 20: the tracer case at 1/64 for 26 steps on ``dev``."""
+def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, turns: bool = False):
+    """Phase 20: the tracer case at ``cell_size`` for 26 steps on ``dev``;
+    with ``turns`` also its assembly in turns (phases 20 and 23)."""
     from porepy_tpu_torch.applications.benchmarking.cases import build_tracer
 
     print(f"phase 20: tracer at cell size {cell_size:g}, 26 steps of 60 s, dense_precond={dense}")
@@ -2226,7 +2355,7 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64):
     model, out = _run_fused_case(dev, Model, params)
     launches = out["launches"]
     print(f"  kernel launches in the run: {launches}")
-    needed = ("ell_spmv", "fgmres_givens", "upwind_flux", "upwind_select")
+    needed = ("ell_spmv", "fgmres_givens", "upwind_flux", "upwind_select") + K8_KERNELS
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     solver = next(iter(model._device_solvers.values()))
     _require(solver._dense == dense, f"dense {solver._dense}")
@@ -2243,8 +2372,9 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64):
         f"next Newton increment |dx|/sqrt(n) {inc:.3e}, tolerance {tol:.0e}"
     )
     _require(inc <= tol, f"Newton increment {inc} > {tol}")
-    if not dense:
+    if turns:
         out["assembly_turns"] = _assembly_in_turns(model, "tracer")
+        out["routes"] = _assembly_routes_in_turns(model, "tracer")
     return out, host_model
 
 
@@ -2313,7 +2443,7 @@ def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
     launches = out["launches"]
     print(f"  kernel launches in the run: {launches}")
     _require(out["setup_launches"]["segment_sum_sorted"] > 0, "segment_sum_sorted not launched in the discretization")
-    needed = ("ell_spmv", "fgmres_givens", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted")
+    needed = ("ell_spmv", "fgmres_givens", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted") + K8_KERNELS
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     p = model.equation_system.get_variable_values(["pressure"], time_step_index=0)
     _require(bool(np.all(np.isfinite(p))), "non-finite state")
@@ -2328,7 +2458,179 @@ def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
     )
     _require(inc <= tol, f"Newton increment {inc} > {tol}")
     out["assembly_turns"] = _assembly_in_turns(model, "DarcysLawAd")
+    out["routes"] = _assembly_routes_in_turns(model, "DarcysLawAd")
     return out
+
+
+# -- K8: the forward-mode assembly by hand ----------------------------------------
+
+
+def check_dual_kernels(dev) -> dict:
+    """Phase 22: ``dual_ew``, ``dual_gather`` and ``jac_gather`` against their
+    plain versions at the md 1/128 shapes, 16 seeds."""
+    from porepy_tpu_torch.kernels import ops, reference
+    from porepy_tpu_torch.numerics.ad import forward
+
+    print("phase 22: the K8 kernels at the md 1/128 shapes, 16 seeds")
+    B, tol = 16, 1e-13
+    ndof, nc, nm, nnz = N_ROWS, 16969, 1188, 90261
+    rng = np.random.default_rng(22)
+    f64 = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+    report = {}
+
+    # A mass-balance-like expression: a constant field, a scalar, the larger
+    # of two duals, an exponential, a constant power and a quotient.
+    E = forward.ExprOps
+    ins = [forward._Expr("in", (), k) for k in range(5)]
+    larger = E.op("select", E.op("gt", ins[1], ins[0]), ins[1], ins[0])
+    density = E.op("exp", E.op("mul", ins[3], E.op("sub", ins[2], E.imm(0.5))))
+    expr = E.op(
+        "div", E.op("add", E.op("mul", larger, ins[4]), density), E.op("pow", ins[2], E.imm(-2.0))
+    )
+    program, order = forward.compile_expr(expr)
+    fields = [
+        (f64(rng.standard_normal(nc)), f64(rng.standard_normal((B, nc)))),
+        (f64(rng.standard_normal(nc)), f64(rng.standard_normal((B, nc)))),
+        (f64(0.5 + rng.random(nc)), f64(rng.standard_normal((B, nc)))),
+        (f64(1e-2), None),
+        (f64(rng.standard_normal(nc)), None),
+    ]
+    inputs = [fields[k] for k in order]
+    got = ops.dual_ew(program, inputs, B)
+    want = reference.dual_ew(program.instrs, program.imm, inputs, B)
+    err = max(_rel_err(a, b) for a, b in zip(got, want))
+    print(f"  dual_ew: {len(program.instrs)} instructions on {nc} elements, value and {B} tangents, max rel err {err:.3e}")
+    _require(err <= tol, "dual_ew disagrees with its plain version")
+    _same_bits("dual_ew", lambda: torch.cat([t.reshape(-1) for t in ops.dual_ew(program, inputs, B)]))
+    value_only = ops.dual_ew(program, inputs, 0)
+    _require(value_only[1] is None and _rel_err(value_only[0], want[0]) <= tol, "dual_ew without seeds")
+    n_dual = sum(t is not None for _v, t in fields)
+    report["dual_ew"] = {
+        "err": err, "ms": _cuda_ms(lambda: ops.dual_ew(program, inputs, B)),
+        "plain_ms": _cuda_ms(lambda: reference.dual_ew(program.instrs, program.imm, inputs, B)),
+        "bytes": 8 * nc * ((1 + B) * n_dual + 1) + 8 * (1 + B) * nc,
+        "flops": (1 + B) * 3 * len(program.instrs) * nc, "library_ms": None,
+    }
+
+    # The unknowns of the cells under one-hot seeds, and a concatenation.
+    x = f64(rng.standard_normal(ndof))
+    colors = torch.tensor(rng.integers(0, B, ndof).astype(np.int32), device=dev)
+    idx = torch.tensor(np.sort(rng.permutation(ndof)[:nc]), device=dev)
+    lens = (nc // 2, 1, 0, nc - nc // 2 - 1, nm, 64, 300)
+    pieces = [
+        (f64(rng.standard_normal(n)), None if i % 3 == 2 else f64(rng.standard_normal((B, n))))
+        for i, n in enumerate(lens)
+    ]
+
+    def gathers(mod):
+        return mod.dual_gather_var(x, idx, colors, B) + mod.dual_gather_copy(pieces, B)
+
+    got, want = gathers(ops), gathers(reference)
+    _require(all(torch.equal(a, b) for a, b in zip(got, want)), "dual_gather disagrees with its plain version")
+    _require(ops.dual_gather_var(x, idx, None, 0)[1] is None, "dual_gather_var without seeds")
+    _same_bits("dual_gather", lambda: torch.cat([t.reshape(-1) for t in gathers(ops)]))
+    print(f"  dual_gather: {nc} unknowns of {ndof} under {B} colors, and {len(lens)} duals concatenated: equal to the plain version")
+    cat_rows = [torch.cat([v[None], t]) for v, t in pieces if t is not None]
+
+    def gathers_library():
+        return x.index_select(0, idx), colors.index_select(0, idx), torch.cat(cat_rows, dim=1)
+
+    n_cat = sum(lens)
+    report["dual_gather"] = {
+        "err": 0.0, "ms": _cuda_ms(lambda: gathers(ops)), "plain_ms": _cuda_ms(lambda: gathers(reference)),
+        "bytes": (8 + 8 + 4) * nc + 8 * (1 + B) * nc + 2 * 8 * (1 + B) * n_cat,
+        "flops": (1 + B) * (nc + n_cat), "library_ms": _cuda_ms(gathers_library),
+    }
+
+    # The two md equations' compressed blocks into nonzero order.
+    rows = (nc, nm)
+    n_colors = (11, 5)
+    nnz_off, row_off = [0, nnz - 4 * nm, nnz], [0, nc, nc + nm]
+    vals = [f64(rng.standard_normal(n)) for n in rows]
+    tans = [f64(rng.standard_normal((b, n))) for b, n in zip(n_colors, rows)]
+    gc = np.concatenate([rng.integers(0, b, nnz_off[e + 1] - nnz_off[e]) for e, b in enumerate(n_colors)])
+    rj = np.concatenate([rng.integers(0, n, nnz_off[e + 1] - nnz_off[e]) for e, n in enumerate(rows)])
+    gc_t = torch.tensor(gc, dtype=torch.int32, device=dev)
+    rj_t = torch.tensor(rj, dtype=torch.int32, device=dev)
+
+    def jac(mod):
+        return mod.jac_gather(vals, tans, gc_t, rj_t, nnz_off, row_off)
+
+    got, want = jac(ops), jac(reference)
+    _require(all(torch.equal(a, b) for a, b in zip(got, want)), "jac_gather disagrees with its plain version")
+    _require(
+        torch.equal(ops.jac_gather(vals, [tans[0], None], gc_t, rj_t, nnz_off, row_off)[0],
+                    reference.jac_gather(vals, [tans[0], None], gc_t, rj_t, nnz_off, row_off)[0]),
+        "jac_gather with an equation that has no tangent",
+    )
+    _same_bits("jac_gather", lambda: torch.cat(jac(ops)))
+    print(f"  jac_gather: {nnz} nonzeros and {nc + nm} residual rows of two equations: equal to the plain version")
+    flat = [
+        torch.tensor(gc[nnz_off[e]:nnz_off[e + 1]] * rows[e] + rj[nnz_off[e]:nnz_off[e + 1]], device=dev)
+        for e in range(2)
+    ]
+
+    def jac_library():
+        data = torch.cat([t.reshape(-1).index_select(0, f) for t, f in zip(tans, flat)])
+        return data, -torch.cat(vals)
+
+    report["jac_gather"] = {
+        "err": 0.0, "ms": _cuda_ms(lambda: jac(ops)), "plain_ms": _cuda_ms(lambda: jac(reference)),
+        # Each nonzero: two int32 indices read, one value read and written;
+        # the residual read and written.
+        "bytes": nnz * (4 + 4 + 8 + 8) + 2 * 8 * (nc + nm),
+        "flops": nnz + nc + nm, "library_ms": _cuda_ms(jac_library),
+    }
+    for name in K8_KERNELS:
+        r = report[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
+    return report
+
+
+def profile_assembly(dev, case: str = "md", repeats: int = 30) -> None:
+    """``python3 chip_smoke.py --profile-assembly [case]``: where one device
+    assembly of a bench case (``md``, ``md256``, ``3d``, ``biot``, ``tracer``)
+    spends its time, at the prepared model's initial state: the host
+    functions by ``cProfile`` (own time), and the card's busy share and
+    kernels by ``torch.profiler``. Not part of the smoke run."""
+    import cProfile
+    import pstats
+
+    from porepy_tpu_torch.applications.benchmarking.cases import CASE_BUILDERS
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    Model, params = CASE_BUILDERS[case]()
+    model = Model(params)
+    model.prepare_simulation()
+    eq_sys = model.equation_system
+    cs = eq_sys.compiled_system()
+    for _ in range(3):
+        cs.assemble(eq_sys)
+    reset_launches()
+    wall = _timed_assemblies(cs, eq_sys, repeats)
+    launches = {k: v // repeats for k, v in LAUNCHES.items() if v}
+    print(f"{case}: {eq_sys.num_dofs()} dofs, median {wall:.3f} ms per assembly, launches {launches}")
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(repeats):
+        cs.assemble(eq_sys)
+    torch.cuda.synchronize()
+    prof.disable()
+    pstats.Stats(prof).sort_stats("tottime").print_stats(25)
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as tprof:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(repeats):
+            cs.assemble(eq_sys)
+        torch.cuda.synchronize()
+        span_ms = 1e3 * (time.perf_counter() - tic)
+    events = tprof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"{case}: under torch.profiler {span_ms / repeats:.3f} ms per assembly, card busy "
+          f"{busy_ms / repeats:.3f} ms of it ({100 * (1 - busy_ms / span_ms):.1f}% idle)")
+    print(events.table(sort_by="self_device_time_total", row_limit=12))
 
 
 def main() -> int:
@@ -2338,6 +2640,14 @@ def main() -> int:
     from porepy_tpu_torch.kernels import build
 
     dev = torch.device("cuda", 0)
+    if len(sys.argv) > 1 and sys.argv[1] == "--profile-assembly":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip())
+        build.library()
+        profile_assembly(dev, *sys.argv[2:3])
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2375,11 +2685,19 @@ def main() -> int:
     print(f"phases 17-18 took {time.perf_counter() - tic:.1f} s")
     tic = time.perf_counter()
     report.update(check_upwind_tpfa_kernels(dev))
-    tracer, tracer_host = run_tracer(dev, dense=False)
-    tracer_dense, _ = run_tracer(dev, dense=True, host_model=tracer_host)
+    # The AMG run at 1/32 (its first two time steps cost a minute and a half
+    # at 1/64, on the card and on the host); the dense run, the assembly in
+    # turns and the kernels' launch counts at 1/64.
+    tracer, tracer_host = run_tracer(dev, dense=False, cell_size=1.0 / 32)
+    del tracer_host
+    tracer_dense, tracer_host = run_tracer(dev, dense=True, turns=True)
     del tracer_host
     darcy_ad = run_darcy_ad(dev)
     print(f"phases 19-21 took {time.perf_counter() - tic:.1f} s")
+    tic = time.perf_counter()
+    report.update(check_dual_kernels(dev))
+    md256 = run_md256(dev)
+    print(f"phases 22 and 24 took {time.perf_counter() - tic:.1f} s")
 
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {
@@ -2403,11 +2721,14 @@ def main() -> int:
         # the four row shards of phase 18a.
         "halo_pack": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", report["halo_pack"]["launches"]),
         "ell_spmv_split": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", sharded["launches"]["ell_spmv_split"]),
-        "upwind_flux": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer["launches"]["upwind_flux"]),
-        "upwind_select": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer["launches"]["upwind_select"]),
+        "upwind_flux": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer_dense["launches"]["upwind_flux"]),
+        "upwind_select": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer_dense["launches"]["upwind_select"]),
         "tpfa_ad_flux": ("tpfa_ad.cu", "porepy_tpu/models/darcys_law_ad.py:71", darcy_ad["launches"]["tpfa_ad_flux"]),
         "tpfa_ad_trace": ("tpfa_ad.cu", "porepy_tpu/models/darcys_law_ad.py:108", darcy_ad["launches"]["tpfa_ad_trace"]),
         "segment_sum_sorted": ("tpfa_ad.cu", "porepy_tpu/numerics/fv/fv_mesh.py:129", darcy_ad["launches"]["segment_sum_sorted"]),
+        "dual_ew": ("dual_ad.cu", "porepy_tpu/numerics/ad/equation_system.py:132", md256["launches"]["dual_ew"]),
+        "dual_gather": ("dual_ad.cu", "porepy_tpu/numerics/ad/equation_system.py:132", md256["launches"]["dual_gather"]),
+        "jac_gather": ("dual_ad.cu", "porepy_tpu/numerics/ad/equation_system.py:132", md256["launches"]["jac_gather"]),
     }
     entries = []
     for k, (src, replaces, launches) in kernels.items():
@@ -2451,18 +2772,33 @@ def main() -> int:
         f"(median of 3) against the unsharded assembly and solve {sharded['unsharded_ms']:.2f} ms, "
         f"increments {sharded['dx_diff']:.3e} apart; a time step in {sharded['newton']} Newton iterations"
     )
-    for tag, r in (("AMG", tracer), ("dense", tracer_dense)):
+    for tag, r in (("1/32, AMG", tracer), ("1/64, dense (reference CPU at 1/64: 132 ms)", tracer_dense)):
         print(
-            f"tracer 1/64 on {smi}, {tag}: setup {r['setup_s']:.3f} s, {r['ms_per_newton']:.2f} ms per Newton "
-            f"iteration, {r['newton']} Newton / {r['krylov']} Krylov in the blocks (reference CPU: 132 ms)"
+            f"tracer {tag} on {smi}: setup {r['setup_s']:.3f} s, {r['ms_per_newton']:.2f} ms per Newton "
+            f"iteration, {r['newton']} Newton / {r['krylov']} Krylov in the blocks"
         )
     print(
         f"DarcysLawAd 1/128 on {smi}: setup {darcy_ad['setup_s']:.3f} s, {darcy_ad['ms_per_newton']:.2f} ms per "
         f"Newton iteration, {darcy_ad['newton']} Newton / {darcy_ad['krylov']} Krylov in the blocks"
     )
-    for tag, r in (("tracer 1/64", tracer), ("DarcysLawAd 1/128", darcy_ad)):
+    for tag, r in (("tracer 1/64", tracer_dense), ("DarcysLawAd 1/128", darcy_ad)):
         t = r["assembly_turns"]
-        print(f"{tag} assembly on {smi}, in turns: plain versions {t['plain']} ms, K14/K15 kernels {t['kernels']} ms")
+        print(f"{tag} assembly (dual route) on {smi}, in turns: plain versions {t['plain']} ms, K14/K15 kernels {t['kernels']} ms")
+    for tag, r in (
+        ("md 1/128", md), ("3d 32^3", d3_amg), ("biot 1/64", biot), ("tracer 1/64", tracer_dense),
+        ("DarcysLawAd 1/128", darcy_ad), ("md 1/256", md256),
+    ):
+        t = r["routes"]
+        print(
+            f"{tag} assembly on {smi}, in turns: functorch {t['turns']['functorch']} ms, dual route "
+            f"{t['turns']['dual']} ms, {sum(t['launches'].values())} launches an assembly {t['launches']}"
+        )
+    f = md256["functorch"]
+    print(
+        f"md 1/256 ({md256['dofs']} dofs) on {smi}: setup {md256['setup_s']:.3f} s, {md256['ms_per_newton']:.2f} ms "
+        f"per Newton iteration, {md256['newton']} Newton / {md256['krylov']} Krylov in the blocks; through the "
+        f"functorch route {f['ms_per_newton']:.2f} ms, {f['newton']} / {f['krylov']}"
+    )
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

@@ -39,6 +39,10 @@ K15       :func:`upwind_flux`,           ``numerics/fv/upwind.py:76-99`` (the up
 K14       :func:`tpfa_ad_flux`,          ``models/darcys_law_ad.py:71-147`` (the differentiable
           :func:`tpfa_ad_trace`,         TPFA flux and trace) and ``numerics/fv/fv_mesh.py:129-145``
           :func:`segment_sum_sorted`     (the segment sums of ``numerics/fv/tpfa.py``)
+K8        :func:`dual_ew`,               ``numerics/ad/equation_system.py:132-135`` (the colored
+          :func:`dual_gather_var`,       JVPs of one residual and the gather of the compressed
+          :func:`dual_gather_copy`,      block into nonzero order), driven by the dual-number
+          :func:`jac_gather`             pass of ``numerics/ad/forward.py``
 ========  =============================  =====================================================
 
 The CUDA sources live in ``csrc/`` and are built at first use (see
@@ -67,13 +71,19 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     interp_tangent,
     krylov_dots,
     rachford_rice,
+    DualProgram,
     dense_block_apply,
     dense_block_scatter,
     ell_jacobi_sweep,
     ell_spmv,
+    ell_spmv_direct,
     ell_spmv_split,
+    dual_ew,
+    dual_gather_copy,
+    dual_gather_var,
     fgmres_givens,
     gj_pivot_inverse,
+    jac_gather,
     region_solve,
     reset_launches,
     structured_jvp,

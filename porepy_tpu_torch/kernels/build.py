@@ -33,6 +33,7 @@ SOURCES = (
     "halo_spmv.cu",
     "upwind.cu",
     "tpfa_ad.cu",
+    "dual_ad.cu",
 )
 _NAME = "porepy_tpu_torch_kernels"
 _CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
@@ -76,8 +77,13 @@ _SIGNATURES = {
     "ppt_segment_sum_sorted": [_P, _L, _P, _P, _P, _I, _I, _P],
     "ppt_tpfa_ad_flux": [_P] * 10 + [_L] * 5 + [_P] * 9 + [_I] * 3 + [_P],
     "ppt_tpfa_ad_trace": [_P] * 10 + [_L] * 5 + [_P] * 9 + [_I] * 3 + [_P],
+    # Pointer and stride tables are host arrays (ctypes arrays).
+    "ppt_dual_ew": [_P, _P, _I, _P, _P, _I, _P, _P, _L, _I, _I, _P],
+    "ppt_dual_gather_var": [_P, _P, _P, _P, _I, _I, _P],
+    "ppt_dual_gather_copy": [_P, _P, _I, _P, _L, _I, _P],
+    "ppt_jac_gather": [_P, _P, _I, _P, _P, _P, _P, _P],
 }
-# The dtypes each kernel is built for (default: both). K10, K11, K14, K15,
+# The dtypes each kernel is built for (default: both). K8, K10, K11, K14, K15,
 # K16, K17 and K18 are float64 only.
 _F64_ONLY = (
     "ppt_region_solve", "ppt_bicgstab_p", "ppt_krylov_dots", "ppt_bicgstab_s",
@@ -86,6 +92,7 @@ _F64_ONLY = (
     "ppt_gmres_restart", "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
     "ppt_upwind_flux", "ppt_upwind_select", "ppt_upwind_select_pair",
     "ppt_segment_sum_sorted", "ppt_tpfa_ad_flux", "ppt_tpfa_ad_trace",
+    "ppt_dual_ew", "ppt_dual_gather_var", "ppt_dual_gather_copy", "ppt_jac_gather",
 )
 _SUFFIXES = {name: ("_f64",) for name in _F64_ONLY}
 

@@ -1,8 +1,12 @@
 """The K14 and K15 kernels as forward-differentiable, batchable functions.
 
-The assembly differentiates the residual with ``torch.func.vmap`` over
-``torch.func.jvp`` (the colored seeds of the sparse Jacobian). Each function
-here is a ``torch.autograd.Function`` with its own ``jvp`` and ``vmap``
+The assembly differentiates the residual by its own forward-mode pass on
+dual numbers (:mod:`porepy_tpu_torch.numerics.ad.forward`), which calls the
+K14 and K15 operators of :mod:`porepy_tpu_torch.kernels.ops` directly. The
+functions here serve the *traced* residual, which ``torch.func.vmap`` over
+``torch.func.jvp`` differentiates (``compiler.colored_jvps``: the plain
+version of that pass, the host checks, evaluation of single operators).
+Each is a ``torch.autograd.Function`` with its own ``jvp`` and ``vmap``
 rules, after the pattern of the ELL matvec and the table lookup: the value
 is one kernel launch, and the whole batch of seeds reaches the tangent
 kernel as one ``(B, ...)`` launch. There is no backward rule: the port, as

@@ -6,13 +6,17 @@ fails); on a CPU tensor it runs the plain version from
 :mod:`porepy_tpu_torch.kernels.reference`. ``LAUNCHES`` counts kernel
 launches per operator, and only those.
 
-The K14 and K15 operators at the end are plain functions with the same
+The K14, K15 and K8 operators at the end are plain functions with the same
 rule (the kernel for a CUDA tensor, the plain version for a CPU tensor):
-they are only ever called from inside ``torch.autograd.Function``s, take
-optional seeds and row strides, and so gain nothing from the dispatcher.
+they are called from the dual-number pass of the assembly
+(:mod:`porepy_tpu_torch.numerics.ad.forward`) and from inside
+``torch.autograd.Function``s, take optional seeds and row strides, and so
+gain nothing from the dispatcher.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,6 +27,7 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "ell_spmv",
+    "ell_spmv_direct",
     "ell_jacobi_sweep",
     "fgmres_givens",
     "dense_block_scatter",
@@ -63,6 +68,11 @@ __all__ = [
     "tpfa_ad_flux_tangent",
     "tpfa_ad_trace",
     "tpfa_ad_trace_tangent",
+    "DualProgram",
+    "dual_ew",
+    "dual_gather_var",
+    "dual_gather_copy",
+    "jac_gather",
 ]
 
 #: Kernel launches per operator since the last :func:`reset_launches`.
@@ -100,6 +110,9 @@ LAUNCHES = {
     "segment_sum_sorted": 0,
     "tpfa_ad_flux": 0,
     "tpfa_ad_trace": 0,
+    "dual_ew": 0,
+    "dual_gather": 0,
+    "jac_gather": 0,
 }
 
 #: The operators of the fused BiCGStab step (K18a) and of the GMRES Arnoldi
@@ -128,10 +141,20 @@ def _check(name: str, tensors: dict, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: dtype {dtype} not supported (float32/float64)")
 
 
+def _current_stream() -> int:
+    """The current device's current stream as the integer the kernels take.
+    ``torch.cuda.current_stream()`` builds a ``Stream`` object on every call
+    (~25 us of host time under a profiler); the raw handle is one C call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())
+
+
 def _launch(name: str, dtype: torch.dtype, *args, count_as: str = "") -> None:
     """Launch ``ppt_<name>`` and count it under ``count_as`` (default ``name``)."""
     fn = getattr(library(), "ppt_" + name + _SUFFIX[dtype])
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    rc = fn(*args, _current_stream())
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     LAUNCHES[count_as or name] += 1
@@ -169,6 +192,16 @@ def _ell_spmv_cuda(val, col, x):
 @ell_spmv.register_fake
 def _(val, col, x):
     return x.new_empty(x.shape[:-1] + (val.shape[0],))
+
+
+def ell_spmv_direct(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`ell_spmv` without the dispatcher: the kernel for a CUDA tensor,
+    the plain version for a CPU tensor. For callers that need no autograd or
+    ``torch.func`` support (the assembly's dual-number pass): a custom
+    operator costs ~50 us of host dispatch a call."""
+    if not x.is_cuda:
+        return reference.ell_spmv(val, col, x)
+    return _ell_spmv_cuda(val, col, x)
 
 
 # -- K2 ---------------------------------------------------------------------------
@@ -1398,3 +1431,266 @@ def tpfa_ad_trace_tangent(geom: TpfaAdGeometry, primals, seeds):
     if not primals[1].is_cuda:
         return reference.tpfa_ad_tangent(reference.tpfa_ad_trace, geom, primals, seeds)
     return _tpfa_ad_cuda("tpfa_ad_trace", geom, tuple(primals), tuple(seeds))
+
+
+# -- K8 ---------------------------------------------------------------------------
+
+_JOINT = 8  # duals per dual_gather_copy launch, equations per jac_gather launch
+_DUAL_BINARY = ("add", "sub", "mul", "div", "pow", "gt", "ge", "leabs")
+
+
+class DualProgram:
+    """A checked elementwise program for :func:`dual_ew`: ``instrs`` is a
+    list of ``(opcode, a, b, c)`` (see
+    :data:`porepy_tpu_torch.kernels.reference.DUAL_OPCODES`; opcode by name
+    or number), ``imm`` the constants that ``loadi`` reads, ``n_inputs`` the
+    number of input registers. Everything the kernel relies on is checked
+    here, once; :func:`dual_ew` checks only its tensors."""
+
+    def __init__(self, instrs, imm, n_inputs: int) -> None:
+        n_max, i_max = reference.DUAL_MAX_INPUTS, reference.DUAL_MAX_INSTRS
+        if not 1 <= n_inputs <= n_max:
+            raise ValueError(f"DualProgram: {n_inputs} inputs outside 1..{n_max}")
+        if not 1 <= len(instrs) <= i_max:
+            raise ValueError(f"DualProgram: {len(instrs)} instructions outside 1..{i_max}")
+        self.imm = tuple(float(v) for v in imm)
+        checked = []
+        for j, (op, a, b, c) in enumerate(instrs):
+            code = reference.DUAL_OP[op] if isinstance(op, str) else int(op)
+            name = reference.DUAL_OPCODES[code]
+            if name == "loadi":
+                if not 0 <= a < len(self.imm):
+                    raise ValueError(f"DualProgram: instruction {j} reads imm[{a}]")
+                checked.append((code, int(a), 0, 0))
+                continue
+            arity = 3 if name in ("select", "custom") else 2 if name in _DUAL_BINARY else 1
+            regs = (a, b, c)[:arity]
+            for r in regs:
+                if not (0 <= r < n_inputs or n_max <= r < n_max + j):
+                    raise ValueError(f"DualProgram: instruction {j} reads register {r}")
+            checked.append((code,) + tuple(int(r) for r in regs) + (0,) * (3 - arity))
+        self.instrs = tuple(checked)
+        self.n_inputs = n_inputs
+        self._on: dict = {}
+        self._out_const: dict = {}
+
+    def on(self, device) -> tuple:
+        """``(code, imm)`` on ``device``: the ``(n_instr, 4)`` int32
+        instructions and the float64 constants (one 0 where there is none)."""
+        t = self._on.get(device)
+        if t is None:
+            t = self._on[device] = (
+                torch.tensor(self.instrs, dtype=torch.int32, device=device),
+                torch.tensor(self.imm or (0.0,), dtype=torch.float64, device=device),
+            )
+        return t
+
+    def out_const(self, const_inputs: tuple) -> bool:
+        """Whether the output is a constant when the inputs flagged in
+        ``const_inputs`` are (the kernel derives the same per register)."""
+        hit = self._out_const.get(const_inputs)
+        if hit is None:
+            n_max = reference.DUAL_MAX_INPUTS
+            const = list(const_inputs) + [True] * (n_max - len(const_inputs))
+            for code, a, b, c in self.instrs:
+                name = reference.DUAL_OPCODES[code]
+                if name in ("loadi", "sign", "gt", "ge", "leabs", "detach"):
+                    const.append(True)
+                elif name == "select":
+                    const.append(const[b] and const[c])
+                elif name == "custom":
+                    const.append(const[c])
+                elif name in _DUAL_BINARY:
+                    const.append(const[a] and const[b])
+                else:
+                    const.append(const[a])
+            hit = self._out_const[const_inputs] = const[-1]
+        return hit
+
+
+def _host_table(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _dual_rows(name, val, tan, batch, n):
+    """``(val_ptr, tan_ptr, element stride, row stride, tan)`` of one dual
+    operand of a K8 kernel over ``n`` elements; ``tan`` is returned because a
+    copy made here must outlive the launch."""
+    if val.dtype != torch.float64 or not val.is_cuda:
+        raise TypeError(f"{name}: values must be float64 CUDA tensors")
+    length = val.numel()
+    if val.dim() > 1 or (length != n and length != 1):
+        raise ValueError(f"{name}: value of shape {tuple(val.shape)} against {n} elements")
+    es = val.stride(0) if (length > 1 and n > 1) else 0
+    if tan is None or not batch:
+        return val.data_ptr(), None, es, 0, None
+    width = length if val.dim() else 1
+    if tan.dtype != torch.float64 or not tan.is_cuda or tan.shape != (batch, width):
+        raise ValueError(
+            f"{name}: tangent of shape {tuple(tan.shape)}, expected ({batch}, {width})"
+        )
+    if length > 1 and n > 1 and tan.stride(1) != es:
+        tan = tan.contiguous()
+        if es != 1:
+            raise ValueError(f"{name}: value and tangent rows differ in element stride")
+    return val.data_ptr(), tan.data_ptr(), es, tan.stride(0), tan
+
+
+def dual_ew(program: DualProgram, inputs, batch: int):
+    """``(val, tan)`` of the elementwise ``program`` on the duals ``inputs``,
+    a list of ``(val, tan)`` (see
+    :func:`porepy_tpu_torch.kernels.reference.dual_ew`). On the card value
+    and tangent rows are views of one ``(batch + 1, n)`` buffer, row 0 the
+    value."""
+    ref = inputs[0][0]
+    if not ref.is_cuda:
+        return reference.dual_ew(program.instrs, program.imm, inputs, batch)
+    if len(inputs) != program.n_inputs:
+        raise ValueError(f"dual_ew: {len(inputs)} inputs for a program of {program.n_inputs}")
+    n, one_d = -1, False
+    for val, _tan in inputs:
+        if val.dim() == 1:
+            one_d = True
+            if val.shape[0] != 1:
+                if n not in (-1, val.shape[0]):
+                    raise ValueError(f"dual_ew: operands of {n} and {val.shape[0]} elements")
+                n = val.shape[0]
+    shape = (n,) if n >= 0 else ((1,) if one_d else ())
+    n = 1 if n < 0 else n
+    ptrs_v, ptrs_t, es, rs, keep = [], [], [], [], []
+    for val, tan in inputs:
+        pv, pt, e, r, kept = _dual_rows("dual_ew", val, tan, batch, n)
+        ptrs_v.append(pv)
+        ptrs_t.append(pt)
+        es.append(e)
+        rs.append(r)
+        keep.append(kept)
+    const = program.out_const(tuple(p is None for p in ptrs_t))
+    if const or not batch:
+        out_v, out_t = torch.empty(n, dtype=torch.float64, device=ref.device), None
+    else:
+        buf = torch.empty((batch + 1, n), dtype=torch.float64, device=ref.device)
+        out_v, out_t = buf[0], buf[1:]
+    if n:
+        code, imm = program.on(ref.device)
+        _launch(
+            "dual_ew", torch.float64,
+            _host_table(ctypes.c_void_p, ptrs_v + ptrs_t),
+            _host_table(ctypes.c_longlong, es + rs),
+            len(inputs), code.data_ptr(), imm.data_ptr(), len(program.instrs),
+            out_v.data_ptr(), None if out_t is None else out_t.data_ptr(), n, n,
+            0 if out_t is None else batch,
+        )
+    return (out_v if shape == (n,) else out_v.reshape(shape)), out_t
+
+
+def dual_gather_var(x, idx, colors, batch: int):
+    """The dual of the unknowns ``x[idx]`` under one-hot seeds by color (see
+    :func:`porepy_tpu_torch.kernels.reference.dual_gather_var`): ``idx``
+    int64, ``colors`` int32 over all unknowns (not read, and may be ``None``,
+    for ``batch == 0``). On the card ``(val, tan)`` are views of one
+    ``(batch + 1, n)`` buffer. Counts under ``dual_gather``."""
+    if not x.is_cuda:
+        return reference.dual_gather_var(x, idx, colors, batch)
+    if x.dtype != torch.float64 or idx.dtype != torch.int64:
+        raise TypeError("dual_gather_var: needs float64 x and int64 idx")
+    if x.dim() != 1 or idx.dim() != 1:
+        raise ValueError("dual_gather_var: needs (ndof,) x and a 1-d idx")
+    tensors = {"x": x, "idx": idx}
+    if batch:
+        if colors.dtype != torch.int32 or colors.shape != x.shape:
+            raise TypeError("dual_gather_var: colors must be int32 of x's shape")
+        tensors["colors"] = colors
+    _check("dual_gather_var", tensors, torch.float64)
+    n = idx.shape[0]
+    buf = torch.empty((batch + 1, n), dtype=torch.float64, device=x.device)
+    if n:
+        _launch(
+            "dual_gather_var", torch.float64,
+            x.data_ptr(), idx.data_ptr(), colors.data_ptr() if batch else None,
+            buf.data_ptr(), n, batch, count_as="dual_gather",
+        )
+    return buf[0], (buf[1:] if batch else None)
+
+
+def dual_gather_copy(pieces, batch: int):
+    """The concatenation of the duals ``pieces`` (see
+    :func:`porepy_tpu_torch.kernels.reference.dual_gather_copy`), eight to a
+    launch. Counts under ``dual_gather``."""
+    ref = pieces[0][0]
+    if not ref.is_cuda:
+        return reference.dual_gather_copy(pieces, batch)
+    rows = batch if any(t is not None for _v, t in pieces) else 0
+    starts = [0]
+    for val, _tan in pieces:
+        if val.dim() != 1:
+            raise ValueError("dual_gather_copy: values must be 1-d")
+        starts.append(starts[-1] + val.shape[0])
+    n_out = starts[-1]
+    buf = torch.empty((rows + 1, n_out), dtype=torch.float64, device=ref.device)
+    for lo in range(0, len(pieces), _JOINT):
+        chunk = pieces[lo : lo + _JOINT]
+        if starts[lo + len(chunk)] == starts[lo]:
+            continue
+        ptrs_v, ptrs_t, es, rs, keep = [], [], [], [], []
+        for val, tan in chunk:
+            pv, pt, e, r, kept = _dual_rows("dual_gather_copy", val, tan, rows, val.shape[0])
+            ptrs_v.append(pv)
+            ptrs_t.append(pt)
+            # A piece of one element is read at offset 0 whatever its stride.
+            es.append(e if val.shape[0] > 1 else 0)
+            rs.append(r)
+            keep.append(kept)
+        _launch(
+            "dual_gather_copy", torch.float64,
+            _host_table(ctypes.c_void_p, ptrs_v + ptrs_t),
+            _host_table(ctypes.c_longlong, es + rs + starts[lo : lo + len(chunk) + 1]),
+            len(chunk), buf.data_ptr(), n_out, rows, count_as="dual_gather",
+        )
+    return buf[0], (buf[1:] if rows else None)
+
+
+def jac_gather(vals, tans, gather_color, gather_row, nnz_offsets, row_offsets):
+    """``(data, rhs)``: the Jacobian nonzeros of all equations in the global
+    nonzero order and the negated, concatenated residual (see
+    :func:`porepy_tpu_torch.kernels.reference.jac_gather`), eight equations
+    to a launch. ``gather_color``, ``gather_row`` int32 ``(nnz,)``; the
+    offsets are host sequences."""
+    ref = vals[0]
+    if not ref.is_cuda:
+        return reference.jac_gather(vals, tans, gather_color, gather_row, nnz_offsets, row_offsets)
+    nnz, n_rows = nnz_offsets[-1], row_offsets[-1]
+    if gather_color.dtype != torch.int32 or gather_row.dtype != torch.int32:
+        raise TypeError("jac_gather: gather_color and gather_row must be int32")
+    if gather_color.shape != (nnz,) or gather_row.shape != (nnz,):
+        raise ValueError(f"jac_gather: gather_color and gather_row must have shape ({nnz},)")
+    _check("jac_gather", {"gather_color": gather_color, "gather_row": gather_row}, torch.float64)
+    data = torch.empty(nnz, dtype=torch.float64, device=ref.device)
+    rhs = torch.empty(n_rows, dtype=torch.float64, device=ref.device)
+    for lo in range(0, len(vals), _JOINT):
+        hi = min(lo + _JOINT, len(vals))
+        ptrs_v, ptrs_t, rs, keep = [], [], [], []
+        for e in range(lo, hi):
+            rows = row_offsets[e + 1] - row_offsets[e]
+            val = vals[e]
+            if val.shape != (rows,):
+                raise ValueError(f"jac_gather: equation {e} has shape {tuple(val.shape)}, expected ({rows},)")
+            val = val.contiguous()
+            pv, pt, _es, r, kept = _dual_rows(
+                "jac_gather", val, tans[e], 0 if tans[e] is None else tans[e].shape[0], rows
+            )
+            ptrs_v.append(pv)
+            ptrs_t.append(pt)
+            rs.append(r)
+            keep.append((val, kept))
+        _launch(
+            "jac_gather", torch.float64,
+            _host_table(ctypes.c_void_p, ptrs_v + ptrs_t),
+            _host_table(
+                ctypes.c_longlong,
+                rs + list(nnz_offsets[lo : hi + 1]) + list(row_offsets[lo : hi + 1]),
+            ),
+            hi - lo, gather_color.data_ptr(), gather_row.data_ptr(),
+            data.data_ptr(), rhs.data_ptr(),
+        )
+    return data, rhs

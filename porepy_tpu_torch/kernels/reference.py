@@ -50,6 +50,14 @@ __all__ = [
     "tpfa_ad_flux",
     "tpfa_ad_trace",
     "tpfa_ad_tangent",
+    "DUAL_OPCODES",
+    "DUAL_OP",
+    "DUAL_MAX_INPUTS",
+    "DUAL_MAX_INSTRS",
+    "dual_ew",
+    "dual_gather_var",
+    "dual_gather_copy",
+    "jac_gather",
 ]
 
 
@@ -769,3 +777,187 @@ def tpfa_ad_tangent(fn, geom, primals, seeds):
         return torch.func.jvp(partial, tuple(primals[i] for i in live), tangents)[1]
 
     return torch.func.vmap(one)(*(seeds[i] for i in live))
+
+
+# -- K8 ---------------------------------------------------------------------------
+
+#: The opcodes of a :func:`dual_ew` program, in the numbering of
+#: ``csrc/dual_ad.cu``. An instruction is ``(opcode, a, b, c)`` with register
+#: numbers ``a, b, c``: registers ``0 .. DUAL_MAX_INPUTS - 1`` are the inputs,
+#: register ``DUAL_MAX_INPUTS + j`` is the result of instruction ``j``
+#: (``loadi`` reads ``imm[a]`` instead). The last instruction is the output.
+DUAL_OPCODES = (
+    "loadi", "add", "sub", "mul", "div", "pow", "neg", "exp", "log", "sin", "cos",
+    "tan", "arcsin", "arccos", "arctan", "sinh", "cosh", "tanh", "arcsinh",
+    "arccosh", "arctanh", "abs", "sign", "sqrt", "gt", "ge", "leabs", "select",
+    "detach", "custom",
+)
+DUAL_OP = {name: code for code, name in enumerate(DUAL_OPCODES)}
+DUAL_MAX_INPUTS = 12
+DUAL_MAX_INSTRS = 36
+
+# value and derivative factor d of the unary opcodes: tangent = t * d(x, r),
+# or t / d where the entry says so (the kernel divides at the same places).
+_DUAL_UNARY = {
+    "exp": (torch.exp, lambda x, r: r, False),
+    "log": (torch.log, lambda x, r: x, True),
+    "sin": (torch.sin, lambda x, r: torch.cos(x), False),
+    "cos": (torch.cos, lambda x, r: -torch.sin(x), False),
+    "tan": (torch.tan, lambda x, r: 1.0 + r * r, False),
+    "arcsin": (torch.arcsin, lambda x, r: torch.sqrt(1.0 - x * x), True),
+    "arccos": (torch.arccos, lambda x, r: -torch.sqrt(1.0 - x * x), True),
+    "arctan": (torch.arctan, lambda x, r: 1.0 + x * x, True),
+    "sinh": (torch.sinh, lambda x, r: torch.cosh(x), False),
+    "cosh": (torch.cosh, lambda x, r: torch.sinh(x), False),
+    "tanh": (torch.tanh, lambda x, r: 1.0 - r * r, False),
+    "arcsinh": (torch.arcsinh, lambda x, r: torch.sqrt(x * x + 1.0), True),
+    "arccosh": (torch.arccosh, lambda x, r: torch.sqrt(x * x - 1.0), True),
+    "arctanh": (torch.arctanh, lambda x, r: 1.0 - x * x, True),
+    "abs": (torch.abs, lambda x, r: torch.sign(x), False),
+    "sqrt": (torch.sqrt, lambda x, r: 2.0 * r, True),
+}
+
+
+def _dual_add_t(ta, tb):
+    if ta is None:
+        return tb
+    return ta if tb is None else ta + tb
+
+
+def dual_ew(instrs, imm, inputs, batch: int):
+    """One elementwise program on dual numbers: ``(value, tangents)`` of the
+    last instruction of ``instrs`` (see :data:`DUAL_OPCODES`) for the
+    ``inputs``, a list of ``(val, tan)`` with ``val`` of shape ``()``, ``(1,)``
+    or ``(n,)`` and ``tan`` ``(batch, 1)`` or ``(batch, n)``, or ``None`` for a
+    constant. A constant operand contributes no term to a tangent, so a zero
+    never meets an ``inf`` of the other operand; ``pow`` with a constant
+    exponent takes no logarithm; ``gt``, ``ge``, ``leabs`` (``|a| <= b``),
+    ``sign`` and ``detach`` give constants; ``select`` takes ``b`` where
+    ``a != 0`` else ``c``; ``custom`` has the value of ``a`` and the tangent
+    ``b * tangent(c)``. With ``batch == 0`` only values are computed. The
+    tangent is ``None`` when the output is a constant."""
+    ref = inputs[0][0]
+    dtype, dev = ref.dtype, ref.device
+    regs: list = [None] * DUAL_MAX_INPUTS
+    for k, (val, tan) in enumerate(inputs):
+        regs[k] = (val, tan if batch else None)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    for name_code, a, b, c in instrs:
+        name = DUAL_OPCODES[name_code]
+        if name == "loadi":
+            regs.append((torch.tensor(imm[a], dtype=dtype, device=dev), None))
+            continue
+        va, ta = regs[a]
+        if name in _DUAL_UNARY:
+            fn, dfn, divide = _DUAL_UNARY[name]
+            r = fn(va)
+            t = None
+            if ta is not None:
+                d = dfn(va, r)
+                t = ta / d if divide else ta * d
+            regs.append((r, t))
+            continue
+        if name == "neg":
+            regs.append((-va, None if ta is None else -ta))
+        elif name in ("sign", "detach"):
+            regs.append((torch.sign(va) if name == "sign" else va, None))
+        elif name in ("add", "sub"):
+            vb, tb = regs[b]
+            if name == "sub":
+                regs.append((va - vb, _dual_add_t(ta, None if tb is None else -tb)))
+            else:
+                regs.append((va + vb, _dual_add_t(ta, tb)))
+        elif name == "mul":
+            vb, tb = regs[b]
+            regs.append((
+                va * vb,
+                _dual_add_t(None if ta is None else ta * vb, None if tb is None else va * tb),
+            ))
+        elif name == "div":
+            vb, tb = regs[b]
+            r = va / vb
+            if tb is None:
+                t = None if ta is None else ta / vb
+            elif ta is None:
+                t = -(tb * r) / vb
+            else:
+                t = (ta - tb * r) / vb
+            regs.append((r, t))
+        elif name == "pow":
+            vb, tb = regs[b]
+            r = torch.pow(va, vb)
+            t = None
+            if ta is not None:
+                t = ta * torch.where(vb == 0.0, zero, vb * torch.pow(va, vb - 1.0))
+            if tb is not None:
+                w = torch.where((va == 0.0) & (vb >= 0.0), zero, r * torch.log(va))
+                t = _dual_add_t(t, tb * w)
+            regs.append((r, t))
+        elif name in ("gt", "ge", "leabs"):
+            vb, _tb = regs[b]
+            mask = va > vb if name == "gt" else va >= vb if name == "ge" else torch.abs(va) <= vb
+            regs.append((mask.to(dtype), None))
+        elif name == "select":
+            (vb, tb), (vc, tc) = regs[b], regs[c]
+            mask = va != 0.0
+            t = None
+            if tb is not None or tc is not None:
+                t = torch.where(mask, zero if tb is None else tb, zero if tc is None else tc)
+            regs.append((torch.where(mask, vb, vc), t))
+        elif name == "custom":
+            (vb, _tb), (_vc, tc) = regs[b], regs[c]
+            regs.append((va, None if tc is None else vb * tc))
+        else:
+            raise ValueError(f"dual_ew: unknown opcode {name_code}")
+    val, tan = regs[-1]
+    shape = torch.broadcast_shapes(*(v.shape for v, _t in inputs))
+    val = val.expand(shape).contiguous()
+    if tan is not None:
+        tan = tan.expand((batch,) + (tuple(shape) or (1,))).contiguous()
+    return val, tan
+
+
+def dual_gather_var(x, idx, colors, batch: int):
+    """The dual of the unknowns ``x[idx]`` under one-hot seeds by color:
+    ``(val, tan)`` with ``val = x[idx]`` and ``tan[c, i] = 1`` where
+    ``colors[idx[i]] == c`` else 0 (``tan`` is ``None`` for ``batch == 0``).
+    ``idx`` int64, ``colors`` int32 over all unknowns."""
+    val = x[idx]
+    if not batch:
+        return val, None
+    rows = torch.arange(batch, dtype=colors.dtype, device=x.device)[:, None]
+    return val, (colors[idx][None, :] == rows).to(x.dtype)
+
+
+def dual_gather_copy(pieces, batch: int):
+    """The concatenation of the duals ``pieces``, a list of ``(val, tan)``
+    with ``val`` ``(n_k,)`` and ``tan`` ``(batch, n_k)`` or ``None`` (a
+    constant, whose rows read 0): ``(val, tan)`` of length ``sum n_k``; ``tan``
+    is ``None`` when every piece is a constant or ``batch == 0``."""
+    val = torch.cat([v for v, _t in pieces])
+    if not batch or all(t is None for _v, t in pieces):
+        return val, None
+    tan = torch.cat(
+        [
+            torch.zeros((batch, v.shape[0]), dtype=val.dtype, device=val.device) if t is None else t
+            for v, t in pieces
+        ],
+        dim=1,
+    )
+    return val, tan
+
+
+def jac_gather(vals, tans, gather_color, gather_row, nnz_offsets, row_offsets):
+    """The Jacobian nonzeros of all equations in the global nonzero order and
+    the negated, concatenated residual: nonzero ``k`` of equation ``e``
+    (``nnz_offsets[e] <= k < nnz_offsets[e + 1]``) is ``tans[e][gather_color[k],
+    gather_row[k]]`` (0 where ``tans[e]`` is ``None``), and rows
+    ``row_offsets[e]:row_offsets[e + 1]`` of the right-hand side are
+    ``-vals[e]``. Gathers only, in a fixed order."""
+    ref = vals[0]
+    data = torch.zeros(nnz_offsets[-1], dtype=ref.dtype, device=ref.device)
+    for e, tan in enumerate(tans):
+        lo, hi = nnz_offsets[e], nnz_offsets[e + 1]
+        if tan is not None and hi > lo:
+            data[lo:hi] = tan[gather_color[lo:hi].long(), gather_row[lo:hi].long()]
+    return data, -torch.cat(list(vals))

@@ -17,12 +17,16 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from porepy_tpu_torch.numerics import ad
+from porepy_tpu_torch.numerics.ad import forward
 from porepy_tpu_torch.numerics.ad.discretizations import TpfaAd, UpwindAd
 from porepy_tpu_torch.numerics.fv.upwind import (
     UpwindGeometry,
     upwind_apply,
+    upwind_apply_dual,
     upwind_flux,
+    upwind_flux_dual,
     upwind_select_pair,
+    upwind_select_pair_dual,
 )
 from porepy_tpu_torch.params.tensor import SecondOrderTensor
 
@@ -535,7 +539,12 @@ class AdvectiveFlux:
 
             return _union(_union(out, q_pat), bc_pat)
 
-        fn = ad.Function(f, name="advective_flux", pattern_fn=pattern_fn)
+        def dual_rule(run, q_d, w_d, bc_d):
+            return upwind_flux_dual(geom, q_d, w_d, bc_d)
+
+        fn = ad.Function(
+            f, name="advective_flux", pattern_fn=pattern_fn, dual_rule=dual_rule
+        )
         flux = fn(q, advected_entity, bc_values)
 
         interfaces = self.subdomains_to_interfaces(subdomains, [1])
@@ -606,7 +615,12 @@ class AdvectiveFlux:
                 out = _union(out, other)
             return out
 
-        fn = ad.Function(f, name="interface_upwind", pattern_fn=pattern_fn)
+        def dual_rule(run, lam_d, wp, ws):
+            return forward.mul(run, lam_d, upwind_select_pair_dual(lam_d, wp, ws))
+
+        fn = ad.Function(
+            f, name="interface_upwind", pattern_fn=pattern_fn, dual_rule=dual_rule
+        )
         return fn(lam, w_primary, w_secondary)
 
 
@@ -1739,10 +1753,16 @@ class FluidBuoyancy:
             out = (pattern @ _union(g_pat, d_pat)).astype(bool).tocsr()
             return _union(out, w_pat)
 
+        def dual_rule(run, w_d, g_d, d_d):
+            up_g = upwind_apply_dual(geom, w_d, g_d)
+            up_d = upwind_apply_dual(geom, forward.neg(run, w_d), d_d)
+            return forward.mul(run, up_g, up_d, w_d)
+
         fn = ad.Function(
             f,
             name=f"buoyancy_flux_{gamma.name}_{delta.name}",
             pattern_fn=pattern_fn,
+            dual_rule=dual_rule,
         )
         fluxes = [fn(w, wg, wd)]
 
@@ -1808,10 +1828,16 @@ class FluidBuoyancy:
                 out = _union(out, p)
             return out
 
+        def dual_rule(run, w_d, gp_d, gs_d, dp_d, ds_d):
+            up_g = upwind_select_pair_dual(w_d, gp_d, gs_d)
+            up_d = upwind_select_pair_dual(w_d, ds_d, dp_d)
+            return forward.mul(run, up_g, up_d, w_d)
+
         fn = ad.Function(
             f,
             name=f"interface_buoyancy_{gamma.name}_{delta.name}",
             pattern_fn=pattern_fn,
+            dual_rule=dual_rule,
         )
         return fn(intf_w, gp, gs, dp, ds)
 

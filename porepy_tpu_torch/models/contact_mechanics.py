@@ -22,6 +22,7 @@ from porepy_tpu_torch.models.geometry import ModelGeometry
 from porepy_tpu_torch.models.initial_condition import InitialConditionMixin
 from porepy_tpu_torch.models.solution_strategy import SolutionStrategy
 from porepy_tpu_torch.numerics import ad
+from porepy_tpu_torch.numerics.ad.forward import elementwise
 from porepy_tpu_torch.viz.data_saving_model_mixin import DataSavingMixin
 
 __all__ = [
@@ -177,6 +178,7 @@ class SolutionStrategyContactMechanics(SolutionStrategy):
         f_characteristic = ad.Function(
             partial(_characteristic, tol),
             "characteristic_function_for_zero_normal_traction",
+            dual_rule=elementwise(lambda E, x: E.op("leabs", x, E.imm(tol))),
         )
         num_cells = sum(sd.num_cells for sd in subdomains)
         zeros_frac = ad.DenseArray(np.zeros(num_cells))

@@ -18,8 +18,11 @@ rediscretization, no lagging.
 
 On a CUDA tensor the node runs the K14 kernels ``tpfa_ad_flux`` and
 ``tpfa_ad_trace`` (``kernels/csrc/tpfa_ad.cu``: value and all colored
-tangents, one launch each per subdomain); on a CPU tensor the plain
-functions of ``numerics/fv/tpfa.py``, differentiated by ``torch.func``.
+tangents, one launch each per subdomain). The assembly's forward-mode pass
+calls them directly through the node's dual rule (on a CPU tensor their
+plain versions in ``kernels/reference.py``); the traced function that
+``torch.func`` differentiates reaches them through autograd Functions, and
+on a CPU tensor runs the plain functions of ``numerics/fv/tpfa.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import torch
 
 from porepy_tpu_torch import kernels
 from porepy_tpu_torch.kernels import functions as kfn
+from porepy_tpu_torch.kernels import ops
 from porepy_tpu_torch.numerics import ad
+from porepy_tpu_torch.numerics.ad import forward
 
 __all__ = ["AdTpfaFlux", "DarcysLawAd", "FouriersLawAd"]
 
@@ -100,9 +105,11 @@ class _DiffTpfaGeometry:
             ]
         return geoms
 
-    def _per_subdomain(self, plain, kernel):
+    def _per_subdomain(self, plain, kernel, dual_ops):
         """``(k9, vol, p, bco, lam) -> face field``: ``kernel`` per subdomain
-        for CUDA tensors, ``plain`` (on the host meshes) for CPU tensors."""
+        for CUDA tensors, ``plain`` (on the host meshes) for CPU tensors. The
+        function's ``dual_rule`` calls ``dual_ops``, the names of the K14
+        ``(value, tangent)`` operators, per subdomain."""
         geos = list(zip(self.meshes, self.masks))
         co, fo = self.cell_offsets, self.face_offsets
 
@@ -126,6 +133,32 @@ class _DiffTpfaGeometry:
                 return torch.zeros(0, dtype=p.dtype, device=p.device)
             return torch.cat(out)
 
+        def dual_rule(run, k9, vol, p, bco, lam):
+            """The same face field on duals: value and the tangent rows of
+            all seeds, one K14 launch each per subdomain."""
+            # Looked up at each call, as the traced function's operators are.
+            value_op, tangent_op = (getattr(ops, name) for name in dual_ops)
+            geoms = self.kernel_geometry(p.val.device)
+            out = []
+            for i, geom in enumerate(geoms):
+                spans = (
+                    (9 * co[i], 9 * co[i + 1]), (co[i], co[i + 1]), (co[i], co[i + 1]),
+                    (fo[i], fo[i + 1]), (fo[i], fo[i + 1]),
+                )
+                duals = (k9, vol, p, bco, lam)
+                primals = [d.val[lo:hi] for d, (lo, hi) in zip(duals, spans)]
+                val = value_op(geom, *primals)
+                seeds = [
+                    None if d.tan is None else d.tan[:, lo:hi]
+                    for d, (lo, hi) in zip(duals, spans)
+                ]
+                if all(s is None for s in seeds):
+                    out.append(forward.Dual(val))
+                else:
+                    out.append(forward.Dual(val, tangent_op(geom, primals, seeds)))
+            return forward.concat(run, out)
+
+        fn.dual_rule = dual_rule
         return fn
 
     def flux_fn(self):
@@ -147,7 +180,9 @@ class _DiffTpfaGeometry:
             coeff = boundary_flux_coefficients(mesh, t, bnd)
             return apply_flux(mesh, t, p, coeff, b)
 
-        return self._per_subdomain(plain, kfn.tpfa_ad_flux)
+        return self._per_subdomain(
+            plain, kfn.tpfa_ad_flux, ("tpfa_ad_flux", "tpfa_ad_flux_tangent")
+        )
 
     def trace_fn(self):
         """Function reconstructing the pressure trace on boundary faces:
@@ -169,7 +204,9 @@ class _DiffTpfaGeometry:
                 torch.where(neu, p_face - b / safe, torch.zeros_like(t_full)),
             )
 
-        return self._per_subdomain(plain, kfn.tpfa_ad_trace)
+        return self._per_subdomain(
+            plain, kfn.tpfa_ad_trace, ("tpfa_ad_trace", "tpfa_ad_trace_tangent")
+        )
 
 
 class AdTpfaFlux:

@@ -12,16 +12,26 @@ forward-mode Jacobians through every node) with a compile-once strategy:
    DAG as boolean scipy matrices — cheap, done once per equation system.
 3. :func:`sparse_jacobian` computes the Jacobian by coloring-compressed
    forward-mode JVPs: columns of the pattern are greedily colored so no two
-   same-colored columns share a row; ``torch.func.vmap`` over
-   ``torch.func.jvp`` with one seed per color recovers all nonzeros. For FV
-   stencils this is O(stencil size) forward passes instead of O(num dofs).
+   same-colored columns share a row; one forward pass with one seed per
+   color recovers all nonzeros. For FV stencils this is O(stencil size)
+   tangent rows instead of O(num dofs).
+
+What differentiates the residual (K8): :func:`dual_jvps`, the hand-written
+forward-mode pass of :mod:`porepy_tpu_torch.numerics.ad.forward`, which
+evaluates the same DAG on (value, tangent rows) pairs in the ``dual_ew``,
+``dual_gather`` and K1/K14/K15/K16 kernels; the traced function carries its
+executor as ``fn.dual``. :func:`colored_jvps` (``torch.func.vmap`` over
+``torch.func.jvp`` of the traced function) is the plain version of that
+pass: the tests and ``chip_smoke.py`` hold the two together, and a function
+without a dual rule is differentiated that way on its node alone.
 
 Constant sparse matrices are applied in padded-row (ELL) form by the K1
-kernel (:func:`~porepy_tpu_torch.kernels.ell_spmv`) through
-:class:`_EllMatvec`, an autograd Function whose JVP and batching rules call
-the same kernel. Determinism: every reduction is a row sum inside the ELL
-kernel or a gather over static indices — no scatter-add — so assembly is
-reproducible run to run on every device.
+kernel (:func:`~porepy_tpu_torch.kernels.ell_spmv`), directly in the dual
+pass and through :class:`_EllMatvec` in the traced function, an autograd
+Function whose JVP and batching rules call the same kernel. Determinism:
+every reduction is a row sum inside the ELL kernel or a gather over static
+indices — no scatter-add — so assembly is reproducible run to run on every
+device.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ __all__ = [
     "sparsity_pattern",
     "greedy_color",
     "colored_jvps",
+    "dual_jvps",
     "sparse_jacobian",
 ]
 
@@ -249,8 +260,12 @@ def build_function(
     ``x`` is the full global dof vector of ``eq_sys`` (current iterate);
     ``env`` are constant tensors described by the returned spec. Constants
     met while tracing (dense arrays, gather indices) are converted once per
-    device and kept with the function.
+    device and kept with the function. ``fn.dual`` is the
+    :class:`~porepy_tpu_torch.numerics.ad.forward.DualExecutor` of the same
+    DAG over the same env slots (see :func:`dual_jvps`).
     """
+    from porepy_tpu_torch.numerics.ad.forward import DualExecutor
+
     env_spec = _EnvSpec()
     const_mats: dict[int, Any] = {}
     consts: dict[tuple, torch.Tensor] = {}
@@ -269,6 +284,7 @@ def build_function(
         return rec(op)
 
     _collect_env(op, env_spec, eq_sys, set(), const_mats)
+    fn.dual = DualExecutor(op, eq_sys, env_spec, const_mats)
     return fn, env_spec
 
 
@@ -862,6 +878,15 @@ def colored_jvps(fn: Callable, x: torch.Tensor, env: Sequence, seeds: torch.Tens
     return val[0], compressed
 
 
+def dual_jvps(fn: Callable, x: torch.Tensor, env: Sequence, colors, n_colors: int):
+    """``(fn(x, *env), compressed)`` as :func:`colored_jvps` gives them for
+    the one-hot seeds of ``colors`` (int32 tensor over the unknowns), by the
+    hand-written forward-mode pass ``fn.dual`` (K8); ``compressed`` is
+    ``None`` where the residual does not depend on ``x``. With ``colors=None``
+    the value alone is computed."""
+    return fn.dual(x, env, colors, n_colors)
+
+
 def sparse_jacobian(
     fn: Callable,
     x: torch.Tensor,
@@ -871,7 +896,9 @@ def sparse_jacobian(
     n_colors: Optional[int] = None,
 ) -> tuple[np.ndarray, sps.csr_matrix]:
     """Value + sparse Jacobian of ``fn`` at ``x`` via coloring-compressed
-    forward JVPs. Returns host ``(value, csr_jacobian)``."""
+    forward JVPs: :func:`dual_jvps` for a function built by
+    :func:`build_function`, :func:`colored_jvps` for any other callable.
+    Returns host ``(value, csr_jacobian)``."""
     if colors is None or n_colors is None:
         colors, n_colors = greedy_color(pattern)
     ndof = x.shape[0]
@@ -879,9 +906,16 @@ def sparse_jacobian(
         val = fn(x, *env).cpu().numpy()
         return val, sps.csr_matrix((val.shape[0], ndof))
 
-    seeds = np.zeros((n_colors, ndof))
-    seeds[colors, np.arange(ndof)] = 1.0
-    val, compressed = colored_jvps(fn, x, env, _to_tensor(seeds, x.device))
+    if hasattr(fn, "dual"):
+        val, compressed = dual_jvps(
+            fn, x, env, _to_tensor(colors.astype(np.int32), x.device), n_colors
+        )
+        if compressed is None:
+            compressed = val.new_zeros((n_colors, val.shape[0]))
+    else:
+        seeds = np.zeros((n_colors, ndof))
+        seeds[colors, np.arange(ndof)] = 1.0
+        val, compressed = colored_jvps(fn, x, env, _to_tensor(seeds, x.device))
 
     rows, cols = pattern.nonzero()  # row-major (csr) order
     data = compressed.cpu().numpy()[colors[cols], rows]

@@ -10,10 +10,12 @@ grid — matching ``equation_system.py:838``), named equations, state rings
 Each named equation's operator DAG is traced once into a torch function of
 the global dof vector (``compiler.build_function``); its structural
 sparsity and column coloring are computed once; per-assembly work is one
-forward pass for the residual and one ``vmap(jvp)`` pass over the color
-seeds for the Jacobian, on the equation system's ``device``. Historic
-states flow through the ``env`` arguments, so nothing is retraced across
-time steps/iterations.
+hand-written forward-mode pass per equation over (value, tangent rows of
+the color seeds) pairs (K8: ``compiler.dual_jvps``, the executor of
+``numerics/ad/forward.py``) and one ``jac_gather`` launch that puts every
+equation's compressed block into the global nonzero order, on the equation
+system's ``device``. Historic states flow through the ``env`` arguments, so
+nothing is retraced across time steps/iterations.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
+from porepy_tpu_torch import kernels
 from porepy_tpu_torch.numerics.ad import compiler
 from porepy_tpu_torch.numerics.ad.operators import (
     MixedDimensionalVariable,
@@ -58,6 +61,17 @@ class _CompiledEquation:
         self.rows, self.cols = self.pattern.nonzero()
         # Gather indices into the (n_colors, n_rows) compressed block.
         self.gather_color = self.colors[self.cols]
+        self._colors_on: dict = {}
+
+    def colors_on(self, device) -> torch.Tensor:
+        """The int32 color of every unknown on ``device``: the one-hot seeds
+        of the dual pass."""
+        t = self._colors_on.get(device)
+        if t is None:
+            t = self._colors_on[device] = torch.tensor(
+                self.colors, dtype=torch.int32, device=device
+            )
+        return t
 
     def _tensors(self, x, env):
         if not torch.is_tensor(x):
@@ -76,9 +90,13 @@ class _CompiledEquation:
         self, x, env, ndof: int
     ) -> tuple[np.ndarray, sps.csr_matrix]:
         x, env = self._tensors(x, env)
-        seeds = compiler._to_tensor(self.seeds, self.device)
-        val, compressed = compiler.colored_jvps(self.fn, x, env, seeds)
-        data = compressed.cpu().numpy()[self.gather_color, self.rows]
+        val, compressed = compiler.dual_jvps(
+            self.fn, x, env, self.colors_on(x.device), self.n_colors
+        )
+        if compressed is None:
+            data = np.zeros(self.rows.size)
+        else:
+            data = compressed.cpu().numpy()[self.gather_color, self.rows]
         jac = sps.csr_matrix(
             (data, (self.rows, self.cols)), shape=(self.pattern.shape[0], ndof)
         )
@@ -91,8 +109,12 @@ class _CompiledSystem:
     residual — the device-resident Newton assembly. Counterpart of the
     reference's ``EquationSystem.assemble`` (ref
     ``equation_system.py:1450``), but with no host scipy matrix in the
-    loop. One traced function per equation; the nonzeros of each come from
-    its colored JVPs by one gather ``compressed[gc, rj]`` (K8)."""
+    loop. One forward-mode pass per equation (``compiler.dual_jvps``); the
+    nonzeros of all of them come from their colored tangent rows by one
+    gather ``compressed[gc, rj]`` in ``kernels.jac_gather`` (K8). The
+    ``*_plain`` methods are the same assembly through ``torch.func``
+    (``compiler.colored_jvps``): K8's plain version, which the tests and
+    ``chip_smoke.py`` hold the kernels' route against."""
 
     def __init__(self, eq_sys: "EquationSystem", names: Sequence[str]) -> None:
         self.names = tuple(names)
@@ -116,33 +138,72 @@ class _CompiledSystem:
         )
         self.indices_np = indices
         self.indices = torch.tensor(indices, dtype=torch.int64, device=dev)
+        # The static inputs of jac_gather: per nonzero its color and its row
+        # within its equation, and the equations' offsets.
+        self._nnz_offsets = [0]
+        self._row_offsets = [0]
+        for ce in self.ces:
+            self._nnz_offsets.append(self._nnz_offsets[-1] + ce.rows.size)
+            self._row_offsets.append(self._row_offsets[-1] + ce.pattern.shape[0])
 
-        def make_eq_fn(ce):
-            gc = torch.tensor(ce.gather_color, dtype=torch.int64, device=dev)
-            rj = torch.tensor(ce.rows, dtype=torch.int64, device=dev)
-            seeds = torch.tensor(ce.seeds, dtype=torch.float64, device=dev)
+        def joined(arrays):
+            flat = np.concatenate(arrays) if arrays else np.zeros(0)
+            return torch.tensor(flat, dtype=torch.int32, device=dev)
 
-            def call(x, env):
-                val, compressed = compiler.colored_jvps(ce.fn, x, env, seeds)
-                return compressed[gc, rj], val
-
-            return call
-
-        self._eq_fns = [make_eq_fn(ce) for ce in self.ces]
+        self._gather_color = joined([ce.gather_color for ce in self.ces])
+        self._gather_row = joined([ce.rows for ce in self.ces])
+        self._colors = [ce.colors_on(dev) for ce in self.ces]
+        self._plain_fns = None
 
     def _empty(self) -> torch.Tensor:
         return torch.zeros(0, dtype=torch.float64, device=self.device)
 
     def _data_and_rhs(self, x, envs) -> tuple[torch.Tensor, torch.Tensor]:
         """(nonzero data, -residual) at ``x`` for the given env tensors."""
-        parts = [f(x, env) for f, env in zip(self._eq_fns, envs)]
+        if not self.ces:
+            return self._empty(), self._empty()
+        vals, tans = [], []
+        for ce, env, colors in zip(self.ces, envs, self._colors):
+            val, tan = compiler.dual_jvps(ce.fn, x, env, colors, ce.n_colors)
+            vals.append(val)
+            tans.append(tan)
+        return kernels.jac_gather(
+            vals, tans, self._gather_color, self._gather_row,
+            self._nnz_offsets, self._row_offsets,
+        )
+
+    def _rhs_only(self, x, envs) -> torch.Tensor:
+        vals = [compiler.dual_jvps(ce.fn, x, env, None, 0)[0] for ce, env in zip(self.ces, envs)]
+        return -torch.cat(vals) if vals else self._empty()
+
+    def _data_and_rhs_plain(self, x, envs) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`_data_and_rhs` through ``torch.func`` (``vmap`` over
+        ``jvp`` of each traced residual), one gather, two concatenations and
+        a negation per equation: the plain version of K8."""
+        if self._plain_fns is None:
+            dev = self.device
+
+            def make_eq_fn(ce):
+                gc = torch.tensor(ce.gather_color, dtype=torch.int64, device=dev)
+                rj = torch.tensor(ce.rows, dtype=torch.int64, device=dev)
+                seeds = torch.tensor(ce.seeds, dtype=torch.float64, device=dev)
+
+                def call(x, env):
+                    val, compressed = compiler.colored_jvps(ce.fn, x, env, seeds)
+                    return compressed[gc, rj], val
+
+                return call
+
+            self._plain_fns = [make_eq_fn(ce) for ce in self.ces]
+        parts = [f(x, env) for f, env in zip(self._plain_fns, envs)]
         if not parts:
             return self._empty(), self._empty()
         data = torch.cat([p[0] for p in parts])
         b = -torch.cat([p[1] for p in parts])
         return data, b
 
-    def _rhs_only(self, x, envs) -> torch.Tensor:
+    def _rhs_only_plain(self, x, envs) -> torch.Tensor:
+        """:meth:`_rhs_only` through the traced residuals."""
         vals = [ce.fn(x, *env) for ce, env in zip(self.ces, envs)]
         return -torch.cat(vals) if vals else self._empty()
 

@@ -2,10 +2,16 @@
 
 Parity counterpart of reference ``numerics/ad/functions.py:60-487``. Each
 function takes operators and returns an ``evaluate`` DAG node whose payload
-is a torch function — derivatives come from ``torch.func`` forward mode,
-so no hand-written chain rules. ``maximum`` (the basis of contact
-complementarity equations) follows the reference's derivative convention:
-where the arguments tie, the derivative follows the *first* argument.
+is a torch function that carries the function's *dual rule* (its
+``dual_rule`` attribute): the chain rule written by hand for the assembly's
+forward-mode pass (:mod:`porepy_tpu_torch.numerics.ad.forward`). Every
+function here but :func:`l2_norm` is elementwise, so its rule is an
+expression over the opcodes of the ``dual_ew`` kernel and joins the fused
+program of the nodes around it. The torch function stays the plain version
+(``torch.func`` differentiates it in ``compiler.colored_jvps``). ``maximum``
+(the basis of contact complementarity equations) follows the reference's
+derivative convention: where the arguments tie, the derivative follows the
+*first* argument.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from porepy_tpu_torch.numerics.ad import forward
 from porepy_tpu_torch.numerics.ad.operators import Operations, Operator, _wrap
 
 __all__ = [
@@ -43,7 +50,11 @@ __all__ = [
 
 
 def _fn_op(
-    func: Callable, args: tuple, name: str, pattern_fn: Optional[Callable] = None
+    func: Callable,
+    args: tuple,
+    name: str,
+    pattern_fn: Optional[Callable] = None,
+    dual=None,
 ) -> Operator:
     children = []
     for a in args:
@@ -55,12 +66,19 @@ def _fn_op(
     op.func = func
     if pattern_fn is not None:
         op.func_pattern = pattern_fn
+    if dual is not None:
+        func.dual_rule = dual
     return op
 
 
 def _unary(torch_fn: Callable, name: str):
+    def f(x):
+        return torch_fn(x)
+
+    f.dual_rule = forward.elementwise(lambda E, x: E.op(name, x))
+
     def wrapper(var: Union[Operator, np.ndarray, float]) -> Operator:
-        return _fn_op(torch_fn, (var,), name)
+        return _fn_op(f, (var,), name)
 
     wrapper.__name__ = name
     return wrapper
@@ -95,7 +113,12 @@ def heaviside(var, zerovalue: float = 0.5) -> Operator:
             torch.where(x < 0, torch.full_like(x, 0.0), torch.full_like(x, zerovalue)),
         )
 
-    return _fn_op(f, (var,), "heaviside")
+    def dual(E, x):
+        zero = E.imm(0.0)
+        below = E.op("select", E.op("gt", zero, x), zero, E.imm(zerovalue))
+        return E.op("select", E.op("gt", x, zero), E.imm(1.0), below)
+
+    return _fn_op(f, (var,), "heaviside", dual=forward.elementwise(dual))
 
 
 def heaviside_smooth(var, eps: float = 1e-3) -> Operator:
@@ -105,7 +128,11 @@ def heaviside_smooth(var, eps: float = 1e-3) -> Operator:
     def f(x):
         return 0.5 + torch.arctan(x / eps) / np.pi
 
-    return _fn_op(f, (var,), "heaviside_smooth")
+    def dual(E, x):
+        angle = E.op("arctan", E.op("div", x, E.imm(eps)))
+        return E.op("add", E.imm(0.5), E.op("div", angle, E.imm(np.pi)))
+
+    return _fn_op(f, (var,), "heaviside_smooth", dual=forward.elementwise(dual))
 
 
 def maximum(var1, var2) -> Operator:
@@ -118,7 +145,10 @@ def maximum(var1, var2) -> Operator:
         take_second = (b_arr > a_arr).detach()
         return torch.where(take_second, b_arr, a_arr)
 
-    return _fn_op(f, (var1, var2), "maximum")
+    def dual(E, a, b):
+        return E.op("select", E.op("gt", b, a), b, a)
+
+    return _fn_op(f, (var1, var2), "maximum", dual=forward.elementwise(dual))
 
 
 class _SafePower(torch.autograd.Function):
@@ -158,7 +188,17 @@ def safe_power(power: float, zero_val: float, tol: float, var) -> Operator:
     def f(x):
         return _SafePower.apply(x, power, zero_val, tol)
 
-    return _fn_op(f, (var,), "safe_power")
+    def dual(E, x):
+        # Value and weight from the detached argument; the tangent is
+        # ``power * out**(power - 1) * dx`` everywhere (``custom``).
+        xd = E.op("detach", x)
+        nz = E.op("gt", E.op("abs", xd), E.imm(tol))
+        xs = E.op("select", nz, xd, E.imm(1.0))
+        out = E.op("select", nz, E.op("pow", xs, E.imm(power)), E.imm(zero_val))
+        weight = E.op("mul", E.imm(power), E.op("pow", out, E.imm(power - 1.0)))
+        return E.op("custom", out, weight, x)
+
+    return _fn_op(f, (var,), "safe_power", dual=forward.elementwise(dual))
 
 
 def characteristic_function(tol: float, var) -> Operator:
@@ -171,7 +211,8 @@ def characteristic_function(tol: float, var) -> Operator:
             torch.abs(x) <= tol, torch.full_like(x, 1.0), torch.full_like(x, 0.0)
         )
 
-    return _fn_op(f, (var,), "characteristic_function")
+    dual = forward.elementwise(lambda E, x: E.op("leabs", x, E.imm(tol)))
+    return _fn_op(f, (var,), "characteristic_function", dual=dual)
 
 
 class _SafeL2(torch.autograd.Function):
@@ -226,5 +267,34 @@ def l2_norm(nd: int, var: Operator) -> Operator:
         )
         return (compress @ p).astype(bool).tocsr()
 
-    return _fn_op(f, (var,), "l2_norm", pattern_fn=pattern_fn)
+    program = _l2_norm_program(nd)
+
+    def dual(run, x):
+        if x.tan is None:
+            return forward.Dual(f(x.val))
+        parts = [forward.Dual(x.val[k::nd], x.tan[:, k::nd]) for k in range(nd)]
+        return forward.run_program(program, parts, run.batch)
+
+    return _fn_op(f, (var,), "l2_norm", pattern_fn=pattern_fn, dual=dual)
+
+
+def _l2_norm_program(nd: int):
+    """The ``dual_ew`` program of :class:`_SafeL2` on the ``nd`` components
+    (strided views of the argument): the norm, with the tangent ``sum_k w_k
+    dx_k``, ``w_k = x_k / norm`` where ``norm > 1e-12`` else 1."""
+    E = forward.ExprOps
+    xs = [forward._Expr("in", (), k) for k in range(nd)]
+    sq = None
+    for x in xs:
+        term = E.op("mul", x, x)
+        sq = term if sq is None else E.op("add", sq, term)
+    norm = E.op("detach", E.op("sqrt", sq))
+    safe = E.op("gt", norm, E.imm(1e-12))
+    denom = E.op("select", safe, norm, E.imm(1.0))
+    out = None
+    for k, x in enumerate(xs):
+        w = E.op("select", safe, E.op("div", E.op("detach", x), denom), E.imm(1.0))
+        term = E.op("custom", norm if k == 0 else E.imm(0.0), w, x)
+        out = term if out is None else E.op("add", out, term)
+    return forward.compile_expr(out)[0]
 

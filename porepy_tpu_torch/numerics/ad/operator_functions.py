@@ -2,8 +2,11 @@
 ``numerics/ad/operator_functions.py:43``).
 
 :class:`Function` wraps a torch-traceable callable into a factory of
-``evaluate`` DAG nodes; derivatives come from ``torch.func`` forward mode
-rather than the reference's AdArray-aware callables.
+``evaluate`` DAG nodes. The assembly differentiates a node by its function's
+*dual rule* (``dual_rule``: the chain rule written by hand for the
+forward-mode pass of :mod:`porepy_tpu_torch.numerics.ad.forward`); a
+function given without one is differentiated by ``torch.func`` on its node
+alone, rather than by the reference's AdArray-aware callables.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from porepy_tpu_torch import kernels
+from porepy_tpu_torch.numerics.ad import forward
 from porepy_tpu_torch.numerics.ad.operators import Operations, Operator, _wrap
 
 __all__ = ["Function", "DiagonalJacobianFunction", "InterpolatedFunction"]
@@ -27,11 +31,29 @@ class Function:
         pattern_fn: Optional structural-sparsity rule
             ``(child_patterns, ndof) -> pattern`` for non-elementwise
             functions; defaults to the union of argument patterns.
+        dual_rule: Optional forward-mode rule: a callable ``rule(run, *duals)
+            -> Dual`` on :class:`~porepy_tpu_torch.numerics.ad.forward.Dual`
+            arguments, or an :func:`~porepy_tpu_torch.numerics.ad.forward.elementwise`
+            emitter for an elementwise function. Without one the assembly
+            differentiates ``func`` by ``torch.func`` on this node.
     """
 
     def __init__(
-        self, func: Callable, name: str = "Function", pattern_fn: Optional[Callable] = None
+        self,
+        func: Callable,
+        name: str = "Function",
+        pattern_fn: Optional[Callable] = None,
+        dual_rule=None,
     ) -> None:
+        if dual_rule is not None:
+            # The rule travels with the callable (as its ``dual_rule``
+            # attribute), so that re-tagged copies of a node keep it.
+            inner = func
+
+            def func(*args):
+                return inner(*args)
+
+            func.dual_rule = dual_rule
         self.func = func
         self.name = name
         self.pattern_fn = pattern_fn
@@ -59,16 +81,25 @@ class DiagonalJacobianFunction(Function):
     """Function with a user-declared diagonal Jacobian scaling per argument
     (reference ``operator_functions.py:284``). With forward-mode tracing the
     true derivative is computed automatically; the multipliers are applied
-    as fixed scalings of each argument's contribution."""
+    as fixed scalings of each argument's contribution. ``dual_rule`` is the
+    forward-mode rule of ``func`` itself (a callable ``rule(run, *duals)``);
+    the scalings are applied to the duals before it."""
 
-    def __init__(self, func: Callable, name: str, multipliers) -> None:
+    def __init__(self, func: Callable, name: str, multipliers, dual_rule=None) -> None:
         multipliers = list(multipliers) if isinstance(multipliers, (list, tuple)) else [multipliers]
 
         def scaled(*args):
             scaled_args = [m * a for m, a in zip(multipliers, args)]
             return func(*scaled_args)
 
-        super().__init__(scaled, name)
+        def scaled_rule(run, *duals):
+            scaled_duals = [
+                forward.Dual(m * d.val, None if d.tan is None else m * d.tan)
+                for m, d in zip(multipliers, duals)
+            ]
+            return dual_rule(run, *scaled_duals)
+
+        super().__init__(scaled, name, dual_rule=None if dual_rule is None else scaled_rule)
         self.multipliers = multipliers
 
 
@@ -145,9 +176,11 @@ class InterpolatedFunction(Function):
     gather plus a weighted sum over the ``2^d`` cell corners (linear
     extrapolation outside the table), with piecewise-constant multilinear
     gradients. The lookup and its forward-mode tangents run in the K16
-    kernel (``kernels/csrc/interp_lookup.cu``, ``d <= 3`` on the card) through
-    an autograd Function, the plain version on the CPU; the table follows
-    the argument's device on first use.
+    kernel (``kernels/csrc/interp_lookup.cu``, ``d <= 3`` on the card), the
+    plain version on the CPU: called directly by the function's dual rule in
+    the assembly, and through an autograd Function where ``torch.func``
+    differentiates the traced residual. The table follows the argument's
+    device on first use.
     """
 
     def __init__(
@@ -191,7 +224,28 @@ class InterpolatedFunction(Function):
             x = torch.stack([torch.atleast_1d(a) for a in args])
             return _InterpLookup.apply(c["values"], c["fgeom"], c["igeom"], x)
 
-        super().__init__(lookup, name)
+        def dual_rule(run, *duals):
+            c = self.device_table(duals[0].val.device)
+            vals = [torch.atleast_1d(d.val) for d in duals]
+            x = torch.stack(vals).contiguous()
+            val = kernels.interp_lookup(c["values"], c["fgeom"], c["igeom"], x)
+            if all(d.tan is None for d in duals):
+                return forward.Dual(val)
+            # (B, d, N) seeds; a constant argument's rows are zero.
+            zeros = None
+            rows = []
+            for d, v in zip(duals, vals):
+                if d.tan is None:
+                    if zeros is None:
+                        zeros = v.new_zeros((run.batch, v.shape[0]))
+                    rows.append(zeros)
+                else:
+                    rows.append(d.tan)
+            dx = torch.stack(rows, dim=1).contiguous()
+            tan = kernels.interp_tangent(c["values"], c["fgeom"], c["igeom"], x, dx)
+            return forward.Dual(val, tan)
+
+        super().__init__(lookup, name, dual_rule=dual_rule)
 
     def device_table(self, device) -> dict:
         """The K16 inputs on ``device``: flat ``values``, ``fgeom = [low, h]``

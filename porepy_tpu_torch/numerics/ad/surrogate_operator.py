@@ -18,7 +18,9 @@ device between state changes) and ``x_k`` are the dependency variables. The
 second term is identically zero in value, while its JVP is exactly
 ``sum_k d_k * dx_k`` — so one expression gives both the exact value and the
 exact (diagonal, per-dependency) Jacobian contribution through forward-mode
-differentiation, with no custom-JVP plumbing.
+differentiation, with no custom-JVP plumbing. The assembly's dual-number
+pass evaluates the same expression as a ``dual_ew`` program (the function's
+``dual_rule``, with the ``detach`` opcode).
 
 Storage layout: values live in the grid data dicts' iterate/time rings under
 the factory name (exactly like variables, so time shifting works the same);
@@ -31,6 +33,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from porepy_tpu_torch.numerics.ad.forward import elementwise
 from porepy_tpu_torch.numerics.ad.operators import (
     DenseArray,
     Operations,
@@ -87,6 +90,15 @@ class SurrogateOperator(Operator):
             return out
 
         self.func = func
+
+        def dual(E, v, *rest):
+            # The value is the stored one; the tangent is ``sum_k d_k dx_k``.
+            out = v
+            for dk, xk in zip(rest[:num_dep], rest[num_dep:]):
+                out = E.op("add", out, E.op("mul", dk, E.op("sub", xk, E.op("detach", xk))))
+            return out
+
+        func.dual_rule = elementwise(dual)
 
         def func_pattern(child_patterns, ndof):
             import scipy.sparse as sps

@@ -16,6 +16,10 @@ Two faces of the same scheme:
   only: no scatter, so the result is deterministic on every device. On a
   CUDA tensor these run the K15 kernels (``kernels/csrc/upwind.cu``), on a
   CPU tensor their plain versions in :mod:`porepy_tpu_torch.kernels.reference`.
+  The ``*_dual`` functions are the same operations on the
+  :class:`~porepy_tpu_torch.numerics.ad.forward.Dual` values of the
+  assembly's forward-mode pass: the value and the tangent rows of all color
+  seeds, one direct kernel call each.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import scipy.sparse as sps
 import torch
 
 from porepy_tpu_torch.kernels import functions as kfn
-from porepy_tpu_torch.kernels import reference
+from porepy_tpu_torch.kernels import ops, reference
+from porepy_tpu_torch.numerics.ad.forward import Dual
 from porepy_tpu_torch.utils import common_constants as cc
 
 __all__ = [
@@ -36,6 +41,9 @@ __all__ = [
     "upwind_apply",
     "upwind_flux",
     "upwind_select_pair",
+    "upwind_apply_dual",
+    "upwind_flux_dual",
+    "upwind_select_pair_dual",
     "UpwindCoupling",
 ]
 
@@ -134,6 +142,51 @@ def upwind_select_pair(s, a, b):
     """``a`` where ``s >= 0`` else ``b``, the choice taken from ``s`` as data
     (detached): the interface form of the upstream selection."""
     return kfn.upwind_select_pair(s, a, b)
+
+
+def _rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` over ``n`` elements with unit-strided rows, as the K15 kernels
+    take a field: a one-element operand is broadcast."""
+    if t.dim() == 0 or t.shape[-1] != n:
+        t = t.reshape(t.shape[:-1] + (1,) if t.dim() else (1,)).expand(t.shape[:-1] + (n,))
+    return t if n <= 1 or t.stride(-1) == 1 else t.contiguous()
+
+
+def upwind_apply_dual(geom: UpwindGeometry, q: Dual, w: Dual) -> Dual:
+    """:func:`upwind_apply` on duals: the selection follows ``q``'s value
+    and carries no tangent, so the tangent is the same selection of ``w``'s
+    rows."""
+    g = geom.on(q.val.device)
+    masks = (g["lo"], g["hi"], g["is_dir"], g["is_neu"])
+    val = ops.upwind_select(q.val, w.val, *masks)
+    return Dual(val, None if w.tan is None else ops.upwind_select(q.val, w.tan, *masks))
+
+
+def upwind_flux_dual(geom: UpwindGeometry, q: Dual, w: Dual, bc: Dual) -> Dual:
+    """:func:`upwind_flux` on duals: one launch for the value and one for
+    the tangent rows of all seeds."""
+    g = geom.on(q.val.device)
+    nf = g["lo"].shape[0]
+    geo = (g["lo"], g["hi"], g["is_dir"], g["is_neu"], g["sgn_div"])
+    qv, wv, bcv = _rows(q.val, nf), w.val, _rows(bc.val, nf)
+    val = ops.upwind_flux(qv, wv, bcv, *geo)
+    if q.tan is None and w.tan is None and bc.tan is None:
+        return Dual(val)
+    dq = None if q.tan is None else _rows(q.tan, nf)
+    dbc = None if bc.tan is None else _rows(bc.tan, nf)
+    return Dual(val, ops.upwind_flux_tangent(qv, wv, bcv, dq, w.tan, dbc, *geo))
+
+
+def upwind_select_pair_dual(s: Dual, a: Dual, b: Dual) -> Dual:
+    """:func:`upwind_select_pair` on duals; the choice follows ``s``'s value."""
+    n = max(t.shape[-1] if t.dim() else 1 for t in (s.val, a.val, b.val))
+    sv = _rows(s.val, n)
+    val = ops.upwind_select_pair(sv, _rows(a.val, n), _rows(b.val, n))
+    if a.tan is None and b.tan is None:
+        return Dual(val)
+    da = None if a.tan is None else _rows(a.tan, n)
+    db = None if b.tan is None else _rows(b.tan, n)
+    return Dual(val, ops.upwind_select_pair(sv, da, db))
 
 
 class Upwind:

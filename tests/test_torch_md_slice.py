@@ -149,3 +149,39 @@ def test_port_source_has_no_jax():
                         f"{path}:{i}" for i, line in enumerate(fh, 1) if pattern.search(line)
                     ]
     assert not hits, hits
+
+
+def test_md256_case_yields_cell_size_without_meshing():
+    """``CASE_BUILDERS["md256"]`` is md at cell size 1/256 on the card by
+    default, with md's solver parameters; building the parameters meshes
+    nothing."""
+    Model, params = cases_torch.CASE_BUILDERS["md256"]()
+    assert params["meshing_arguments"] == {"cell_size": 1.0 / 256}
+    assert params["device"] == "cuda"
+    Model_md, params_md = cases_torch.build_md_flow(1.0 / 128, device="cuda")
+    for key in ("linear_solver", "fused_time_steps", "fused_commit_states", "grid_type"):
+        assert params[key] == params_md[key]
+    assert Model.__mro__[2:] == Model_md.__mro__[2:]
+    assert not hasattr(Model, "mdg")
+
+
+def test_md256_model_at_a_coarse_size_assembles_by_the_dual_route():
+    """The md256 model (``build_md_flow``'s class and parameters) at cell size
+    1/8: the same equations as md, assembled by the forward-mode pass with no
+    node left to ``torch.func``, equal to porepy_tpu's assembly."""
+    Model, params = cases_torch.build_md_flow(1.0 / 8, device="cpu")
+    _cls, params256 = cases_torch.CASE_BUILDERS["md256"]()
+    assert {k for k in params256} == {k for k in params}
+    m = Model(params)
+    m.prepare_simulation()
+    cs = m.equation_system.compiled_system()
+    assert cs.names == ("mass_balance_equation", "interface_darcy_flux_equation")
+    assert all(ce.fn.dual.ruleless == [] for ce in cs.ces)
+    Model_j, params_j = cases_jax.build_md_flow(1.0 / 8)
+    m_jax = Model_j(params_j)
+    m_jax.prepare_simulation()
+    data, b = cs.assemble(m.equation_system)
+    J_j, b_j = m_jax.equation_system.assemble()
+    J_t = cs.bcoo(data).to_dense().numpy()
+    assert np.abs(J_t - J_j.toarray()).max() <= 1e-12 * np.abs(J_j.toarray()).max()
+    assert np.abs(b.numpy() - np.asarray(b_j)).max() <= 1e-12 * max(np.abs(b_j).max(), 1.0)
