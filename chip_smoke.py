@@ -471,6 +471,10 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
     needed = MD_KERNELS + (() if functorch else K8_KERNELS)
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
+    if case:
+        # Above the dense limit: the AMG preconditioner, as the case asks.
+        solver = next(iter(model._device_solvers.values()))
+        _require(not solver._dense, f"{case}: dense inverses on {eq_sys.num_dofs()} dofs")
     _require(bool(np.all(np.isfinite(x))), "non-finite state")
     _require(p.min() >= 0.0 and p.max() <= 1.0, f"pressure {p.min()}..{p.max()}")
     _require(inc <= tol, f"Newton increment {inc} > {tol}")
