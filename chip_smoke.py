@@ -114,8 +114,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    result's largest entry, the same bits from two launches, CUDA-event
    times, the bound, and the time of ``torch.where`` + ``index_select``
    and of ``index_add_`` for the two that one PyTorch call matches;
-20. run the tracer case at 1/64 (8,710 dofs) for 26 steps of 60 s, with
-   the AMG preconditioner and with dense frozen block inverses: 3 fused
+20. run the tracer case for 26 steps of 60 s, at 1/32 (2,246 dofs) with
+   the AMG preconditioner and at 1/64 (8,710 dofs) with dense frozen block
+   inverses: 3 fused
    blocks, no host fallback, the K15 kernels launched, ``pressure`` and
    ``z_tracer`` within 1e-8 of each field's largest value of the same case
    run on the host (plain path), one more host Newton increment within
@@ -140,7 +141,13 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    90,261 nonzeros): values and tangents within 1e-13 of the largest entry
    (the gathers equal), the same bits from two launches, CUDA-event times,
    the bound (bytes read once and written once over 3.35 TB/s) and the time
-   of ``index_select`` for the two gathers;
+   of ``index_select`` for the two gathers; and at every case's own shapes
+   (md 1/256 included), inside its phase: every call of a K8 wrapper in one
+   assembly and one residual of the case, with the programs and gather
+   indices of its compiled equations, is repeated through the plain version
+   on the same inputs (1e-13 of the largest entry, NaN in the same places).
+   In phase 13 the contact case's residual must launch ``dual_ew`` as often
+   as its assembly does;
 23. the assembly in turns (functorch, dual, dual, functorch: the K8 pass of
    ``numerics/ad/forward.py`` against ``torch.func`` over the traced
    residual, its plain version) at the final state of md 1/128, 3d 32^3, biot
@@ -1218,6 +1225,20 @@ def compare_poro_small(dev) -> None:
         _require(bool(np.all(np.isfinite(got))), f"fractured {var} not finite")
         _require(err <= 1e-8 * scale, f"fractured {var}: card and host differ by {err}")
 
+    # The residual alone (no seeds) runs the same programs as the assembly:
+    # the cell-wise norm of the contact equations included.
+    eq_sys = finals[str(dev)].equation_system
+    cs = eq_sys.compiled_system()
+    with _launches_of_block() as with_seeds:
+        cs.assemble(eq_sys)
+    with _launches_of_block() as without_seeds:
+        cs.residual(eq_sys)
+    print(f"  fractured, contact: dual_ew launches of one assembly {with_seeds.get('dual_ew')}, of one residual {without_seeds.get('dual_ew')}")
+    _require(
+        without_seeds.get("dual_ew", 0) == with_seeds.get("dual_ew", -1),
+        f"fractured: the residual launches dual_ew {without_seeds.get('dual_ew')} times, the assembly {with_seeds.get('dual_ew')}",
+    )
+
     mats = {}
     for route in ("k10", "host"):
         with _local_solves(route):
@@ -2171,19 +2192,124 @@ def _plain_k14_k15():
             setattr(ops, name, fn)
 
 
+def functorch_data_and_rhs(cs, x, envs) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's plain version: what ``cs._data_and_rhs(x, envs)`` returns for the
+    compiled system ``cs``, through ``torch.func`` (``compiler.colored_jvps``:
+    ``vmap`` over ``jvp`` of each traced residual), with one gather, two
+    concatenations and a negation per equation."""
+    from porepy_tpu_torch.numerics.ad import compiler
+
+    if not cs.ces:
+        return cs._empty(), cs._empty()
+    static = cs.__dict__.get("_functorch_static")
+    if static is None:
+        as_tensor = lambda a, dtype: torch.tensor(a, dtype=dtype, device=cs.device)  # noqa: E731
+        static = cs._functorch_static = [
+            (as_tensor(ce.gather_color, torch.int64), as_tensor(ce.rows, torch.int64),
+             as_tensor(ce.seeds, torch.float64))
+            for ce in cs.ces
+        ]
+    data, vals = [], []
+    for ce, env, (gc, rj, seeds) in zip(cs.ces, envs, static):
+        val, compressed = compiler.colored_jvps(ce.fn, x, env, seeds)
+        data.append(compressed[gc, rj])
+        vals.append(val)
+    return torch.cat(data), -torch.cat(vals)
+
+
+def functorch_rhs_only(cs, x, envs) -> torch.Tensor:
+    """``cs._rhs_only(x, envs)`` through the traced residuals."""
+    vals = [ce.fn(x, *env) for ce, env in zip(cs.ces, envs)]
+    return -torch.cat(vals) if vals else cs._empty()
+
+
 @contextlib.contextmanager
 def _functorch_route():
-    """The device assembly through ``torch.func`` over the traced residuals
-    (``_data_and_rhs_plain``, ``_rhs_only_plain``): the plain version of the
-    K8 pass, swapped in as :func:`_plain_k14_k15` swaps operators."""
+    """Every compiled system assembles through :func:`functorch_data_and_rhs`
+    and :func:`functorch_rhs_only` instead of the K8 pass, swapped in as
+    :func:`_plain_k14_k15` swaps operators."""
     from porepy_tpu_torch.numerics.ad.equation_system import _CompiledSystem as cls
 
     dual = (cls._data_and_rhs, cls._rhs_only)
-    cls._data_and_rhs, cls._rhs_only = cls._data_and_rhs_plain, cls._rhs_only_plain
+    cls._data_and_rhs, cls._rhs_only = functorch_data_and_rhs, functorch_rhs_only
     try:
         yield
     finally:
         cls._data_and_rhs, cls._rhs_only = dual
+
+
+@contextlib.contextmanager
+def _launches_of_block():
+    """The launches made inside the block, by kernel, in the dict it yields;
+    the running counts go on as if the block had not reset them."""
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    before = dict(LAUNCHES)
+    reset_launches()
+    counted: dict = {}
+    try:
+        yield counted
+    finally:
+        counted.update({k: v for k, v in LAUNCHES.items() if v})
+        for k, v in before.items():
+            LAUNCHES[k] = v + LAUNCHES[k]
+
+
+def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13) -> dict:
+    """Phase 22 at a case's own shapes: one assembly of the compiled system
+    ``cs`` in which every call of a K8 wrapper (the equations' fused programs
+    on their fields, the gathers of their unknowns and concatenations, the
+    gather into the nonzero order with the system's own indices) is repeated
+    through its plain version on the same inputs and held against it (``tol``
+    of the largest entry). The largest error by kernel."""
+    from porepy_tpu_torch import kernels
+    from porepy_tpu_torch.kernels import ops, reference
+
+    errs = dict.fromkeys(K8_KERNELS, 0.0)
+    calls = dict.fromkeys(K8_KERNELS, 0)
+
+    def held(kernel_name, kernel, plain):
+        def call(*args):
+            got, want = kernel(*args), plain(*args)
+            for g, w in zip(got, want):
+                _require((g is None) == (w is None), f"{label}: {kernel_name} and its plain version differ in what is constant")
+                if g is not None and g.numel():
+                    _require(g.shape == w.shape, f"{label}: {kernel_name} gives {tuple(g.shape)}, plain {tuple(w.shape)}")
+                    nan = torch.isnan(w)
+                    _require(torch.equal(torch.isnan(g), nan), f"{label}: {kernel_name} has NaN where its plain version has none, or the reverse")
+                    err = _rel_err(g.masked_fill(nan, 0.0), w.masked_fill(nan, 0.0))
+                    _require(err == err, f"{label}: {kernel_name} against its plain version is not a number")
+                    errs[kernel_name] = max(errs[kernel_name], err)
+            calls[kernel_name] += 1
+            return got
+
+        return call
+
+    patches = [
+        (ops, "dual_ew", "dual_ew",
+         lambda program, inputs, batch: reference.dual_ew(program.instrs, program.imm, inputs, batch)),
+        (ops, "dual_gather_var", "dual_gather", reference.dual_gather_var),
+        (ops, "dual_gather_copy", "dual_gather", reference.dual_gather_copy),
+        (kernels, "jac_gather", "jac_gather", reference.jac_gather),
+    ]
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _name, _plain in patches]
+    for mod, attr, name, plain in patches:
+        setattr(mod, attr, held(name, getattr(mod, attr), plain))
+    try:
+        with _launches_of_block():
+            cs.assemble(eq_sys)
+            cs.residual(eq_sys)
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+    print(
+        f"  phase 22 at the {label} shapes: the K8 calls of one assembly and one residual against their "
+        f"plain versions on the same inputs: calls {calls}, largest error over the largest entry {errs}"
+    )
+    _require(all(calls[k] > 0 for k in ("dual_ew", "dual_gather")), f"{label}: a K8 wrapper was not called: {calls}")
+    _require(calls["jac_gather"] > 0, f"{label}: jac_gather was not called")
+    _require(max(errs.values()) <= tol, f"{label}: a K8 kernel disagrees with its plain version: {errs}")
+    return errs
 
 
 def _timed_assemblies(cs, eq_sys, repeats: int) -> float:
@@ -2202,9 +2328,8 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
     ``torch.func`` and through the K8 pass, in turns (functorch, dual, dual,
     functorch): median ms of each turn, the two results held together (1e-12
     of the largest entry), the launches of one assembly by kernel, and the
-    nodes without a dual rule per equation (which must be none)."""
-    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
-
+    nodes without a dual rule per equation (which must be none). Then the
+    K8 kernels against their plain versions on this assembly's own calls."""
     eq_sys = model.equation_system
     cs = eq_sys.compiled_system()
     turns = {"functorch": [], "dual": []}
@@ -2215,12 +2340,8 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
             turns[route].append(_timed_assemblies(cs, eq_sys, repeats))
     errs = [_rel_err(got, want) for got, want in zip(results["dual"], results["functorch"])]
     _require(max(errs) <= 1e-12, f"{label}: the dual route's assembly differs from functorch's by {errs}")
-    before = dict(LAUNCHES)
-    reset_launches()
-    cs.assemble(eq_sys)
-    per_assembly = {k: v for k, v in LAUNCHES.items() if v}
-    for k, v in before.items():
-        LAUNCHES[k] = v + LAUNCHES[k]
+    with _launches_of_block() as per_assembly:
+        cs.assemble(eq_sys)
     ruleless = {name: list(ce.fn.dual.ruleless) for name, ce in zip(cs.names, cs.ces)}
     print(
         f"  phase 23, {label} assembly in turns, median ms: functorch {turns['functorch']}, dual "
@@ -2231,7 +2352,8 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
         f"nodes without a dual rule {ruleless}"
     )
     _require(not any(ruleless.values()), f"{label}: nodes without a dual rule: {ruleless}")
-    return {"turns": turns, "launches": per_assembly, "err": max(errs)}
+    k8_err = _k8_calls_against_plain(cs, eq_sys, label)
+    return {"turns": turns, "launches": per_assembly, "err": max(errs), "k8_err": k8_err}
 
 
 def _assembly_in_turns(model, label: str, repeats: int = 5) -> dict:
@@ -2591,52 +2713,6 @@ def check_dual_kernels(dev) -> dict:
     return report
 
 
-def profile_assembly(dev, case: str = "md", repeats: int = 30) -> None:
-    """``python3 chip_smoke.py --profile-assembly [case]``: where one device
-    assembly of a bench case (``md``, ``md256``, ``3d``, ``biot``, ``tracer``)
-    spends its time, at the prepared model's initial state: the host
-    functions by ``cProfile`` (own time), and the card's busy share and
-    kernels by ``torch.profiler``. Not part of the smoke run."""
-    import cProfile
-    import pstats
-
-    from porepy_tpu_torch.applications.benchmarking.cases import CASE_BUILDERS
-    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
-
-    Model, params = CASE_BUILDERS[case]()
-    model = Model(params)
-    model.prepare_simulation()
-    eq_sys = model.equation_system
-    cs = eq_sys.compiled_system()
-    for _ in range(3):
-        cs.assemble(eq_sys)
-    reset_launches()
-    wall = _timed_assemblies(cs, eq_sys, repeats)
-    launches = {k: v // repeats for k, v in LAUNCHES.items() if v}
-    print(f"{case}: {eq_sys.num_dofs()} dofs, median {wall:.3f} ms per assembly, launches {launches}")
-    prof = cProfile.Profile()
-    prof.enable()
-    for _ in range(repeats):
-        cs.assemble(eq_sys)
-    torch.cuda.synchronize()
-    prof.disable()
-    pstats.Stats(prof).sort_stats("tottime").print_stats(25)
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as tprof:
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        for _ in range(repeats):
-            cs.assemble(eq_sys)
-        torch.cuda.synchronize()
-        span_ms = 1e3 * (time.perf_counter() - tic)
-    events = tprof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"{case}: under torch.profiler {span_ms / repeats:.3f} ms per assembly, card busy "
-          f"{busy_ms / repeats:.3f} ms of it ({100 * (1 - busy_ms / span_ms):.1f}% idle)")
-    print(events.table(sort_by="self_device_time_total", row_limit=12))
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2644,14 +2720,6 @@ def main() -> int:
     from porepy_tpu_torch.kernels import build
 
     dev = torch.device("cuda", 0)
-    if len(sys.argv) > 1 and sys.argv[1] == "--profile-assembly":
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip())
-        build.library()
-        profile_assembly(dev, *sys.argv[2:3])
-        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2702,6 +2770,12 @@ def main() -> int:
     report.update(check_dual_kernels(dev))
     md256 = run_md256(dev)
     print(f"phases 22 and 24 took {time.perf_counter() - tic:.1f} s")
+
+    # The K8 kernels' error: the largest of phase 22's and of every case's
+    # own calls (phase 22 at the cases' shapes).
+    for r in (md, d3_amg, biot, tracer_dense, darcy_ad, md256):
+        for k, err in r["routes"]["k8_err"].items():
+            report[k]["err"] = max(report[k]["err"], err)
 
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {

@@ -105,11 +105,11 @@ class _DiffTpfaGeometry:
             ]
         return geoms
 
-    def _per_subdomain(self, plain, kernel, dual_ops):
+    def _per_subdomain(self, plain, kernel, trace: bool):
         """``(k9, vol, p, bco, lam) -> face field``: ``kernel`` per subdomain
         for CUDA tensors, ``plain`` (on the host meshes) for CPU tensors. The
-        function's ``dual_rule`` calls ``dual_ops``, the names of the K14
-        ``(value, tangent)`` operators, per subdomain."""
+        function's ``dual_rule`` calls the K14 value and tangent operators of
+        the pressure trace (``trace``) or of the flux per subdomain."""
         geos = list(zip(self.meshes, self.masks))
         co, fo = self.cell_offsets, self.face_offsets
 
@@ -136,8 +136,10 @@ class _DiffTpfaGeometry:
         def dual_rule(run, k9, vol, p, bco, lam):
             """The same face field on duals: value and the tangent rows of
             all seeds, one K14 launch each per subdomain."""
-            # Looked up at each call, as the traced function's operators are.
-            value_op, tangent_op = (getattr(ops, name) for name in dual_ops)
+            if trace:
+                value_op, tangent_op = ops.tpfa_ad_trace, ops.tpfa_ad_trace_tangent
+            else:
+                value_op, tangent_op = ops.tpfa_ad_flux, ops.tpfa_ad_flux_tangent
             geoms = self.kernel_geometry(p.val.device)
             out = []
             for i, geom in enumerate(geoms):
@@ -180,9 +182,7 @@ class _DiffTpfaGeometry:
             coeff = boundary_flux_coefficients(mesh, t, bnd)
             return apply_flux(mesh, t, p, coeff, b)
 
-        return self._per_subdomain(
-            plain, kfn.tpfa_ad_flux, ("tpfa_ad_flux", "tpfa_ad_flux_tangent")
-        )
+        return self._per_subdomain(plain, kfn.tpfa_ad_flux, trace=False)
 
     def trace_fn(self):
         """Function reconstructing the pressure trace on boundary faces:
@@ -204,9 +204,7 @@ class _DiffTpfaGeometry:
                 torch.where(neu, p_face - b / safe, torch.zeros_like(t_full)),
             )
 
-        return self._per_subdomain(
-            plain, kfn.tpfa_ad_trace, ("tpfa_ad_trace", "tpfa_ad_trace_tangent")
-        )
+        return self._per_subdomain(plain, kfn.tpfa_ad_trace, trace=True)
 
 
 class AdTpfaFlux:

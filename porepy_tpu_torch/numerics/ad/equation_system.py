@@ -111,10 +111,7 @@ class _CompiledSystem:
     ``equation_system.py:1450``), but with no host scipy matrix in the
     loop. One forward-mode pass per equation (``compiler.dual_jvps``); the
     nonzeros of all of them come from their colored tangent rows by one
-    gather ``compressed[gc, rj]`` in ``kernels.jac_gather`` (K8). The
-    ``*_plain`` methods are the same assembly through ``torch.func``
-    (``compiler.colored_jvps``): K8's plain version, which the tests and
-    ``chip_smoke.py`` hold the kernels' route against."""
+    gather ``compressed[gc, rj]`` in ``kernels.jac_gather`` (K8)."""
 
     def __init__(self, eq_sys: "EquationSystem", names: Sequence[str]) -> None:
         self.names = tuple(names)
@@ -153,7 +150,6 @@ class _CompiledSystem:
         self._gather_color = joined([ce.gather_color for ce in self.ces])
         self._gather_row = joined([ce.rows for ce in self.ces])
         self._colors = [ce.colors_on(dev) for ce in self.ces]
-        self._plain_fns = None
 
     def _empty(self) -> torch.Tensor:
         return torch.zeros(0, dtype=torch.float64, device=self.device)
@@ -174,37 +170,6 @@ class _CompiledSystem:
 
     def _rhs_only(self, x, envs) -> torch.Tensor:
         vals = [compiler.dual_jvps(ce.fn, x, env, None, 0)[0] for ce, env in zip(self.ces, envs)]
-        return -torch.cat(vals) if vals else self._empty()
-
-    def _data_and_rhs_plain(self, x, envs) -> tuple[torch.Tensor, torch.Tensor]:
-        """:meth:`_data_and_rhs` through ``torch.func`` (``vmap`` over
-        ``jvp`` of each traced residual), one gather, two concatenations and
-        a negation per equation: the plain version of K8."""
-        if self._plain_fns is None:
-            dev = self.device
-
-            def make_eq_fn(ce):
-                gc = torch.tensor(ce.gather_color, dtype=torch.int64, device=dev)
-                rj = torch.tensor(ce.rows, dtype=torch.int64, device=dev)
-                seeds = torch.tensor(ce.seeds, dtype=torch.float64, device=dev)
-
-                def call(x, env):
-                    val, compressed = compiler.colored_jvps(ce.fn, x, env, seeds)
-                    return compressed[gc, rj], val
-
-                return call
-
-            self._plain_fns = [make_eq_fn(ce) for ce in self.ces]
-        parts = [f(x, env) for f, env in zip(self._plain_fns, envs)]
-        if not parts:
-            return self._empty(), self._empty()
-        data = torch.cat([p[0] for p in parts])
-        b = -torch.cat([p[1] for p in parts])
-        return data, b
-
-    def _rhs_only_plain(self, x, envs) -> torch.Tensor:
-        """:meth:`_rhs_only` through the traced residuals."""
-        vals = [ce.fn(x, *env) for ce, env in zip(self.ces, envs)]
         return -torch.cat(vals) if vals else self._empty()
 
     def _envs(self, eq_sys) -> tuple:

@@ -28,7 +28,9 @@ for a constant. At every assembly the steps run in order:
   ``rule(run, *duals) -> Dual`` that calls the function's own kernels (K14,
   K15, K16) on values and tangent rows;
 - a function with no rule is differentiated by ``torch.func`` on that node
-  alone; the executor lists such nodes in :attr:`DualExecutor.ruleless`.
+  alone; the executor lists such nodes in :attr:`DualExecutor.ruleless` and
+  warns when it compiles one. An elementwise rule that outgrows one program
+  is an error, not a reason to take that route.
 
 Constants (env slots, dense arrays, scalars, historic variables) carry no
 tangent and cost no tangent work. A buffer is dropped after its last
@@ -38,6 +40,7 @@ the kernels' plain versions run instead, by the wrappers' own rule.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -482,13 +485,26 @@ class DualExecutor:
                 raise ValueError(f"evaluate node {node.name!r} without function")
             slots = [self._materialize(ch) for ch in node.children]
             rule = getattr(node.func, "dual_rule", None)
-            if rule is not None and not isinstance(rule, Elementwise):
+            if isinstance(rule, Elementwise):
+                # _expr gave up on it above: the rule alone outgrows a program.
+                raise NotImplementedError(
+                    f"the elementwise dual rule of {node.name!r} does not fit one dual_ew "
+                    f"program ({reference.DUAL_MAX_INPUTS} inputs, "
+                    f"{reference.DUAL_MAX_INSTRS} instructions): build it from several "
+                    "functions, or give it a callable rule(run, *duals)"
+                )
+            if rule is not None:
                 return self._new_slot(
                     node, lambda R, run: rule(run, *(R[s] for s in slots)), slots
                 )
-            # No rule (or an elementwise one that outgrows a program): this
-            # node alone goes through torch.func.
+            # A function built without a rule: this node alone goes through
+            # torch.func, and says so once.
             self.ruleless.append(node.name)
+            warnings.warn(
+                f"ad function {node.name!r} has no dual rule: the assembly differentiates "
+                "it by torch.func on its node alone (see Function's dual_rule)",
+                stacklevel=2,
+            )
             func = node.func
             return self._new_slot(
                 node, lambda R, run: _ruleless(func, run, [R[s] for s in slots]), slots

@@ -270,9 +270,12 @@ def l2_norm(nd: int, var: Operator) -> Operator:
     program = _l2_norm_program(nd)
 
     def dual(run, x):
-        if x.tan is None:
-            return forward.Dual(f(x.val))
-        parts = [forward.Dual(x.val[k::nd], x.tan[:, k::nd]) for k in range(nd)]
+        # A constant argument, or a pass without seeds, takes the same
+        # program: it then computes the value alone.
+        parts = [
+            forward.Dual(x.val[k::nd], None if x.tan is None else x.tan[:, k::nd])
+            for k in range(nd)
+        ]
         return forward.run_program(program, parts, run.batch)
 
     return _fn_op(f, (var,), "l2_norm", pattern_fn=pattern_fn, dual=dual)

@@ -82,8 +82,10 @@ class DiagonalJacobianFunction(Function):
     (reference ``operator_functions.py:284``). With forward-mode tracing the
     true derivative is computed automatically; the multipliers are applied
     as fixed scalings of each argument's contribution. ``dual_rule`` is the
-    forward-mode rule of ``func`` itself (a callable ``rule(run, *duals)``);
-    the scalings are applied to the duals before it."""
+    forward-mode rule of ``func`` itself; the (scalar) scalings are applied
+    to the duals before it, as ``mul`` by a constant in a ``dual_ew``
+    program: inside the function's own program for an elementwise rule, one
+    launch per argument before a callable ``rule(run, *duals)``."""
 
     def __init__(self, func: Callable, name: str, multipliers, dual_rule=None) -> None:
         multipliers = list(multipliers) if isinstance(multipliers, (list, tuple)) else [multipliers]
@@ -92,12 +94,25 @@ class DiagonalJacobianFunction(Function):
             scaled_args = [m * a for m, a in zip(multipliers, args)]
             return func(*scaled_args)
 
-        def scaled_rule(run, *duals):
-            scaled_duals = [
-                forward.Dual(m * d.val, None if d.tan is None else m * d.tan)
-                for m, d in zip(multipliers, duals)
+        if isinstance(dual_rule, forward.Elementwise):
+            scaled_rule = forward.elementwise(
+                lambda E, *args: dual_rule.emit(
+                    E, *(E.op("mul", E.imm(m), a) for m, a in zip(multipliers, args))
+                )
+            )
+        elif dual_rule is not None:
+            x = forward._Expr("in", (), 0)
+            scalings = [
+                forward.compile_expr(forward.ExprOps.op("mul", forward.ExprOps.imm(m), x))[0]
+                for m in multipliers
             ]
-            return dual_rule(run, *scaled_duals)
+
+            def scaled_rule(run, *duals):
+                scaled_duals = [
+                    forward.run_program(program, [d], run.batch)
+                    for program, d in zip(scalings, duals)
+                ]
+                return dual_rule(run, *scaled_duals)
 
         super().__init__(scaled, name, dual_rule=None if dual_rule is None else scaled_rule)
         self.multipliers = multipliers

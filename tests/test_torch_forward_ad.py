@@ -20,6 +20,8 @@ of (c) import jax and porepy_tpu, inside the test):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_forward_ad.py -m cuda
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -318,7 +320,25 @@ def test_l2_norm_rule(nd):
     want_v, want_t = _jvp_reference(func, [x], [dx])
     _close(got.val, want_v)
     _close(got.tan, want_t)
-    assert rule(run, forward.Dual(x)).tan is None
+    # A constant argument, and a pass without seeds: the same program gives
+    # the value alone.
+    for r, arg in ((run, forward.Dual(x)), (forward._Run(x, (), None, 0), forward.Dual(x, dx))):
+        got = rule(r, arg)
+        assert got.tan is None
+        _close(got.val, want_v)
+
+
+def test_l2_norm_rule_runs_its_program_without_a_tangent(monkeypatch):
+    """With a constant argument or no seeds the rule still goes through
+    ``dual_ew`` (on a card: the kernel), never through the plain function."""
+    calls = []
+    real = ops.dual_ew
+    monkeypatch.setattr(ops, "dual_ew", lambda *a: calls.append(a[2]) or real(*a))
+    x = _t(np.arange(6.0))
+    rule = adf.l2_norm(2, ad.DenseArray(np.zeros(6))).func.dual_rule
+    rule(forward._Run(x, (), None, B), forward.Dual(x))
+    rule(forward._Run(x, (), None, 0), forward.Dual(x))
+    assert calls == [B, 0]
 
 
 def test_surrogate_rule():
@@ -368,8 +388,35 @@ def test_interpolated_and_diagonal_jacobian_rules():
     want_v, want_t = _jvp_reference(fn.func, [p], [dp])
     _close(got.val, want_v)
     _close(got.tan, want_t)
+    # An elementwise rule takes the scaling into its own program.
+    fn = ad.DiagonalJacobianFunction(
+        lambda a, b: a * torch.exp(b), "scaled", [3.0, -0.5],
+        dual_rule=forward.elementwise(lambda E, a, b: E.op("mul", a, E.op("exp", b))),
+    )
+    assert isinstance(fn.func.dual_rule, forward.Elementwise)
+    val, tan = _emit_and_run(fn.func.dual_rule, [p, T], [dp, None])
+    want_v, want_t = _jvp_reference(fn.func, [p, T], [dp, None])
+    _close(val, want_v)
+    _close(tan, want_t)
     # Without a rule of its own the function goes through torch.func.
     assert not hasattr(ad.DiagonalJacobianFunction(lambda a: a * a, "sq", 3.0).func, "dual_rule")
+
+
+def test_diagonal_jacobian_scaling_is_a_program(monkeypatch):
+    """The multipliers of a function with a callable rule are applied by
+    ``dual_ew`` (one launch per argument), not by tensor arithmetic."""
+    calls = []
+    real = ops.dual_ew
+    monkeypatch.setattr(ops, "dual_ew", lambda *a: calls.append(a[0]) or real(*a))
+    x, dx = _t(np.linspace(0.1, 1.0, N)), _t(np.ones((B, N)))
+    fn = ad.DiagonalJacobianFunction(
+        lambda a, b: a + b, "sum", [2.0, 4.0],
+        dual_rule=lambda run, a, b: forward.run_program(_program("add", 2), [a, b], run.batch),
+    )
+    got = fn.func.dual_rule(forward._Run(x, (), None, B), forward.Dual(x, dx), forward.Dual(x))
+    _close(got.val, 6.0 * x)
+    _close(got.tan, 2.0 * dx)
+    assert len(calls) == 3 and [c.imm for c in calls[:2]] == [(2.0,), (4.0,)]
 
 
 def _upwind_geometry():
@@ -441,7 +488,13 @@ def test_ruleless_node_goes_through_torch_func_and_is_counted():
     values = {}
     for fn in (user, ruled):
         op = fn(x * 2.0) + ad.exp(x)
-        f, env_spec = compiler.build_function(op, es)
+        if fn is user:
+            with pytest.warns(UserWarning, match="'user' has no dual rule"):
+                f, env_spec = compiler.build_function(op, es)
+        else:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                f, env_spec = compiler.build_function(op, es)
         assert f.dual.ruleless == (["user"] if fn is user else [])
         xt = torch.tensor(es._global_vector())
         colors = torch.arange(g.num_cells, dtype=torch.int32)
@@ -455,6 +508,46 @@ def test_ruleless_node_goes_through_torch_func_and_is_counted():
         jac = op.value_and_jacobian(es).jac.toarray()
         np.testing.assert_allclose(jac, tan.numpy().T, rtol=0, atol=1e-14)
     _close(values["user"], values["ruled"])
+
+
+def test_elementwise_rule_that_outgrows_a_program_raises():
+    """A rule the kernel cannot take is an error when the equation is
+    compiled; it is not handed to ``torch.func``."""
+    g = pt.CartGrid(np.array([3, 2]), np.array([1.0, 1.0]))
+    g.compute_geometry()
+    mdg = MixedDimensionalGrid()
+    mdg.add_subdomains([g])
+    es = ad.EquationSystem(mdg, device="cpu")
+    x = es.create_variables("x", subdomains=[g])
+
+    def long_chain(E, a):
+        for _ in range(reference.DUAL_MAX_INSTRS + 1):
+            a = E.op("sin", a)
+        return a
+
+    def many_inputs(E, *args):
+        out = args[0]
+        for a in args[1:]:
+            out = E.op("add", out, a)
+        return out
+
+    def f(*args):
+        return args[0]
+
+    too_long = ad.Function(f, "too_long", dual_rule=forward.elementwise(long_chain))
+    too_wide = ad.Function(f, "too_wide", dual_rule=forward.elementwise(many_inputs))
+    consts = [ad.DenseArray(np.full(g.num_cells, float(k))) for k in range(reference.DUAL_MAX_INPUTS)]
+    for op, name in ((too_long(x), "too_long"), (too_wide(x, *consts), "too_wide")):
+        with pytest.raises(NotImplementedError, match=f"'{name}' does not fit one dual_ew program"):
+            compiler.build_function(op, es)
+    # One instruction and one input fewer both fit, inside a larger equation too.
+    fits = ad.Function(
+        f, "fits",
+        dual_rule=forward.elementwise(lambda E, a: long_chain(E, a).args[0].args[0]),
+    )
+    wide = ad.Function(f, "wide", dual_rule=forward.elementwise(many_inputs))
+    fn, _spec = compiler.build_function(fits(x) * 2.0 + wide(x, *consts[1:]), es)
+    assert fn.dual.ruleless == []
 
 
 def test_concat_empty_and_constant_operands():
@@ -559,10 +652,10 @@ def test_executor_matches_colored_jvps(case, name):
 def test_system_assembly_matches_plain_route(case):
     _model_, cs, x, envs = _model(case)
     data, b = cs._data_and_rhs(x, envs)
-    want_data, want_b = cs._data_and_rhs_plain(x, envs)
+    want_data, want_b = chip_smoke.functorch_data_and_rhs(cs, x, envs)
     _close(data, want_data, 1e-12)
     _close(b, want_b, 1e-12)
-    _close(cs._rhs_only(x, envs), cs._rhs_only_plain(x, envs), 1e-12)
+    _close(cs._rhs_only(x, envs), chip_smoke.functorch_rhs_only(cs, x, envs), 1e-12)
     # The host route of one equation gives the same Jacobian.
     ce = cs.ces[0]
     val, jac = ce.residual_and_jacobian(x, envs[0], x.shape[0])
@@ -792,3 +885,27 @@ def test_cuda_jac_gather_matches_plain(cuda):
     data, rhs = ops.jac_gather(*card, nnz_off, row_off)
     want_data, want_rhs = reference.jac_gather(*host, nnz_off, row_off)
     assert torch.equal(data.cpu(), want_data) and torch.equal(rhs.cpu(), want_rhs)
+
+
+@pytest.mark.cuda
+def test_cuda_l2_norm_rule_launches_dual_ew_without_a_tangent(cuda):
+    """On card tensors the cell-wise norm goes through the kernel also where
+    it has no tangent to compute (a constant argument, a pass without seeds)."""
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(23)
+    nd, n, batch = 2, 300, 5
+    x, dx = _t(rng.standard_normal(nd * n)), _t(rng.standard_normal((batch, nd * n)))
+    node = adf.l2_norm(nd, ad.DenseArray(np.zeros(nd * n)))
+    func, rule = _rule_of(node)
+    xc, dxc = x.to(cuda), dx.to(cuda)
+    want_v, want_t = _jvp_reference(func, [x], [dx])
+    for b, arg in ((batch, forward.Dual(xc, dxc)), (batch, forward.Dual(xc)), (0, forward.Dual(xc, dxc))):
+        reset_launches()
+        got = rule(forward._Run(xc, (), None, b), arg)
+        assert LAUNCHES["dual_ew"] == 1
+        _close(got.val.cpu(), want_v, 1e-13)
+        if b and arg.tan is not None:
+            _close(got.tan.cpu(), want_t, 1e-13)
+        else:
+            assert got.tan is None
