@@ -10,9 +10,18 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    shapes (n = 18,157 rows, K = 9, B = 11 seeds; the Givens step at
    j = 0, 35, 69 of restart 70), with CUDA-event times over 100 calls.
    Tolerance: |kernel - plain| <= 1e-13 (float64) or 1e-5 (float32) times
-   the row's sum of |terms|; the same for the structured (K12) and
-   unstructured (K13) flow-step residuals and tangents at 32^3 (32,768
-   cells, 101,376 faces), in f64 and f32;
+   the row's sum of |terms|; K1's launcher (``EllOperator``) and custom
+   operator give the same bits, and its epilogue ``c -/+ A x`` the bits of
+   the product followed by the torch subtraction or addition. The same for
+   the structured (K12) and unstructured (K13) flow-step residuals and
+   tangents at 32^3 (32,768 cells, 101,376 faces), in f64 and f32. Inside
+   phases 4 and 24 (3c): K1 at md 1/128's Jacobian (f32, B = 1, the
+   solve's shape; f64, B = 17) and md 1/256's (f64, B = 17), with and
+   without the epilogue, against the plain version; device microseconds a
+   launch (a CUDA graph of 100 launches, replayed), host microseconds a
+   call of the launcher and of the custom operator in turns, the bound and
+   its share, the plain version, ``torch.mv`` on the CSR matrix; and K3, one
+   V-cycle apply at md 1/128, alone;
 4. run the md case at cell size 1/128 through ``run_time_dependent_model``
    for 26 time steps on the card, with every kernel's launch count reset
    just before and read just after; check 3 fused blocks committed, no host
@@ -64,16 +73,19 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    each field's max), and every Biot matrix at 1/64 by K10 against the
    host LAPACK route (1e-12 relative);
 14. the Jacobi-Krylov route (K18) on the first Newton system of biot 1/64
-   (12,288 dofs): every K18 operator call of three BiCGStab iterations and
-   of one GMRES(30) restart held against its plain version (1e-12 of the
-   plain result's largest entry), whole solves by kernels and by the plain
-   iterations (1e-9 of max |x|), the times of one iteration's and one
-   restart's kernels; then biot 1/64 for 26 steps with
-   ``linear_solver="jax_bicgstab"`` and ``"jax_gmres"`` (the host Newton
-   loop): 0 host fallbacks, K1 and K18 launched, u and p within 1e-8 of
-   each field's largest value of phase 12's AMG run at t = 10, 18, 26, one
-   more host Newton increment <= 1e-10; ms per Newton iteration, host
-   assembly and solve ms, Krylov iterations per solve;
+   (12,288 dofs): every K18a call of three BiCGStab iterations and every
+   GMRES(30) restart (one cooperative K18b launch, ``gmres_cycle``) held
+   against its plain version (1e-12 of the plain result's largest entry;
+   the restarts give the same bits), whole solves by kernels and by the
+   plain iterations (1e-9 of max |x|), one launch a restart and none of K1,
+   the times of one BiCGStab iteration's kernels and of one restart; then
+   biot 1/64 for 26 steps with ``linear_solver="jax_bicgstab"`` and
+   ``"jax_gmres"`` (the host Newton loop): 0 host fallbacks, the K18
+   kernels launched (K1 inside BiCGStab's solves, none inside GMRES's: one
+   K18b launch a restart and one a solve), u and p within 1e-8 of each
+   field's largest value of phase 12's AMG run at t = 10, 18, 26, one more
+   host Newton increment <= 1e-10; ms per Newton iteration, host assembly
+   and solve ms, Krylov iterations per solve;
 15. the constant-K flash (K17) at 2048^2 points, nc = 2 and 3, against its
    plain version (V, x, y within 1e-12, equal flags and iteration counts),
    and ``ConstantKFlash.compute_flash`` on the card;
@@ -226,6 +238,55 @@ def _cuda_ms(fn, repeats=REPEATS) -> float:
     return start.elapsed_time(stop) / repeats
 
 
+def _graph_us(fn, launches: int = 100, replays: int = 5) -> float:
+    """Device microseconds per call of ``fn``: a CUDA graph of ``launches``
+    calls, replayed ``replays`` times between two CUDA events (no host
+    dispatch in the interval)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(stop) / (launches * replays)
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the host clock over ``calls``
+    back-to-back calls, read before the synchronization that ends them."""
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - tic
+    torch.cuda.synchronize()
+    return 1e6 * host / calls
+
+
+def _csr_of_ell(val, col):
+    """The ELL matrix ``(val, col)`` as a torch sparse CSR tensor (the
+    yardstick's operand)."""
+    n, n_cols = val.shape[0], val.shape[0]
+    real = col < n_cols
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=val.device)
+    crow[1:] = torch.cumsum(real.sum(1), 0)
+    return torch.sparse_csr_tensor(crow, col[real].long(), val[real], size=(n, n_cols))
+
+
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -260,30 +321,29 @@ def check_kernels(dev) -> dict:
     k1 = {"err": 0.0}
     for dtype in (torch.float32, torch.float64):
         val, col = _ell_operator(gen, dtype, dev)
+        op = ops.EllOperator(val, col)
         for batch in (None, N_SEEDS):
             shape = (N_ROWS,) if batch is None else (batch, N_ROWS)
             x = torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype).to(dev)
-            y = ops.ell_spmv(val, col, x)
+            c = torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype).to(dev)
+            y = op(x)
             y_ref = reference.ell_spmv(val, col, x)
-            absx = torch.cat([x.abs(), x.new_zeros(x.shape[:-1] + (1,))], -1)
-            rowsum = (val.abs() * absx[..., col]).sum(-1)
+            rowsum = reference.ell_spmv(val.abs(), col, x.abs())
             tag = f"ell_spmv {str(dtype)[6:]} x{list(shape)}"
             k1["err"] = max(k1["err"], _check(tag, (y - y_ref).abs(), TOL[dtype] * rowsum))
-            ms = _cuda_ms(lambda: ops.ell_spmv(val, col, x))
+            # The custom operator (the torch.func route) launches the same
+            # kernel; the epilogue equals the product and the torch operation.
+            _require(torch.equal(ops.ell_spmv(val, col, x), y), f"{tag}: custom operator and launcher differ")
+            for sign in (-1, 1):
+                fused = op(x, c=c, sign=sign)
+                _require(torch.equal(fused, c - y if sign < 0 else c + y),
+                         f"{tag}: the epilogue with sign {sign} differs from the two operations")
+                want = c - y_ref if sign < 0 else c + y_ref
+                k1["err"] = max(k1["err"], _check(f"{tag}, c {'-' if sign < 0 else '+'} A x",
+                                                  (fused - want).abs(), TOL[dtype] * (rowsum + c.abs())))
+            ms = _cuda_ms(lambda: op(x))
             plain_ms = _cuda_ms(lambda: reference.ell_spmv(val, col, x))
             print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
-            if dtype == torch.float32 and batch is None:
-                # The yardstick: torch.mv of the same matrix in CSR (cuSPARSE).
-                real = col < N_ROWS
-                crow = torch.zeros(N_ROWS + 1, dtype=torch.int64, device=dev)
-                crow[1:] = torch.cumsum(real.sum(1), 0)
-                csr = torch.sparse_csr_tensor(crow, col[real].long(), val[real], size=(N_ROWS, N_ROWS))
-                k1.update(
-                    ms=ms, plain_ms=plain_ms, library_ms=_cuda_ms(lambda: torch.mv(csr, x)),
-                    bytes=val.numel() * 8 + 2 * N_ROWS * 4, flops=2 * int(real.sum()),
-                    dtype=torch.float32,
-                )
-                print(f"    {k1['library_ms']:.4f} ms torch.mv on the CSR matrix")
     report["ell_spmv"] = k1
 
     k2 = {"err": 0.0}
@@ -355,6 +415,108 @@ def check_kernels(dev) -> dict:
                           dtype=torch.float32)
     report["fgmres_givens"] = k4
     return report
+
+
+def _model_jacobian_ell(model):
+    """The model's Jacobian at its final state in its device solver's ELL
+    layout (float64 values, int32 columns), as each solve gathers it."""
+    eq_sys = model.equation_system
+    data = eq_sys.compiled_system().assemble(eq_sys)[0]
+    solver = next(iter(model._device_solvers.values()))
+    data_p = torch.cat([data, data.new_zeros(1)])
+    return data_p[solver._ell_sel].contiguous(), solver._ell_col, solver
+
+
+def check_k1_at(label: str, val, col, batch: int, seed: int) -> dict:
+    """Phase 3 at one of the main path's own matrices: K1 (``EllOperator``)
+    against its plain version, its epilogue ``c - A x`` against the kernel's
+    product and the torch subtraction (the same bits), and its times: device
+    microseconds per launch (a CUDA graph of 100 launches, replayed), host
+    microseconds per call (back-to-back calls, no synchronization) of the
+    launcher and of the custom operator in turns, ms per call over
+    back-to-back calls (CUDA events) of the kernel, the plain version and one
+    PyTorch call on the same matrix in CSR (``torch.mv`` or ``@``), the bound
+    and the share of it the device time reaches."""
+    from porepy_tpu_torch.kernels import ops, reference
+
+    gen = torch.Generator().manual_seed(seed)
+    n, K = val.shape
+    dtype = val.dtype
+    shape = (n,) if batch == 1 else (batch, n)
+    x = torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype).to(val.device)
+    c = torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype).to(val.device)
+    op = ops.EllOperator(val, col)
+    y, y_ref = op(x), reference.ell_spmv(val, col, x)
+    rowsum = reference.ell_spmv(val.abs(), col, x.abs())
+    tag = f"ell_spmv at {label}, {str(dtype)[6:]}, B = {batch}"
+    err = _check(tag, (y - y_ref).abs(), TOL[dtype] * rowsum)
+    fused = op(x, c=c, sign=-1)
+    _require(torch.equal(fused, c - y), f"{tag}: the epilogue differs from the two operations")
+    err = max(err, _check(f"{tag}, c - A x", (fused - (c - y_ref)).abs(), TOL[dtype] * (rowsum + c.abs())))
+    nnz = int((col < n).sum())
+    size = torch.finfo(dtype).bits // 8
+    out = {"err": err, "K": K, "n": n, "nnz": nnz}
+    for epi in (False, True):
+        call = (lambda: op(x, c=c, sign=-1)) if epi else (lambda: op(x))
+        nbytes = n * K * (size + 4) + batch * n * size * (3 if epi else 2)
+        flops = 2 * nnz * batch + (batch * n if epi else 0)
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        dev_us = _graph_us(call)
+        host = {"launcher": [], "custom op": []}
+        routes = ("launcher", "custom op", "custom op", "launcher") if not epi else ("launcher", "launcher")
+        for route in routes:
+            fn = call if route == "launcher" else (lambda: ops.ell_spmv(val, col, x))
+            host[route].append(_host_us(fn))
+        key = "epilogue" if epi else "product"
+        out[key] = {"device_us": dev_us, "host_us": host, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "ms": _cuda_ms(call), "share": 1e3 * bound_ms / dev_us}
+        print(f"    {tag}{' with c - A x' if epi else ''}: device {dev_us:.2f} us a launch (graph replay), "
+              f"host us a call {host}, {out[key]['ms']:.4f} ms a call back to back; bound "
+              f"{1e3 * bound_ms:.2f} us ({bound_by}), device time at {100 * out[key]['share']:.1f}% of it")
+    out["plain_ms"] = _cuda_ms(lambda: reference.ell_spmv(val, col, x), 20)
+    csr = _csr_of_ell(val, col)
+    library = (lambda: torch.mv(csr, x)) if batch == 1 else (lambda: csr @ x.T)
+    out["library_ms"] = _cuda_ms(library)
+    print(f"    {tag}: n {n}, K {K}, nnz {nnz}; plain {out['plain_ms']:.4f} ms, "
+          f"{'torch.mv' if batch == 1 else 'csr @ x.T'} on the CSR matrix {out['library_ms']:.4f} ms")
+    return out
+
+
+def vcycle_times(solver, label: str) -> dict:
+    """K3 alone at the model's hierarchy: one V-cycle apply on a random
+    residual, ms per apply over back-to-back applies (CUDA events) and device
+    ms per apply (a CUDA graph of 20 applies, replayed), with its bound."""
+    (i, hier), = solver._hierarchies.items()
+    state = hier.state
+    n0 = hier.level_sizes[0]
+    r = torch.randn(n0, generator=torch.Generator().manual_seed(33), dtype=torch.float64).to(
+        hier.dtype).to(hier.device)
+    apply = lambda: hier.apply(state, r)  # noqa: E731
+    nbytes = sum(t.numel() * t.element_size() for lv in state["levels"] for t in lv.values())
+    nbytes += state["coarse_inv"].numel() * state["coarse_inv"].element_size() + 2 * n0 * r.element_size()
+    bound_ms, bound_by = _bound(nbytes, 0.0, hier.dtype)
+    ms = _cuda_ms(apply, 50)
+    dev_ms = 1e-3 * _graph_us(apply, launches=20)
+    K = [tuple(lv[m + "_col"].shape[1] for m in "APR") for lv in state["levels"]]
+    print(f"  K3 at {label}: V-cycle of levels {hier.level_sizes} (K of A, P, R per level {K}): "
+          f"{ms:.4f} ms an apply back to back, {dev_ms:.4f} ms of device time (graph replay); "
+          f"bound {bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)")
+    return {"ms": ms, "device_ms": dev_ms, "bound_ms": bound_ms, "levels": hier.level_sizes}
+
+
+def largest_ell_k(model) -> int:
+    """The largest K of any K1 matrix of the model's device solver: its
+    Jacobian layout, the eliminations and couplings, every AMG level."""
+    solver = next(iter(model._device_solvers.values()))
+    ks = [solver._ell_col.shape[1]]
+    state = solver._m_state or {}
+    for group in ("dinv", "cpl"):
+        ks += [col.shape[1] for _val, col in state.get(group, {}).values()]
+    for hier in (solver._hierarchies or {}).values():
+        ks += [lv[m + "_col"].shape[1] for lv in hier.state["levels"] for m in "APR"]
+    for jb in state.get("jac", {}).values():
+        ks.append(jb["col"].shape[1])
+    return max(ks)
 
 
 def last_step_check(model) -> tuple[float, float]:
@@ -465,7 +627,7 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
             f"{rec['newton_iters']} Newton, {rec['krylov_iters']} Krylov, "
             f"{1e3 * secs / max(rec['newton_iters'], 1):.2f} ms per Newton iteration"
         )
-    print(f"  kernel launches in the run: {launches}")
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     res, inc = last_step_check(model)
     tol = 1e-10  # NewtonSolver's nl_convergence_tol, the md case's default
     print(
@@ -498,6 +660,13 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
     }
     if not functorch:
         out["routes"] = _assembly_routes_in_turns(model, case or "md")
+        val, col, solver = _model_jacobian_ell(model)
+        label = f"{case}'s Jacobian" if case else f"md {cell_size:g}'s Jacobian"
+        print(f"phase 3c: K1 at {label} (the final state's, in the solver's ELL layout)")
+        out["k1"] = {"f64 B17": check_k1_at(label, val, col, 17, 71)}
+        if not case:
+            out["k1"]["f32 B1"] = check_k1_at(label, val.to(torch.float32), col, 1, 70)
+            out["k3"] = vcycle_times(solver, label)
     return out
 
 
@@ -670,7 +839,7 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
             f"{rec['newton_iters']} Newton, {rec['krylov_iters']} Krylov, "
             f"{1e3 * secs / max(rec['newton_iters'], 1):.2f} ms per Newton iteration"
         )
-    print(f"  kernel launches in the run: {launches}")
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     print(f"  pressure in [{x.min():.6f}, {x.max():.6f}]")
     _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
@@ -1096,7 +1265,7 @@ def run_biot(dev, dense: bool) -> dict:
             f"{rec['newton_iters']} Newton, {rec['krylov_iters']} Krylov, "
             f"{1e3 * secs / max(rec['newton_iters'], 1):.2f} ms per Newton iteration"
         )
-    print(f"  kernel launches in the run: {launches}")
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
     _require(disc_launches > 0, "region_solve not launched in the discretization")
@@ -1308,8 +1477,10 @@ class _Holding:
 
 def check_krylov(dev, A, b) -> dict:
     """K18a and K18b on the biot 1/64 system: every pass of three BiCGStab
-    iterations and of one GMRES restart held against its plain version,
+    iterations and every GMRES restart held against its plain version,
     whole solves against the plain iterations, and times."""
+    from porepy_tpu_torch import kernels
+    from porepy_tpu_torch.applications.benchmarking import gmres_cycle_check
     from porepy_tpu_torch.kernels import ops, reference
     from porepy_tpu_torch.numerics.ad.compiler import _device_const_matrix, _EllMat
     from porepy_tpu_torch.numerics.linalg import krylov
@@ -1318,28 +1489,29 @@ def check_krylov(dev, A, b) -> dict:
     print(f"phase 14: the Krylov kernels (K18a, K18b) on the biot 1/64 system, n {n}, nnz {A.nnz}")
     mat = _device_const_matrix(A, dev)
     _require(isinstance(mat, _EllMat), "biot 1/64 is not in ELL layout")
-
-    def mv(v):
-        return ops.ell_spmv(mat.val, mat.col, v)
+    mv = ops.EllOperator(mat.val, mat.col)
+    csr = krylov.csr_arrays(A, dev)
 
     dinv = torch.tensor(krylov._inverse_diagonal(A), device=dev)
     bt = torch.tensor(b, device=dev)
     b_dot = float(b @ b)
     tol, maxiter = 1e-12, max(200, 4 * n)
     report = {}
-    for method, names, limit in (("bicgstab", ops.K18A, 2 + 3 * 8), ("gmres", ops.K18B, 2 + 94)):
+    for method, names, limit in (("bicgstab", ops.K18A, 2 + 3 * 8), ("gmres", ops.K18B, maxiter + 1)):
         hold = _Holding(limit)
         if method == "bicgstab":
             krylov._bicgstab_fused(mv, bt, dinv, tol**2 * b_dot, maxiter, run=hold)
         else:
-            krylov._gmres_fused(mv, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30, run=hold)
+            # Every restart, and the start, by the kernel and by the plain
+            # passes it composes, from the same state.
+            krylov._gmres_fused(csr, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30, run=hold)
         _require(all(name in hold.err for name in names), f"{method}: not every K18 operator was held")
         print(f"  {method}: {hold.held} calls held, max |kernel - plain| per operator {hold.err}")
 
         def fused():
             if method == "bicgstab":
                 return krylov._bicgstab_fused(mv, bt, dinv, tol**2 * b_dot, maxiter)
-            return krylov._gmres_fused(mv, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30)
+            return krylov._gmres_fused(csr, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30)
 
         def plain():
             solve = krylov.gmres if method == "gmres" else krylov.bicgstab
@@ -1368,9 +1540,16 @@ def check_krylov(dev, A, b) -> dict:
         _require(err <= 1e-9 * scale, f"{method}: kernel and plain solves differ by {err}")
         report[method] = {"err": max([err] + list(hold.err.values())), "iters": iters,
                           "solve_s": times}
+    before = dict(kernels.LAUNCHES)
+    _x, steps = krylov._gmres_fused(csr, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30)
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("gmres_cycle", "ell_spmv")}
+    print(f"  gmres: {steps // 30} restarts, launches {launched}")
+    _require(launched == {"gmres_cycle": steps // 30 + 1, "ell_spmv": 0},
+             f"gmres: not one launch a restart (and one to start) without K1: {launched}")
 
-    # Times of one iteration's vector work (K18a) and of one restart's
-    # Arnoldi and restart work (K18b), matvecs excluded, on a live state.
+    # Times of one iteration's vector work (K18a) and of one restart (K18b),
+    # on a live state.
     nb = -(-n // reference.KRYLOV_BLOCK)
     gen = torch.Generator(device=dev).manual_seed(14)
     vec = [torch.randn(n, generator=gen, dtype=torch.float64, device=dev) for _ in range(10)]
@@ -1409,44 +1588,41 @@ def check_krylov(dev, A, b) -> dict:
     report["bicgstab_step"] = {"err": report["bicgstab"]["err"], "ms": ms_a, "plain_ms": plain_a,
                                "library_ms": None, "bound": bound_a}
 
+    # K18b: one restart (its 31 matvecs inside) from the state after the
+    # start of the solve, kernel and plain version; host microseconds of a
+    # launch; the projection's one-call yardstick torch.mv(V, w) at k = 29.
     R = 30
-    V = torch.linalg.qr(torch.randn(n, R + 1, generator=gen, dtype=torch.float64, device=dev))[0].T.contiguous()
-    av = [torch.randn(n, generator=gen, dtype=torch.float64, device=dev) for _ in range(R)]
-    H = torch.empty(R, R + 1, dtype=torch.float64, device=dev)
-    y = torch.empty(R, dtype=torch.float64, device=dev)
-    w = torch.empty(n, dtype=torch.float64, device=dev)
-    gparts = torch.zeros(R + 3, nb, dtype=torch.float64, device=dev)
-    flags = torch.zeros(R + 1, dtype=torch.int32, device=dev)
-    gst = torch.tensor([1e-12, 1.0], dtype=torch.float64, device=dev)
-    xg = torch.zeros(n, dtype=torch.float64, device=dev)
-    V0 = V.clone()
+    grid = ops.gmres_cycle_grid(n)
+    ms_b = gmres_cycle_check.time_restart(A, b, dev, (csr, dinv, bt, tol * np.sqrt(b_dot), None, None))["kernel"]
+    state = krylov.gmres_state(n, R, tol * np.sqrt(b_dot), dev)
+    ops.gmres_cycle(*csr, dinv, bt, *state, 0)
+    saved = [v.clone() for v in state]
 
-    def restart_work(lib):
-        V.copy_(V0)
-        flags.zero_()
-        for j in range(R):
-            lib.cgs_project(av[j], dinv, V, w, gparts, flags, j)
-            lib.cgs_update(V, w, gparts, flags, j)
-            lib.cgs_normalize(w, V, H, gparts, flags, j)
-        lib.gmres_lstsq(H, gst, y)
-        lib.gmres_correct(V, y, xg)
-        lib.gmres_residual(bt, av[0], dinv, w, gparts)
-        lib.gmres_restart(w, V, H, gparts, flags, gst, cont)
+    def plain_restart():
+        for v, v0 in zip(state, saved):
+            v.copy_(v0)
+        reference.gmres_cycle(*csr, dinv, bt, *state, 1)
 
-    copy_ms = _cuda_ms(lambda: (V.copy_(V0), flags.zero_()), 20)
-    ms_b = _cuda_ms(lambda: restart_work(ops), 20) - copy_ms
-    plain_b = _cuda_ms(lambda: restart_work(reference), 5) - copy_ms
-    # In: V[0], the 30 matvec outputs, dinv, b, A x, x; out: V[1..30], x,
-    # H, y. Operations: the projections and updates, 4 (k + 1) n per step.
-    bound_b = _bound(8.0 * (65 * n + 2 * R * (R + 1)), 4.0 * n * R * (R + 1) / 2 + 6.0 * n * R)
+    plain_b = _cuda_ms(plain_restart, 3)
+    host_b = _host_us(lambda: ops.gmres_cycle(*csr, dinv, bt, *state, 1), 20)
+    # In: the CSR matrix, dinv, b, x, V[0]; out: V[0..30], x, w, H, y.
+    # Operations: 31 matvecs, the projections and updates (4 (k + 1) n a
+    # step), the normalizations and the correction.
+    nnz = A.nnz
+    bound_b = _bound(12.0 * nnz + 4.0 * (n + 1) + 8.0 * (4 * n + 33 * n + R * (R + 1) + R),
+                     2.0 * nnz * (R + 1) + 4.0 * n * R * (R + 1) / 2 + 6.0 * n * R + 2.0 * n * R)
+    V = state[1]
     w29 = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
-    proj_ms = _cuda_ms(lambda: ops.cgs_project(w29, dinv, V, w, gparts, flags, R - 1))
     mv_ms = _cuda_ms(lambda: torch.mv(V, w29))
-    print(f"  K18b, one GMRES(30) restart without its 31 matvecs: {ms_b:.4f} ms kernels (94 launches), "
-          f"{plain_b:.4f} ms plain; bound {bound_b[0]:.6f} ms ({bound_b[1]}); "
-          f"cgs_project at k = 29 {proj_ms:.4f} ms, torch.mv(V, w) {mv_ms:.4f} ms")
-    report["gmres_arnoldi"] = {"err": report["gmres"]["err"], "ms": ms_b, "plain_ms": plain_b,
-                               "library_ms": None, "bound": bound_b}
+    print(f"  K18b, one GMRES(30) restart with its 31 matvecs, one launch of {grid} blocks: {ms_b} ms "
+          f"(CUDA events, kernel twice), {plain_b:.4f} ms plain, {host_b:.2f} us of host time a launch; "
+          f"bound {bound_b[0]:.6f} ms ({bound_b[1]}), the kernel at {100 * bound_b[0] / min(ms_b):.2f}% "
+          f"of it; torch.mv(V, w) (the projection's yardstick) {mv_ms:.4f} ms")
+    # No one PyTorch call computes a restart: torch.mv(V, w) is printed, not
+    # the line's library time.
+    report["gmres_cycle"] = {"err": report["gmres"]["err"], "ms": min(ms_b), "plain_ms": plain_b,
+                             "library_ms": None, "bound": bound_b, "host_us": host_b, "grid": grid,
+                             "ms_turns": ms_b, "mv_ms": mv_ms}
     return report
 
 
@@ -1468,7 +1644,7 @@ def run_biot_krylov(dev, method: str, device_gmres: dict, cell_size: float = 1.0
     params.pop("fused_time_steps")
     params.pop("fused_commit_states")
     params["linear_solver"] = solver
-    log = {"assemble": [], "solve": [], "iters": [], "steps": 0, "states": {}}
+    log = {"assemble": [], "solve": [], "iters": [], "steps": 0, "states": {}, "solve_k1": 0}
     reference_states = device_gmres["states"]
 
     class Logged(Model):
@@ -1478,10 +1654,12 @@ def run_biot_krylov(dev, method: str, device_gmres: dict, cell_size: float = 1.0
             log["assemble"].append(time.perf_counter() - tic)
 
         def solve_linear_system(self):
+            k1 = LAUNCHES["ell_spmv"]
             tic = time.perf_counter()
             x = super().solve_linear_system()
             log["solve"].append(time.perf_counter() - tic)
             log["iters"].append(krylov.LAST_SOLVE["iterations"])
+            log["solve_k1"] += LAUNCHES["ell_spmv"] - k1
             return x
 
         def after_nonlinear_convergence(self):
@@ -1523,7 +1701,16 @@ def run_biot_krylov(dev, method: str, device_gmres: dict, cell_size: float = 1.0
     print(f"  kernel launches in the run: {launches}")
     names = ops.K18A if method == "bicgstab" else ops.K18B
     _require(krylov.FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {krylov.FALLBACK_COUNTER}")
-    _require(launches["ell_spmv"] > 0 and all(launches[k] > 0 for k in names), f"kernel not launched: {launches}")
+    _require(all(launches[k] > 0 for k in names), f"kernel not launched: {launches}")
+    if method == "bicgstab":
+        _require(log["solve_k1"] > 0, f"K1 not launched in the solves: {launches}")
+    else:
+        # One K18b launch a restart and one a solve, the matvecs inside it.
+        restarts = int(iters.sum()) // 30
+        print(f"  {restarts} restarts in {newton} solves: {launches['gmres_cycle']} gmres_cycle launches, "
+              f"{log['solve_k1']} K1 launches inside the solves")
+        _require(launches["gmres_cycle"] == restarts + newton and log["solve_k1"] == 0,
+                 f"gmres: not one launch a restart: {launches}, K1 in the solves {log['solve_k1']}")
     _require(log["steps"] == 26, f"{log['steps']} steps")
     # Each field within 1e-8 of its largest value over the three states: by
     # t = 26 the pressure has decayed to ~7e-12, below what the Newton
@@ -2480,7 +2667,7 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, t
     params["dense_precond"] = dense
     model, out = _run_fused_case(dev, Model, params)
     launches = out["launches"]
-    print(f"  kernel launches in the run: {launches}")
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     needed = ("ell_spmv", "fgmres_givens", "upwind_flux", "upwind_select") + K8_KERNELS
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     solver = next(iter(model._device_solvers.values()))
@@ -2567,7 +2754,7 @@ def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
     Model, params = build_darcy_ad_model(cell_size, str(dev))
     model, out = _run_fused_case(dev, Model, params, local_solves="k10")
     launches = out["launches"]
-    print(f"  kernel launches in the run: {launches}")
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     _require(out["setup_launches"]["segment_sum_sorted"] > 0, "segment_sum_sorted not launched in the discretization")
     needed = ("ell_spmv", "fgmres_givens", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted") + K8_KERNELS
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
@@ -2777,6 +2964,15 @@ def main() -> int:
         for k, err in r["routes"]["k8_err"].items():
             report[k]["err"] = max(report[k]["err"], err)
 
+    # K1 in the line: the solve's shape, md 1/128's Jacobian in f32 for one
+    # vector (phase 3c); its error the largest of every K1 check.
+    k1 = md["k1"]["f32 B1"]
+    report["ell_spmv"].update(
+        ms=k1["product"]["ms"], plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
+        bound=(k1["product"]["bound_ms"], k1["product"]["bound_by"]),
+        err=max([report["ell_spmv"]["err"]] + [r["err"] for m in (md, md256) for r in m["k1"].values()]),
+    )
+
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {
         "ell_spmv": ("ell_spmv.cu", "porepy_tpu/numerics/linalg/amg.py:59", md["launches"]["ell_spmv"]),
@@ -2791,7 +2987,7 @@ def main() -> int:
         "tpfa_jvp": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]["tpfa_jvp"]),
         "region_solve": ("region_solve.cu", "porepy_tpu/numerics/fv/local_solves.py:168", biot["launches"]["region_solve"]),
         "bicgstab_step": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", bicg["launches"]),
-        "gmres_arnoldi": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", gmres["launches"]),
+        "gmres_cycle": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", gmres["launches"]),
         "rachford_rice": ("flash.cu", "porepy_tpu/compositional/flash.py:80", report["rachford_rice"]["launches"]),
         "interp_lookup": ("interp_lookup.cu", "porepy_tpu/numerics/ad/operator_functions.py:117", report["interp_lookup"]["launches"]),
         "block_inverse": ("block_inverse.cu", "porepy_tpu/numerics/linalg/matrix_operations.py:105", report["block_inverse"]["launches"]),
@@ -2877,6 +3073,21 @@ def main() -> int:
         f"per Newton iteration, {md256['newton']} Newton / {md256['krylov']} Krylov in the blocks; through the "
         f"functorch route {f['ms_per_newton']:.2f} ms, {f['newton']} / {f['krylov']}"
     )
+    for tag, m in (("md 1/128", md), ("md 1/256", md256)):
+        for shape, r in m["k1"].items():
+            print(
+                f"K1 at {tag}'s Jacobian, {shape}, on {smi}: device {r['product']['device_us']:.2f} us a launch "
+                f"({r['epilogue']['device_us']:.2f} with c - A x), bound {1e3 * r['product']['bound_ms']:.2f} us "
+                f"({100 * r['product']['share']:.1f}%), host us a call {r['product']['host_us']}, plain "
+                f"{r['plain_ms']:.4f} ms, CSR yardstick {r['library_ms']:.4f} ms"
+            )
+    k3 = md["k3"]
+    print(f"K3 (one V-cycle apply) at md 1/128 on {smi}: {k3['ms']:.4f} ms back to back, {k3['device_ms']:.4f} ms "
+          f"of device time, bound {k3['bound_ms']:.5f} ms")
+    g = report["gmres_cycle"]
+    print(f"K18b (one GMRES(30) restart, 31 matvecs inside) on {smi}: {g['ms_turns']} ms, {g['host_us']:.2f} us "
+          f"of host time a launch, grid {g['grid']} blocks, plain {g['plain_ms']:.4f} ms, bound {g['bound'][0]:.6f} ms; "
+          f"torch.mv(V, w) {g['mv_ms']:.4f} ms")
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

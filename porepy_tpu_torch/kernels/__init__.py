@@ -3,7 +3,8 @@
 ========  =============================  =====================================================
 id        operator                       replaces (porepy_tpu)
 ========  =============================  =====================================================
-K1        :func:`ell_spmv`               ``numerics/linalg/amg.py:59`` ell_matvec
+K1        :class:`EllOperator`,          ``numerics/linalg/amg.py:59`` ell_matvec (and the
+          :func:`ell_spmv`               ``r - A y``, ``y + P z`` after it)
 K2        :func:`ell_jacobi_sweep`       ``numerics/linalg/amg.py:334-340``
 K4g       :func:`fgmres_givens`          ``numerics/linalg/device_solver.py:198``
 K6        :func:`dense_block_scatter`    ``numerics/linalg/device_solver.py:141-146``
@@ -19,13 +20,8 @@ K18a      :func:`bicgstab_p`,            ``numerics/linalg/krylov.py:42-61`` (ja
           :func:`bicgstab_s`,
           :func:`bicgstab_xr`,
           :func:`bicgstab_scalars`
-K18b      :func:`cgs_project`,           ``numerics/linalg/krylov.py:42-61`` (jax GMRES)
-          :func:`cgs_update`,
-          :func:`cgs_normalize`,
-          :func:`gmres_lstsq`,
-          :func:`gmres_correct`,
-          :func:`gmres_residual`,
-          :func:`gmres_restart`
+K18b      :func:`gmres_cycle`            ``numerics/linalg/krylov.py:42-61`` (jax GMRES: one
+                                         restart, one cooperative kernel)
 K17       :func:`rachford_rice`          ``compositional/flash.py:80-122``
 K16       :func:`interp_lookup`,         ``numerics/ad/operator_functions.py:117-134``
           :func:`interp_tangent`
@@ -59,13 +55,10 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     bicgstab_scalars,
     bicgstab_xr,
     block_inverse,
-    cgs_normalize,
-    cgs_project,
-    cgs_update,
-    gmres_correct,
-    gmres_lstsq,
-    gmres_residual,
-    gmres_restart,
+    EllOperator,
+    EllOperators,
+    gmres_cycle,
+    gmres_cycle_grid,
     halo_pack,
     interp_lookup,
     interp_tangent,
@@ -76,7 +69,6 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     dense_block_scatter,
     ell_jacobi_sweep,
     ell_spmv,
-    ell_spmv_direct,
     ell_spmv_split,
     dual_ew,
     dual_gather_copy,

@@ -43,7 +43,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _SIGNATURES = {
-    "ppt_ell_spmv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ppt_ell_spmv": [_P] * 5 + [_I] * 5 + [_P],
     "ppt_ell_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "ppt_fgmres_givens": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     "ppt_dense_block_scatter": [_P, _P, _P, _I, _I, _I, _P, _P],
@@ -59,13 +59,8 @@ _SIGNATURES = {
     "ppt_bicgstab_s": [_P] * 7 + [_I, _P],
     "ppt_bicgstab_xr": [_P] * 9 + [_I, _P],
     "ppt_bicgstab_scalars": [_P] * 3 + [_I, _I, _P],
-    "ppt_cgs_project": [_P] * 6 + [_I, _I, _P],
-    "ppt_cgs_update": [_P] * 4 + [_I, _I, _P],
-    "ppt_cgs_normalize": [_P] * 5 + [_I, _I, _I, _P],
-    "ppt_gmres_lstsq": [_P] * 3 + [_I, _P],
-    "ppt_gmres_correct": [_P] * 3 + [_I, _I, _P],
-    "ppt_gmres_residual": [_P] * 5 + [_I, _P],
-    "ppt_gmres_restart": [_P] * 7 + [_I, _I, _P],
+    "ppt_gmres_cycle": [_P] * 14 + [_I] * 3 + [_P],
+    "ppt_gmres_cycle_grid": [_I, _P],
     "ppt_rachford_rice": [_P] * 7 + [_I, _L, _I, _D, _P],
     "ppt_interp_lookup": [_P] * 7 + [_I, _L, _I, _P],
     "ppt_block_inverse": [_P] * 3 + [_I, _I, _P],
@@ -87,9 +82,8 @@ _SIGNATURES = {
 # K16, K17 and K18 are float64 only.
 _F64_ONLY = (
     "ppt_region_solve", "ppt_bicgstab_p", "ppt_krylov_dots", "ppt_bicgstab_s",
-    "ppt_bicgstab_xr", "ppt_bicgstab_scalars", "ppt_cgs_project", "ppt_cgs_update",
-    "ppt_cgs_normalize", "ppt_gmres_lstsq", "ppt_gmres_correct", "ppt_gmres_residual",
-    "ppt_gmres_restart", "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
+    "ppt_bicgstab_xr", "ppt_bicgstab_scalars", "ppt_gmres_cycle", "ppt_gmres_cycle_grid",
+    "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
     "ppt_upwind_flux", "ppt_upwind_select", "ppt_upwind_select_pair",
     "ppt_segment_sum_sorted", "ppt_tpfa_ad_flux", "ppt_tpfa_ad_trace",
     "ppt_dual_ew", "ppt_dual_gather_var", "ppt_dual_gather_copy", "ppt_jac_gather",

@@ -15,10 +15,11 @@
 //                            x_halo[c - n_own]   for n_own <= c < n_own + n_halo,
 //                            0 (slot skipped)    for c == n_own + n_halo (padding).
 //
-// ell_spmv_split sums the slots in K1's order (csrc/ell_spmv.cu), with one
-// multiply-add per slot in the same form, so that on one rank (no halo,
-// col = the global table) it returns K1's result bit for bit; x_own and
-// x_halo are read where they lie and never concatenated.
+// ell_spmv_split sums the slots in K1's order (csrc/ell_spmv.cu) and
+// rounds as K1 does (each product rounded, then added: no contracted
+// multiply-add), so that on one rank (no halo, col = the global table) it
+// returns K1's result bit for bit; x_own and x_halo are read where they lie
+// and never concatenated.
 //
 // Bound: bytes, as K1. At md 1/128 over 4 ranks a shard is ~4,540 rows of
 // K = 9 (0.36 MB in f64) and its halo 600-1,200 entries, so both kernels
@@ -28,6 +29,11 @@
 #include <stdint.h>
 
 namespace {
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 template <typename T>
 __global__ void halo_pack_kernel(const T* __restrict__ x_own,
@@ -52,9 +58,9 @@ __global__ void ell_spmv_split_kernel(const T* __restrict__ val,
   for (int k = 0; k < K; ++k) {
     const int j = c[k];
     if (j < n_own) {
-      acc += v[k] * x_own[j];
+      acc = add_rn(acc, mul_rn(v[k], x_own[j]));
     } else if (j - n_own < n_halo) {
-      acc += v[k] * x_halo[j - n_own];
+      acc = add_rn(acc, mul_rn(v[k], x_halo[j - n_own]));
     }
   }
   y[i] = acc;

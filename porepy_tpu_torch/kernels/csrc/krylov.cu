@@ -3,10 +3,10 @@
 // Replaces porepy_tpu/numerics/linalg/krylov.py:42-61 (_krylov), the
 // jax.scipy.sparse.linalg BiCGStab and GMRES(restart 30, "batched") that XLA
 // fused around the BCOO matvec, with the Jacobi preconditioner
-// M x = dinv * x. The matvecs stay with K1 (ell_spmv.cu); these kernels are
-// the vector and scalar work between them, all f64.
+// M x = dinv * x, all f64.
 //
-// K18a, one BiCGStab iteration of jax 0.9's _bicgstab_solve:
+// K18a, one BiCGStab iteration of jax 0.9's _bicgstab_solve, the vector and
+// scalar work between the matvecs, which stay with K1 (ell_spmv.cu):
 //
 //   bicgstab_p     p <- r + beta (p - omega q),  phat = dinv p
 //   krylov_dots    block partials of one or two dot products
@@ -18,47 +18,67 @@
 //                  recurrence (alpha, omega, beta, the early exit, the
 //                  breakdown and the continue flag) on the device.
 //
-// K18b, one restart of jax's _gmres_batched:
+// K18b, one restart of the batched GMRES (_gmres_batched) as ONE persistent
+// cooperative kernel, gmres_cycle: the matvecs run inside it, on the
+// matrix in CSR form (int32 row pointers and columns, f64 values, each row
+// summed in column order, as K1 sums it). One launch per restart:
 //
-//   cgs_project    w = dinv (A v_k), block partials of V^T w over the k + 1
-//                  basis vectors and of <w, w>
-//   cgs_update     finishes h = V^T w, w <- w - V h, partials of <w, w>
-//   cgs_normalize  finishes |w|, V[k + 1] = w / |w| (0 below jax's
-//                  threshold eps |w_0|), the Hessenberg row k, the
-//                  breakdown flag of step k + 1
-//   gmres_lstsq    one block: the 30 x 30 normal equations H H^T y =
-//                  beta H e_0, Cholesky and two triangular solves (jax's
-//                  _lstsq with assume_a="pos")
-//   gmres_correct  x <- x + V[:restart]^T y
-//   gmres_residual w = dinv (b - A x), partials of <w, w>
-//   gmres_restart  finishes |w|, V[0] = w / |w|, the residual norm, the
-//                  continue flag, H = eye, the breakdown flags cleared.
+//   30 Arnoldi steps, each: w = dinv (A v_k); the partials of V[:k+1] w and
+//        of <w, w>; | grid sync | h = V^T w finished in every block, w <- w -
+//        V h, partials of <w, w>; | grid sync | |w_0| and |w| finished in
+//        every block, V[k + 1] = w / |w| (0 below the threshold eps |w_0|
+//        of _safe_normalize), Hessenberg row k and the breakdown flag;
+//        | grid sync |
+//   block 0: the 30 x 30 normal equations H H^T y = beta H e_0 by Cholesky
+//        and two triangular solves (_lstsq with assume_a="pos") in shared
+//        memory, the solves by one warp, column by column, while the other
+//        blocks wait; | grid sync |
+//   x <- x + V[:restart]^T y; | grid sync |
+//   w = dinv (b - A x), partials of <w, w>; | grid sync | V[0] = w / |w|,
+//        the residual norm, the continue flag, H = eye, flags cleared.
 //
-// jax's _iterative_classical_gram_schmidt with max_iterations=2 runs one
-// projection: its loop condition k < max_iterations - 1 fails after the
-// first pass, so there is no second ("twice is enough") pass here either.
-// After a breakdown jax stops the restart's Arnoldi loop; here the later
-// steps of the restart read the breakdown flag on the device and skip
-// (cgs_normalize still writes the zero basis vector jax's V holds), so the
-// host never reads a flag inside a restart.
+// With arnoldi = 0 it runs the last two lines alone: the start of a solve.
 //
-// Every reduction is two passes: the blocks write partial sums (a fixed
-// tree in shared memory), and a later kernel sums them in a fixed order, in
-// one block or redundantly in every block that needs the result. There
-// are no atomics, so a run repeats bit for bit. The elementwise updates
-// use __dmul_rn/__dadd_rn/__dsub_rn so that no multiply-add is contracted:
-// they round as the plain PyTorch version does, term by term.
+// The iteration's _iterative_classical_gram_schmidt with max_iterations=2
+// runs one projection: its loop condition k < max_iterations - 1 fails
+// after the first pass, so there is no second ("twice is enough") pass
+// here either. After a breakdown the iteration stops the restart's Arnoldi
+// loop; here every block carries the same breakdown flag and skips the
+// later steps (still writing the zero basis vector V holds there), so the
+// host reads one flag per restart.
 //
-// Bound: launches. At biot 1/64 (n = 12,288) each pass moves 0.1-0.4 MB
-// (the Arnoldi projection at k = 29, 31 vectors, 3 MB), 0.03-1 us at
-// 3.35 TB/s, far below the ~3-5 us a launch costs; the host's enqueue rate
-// and one flag read per iteration (BiCGStab) or per restart (GMRES) set
-// the time.
+// Grid: blocks of 128 threads, as many as can be co-resident
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count, with the
+// kernel's static shared memory), at most one per 128-row tile; blocks
+// stride over the tiles, so each block owns the same rows in every phase.
+// A cooperative launch (cudaLaunchCooperativeKernel) is what makes
+// this_grid().sync() legal: the wrapper refuses to launch otherwise.
+//
+// Reductions: each tile's partial sum in the fixed block_sum tree, then
+// every block that needs a sum finishes the tile partials in the same
+// fixed order (row_sum): no atomics, a run repeats bit for bit. Every
+// operation is rounded on its own (__dmul_rn, __dadd_rn, __dsub_rn: no
+// multiply-add is contracted), so the plain passes of kernels/reference.py,
+// which round the same operations in the same order, give the same bits.
+// Arrays written inside the kernel are read through plain pointers (no
+// __restrict__ on them): the read-only cache is not coherent across the
+// grid syncs.
+//
+// Bound: bytes, a few us: at biot 1/64 (n = 12,288, 317,026 nonzeros) a
+// restart reads the matrix and writes 31 basis vectors, ~7.5 MB. Latency
+// is what is left: 94 grid syncs, four block-wide reductions a step, the
+// dependent gathers of each row and the Cholesky of block 0 (the matvecs
+// keep four gathers in flight; the last five levels of each reduction and
+// the triangular solves run in warps). Before: 94 launches and 31 K1
+// launches a restart, ~45-54 us of host dispatch each.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -228,181 +248,240 @@ __global__ void bicgstab_scalars_kernel(const double* __restrict__ partials,
 
 // -- K18b -------------------------------------------------------------------
 
-// V is (restart + 1, n), one basis vector per row; partials is
-// (restart + 3, nb): rows 0..k the projections, k + 1 the norm of w before
-// the projection, k + 2 after it.
-__global__ void cgs_project_kernel(const double* __restrict__ av,
-                                   const double* __restrict__ dinv,
-                                   const double* __restrict__ V,
-                                   double* __restrict__ w,
-                                   double* __restrict__ partials,
-                                   const int* __restrict__ flags, int n,
-                                   int nb, int k) {
-  if (flags[k]) return;
-  int j = blockIdx.y;
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  double v = 0.0;
-  if (i < n) {
-    double wi = __dmul_rn(dinv[i], av[i]);
-    if (j <= k) {
-      v = V[(int64_t)j * n + i] * wi;
-    } else {
-      v = wi * wi;
-      w[i] = wi;
-    }
-  }
-  v = block_sum(v);
-  if (threadIdx.x == 0) partials[(int64_t)j * nb + blockIdx.x] = v;
-}
+constexpr int kRows = kMaxRestart + 2;  // rows summed at once: V[:k+1] w, <w, w>
 
-__global__ void cgs_update_kernel(const double* __restrict__ V,
-                                  double* __restrict__ w,
-                                  double* __restrict__ partials,
-                                  const int* __restrict__ flags, int n, int nb,
-                                  int k) {
-  __shared__ double h[kMaxRestart + 1];
-  if (flags[k]) return;
-  for (int j = 0; j <= k; ++j) {
-    double hj = row_sum(partials + (int64_t)j * nb, nb);
-    if (threadIdx.x == 0) h[j] = hj;
+// m rows of sh summed at once, each in block_sum's tree (the same pairs in
+// the same order): row j's sum ends in sh[j][0].
+__device__ void tree_rows(double (*sh)[kBlock], int m) {
+  __syncthreads();
+  for (int s = kBlock / 2; s > 16; s >>= 1) {
+    for (int idx = threadIdx.x; idx < m * s; idx += kBlock) {
+      int j = idx / s, t = idx - j * s;
+      sh[j][t] = __dadd_rn(sh[j][t], sh[j][t + s]);
+    }
+    __syncthreads();
+  }
+  // s = 16 .. 1 inside one warp a row: lane t adds lane t + s, as above.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = warp; j < m; j += kBlock / 32) {
+    double v = sh[j][lane];
+    for (int s = 16; s > 0; s >>= 1) v = __dadd_rn(v, __shfl_down_sync(0xffffffffu, v, s));
+    if (lane == 0) sh[j][0] = v;
   }
   __syncthreads();
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  double v = 0.0;
-  if (i < n) {
+}
+
+// The sums of rows r0 .. r0 + m - 1 of partials (nb per row), each in
+// row_sum's order, into out[0 .. m - 1] (shared), seen by the whole block.
+__device__ void finish_rows(const double* partials, int r0, int m, int nb,
+                            double (*sh)[kBlock], double* out) {
+  for (int j = 0; j < m; ++j) {
+    const double* row = partials + (int64_t)(r0 + j) * nb;
     double acc = 0.0;
-    for (int j = 0; j <= k; ++j) acc += V[(int64_t)j * n + i] * h[j];
-    double wi = __dsub_rn(w[i], acc);
-    w[i] = wi;
-    v = wi * wi;
+    for (int b = threadIdx.x; b < nb; b += kBlock) acc = __dadd_rn(acc, row[b]);
+    sh[j][threadIdx.x] = acc;
   }
-  v = block_sum(v);
-  if (threadIdx.x == 0) partials[(int64_t)(k + 2) * nb + blockIdx.x] = v;
+  tree_rows(sh, m);
+  if (threadIdx.x < m) out[threadIdx.x] = sh[threadIdx.x][0];
+  __syncthreads();
 }
 
-__global__ void cgs_normalize_kernel(const double* __restrict__ w,
-                                     double* __restrict__ V,
-                                     double* __restrict__ H,
-                                     const double* __restrict__ partials,
-                                     int* __restrict__ flags, int n, int nb,
-                                     int k, int restart) {
-  const int done = flags[k];
-  double norm = 0.0;
-  bool use = false;
-  if (!done) {
-    // jax's _safe_normalize: |w_0| (0 at or below eps) sets the threshold
-    // eps |w_0| under which the new vector counts as zero.
-    double norm0 = sqrt(row_sum(partials + (int64_t)(k + 1) * nb, nb));
-    norm0 = norm0 > DBL_EPSILON ? norm0 : 0.0;
-    norm = sqrt(row_sum(partials + (int64_t)(k + 2) * nb, nb));
-    use = norm > DBL_EPSILON * norm0;
+// Row i of A x: the products rounded, added from 0.0 in column order.
+__device__ double csr_row(const int* __restrict__ row_ptr,
+                          const int* __restrict__ cols,
+                          const double* __restrict__ vals, const double* x,
+                          int i) {
+  double acc = 0.0;
+  int p = row_ptr[i];
+  const int e = row_ptr[i + 1];
+  // Four gathers in flight before their products are added, in order.
+  for (; p + 4 <= e; p += 4) {
+    const double x0 = x[cols[p]], x1 = x[cols[p + 1]], x2 = x[cols[p + 2]], x3 = x[cols[p + 3]];
+    acc = __dadd_rn(acc, __dmul_rn(vals[p], x0));
+    acc = __dadd_rn(acc, __dmul_rn(vals[p + 1], x1));
+    acc = __dadd_rn(acc, __dmul_rn(vals[p + 2], x2));
+    acc = __dadd_rn(acc, __dmul_rn(vals[p + 3], x3));
   }
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < n) V[(int64_t)(k + 1) * n + i] = use ? __ddiv_rn(w[i], norm) : 0.0;
-  if (blockIdx.x != 0) return;
-  if (!done) {
-    double* row = H + (int64_t)k * (restart + 1);
-    for (int j = 0; j <= k; ++j) {
-      double hj = row_sum(partials + (int64_t)j * nb, nb);
-      if (threadIdx.x == 0) row[j] = hj;
-    }
-    for (int j = k + 1 + threadIdx.x; j <= restart; j += kBlock)
-      row[j] = j == k + 1 && use ? norm : 0.0;
-  }
-  if (threadIdx.x == 0) flags[k + 1] = done || !use || norm == 0.0;
+  for (; p < e; ++p) acc = __dadd_rn(acc, __dmul_rn(vals[p], x[cols[p]]));
+  return acc;
 }
 
-__global__ void gmres_lstsq_kernel(const double* __restrict__ H,
-                                   const double* __restrict__ st,
-                                   double* __restrict__ y, int restart) {
+// Block 0's least squares: y from H H^T y = beta H e_0 (Cholesky in the
+// lower triangle, column by column, then L u = z and L^T y = u, both by
+// columns: once z[m] is final, rows below (above) it subtract their term,
+// one lane a row). hs is block-shared scratch of at least R (R + 1) doubles.
+__device__ void lstsq(const double* H, const double* st, double* y, int R, double* hs) {
   __shared__ double a[kMaxRestart][kMaxRestart + 1];
   __shared__ double z[kMaxRestart];
-  const int R = restart, ld = restart + 1;
-  // a = H H^T, z = H (beta e_0): jax's _lstsq(H^T, beta e_0).
+  const int ld = R + 1;
+  for (int idx = threadIdx.x; idx < R * ld; idx += kBlock) hs[idx] = H[idx];
+  __syncthreads();
   for (int idx = threadIdx.x; idx < R * R; idx += kBlock) {
     int i = idx / R, j = idx % R;
     double acc = 0.0;
-    for (int c = 0; c <= R; ++c) acc += H[i * ld + c] * H[j * ld + c];
+    for (int c = 0; c <= R; ++c) acc = __dadd_rn(acc, __dmul_rn(hs[i * ld + c], hs[j * ld + c]));
     a[i][j] = acc;
   }
-  for (int i = threadIdx.x; i < R; i += kBlock) z[i] = H[i * ld] * st[kResNorm];
+  for (int i = threadIdx.x; i < R; i += kBlock) z[i] = __dmul_rn(hs[i * ld], st[kResNorm]);
   __syncthreads();
-  // Cholesky a = L L^T in the lower triangle, column by column.
   for (int c = 0; c < R; ++c) {
-    if (threadIdx.x == 0) a[c][c] = sqrt(a[c][c]);
+    if (threadIdx.x == 0) a[c][c] = __dsqrt_rn(a[c][c]);
     __syncthreads();
-    for (int i = c + 1 + threadIdx.x; i < R; i += kBlock) a[i][c] /= a[c][c];
+    for (int i = c + 1 + threadIdx.x; i < R; i += kBlock) a[i][c] = __ddiv_rn(a[i][c], a[c][c]);
     __syncthreads();
     int m = R - c - 1;
     for (int idx = threadIdx.x; idx < m * m; idx += kBlock) {
       int i = c + 1 + idx / m, j = c + 1 + idx % m;
-      if (j <= i) a[i][j] -= a[i][c] * a[j][c];
+      if (j <= i) a[i][j] = __dsub_rn(a[i][j], __dmul_rn(a[i][c], a[j][c]));
     }
     __syncthreads();
   }
-  // L u = z, then L^T y = u: 30 rows, one thread.
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < R; ++i) {
-      double acc = z[i];
-      for (int m = 0; m < i; ++m) acc -= a[i][m] * z[m];
-      z[i] = acc / a[i][i];
+  if (threadIdx.x < 32) {
+    const int i = threadIdx.x;
+    // L u = z: u[m] = z[m] / a[m][m], then z[i] -= a[i][m] u[m] for i > m.
+    for (int m = 0; m < R; ++m) {
+      if (i == m) z[m] = __ddiv_rn(z[m], a[m][m]);
+      __syncwarp();
+      if (i > m && i < R) z[i] = __dsub_rn(z[i], __dmul_rn(a[i][m], z[m]));
+      __syncwarp();
     }
-    for (int i = R - 1; i >= 0; --i) {
-      double acc = z[i];
-      for (int m = i + 1; m < R; ++m) acc -= a[m][i] * z[m];
-      z[i] = acc / a[i][i];
+    // L^T y = u: y[m] = u[m] / a[m][m], then u[i] -= a[m][i] y[m] for i < m.
+    for (int m = R - 1; m >= 0; --m) {
+      if (i == m) z[m] = __ddiv_rn(z[m], a[m][m]);
+      __syncwarp();
+      if (i < m) z[i] = __dsub_rn(z[i], __dmul_rn(a[m][i], z[m]));
+      __syncwarp();
     }
-    for (int i = 0; i < R; ++i) y[i] = z[i];
+    if (i < R) y[i] = z[i];
   }
+  __syncthreads();
 }
 
-__global__ void gmres_correct_kernel(const double* __restrict__ V,
-                                     const double* __restrict__ y,
-                                     double* __restrict__ x, int n, int restart) {
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  double dx = 0.0;
-  for (int j = 0; j < restart; ++j) dx += V[(int64_t)j * n + i] * y[j];
-  x[i] = __dadd_rn(x[i], dx);
-}
-
-__global__ void gmres_residual_kernel(const double* __restrict__ b,
-                                      const double* __restrict__ ax,
-                                      const double* __restrict__ dinv,
-                                      double* __restrict__ w,
-                                      double* __restrict__ partials, int n) {
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  double v = 0.0;
-  if (i < n) {
-    double wi = __dmul_rn(dinv[i], __dsub_rn(b[i], ax[i]));
-    w[i] = wi;
-    v = wi * wi;
-  }
-  v = block_sum(v);
-  if (threadIdx.x == 0) partials[blockIdx.x] = v;
-}
-
-__global__ void gmres_restart_kernel(const double* __restrict__ w,
-                                     double* __restrict__ V,
-                                     double* __restrict__ H,
-                                     const double* __restrict__ partials,
-                                     int* __restrict__ flags,
-                                     double* __restrict__ st,
-                                     int* __restrict__ cont, int n, int nb,
-                                     int restart) {
-  double norm = sqrt(row_sum(partials, nb));
-  bool use = norm > DBL_EPSILON;
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i < n) V[i] = use ? __ddiv_rn(w[i], norm) : 0.0;
-  if (blockIdx.x != 0) return;
+// One restart (arnoldi = 1) or the start of a solve (arnoldi = 0); see the
+// head of the file. V is (restart + 1, n), H (restart, restart + 1),
+// partials (restart + 3, nb): rows 0..k the projections of step k, k + 1
+// the norm of w before the projection, k + 2 after it.
+__global__ void __launch_bounds__(kBlock)
+gmres_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cols,
+                   const double* __restrict__ vals, const double* __restrict__ dinv,
+                   const double* __restrict__ b, double* x, double* V, double* H,
+                   double* y, double* w, double* partials, int* flags, double* st,
+                   int* cont, int n, int nb, int restart, int arnoldi) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh[kRows][kBlock];
+  __shared__ double hs[kRows];
+  const int tid = threadIdx.x;
+  const bool lead = blockIdx.x == 0;
   const int ld = restart + 1;
-  for (int idx = threadIdx.x; idx < restart * ld; idx += kBlock)
-    H[idx] = idx / ld == idx % ld ? 1.0 : 0.0;
-  for (int j = threadIdx.x; j <= restart; j += kBlock) flags[j] = 0;
-  if (threadIdx.x == 0) {
-    double res = use ? norm : 0.0;
-    st[kResNorm] = res;
-    cont[0] = res > st[kAtol];
+  if (arnoldi) {
+    bool done = flags[0] != 0;
+    for (int k = 0; k < restart; ++k) {
+      const double* vk = V + (int64_t)k * n;
+      if (!done) {
+        // w = dinv (A v_k); partials of <V[j], w> (j <= k) and of <w, w>.
+        for (int t = blockIdx.x; t < nb; t += gridDim.x) {
+          int i = t * kBlock + tid;
+          double wi = 0.0;
+          if (i < n) {
+            wi = __dmul_rn(dinv[i], csr_row(row_ptr, cols, vals, vk, i));
+            w[i] = wi;
+          }
+          for (int j = 0; j <= k; ++j) sh[j][tid] = i < n ? __dmul_rn(V[(int64_t)j * n + i], wi) : 0.0;
+          sh[k + 1][tid] = i < n ? __dmul_rn(wi, wi) : 0.0;
+          tree_rows(sh, k + 2);
+          if (tid < k + 2) partials[(int64_t)tid * nb + t] = sh[tid][0];
+          __syncthreads();
+        }
+      }
+      grid.sync();
+      if (!done) {
+        // h = V^T w; w <- w - V h; partials of <w, w>.
+        finish_rows(partials, 0, k + 1, nb, sh, hs);
+        if (lead)
+          for (int j = tid; j <= k; j += kBlock) H[(int64_t)k * ld + j] = hs[j];
+        for (int t = blockIdx.x; t < nb; t += gridDim.x) {
+          int i = t * kBlock + tid;
+          double v = 0.0;
+          if (i < n) {
+            double acc = 0.0;
+            for (int j = 0; j <= k; ++j) acc = __dadd_rn(acc, __dmul_rn(V[(int64_t)j * n + i], hs[j]));
+            double wi = __dsub_rn(w[i], acc);
+            w[i] = wi;
+            v = __dmul_rn(wi, wi);
+          }
+          sh[0][tid] = v;
+          tree_rows(sh, 1);
+          if (tid == 0) partials[(int64_t)(k + 2) * nb + t] = sh[0][0];
+          __syncthreads();
+        }
+      }
+      grid.sync();
+      // V[k + 1] = w / |w| or 0, Hessenberg row k, breakdown flag k + 1.
+      double norm = 0.0;
+      bool use = false;
+      if (!done) {
+        finish_rows(partials, k + 1, 2, nb, sh, hs);
+        double norm0 = __dsqrt_rn(hs[0]);
+        norm0 = norm0 > DBL_EPSILON ? norm0 : 0.0;
+        norm = __dsqrt_rn(hs[1]);
+        use = norm > DBL_EPSILON * norm0;
+      }
+      for (int t = blockIdx.x; t < nb; t += gridDim.x) {
+        int i = t * kBlock + tid;
+        if (i < n) V[(int64_t)(k + 1) * n + i] = use ? __ddiv_rn(w[i], norm) : 0.0;
+      }
+      if (lead) {
+        if (!done)
+          for (int j = k + 1 + tid; j <= restart; j += kBlock)
+            H[(int64_t)k * ld + j] = j == k + 1 && use ? norm : 0.0;
+        if (tid == 0) flags[k + 1] = done || !use || norm == 0.0;
+      }
+      done = done || !use || norm == 0.0;
+      grid.sync();
+    }
+    if (lead) lstsq(H, st, y, restart, &sh[0][0]);
+    grid.sync();
+    // x <- x + V[:restart]^T y.
+    for (int t = blockIdx.x; t < nb; t += gridDim.x) {
+      int i = t * kBlock + tid;
+      if (i >= n) continue;
+      double dx = 0.0;
+      for (int j = 0; j < restart; ++j) dx = __dadd_rn(dx, __dmul_rn(V[(int64_t)j * n + i], y[j]));
+      x[i] = __dadd_rn(x[i], dx);
+    }
+    grid.sync();
+  }
+  // w = dinv (b - A x); partials of <w, w>.
+  for (int t = blockIdx.x; t < nb; t += gridDim.x) {
+    int i = t * kBlock + tid;
+    double v = 0.0;
+    if (i < n) {
+      double wi = __dmul_rn(dinv[i], __dsub_rn(b[i], csr_row(row_ptr, cols, vals, x, i)));
+      w[i] = wi;
+      v = __dmul_rn(wi, wi);
+    }
+    sh[0][tid] = v;
+    tree_rows(sh, 1);
+    if (tid == 0) partials[t] = sh[0][0];
+    __syncthreads();
+  }
+  grid.sync();
+  // V[0] = w / |w|, the residual norm and the continue flag; H = eye, flags 0.
+  finish_rows(partials, 0, 1, nb, sh, hs);
+  double norm = __dsqrt_rn(hs[0]);
+  bool use = norm > DBL_EPSILON;
+  for (int t = blockIdx.x; t < nb; t += gridDim.x) {
+    int i = t * kBlock + tid;
+    if (i < n) V[i] = use ? __ddiv_rn(w[i], norm) : 0.0;
+  }
+  if (lead) {
+    for (int idx = tid; idx < restart * ld; idx += kBlock) H[idx] = idx / ld == idx % ld ? 1.0 : 0.0;
+    for (int j = tid; j <= restart; j += kBlock) flags[j] = 0;
+    if (tid == 0) {
+      double res = use ? norm : 0.0;
+      st[kResNorm] = res;
+      cont[0] = res > st[kAtol];
+    }
   }
 }
 
@@ -457,61 +536,57 @@ extern "C" int ppt_bicgstab_scalars_f64(const double* partials, double* st,
   return last_error();
 }
 
-extern "C" int ppt_cgs_project_f64(const double* av, const double* dinv,
-                                   const double* V, double* w,
-                                   double* partials, const int* flags, int n,
-                                   int k, void* stream) {
-  if (n == 0) return 0;
+namespace {
+
+// Blocks of one gmres_cycle launch for n rows: the co-resident maximum
+// (from the kernel's registers and static shared memory), at most one per
+// tile; negative: a CUDA error, or no cooperative launch on this device.
+int gmres_cycle_grid(int n) {
+  static int capacity[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev < 0 || dev >= 64) return -(int)cudaErrorInvalidDevice;
+  if (capacity[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (!coop) return -(int)cudaErrorNotSupported;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gmres_cycle_kernel, kBlock, 0);
+    if (e != cudaSuccess) return -(int)e;
+    if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
+    capacity[dev] = per_sm * sms;
+  }
   int nb = blocks_for(n);
-  cgs_project_kernel<<<dim3(nb, k + 2), kBlock, 0, (cudaStream_t)stream>>>(av, dinv, V, w, partials, flags, n, nb, k);
-  return last_error();
+  return nb < capacity[dev] ? nb : capacity[dev];
 }
 
-extern "C" int ppt_cgs_update_f64(const double* V, double* w, double* partials,
-                                  const int* flags, int n, int k, void* stream) {
-  if (n == 0) return 0;
-  int nb = blocks_for(n);
-  cgs_update_kernel<<<nb, kBlock, 0, (cudaStream_t)stream>>>(V, w, partials, flags, n, nb, k);
-  return last_error();
+}  // namespace
+
+extern "C" int ppt_gmres_cycle_grid_f64(int n, void* stream) {
+  (void)stream;
+  return gmres_cycle_grid(n);
 }
 
-extern "C" int ppt_cgs_normalize_f64(const double* w, double* V, double* H,
-                                     const double* partials, int* flags,
-                                     int n, int k, int restart, void* stream) {
+extern "C" int ppt_gmres_cycle_f64(const int* row_ptr, const int* cols,
+                                   const double* vals, const double* dinv,
+                                   const double* b, double* x, double* V,
+                                   double* H, double* y, double* w,
+                                   double* partials, int* flags, double* st,
+                                   int* cont, int n, int restart, int arnoldi,
+                                   void* stream) {
   if (n == 0) return 0;
-  int nb = blocks_for(n);
-  cgs_normalize_kernel<<<nb, kBlock, 0, (cudaStream_t)stream>>>(w, V, H, partials, flags, n, nb, k, restart);
-  return last_error();
-}
-
-extern "C" int ppt_gmres_lstsq_f64(const double* H, const double* st, double* y,
-                                   int restart, void* stream) {
   if (restart < 1 || restart > kMaxRestart) return (int)cudaErrorInvalidValue;
-  gmres_lstsq_kernel<<<1, kBlock, 0, (cudaStream_t)stream>>>(H, st, y, restart);
-  return last_error();
-}
-
-extern "C" int ppt_gmres_correct_f64(const double* V, const double* y, double* x,
-                                     int n, int restart, void* stream) {
-  if (n == 0) return 0;
-  gmres_correct_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(V, y, x, n, restart);
-  return last_error();
-}
-
-extern "C" int ppt_gmres_residual_f64(const double* b, const double* ax,
-                                      const double* dinv, double* w,
-                                      double* partials, int n, void* stream) {
-  if (n == 0) return 0;
-  gmres_residual_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(b, ax, dinv, w, partials, n);
-  return last_error();
-}
-
-extern "C" int ppt_gmres_restart_f64(const double* w, double* V, double* H,
-                                     const double* partials, int* flags,
-                                     double* st, int* cont, int n, int restart,
-                                     void* stream) {
-  if (n == 0) return 0;
+  int grid = gmres_cycle_grid(n);
+  if (grid < 0) return -grid;
   int nb = blocks_for(n);
-  gmres_restart_kernel<<<nb, kBlock, 0, (cudaStream_t)stream>>>(w, V, H, partials, flags, st, cont, n, nb, restart);
+  void* args[] = {&row_ptr, &cols, &vals, &dinv, &b, &x, &V, &H, &y, &w,
+                  &partials, &flags, &st, &cont, &n, &nb, &restart, &arnoldi};
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&gmres_cycle_kernel), dim3(grid),
+                                              dim3(kBlock), args, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
   return last_error();
 }

@@ -6,12 +6,14 @@ fails); on a CPU tensor it runs the plain version from
 :mod:`porepy_tpu_torch.kernels.reference`. ``LAUNCHES`` counts kernel
 launches per operator, and only those.
 
-The K14, K15 and K8 operators at the end are plain functions with the same
-rule (the kernel for a CUDA tensor, the plain version for a CPU tensor):
-they are called from the dual-number pass of the assembly
+Some operators are plain functions with the same rule (the kernel for a
+CUDA tensor, the plain version for a CPU tensor), as they gain nothing from
+the dispatcher: K1's launcher :class:`EllOperator`, which the solve and the
+assembly call (the custom operator ``ell_spmv`` remains for ``torch.func``);
+K18b's :func:`gmres_cycle`; and the K14, K15 and K8 operators at the end,
+called from the dual-number pass of the assembly
 (:mod:`porepy_tpu_torch.numerics.ad.forward`) and from inside
-``torch.autograd.Function``s, take optional seeds and row strides, and so
-gain nothing from the dispatcher.
+``torch.autograd.Function``s, with optional seeds and row strides.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "ell_spmv",
-    "ell_spmv_direct",
+    "EllOperator",
+    "EllOperators",
     "ell_jacobi_sweep",
     "fgmres_givens",
     "dense_block_scatter",
@@ -43,13 +46,8 @@ __all__ = [
     "bicgstab_s",
     "bicgstab_xr",
     "bicgstab_scalars",
-    "cgs_project",
-    "cgs_update",
-    "cgs_normalize",
-    "gmres_lstsq",
-    "gmres_correct",
-    "gmres_residual",
-    "gmres_restart",
+    "gmres_cycle",
+    "gmres_cycle_grid",
     "K18A",
     "K18B",
     "rachford_rice",
@@ -93,13 +91,7 @@ LAUNCHES = {
     "bicgstab_s": 0,
     "bicgstab_xr": 0,
     "bicgstab_scalars": 0,
-    "cgs_project": 0,
-    "cgs_update": 0,
-    "cgs_normalize": 0,
-    "gmres_lstsq": 0,
-    "gmres_correct": 0,
-    "gmres_residual": 0,
-    "gmres_restart": 0,
+    "gmres_cycle": 0,
     "rachford_rice": 0,
     "interp_lookup": 0,
     "block_inverse": 0,
@@ -115,13 +107,10 @@ LAUNCHES = {
     "jac_gather": 0,
 }
 
-#: The operators of the fused BiCGStab step (K18a) and of the GMRES Arnoldi
-#: and restart work (K18b), all in ``csrc/krylov.cu``.
+#: The operators of the fused BiCGStab step (K18a) and of one GMRES(30)
+#: restart (K18b, one cooperative kernel), all in ``csrc/krylov.cu``.
 K18A = ("bicgstab_p", "krylov_dots", "bicgstab_s", "bicgstab_xr", "bicgstab_scalars")
-K18B = (
-    "cgs_project", "cgs_update", "cgs_normalize", "gmres_lstsq", "gmres_correct",
-    "gmres_residual", "gmres_restart",
-)
+K18B = ("gmres_cycle",)
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
@@ -141,20 +130,35 @@ def _check(name: str, tensors: dict, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: dtype {dtype} not supported (float32/float64)")
 
 
-def _current_stream() -> int:
-    """The current device's current stream as the integer the kernels take.
-    ``torch.cuda.current_stream()`` builds a ``Stream`` object on every call
-    (~25 us of host time under a profiler); the raw handle is one C call."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(device: int = -1) -> int:
+    """The current stream of ``device`` (default: the current device) as the
+    integer the kernels take. ``torch.cuda.current_stream()`` builds a
+    ``Stream`` object on every call (~25 us of host time under a profiler);
+    the raw handle is one C call."""
+    if _RAW_STREAM is None:
         return torch.cuda.current_stream().cuda_stream
-    return raw(torch.cuda.current_device())
+    return _RAW_STREAM(device if device >= 0 else torch.cuda.current_device())
+
+
+_FUNCTIONS: dict = {}
+
+
+def _kernel(name: str, dtype: torch.dtype):
+    """The ctypes function ``ppt_<name>`` for ``dtype``, resolved once (the
+    first call builds the library)."""
+    key = (name, dtype)
+    fn = _FUNCTIONS.get(key)
+    if fn is None:
+        fn = _FUNCTIONS[key] = getattr(library(), "ppt_" + name + _SUFFIX[dtype])
+    return fn
 
 
 def _launch(name: str, dtype: torch.dtype, *args, count_as: str = "") -> None:
     """Launch ``ppt_<name>`` and count it under ``count_as`` (default ``name``)."""
-    fn = getattr(library(), "ppt_" + name + _SUFFIX[dtype])
-    rc = fn(*args, _current_stream())
+    rc = _kernel(name, dtype)(*args, _current_stream())
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     LAUNCHES[count_as or name] += 1
@@ -163,10 +167,94 @@ def _launch(name: str, dtype: torch.dtype, *args, count_as: str = "") -> None:
 # -- K1 ---------------------------------------------------------------------------
 
 
+class EllOperator:
+    """A fixed padded-row (ELL) matrix and its K1 launch: ``op(x, c, sign)``
+    is ``c + sign * (A @ x)`` (``c`` optional, of the result's shape;
+    ``sign`` 1 or -1; ``A @ x`` rounded before ``c`` is added, as the two
+    operations). ``x`` is ``(n_cols,)`` or ``(B, n_cols)``; padding columns
+    equal ``n_cols``.
+
+    The matrix (``val`` float32/float64 ``(n, K)``, ``col`` int32) is checked
+    once, here, and the kernel's ctypes function resolved once, so a call
+    on the card checks ``x`` and ``c``, allocates the result and makes one
+    ctypes call: no dispatcher. A matrix on the CPU runs the plain version.
+    The result is always a new tensor, so ``c`` never aliases it."""
+
+    __slots__ = (
+        "val", "col", "n_rows", "K", "dtype", "_fn", "_dev", "_device", "_val_ptr", "_col_ptr",
+    )
+
+    def __init__(self, val: torch.Tensor, col: torch.Tensor) -> None:
+        if col.dtype != torch.int32 or val.dtype not in _SUFFIX:
+            raise TypeError("ell_spmv: needs float32/float64 val and int32 col")
+        if val.dim() != 2 or col.shape != val.shape:
+            raise ValueError("ell_spmv: needs (n, K) val and col")
+        self.val, self.col = val, col
+        self.n_rows, self.K = val.shape
+        self.dtype = val.dtype
+        self._fn = None
+        if val.is_cuda or col.is_cuda:
+            _check("ell_spmv", {"val": val, "col": col}, val.dtype)
+            if col.device != val.device:
+                raise ValueError("ell_spmv: val and col on different cards")
+            self._dev, self._device = val.get_device(), val.device
+            self._val_ptr, self._col_ptr = val.data_ptr(), col.data_ptr()
+            self._fn = _kernel("ell_spmv", val.dtype)
+
+    def __call__(self, x: torch.Tensor, c=None, sign: int = 1) -> torch.Tensor:
+        if self._fn is None:
+            if x.is_cuda:
+                raise ValueError("ell_spmv: x is on the card, the matrix on the CPU")
+            return reference.ell_spmv(self.val, self.col, x, c, sign)
+        if not x.is_cuda or x.get_device() != self._dev:
+            raise ValueError(f"ell_spmv: x is on {x.device}, expected the matrix's card")
+        if x.dtype != self.dtype or x.dim() not in (1, 2) or not x.is_contiguous():
+            raise ValueError("ell_spmv: needs a contiguous x of shape (m,) or (B, m) in val's dtype")
+        y = torch.empty(x.shape[:-1] + (self.n_rows,), dtype=self.dtype, device=self._device)
+        c_ptr = None
+        if c is not None:
+            if c.shape != y.shape or c.dtype != self.dtype or not c.is_contiguous() or (
+                not c.is_cuda or c.get_device() != self._dev
+            ):
+                raise ValueError("ell_spmv: c must be a contiguous tensor like the result")
+            c_ptr = c.data_ptr()
+        if y.numel() == 0:
+            return y
+        rc = self._fn(
+            self._val_ptr, self._col_ptr, x.data_ptr(), c_ptr, y.data_ptr(), self.n_rows,
+            self.K, x.shape[-1], x.shape[0] if x.dim() == 2 else 1, -1 if sign < 0 else 1,
+            _current_stream(self._dev),
+        )
+        if rc != 0:
+            raise RuntimeError(f"ell_spmv kernel launch failed with CUDA error {rc}")
+        LAUNCHES["ell_spmv"] += 1
+        return y
+
+
+class EllOperators:
+    """Launchers (:class:`EllOperator`) by matrix: ``ops(val, col)`` makes the
+    launcher of a ``(val, col)`` pair the first time it is seen and returns
+    the same one after. For holders of fixed matrices that are also called
+    with matrices built elsewhere (a preconditioner state handed in)."""
+
+    __slots__ = ("_ops",)
+
+    def __init__(self) -> None:
+        self._ops = {}
+
+    def __call__(self, val: torch.Tensor, col: torch.Tensor) -> EllOperator:
+        op = self._ops.get(id(val))
+        if op is None or op.val is not val or op.col is not col:
+            op = self._ops[id(val)] = EllOperator(val, col)
+        return op
+
+
 @torch.library.custom_op("porepy_tpu_torch::ell_spmv", mutates_args=())
 def ell_spmv(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` in padded-row form; ``x`` is ``(n_cols,)`` or
-    ``(B, n_cols)``. Padding columns equal ``n_cols``."""
+    ``(B, n_cols)``. Padding columns equal ``n_cols``. The operator that
+    ``torch.func`` transforms see; every other caller uses
+    :class:`EllOperator`."""
     return reference.ell_spmv(val, col, x)
 
 
@@ -174,34 +262,13 @@ def ell_spmv(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Ten
 def _ell_spmv_cuda(val, col, x):
     if col.dtype != torch.int32 or val.dtype != x.dtype:
         raise TypeError("ell_spmv: needs val of x's dtype and int32 col")
-    if val.dim() != 2 or col.shape != val.shape or x.dim() not in (1, 2):
-        raise ValueError("ell_spmv: needs (n, K) val and col, x of shape (m,) or (B, m)")
     _check("ell_spmv", {"val": val, "col": col, "x": x}, x.dtype)
-    n_rows, K = val.shape
-    n_cols = x.shape[-1]
-    batch = x.shape[0] if x.dim() == 2 else 1
-    y = torch.empty(x.shape[:-1] + (n_rows,), dtype=x.dtype, device=x.device)
-    _launch(
-        "ell_spmv", x.dtype,
-        val.data_ptr(), col.data_ptr(), x.data_ptr(), y.data_ptr(),
-        n_rows, K, n_cols, batch,
-    )
-    return y
+    return EllOperator(val, col)(x)
 
 
 @ell_spmv.register_fake
 def _(val, col, x):
     return x.new_empty(x.shape[:-1] + (val.shape[0],))
-
-
-def ell_spmv_direct(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """:func:`ell_spmv` without the dispatcher: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor. For callers that need no autograd or
-    ``torch.func`` support (the assembly's dual-number pass): a custom
-    operator costs ~50 us of host dispatch a call."""
-    if not x.is_cuda:
-        return reference.ell_spmv(val, col, x)
-    return _ell_spmv_cuda(val, col, x)
 
 
 # -- K2 ---------------------------------------------------------------------------
@@ -772,163 +839,55 @@ def _bicgstab_scalars_cuda(partials, st, cont, stage):
             cont.data_ptr(), n, stage)
 
 
-def _arnoldi_shapes(name, V, w, partials, flags, k, H=None):
-    n = w.shape[0]
-    restart = V.shape[0] - 1
-    if V.dim() != 2 or V.shape[1] != n or not 0 <= k < restart:
-        raise ValueError(f"{name}: needs V (restart + 1, n) and 0 <= k < restart")
-    if restart > 30:
-        raise ValueError(f"{name}: restart {restart} above 30")
-    _partials(name, partials, restart + 3, n)
-    if flags.shape != (restart + 1,):
-        raise ValueError(f"{name}: flags must be (restart + 1,)")
-    if H is not None and H.shape != (restart, restart + 1):
-        raise ValueError(f"{name}: H must be (restart, restart + 1)")
-    return n, restart
+def gmres_cycle_grid(n: int) -> int:
+    """Blocks of one :func:`gmres_cycle` launch for ``n`` rows on the
+    current card: the co-resident maximum, at most one per 128-row tile."""
+    grid = _kernel("gmres_cycle_grid", torch.float64)(n, None)
+    if grid < 0:
+        raise RuntimeError(f"gmres_cycle: no cooperative launch (CUDA error {-grid})")
+    return grid
 
 
-@torch.library.custom_op(
-    "porepy_tpu_torch::cgs_project", mutates_args=("w", "partials")
-)
-def cgs_project(
-    av: torch.Tensor, dinv: torch.Tensor, V: torch.Tensor, w: torch.Tensor,
-    partials: torch.Tensor, flags: torch.Tensor, k: int,
+def gmres_cycle(
+    row_ptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
+    b: torch.Tensor, x: torch.Tensor, V: torch.Tensor, H: torch.Tensor, y: torch.Tensor,
+    w: torch.Tensor, partials: torch.Tensor, flags: torch.Tensor, st: torch.Tensor,
+    cont: torch.Tensor, arnoldi: int,
 ) -> None:
-    """Arnoldi step ``k``: ``w = dinv av``, partials of ``V[:k+1] w`` and of
-    ``<w, w>``; nothing after a breakdown (``flags[k]``)."""
-    reference.cgs_project(av, dinv, V, w, partials, flags, k)
-
-
-@cgs_project.register_kernel("cuda")
-def _cgs_project_cuda(av, dinv, V, w, partials, flags, k):
-    n, _ = _arnoldi_shapes("cgs_project", V, w, partials, flags, k)
-    _vectors("cgs_project", n, av=av, dinv=dinv)
-    _check_f64("cgs_project", {"av": av, "dinv": dinv, "V": V, "w": w,
-                               "partials": partials, "flags": flags}, ints=("flags",))
-    _launch("cgs_project", torch.float64, av.data_ptr(), dinv.data_ptr(), V.data_ptr(),
-            w.data_ptr(), partials.data_ptr(), flags.data_ptr(), n, k)
-
-
-@torch.library.custom_op(
-    "porepy_tpu_torch::cgs_update", mutates_args=("w", "partials")
-)
-def cgs_update(
-    V: torch.Tensor, w: torch.Tensor, partials: torch.Tensor, flags: torch.Tensor, k: int
-) -> None:
-    """``w <- w - V[:k+1]^T h`` with ``h`` finished from the partials, and
-    the partials of ``<w, w>``."""
-    reference.cgs_update(V, w, partials, flags, k)
-
-
-@cgs_update.register_kernel("cuda")
-def _cgs_update_cuda(V, w, partials, flags, k):
-    n, _ = _arnoldi_shapes("cgs_update", V, w, partials, flags, k)
-    _check_f64("cgs_update", {"V": V, "w": w, "partials": partials, "flags": flags}, ints=("flags",))
-    _launch("cgs_update", torch.float64, V.data_ptr(), w.data_ptr(), partials.data_ptr(),
-            flags.data_ptr(), n, k)
-
-
-@torch.library.custom_op(
-    "porepy_tpu_torch::cgs_normalize", mutates_args=("V", "H", "flags")
-)
-def cgs_normalize(
-    w: torch.Tensor, V: torch.Tensor, H: torch.Tensor, partials: torch.Tensor,
-    flags: torch.Tensor, k: int,
-) -> None:
-    """``V[k + 1] = w / |w|``, Hessenberg row ``k``, breakdown flag ``k + 1``."""
-    reference.cgs_normalize(w, V, H, partials, flags, k)
-
-
-@cgs_normalize.register_kernel("cuda")
-def _cgs_normalize_cuda(w, V, H, partials, flags, k):
-    n, restart = _arnoldi_shapes("cgs_normalize", V, w, partials, flags, k, H)
-    _check_f64("cgs_normalize", {"w": w, "V": V, "H": H, "partials": partials,
-                                 "flags": flags}, ints=("flags",))
-    _launch("cgs_normalize", torch.float64, w.data_ptr(), V.data_ptr(), H.data_ptr(),
-            partials.data_ptr(), flags.data_ptr(), n, k, restart)
-
-
-@torch.library.custom_op("porepy_tpu_torch::gmres_lstsq", mutates_args=("y",))
-def gmres_lstsq(H: torch.Tensor, st: torch.Tensor, y: torch.Tensor) -> None:
-    """One block: ``y`` from the normal equations ``H H^T y = beta H[:, 0]``
-    (Cholesky), jax's ``_lstsq`` of a GMRES restart."""
-    reference.gmres_lstsq(H, st, y)
-
-
-@gmres_lstsq.register_kernel("cuda")
-def _gmres_lstsq_cuda(H, st, y):
-    restart = H.shape[0]
-    if H.dim() != 2 or H.shape[1] != restart + 1 or y.shape != (restart,) or not 1 <= restart <= 30:
-        raise ValueError("gmres_lstsq: needs H (restart, restart + 1), y (restart,), restart <= 30")
-    if st.shape != (reference.GMRES_SLOTS,):
-        raise ValueError("gmres_lstsq: needs the GMRES state")
-    _check_f64("gmres_lstsq", {"H": H, "st": st, "y": y})
-    _launch("gmres_lstsq", torch.float64, H.data_ptr(), st.data_ptr(), y.data_ptr(), restart)
-
-
-@torch.library.custom_op("porepy_tpu_torch::gmres_correct", mutates_args=("x",))
-def gmres_correct(V: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> None:
-    """``x <- x + V[:restart]^T y``."""
-    reference.gmres_correct(V, y, x)
-
-
-@gmres_correct.register_kernel("cuda")
-def _gmres_correct_cuda(V, y, x):
-    n, restart = x.shape[0], y.shape[0]
-    if V.dim() != 2 or V.shape != (restart + 1, n):
-        raise ValueError("gmres_correct: needs V (restart + 1, n), y (restart,), x (n,)")
-    _check_f64("gmres_correct", {"V": V, "y": y, "x": x})
-    _launch("gmres_correct", torch.float64, V.data_ptr(), y.data_ptr(), x.data_ptr(), n, restart)
-
-
-@torch.library.custom_op(
-    "porepy_tpu_torch::gmres_residual", mutates_args=("w", "partials")
-)
-def gmres_residual(
-    b: torch.Tensor, ax: torch.Tensor, dinv: torch.Tensor, w: torch.Tensor,
-    partials: torch.Tensor,
-) -> None:
-    """``w = dinv (b - ax)``, partials of ``<w, w>`` into row 0."""
-    reference.gmres_residual(b, ax, dinv, w, partials)
-
-
-@gmres_residual.register_kernel("cuda")
-def _gmres_residual_cuda(b, ax, dinv, w, partials):
+    """One GMRES(``restart = H.shape[0]``) restart of ``A x = b`` with ``M =
+    dinv *`` on the CSR matrix ``(row_ptr, cols, vals)``, in place (see
+    :func:`porepy_tpu_torch.kernels.reference.gmres_cycle`); ``arnoldi = 0``
+    starts a solve. On the card one cooperative launch of the K18b kernel,
+    which refuses to run where the card has no cooperative launch."""
+    if not b.is_cuda:
+        reference.gmres_cycle(row_ptr, cols, vals, dinv, b, x, V, H, y, w, partials, flags, st,
+                              cont, arnoldi)
+        return
     n = b.shape[0]
-    _vectors("gmres_residual", n, b=b, ax=ax, dinv=dinv, w=w)
-    _partials("gmres_residual", partials, 1, n)
-    _check_f64("gmres_residual", {"b": b, "ax": ax, "dinv": dinv, "w": w,
-                                  "partials": partials})
-    _launch("gmres_residual", torch.float64, b.data_ptr(), ax.data_ptr(), dinv.data_ptr(),
-            w.data_ptr(), partials.data_ptr(), n)
-
-
-@torch.library.custom_op(
-    "porepy_tpu_torch::gmres_restart",
-    mutates_args=("V", "H", "flags", "st", "cont"),
-)
-def gmres_restart(
-    w: torch.Tensor, V: torch.Tensor, H: torch.Tensor, partials: torch.Tensor,
-    flags: torch.Tensor, st: torch.Tensor, cont: torch.Tensor,
-) -> None:
-    """Start of a restart: ``V[0] = w / |w|``, the residual norm and the
-    continue flag ``|w| > atol``, ``H = eye``, breakdown flags cleared."""
-    reference.gmres_restart(w, V, H, partials, flags, st, cont)
-
-
-@gmres_restart.register_kernel("cuda")
-def _gmres_restart_cuda(w, V, H, partials, flags, st, cont):
-    n = w.shape[0]
     restart = H.shape[0]
-    if V.shape != (restart + 1, n) or H.shape != (restart, restart + 1) or not 1 <= restart <= 30:
-        raise ValueError("gmres_restart: needs V (restart + 1, n), H (restart, restart + 1)")
+    if not 1 <= restart <= 30:
+        raise ValueError(f"gmres_cycle: restart {restart} outside 1..30")
+    if row_ptr.shape != (n + 1,) or cols.dim() != 1 or vals.shape != cols.shape:
+        raise ValueError("gmres_cycle: needs a CSR matrix of n rows")
+    if V.shape != (restart + 1, n) or H.shape != (restart, restart + 1) or y.shape != (restart,):
+        raise ValueError("gmres_cycle: needs V (restart + 1, n), H (restart, restart + 1), y (restart,)")
+    _vectors("gmres_cycle", n, dinv=dinv, x=x, w=w)
+    _partials("gmres_cycle", partials, restart + 3, n)
     if flags.shape != (restart + 1,) or st.shape != (reference.GMRES_SLOTS,) or cont.shape != (1,):
-        raise ValueError("gmres_restart: needs flags (restart + 1,), the state, a (1,) flag")
-    _partials("gmres_restart", partials, 1, n)
-    _check_f64("gmres_restart", {"w": w, "V": V, "H": H, "partials": partials,
-                                 "flags": flags, "st": st, "cont": cont}, ints=("flags", "cont"))
-    _launch("gmres_restart", torch.float64, w.data_ptr(), V.data_ptr(), H.data_ptr(),
-            partials.data_ptr(), flags.data_ptr(), st.data_ptr(), cont.data_ptr(), n, restart)
+        raise ValueError("gmres_cycle: needs flags (restart + 1,), the state, a (1,) flag")
+    _check_f64(
+        "gmres_cycle",
+        {"row_ptr": row_ptr, "cols": cols, "vals": vals, "dinv": dinv, "b": b, "x": x, "V": V,
+         "H": H, "y": y, "w": w, "partials": partials, "flags": flags, "st": st, "cont": cont},
+        ints=("row_ptr", "cols", "flags", "cont"),
+    )
+    _launch(
+        "gmres_cycle", torch.float64,
+        row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), dinv.data_ptr(), b.data_ptr(),
+        x.data_ptr(), V.data_ptr(), H.data_ptr(), y.data_ptr(), w.data_ptr(),
+        partials.data_ptr(), flags.data_ptr(), st.data_ptr(), cont.data_ptr(), n, restart,
+        int(bool(arnoldi)),
+    )
 
 
 # -- K17 --------------------------------------------------------------------------

@@ -8,6 +8,8 @@ tests and ``chip_smoke.py`` hold each kernel against its plain version.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = [
@@ -24,6 +26,8 @@ __all__ = [
     "region_solve_contract",
     "KRYLOV_BLOCK",
     "block_partials",
+    "finish",
+    "ell_spmv_ordered",
     "bicgstab_p",
     "krylov_dots",
     "bicgstab_s",
@@ -36,6 +40,8 @@ __all__ = [
     "gmres_correct",
     "gmres_residual",
     "gmres_restart",
+    "csr_ell",
+    "gmres_cycle",
     "rachford_rice",
     "interp_lookup",
     "block_inverse",
@@ -61,13 +67,20 @@ __all__ = [
 ]
 
 
-def ell_spmv(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``y = A x`` for A in padded-row (ELL) form: ``val``/``col`` of shape
-    ``(n_rows, K)``, padding columns equal to ``x.shape[-1]`` read zero.
-    ``x`` is ``(n_cols,)`` or ``(B, n_cols)``."""
+def ell_spmv(
+    val: torch.Tensor, col: torch.Tensor, x: torch.Tensor, c=None, sign: int = 1
+) -> torch.Tensor:
+    """``y = c + sign * (A x)`` for A in padded-row (ELL) form: ``val``/``col``
+    of shape ``(n_rows, K)``, padding columns equal to ``x.shape[-1]`` read
+    zero. ``x`` is ``(n_cols,)`` or ``(B, n_cols)``; ``c`` (optional) has the
+    result's shape, ``sign`` is 1 or -1. ``A x`` is rounded to the type
+    before ``c`` is added: ``c - A x`` and ``c + A x`` as two operations."""
     pad = x.new_zeros(x.shape[:-1] + (1,))
     x_p = torch.cat([x, pad], dim=-1)
-    return (val * x_p[..., col]).sum(dim=-1)
+    y = (val * x_p[..., col]).sum(dim=-1)
+    if sign < 0:
+        y = -y
+    return y if c is None else c + y
 
 
 def ell_jacobi_sweep(
@@ -303,11 +316,59 @@ GMRES_SLOTS = 2
 _EPS = torch.finfo(torch.float64).eps
 
 
+def _tree(p: torch.Tensor) -> torch.Tensor:
+    """Sums over the last axis (``KRYLOV_BLOCK`` wide) in the kernels'
+    ``block_sum`` tree: entry ``t`` adds entry ``t + s`` for ``s = 64, 32,
+    ..., 1``."""
+    s = KRYLOV_BLOCK // 2
+    while s:
+        p = p[..., :s] + p[..., s : 2 * s]
+        s //= 2
+    return p[..., 0]
+
+
 def block_partials(v: torch.Tensor) -> torch.Tensor:
     """The per-block partial sums of ``v`` (length ``n``) in the kernels'
-    blocking: ``ceil(n / KRYLOV_BLOCK)`` sums of consecutive entries."""
-    nb = -(-v.shape[0] // KRYLOV_BLOCK)
-    return torch.nn.functional.pad(v, (0, nb * KRYLOV_BLOCK - v.shape[0])).view(nb, KRYLOV_BLOCK).sum(1)
+    blocking and order: ``ceil(n / KRYLOV_BLOCK)`` sums of consecutive
+    entries (rows ``(m, n)`` give ``(m, nb)``)."""
+    n = v.shape[-1]
+    nb = -(-n // KRYLOV_BLOCK)
+    v = torch.nn.functional.pad(v, (0, nb * KRYLOV_BLOCK - n))
+    return _tree(v.view(v.shape[:-1] + (nb, KRYLOV_BLOCK)))
+
+
+def finish(partials: torch.Tensor) -> torch.Tensor:
+    """The sums of the rows of ``partials`` ``(m, nb)`` in the kernels'
+    ``row_sum`` order: thread ``t`` adds partials ``t, t + 128, ...`` from
+    0.0, then the ``block_sum`` tree."""
+    m, nb = partials.shape
+    acc = partials.new_zeros((m, KRYLOV_BLOCK))
+    for t0 in range(0, nb, KRYLOV_BLOCK):
+        w = min(KRYLOV_BLOCK, nb - t0)
+        acc[:, :w] = acc[:, :w] + partials[:, t0 : t0 + w]
+    return _tree(acc)
+
+
+def _seq_sum(terms) -> torch.Tensor:
+    """``((0 + t_0) + t_1) + ...``: a kernel's running sum, one rounding per
+    term."""
+    acc = None
+    for t in terms:
+        acc = (torch.zeros_like(t) if acc is None else acc) + t
+    return acc
+
+
+def ell_spmv_ordered(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A x`` for a 1-d ``x`` as the K18b kernel forms it: each row's
+    products rounded, then added from 0.0 in slot order, padding slots
+    skipped."""
+    n_cols = x.shape[0]
+    x_p = torch.cat([x, x.new_zeros(1)])
+    acc = x.new_zeros(val.shape[0])
+    for k in range(val.shape[1]):
+        c = col[:, k]
+        acc = torch.where(c < n_cols, acc + val[:, k] * x_p[c], acc)
+    return acc
 
 
 def bicgstab_p(r, q, dinv, st, p, phat) -> None:
@@ -349,7 +410,7 @@ def bicgstab_xr(x, r, phat, shat, s, t, rhat, st, partials) -> None:
 def bicgstab_scalars(partials, st, cont, stage: int) -> None:
     """In place: finish the partial rows of ``stage`` and run that stage of
     the BiCGStab scalar recurrence on ``st`` and the continue flag."""
-    sums = partials.sum(1)
+    sums = finish(partials)
     if stage == STAGE_INIT:
         rr = sums[0]
         st[BICG_RHO_NEW] = rr
@@ -372,6 +433,12 @@ def bicgstab_scalars(partials, st, cont, stage: int) -> None:
         st[BICG_BETA] = hr / rho * alpha / omega
 
 
+# The GMRES passes below round as the K18b kernel does, operation by
+# operation and sum by sum (products rounded before they are added, no
+# fused multiply-add), so that the kernel equals their composition to the
+# bit, up to the sign of a zero.
+
+
 def cgs_project(av, dinv, V, w, partials, flags, k: int) -> None:
     """Arnoldi step ``k``, first pass: ``w = dinv av``; partials of
     ``<V[j], w>`` (rows ``j <= k``) and of ``<w, w>`` (row ``k + 1``).
@@ -379,7 +446,7 @@ def cgs_project(av, dinv, V, w, partials, flags, k: int) -> None:
     if bool(flags[k]):
         return
     w.copy_(dinv * av)
-    partials[: k + 1] = torch.stack([block_partials(V[j] * w) for j in range(k + 1)])
+    partials[: k + 1] = block_partials(V[: k + 1] * w)
     partials[k + 1] = block_partials(w * w)
 
 
@@ -388,21 +455,21 @@ def cgs_update(V, w, partials, flags, k: int) -> None:
     partials of ``<w, w>`` into row ``k + 2``."""
     if bool(flags[k]):
         return
-    h = partials[: k + 1].sum(1)
-    w.copy_(w - V[: k + 1].T @ h)
+    h = finish(partials[: k + 1])
+    w.copy_(w - _seq_sum(V[j] * h[j] for j in range(k + 1)))
     partials[k + 2] = block_partials(w * w)
 
 
 def cgs_normalize(w, V, H, partials, flags, k: int) -> None:
     """``V[k + 1] = w / |w|`` (0 at or below ``eps |w_0|``), Hessenberg row
-    ``k`` and the breakdown flag ``flags[k + 1]``, as jax's
+    ``k`` and the breakdown flag ``flags[k + 1]``, as the iteration's
     ``_kth_arnoldi_iteration`` with ``_safe_normalize``."""
     restart = H.shape[0]
     if bool(flags[k]):
         V[k + 1] = 0.0
         flags[k + 1] = 1
         return
-    sums = partials[: k + 3].sum(1)
+    sums = finish(partials[: k + 3])
     norm0 = torch.sqrt(sums[k + 1])
     norm0 = torch.where(norm0 > _EPS, norm0, torch.zeros_like(norm0))
     norm = torch.sqrt(sums[k + 2])
@@ -415,18 +482,59 @@ def cgs_normalize(w, V, H, partials, flags, k: int) -> None:
     flags[k + 1] = int(not use or bool(norm == 0))
 
 
+def _div(a: float, b: float) -> float:
+    """``a / b`` with IEEE results where Python raises."""
+    if b != 0.0:
+        return a / b
+    if a != a or a == 0.0:
+        return math.nan
+    return math.copysign(math.inf, a) * math.copysign(1.0, b)
+
+
+def _sqrt(a: float) -> float:
+    return math.sqrt(a) if a >= 0.0 else math.nan
+
+
 def gmres_lstsq(H, st, y) -> None:
-    """``y`` of jax's ``_lstsq(H^T, beta e_0)``: the normal equations
-    ``H H^T y = beta H[:, 0]`` by Cholesky."""
-    a2 = H @ H.T
-    b2 = H[:, 0] * st[GMRES_RESNORM]
-    L = torch.linalg.cholesky(a2)
-    y.copy_(torch.cholesky_solve(b2[:, None], L)[:, 0])
+    """``y`` of ``_lstsq(H^T, beta e_0)``: the normal equations ``H H^T y =
+    beta H[:, 0]`` by Cholesky, column by column, then the two triangular
+    solves, each entry in the kernel's order (IEEE doubles, one rounding
+    per operation): ``L u = z`` subtracts its terms by ascending column,
+    ``L^T y = u`` by descending row, as the kernel's column sweeps do."""
+    R = H.shape[0]
+    h = H.tolist()
+    beta = float(st[GMRES_RESNORM])
+    a = [[0.0] * R for _ in range(R)]
+    for i in range(R):
+        for j in range(R):
+            acc = 0.0
+            for c in range(R + 1):
+                acc = acc + h[i][c] * h[j][c]
+            a[i][j] = acc
+    z = [h[i][0] * beta for i in range(R)]
+    for c in range(R):
+        a[c][c] = _sqrt(a[c][c])
+        for i in range(c + 1, R):
+            a[i][c] = _div(a[i][c], a[c][c])
+        for i in range(c + 1, R):
+            for j in range(c + 1, i + 1):
+                a[i][j] = a[i][j] - a[i][c] * a[j][c]
+    for i in range(R):
+        acc = z[i]
+        for m in range(i):
+            acc = acc - a[i][m] * z[m]
+        z[i] = _div(acc, a[i][i])
+    for i in range(R - 1, -1, -1):
+        acc = z[i]
+        for m in range(R - 1, i, -1):
+            acc = acc - a[m][i] * z[m]
+        z[i] = _div(acc, a[i][i])
+    y.copy_(torch.tensor(z, dtype=y.dtype))
 
 
 def gmres_correct(V, y, x) -> None:
     """``x <- x + V[:restart]^T y``."""
-    x.copy_(x + V[: y.shape[0]].T @ y)
+    x.copy_(x + _seq_sum(V[j] * y[j] for j in range(y.shape[0])))
 
 
 def gmres_residual(b, ax, dinv, w, partials) -> None:
@@ -438,13 +546,51 @@ def gmres_residual(b, ax, dinv, w, partials) -> None:
 def gmres_restart(w, V, H, partials, flags, st, cont) -> None:
     """Start of a restart: ``V[0] = w / |w|`` (0 at or below eps), the
     residual norm, ``cont = |w| > atol``, ``H = eye``, flags cleared."""
-    norm = torch.sqrt(partials[0].sum())
+    norm = torch.sqrt(finish(partials[:1])[0])
     use = bool(norm > _EPS)
     V[0] = w / norm if use else 0.0
     H.copy_(torch.eye(H.shape[0], H.shape[1], dtype=H.dtype, device=H.device))
     flags.zero_()
     st[GMRES_RESNORM] = norm if use else 0.0
     cont.fill_(int(bool(st[GMRES_RESNORM] > st[GMRES_ATOL])))
+
+
+def csr_ell(row_ptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, n_cols: int):
+    """The padded-row (ELL) form ``(val, col)`` of a CSR matrix (int32
+    ``row_ptr`` and ``cols``), each row's entries in their CSR order,
+    padding columns ``n_cols``: :func:`ell_spmv` of it sums each row in
+    that order."""
+    n = row_ptr.shape[0] - 1
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    K = max(int(counts.max()) if n else 1, 1)
+    row_of = torch.repeat_interleave(torch.arange(n, device=vals.device), counts)
+    pos = torch.arange(vals.shape[0], device=vals.device) - row_ptr[:-1].long()[row_of]
+    val = vals.new_zeros((n, K))
+    col = torch.full((n, K), n_cols, dtype=torch.int32, device=vals.device)
+    val[row_of, pos] = vals
+    col[row_of, pos] = cols
+    return val, col
+
+
+def gmres_cycle(row_ptr, cols, vals, dinv, b, x, V, H, y, w, partials, flags, st, cont,
+                arnoldi: int) -> None:
+    """One restart of GMRES(``restart = H.shape[0]``) with ``M = dinv *`` on
+    the CSR matrix ``(row_ptr, cols, vals)``, in place: with ``arnoldi`` the
+    ``restart`` Arnoldi steps from ``V[0]`` (:func:`cgs_project`,
+    :func:`cgs_update`, :func:`cgs_normalize`), :func:`gmres_lstsq` and
+    :func:`gmres_correct`; then, with or without them, the residual ``w =
+    dinv (b - A x)`` and :func:`gmres_restart` (``V[0]``, the residual norm,
+    ``cont``). ``arnoldi = 0`` starts a solve from ``x``."""
+    val, col = csr_ell(row_ptr, cols, vals, x.shape[0])
+    if arnoldi:
+        for k in range(H.shape[0]):
+            cgs_project(ell_spmv_ordered(val, col, V[k]), dinv, V, w, partials, flags, k)
+            cgs_update(V, w, partials, flags, k)
+            cgs_normalize(w, V, H, partials, flags, k)
+        gmres_lstsq(H, st, y)
+        gmres_correct(V, y, x)
+    gmres_residual(b, ell_spmv_ordered(val, col, x), dinv, w, partials)
+    gmres_restart(w, V, H, partials, flags, st, cont)
 
 
 # -- K17 --------------------------------------------------------------------------

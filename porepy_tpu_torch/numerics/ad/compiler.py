@@ -441,13 +441,22 @@ class _EllMat:
     ``col`` ``(n, K)`` int32 with padding column ``n_cols``. The matvec is
     the K1 kernel. ``val``/``col`` are device constants or env tensors."""
 
-    __slots__ = ("val", "col", "shape", "ndim")
+    __slots__ = ("val", "col", "shape", "ndim", "_op")
 
     def __init__(self, val, col, shape) -> None:
         self.val = val
         self.col = col
         self.shape = shape
         self.ndim = 2
+        self._op = None
+
+    @property
+    def op(self) -> "kernels.EllOperator":
+        """The K1 launcher of this matrix (made at first use), for callers
+        outside ``torch.func``: the dual-number pass."""
+        if self._op is None:
+            self._op = kernels.EllOperator(self.val, self.col)
+        return self._op
 
     @classmethod
     def from_scipy(cls, mat: sps.spmatrix, device) -> "_EllMat":

@@ -19,8 +19,8 @@ for a constant. At every assembly the steps run in order:
   several consumers is materialized, as is a subtree that outgrows the
   program's registers);
 - a constant sparse matrix is applied to value and tangent rows by the K1
-  kernel (:func:`~porepy_tpu_torch.kernels.ell_spmv_direct`, the launch
-  without the dispatcher) in one stacked launch;
+  kernel (the matrix's :class:`~porepy_tpu_torch.kernels.EllOperator`, the
+  launch without the dispatcher) in one stacked launch;
 - concatenations go through :func:`~porepy_tpu_torch.kernels.dual_gather_copy`;
 - an ``evaluate`` node runs the *dual rule* of its function (the function's
   ``dual_rule`` attribute, set where the function is built): either an
@@ -577,16 +577,14 @@ def _matmul(run: _Run, left, right: Dual) -> Dual:
         if tan is not None:
             tan = tan.reshape(-1, 1).expand(-1, n_cols).contiguous()
     if isinstance(mat, _EllMat):
+        op = mat.op
         if tan is None:
-            return Dual(kernels.ell_spmv_direct(mat.val, mat.col, val.contiguous()))
+            return Dual(op(val.contiguous()))
         buf = Dual(val, tan).stacked()
         if buf is not None:
-            out = kernels.ell_spmv_direct(mat.val, mat.col, buf)
+            out = op(buf)
             return Dual(out[0], out[1:])
-        return Dual(
-            kernels.ell_spmv_direct(mat.val, mat.col, val.contiguous()),
-            kernels.ell_spmv_direct(mat.val, mat.col, tan.contiguous()),
-        )
+        return Dual(op(val.contiguous()), op(tan.contiguous()))
     if isinstance(mat, _CsrMat):
         out = torch.mv(mat.mat, val)
         return Dual(out, None if tan is None else torch.matmul(mat.mat, tan.T).T)

@@ -14,7 +14,9 @@ This module supplies the V-cycle:
 * :class:`Hierarchy` holds the device form: every level's operator and
   transfer in padded-row (ELL) layout — a dense ``(n, K)`` value tensor and
   an ``(n, K)`` int32 column tensor — applied by the hand-written ELL
-  kernels (K1 :func:`~porepy_tpu_torch.kernels.ell_spmv`, K2
+  kernels (K1 through its launchers,
+  :class:`~porepy_tpu_torch.kernels.EllOperator`, made when the state is
+  built, with the residual and the correction in its epilogue; K2
   :func:`~porepy_tpu_torch.kernels.ell_jacobi_sweep`).
 * :meth:`Hierarchy.apply` is a function of ``(state, r)`` where ``state``
   is the dict of level tensors; value updates
@@ -55,11 +57,6 @@ def _ell_arrays(mat: sps.spmatrix, dtype) -> tuple[np.ndarray, np.ndarray]:
     val[row_of, pos] = csr.data
     col[row_of, pos] = csr.indices
     return val, col
-
-
-def ell_matvec(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` in ELL form (padding columns read zero): the K1 kernel."""
-    return kernels.ell_spmv(val, col, x.contiguous())
 
 
 def _aggregate(S: sps.csr_matrix) -> tuple[np.ndarray, int]:
@@ -285,7 +282,11 @@ class Hierarchy:
         return torch.tensor(np.asarray(a), device=self.device)
 
     def _device_state(self, levels_host, coarse_inv) -> dict:
+        """The level tensors, and their K1 launchers in ``self._ops`` (made
+        anew, so that launchers of an earlier state do not hold its
+        tensors)."""
         np_dtype = torch.empty(0, dtype=self.dtype).numpy().dtype
+        self._ops = kernels.EllOperators()
         state = {
             "levels": [],
             "coarse_inv": self._tensor(coarse_inv.astype(np_dtype)),
@@ -305,6 +306,9 @@ class Hierarchy:
                     "sinv": self._tensor(_l1_smoother(lv["A"]).astype(np_dtype)),
                 }
             )
+            level = state["levels"][-1]
+            for m in "APR":
+                self._ops(level[m + "_val"], level[m + "_col"])
         return state
 
     def update_values(self, A_new: sps.csr_matrix) -> None:
@@ -329,7 +333,7 @@ class Hierarchy:
         """V(nu, nu) cycle: a function of the state dict and the residual
         (K3, composed from the K1/K2 kernels)."""
         out_dtype = r.dtype
-        y = self._cycle(state, 0, r.to(self.dtype))
+        y = self._cycle(state, 0, r.to(self.dtype).contiguous())
         return y.to(out_dtype)
 
     def _cycle(self, state: dict, l: int, r: torch.Tensor) -> torch.Tensor:
@@ -341,8 +345,10 @@ class Hierarchy:
         y = sinv * r
         for _ in range(self.nu - 1):
             y = kernels.ell_jacobi_sweep(A_val, A_col, sinv, r, y)
-        r_c = ell_matvec(lv["R_val"], lv["R_col"], r - ell_matvec(A_val, A_col, y))
-        y = y + ell_matvec(lv["P_val"], lv["P_col"], self._cycle(state, l + 1, r_c))
+        ops = self._ops
+        # r - A y and y + P z in K1's epilogue: one launch each.
+        r_c = ops(lv["R_val"], lv["R_col"])(ops(A_val, A_col)(y, c=r, sign=-1))
+        y = ops(lv["P_val"], lv["P_col"])(self._cycle(state, l + 1, r_c).contiguous(), c=y)
         for _ in range(self.nu):
             y = kernels.ell_jacobi_sweep(A_val, A_col, sinv, r, y)
         return y

@@ -8,8 +8,9 @@ statically indexed global sparse operator; this module solves with
 right-preconditioned FGMRES where
 
 - the matvec gathers the nonzero data into a padded-row (ELL) value tensor
-  once per solve, and every Krylov matvec is the hand-written K1 kernel
-  (:func:`~porepy_tpu_torch.kernels.ell_spmv`),
+  once per solve, and every Krylov matvec is the hand-written K1 kernel,
+  launched by an :class:`~porepy_tpu_torch.kernels.EllOperator` made for
+  the solve (no dispatcher),
 - the preconditioner is a frozen block operator built on the host from a
   recent Jacobian: smoothed-aggregation AMG V-cycles per elliptic field
   block (:mod:`porepy_tpu_torch.numerics.linalg.amg`, on the K1/K2
@@ -658,6 +659,14 @@ class _BlockPrecondBuilder:
             if mat.nnz:
                 state["cpl"][key] = self._ell(mat)
 
+        # K1 launchers of the eliminations and couplings, made once here;
+        # apply(state, r) finds them by tensor (a state handed in from
+        # elsewhere gets its own on first use).
+        ops = kernels.EllOperators()
+        for dv, dc in state["dinv"].values():
+            ops(dv, dc)
+        for cv, cc in state["cpl"].values():
+            ops(cv, cc)
         sizes = self._sizes
         methods = list(self.methods)
         jac_sweeps = dict(self._jac_sweeps)
@@ -671,14 +680,14 @@ class _BlockPrecondBuilder:
             # Forward elimination of the (block-)diagonal blocks.
             r_red = {}
             for j in elim:
-                dv, dc = state["dinv"][j]
-                y[j] = amg.ell_matvec(dv, dc, parts[j])
+                y[j] = ops(*state["dinv"][j])(parts[j])
+            # r_i - C y_j in K1's epilogue: one launch each.
             for i in sweep:
                 ri = parts[i]
                 for j in elim:
                     cpl = state["cpl"].get((i, j))
                     if cpl is not None:
-                        ri = ri - amg.ell_matvec(cpl[0], cpl[1], y[j])
+                        ri = ops(*cpl)(y[j], c=ri, sign=-1)
                 r_red[i] = ri
             # Lower block Gauss-Seidel over the sweep blocks.
             for pos, i in enumerate(sweep):
@@ -686,7 +695,7 @@ class _BlockPrecondBuilder:
                 for k in sweep[:pos]:
                     cpl = state["cpl"].get((i, k))
                     if cpl is not None:
-                        ri = ri - amg.ell_matvec(cpl[0], cpl[1], y[k])
+                        ri = ops(*cpl)(y[k], c=ri, sign=-1)
                 if i in dense_set:
                     y[i] = kernels.dense_block_apply(state["dense"][i], ri.contiguous())
                 elif methods[i] == "amg":
@@ -703,9 +712,8 @@ class _BlockPrecondBuilder:
                 for i in sweep:
                     cpl = state["cpl"].get((j, i))
                     if cpl is not None:
-                        rj = rj - amg.ell_matvec(cpl[0], cpl[1], y[i])
-                dv, dc = state["dinv"][j]
-                y[j] = amg.ell_matvec(dv, dc, rj)
+                        rj = ops(*cpl)(y[i], c=rj, sign=-1)
+                y[j] = ops(*state["dinv"][j])(rj)
             # Scatter-free reassembly: one gather by the precomputed inverse
             # permutation of the concatenated block order; raw correction
             # out -> equilibrated space.
@@ -908,12 +916,9 @@ class DeviceLinearSolver:
         val32 = val_eq.to(torch.float32)
 
         if shard is None:
-
-            def mv_eq(y):
-                return kernels.ell_spmv(val_eq, ell_col, y)
-
-            def mv32(y):
-                return kernels.ell_spmv(val32, ell_col, y)
+            # This solve's two matrices, each with its K1 launcher.
+            mv_eq = kernels.EllOperator(val_eq, ell_col)
+            mv32 = kernels.EllOperator(val32, ell_col)
 
             def M(r):
                 return self._m_apply(m_state, r)

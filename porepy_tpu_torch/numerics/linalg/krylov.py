@@ -12,9 +12,10 @@ plain PyTorch. The structured and unstructured flow steps
 :func:`solve_sparse` (K18, behind the ``jax_bicgstab``/``jax_gmres``
 linear-solver options) solves an assembled scipy matrix with the same two
 iterations and a Jacobi preconditioner on the device: the matrix goes over
-once per solve in K1's ELL layout, and the vector work between the matvecs
-runs in the hand-written K18 kernels (``kernels/csrc/krylov.cu``; their
-plain versions on the CPU). A solve that misses its tolerance on the host
+once per solve. BiCGStab's matvecs are K1 launches on its ELL layout and
+the vector work between them runs in the K18a kernels; each GMRES(30)
+restart is one cooperative K18b kernel on the CSR matrix, matvecs included
+(``kernels/csrc/krylov.cu``; their plain versions on the CPU). A solve that misses its tolerance on the host
 check falls back to ``spsolve`` and counts in :data:`FALLBACK_COUNTER`.
 """
 
@@ -34,7 +35,7 @@ from porepy_tpu_torch.utils import device_policy
 
 __all__ = [
     "bicgstab", "gmres", "solve_sparse", "jacobi_preconditioner", "FALLBACK_COUNTER",
-    "LAST_SOLVE",
+    "LAST_SOLVE", "csr_arrays", "gmres_state",
 ]
 
 logger = logging.getLogger(__name__)
@@ -235,40 +236,52 @@ def _bicgstab_fused(matvec, b: torch.Tensor, dinv: torch.Tensor, atol2: float, m
     return x, k
 
 
-def _gmres_fused(matvec, b: torch.Tensor, dinv: torch.Tensor, atol: float, maxiter: int,
-                 restart: int, run=_op):
-    """:func:`gmres` with ``M = dinv *``, the Arnoldi and restart work in the
-    K18b kernels; a breakdown is handled on the device, and the host reads
-    the continue flag once per restart. ``run`` as for
-    :func:`_bicgstab_fused`. Returns ``(x, arnoldi_steps)``."""
-    n = b.shape[0]
-    restart = min(restart, n)
-    f64 = dict(dtype=torch.float64, device=b.device)
+def gmres_state(n: int, restart: int, atol: float, device) -> list:
+    """The arrays a GMRES(``restart``) solve of ``n`` unknowns carries from
+    one ``gmres_cycle`` to the next, after the matrix, ``dinv`` and ``b``:
+    ``[x, V, H, y, w, partials, flags, st, cont]``, ``x = 0`` and the
+    tolerance ``atol`` in ``st``."""
+    f64 = dict(dtype=torch.float64, device=device)
     nb = -(-n // _ref.KRYLOV_BLOCK)
-    V = torch.zeros(restart + 1, n, **f64)
-    H = torch.empty(restart, restart + 1, **f64)
-    y = torch.empty(restart, **f64)
-    w = torch.empty(n, **f64)
-    partials = torch.zeros(restart + 3, nb, **f64)
-    flags = torch.zeros(restart + 1, dtype=torch.int32, device=b.device)
     st = torch.zeros(_ref.GMRES_SLOTS, **f64)
     st[_ref.GMRES_ATOL] = atol
-    cont = torch.zeros(1, dtype=torch.int32, device=b.device)
-    x = torch.zeros(n, **f64)
-    run("gmres_residual", b, matvec(x), dinv, w, partials)
-    run("gmres_restart", w, V, H, partials, flags, st, cont)
+    return [
+        torch.zeros(n, **f64), torch.zeros(restart + 1, n, **f64),
+        torch.zeros(restart, restart + 1, **f64), torch.zeros(restart, **f64),
+        torch.zeros(n, **f64), torch.zeros(restart + 3, nb, **f64),
+        torch.zeros(restart + 1, dtype=torch.int32, device=device), st,
+        torch.zeros(1, dtype=torch.int32, device=device),
+    ]
+
+
+def _gmres_fused(csr, b: torch.Tensor, dinv: torch.Tensor, atol: float, maxiter: int,
+                 restart: int, run=_op):
+    """:func:`gmres` with ``M = dinv *`` on the CSR matrix ``csr = (row_ptr,
+    cols, vals)`` (int32, int32, float64), each restart one K18b operator
+    (``gmres_cycle``, its matvecs inside it); a breakdown is handled on the
+    device, and the host reads the continue flag once per restart. ``run``
+    as for :func:`_bicgstab_fused`. Returns ``(x, arnoldi_steps)``."""
+    n = b.shape[0]
+    restart = min(restart, n)
+    state = gmres_state(n, restart, atol, b.device)
+    run("gmres_cycle", *csr, dinv, b, *state, 0)
     k = 0
-    while k < maxiter and bool(cont):
-        for j in range(restart):
-            run("cgs_project", matvec(V[j]), dinv, V, w, partials, flags, j)
-            run("cgs_update", V, w, partials, flags, j)
-            run("cgs_normalize", w, V, H, partials, flags, j)
-        run("gmres_lstsq", H, st, y)
-        run("gmres_correct", V, y, x)
-        run("gmres_residual", b, matvec(x), dinv, w, partials)
-        run("gmres_restart", w, V, H, partials, flags, st, cont)
+    while k < maxiter and bool(state[-1]):
+        run("gmres_cycle", *csr, dinv, b, *state, 1)
         k += 1
-    return x, k * restart
+    return state[0], k * restart
+
+
+def csr_arrays(A: sps.spmatrix, device) -> tuple:
+    """``(row_ptr, cols, vals)`` of ``A`` on ``device``: int32, int32,
+    float64, each row's columns in increasing order."""
+    A = sps.csr_matrix(A, copy=True)
+    A.sort_indices()
+    return (
+        torch.tensor(A.indptr.astype(np.int32), device=device),
+        torch.tensor(A.indices.astype(np.int32), device=device),
+        torch.tensor(A.data.astype(np.float64), device=device),
+    )
 
 
 def solve_sparse(
@@ -280,8 +293,9 @@ def solve_sparse(
     device=None,
 ) -> np.ndarray:
     """Solve ``A x = b`` with Jacobi-preconditioned GMRES(30) (``method
-    "gmres"``) or BiCGStab (any other method) on ``device`` (default: the
-    card); falls back to host ``spsolve``, and counts it in
+    "gmres"``: the matrix goes over in CSR form, each restart one K18b
+    launch) or BiCGStab (any other method: K1's ELL layout, K18a) on
+    ``device`` (default: the card); falls back to host ``spsolve``, and counts it in
     :data:`FALLBACK_COUNTER`, when ``|b - A x| > max(tol max(|b|, 1) 1e3,
     1e-8)`` on the host. ``maxiter`` (default ``max(200, 4 n)``) counts
     BiCGStab iterations or GMRES restarts, as in jax."""
@@ -292,19 +306,16 @@ def solve_sparse(
     from porepy_tpu_torch.numerics.ad.compiler import _device_const_matrix, _EllMat
 
     dev = device_policy.resolve(device)
-    mat = _device_const_matrix(A, dev)
-    if isinstance(mat, _EllMat):
-        def matvec(v):
-            return kernels.ell_spmv(mat.val, mat.col, v)
-    else:
-        matvec = mat.matvec
     dinv = torch.tensor(_inverse_diagonal(A), dtype=torch.float64, device=dev)
     b = np.asarray(b, dtype=np.float64)
     b_dev = torch.tensor(b, dtype=torch.float64, device=dev)
     b_dot = float(b @ b)
     if method == "gmres":
-        x, iters = _gmres_fused(matvec, b_dev, dinv, tol * np.sqrt(b_dot), maxiter, 30)
+        csr = csr_arrays(A, dev)
+        x, iters = _gmres_fused(csr, b_dev, dinv, tol * np.sqrt(b_dot), maxiter, 30)
     else:
+        mat = _device_const_matrix(A, dev)
+        matvec = kernels.EllOperator(mat.val, mat.col) if isinstance(mat, _EllMat) else mat.matvec
         x, iters = _bicgstab_fused(matvec, b_dev, dinv, tol**2 * b_dot, maxiter)
     LAST_SOLVE.update(method=method, iterations=iters)
     x_np = x.cpu().numpy()

@@ -145,3 +145,48 @@ def test_dense_preconditioner_builds_and_reports(solvers):
     assert np.linalg.norm(A @ x - b) <= 1e-8 * np.linalg.norm(b)
     assert solver.last_stats["dense"] is True
     assert solver._builder._block_dense == {0: True}
+
+
+def _two_operation_launchers(monkeypatch):
+    """Route every K1 launcher through the product and a separate torch
+    subtraction or addition: the composition the epilogue replaced."""
+    from porepy_tpu_torch.kernels import ops, reference
+
+    def two_ops(self, x, c=None, sign=1):
+        ax = reference.ell_spmv(self.val, self.col, x)
+        if c is None:
+            return ax if sign > 0 else -ax
+        return c - ax if sign < 0 else c + ax
+
+    monkeypatch.setattr(ops.EllOperator, "__call__", two_ops)
+
+
+@pytest.mark.parametrize("state", ["own", "jax"])
+def test_amg_apply_through_launchers_equals_two_operation_form(solvers, monkeypatch, state):
+    """The V-cycle (K3) with ``r - A y`` and ``y + P z`` in K1's epilogue
+    equals, to the bit, the same cycle with the product and the torch
+    operation apart; from the port's own state and from the jax package's
+    state handed in (md at 1/32, the smallest md case with a coarse level)."""
+    s_t = solvers["torch"]
+    (i,) = s_t._hierarchies
+    hier = s_t._hierarchies[i]
+    st = hier.state if state == "own" else solvers["m_state_t"]["amg"][i]
+    r = torch.tensor(np.random.default_rng(3).standard_normal(hier.level_sizes[0]).astype(np.float32))
+    fused = hier.apply(st, r)
+    _two_operation_launchers(monkeypatch)
+    assert torch.equal(fused, hier.apply(st, r))
+
+
+@pytest.mark.parametrize("state", ["own", "jax"])
+def test_block_preconditioner_through_launchers_equals_two_operation_form(
+    solvers, monkeypatch, state
+):
+    """The block Gauss-Seidel apply (K7) with every ``r_i - C y_j`` in K1's
+    epilogue equals, to the bit, the product and the torch subtraction
+    apart."""
+    s_t = solvers["torch"]
+    st = s_t._m_state if state == "own" else solvers["m_state_t"]
+    r = torch.tensor(np.random.default_rng(4).standard_normal(s_t.n).astype(np.float32))
+    fused = s_t._m_apply(st, r)
+    _two_operation_launchers(monkeypatch)
+    assert torch.equal(fused, s_t._m_apply(st, r))
