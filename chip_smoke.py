@@ -73,16 +73,18 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    each field's max), and every Biot matrix at 1/64 by K10 against the
    host LAPACK route (1e-12 relative);
 14. the Jacobi-Krylov route (K18) on the first Newton system of biot 1/64
-   (12,288 dofs): every K18a call of three BiCGStab iterations and every
-   GMRES(30) restart (one cooperative K18b launch, ``gmres_cycle``) held
-   against its plain version (1e-12 of the plain result's largest entry;
-   the restarts give the same bits), whole solves by kernels and by the
-   plain iterations (1e-9 of max |x|), one launch a restart and none of K1,
-   the times of one BiCGStab iteration's kernels and of one restart; then
+   (12,288 dofs): every launch of a BiCGStab solve (one cooperative K18a
+   launch, ``bicgstab_cycle``, to start and one that runs every iteration)
+   and every GMRES(30) restart (one cooperative K18b launch,
+   ``gmres_cycle``) held against its plain version to the bit, whole
+   solves by kernels and by the plain iterations (1e-9 of max |x|), two
+   launches a BiCGStab solve and one a restart and none of K1, the times of
+   one BiCGStab solve's launch (device us an iteration, host us a launch)
+   and of one restart; then
    biot 1/64 for 26 steps with ``linear_solver="jax_bicgstab"`` and
    ``"jax_gmres"`` (the host Newton loop): 0 host fallbacks, the K18
-   kernels launched (K1 inside BiCGStab's solves, none inside GMRES's: one
-   K18b launch a restart and one a solve), u and p within 1e-8 of each
+   kernels launched (two K18a launches a solve, one K18b launch a restart
+   and one a solve, no K1 inside a solve), u and p within 1e-8 of each
    field's largest value of phase 12's AMG run at t = 10, 18, 26, one more
    host Newton increment <= 1e-10; ms per Newton iteration, host assembly
    and solve ms, Krylov iterations per solve;
@@ -152,8 +154,11 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    versions at the md 1/128 shapes (18,157 unknowns, 16,969 cells, 16 seeds,
    90,261 nonzeros): values and tangents within 1e-13 of the largest entry
    (the gathers equal), the same bits from two launches, CUDA-event times,
-   the bound (bytes read once and written once over 3.35 TB/s) and the time
-   of ``index_select`` for the two gathers; and at every case's own shapes
+   the bound (bytes read once and written once over 3.35 TB/s); the two
+   gathers through their per-step launchers (``DualGatherVar``: tangent
+   rows written once, then the value row alone; ``DualGatherCopy``), through
+   the functional wrappers and by ``index_select`` x2 + ``cat`` in turns,
+   and the launchers' host us a call; and at every case's own shapes
    (md 1/256 included), inside its phase: every call of a K8 wrapper in one
    assembly and one residual of the case, with the programs and gather
    indices of its compiled equations, is repeated through the plain version
@@ -1441,83 +1446,77 @@ def _first_newton_system(dev, cell_size: float = 1.0 / 64):
 
 
 class _Holding:
-    """A ``run`` hook for the fused Krylov loops: the first ``limit`` K18
-    calls run by the kernel and by its plain version on copies of the same
-    inputs, every tensor argument is compared (1e-12 of the plain result's
-    largest entry; integer flags exactly), and the loop continues with the
-    kernel's results; later calls run the kernel alone."""
+    """A ``run`` hook for the fused Krylov loops: every K18 call runs by the
+    kernel and by its plain version on copies of the same inputs, every
+    tensor argument must come out with the same bits (NaN where the plain
+    version has NaN), and the loop goes on with the kernel's results."""
 
-    def __init__(self, limit: int):
-        self.limit = limit
+    def __init__(self):
         self.held = 0
-        self.err = {}
 
     def __call__(self, name, *args):
+        from porepy_tpu_torch.applications.benchmarking.krylov_cycle_check import same_bits
         from porepy_tpu_torch.kernels import ops, reference
 
-        if self.held >= self.limit:
-            getattr(ops, name)(*args)
-            return
         self.held += 1
         copies = [[a.clone() if torch.is_tensor(a) else a for a in args] for _ in range(2)]
         getattr(ops, name)(*copies[0])
         getattr(reference, name)(*copies[1])
         for a, k, w in zip(args, *copies):
-            if not torch.is_tensor(a):
-                continue
-            if a.dtype == torch.float64:
-                err = float((k - w).abs().max()) if a.numel() else 0.0
-                bound = 1e-12 * float(w.abs().max()) if a.numel() else 0.0
-                _require(err <= bound, f"{name}: kernel and plain differ by {err} (bound {bound})")
-                self.err[name] = max(self.err.get(name, 0.0), err)
-            else:
-                _require(torch.equal(k, w), f"{name}: integer outputs differ")
-            a.copy_(k)
+            if torch.is_tensor(a):
+                _require(same_bits(k, w), f"{name}: kernel and plain version differ in bits")
+                a.copy_(k)
 
 
 def check_krylov(dev, A, b) -> dict:
-    """K18a and K18b on the biot 1/64 system: every pass of three BiCGStab
-    iterations and every GMRES restart held against its plain version,
-    whole solves against the plain iterations, and times."""
+    """K18a and K18b on the biot 1/64 system: every launch of a BiCGStab
+    solve (its start and the launch that runs every iteration) and every
+    GMRES restart held against its plain version to the bit, whole solves
+    against the plain iterations, the launches of a solve, and times."""
     from porepy_tpu_torch import kernels
-    from porepy_tpu_torch.applications.benchmarking import gmres_cycle_check
+    from porepy_tpu_torch.applications.benchmarking import krylov_cycle_check
     from porepy_tpu_torch.kernels import ops, reference
     from porepy_tpu_torch.numerics.ad.compiler import _device_const_matrix, _EllMat
     from porepy_tpu_torch.numerics.linalg import krylov
 
-    n = A.shape[0]
-    print(f"phase 14: the Krylov kernels (K18a, K18b) on the biot 1/64 system, n {n}, nnz {A.nnz}")
+    n, nnz = A.shape[0], A.nnz
+    print(f"phase 14: the Krylov kernels (K18a, K18b) on the biot 1/64 system, n {n}, nnz {nnz}")
     mat = _device_const_matrix(A, dev)
     _require(isinstance(mat, _EllMat), "biot 1/64 is not in ELL layout")
     mv = ops.EllOperator(mat.val, mat.col)
     csr = krylov.csr_arrays(A, dev)
-
     dinv = torch.tensor(krylov._inverse_diagonal(A), device=dev)
     bt = torch.tensor(b, device=dev)
     b_dot = float(b @ b)
     tol, maxiter = 1e-12, max(200, 4 * n)
     report = {}
-    for method, names, limit in (("bicgstab", ops.K18A, 2 + 3 * 8), ("gmres", ops.K18B, maxiter + 1)):
-        hold = _Holding(limit)
-        if method == "bicgstab":
-            krylov._bicgstab_fused(mv, bt, dinv, tol**2 * b_dot, maxiter, run=hold)
-        else:
-            # Every restart, and the start, by the kernel and by the plain
-            # passes it composes, from the same state.
-            krylov._gmres_fused(csr, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30, run=hold)
-        _require(all(name in hold.err for name in names), f"{method}: not every K18 operator was held")
-        print(f"  {method}: {hold.held} calls held, max |kernel - plain| per operator {hold.err}")
+    for method in ("bicgstab", "gmres"):
 
-        def fused():
+        def fused(run=krylov._op):
             if method == "bicgstab":
-                return krylov._bicgstab_fused(mv, bt, dinv, tol**2 * b_dot, maxiter)
-            return krylov._gmres_fused(csr, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30)
+                return krylov._bicgstab_fused(csr, bt, dinv, tol**2 * b_dot, maxiter, run=run)
+            return krylov._gmres_fused(csr, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30, run=run)
 
         def plain():
             solve = krylov.gmres if method == "gmres" else krylov.bicgstab
             kwargs = {"restart": 30} if method == "gmres" else {}
             return solve(mv, bt, tol=tol, maxiter=maxiter, M=lambda v: dinv * v, **kwargs)[0]
 
+        # Every launch, the start included, by the kernel and by the plain
+        # version it composes, from the same state.
+        hold = _Holding()
+        fused(run=hold)
+        print(f"  {method}: {hold.held} launches held, each with its plain version's bits")
+        before = dict(kernels.LAUNCHES)
+        _x, steps = fused()
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("bicgstab_cycle", "gmres_cycle", "ell_spmv")}
+        if method == "bicgstab":
+            want = {"bicgstab_cycle": 2, "gmres_cycle": 0, "ell_spmv": 0}
+        else:
+            want = {"bicgstab_cycle": 0, "gmres_cycle": steps // 30 + 1, "ell_spmv": 0}
+        print(f"  {method}: launches of one solve {launched}")
+        _require(launched == want, f"{method}: not one launch to start and {'one a solve' if method == 'bicgstab' else 'one a restart'} without K1: {launched}")
         times = {}
         for route in ("kernel", "plain", "kernel", "plain"):
             torch.cuda.synchronize()
@@ -1538,62 +1537,45 @@ def check_krylov(dev, A, b) -> dict:
             f"in turns kernel {times['kernel']} s, plain {times['plain']} s"
         )
         _require(err <= 1e-9 * scale, f"{method}: kernel and plain solves differ by {err}")
-        report[method] = {"err": max([err] + list(hold.err.values())), "iters": iters,
-                          "solve_s": times}
-    before = dict(kernels.LAUNCHES)
-    _x, steps = krylov._gmres_fused(csr, bt, dinv, tol * np.sqrt(b_dot), maxiter, 30)
+        report[method] = {"err": err, "iters": iters, "solve_s": times}
+
+    # K18a: one solve's launch (every iteration, its matvecs inside) from
+    # the state after the start, by CUDA events; host microseconds a launch.
+    t_a = [krylov_cycle_check.time_bicgstab(A, b, dev) for _ in range(2)]
+    iters_a = t_a[0]["iterations"]
+    state = krylov.bicgstab_state(n, tol**2 * b_dot, dev)
+    ops.bicgstab_cycle(*csr, dinv, bt, *state, 0)
     torch.cuda.synchronize()
-    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("gmres_cycle", "ell_spmv")}
-    print(f"  gmres: {steps // 30} restarts, launches {launched}")
-    _require(launched == {"gmres_cycle": steps // 30 + 1, "ell_spmv": 0},
-             f"gmres: not one launch a restart (and one to start) without K1: {launched}")
-
-    # Times of one iteration's vector work (K18a) and of one restart (K18b),
-    # on a live state.
-    nb = -(-n // reference.KRYLOV_BLOCK)
-    gen = torch.Generator(device=dev).manual_seed(14)
-    vec = [torch.randn(n, generator=gen, dtype=torch.float64, device=dev) for _ in range(10)]
-    x, r, rhat, p, q, phat, s_, shat, t, q2 = vec
-    st = torch.rand(reference.BICG_SLOTS, generator=gen, dtype=torch.float64, device=dev) + 0.5
-    st[reference.BICG_EXIT] = 0.0
-    partials = torch.zeros(3, nb, dtype=torch.float64, device=dev)
-    cont = torch.zeros(1, dtype=torch.int32, device=dev)
-
-    def bicgstab_iteration(lib):
-        lib.bicgstab_p(r, q, dinv, st, p, phat)
-        lib.krylov_dots(rhat, q2, rhat, q2, partials, 1)
-        lib.bicgstab_scalars(partials, st, cont, reference.STAGE_ALPHA)
-        lib.bicgstab_s(r, q2, dinv, st, s_, shat, partials)
-        lib.krylov_dots(t, s_, t, t, partials[1:], 2)
-        lib.bicgstab_scalars(partials, st, cont, reference.STAGE_OMEGA)
-        lib.bicgstab_xr(x, r, phat, shat, s_, t, rhat, st, partials)
-        lib.bicgstab_scalars(partials, st, cont, reference.STAGE_NEXT)
-
-    snapshot = [v.clone() for v in vec] + [st.clone()]
-
-    def restore():
-        for v, v0 in zip(vec + [st], snapshot):
-            v.copy_(v0)
-
-    ms_a = _cuda_ms(lambda: (restore(), bicgstab_iteration(ops)), 50)
-    plain_a = _cuda_ms(lambda: (restore(), bicgstab_iteration(reference)), 20)
-    restore_ms = _cuda_ms(restore, 50)
-    ms_a, plain_a = ms_a - restore_ms, plain_a - restore_ms
-    # 8 input vectors (r, p, q, the new q, t, dinv, rhat, x) read and 6
-    # output vectors (p, phat, s, shat, x, r) written; ~24 operations per
-    # entry.
-    bound_a = _bound(14 * 8.0 * n, 24.0 * n)
-    print(f"  K18a, one BiCGStab iteration without its 2 matvecs: {ms_a:.4f} ms kernels (8 launches), "
-          f"{plain_a:.4f} ms plain; bound {bound_a[0]:.6f} ms ({bound_a[1]})")
-    report["bicgstab_step"] = {"err": report["bicgstab"]["err"], "ms": ms_a, "plain_ms": plain_a,
-                               "library_ms": None, "bound": bound_a}
+    tic = time.perf_counter()
+    reference.bicgstab_cycle(*csr, dinv, bt, *state, maxiter)
+    torch.cuda.synchronize()
+    plain_a = 1e3 * (time.perf_counter() - tic)
+    # An iteration reads the CSR matrix twice (two matvecs) and moves 14
+    # vectors (r, p, q, dinv twice, rhat twice, phat, s, shat, t, x, and r
+    # and x written); operations: 2 per nonzero a matvec, ~30 per entry.
+    bytes_it = 2.0 * (12.0 * nnz + 4.0 * (n + 1)) + 14.0 * 8.0 * n
+    flops_it = 4.0 * nnz + 30.0 * n
+    bound_it = _bound(bytes_it, flops_it)
+    bound_a = _bound(iters_a * bytes_it, iters_a * flops_it)
+    ms_a = [t["ms"] for t in t_a]
+    print(f"  K18a, one BiCGStab solve's launch ({iters_a} iterations, {ops.bicgstab_cycle_grid(n)} blocks): "
+          f"{ms_a} ms, {[round(t['us_per_iteration'], 3) for t in t_a]} us of device time an iteration, "
+          f"{[round(t['host_us'], 2) for t in t_a]} us of host time a launch; plain version {plain_a:.1f} ms; "
+          f"bound {1e3 * bound_it[0]:.3f} us an iteration ({bound_it[1]}), the kernel at "
+          f"{100 * bound_a[0] / min(ms_a):.2f}% of it")
+    # No one PyTorch call computes a BiCGStab solve.
+    report["bicgstab_cycle"] = {
+        "err": 0.0, "ms": min(ms_a), "plain_ms": plain_a, "library_ms": None, "bound": bound_a,
+        "iters": iters_a, "us_per_iteration": [t["us_per_iteration"] for t in t_a],
+        "host_us": [t["host_us"] for t in t_a], "bound_it": bound_it,
+    }
 
     # K18b: one restart (its 31 matvecs inside) from the state after the
     # start of the solve, kernel and plain version; host microseconds of a
     # launch; the projection's one-call yardstick torch.mv(V, w) at k = 29.
     R = 30
     grid = ops.gmres_cycle_grid(n)
-    ms_b = gmres_cycle_check.time_restart(A, b, dev, (csr, dinv, bt, tol * np.sqrt(b_dot), None, None))["kernel"]
+    ms_b = [krylov_cycle_check.time_restart(A, b, dev) for _ in range(2)]
     state = krylov.gmres_state(n, R, tol * np.sqrt(b_dot), dev)
     ops.gmres_cycle(*csr, dinv, bt, *state, 0)
     saved = [v.clone() for v in state]
@@ -1608,9 +1590,9 @@ def check_krylov(dev, A, b) -> dict:
     # In: the CSR matrix, dinv, b, x, V[0]; out: V[0..30], x, w, H, y.
     # Operations: 31 matvecs, the projections and updates (4 (k + 1) n a
     # step), the normalizations and the correction.
-    nnz = A.nnz
     bound_b = _bound(12.0 * nnz + 4.0 * (n + 1) + 8.0 * (4 * n + 33 * n + R * (R + 1) + R),
                      2.0 * nnz * (R + 1) + 4.0 * n * R * (R + 1) / 2 + 6.0 * n * R + 2.0 * n * R)
+    gen = torch.Generator(device=dev).manual_seed(14)
     V = state[1]
     w29 = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
     mv_ms = _cuda_ms(lambda: torch.mv(V, w29))
@@ -1620,7 +1602,7 @@ def check_krylov(dev, A, b) -> dict:
           f"of it; torch.mv(V, w) (the projection's yardstick) {mv_ms:.4f} ms")
     # No one PyTorch call computes a restart: torch.mv(V, w) is printed, not
     # the line's library time.
-    report["gmres_cycle"] = {"err": report["gmres"]["err"], "ms": min(ms_b), "plain_ms": plain_b,
+    report["gmres_cycle"] = {"err": 0.0, "ms": min(ms_b), "plain_ms": plain_b,
                              "library_ms": None, "bound": bound_b, "host_us": host_b, "grid": grid,
                              "ms_turns": ms_b, "mv_ms": mv_ms}
     return report
@@ -1703,7 +1685,12 @@ def run_biot_krylov(dev, method: str, device_gmres: dict, cell_size: float = 1.0
     _require(krylov.FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {krylov.FALLBACK_COUNTER}")
     _require(all(launches[k] > 0 for k in names), f"kernel not launched: {launches}")
     if method == "bicgstab":
-        _require(log["solve_k1"] > 0, f"K1 not launched in the solves: {launches}")
+        # One K18a launch to start a solve and one that runs its iterations,
+        # the matvecs inside it.
+        print(f"  {int(iters.sum())} iterations in {newton} solves: {launches['bicgstab_cycle']} bicgstab_cycle "
+              f"launches, {log['solve_k1']} K1 launches inside the solves")
+        _require(launches["bicgstab_cycle"] == 2 * newton and log["solve_k1"] == 0,
+                 f"bicgstab: not two launches a solve: {launches}, K1 in the solves {log['solve_k1']}")
     else:
         # One K18b launch a restart and one a solve, the matvecs inside it.
         restarts = int(iters.sum()) // 30
@@ -2472,23 +2459,26 @@ def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13) -> dict:
 
         return call
 
+    var_call, copy_call = ops.DualGatherVar.__call__, ops.DualGatherCopy.__call__
     patches = [
-        (ops, "dual_ew", "dual_ew",
+        (ops, "dual_ew", "dual_ew", ops.dual_ew,
          lambda program, inputs, batch: reference.dual_ew(program.instrs, program.imm, inputs, batch)),
-        (ops, "dual_gather_var", "dual_gather", reference.dual_gather_var),
-        (ops, "dual_gather_copy", "dual_gather", reference.dual_gather_copy),
-        (kernels, "jac_gather", "jac_gather", reference.jac_gather),
+        (ops.DualGatherVar, "__call__", "dual_gather", var_call,
+         lambda self, x, colors=None, batch=0: reference.dual_gather_var(
+             x, self.idx, colors, batch if colors is not None else 0)),
+        (ops.DualGatherCopy, "__call__", "dual_gather", copy_call,
+         lambda self, pieces, batch: reference.dual_gather_copy(pieces, batch)),
+        (kernels, "jac_gather", "jac_gather", kernels.jac_gather, reference.jac_gather),
     ]
-    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _name, _plain in patches]
-    for mod, attr, name, plain in patches:
-        setattr(mod, attr, held(name, getattr(mod, attr), plain))
+    for mod, attr, name, kernel, plain in patches:
+        setattr(mod, attr, held(name, kernel, plain))
     try:
         with _launches_of_block():
             cs.assemble(eq_sys)
             cs.residual(eq_sys)
     finally:
-        for mod, attr, fn in kept:
-            setattr(mod, attr, fn)
+        for mod, attr, _name, kernel, _plain in patches:
+            setattr(mod, attr, kernel)
     print(
         f"  phase 22 at the {label} shapes: the K8 calls of one assembly and one residual against their "
         f"plain versions on the same inputs: calls {calls}, largest error over the largest entry {errs}"
@@ -2835,24 +2825,49 @@ def check_dual_kernels(dev) -> dict:
         for i, n in enumerate(lens)
     ]
 
-    def gathers(mod):
-        return mod.dual_gather_var(x, idx, colors, B) + mod.dual_gather_copy(pieces, B)
+    # The launchers of one step each, as the dual pass holds them: the
+    # unknowns' tangent rows written at the first call, the value row after.
+    gather_var, gather_copy = ops.DualGatherVar(idx), ops.DualGatherCopy()
 
-    got, want = gathers(ops), gathers(reference)
-    _require(all(torch.equal(a, b) for a, b in zip(got, want)), "dual_gather disagrees with its plain version")
+    def launchers():
+        return gather_var(x, colors, B) + gather_copy(pieces, B)
+
+    def wrappers():
+        # The functional forms: checks, buffers and tables made per call.
+        return ops.dual_gather_var(x, idx, colors, B) + ops.dual_gather_copy(pieces, B)
+
+    def plain():
+        return reference.dual_gather_var(x, idx, colors, B) + reference.dual_gather_copy(pieces, B)
+
+    want = plain()
+    for route in (launchers, launchers, wrappers):
+        _require(all(torch.equal(a, b) for a, b in zip(route(), want)), "dual_gather disagrees with its plain version")
+    _require(gather_var.seed_writes == 1, "the unknowns' tangent rows were written more than once")
     _require(ops.dual_gather_var(x, idx, None, 0)[1] is None, "dual_gather_var without seeds")
-    _same_bits("dual_gather", lambda: torch.cat([t.reshape(-1) for t in gathers(ops)]))
+    _same_bits("dual_gather", lambda: torch.cat([t.reshape(-1) for t in launchers()]))
     print(f"  dual_gather: {nc} unknowns of {ndof} under {B} colors, and {len(lens)} duals concatenated: equal to the plain version")
     cat_rows = [torch.cat([v[None], t]) for v, t in pieces if t is not None]
 
     def gathers_library():
         return x.index_select(0, idx), colors.index_select(0, idx), torch.cat(cat_rows, dim=1)
 
+    # In turns: launchers, functional wrappers, yardstick, and back.
+    turns = {"launchers": [], "wrappers": [], "library": []}
+    for name in ("launchers", "wrappers", "library", "library", "wrappers", "launchers"):
+        fn = {"launchers": launchers, "wrappers": wrappers, "library": gathers_library}[name]
+        turns[name].append(_cuda_ms(fn))
+    host_us = [_host_us(fn) for fn in (lambda: gather_var(x, colors, B), lambda: gather_copy(pieces, B))]
     n_cat = sum(lens)
+    print(f"  dual_gather in turns (ms over back-to-back calls): launchers {turns['launchers']}, functional "
+          f"wrappers {turns['wrappers']}, index_select x2 + cat {turns['library']}; host us a call: "
+          f"DualGatherVar {host_us[0]:.2f}, DualGatherCopy {host_us[1]:.2f}")
     report["dual_gather"] = {
-        "err": 0.0, "ms": _cuda_ms(lambda: gathers(ops)), "plain_ms": _cuda_ms(lambda: gathers(reference)),
-        "bytes": (8 + 8 + 4) * nc + 8 * (1 + B) * nc + 2 * 8 * (1 + B) * n_cat,
-        "flops": (1 + B) * (nc + n_cat), "library_ms": _cuda_ms(gathers_library),
+        "err": 0.0, "ms": min(turns["launchers"]), "plain_ms": _cuda_ms(plain),
+        # The value row: idx, x[idx] read and the row written; the copy:
+        # every row of every piece read and written once.
+        "bytes": (8 + 8 + 8) * nc + 2 * 8 * (1 + B) * n_cat,
+        "flops": nc + (1 + B) * n_cat, "library_ms": min(turns["library"]),
+        "turns": turns, "host_us": host_us,
     }
 
     # The two md equations' compressed blocks into nonzero order.
@@ -2986,7 +3001,7 @@ def main() -> int:
         "tpfa_residual": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:72", flow["tpfa_launches"]["tpfa_residual"]),
         "tpfa_jvp": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]["tpfa_jvp"]),
         "region_solve": ("region_solve.cu", "porepy_tpu/numerics/fv/local_solves.py:168", biot["launches"]["region_solve"]),
-        "bicgstab_step": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", bicg["launches"]),
+        "bicgstab_cycle": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", bicg["launches"]),
         "gmres_cycle": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", gmres["launches"]),
         "rachford_rice": ("flash.cu", "porepy_tpu/compositional/flash.py:80", report["rachford_rice"]["launches"]),
         "interp_lookup": ("interp_lookup.cu", "porepy_tpu/numerics/ad/operator_functions.py:117", report["interp_lookup"]["launches"]),
@@ -3084,6 +3099,14 @@ def main() -> int:
     k3 = md["k3"]
     print(f"K3 (one V-cycle apply) at md 1/128 on {smi}: {k3['ms']:.4f} ms back to back, {k3['device_ms']:.4f} ms "
           f"of device time, bound {k3['bound_ms']:.5f} ms")
+    a = report["bicgstab_cycle"]
+    print(f"K18a (one BiCGStab solve's launch, {a['iters']} iterations, matvecs inside) on {smi}: {a['ms']:.4f} ms, "
+          f"{a['us_per_iteration']} us an iteration, {a['host_us']} us of host time a launch, plain "
+          f"{a['plain_ms']:.1f} ms, bound {1e3 * a['bound_it'][0]:.3f} us an iteration")
+    d = report["dual_gather"]
+    print(f"dual_gather at md 1/128's shapes on {smi}, in turns: launchers {d['turns']['launchers']} ms, functional "
+          f"wrappers {d['turns']['wrappers']} ms, index_select x2 + cat {d['turns']['library']} ms; host us a "
+          f"call {d['host_us']}")
     g = report["gmres_cycle"]
     print(f"K18b (one GMRES(30) restart, 31 matvecs inside) on {smi}: {g['ms_turns']} ms, {g['host_us']:.2f} us "
           f"of host time a launch, grid {g['grid']} blocks, plain {g['plain_ms']:.4f} ms, bound {g['bound'][0]:.6f} ms; "

@@ -15,11 +15,8 @@ K12       :func:`structured_jvp`         ``parallel/structured_flow.py:116,124``
 K13       :func:`tpfa_residual`          ``parallel/flow_step.py:64-97``
 K13       :func:`tpfa_jvp`               ``parallel/flow_step.py:104`` (linearize)
 K10       :func:`region_solve`           ``numerics/fv/local_solves.py:168-187``
-K18a      :func:`bicgstab_p`,            ``numerics/linalg/krylov.py:42-61`` (jax BiCGStab)
-          :func:`krylov_dots`,
-          :func:`bicgstab_s`,
-          :func:`bicgstab_xr`,
-          :func:`bicgstab_scalars`
+K18a      :func:`bicgstab_cycle`         ``numerics/linalg/krylov.py:42-61`` (jax BiCGStab: a
+                                         solve, one cooperative kernel)
 K18b      :func:`gmres_cycle`            ``numerics/linalg/krylov.py:42-61`` (jax GMRES: one
                                          restart, one cooperative kernel)
 K17       :func:`rachford_rice`          ``compositional/flash.py:80-122``
@@ -36,9 +33,10 @@ K14       :func:`tpfa_ad_flux`,          ``models/darcys_law_ad.py:71-147`` (the
           :func:`tpfa_ad_trace`,         TPFA flux and trace) and ``numerics/fv/fv_mesh.py:129-145``
           :func:`segment_sum_sorted`     (the segment sums of ``numerics/fv/tpfa.py``)
 K8        :func:`dual_ew`,               ``numerics/ad/equation_system.py:132-135`` (the colored
-          :func:`dual_gather_var`,       JVPs of one residual and the gather of the compressed
-          :func:`dual_gather_copy`,      block into nonzero order), driven by the dual-number
-          :func:`jac_gather`             pass of ``numerics/ad/forward.py``
+          :class:`DualGatherVar`,        JVPs of one residual and the gather of the compressed
+          :class:`DualGatherCopy`,       block into nonzero order), driven by the dual-number
+          :func:`jac_gather`             pass of ``numerics/ad/forward.py``; the functional
+                                         :func:`dual_gather_var`, :func:`dual_gather_copy`
 ========  =============================  =====================================================
 
 The CUDA sources live in ``csrc/`` and are built at first use (see
@@ -50,10 +48,8 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     K18A,
     K18B,
     LAUNCHES,
-    bicgstab_p,
-    bicgstab_s,
-    bicgstab_scalars,
-    bicgstab_xr,
+    bicgstab_cycle,
+    bicgstab_cycle_grid,
     block_inverse,
     EllOperator,
     EllOperators,
@@ -62,7 +58,6 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     halo_pack,
     interp_lookup,
     interp_tangent,
-    krylov_dots,
     rachford_rice,
     DualProgram,
     dense_block_apply,
@@ -71,6 +66,8 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     ell_spmv,
     ell_spmv_split,
     dual_ew,
+    DualGatherCopy,
+    DualGatherVar,
     dual_gather_copy,
     dual_gather_var,
     fgmres_givens,

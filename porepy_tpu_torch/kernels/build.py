@@ -54,11 +54,8 @@ _SIGNATURES = {
     "ppt_tpfa_residual": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_tpfa_jvp": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_region_solve": [_P] * 5 + [_I] * 4 + [_P],
-    "ppt_bicgstab_p": [_P] * 6 + [_I, _P],
-    "ppt_krylov_dots": [_P] * 5 + [_I, _I, _P],
-    "ppt_bicgstab_s": [_P] * 7 + [_I, _P],
-    "ppt_bicgstab_xr": [_P] * 9 + [_I, _P],
-    "ppt_bicgstab_scalars": [_P] * 3 + [_I, _I, _P],
+    "ppt_bicgstab_cycle": [_P] * 17 + [_I] * 2 + [_P],
+    "ppt_bicgstab_cycle_grid": [_I, _P],
     "ppt_gmres_cycle": [_P] * 14 + [_I] * 3 + [_P],
     "ppt_gmres_cycle_grid": [_I, _P],
     "ppt_rachford_rice": [_P] * 7 + [_I, _L, _I, _D, _P],
@@ -74,19 +71,21 @@ _SIGNATURES = {
     "ppt_tpfa_ad_trace": [_P] * 10 + [_L] * 5 + [_P] * 9 + [_I] * 3 + [_P],
     # Pointer and stride tables are host arrays (ctypes arrays).
     "ppt_dual_ew": [_P, _P, _I, _P, _P, _I, _P, _P, _L, _I, _I, _P],
-    "ppt_dual_gather_var": [_P, _P, _P, _P, _I, _I, _P],
+    "ppt_dual_gather_value": [_P, _P, _P, _I, _P],
+    "ppt_dual_seed_rows": [_P, _P, _P, _I, _I, _P],
     "ppt_dual_gather_copy": [_P, _P, _I, _P, _L, _I, _P],
     "ppt_jac_gather": [_P, _P, _I, _P, _P, _P, _P, _P],
 }
 # The dtypes each kernel is built for (default: both). K8, K10, K11, K14, K15,
 # K16, K17 and K18 are float64 only.
 _F64_ONLY = (
-    "ppt_region_solve", "ppt_bicgstab_p", "ppt_krylov_dots", "ppt_bicgstab_s",
-    "ppt_bicgstab_xr", "ppt_bicgstab_scalars", "ppt_gmres_cycle", "ppt_gmres_cycle_grid",
+    "ppt_region_solve", "ppt_bicgstab_cycle", "ppt_bicgstab_cycle_grid",
+    "ppt_gmres_cycle", "ppt_gmres_cycle_grid",
     "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
     "ppt_upwind_flux", "ppt_upwind_select", "ppt_upwind_select_pair",
     "ppt_segment_sum_sorted", "ppt_tpfa_ad_flux", "ppt_tpfa_ad_trace",
-    "ppt_dual_ew", "ppt_dual_gather_var", "ppt_dual_gather_copy", "ppt_jac_gather",
+    "ppt_dual_ew", "ppt_dual_gather_value", "ppt_dual_seed_rows", "ppt_dual_gather_copy",
+    "ppt_jac_gather",
 )
 _SUFFIXES = {name: ("_f64",) for name in _F64_ONLY}
 

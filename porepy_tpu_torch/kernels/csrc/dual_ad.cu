@@ -12,8 +12,14 @@
 //                replays the program once per tangent row by the chain rule,
 //                with the registers of both passes in local memory;
 //   dual_gather  the dual of the unknowns x[idx] under one-hot seeds by color
-//                (tangent row c is 1 where colors[idx[i]] == c), and the copy
-//                of up to 8 duals into slices of one output (concatenation);
+//                (tangent row c is 1 where colors[idx[i]] == c) in two
+//                kernels: dual_seed_rows writes the tangent rows once per
+//                color set into a buffer that the step's launcher keeps
+//                (ops.DualGatherVar), dual_gather_value the value row x[idx]
+//                at every assembly; and the copy of up to 32 duals into
+//                slices of one output (concatenation, ops.DualGatherCopy),
+//                one thread per output element: it finds its piece once
+//                (binary search) and writes the value and every tangent row;
 //   jac_gather   compressed[gc, rj] of up to 8 equations into the global
 //                nonzero order, and the negated, concatenated residual.
 //
@@ -25,7 +31,10 @@
 //
 // Bound: bytes. Each input and output element is touched once per row; at md
 // 1/128 (18,000 unknowns, 16 colors) a launch moves a few MB, microseconds at
-// 3.35 TB/s. The time is the launch and the host code around it.
+// 3.35 TB/s. The time is the launch and the host code around it; the
+// unknowns' tangent rows depend only on the gather indices and the colors,
+// both fixed once the equation is compiled, so an assembly writes only the
+// value row (16,969 cells of md 1/128: 0.41 MB instead of 2.65 MB).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,7 +46,8 @@ constexpr int kThreads = 128;
 constexpr int kMaxIn = 12;
 constexpr int kMaxInstr = 36;
 constexpr int kRegs = kMaxIn + kMaxInstr;
-constexpr int kPieces = 8;
+constexpr int kPieces = 8;       // equations per jac_gather launch
+constexpr int kCopyPieces = 32;  // duals per dual_gather_copy launch
 
 enum Op : int {
   LOADI = 0, ADD, SUB, MUL, DIV, POW, NEG, EXP, LOG, SIN, COS, TAN, ASIN, ACOS,
@@ -192,44 +202,54 @@ __global__ void dual_ew_kernel(EwInputs in, int n_in, const int* __restrict__ co
   }
 }
 
-// Rows 0 .. batch of the stacked output (row 0 the value, row 1 + c the
-// tangent of color c) of the unknowns x[idx].
-__global__ void dual_gather_var_kernel(const double* __restrict__ x,
-                                       const long long* __restrict__ idx,
-                                       const int* __restrict__ colors,
-                                       double* __restrict__ out, int n) {
+// The value row of the unknowns' dual: out[i] = x[idx[i]].
+__global__ void dual_gather_value_kernel(const double* __restrict__ x,
+                                         const long long* __restrict__ idx,
+                                         double* __restrict__ out, int n) {
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) out[i] = x[idx[i]];
+}
+
+// The batch one-hot tangent rows of the unknowns' dual: row c of tan (row
+// stride n) is 1 where colors[idx[i]] == c, else 0. One thread an element,
+// its color read once.
+__global__ void dual_seed_rows_kernel(const long long* __restrict__ idx,
+                                      const int* __restrict__ colors,
+                                      double* __restrict__ tan, int n, int batch) {
   int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  int row = blockIdx.y;
-  long long j = idx[i];
-  out[(long long)row * n + i] = (row == 0) ? x[j] : ((colors[j] == row - 1) ? 1.0 : 0.0);
+  const int c = colors[idx[i]];
+  for (int row = 0; row < batch; ++row) tan[(long long)row * n + i] = (c == row) ? 1.0 : 0.0;
 }
 
 struct CopyPieces {
-  const double* val[kPieces];
-  const double* tan[kPieces];
-  long long es[kPieces];
-  long long rs[kPieces];
-  long long start[kPieces + 1];  // offsets in the output; start[count] is the end
+  const double* val[kCopyPieces];
+  const double* tan[kCopyPieces];
+  long long es[kCopyPieces];
+  long long rs[kCopyPieces];
+  long long start[kCopyPieces + 1];  // offsets in the output; start[count] is the end
 };
 
-// Copies up to 8 duals into out[row, start[k] : start[k + 1]] of the stacked
-// (1 + batch, n_out) output; a constant's tangent rows read 0.
+// Copies up to 32 duals into out[row, start[k] : start[k + 1]] of the stacked
+// (1 + batch, n_out) output, one thread per output element and every row;
+// a constant's tangent rows read 0.
 __global__ void dual_gather_copy_kernel(CopyPieces p, int count,
-                                        double* __restrict__ out, long long n_out) {
+                                        double* __restrict__ out, long long n_out,
+                                        int batch) {
   long long i = p.start[0] + (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= p.start[count]) return;
-  int row = blockIdx.y;
-  int k = 0;
-  while (k + 1 < count && i >= p.start[k + 1]) ++k;
-  long long local = i - p.start[k];
-  double res;
-  if (row == 0) {
-    res = p.val[k][local * p.es[k]];
-  } else {
-    res = (p.tan[k] != nullptr) ? p.tan[k][(row - 1) * p.rs[k] + local * p.es[k]] : 0.0;
+  // The last piece that starts at or before i: never an empty one.
+  int lo = 0, hi = count - 1;
+  while (lo < hi) {
+    int mid = (lo + hi + 1) >> 1;
+    if (p.start[mid] <= i) lo = mid; else hi = mid - 1;
   }
-  out[row * n_out + i] = res;
+  const long long e = (i - p.start[lo]) * p.es[lo];
+  out[i] = p.val[lo][e];
+  const double* tan = p.tan[lo];
+  const long long rs = p.rs[lo];
+  for (int row = 0; row < batch; ++row)
+    out[(row + 1) * n_out + i] = (tan != nullptr) ? tan[row * rs + e] : 0.0;
 }
 
 struct JacPieces {
@@ -288,13 +308,18 @@ extern "C" int ppt_dual_ew_f64(const void* const* ptrs, const long long* strides
   return (int)cudaGetLastError();
 }
 
-extern "C" int ppt_dual_gather_var_f64(const double* x, const long long* idx,
-                                       const int* colors, double* out, int n,
-                                       int batch, void* stream) {
+extern "C" int ppt_dual_gather_value_f64(const double* x, const long long* idx,
+                                         double* out, int n, void* stream) {
   if (n == 0) return 0;
-  if (batch + 1 > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(blocks_of(n), (unsigned)(batch + 1));
-  dual_gather_var_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, idx, colors, out, n);
+  dual_gather_value_kernel<<<blocks_of(n), kThreads, 0, (cudaStream_t)stream>>>(x, idx, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ppt_dual_seed_rows_f64(const long long* idx, const int* colors,
+                                      double* tan, int n, int batch, void* stream) {
+  if (n == 0 || batch == 0) return 0;
+  if (batch < 0) return (int)cudaErrorInvalidValue;
+  dual_seed_rows_kernel<<<blocks_of(n), kThreads, 0, (cudaStream_t)stream>>>(idx, colors, tan, n, batch);
   return (int)cudaGetLastError();
 }
 
@@ -304,21 +329,20 @@ extern "C" int ppt_dual_gather_copy_f64(const void* const* ptrs,
                                         const long long* strides, int count,
                                         double* out, long long n_out, int batch,
                                         void* stream) {
-  if (count < 1 || count > kPieces || batch + 1 > 65535) return (int)cudaErrorInvalidValue;
+  if (count < 1 || count > kCopyPieces || batch < 0) return (int)cudaErrorInvalidValue;
   CopyPieces p;
-  for (int k = 0; k < kPieces; ++k) {
+  for (int k = 0; k < kCopyPieces; ++k) {
     bool live = k < count;
     p.val[k] = live ? (const double*)ptrs[k] : nullptr;
     p.tan[k] = live ? (const double*)ptrs[count + k] : nullptr;
     p.es[k] = live ? strides[k] : 0;
     p.rs[k] = live ? strides[count + k] : 0;
   }
-  for (int k = 0; k <= kPieces; ++k)
+  for (int k = 0; k <= kCopyPieces; ++k)
     p.start[k] = strides[2 * count + (k <= count ? k : count)];
   long long span = p.start[count] - p.start[0];
   if (span <= 0) return 0;
-  dim3 grid(blocks_of(span), (unsigned)(batch + 1));
-  dual_gather_copy_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p, count, out, n_out);
+  dual_gather_copy_kernel<<<blocks_of(span), kThreads, 0, (cudaStream_t)stream>>>(p, count, out, n_out, batch);
   return (int)cudaGetLastError();
 }
 

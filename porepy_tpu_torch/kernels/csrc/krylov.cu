@@ -5,18 +5,30 @@
 // fused around the BCOO matvec, with the Jacobi preconditioner
 // M x = dinv * x, all f64.
 //
-// K18a, one BiCGStab iteration of jax 0.9's _bicgstab_solve, the vector and
-// scalar work between the matvecs, which stay with K1 (ell_spmv.cu):
+// K18a, a BiCGStab solve (jax 0.9's _bicgstab_solve) as ONE persistent
+// cooperative kernel, bicgstab_cycle: the two matvecs of every iteration
+// run inside it on the CSR matrix, and it runs iterations until the solve
+// stops or the launch's budget of iterations is spent. Each iteration:
 //
-//   bicgstab_p     p <- r + beta (p - omega q),  phat = dinv p
-//   krylov_dots    block partials of one or two dot products
-//   bicgstab_s     s <- r - alpha q,  shat = dinv s,  partials of <s, s>
-//   bicgstab_xr    x <- x + alpha phat + omega shat (x + alpha phat on the
-//                  early exit), r <- s - omega t (s), partials of <r, r>
-//                  and <rhat, r>
-//   bicgstab_scalars  one block: finishes the partials and runs the scalar
-//                  recurrence (alpha, omega, beta, the early exit, the
-//                  breakdown and the continue flag) on the device.
+//   p <- r + beta (p - omega q), phat = dinv p;            | grid sync |
+//   q = A phat, partials of <rhat, q>;                      | grid sync |
+//   alpha_ = rho_ / <rhat, q> in every block; s = r - alpha_ q,
+//        shat = dinv s, partials of <s, s>;                 | grid sync |
+//   t = A shat, partials of <t, s> and <t, t>;              | grid sync |
+//   the early exit (<s, s> < atol2) and omega_ = <t, s> / <t, t> in every
+//        block; x <- x + alpha_ phat + omega_ shat (x + alpha_ phat on the
+//        early exit), r <- s - omega_ t (s), partials of <r, r> and
+//        <rhat, r>;                                         | grid sync |
+//   the rest of the scalar recurrence in every block: the breakdown
+//        (rho_, alpha_ or omega_ zero), the continue flag <r, r> > atol2
+//        and not breakdown, rho, alpha, omega, rho_ = <rhat, r>, beta.
+//
+// Every block finishes the same partials in the same order, so the scalars
+// and the continue flag are the same in every block and no block skips a
+// grid sync; the flag is tested on the device after every iteration.
+// Block 0 writes the scalars, the flag and the count of iterations back at
+// the end of the launch. With iterations = 0 a launch starts a solve from
+// x: r = b - A x, rhat = p = q = r, rho_ = beta = <r, r> and the flag.
 //
 // K18b, one restart of the batched GMRES (_gmres_batched) as ONE persistent
 // cooperative kernel, gmres_cycle: the matvecs run inside it, on the
@@ -54,9 +66,11 @@
 // A cooperative launch (cudaLaunchCooperativeKernel) is what makes
 // this_grid().sync() legal: the wrapper refuses to launch otherwise.
 //
-// Reductions: each tile's partial sum in the fixed block_sum tree, then
-// every block that needs a sum finishes the tile partials in the same
-// fixed order (row_sum): no atomics, a run repeats bit for bit. Every
+// Reductions: each tile's partial sum in a fixed tree (tree_rows: entry t
+// adds entry t + s for s = 64 .. 1), then every block that needs a sum
+// finishes the tile partials in the same fixed order (finish_rows: thread t
+// adds partials t, t + 128, ..., then the tree): no atomics, a run repeats
+// bit for bit. Every
 // operation is rounded on its own (__dmul_rn, __dadd_rn, __dsub_rn: no
 // multiply-add is contracted), so the plain passes of kernels/reference.py,
 // which round the same operations in the same order, give the same bits.
@@ -64,13 +78,16 @@
 // __restrict__ on them): the read-only cache is not coherent across the
 // grid syncs.
 //
-// Bound: bytes, a few us: at biot 1/64 (n = 12,288, 317,026 nonzeros) a
-// restart reads the matrix and writes 31 basis vectors, ~7.5 MB. Latency
-// is what is left: 94 grid syncs, four block-wide reductions a step, the
-// dependent gathers of each row and the Cholesky of block 0 (the matvecs
-// keep four gathers in flight; the last five levels of each reduction and
-// the triangular solves run in warps). Before: 94 launches and 31 K1
-// launches a restart, ~45-54 us of host dispatch each.
+// Bound: bytes, a few us. At biot 1/64 (n = 12,288, 317,026 nonzeros) a
+// GMRES restart reads the matrix and writes 31 basis vectors, ~7.5 MB; a
+// BiCGStab iteration reads the matrix twice and ~14 vectors, ~9.1 MB.
+// Latency is what is left: grid syncs (94 a restart, 5 an iteration),
+// block-wide reductions, the dependent gathers of each row and, for GMRES,
+// the Cholesky of block 0 (the matvecs keep four gathers in flight; the
+// last five levels of each reduction and the triangular solves run in
+// warps). Before: 94 launches and 31 K1 launches a restart, 8 launches, 2
+// K1 launches and one host flag read a BiCGStab iteration, ~45-54 us of
+// host dispatch each.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,171 +104,21 @@ namespace {
 constexpr int kBlock = 128;
 constexpr int kMaxRestart = 30;
 
-// BiCGStab scalar slots (ops.BICG_* in Python).
+// BiCGStab scalar slots (reference.BICG_* in Python).
 enum {
   kRho = 0, kAlpha = 1, kOmega = 2, kRhoNew = 3, kBeta = 4, kAtol2 = 5,
   kAlphaNew = 6, kOmegaNew = 7, kExit = 8, kRr = 9,
 };
-enum { kStageInit = 0, kStageAlpha = 1, kStageOmega = 2, kStageNext = 3 };
+// BiCGStab partial-sum rows (reference.BICG_ROWS of them): each is read in
+// one phase and written again only after the grid syncs that follow it.
+enum { kPartRq = 0, kPartSs = 1, kPartTs = 2, kPartTt = 3, kPartRr = 4, kPartHr = 5 };
 // GMRES scalar slots (ops.GMRES_* in Python).
 enum { kAtol = 0, kResNorm = 1 };
 
-// Sum of v over the block: a fixed tree, the same order on every run.
-__device__ double block_sum(double v) {
-  __shared__ double sh[kBlock];
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kBlock / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  double out = sh[0];
-  __syncthreads();
-  return out;
-}
-
-// The finish of one reduction: the nb partials of a row, in a fixed order.
-__device__ double row_sum(const double* __restrict__ row, int nb) {
-  double acc = 0.0;
-  for (int b = threadIdx.x; b < nb; b += kBlock) acc += row[b];
-  return block_sum(acc);
-}
-
-// -- K18a -------------------------------------------------------------------
-
-__global__ void bicgstab_p_kernel(const double* __restrict__ r,
-                                  const double* __restrict__ q,
-                                  const double* __restrict__ dinv,
-                                  const double* __restrict__ st,
-                                  double* __restrict__ p,
-                                  double* __restrict__ phat, int n) {
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  double beta = st[kBeta], omega = st[kOmega];
-  double pi = __dadd_rn(r[i], __dmul_rn(beta, __dsub_rn(p[i], __dmul_rn(omega, q[i]))));
-  p[i] = pi;
-  phat[i] = __dmul_rn(dinv[i], pi);
-}
-
-__global__ void krylov_dots_kernel(const double* __restrict__ a,
-                                   const double* __restrict__ b,
-                                   const double* __restrict__ c,
-                                   const double* __restrict__ d,
-                                   double* __restrict__ partials, int n,
-                                   int nb, int ndots) {
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  double ab = 0.0, cd = 0.0;
-  if (i < n) {
-    ab = a[i] * b[i];
-    if (ndots > 1) cd = c[i] * d[i];
-  }
-  ab = block_sum(ab);
-  if (ndots > 1) cd = block_sum(cd);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = ab;
-    if (ndots > 1) partials[nb + blockIdx.x] = cd;
-  }
-}
-
-__global__ void bicgstab_s_kernel(const double* __restrict__ r,
-                                  const double* __restrict__ q,
-                                  const double* __restrict__ dinv,
-                                  const double* __restrict__ st,
-                                  double* __restrict__ s,
-                                  double* __restrict__ shat,
-                                  double* __restrict__ partials, int n) {
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  double ss = 0.0;
-  if (i < n) {
-    double si = __dsub_rn(r[i], __dmul_rn(st[kAlphaNew], q[i]));
-    s[i] = si;
-    shat[i] = __dmul_rn(dinv[i], si);
-    ss = si * si;
-  }
-  ss = block_sum(ss);
-  if (threadIdx.x == 0) partials[blockIdx.x] = ss;
-}
-
-__global__ void bicgstab_xr_kernel(double* __restrict__ x, double* __restrict__ r,
-                                   const double* __restrict__ phat,
-                                   const double* __restrict__ shat,
-                                   const double* __restrict__ s,
-                                   const double* __restrict__ t,
-                                   const double* __restrict__ rhat,
-                                   const double* __restrict__ st,
-                                   double* __restrict__ partials, int n, int nb) {
-  int i = blockIdx.x * kBlock + threadIdx.x;
-  double rr = 0.0, hr = 0.0;
-  if (i < n) {
-    double alpha = st[kAlphaNew], omega = st[kOmegaNew];
-    double ap = __dmul_rn(alpha, phat[i]);
-    double ri;
-    if (st[kExit] != 0.0) {
-      x[i] = __dadd_rn(x[i], ap);
-      ri = s[i];
-    } else {
-      x[i] = __dadd_rn(x[i], __dadd_rn(ap, __dmul_rn(omega, shat[i])));
-      ri = __dsub_rn(s[i], __dmul_rn(omega, t[i]));
-    }
-    r[i] = ri;
-    rr = ri * ri;
-    hr = rhat[i] * ri;
-  }
-  rr = block_sum(rr);
-  hr = block_sum(hr);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = rr;
-    partials[nb + blockIdx.x] = hr;
-  }
-}
-
-__global__ void bicgstab_scalars_kernel(const double* __restrict__ partials,
-                                        int nb, double* __restrict__ st,
-                                        int* __restrict__ cont, int stage) {
-  const bool lead = threadIdx.x == 0;
-  if (stage == kStageInit) {
-    // r0 = b - A x0 and rhat = r0: rho_ of the first iteration is <r0, r0>.
-    double rr = row_sum(partials, nb);
-    if (lead) {
-      st[kRhoNew] = rr;
-      st[kRr] = rr;
-      st[kBeta] = __ddiv_rn(__dmul_rn(__ddiv_rn(rr, st[kRho]), st[kAlpha]), st[kOmega]);
-      cont[0] = rr > st[kAtol2];
-    }
-  } else if (stage == kStageAlpha) {
-    double rq = row_sum(partials, nb);
-    if (lead) st[kAlphaNew] = __ddiv_rn(st[kRhoNew], rq);
-  } else if (stage == kStageOmega) {
-    double ss = row_sum(partials, nb);
-    double ts = row_sum(partials + nb, nb);
-    double tt = row_sum(partials + 2 * nb, nb);
-    if (lead) {
-      st[kExit] = ss < st[kAtol2] ? 1.0 : 0.0;
-      st[kOmegaNew] = __ddiv_rn(ts, tt);
-    }
-  } else {
-    double rr = row_sum(partials, nb);
-    double hr = row_sum(partials + nb, nb);
-    if (lead) {
-      double alpha = st[kAlphaNew], omega = st[kOmegaNew], rho = st[kRhoNew];
-      bool breakdown = omega == 0.0 || alpha == 0.0 || rho == 0.0;
-      cont[0] = (rr > st[kAtol2]) && !breakdown;
-      st[kRr] = rr;
-      st[kRho] = rho;
-      st[kAlpha] = alpha;
-      st[kOmega] = omega;
-      st[kRhoNew] = hr;
-      st[kBeta] = __ddiv_rn(__dmul_rn(__ddiv_rn(hr, rho), alpha), omega);
-    }
-  }
-}
-
-// -- K18b -------------------------------------------------------------------
-
 constexpr int kRows = kMaxRestart + 2;  // rows summed at once: V[:k+1] w, <w, w>
 
-// m rows of sh summed at once, each in block_sum's tree (the same pairs in
-// the same order): row j's sum ends in sh[j][0].
+// m rows of sh summed at once, each in the same tree (entry t adds entry
+// t + s, s = 64 .. 1): row j's sum ends in sh[j][0].
 __device__ void tree_rows(double (*sh)[kBlock], int m) {
   __syncthreads();
   for (int s = kBlock / 2; s > 16; s >>= 1) {
@@ -272,7 +139,8 @@ __device__ void tree_rows(double (*sh)[kBlock], int m) {
 }
 
 // The sums of rows r0 .. r0 + m - 1 of partials (nb per row), each in
-// row_sum's order, into out[0 .. m - 1] (shared), seen by the whole block.
+// the same order (thread t from 0.0 over partials t, t + 128, ..., then the
+// tree), into out[0 .. m - 1] (shared), seen by the whole block.
 __device__ void finish_rows(const double* partials, int r0, int m, int nb,
                             double (*sh)[kBlock], double* out) {
   for (int j = 0; j < m; ++j) {
@@ -305,6 +173,181 @@ __device__ double csr_row(const int* __restrict__ row_ptr,
   for (; p < e; ++p) acc = __dadd_rn(acc, __dmul_rn(vals[p], x[cols[p]]));
   return acc;
 }
+
+// Sum of one value per thread over the block (the tree of tree_rows), by
+// thread 0 into row `row` of partials at tile t.
+__device__ void tile_sum(double v, double (*sh)[kBlock], double* partials, int row, int nb, int t) {
+  sh[0][threadIdx.x] = v;
+  tree_rows(sh, 1);
+  if (threadIdx.x == 0) partials[(int64_t)row * nb + t] = sh[0][0];
+  __syncthreads();
+}
+
+// -- K18a -------------------------------------------------------------------
+
+// A BiCGStab solve: the start (iterations = 0) or up to `iterations`
+// iterations while cont[0] holds; see the head of the file. partials is
+// (6, nb); cont is (2,): the continue flag and the iterations run so far.
+__global__ void __launch_bounds__(kBlock)
+bicgstab_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cols,
+                      const double* __restrict__ vals, const double* __restrict__ dinv,
+                      const double* __restrict__ b, double* x, double* r, double* rhat,
+                      double* p, double* q, double* phat, double* s, double* shat,
+                      double* t, double* partials, double* st, int* cont, int n, int nb,
+                      int iterations) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ double sh[3][kBlock];
+  __shared__ double sums[3];
+  const int tid = threadIdx.x;
+  const bool lead = blockIdx.x == 0 && tid == 0;
+  if (iterations == 0) {
+    // r = b - A x, rhat = p = q = r; partials of <r, r>.
+    for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
+      const int i = tile * kBlock + tid;
+      double v = 0.0;
+      if (i < n) {
+        const double ri = __dsub_rn(b[i], csr_row(row_ptr, cols, vals, x, i));
+        r[i] = ri;
+        rhat[i] = ri;
+        p[i] = ri;
+        q[i] = ri;
+        v = __dmul_rn(ri, ri);
+      }
+      tile_sum(v, sh, partials, kPartRr, nb, tile);
+    }
+    grid.sync();
+    if (blockIdx.x == 0) {
+      finish_rows(partials, kPartRr, 1, nb, sh, sums);
+      if (tid == 0) {
+        const double rr = sums[0];
+        st[kRhoNew] = rr;
+        st[kRr] = rr;
+        st[kBeta] = __ddiv_rn(__dmul_rn(__ddiv_rn(rr, st[kRho]), st[kAlpha]), st[kOmega]);
+        cont[0] = rr > st[kAtol2];
+        cont[1] = 0;
+      }
+    }
+    return;
+  }
+  // The scalar state, the same in every thread of every block.
+  double rho = st[kRho], alpha = st[kAlpha], omega = st[kOmega], rho_ = st[kRhoNew];
+  double beta = st[kBeta], alpha_ = st[kAlphaNew], omega_ = st[kOmegaNew];
+  double exit_early = st[kExit], rr = st[kRr];
+  const double atol2 = st[kAtol2];
+  bool go = cont[0] != 0;
+  int done = 0;
+  while (done < iterations && go) {
+    // p <- r + beta (p - omega q), phat = dinv p.
+    for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
+      const int i = tile * kBlock + tid;
+      if (i < n) {
+        const double pi = __dadd_rn(r[i], __dmul_rn(beta, __dsub_rn(p[i], __dmul_rn(omega, q[i]))));
+        p[i] = pi;
+        phat[i] = __dmul_rn(dinv[i], pi);
+      }
+    }
+    grid.sync();
+    // q = A phat; partials of <rhat, q>.
+    for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
+      const int i = tile * kBlock + tid;
+      double v = 0.0;
+      if (i < n) {
+        const double qi = csr_row(row_ptr, cols, vals, phat, i);
+        q[i] = qi;
+        v = __dmul_rn(rhat[i], qi);
+      }
+      tile_sum(v, sh, partials, kPartRq, nb, tile);
+    }
+    grid.sync();
+    finish_rows(partials, kPartRq, 1, nb, sh, sums);
+    alpha_ = __ddiv_rn(rho_, sums[0]);
+    // s = r - alpha_ q, shat = dinv s; partials of <s, s>.
+    for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
+      const int i = tile * kBlock + tid;
+      double v = 0.0;
+      if (i < n) {
+        const double si = __dsub_rn(r[i], __dmul_rn(alpha_, q[i]));
+        s[i] = si;
+        shat[i] = __dmul_rn(dinv[i], si);
+        v = __dmul_rn(si, si);
+      }
+      tile_sum(v, sh, partials, kPartSs, nb, tile);
+    }
+    grid.sync();
+    // t = A shat; partials of <t, s> and <t, t>.
+    for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
+      const int i = tile * kBlock + tid;
+      double ts = 0.0, tt = 0.0;
+      if (i < n) {
+        const double ti = csr_row(row_ptr, cols, vals, shat, i);
+        t[i] = ti;
+        ts = __dmul_rn(ti, s[i]);
+        tt = __dmul_rn(ti, ti);
+      }
+      sh[0][tid] = ts;
+      sh[1][tid] = tt;
+      tree_rows(sh, 2);
+      if (tid < 2) partials[(int64_t)(kPartTs + tid) * nb + tile] = sh[tid][0];
+      __syncthreads();
+    }
+    grid.sync();
+    finish_rows(partials, kPartSs, 3, nb, sh, sums);
+    exit_early = sums[0] < atol2 ? 1.0 : 0.0;
+    omega_ = __ddiv_rn(sums[1], sums[2]);
+    // x and r; partials of <r, r> and <rhat, r>.
+    for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
+      const int i = tile * kBlock + tid;
+      double vr = 0.0, vh = 0.0;
+      if (i < n) {
+        const double ap = __dmul_rn(alpha_, phat[i]);
+        double ri;
+        if (exit_early != 0.0) {
+          x[i] = __dadd_rn(x[i], ap);
+          ri = s[i];
+        } else {
+          x[i] = __dadd_rn(x[i], __dadd_rn(ap, __dmul_rn(omega_, shat[i])));
+          ri = __dsub_rn(s[i], __dmul_rn(omega_, t[i]));
+        }
+        r[i] = ri;
+        vr = __dmul_rn(ri, ri);
+        vh = __dmul_rn(rhat[i], ri);
+      }
+      sh[0][tid] = vr;
+      sh[1][tid] = vh;
+      tree_rows(sh, 2);
+      if (tid < 2) partials[(int64_t)(kPartRr + tid) * nb + tile] = sh[tid][0];
+      __syncthreads();
+    }
+    grid.sync();
+    finish_rows(partials, kPartRr, 2, nb, sh, sums);
+    rr = sums[0];
+    const bool breakdown = omega_ == 0.0 || alpha_ == 0.0 || rho_ == 0.0;
+    go = rr > atol2 && !breakdown;
+    rho = rho_;
+    alpha = alpha_;
+    omega = omega_;
+    rho_ = sums[1];
+    beta = __ddiv_rn(__dmul_rn(__ddiv_rn(rho_, rho), alpha), omega);
+    ++done;
+  }
+  // Every block read st and cont before the first grid sync; after it the
+  // lead may write them.
+  if (lead && done > 0) {
+    st[kRho] = rho;
+    st[kAlpha] = alpha;
+    st[kOmega] = omega;
+    st[kRhoNew] = rho_;
+    st[kBeta] = beta;
+    st[kAlphaNew] = alpha_;
+    st[kOmegaNew] = omega_;
+    st[kExit] = exit_early;
+    st[kRr] = rr;
+    cont[0] = go;
+    cont[1] += done;
+  }
+}
+
+// -- K18b -------------------------------------------------------------------
 
 // Block 0's least squares: y from H H^T y = beta H e_0 (Cholesky in the
 // lower triangle, column by column, then L u = z and L^T y = u, both by
@@ -409,10 +452,7 @@ gmres_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cols
             w[i] = wi;
             v = __dmul_rn(wi, wi);
           }
-          sh[0][tid] = v;
-          tree_rows(sh, 1);
-          if (tid == 0) partials[(int64_t)(k + 2) * nb + t] = sh[0][0];
-          __syncthreads();
+          tile_sum(v, sh, partials, k + 2, nb, t);
         }
       }
       grid.sync();
@@ -460,10 +500,7 @@ gmres_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cols
       w[i] = wi;
       v = __dmul_rn(wi, wi);
     }
-    sh[0][tid] = v;
-    tree_rows(sh, 1);
-    if (tid == 0) partials[t] = sh[0][0];
-    __syncthreads();
+    tile_sum(v, sh, partials, 0, nb, t);
   }
   grid.sync();
   // V[0] = w / |w|, the residual norm and the continue flag; H = eye, flags 0.
@@ -489,60 +526,11 @@ inline int blocks_for(int n) { return (n + kBlock - 1) / kBlock; }
 
 inline int last_error() { return (int)cudaGetLastError(); }
 
-}  // namespace
-
-extern "C" int ppt_bicgstab_p_f64(const double* r, const double* q,
-                                  const double* dinv, const double* st,
-                                  double* p, double* phat, int n, void* stream) {
-  if (n == 0) return 0;
-  bicgstab_p_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(r, q, dinv, st, p, phat, n);
-  return last_error();
-}
-
-extern "C" int ppt_krylov_dots_f64(const double* a, const double* b,
-                                   const double* c, const double* d,
-                                   double* partials, int n, int ndots,
-                                   void* stream) {
-  if (n == 0) return 0;
-  int nb = blocks_for(n);
-  krylov_dots_kernel<<<nb, kBlock, 0, (cudaStream_t)stream>>>(a, b, c, d, partials, n, nb, ndots);
-  return last_error();
-}
-
-extern "C" int ppt_bicgstab_s_f64(const double* r, const double* q,
-                                  const double* dinv, const double* st,
-                                  double* s, double* shat, double* partials,
-                                  int n, void* stream) {
-  if (n == 0) return 0;
-  bicgstab_s_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(r, q, dinv, st, s, shat, partials, n);
-  return last_error();
-}
-
-extern "C" int ppt_bicgstab_xr_f64(double* x, double* r, const double* phat,
-                                   const double* shat, const double* s,
-                                   const double* t, const double* rhat,
-                                   const double* st, double* partials, int n,
-                                   void* stream) {
-  if (n == 0) return 0;
-  int nb = blocks_for(n);
-  bicgstab_xr_kernel<<<nb, kBlock, 0, (cudaStream_t)stream>>>(x, r, phat, shat, s, t, rhat, st, partials, n, nb);
-  return last_error();
-}
-
-extern "C" int ppt_bicgstab_scalars_f64(const double* partials, double* st,
-                                        int* cont, int n, int stage,
-                                        void* stream) {
-  bicgstab_scalars_kernel<<<1, kBlock, 0, (cudaStream_t)stream>>>(partials, blocks_for(n), st, cont, stage);
-  return last_error();
-}
-
-namespace {
-
-// Blocks of one gmres_cycle launch for n rows: the co-resident maximum
-// (from the kernel's registers and static shared memory), at most one per
-// tile; negative: a CUDA error, or no cooperative launch on this device.
-int gmres_cycle_grid(int n) {
-  static int capacity[64] = {0};
+// Blocks of one cooperative launch of `kernel` for n rows: the co-resident
+// maximum (from the kernel's registers and static shared memory), at most
+// one per tile; negative: a CUDA error, or no cooperative launch on this
+// device. capacity caches the maximum per device.
+int cycle_grid(const void* kernel, int* capacity, int n) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -(int)e;
@@ -552,13 +540,23 @@ int gmres_cycle_grid(int n) {
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (!coop) return -(int)cudaErrorNotSupported;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gmres_cycle_kernel, kBlock, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
     if (e != cudaSuccess) return -(int)e;
     if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
     capacity[dev] = per_sm * sms;
   }
   int nb = blocks_for(n);
   return nb < capacity[dev] ? nb : capacity[dev];
+}
+
+int gmres_cycle_grid(int n) {
+  static int capacity[64] = {0};
+  return cycle_grid(reinterpret_cast<const void*>(&gmres_cycle_kernel), capacity, n);
+}
+
+int bicgstab_cycle_grid(int n) {
+  static int capacity[64] = {0};
+  return cycle_grid(reinterpret_cast<const void*>(&bicgstab_cycle_kernel), capacity, n);
 }
 
 }  // namespace
@@ -584,6 +582,35 @@ extern "C" int ppt_gmres_cycle_f64(const int* row_ptr, const int* cols,
                   &partials, &flags, &st, &cont, &n, &nb, &restart, &arnoldi};
   cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&gmres_cycle_kernel), dim3(grid),
                                               dim3(kBlock), args, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return last_error();
+}
+
+extern "C" int ppt_bicgstab_cycle_grid_f64(int n, void* stream) {
+  (void)stream;
+  return bicgstab_cycle_grid(n);
+}
+
+extern "C" int ppt_bicgstab_cycle_f64(const int* row_ptr, const int* cols,
+                                      const double* vals, const double* dinv,
+                                      const double* b, double* x, double* r,
+                                      double* rhat, double* p, double* q,
+                                      double* phat, double* s, double* shat,
+                                      double* t, double* partials, double* st,
+                                      int* cont, int n, int iterations,
+                                      void* stream) {
+  if (n == 0) return 0;
+  if (iterations < 0) return (int)cudaErrorInvalidValue;
+  int grid = bicgstab_cycle_grid(n);
+  if (grid < 0) return -grid;
+  int nb = blocks_for(n);
+  void* args[] = {&row_ptr, &cols, &vals, &dinv, &b, &x, &r, &rhat, &p, &q,
+                  &phat, &s, &shat, &t, &partials, &st, &cont, &n, &nb, &iterations};
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&bicgstab_cycle_kernel),
+                                              dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;

@@ -10,7 +10,9 @@ Some operators are plain functions with the same rule (the kernel for a
 CUDA tensor, the plain version for a CPU tensor), as they gain nothing from
 the dispatcher: K1's launcher :class:`EllOperator`, which the solve and the
 assembly call (the custom operator ``ell_spmv`` remains for ``torch.func``);
-K18b's :func:`gmres_cycle`; and the K14, K15 and K8 operators at the end,
+K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; K8's
+launchers :class:`DualGatherVar` and :class:`DualGatherCopy`, made once per
+step of the assembly's dual pass; and the K14, K15 and K8 operators at the end,
 called from the dual-number pass of the assembly
 (:mod:`porepy_tpu_torch.numerics.ad.forward`) and from inside
 ``torch.autograd.Function``s, with optional seeds and row strides.
@@ -41,11 +43,8 @@ __all__ = [
     "tpfa_residual",
     "tpfa_jvp",
     "region_solve",
-    "bicgstab_p",
-    "krylov_dots",
-    "bicgstab_s",
-    "bicgstab_xr",
-    "bicgstab_scalars",
+    "bicgstab_cycle",
+    "bicgstab_cycle_grid",
     "gmres_cycle",
     "gmres_cycle_grid",
     "K18A",
@@ -68,6 +67,8 @@ __all__ = [
     "tpfa_ad_trace_tangent",
     "DualProgram",
     "dual_ew",
+    "DualGatherVar",
+    "DualGatherCopy",
     "dual_gather_var",
     "dual_gather_copy",
     "jac_gather",
@@ -86,11 +87,7 @@ LAUNCHES = {
     "tpfa_residual": 0,
     "tpfa_jvp": 0,
     "region_solve": 0,
-    "bicgstab_p": 0,
-    "krylov_dots": 0,
-    "bicgstab_s": 0,
-    "bicgstab_xr": 0,
-    "bicgstab_scalars": 0,
+    "bicgstab_cycle": 0,
     "gmres_cycle": 0,
     "rachford_rice": 0,
     "interp_lookup": 0,
@@ -107,9 +104,9 @@ LAUNCHES = {
     "jac_gather": 0,
 }
 
-#: The operators of the fused BiCGStab step (K18a) and of one GMRES(30)
-#: restart (K18b, one cooperative kernel), all in ``csrc/krylov.cu``.
-K18A = ("bicgstab_p", "krylov_dots", "bicgstab_s", "bicgstab_xr", "bicgstab_scalars")
+#: The operators of a BiCGStab solve (K18a) and of one GMRES(30) restart
+#: (K18b), each one cooperative kernel in ``csrc/krylov.cu``.
+K18A = ("bicgstab_cycle",)
 K18B = ("gmres_cycle",)
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
@@ -725,127 +722,66 @@ def _partials(name: str, partials: torch.Tensor, rows: int, n: int) -> None:
         raise ValueError(f"{name}: partials must be (>= {rows}, {_nb(n)})")
 
 
-@torch.library.custom_op("porepy_tpu_torch::bicgstab_p", mutates_args=("p", "phat"))
-def bicgstab_p(
-    r: torch.Tensor, q: torch.Tensor, dinv: torch.Tensor, st: torch.Tensor,
-    p: torch.Tensor, phat: torch.Tensor,
+def _cycle_grid(name: str, n: int) -> int:
+    grid = _kernel(name + "_grid", torch.float64)(n, None)
+    if grid < 0:
+        raise RuntimeError(f"{name}: no cooperative launch (CUDA error {-grid})")
+    return grid
+
+
+def bicgstab_cycle_grid(n: int) -> int:
+    """Blocks of one :func:`bicgstab_cycle` launch for ``n`` rows on the
+    current card: the co-resident maximum, at most one per 128-row tile."""
+    return _cycle_grid("bicgstab_cycle", n)
+
+
+def bicgstab_cycle(
+    row_ptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, dinv: torch.Tensor,
+    b: torch.Tensor, x: torch.Tensor, r: torch.Tensor, rhat: torch.Tensor, p: torch.Tensor,
+    q: torch.Tensor, phat: torch.Tensor, s: torch.Tensor, shat: torch.Tensor, t: torch.Tensor,
+    partials: torch.Tensor, st: torch.Tensor, cont: torch.Tensor, iterations: int,
 ) -> None:
-    """In place: ``p <- r + beta (p - omega q)``, ``phat = dinv p``."""
-    reference.bicgstab_p(r, q, dinv, st, p, phat)
-
-
-@bicgstab_p.register_kernel("cuda")
-def _bicgstab_p_cuda(r, q, dinv, st, p, phat):
-    n = r.shape[0]
-    _vectors("bicgstab_p", n, r=r, q=q, dinv=dinv, p=p, phat=phat)
-    _check_f64("bicgstab_p", {"r": r, "q": q, "dinv": dinv, "st": st, "p": p, "phat": phat})
-    _launch("bicgstab_p", torch.float64, r.data_ptr(), q.data_ptr(), dinv.data_ptr(),
-            st.data_ptr(), p.data_ptr(), phat.data_ptr(), n)
-
-
-@torch.library.custom_op("porepy_tpu_torch::krylov_dots", mutates_args=("partials",))
-def krylov_dots(
-    a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
-    partials: torch.Tensor, ndots: int,
-) -> None:
-    """Block partials of ``<a, b>`` into ``partials[0]`` and, with
-    ``ndots == 2``, of ``<c, d>`` into ``partials[1]``."""
-    reference.krylov_dots(a, b, c, d, partials, ndots)
-
-
-@krylov_dots.register_kernel("cuda")
-def _krylov_dots_cuda(a, b, c, d, partials, ndots):
-    n = a.shape[0]
-    if ndots not in (1, 2):
-        raise ValueError("krylov_dots: ndots must be 1 or 2")
-    _vectors("krylov_dots", n, a=a, b=b, c=c, d=d)
-    _partials("krylov_dots", partials, ndots, n)
-    _check_f64("krylov_dots", {"a": a, "b": b, "c": c, "d": d, "partials": partials})
-    _launch("krylov_dots", torch.float64, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            d.data_ptr(), partials.data_ptr(), n, ndots)
-
-
-@torch.library.custom_op(
-    "porepy_tpu_torch::bicgstab_s", mutates_args=("s", "shat", "partials")
-)
-def bicgstab_s(
-    r: torch.Tensor, q: torch.Tensor, dinv: torch.Tensor, st: torch.Tensor,
-    s: torch.Tensor, shat: torch.Tensor, partials: torch.Tensor,
-) -> None:
-    """In place: ``s = r - alpha_ q``, ``shat = dinv s``, partials of
-    ``<s, s>`` into ``partials[0]``."""
-    reference.bicgstab_s(r, q, dinv, st, s, shat, partials)
-
-
-@bicgstab_s.register_kernel("cuda")
-def _bicgstab_s_cuda(r, q, dinv, st, s, shat, partials):
-    n = r.shape[0]
-    _vectors("bicgstab_s", n, r=r, q=q, dinv=dinv, s=s, shat=shat)
-    _partials("bicgstab_s", partials, 1, n)
-    _check_f64("bicgstab_s", {"r": r, "q": q, "dinv": dinv, "st": st, "s": s,
-                              "shat": shat, "partials": partials})
-    _launch("bicgstab_s", torch.float64, r.data_ptr(), q.data_ptr(), dinv.data_ptr(),
-            st.data_ptr(), s.data_ptr(), shat.data_ptr(), partials.data_ptr(), n)
-
-
-@torch.library.custom_op(
-    "porepy_tpu_torch::bicgstab_xr", mutates_args=("x", "r", "partials")
-)
-def bicgstab_xr(
-    x: torch.Tensor, r: torch.Tensor, phat: torch.Tensor, shat: torch.Tensor,
-    s: torch.Tensor, t: torch.Tensor, rhat: torch.Tensor, st: torch.Tensor,
-    partials: torch.Tensor,
-) -> None:
-    """In place: the update of ``x`` and ``r`` that ends a BiCGStab
-    iteration, partials of ``<r, r>`` and ``<rhat, r>`` into rows 0, 1."""
-    reference.bicgstab_xr(x, r, phat, shat, s, t, rhat, st, partials)
-
-
-@bicgstab_xr.register_kernel("cuda")
-def _bicgstab_xr_cuda(x, r, phat, shat, s, t, rhat, st, partials):
-    n = x.shape[0]
-    vec = {"x": x, "r": r, "phat": phat, "shat": shat, "s": s, "t": t, "rhat": rhat}
-    _vectors("bicgstab_xr", n, **vec)
-    _partials("bicgstab_xr", partials, 2, n)
-    _check_f64("bicgstab_xr", {**vec, "st": st, "partials": partials})
-    _launch("bicgstab_xr", torch.float64, *(v.data_ptr() for v in vec.values()),
-            st.data_ptr(), partials.data_ptr(), n)
-
-
-@torch.library.custom_op(
-    "porepy_tpu_torch::bicgstab_scalars", mutates_args=("st", "cont")
-)
-def bicgstab_scalars(
-    partials: torch.Tensor, st: torch.Tensor, cont: torch.Tensor, stage: int
-) -> None:
-    """One block: finish the partial rows of ``stage`` (``reference.STAGE_*``)
-    and run that stage of the scalar recurrence on ``st`` and ``cont``."""
-    reference.bicgstab_scalars(partials, st, cont, stage)
-
-
-@bicgstab_scalars.register_kernel("cuda")
-def _bicgstab_scalars_cuda(partials, st, cont, stage):
-    rows = {reference.STAGE_INIT: 1, reference.STAGE_ALPHA: 1,
-            reference.STAGE_OMEGA: 3, reference.STAGE_NEXT: 2}
-    if stage not in rows:
-        raise ValueError(f"bicgstab_scalars: unknown stage {stage}")
-    if partials.dim() != 2 or partials.shape[0] < rows[stage]:
-        raise ValueError(f"bicgstab_scalars: stage {stage} needs {rows[stage]} partial rows")
-    if st.shape != (reference.BICG_SLOTS,) or cont.shape != (1,):
-        raise ValueError("bicgstab_scalars: needs the state and a (1,) flag")
-    n = partials.shape[1] * reference.KRYLOV_BLOCK
-    _check_f64("bicgstab_scalars", {"partials": partials, "st": st, "cont": cont}, ints=("cont",))
-    _launch("bicgstab_scalars", torch.float64, partials.data_ptr(), st.data_ptr(),
-            cont.data_ptr(), n, stage)
+    """A BiCGStab solve of ``A x = b`` with ``M = dinv *`` on the CSR matrix
+    ``(row_ptr, cols, vals)``, in place (see
+    :func:`porepy_tpu_torch.kernels.reference.bicgstab_cycle`):
+    ``iterations = 0`` starts it from ``x``, otherwise up to ``iterations``
+    iterations run while ``cont[0]`` holds, ``cont[1]`` counting them. On
+    the card one cooperative launch of the K18a kernel, the matvecs and
+    the scalar recurrence inside it; it refuses to run where the card has
+    no cooperative launch."""
+    if not b.is_cuda:
+        reference.bicgstab_cycle(row_ptr, cols, vals, dinv, b, x, r, rhat, p, q, phat, s, shat,
+                                 t, partials, st, cont, iterations)
+        return
+    n = b.shape[0]
+    if iterations < 0:
+        raise ValueError(f"bicgstab_cycle: {iterations} iterations")
+    if row_ptr.shape != (n + 1,) or cols.dim() != 1 or vals.shape != cols.shape:
+        raise ValueError("bicgstab_cycle: needs a CSR matrix of n rows")
+    vec = {"dinv": dinv, "x": x, "r": r, "rhat": rhat, "p": p, "q": q, "phat": phat, "s": s,
+           "shat": shat, "t": t}
+    _vectors("bicgstab_cycle", n, **vec)
+    _partials("bicgstab_cycle", partials, reference.BICG_ROWS, n)
+    if st.shape != (reference.BICG_SLOTS,) or cont.shape != (2,):
+        raise ValueError("bicgstab_cycle: needs the state and a (2,) flag and count")
+    _check_f64(
+        "bicgstab_cycle",
+        {"row_ptr": row_ptr, "cols": cols, "vals": vals, "b": b, **vec, "partials": partials,
+         "st": st, "cont": cont},
+        ints=("row_ptr", "cols", "cont"),
+    )
+    _launch(
+        "bicgstab_cycle", torch.float64,
+        row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), dinv.data_ptr(), b.data_ptr(),
+        *(v.data_ptr() for k, v in vec.items() if k != "dinv"), partials.data_ptr(),
+        st.data_ptr(), cont.data_ptr(), n, iterations,
+    )
 
 
 def gmres_cycle_grid(n: int) -> int:
     """Blocks of one :func:`gmres_cycle` launch for ``n`` rows on the
     current card: the co-resident maximum, at most one per 128-row tile."""
-    grid = _kernel("gmres_cycle_grid", torch.float64)(n, None)
-    if grid < 0:
-        raise RuntimeError(f"gmres_cycle: no cooperative launch (CUDA error {-grid})")
-    return grid
+    return _cycle_grid("gmres_cycle", n)
 
 
 def gmres_cycle(
@@ -1394,7 +1330,8 @@ def tpfa_ad_trace_tangent(geom: TpfaAdGeometry, primals, seeds):
 
 # -- K8 ---------------------------------------------------------------------------
 
-_JOINT = 8  # duals per dual_gather_copy launch, equations per jac_gather launch
+_JOINT = 8  # equations per jac_gather launch
+_COPY_PIECES = 32  # duals per dual_gather_copy launch
 _DUAL_BINARY = ("add", "sub", "mul", "div", "pow", "gt", "ge", "leabs")
 
 
@@ -1543,70 +1480,182 @@ def dual_ew(program: DualProgram, inputs, batch: int):
     return (out_v if shape == (n,) else out_v.reshape(shape)), out_t
 
 
+class DualGatherVar:
+    """K8's gather of the unknowns ``x[idx]`` under one-hot seeds by color
+    for one step of the dual pass (see
+    :func:`porepy_tpu_torch.kernels.reference.dual_gather_var`):
+    ``gather(x, colors, batch)`` returns ``(val, tan)``, views of a ``(batch +
+    1, n)`` buffer that the launcher keeps per color set (the ``colors``
+    tensor, its version and ``batch``; the last two sets seen). The tangent
+    rows depend on ``idx`` and the colors alone: they are written when a set
+    is first seen (the ``dual_seed_rows`` kernel; :attr:`seed_writes` counts
+    it), and a call writes the value row alone (``dual_gather_value``). The
+    next call with the same set overwrites that row, so a result kept past
+    it is copied first (:meth:`holds` tells whether a tensor is a view of a
+    buffer here). ``idx`` (1-d int64) is checked once, here; a call checks
+    ``x``. On the CPU the plain versions fill the same buffers. Both kernels
+    count under ``dual_gather``."""
+
+    __slots__ = ("idx", "n", "seed_writes", "_sets", "_dev", "_idx_ptr", "_value", "_seed")
+    _KEEP = 2
+
+    def __init__(self, idx: torch.Tensor) -> None:
+        if idx.dtype != torch.int64 or idx.dim() != 1:
+            raise TypeError("dual_gather_var: needs a 1-d int64 idx")
+        self.idx, self.n = idx, idx.shape[0]
+        self.seed_writes = 0
+        self._sets: dict = {}
+        self._dev = None
+        if idx.is_cuda:
+            _check("dual_gather_var", {"idx": idx}, torch.float64)
+            self._dev, self._idx_ptr = idx.get_device(), idx.data_ptr()
+            self._value = _kernel("dual_gather_value", torch.float64)
+            self._seed = _kernel("dual_seed_rows", torch.float64)
+
+    def _color_set(self, colors, batch: int, x: torch.Tensor) -> tuple:
+        key = (id(colors), batch)
+        version = None if colors is None else colors._version
+        hit = self._sets.get(key)
+        if hit is not None and hit[0] is colors and hit[1] == version:
+            return hit[2]
+        if batch:
+            if colors.dtype != torch.int32 or colors.shape != x.shape:
+                raise TypeError("dual_gather_var: colors must be int32 of x's shape")
+            if colors.is_cuda != x.is_cuda or (x.is_cuda and (
+                colors.get_device() != self._dev or not colors.is_contiguous()
+            )):
+                raise ValueError("dual_gather_var: colors must be contiguous, on x's device")
+        buf = torch.empty((batch + 1, self.n), dtype=torch.float64, device=self.idx.device)
+        if batch:
+            if self._dev is None:
+                buf[1:] = reference.dual_seed_rows(self.idx, colors, batch)
+            elif self.n:
+                rc = self._seed(self._idx_ptr, colors.data_ptr(), buf[1].data_ptr(), self.n, batch,
+                                _current_stream(self._dev))
+                if rc != 0:
+                    raise RuntimeError(f"dual_seed_rows kernel launch failed with CUDA error {rc}")
+                LAUNCHES["dual_gather"] += 1
+            self.seed_writes += 1
+        out = (buf[0], buf[1:] if batch else None)
+        self._sets.pop(key, None)
+        if len(self._sets) >= self._KEEP:
+            self._sets.pop(next(iter(self._sets)))
+        self._sets[key] = (colors, version, out, buf)
+        return out
+
+    def __call__(self, x: torch.Tensor, colors=None, batch: int = 0) -> tuple:
+        if colors is None:
+            batch = 0
+        if x.dtype != torch.float64 or x.dim() != 1:
+            raise TypeError("dual_gather_var: needs a float64 x of shape (ndof,)")
+        if x.is_cuda != (self._dev is not None) or (
+            x.is_cuda and (x.get_device() != self._dev or not x.is_contiguous())
+        ):
+            raise ValueError(f"dual_gather_var: x is on {x.device}, idx on {self.idx.device}")
+        val, tan = self._color_set(colors, batch, x)
+        if self._dev is None:
+            val.copy_(reference.dual_gather_var(x, self.idx, None, 0)[0])
+        elif self.n:
+            rc = self._value(x.data_ptr(), self._idx_ptr, val.data_ptr(), self.n,
+                             _current_stream(self._dev))
+            if rc != 0:
+                raise RuntimeError(f"dual_gather_value kernel launch failed with CUDA error {rc}")
+            LAUNCHES["dual_gather"] += 1
+        return val, tan
+
+    def holds(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` is a view of one of the buffers kept here."""
+        ptr = t.untyped_storage().data_ptr()
+        return any(entry[3].untyped_storage().data_ptr() == ptr for entry in self._sets.values())
+
+
 def dual_gather_var(x, idx, colors, batch: int):
     """The dual of the unknowns ``x[idx]`` under one-hot seeds by color (see
     :func:`porepy_tpu_torch.kernels.reference.dual_gather_var`): ``idx``
     int64, ``colors`` int32 over all unknowns (not read, and may be ``None``,
-    for ``batch == 0``). On the card ``(val, tan)`` are views of one
-    ``(batch + 1, n)`` buffer. Counts under ``dual_gather``."""
+    for ``batch == 0``). The functional form of :class:`DualGatherVar`: on
+    the card a launcher made for the call (two launches), so ``(val, tan)``
+    are views of a ``(batch + 1, n)`` buffer of their own."""
     if not x.is_cuda:
         return reference.dual_gather_var(x, idx, colors, batch)
-    if x.dtype != torch.float64 or idx.dtype != torch.int64:
-        raise TypeError("dual_gather_var: needs float64 x and int64 idx")
-    if x.dim() != 1 or idx.dim() != 1:
-        raise ValueError("dual_gather_var: needs (ndof,) x and a 1-d idx")
-    tensors = {"x": x, "idx": idx}
-    if batch:
-        if colors.dtype != torch.int32 or colors.shape != x.shape:
-            raise TypeError("dual_gather_var: colors must be int32 of x's shape")
-        tensors["colors"] = colors
-    _check("dual_gather_var", tensors, torch.float64)
-    n = idx.shape[0]
-    buf = torch.empty((batch + 1, n), dtype=torch.float64, device=x.device)
-    if n:
-        _launch(
-            "dual_gather_var", torch.float64,
-            x.data_ptr(), idx.data_ptr(), colors.data_ptr() if batch else None,
-            buf.data_ptr(), n, batch, count_as="dual_gather",
-        )
-    return buf[0], (buf[1:] if batch else None)
+    return DualGatherVar(idx)(x, colors if batch else None, batch)
+
+
+class DualGatherCopy:
+    """K8's concatenation of duals for one step of the dual pass (see
+    :func:`porepy_tpu_torch.kernels.reference.dual_gather_copy`):
+    ``copy(pieces, batch)`` returns ``(val, tan)``, views of a new ``(rows +
+    1, n_out)`` buffer. The offsets, strides and ctypes tables are built
+    when a layout of the pieces (their lengths and strides, which carry
+    tangents, the rows) is first seen; a call checks the pieces, refreshes
+    their pointers in the tables and launches, 32 pieces to a launch. On the
+    CPU the plain version runs. Counts under ``dual_gather``."""
+
+    __slots__ = ("_layout", "_chunks", "_n_out", "_dev", "_fn")
+
+    def __init__(self) -> None:
+        self._layout = None
+
+    def _build(self, layout: tuple, dev: int) -> None:
+        self._dev = dev
+        self._fn = _kernel("dual_gather_copy", torch.float64)
+        pieces = layout[1:]
+        starts = [0]
+        for n, _es, _rs in pieces:
+            starts.append(starts[-1] + n)
+        self._n_out = starts[-1]
+        chunks = []
+        for lo in range(0, len(pieces), _COPY_PIECES):
+            chunk = pieces[lo : lo + _COPY_PIECES]
+            count = len(chunk)
+            if starts[lo + count] == starts[lo]:
+                continue
+            strides = _host_table(
+                ctypes.c_longlong,
+                [es for _n, es, _rs in chunk] + [rs for _n, _es, rs in chunk]
+                + starts[lo : lo + count + 1],
+            )
+            chunks.append((lo, count, (ctypes.c_void_p * (2 * count))(), strides))
+        self._chunks = chunks
+        self._layout = layout
+
+    def __call__(self, pieces, batch: int) -> tuple:
+        ref = pieces[0][0]
+        if not ref.is_cuda:
+            return reference.dual_gather_copy(pieces, batch)
+        dev = ref.get_device()
+        rows = batch if any(t is not None for _v, t in pieces) else 0
+        layout, ptrs, keep = [rows], [], []
+        for val, tan in pieces:
+            if val.dim() != 1 or val.get_device() != dev:
+                raise ValueError("dual_gather_copy: values must be 1-d, on one card")
+            n = val.shape[0]
+            pv, pt, es, rs, kept = _dual_rows("dual_gather_copy", val, tan, rows, n)
+            # A piece of one element is read at offset 0 whatever its stride.
+            layout.append((n, es if n > 1 else 0, rs))
+            ptrs.append((pv, pt))
+            keep.append(kept)
+        layout = tuple(layout)
+        if layout != self._layout or dev != self._dev:
+            self._build(layout, dev)
+        buf = torch.empty((rows + 1, self._n_out), dtype=torch.float64, device=ref.device)
+        for lo, count, table, strides in self._chunks:
+            for k in range(count):
+                table[k], table[count + k] = ptrs[lo + k]
+            rc = self._fn(table, strides, count, buf.data_ptr(), self._n_out, rows,
+                          _current_stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"dual_gather_copy kernel launch failed with CUDA error {rc}")
+            LAUNCHES["dual_gather"] += 1
+        return buf[0], (buf[1:] if rows else None)
 
 
 def dual_gather_copy(pieces, batch: int):
     """The concatenation of the duals ``pieces`` (see
-    :func:`porepy_tpu_torch.kernels.reference.dual_gather_copy`), eight to a
-    launch. Counts under ``dual_gather``."""
-    ref = pieces[0][0]
-    if not ref.is_cuda:
-        return reference.dual_gather_copy(pieces, batch)
-    rows = batch if any(t is not None for _v, t in pieces) else 0
-    starts = [0]
-    for val, _tan in pieces:
-        if val.dim() != 1:
-            raise ValueError("dual_gather_copy: values must be 1-d")
-        starts.append(starts[-1] + val.shape[0])
-    n_out = starts[-1]
-    buf = torch.empty((rows + 1, n_out), dtype=torch.float64, device=ref.device)
-    for lo in range(0, len(pieces), _JOINT):
-        chunk = pieces[lo : lo + _JOINT]
-        if starts[lo + len(chunk)] == starts[lo]:
-            continue
-        ptrs_v, ptrs_t, es, rs, keep = [], [], [], [], []
-        for val, tan in chunk:
-            pv, pt, e, r, kept = _dual_rows("dual_gather_copy", val, tan, rows, val.shape[0])
-            ptrs_v.append(pv)
-            ptrs_t.append(pt)
-            # A piece of one element is read at offset 0 whatever its stride.
-            es.append(e if val.shape[0] > 1 else 0)
-            rs.append(r)
-            keep.append(kept)
-        _launch(
-            "dual_gather_copy", torch.float64,
-            _host_table(ctypes.c_void_p, ptrs_v + ptrs_t),
-            _host_table(ctypes.c_longlong, es + rs + starts[lo : lo + len(chunk) + 1]),
-            len(chunk), buf.data_ptr(), n_out, rows, count_as="dual_gather",
-        )
-    return buf[0], (buf[1:] if rows else None)
+    :func:`porepy_tpu_torch.kernels.reference.dual_gather_copy`); the
+    functional form of :class:`DualGatherCopy`, a launcher made for the
+    call. Counts under ``dual_gather``."""
+    return DualGatherCopy()(pieces, batch)
 
 
 def jac_gather(vals, tans, gather_color, gather_row, nnz_offsets, row_offsets):

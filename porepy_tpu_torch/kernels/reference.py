@@ -33,6 +33,7 @@ __all__ = [
     "bicgstab_s",
     "bicgstab_xr",
     "bicgstab_scalars",
+    "bicgstab_cycle",
     "cgs_project",
     "cgs_update",
     "cgs_normalize",
@@ -61,6 +62,7 @@ __all__ = [
     "DUAL_MAX_INPUTS",
     "DUAL_MAX_INSTRS",
     "dual_ew",
+    "dual_seed_rows",
     "dual_gather_var",
     "dual_gather_copy",
     "jac_gather",
@@ -309,6 +311,10 @@ BICG_RHO, BICG_ALPHA, BICG_OMEGA, BICG_RHO_NEW, BICG_BETA, BICG_ATOL2 = range(6)
 BICG_ALPHA_NEW, BICG_OMEGA_NEW, BICG_EXIT, BICG_RR = range(6, 10)
 BICG_SLOTS = 10
 STAGE_INIT, STAGE_ALPHA, STAGE_OMEGA, STAGE_NEXT = range(4)
+# Rows of the BiCGStab partial sums (``kPart*`` in ``csrc/krylov.cu``):
+# <rhat, q>, <s, s>, <t, s>, <t, t>, <r, r>, <rhat, r>.
+BICG_RQ, BICG_SS, BICG_TS, BICG_TT, BICG_RR_ROW, BICG_HR = range(6)
+BICG_ROWS = 6
 # Scalar slots of the GMRES state.
 GMRES_ATOL, GMRES_RESNORM = range(2)
 GMRES_SLOTS = 2
@@ -431,6 +437,45 @@ def bicgstab_scalars(partials, st, cont, stage: int) -> None:
         st[BICG_RHO], st[BICG_ALPHA], st[BICG_OMEGA] = rho, alpha, omega
         st[BICG_RHO_NEW] = hr
         st[BICG_BETA] = hr / rho * alpha / omega
+
+
+def bicgstab_cycle(row_ptr, cols, vals, dinv, b, x, r, rhat, p, q, phat, s, shat, t,
+                   partials, st, cont, iterations: int) -> None:
+    """A BiCGStab solve with ``M = dinv *`` on the CSR matrix ``(row_ptr,
+    cols, vals)``, in place, as the K18a kernel runs it: with ``iterations
+    = 0`` the start from ``x`` (``r = b - A x``, ``rhat = p = q = r``,
+    :func:`bicgstab_scalars` ``STAGE_INIT``); otherwise up to
+    ``iterations`` iterations while ``cont[0]`` holds, each the plain
+    passes :func:`bicgstab_p`, :func:`krylov_dots`, :func:`bicgstab_s`,
+    :func:`bicgstab_xr` and :func:`bicgstab_scalars` around two matvecs
+    that round as the kernel's (:func:`ell_spmv_ordered`). ``partials`` is
+    ``(BICG_ROWS, nb)``, one row per dot product; ``cont`` int32 ``(2,)``:
+    the continue flag and the iterations run since the start."""
+    val, col = csr_ell(row_ptr, cols, vals, x.shape[0])
+    flag = cont[:1]
+    if iterations == 0:
+        r.copy_(b - ell_spmv_ordered(val, col, x))
+        for v in (rhat, p, q):
+            v.copy_(r)
+        rows = partials[BICG_RR_ROW : BICG_RR_ROW + 1]
+        krylov_dots(r, r, r, r, rows, 1)
+        bicgstab_scalars(rows, st, flag, STAGE_INIT)
+        cont[1] = 0
+        return
+    done = 0
+    while done < iterations and bool(flag):
+        bicgstab_p(r, q, dinv, st, p, phat)
+        q.copy_(ell_spmv_ordered(val, col, phat))
+        krylov_dots(rhat, q, rhat, q, partials[BICG_RQ : BICG_RQ + 1], 1)
+        bicgstab_scalars(partials[BICG_RQ : BICG_RQ + 1], st, flag, STAGE_ALPHA)
+        bicgstab_s(r, q, dinv, st, s, shat, partials[BICG_SS : BICG_SS + 1])
+        t.copy_(ell_spmv_ordered(val, col, shat))
+        krylov_dots(t, s, t, t, partials[BICG_TS : BICG_TT + 1], 2)
+        bicgstab_scalars(partials[BICG_SS : BICG_TT + 1], st, flag, STAGE_OMEGA)
+        bicgstab_xr(x, r, phat, shat, s, t, rhat, st, partials[BICG_RR_ROW : BICG_HR + 1])
+        bicgstab_scalars(partials[BICG_RR_ROW : BICG_HR + 1], st, flag, STAGE_NEXT)
+        done += 1
+    cont[1] += done
 
 
 # The GMRES passes below round as the K18b kernel does, operation by
@@ -1063,16 +1108,22 @@ def dual_ew(instrs, imm, inputs, batch: int):
     return val, tan
 
 
+def dual_seed_rows(idx, colors, batch: int):
+    """The one-hot tangent rows of the unknowns ``x[idx]`` by color:
+    ``(batch, n)`` with entry ``(c, i)`` 1 where ``colors[idx[i]] == c``,
+    else 0. ``idx`` int64, ``colors`` int32 over all unknowns."""
+    rows = torch.arange(batch, dtype=colors.dtype, device=colors.device)[:, None]
+    return (colors[idx][None, :] == rows).to(torch.float64)
+
+
 def dual_gather_var(x, idx, colors, batch: int):
     """The dual of the unknowns ``x[idx]`` under one-hot seeds by color:
-    ``(val, tan)`` with ``val = x[idx]`` and ``tan[c, i] = 1`` where
-    ``colors[idx[i]] == c`` else 0 (``tan`` is ``None`` for ``batch == 0``).
-    ``idx`` int64, ``colors`` int32 over all unknowns."""
+    ``(val, tan)`` with ``val = x[idx]`` and ``tan`` the
+    :func:`dual_seed_rows` (``None`` for ``batch == 0``)."""
     val = x[idx]
     if not batch:
         return val, None
-    rows = torch.arange(batch, dtype=colors.dtype, device=x.device)[:, None]
-    return val, (colors[idx][None, :] == rows).to(x.dtype)
+    return val, dual_seed_rows(idx, colors, batch).to(x.dtype)
 
 
 def dual_gather_copy(pieces, batch: int):

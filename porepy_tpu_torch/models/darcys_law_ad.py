@@ -133,9 +133,12 @@ class _DiffTpfaGeometry:
                 return torch.zeros(0, dtype=p.dtype, device=p.device)
             return torch.cat(out)
 
+        gather = ops.DualGatherCopy()
+
         def dual_rule(run, k9, vol, p, bco, lam):
             """The same face field on duals: value and the tangent rows of
-            all seeds, one K14 launch each per subdomain."""
+            all seeds, one K14 launch each per subdomain, concatenated by the
+            rule's own launcher."""
             if trace:
                 value_op, tangent_op = ops.tpfa_ad_trace, ops.tpfa_ad_trace_tangent
             else:
@@ -158,7 +161,7 @@ class _DiffTpfaGeometry:
                     out.append(forward.Dual(val))
                 else:
                     out.append(forward.Dual(val, tangent_op(geom, primals, seeds)))
-            return forward.concat(run, out)
+            return forward.concat(run, out, gather)
 
         fn.dual_rule = dual_rule
         return fn

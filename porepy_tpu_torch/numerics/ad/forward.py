@@ -9,9 +9,11 @@ it into a list of steps on :class:`Dual` values ``(val, tan)`` with ``tan``
 the ``(B, n)`` block ``J @ seeds[c]`` of the ``B`` color seeds, or ``None``
 for a constant. At every assembly the steps run in order:
 
-- the unknowns enter through :func:`~porepy_tpu_torch.kernels.dual_gather_var`
-  (the seeds are one-hot by color, so the tangent rows are written from the
-  colors and no seed array exists);
+- the unknowns enter through the step's
+  :class:`~porepy_tpu_torch.kernels.DualGatherVar` (the seeds are one-hot by
+  color, so the tangent rows are written from the colors, once per color
+  set into a buffer the launcher keeps, and no seed array exists; an
+  assembly writes the value row alone);
 - a maximal subtree of ``add, sub, mul, div, pow, neg`` nodes and elementwise
   functions whose inner nodes have one consumer is one
   :class:`~porepy_tpu_torch.kernels.DualProgram`, run by
@@ -21,7 +23,8 @@ for a constant. At every assembly the steps run in order:
 - a constant sparse matrix is applied to value and tangent rows by the K1
   kernel (the matrix's :class:`~porepy_tpu_torch.kernels.EllOperator`, the
   launch without the dispatcher) in one stacked launch;
-- concatenations go through :func:`~porepy_tpu_torch.kernels.dual_gather_copy`;
+- concatenations go through the step's
+  :class:`~porepy_tpu_torch.kernels.DualGatherCopy`;
 - an ``evaluate`` node runs the *dual rule* of its function (the function's
   ``dual_rule`` attribute, set where the function is built): either an
   :func:`elementwise` emitter, which joins the fused program, or a callable
@@ -34,8 +37,10 @@ for a constant. At every assembly the steps run in order:
 
 Constants (env slots, dense arrays, scalars, historic variables) carry no
 tangent and cost no tangent work. A buffer is dropped after its last
-consumer. With no colors the pass computes the value alone. On CPU tensors
-the kernels' plain versions run instead, by the wrappers' own rule.
+consumer; the unknowns' buffers outlive the pass, so a result that is a
+view of one is returned as a copy. With no colors the pass computes the
+value alone. On CPU tensors the kernels' plain versions run instead, by the
+wrappers' own rule.
 """
 
 from __future__ import annotations
@@ -230,14 +235,16 @@ def neg(run: "_Run", a: Dual) -> Dual:
     return run_program(_NEG, [a], run.batch)
 
 
-def concat(run: "_Run", duals: Sequence[Dual]) -> Dual:
-    """The concatenation of ``duals`` through ``dual_gather_copy``."""
+def concat(run: "_Run", duals: Sequence[Dual], gather: ops.DualGatherCopy) -> Dual:
+    """The concatenation of ``duals`` through the caller's launcher
+    ``gather`` (one :class:`~porepy_tpu_torch.kernels.DualGatherCopy` per
+    step or rule, made once)."""
     if not duals:
         return Dual(torch.zeros(0, dtype=run.x.dtype, device=run.x.device))
     if len(duals) == 1 and duals[0].val.dim() == 1:
         return duals[0]
     pieces = [(torch.atleast_1d(d.val), d.tan) for d in duals]
-    return Dual(*ops.dual_gather_copy(pieces, run.batch))
+    return Dual(*gather(pieces, run.batch))
 
 
 def jvp_node(func: Callable, duals: Sequence[Dual]) -> Dual:
@@ -313,6 +320,7 @@ class DualExecutor:
         self._inputs: dict[int, _Expr] = {}
         self._exprs: dict[int, _Expr] = {}
         self._keep: list = []  # nodes whose ids key the tables above
+        self._gathers: list[ops.DualGatherVar] = []  # the unknowns' launchers
         self._consumers = self._count_consumers(op)
         self._root = self._materialize(op)
         self._plan_frees()
@@ -445,7 +453,8 @@ class DualExecutor:
                 return self._unknowns(node, subs)
             slots = [self._materialize(v) for v in subs]
             return self._new_slot(
-                node, lambda R, run: concat(run, [R[s] for s in slots]), slots
+                node, lambda R, run, g=ops.DualGatherCopy(): concat(run, [R[s] for s in slots], g),
+                slots,
             )
         if isinstance(node, Variable):
             if node.is_current_iterate:
@@ -478,7 +487,8 @@ class DualExecutor:
         if op is Operations.concat:
             slots = [self._materialize(ch) for ch in node.children]
             return self._new_slot(
-                node, lambda R, run: concat(run, [R[s] for s in slots]), slots
+                node, lambda R, run, g=ops.DualGatherCopy(): concat(run, [R[s] for s in slots], g),
+                slots,
             )
         if op is Operations.evaluate:
             if node.func is None:
@@ -514,12 +524,14 @@ class DualExecutor:
     def _unknowns(self, node, variables) -> int:
         idx = np.asarray(self.eq_sys.dofs_of(list(variables)), dtype=np.int64)
 
+        def launcher(dev):
+            gather = ops.DualGatherVar(torch.tensor(idx, dtype=torch.int64, device=dev))
+            self._gathers.append(gather)
+            return gather
+
         def step(R, run):
-            idx_t = self._const_tensor(
-                ("dofs", id(node)), run.x.device,
-                lambda dev: torch.tensor(idx, dtype=torch.int64, device=dev),
-            )
-            return Dual(*ops.dual_gather_var(run.x, idx_t, run.colors, run.batch))
+            gather = self._const_tensor(("dofs", id(node)), run.x.device, launcher)
+            return Dual(*gather(run.x, run.colors, run.batch))
 
         return self._new_slot(node, step)
 
@@ -554,6 +566,9 @@ class DualExecutor:
             for s in frees:
                 R[s] = None
         out = R[self._root]
+        if any(g.holds(t) for g in self._gathers for t in (out.val, out.tan) if t is not None):
+            # A view of an unknowns' buffer, which the next pass overwrites.
+            return out.val.clone(), None if out.tan is None else out.tan.clone()
         return out.val, out.tan
 
 

@@ -12,11 +12,12 @@ plain PyTorch. The structured and unstructured flow steps
 :func:`solve_sparse` (K18, behind the ``jax_bicgstab``/``jax_gmres``
 linear-solver options) solves an assembled scipy matrix with the same two
 iterations and a Jacobi preconditioner on the device: the matrix goes over
-once per solve. BiCGStab's matvecs are K1 launches on its ELL layout and
-the vector work between them runs in the K18a kernels; each GMRES(30)
-restart is one cooperative K18b kernel on the CSR matrix, matvecs included
-(``kernels/csrc/krylov.cu``; their plain versions on the CPU). A solve that misses its tolerance on the host
-check falls back to ``spsolve`` and counts in :data:`FALLBACK_COUNTER`.
+once per solve, in CSR form. A BiCGStab solve is one cooperative K18a
+kernel that runs its iterations, matvecs and scalar recurrence included,
+until the solve stops (after one that starts it); each GMRES(30) restart is
+one cooperative K18b kernel, matvecs included (``kernels/csrc/krylov.cu``;
+their plain versions on the CPU). A solve that misses its tolerance on the
+host check falls back to ``spsolve`` and counts in :data:`FALLBACK_COUNTER`.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from porepy_tpu_torch.utils import device_policy
 
 __all__ = [
     "bicgstab", "gmres", "solve_sparse", "jacobi_preconditioner", "FALLBACK_COUNTER",
-    "LAST_SOLVE", "csr_arrays", "gmres_state",
+    "LAST_SOLVE", "csr_arrays", "gmres_state", "bicgstab_state",
 ]
 
 logger = logging.getLogger(__name__)
@@ -200,40 +201,42 @@ def _op(name: str, *args) -> None:
     getattr(kernels, name)(*args)
 
 
-def _bicgstab_fused(matvec, b: torch.Tensor, dinv: torch.Tensor, atol2: float, maxiter: int,
-                    run=_op):
-    """:func:`bicgstab` with ``M = dinv *``, the vector work of each
-    iteration in the K18a kernels and its scalars on the device; the host
-    reads the continue flag once per iteration. ``run(name, *args)`` calls
-    each K18 operator (a check may wrap it). Returns ``(x, iterations)``."""
-    n = b.shape[0]
-    f64 = dict(dtype=torch.float64, device=b.device)
+def bicgstab_state(n: int, atol2: float, device) -> list:
+    """The arrays a BiCGStab solve of ``n`` unknowns carries from one
+    ``bicgstab_cycle`` launch to the next, after the matrix, ``dinv`` and
+    ``b``: ``[x, r, rhat, p, q, phat, s, shat, t, partials, st, cont]``, ``x
+    = 0``, the tolerance ``atol2`` (squared) in ``st``, ``rho = alpha = omega
+    = 1``, ``cont`` int32 ``(2,)`` (the continue flag, the iterations run)."""
+    f64 = dict(dtype=torch.float64, device=device)
     nb = -(-n // _ref.KRYLOV_BLOCK)
-    x = torch.zeros(n, **f64)
-    r = b - matvec(x)
-    rhat, p, q = r.clone(), r.clone(), r.clone()
-    phat, s, shat = (torch.empty(n, **f64) for _ in range(3))
-    partials = torch.zeros(3, nb, **f64)
     st = torch.zeros(_ref.BICG_SLOTS, **f64)
     st[[_ref.BICG_RHO, _ref.BICG_ALPHA, _ref.BICG_OMEGA]] = 1.0
     st[_ref.BICG_ATOL2] = atol2
-    cont = torch.zeros(1, dtype=torch.int32, device=b.device)
-    run("krylov_dots", r, r, r, r, partials, 1)
-    run("bicgstab_scalars", partials, st, cont, _ref.STAGE_INIT)
-    k = 0
-    while k < maxiter and bool(cont):
-        run("bicgstab_p", r, q, dinv, st, p, phat)
-        q = matvec(phat)
-        run("krylov_dots", rhat, q, rhat, q, partials, 1)
-        run("bicgstab_scalars", partials, st, cont, _ref.STAGE_ALPHA)
-        run("bicgstab_s", r, q, dinv, st, s, shat, partials)
-        t = matvec(shat)
-        run("krylov_dots", t, s, t, t, partials[1:], 2)
-        run("bicgstab_scalars", partials, st, cont, _ref.STAGE_OMEGA)
-        run("bicgstab_xr", x, r, phat, shat, s, t, rhat, st, partials)
-        run("bicgstab_scalars", partials, st, cont, _ref.STAGE_NEXT)
-        k += 1
-    return x, k
+    return (
+        [torch.zeros(n, **f64) for _ in range(9)]
+        + [torch.zeros(_ref.BICG_ROWS, nb, **f64), st,
+           torch.zeros(2, dtype=torch.int32, device=device)]
+    )
+
+
+def _bicgstab_fused(csr, b: torch.Tensor, dinv: torch.Tensor, atol2: float, maxiter: int,
+                    run=_op):
+    """:func:`bicgstab` with ``M = dinv *`` on the CSR matrix ``csr = (row_ptr,
+    cols, vals)``: one K18a operator (``bicgstab_cycle``) starts the solve,
+    and one more runs its iterations, the matvecs and the scalar recurrence
+    inside it, until it stops on the device or spends the ``maxiter``
+    budget; the host reads the continue flag and the count after it, once.
+    ``run(name, *args)`` calls each K18 operator (a check may wrap it).
+    Returns ``(x, iterations)``."""
+    state = bicgstab_state(b.shape[0], atol2, b.device)
+    run("bicgstab_cycle", *csr, dinv, b, *state, 0)
+    # The solve's launch follows the start unread: it runs no iteration
+    # where the start found the residual within the tolerance.
+    flag, k = 1, 0
+    while k < maxiter and flag:
+        run("bicgstab_cycle", *csr, dinv, b, *state, maxiter - k)
+        flag, k = state[-1].tolist()
+    return state[0], k
 
 
 def gmres_state(n: int, restart: int, atol: float, device) -> list:
@@ -293,9 +296,9 @@ def solve_sparse(
     device=None,
 ) -> np.ndarray:
     """Solve ``A x = b`` with Jacobi-preconditioned GMRES(30) (``method
-    "gmres"``: the matrix goes over in CSR form, each restart one K18b
-    launch) or BiCGStab (any other method: K1's ELL layout, K18a) on
-    ``device`` (default: the card); falls back to host ``spsolve``, and counts it in
+    "gmres"``: each restart one K18b launch) or BiCGStab (any other method:
+    one K18a launch for the whole solve, after the one that starts it) on
+    the matrix in CSR form on ``device`` (default: the card); falls back to host ``spsolve``, and counts it in
     :data:`FALLBACK_COUNTER`, when ``|b - A x| > max(tol max(|b|, 1) 1e3,
     1e-8)`` on the host. ``maxiter`` (default ``max(200, 4 n)``) counts
     BiCGStab iterations or GMRES restarts, as in jax."""
@@ -303,20 +306,16 @@ def solve_sparse(
     n = A.shape[0]
     if maxiter is None:
         maxiter = max(200, 4 * n)
-    from porepy_tpu_torch.numerics.ad.compiler import _device_const_matrix, _EllMat
-
     dev = device_policy.resolve(device)
     dinv = torch.tensor(_inverse_diagonal(A), dtype=torch.float64, device=dev)
     b = np.asarray(b, dtype=np.float64)
     b_dev = torch.tensor(b, dtype=torch.float64, device=dev)
     b_dot = float(b @ b)
+    csr = csr_arrays(A, dev)
     if method == "gmres":
-        csr = csr_arrays(A, dev)
         x, iters = _gmres_fused(csr, b_dev, dinv, tol * np.sqrt(b_dot), maxiter, 30)
     else:
-        mat = _device_const_matrix(A, dev)
-        matvec = kernels.EllOperator(mat.val, mat.col) if isinstance(mat, _EllMat) else mat.matvec
-        x, iters = _bicgstab_fused(matvec, b_dev, dinv, tol**2 * b_dot, maxiter)
+        x, iters = _bicgstab_fused(csr, b_dev, dinv, tol**2 * b_dot, maxiter)
     LAST_SOLVE.update(method=method, iterations=iters)
     x_np = x.cpu().numpy()
     res = np.linalg.norm(b - A @ x_np)

@@ -11,7 +11,11 @@
     ``_CompiledSystem`` on the same state (the tolerances of
     ``test_torch_assembly.py``);
 (d) the plain versions of ``dual_ew``, ``dual_gather`` and ``jac_gather``
-    against numpy.
+    against numpy;
+(e) the per-step launchers of the gathers: three passes in a row at
+    different states equal to ``colored_jvps`` to the bit (md, biot,
+    tracer), the unknowns' tangent rows written once per color set, no
+    result aliasing a launcher's buffer.
 
 All inputs come from numpy seeds. The tests marked ``cuda`` hold the CUDA
 kernels against the plain versions and skip without a card (only the tests
@@ -813,6 +817,125 @@ def test_plain_jac_gather_against_numpy():
     np.testing.assert_array_equal(rhs.numpy(), -np.concatenate(vals))
 
 
+# -- (e) the gathers' launchers ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["md", "biot", "tracer"])
+def test_launchers_over_three_passes_match_colored_jvps(case):
+    """Three passes of every equation at three states in a row, through the
+    steps' launchers (the unknowns' buffers kept from pass to pass), equal
+    ``colored_jvps`` at the same state to the bit; no pass rewrote the
+    tangent rows, and the values alone follow the state too."""
+    _model_, cs, x, envs = _model(case)
+    rng = np.random.default_rng(31)
+    for ce, env in zip(cs.ces, envs):
+        colors = ce.colors_on(x.device)
+        writes = None
+        for _ in range(3):
+            xk = x + 0.01 * (x.abs().max() + 1.0) * torch.tensor(rng.uniform(0.0, 1.0, x.shape[0]))
+            val, tan = compiler.dual_jvps(ce.fn, xk, env, colors, ce.n_colors)
+            want_v, want_t = compiler.colored_jvps(ce.fn, xk, env, torch.tensor(ce.seeds))
+            assert torch.equal(val, want_v) and torch.equal(tan, want_t)
+            assert torch.equal(compiler.dual_jvps(ce.fn, xk, env, None, 0)[0], want_v)
+            gathers = ce.fn.dual._gathers
+            if writes is None:
+                writes = [g.seed_writes for g in gathers]
+        assert gathers and all(w >= 1 for w in writes)
+        assert [g.seed_writes for g in gathers] == writes
+
+
+def test_tangent_rows_written_once_per_color_set():
+    """``DualGatherVar`` writes the one-hot rows when it first sees a color
+    set (the colors tensor, its version, the batch) and only the value row
+    after; other colors, another batch or colors changed in place rewrite
+    them. Each result equals the plain gather."""
+    rng = np.random.default_rng(32)
+    ndof, n_colors = 30, 4
+    idx = torch.tensor(rng.permutation(ndof)[:17])
+    colors = torch.tensor(rng.integers(0, n_colors, ndof).astype(np.int32))
+    gather = ops.DualGatherVar(idx)
+
+    def check(colors, batch, writes):
+        x = _t(rng.standard_normal(ndof))
+        val, tan = gather(x, colors, batch)
+        want_v, want_t = reference.dual_gather_var(x, idx, colors, batch)
+        assert torch.equal(val, want_v)
+        assert (tan is None) if not batch else torch.equal(tan, want_t)
+        assert gather.seed_writes == writes
+
+    check(colors, n_colors, 1)
+    check(colors, n_colors, 1)
+    check(None, 0, 1)
+    check(colors, n_colors, 1)
+    other = torch.tensor(rng.integers(0, n_colors, ndof).astype(np.int32))
+    check(other, n_colors, 2)
+    check(colors, n_colors - 1, 3)
+    colors[idx[0]] = (colors[idx[0]] + 1) % n_colors
+    check(colors, n_colors - 1, 4)
+    with pytest.raises(TypeError):
+        gather(_t(np.zeros(ndof)), colors.long(), n_colors)
+    with pytest.raises(TypeError):
+        ops.DualGatherVar(idx.int())
+
+
+def test_unknown_at_the_root_is_not_aliased():
+    """An equation that is an unknown itself returns a copy of the step's
+    buffer: a later pass leaves an earlier result as it was."""
+    g = pt.CartGrid(np.array([3, 2]), np.array([1.0, 1.0]))
+    g.compute_geometry()
+    mdg = MixedDimensionalGrid()
+    mdg.add_subdomains([g])
+    es = ad.EquationSystem(mdg, device="cpu")
+    x = es.create_variables("x", subdomains=[g])
+    n = g.num_cells
+    es.set_variable_values(np.linspace(0.1, 1.0, n), iterate_index=0)
+    fn, env_spec = compiler.build_function(x, es)
+    env = env_spec.fetch(es)
+    colors = torch.arange(n, dtype=torch.int32)
+    x0 = torch.tensor(es._global_vector())
+    val, tan = compiler.dual_jvps(fn, x0, env, colors, n)
+    kept = val.clone(), tan.clone()
+    residual = compiler.dual_jvps(fn, x0, env, None, 0)[0]
+    assert fn.dual._gathers and not any(
+        g.holds(t) for g in fn.dual._gathers for t in (val, tan, residual)
+    )
+    compiler.dual_jvps(fn, 2.0 * x0 + 1.0, env, colors, n)
+    compiler.dual_jvps(fn, 3.0 * x0, env, None, 0)
+    assert torch.equal(val, kept[0]) and torch.equal(tan, kept[1])
+    assert torch.equal(val, x0) and torch.equal(tan, torch.eye(n, dtype=torch.float64))
+    assert torch.equal(residual, x0)
+
+
+def _copy_pieces(rng, batch, lengths=(3, 1, 0, 4, 1, 6)):
+    """Duals to concatenate: some with tangents, some constants, one-element
+    and empty ones, and a one-element value that is a strided view."""
+    pieces = [
+        (_t(rng.standard_normal(k)), None if i % 3 == 2 else _t(rng.standard_normal((batch, k))))
+        for i, k in enumerate(lengths)
+    ]
+    wide = _t(rng.standard_normal((2, 5)))
+    pieces.append((wide[:, 2], _t(rng.standard_normal((batch, 2)))))
+    pieces.append((wide[1, 3:4], None))
+    return pieces
+
+
+@pytest.mark.parametrize("batch", [3, 0])
+def test_copy_launcher_matches_plain(batch):
+    """``DualGatherCopy`` over calls with new values and a changed layout
+    equals ``reference.dual_gather_copy``; all-constant pieces give no
+    tangent."""
+    rng = np.random.default_rng(33)
+    copy = ops.DualGatherCopy()
+    for lengths in ((3, 1, 0, 4, 1, 6), (3, 1, 0, 4, 1, 6), (0, 2, 5)):
+        pieces = _copy_pieces(rng, max(batch, 1), lengths)
+        val, tan = copy(pieces, batch)
+        want_v, want_t = reference.dual_gather_copy(pieces, batch)
+        assert torch.equal(val, want_v)
+        assert (tan is None) == (want_t is None) and (tan is None or torch.equal(tan, want_t))
+    consts = [(v, None) for v, _t_ in _copy_pieces(rng, 2)]
+    assert copy(consts, 2)[1] is None
+
+
 # -- the kernels on the card ---------------------------------------------------------------
 
 
@@ -909,3 +1032,44 @@ def test_cuda_l2_norm_rule_launches_dual_ew_without_a_tangent(cuda):
             _close(got.tan.cpu(), want_t, 1e-13)
         else:
             assert got.tan is None
+
+
+@pytest.mark.cuda
+def test_cuda_gather_launchers_match_plain(cuda):
+    """The launchers on the card: three calls of ``DualGatherVar`` at
+    different states, another color set and values alone, and
+    ``DualGatherCopy`` over 40 pieces (two launches) and a changed layout,
+    each equal to the plain version; the tangent rows written once per set,
+    two launches for the first call of a set and one after."""
+    from porepy_tpu_torch.kernels import LAUNCHES
+
+    rng = np.random.default_rng(24)
+    ndof, batch = 4000, 11
+    idx = torch.tensor(rng.permutation(ndof)[:1500])
+    colors = torch.tensor(rng.integers(0, batch, ndof).astype(np.int32))
+    gather = ops.DualGatherVar(idx.to(cuda))
+    # A color set is one tensor: each is moved to the card once.
+    sets = [(colors, colors.to(cuda), batch)] * 3 + [(None, None, 0)]
+    sets.append((colors.flip(0), colors.flip(0).to(cuda), batch))
+    for k, (c, c_card, b) in enumerate(sets):
+        x = _t(rng.standard_normal(ndof))
+        before = LAUNCHES["dual_gather"]
+        val, tan = gather(x.to(cuda), c_card, b)
+        want_v, want_t = reference.dual_gather_var(x, idx, c, b)
+        torch.cuda.synchronize()
+        assert torch.equal(val.cpu(), want_v) and (tan is None if not b else torch.equal(tan.cpu(), want_t))
+        assert LAUNCHES["dual_gather"] - before == (2 if k in (0, 4) else 1)
+    assert gather.seed_writes == 2
+    copy = ops.DualGatherCopy()
+    for lengths in ((300, 1, 0, 77, 512, 9, 33, 1000, 5, 64) * 4, (0, 17, 1, 300)):
+        pieces = [
+            (_t(rng.standard_normal(k)), None if k % 3 == 0 else _t(rng.standard_normal((batch, k))))
+            for k in lengths
+        ]
+        card = [(v.to(cuda), None if t is None else t.to(cuda)) for v, t in pieces]
+        before = LAUNCHES["dual_gather"]
+        val, tan = copy(card, batch)
+        want_v, want_t = reference.dual_gather_copy(pieces, batch)
+        torch.cuda.synchronize()
+        assert torch.equal(val.cpu(), want_v) and torch.equal(tan.cpu(), want_t)
+        assert LAUNCHES["dual_gather"] - before == -(-len(lengths) // 32)

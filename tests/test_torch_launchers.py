@@ -1,12 +1,15 @@
-"""K1's launchers and fused epilogue, and K18b's one-launch GMRES restart.
+"""K1's launchers and fused epilogue, K18a's one-launch BiCGStab solve and
+K18b's one-launch GMRES restart.
 
-On the CPU a launcher (``kernels.EllOperator``) and ``kernels.gmres_cycle``
-run their plain versions; these tests hold the epilogue ``c + sign (A x)``
-against ``porepy_tpu``'s ``ell_matvec`` followed by the same arithmetic in
-jax, the launcher's bookkeeping, and the GMRES restart's plain version
-against the seven plain passes it composes. The tests marked ``cuda`` hold
-both kernels against their plain versions on the card and skip without one;
-they need no jax, so on a machine with a card they run as
+On the CPU a launcher (``kernels.EllOperator``), ``kernels.bicgstab_cycle``
+and ``kernels.gmres_cycle`` run their plain versions; these tests hold the
+epilogue ``c + sign (A x)`` against ``porepy_tpu``'s ``ell_matvec`` followed
+by the same arithmetic in jax, the launcher's bookkeeping, the solves' calls
+per launch, and the GMRES restart's plain version against the seven plain
+passes it composes (``tests/test_torch_krylov.py`` holds the BiCGStab
+cycle's against its passes). The tests marked ``cuda`` hold the kernels
+against their plain versions on the card and skip without one; they need
+no jax, so on a machine with a card they run as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_launchers.py -m cuda
 """
@@ -213,6 +216,24 @@ def test_gmres_solve_runs_one_operator_per_restart():
     assert np.linalg.norm(b - A @ x.numpy()) <= 1e-10 * np.linalg.norm(b)
 
 
+def test_bicgstab_solve_runs_one_operator_to_start_and_one_to_solve():
+    """``solve_sparse``'s BiCGStab calls one K18a operator to start and one
+    with the whole ``maxiter`` budget, which runs every iteration."""
+    A, b = _system("random", 300)
+    calls = []
+
+    def run(name, *args):
+        calls.append((name, args[-1]))
+        getattr(kernels, name)(*args)
+
+    csr = krylov.csr_arrays(A, "cpu")
+    dinv = torch.tensor(krylov._inverse_diagonal(A))
+    x, iters = krylov._bicgstab_fused(csr, torch.tensor(b), dinv, 1e-24 * float(b @ b), 1200, run=run)
+    assert 0 < iters < 1200
+    assert calls == [("bicgstab_cycle", 0), ("bicgstab_cycle", 1200)]
+    assert np.linalg.norm(b - A @ x.numpy()) <= 1e-10 * np.linalg.norm(b)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -277,3 +298,46 @@ def test_cuda_gmres_cycle_matches_plain_to_the_bit(cuda, kind, n):
     assert kernels.LAUNCHES["ell_spmv"] == before["ell_spmv"]
     x = state[0].cpu().numpy()
     assert np.linalg.norm(b - A @ x) <= 1e-10 * np.linalg.norm(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("random", 1000), ("random", 12288), ("breakdown", 3)])
+def test_cuda_bicgstab_cycle_matches_plain_to_the_bit(cuda, kind, n):
+    """K18a: the start and launches of 1, 7 and then all remaining
+    iterations on the card, each from the same state as its plain version,
+    give the same bits (NaN where the plain version has NaN, the breakdown's
+    0/0); one launch a call, no K1 launch."""
+    if kind == "breakdown":
+        # <t, s> = 0 in the first iteration: omega = 0, a breakdown.
+        A = sps.csr_matrix(np.array([[1.0, 0.0, 0.0], [1.0, 1.0, -2.0], [1.0, 0.0, 1.0]]))
+        b, atol2 = np.array([1.0, 0.0, 0.0]), 0.0
+    else:
+        A, b = _system(kind, n, seed=16)
+        atol2 = 1e-24 * float(b @ b)
+    csr = krylov.csr_arrays(A, cuda)
+    dinv = torch.tensor(krylov._inverse_diagonal(A), device=cuda)
+    bt = torch.tensor(b, device=cuda)
+    state = krylov.bicgstab_state(n, atol2, cuda)
+    maxiter = max(200, 4 * n)
+    before = dict(kernels.LAUNCHES)
+    launches = 0
+    for budget in [0, 1, 7] + [maxiter] * 2:
+        flag, k = state[-1].tolist()
+        if budget and (not flag or k >= maxiter):
+            break
+        plain = [t.clone() for t in state]
+        kernels.bicgstab_cycle(*csr, dinv, bt, *state, min(budget, maxiter - k))
+        reference.bicgstab_cycle(*csr, dinv, bt, *plain, min(budget, maxiter - k))
+        for got, want in zip(state, plain):
+            nan = torch.isnan(want) if want.is_floating_point() else torch.zeros_like(want, dtype=torch.bool)
+            assert torch.equal(torch.isnan(got) if got.is_floating_point() else nan, nan)
+            assert torch.equal(got[~nan], want[~nan])
+        launches += 1
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bicgstab_cycle"] == before["bicgstab_cycle"] + launches
+    assert kernels.LAUNCHES["ell_spmv"] == before["ell_spmv"]
+    flag, k = state[-1].tolist()
+    assert flag == 0 and 0 < k < maxiter
+    if kind != "breakdown":
+        x = state[0].cpu().numpy()
+        assert np.linalg.norm(b - A @ x) <= 1e-10 * np.linalg.norm(b)
