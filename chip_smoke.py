@@ -106,16 +106,24 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    matrix of sizes 1-12, 20, 81 and 160 through ``invert_diagonal_blocks``
    on the card (one launch per size) against ``method="python"``;
 18. the dof-sharded Newton solve (K19) on md 1/128: (a) its first Jacobian
-   in the solver's ELL layout split into 4 row shards on the card, halo
-   plans built in one process, ``halo_pack`` and ``ell_spmv_split`` per
-   shard against K1's global product and the plain versions (phase 3's
-   rule), halo sizes with and without the spatial dof permutation, times
-   against ``torch.mv`` on each shard's CSR; (b) ``ShardedNewton`` in a
-   one-rank NCCL group (a ``FileStore`` in a temporary directory):
-   ``solve_once`` three times beside the unsharded solve of the same system
-   (increments within 1e-12 relative), one time step by ``step()`` to the
-   Newton tolerance against the unsharded Newton loop (1e-10), 0 host
-   fallbacks, ``ell_spmv_split`` launched and K1 launched in the
+   in the solver's ELL layout split into 4 row shards and into 1 on the
+   card, halo plans built in one process, through the shards'
+   ``HaloOperator`` launchers (``halo_interior``: the send buffer and the
+   interior rows; ``halo_boundary``: the boundary rows after the
+   exchange), in f64 and f32: each launch equal to its plain version to the
+   bit, the shards equal to K1's global product and to the two-launch
+   route they replaced (``applications/benchmarking/halo_spmv_check.py``,
+   the older source beside it), halo sizes with and without the spatial dof
+   permutation; per shard call in f32, in turns, host us a call, device us
+   by graph replay, ms by events and launches a matvec of the launcher, the
+   two-launch route and ``index_select`` + ``torch.mv`` on the shard's CSR
+   (at 1 shard K1's launcher too), each launch alone against its plain
+   version and the bounds; (b) ``ShardedNewton`` in a one-rank NCCL group
+   (a ``FileStore`` in a temporary directory): ``solve_once`` three times
+   beside the unsharded solve of the same system (increments equal to the
+   bit), one time step by ``step()`` to the Newton tolerance against the
+   unsharded Newton loop (1e-10), 0 host fallbacks, one ``halo_interior``
+   launch a matvec and no ``halo_boundary`` launch, K1 launched in the
    preconditioner; (c) the first K10 chunk of biot 1/64 through
    ``set_batch_mesh`` against the unsharded route (1e-12);
 19. hold the upstream-selection kernels (K15: ``upwind_flux``,
@@ -202,8 +210,11 @@ import time
 import numpy as np
 import torch
 
+from porepy_tpu_torch.applications.benchmarking.timing import cuda_ms as _cuda_ms
+from porepy_tpu_torch.applications.benchmarking.timing import graph_us as _graph_us
+from porepy_tpu_torch.applications.benchmarking.timing import host_us as _host_us
+
 N_ROWS, K_ELL, N_SEEDS, RESTART = 18157, 9, 11, 70
-REPEATS = 100
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 MD_KERNELS = ("ell_spmv", "ell_jacobi_sweep", "fgmres_givens")
 K8_KERNELS = ("dual_ew", "dual_gather", "jac_gather")
@@ -227,59 +238,6 @@ def _bound(nbytes: float, flops: float, dtype=torch.float64) -> tuple[float, str
     and does ``flops`` operations."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def _cuda_ms(fn, repeats=REPEATS) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / repeats
-
-
-def _graph_us(fn, launches: int = 100, replays: int = 5) -> float:
-    """Device microseconds per call of ``fn``: a CUDA graph of ``launches``
-    calls, replayed ``replays`` times between two CUDA events (no host
-    dispatch in the interval)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return 1e3 * start.elapsed_time(stop) / (launches * replays)
-
-
-def _host_us(fn, calls: int = 200) -> float:
-    """Host microseconds per call of ``fn``: the host clock over ``calls``
-    back-to-back calls, read before the synchronization that ends them."""
-    fn()
-    torch.cuda.synchronize()
-    tic = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    host = time.perf_counter() - tic
-    torch.cuda.synchronize()
-    return 1e6 * host / calls
 
 
 def _csr_of_ell(val, col):
@@ -1953,100 +1911,52 @@ def check_block_inverse(dev, real) -> dict:
     return report
 
 
-def check_halo_kernels(dev, model, n_shards: int = 4) -> dict:
-    """Phase 18a: md 1/128's first Jacobian in 4 row shards on the card."""
-    from porepy_tpu_torch.kernels import LAUNCHES, ops, reference, reset_launches
+def check_halo_kernels(model, n_shards: int = 4) -> tuple[dict, dict]:
+    """Phase 18a: md 1/128's first Jacobian in 4 row shards and in 1 on the
+    card, through ``HaloOperator`` (``applications/benchmarking/
+    halo_spmv_check.py``): each launch, K1 and the two-launch route to the
+    bit in f64 and f32, and the routes' times in turns in f32."""
+    import tempfile
+
+    from porepy_tpu_torch.applications.benchmarking import halo_spmv_check as check
     from porepy_tpu_torch.numerics.linalg.device_solver import DeviceLinearSolver
     from porepy_tpu_torch.parallel import halo
     from porepy_tpu_torch.parallel.placement import PermutedSystem, nnz_locality, spatial_dof_permutation
 
     eq = model.equation_system
     cs = eq.compiled_system()
-    solver = model._device_solver_for(cs)
-    data, _b = cs.assemble(eq)
-    n = solver.n
-    val64 = torch.cat([data, data.new_zeros(1)])[solver._ell_sel]
-    col = solver._ell_col
-    plans = halo.local_plans(col.cpu().numpy(), n, n_shards)
-    print(f"phase 18a: md 1/128's Jacobian (n {n}, K {col.shape[1]}) in {n_shards} row shards on the card")
+    val64, col, n = check.md_jacobian_ell(model)
+    print(f"phase 18a: md 1/128's Jacobian (n {n}, K {col.shape[1]}) in {n_shards} row shards and in 1 on the card")
     perm, _ = spatial_dof_permutation(eq, model.mdg, n_shards)
     psys = PermutedSystem(cs, perm)
     psys.device = cs.device
     pplans = halo.local_plans(DeviceLinearSolver(psys)._ell_col.cpu().numpy(), n, n_shards)
-    print(f"  rows per shard {[p.n_own for p in plans]}; halo entries per shard {[p.n_halo for p in plans]}, "
-          f"with the spatial permutation {[p.n_halo for p in pplans]}; nnz locality "
+    print(f"  halo entries per shard with the spatial permutation {[p.n_halo for p in pplans]}; nnz locality "
           f"{nnz_locality(cs, n_shards):.4f}, with it {nnz_locality(cs, n_shards, perm):.4f}")
-    cols = [torch.tensor(p.col, device=dev) for p in plans]
-    idx = [torch.tensor(p.send_idx, device=dev) for p in plans]
-    gen = torch.Generator().manual_seed(18)
-    report = {"halo_pack": {"err": 0.0}, "ell_spmv_split": {"err": 0.0}}
-    for dtype in (torch.float64, torch.float32):
-        val = val64.to(dtype)
-        x = torch.randn(n, generator=gen, dtype=torch.float64).to(dtype).to(dev)
-        own = [x[p.lo : p.hi] for p in plans]
-        vals = [val[p.lo : p.hi] for p in plans]
-
-        def run(pack, spmv):
-            sends = [pack(o, i) for o, i in zip(own, idx)]
-            halos = halo.exchange_local(plans, sends)
-            return sends, halos, [spmv(v, c, o, h) for v, c, o, h in zip(vals, cols, own, halos)]
-
-        reset_launches()
-        sends, halos, ys = run(ops.halo_pack, ops.ell_spmv_split)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        p_sends, _p_halos, p_ys = run(reference.halo_pack, reference.ell_spmv_split)
-        tag = str(dtype)[6:]
-        pack_err = max(float((a - b).abs().max()) for a, b in zip(sends, p_sends))
-        _check(f"halo_pack {tag}, {n_shards} shards", torch.tensor(pack_err), 0.0)
-        got = torch.cat(ys)
-        absx = torch.cat([x.abs(), x.new_zeros(1)])
-        rowsum = (val.abs() * absx[col]).sum(-1)
-        k1 = ops.ell_spmv(val, col, x)
-        err = max(
-            _check(f"ell_spmv_split {tag}, {n_shards} shards, against K1", (got - k1).abs(), TOL[dtype] * rowsum),
-            _check(f"ell_spmv_split {tag} against its plain version", (got - torch.cat(p_ys)).abs(), TOL[dtype] * rowsum),
-        )
-        report["halo_pack"]["err"] = max(report["halo_pack"]["err"], pack_err)
-        report["ell_spmv_split"]["err"] = max(report["ell_spmv_split"]["err"], err)
-        if dtype != torch.float32:
-            continue
-        # The inner Krylov matvec is f32: time it, per call over the shards.
-        csrs = []
-        for p, v, c in zip(plans, vals, cols):
-            real = c < p.n_own + p.n_halo
-            crow = torch.zeros(p.n_own + 1, dtype=torch.int64, device=dev)
-            crow[1:] = torch.cumsum(real.sum(1), 0)
-            csrs.append(torch.sparse_csr_tensor(crow, c[real].long(), v[real], size=(p.n_own, p.n_own + p.n_halo)))
-        xcat = [torch.cat([o, h]) for o, h in zip(own, halos)]
-        per = 1.0 / n_shards
-        t = {
-            "split": _cuda_ms(lambda: [ops.ell_spmv_split(v, c, o, h) for v, c, o, h in zip(vals, cols, own, halos)]) * per,
-            "split_plain": _cuda_ms(lambda: [reference.ell_spmv_split(v, c, o, h) for v, c, o, h in zip(vals, cols, own, halos)]) * per,
-            "split_lib": _cuda_ms(lambda: [torch.mv(m, xc) for m, xc in zip(csrs, xcat)]) * per,
-            "pack": _cuda_ms(lambda: [ops.halo_pack(o, i) for o, i in zip(own, idx)]) * per,
-            "pack_plain": _cuda_ms(lambda: [reference.halo_pack(o, i) for o, i in zip(own, idx)]) * per,
-            "pack_lib": _cuda_ms(lambda: [torch.index_select(o, 0, i) for o, i in zip(own, idx)]) * per,
+    with tempfile.TemporaryDirectory() as work:
+        old = check.old_route(check.OLD_DIR, work)
+        out = check.report(val64, col, n, old, sizes=(n_shards, 1))
+    for (size, tag), r in out.items():
+        for what, same in r["equal"].items():
+            _require(same, f"{size} shard(s), {tag}: {what} differs from the launcher's bits")
+        _require(r["launches"]["halo_interior"] == size, f"halo_interior launches {r['launches']}")
+        _require((r["launches"]["halo_boundary"] > 0) == (size > 1), f"halo_boundary launches {r['launches']}")
+    main, one = out[(n_shards, "float32")], out[(1, "float32")]
+    lt = main["launch_times"]
+    print(f"  per shard call at {n_shards} shards, f32, median ms of the turns: launcher "
+          f"{np.median(main['times']['launcher']['ms']):.4f}, two-launch route "
+          f"{np.median(main['times']['two-launch']['ms']):.4f}, index_select + torch.mv "
+          f"{np.median(main['times']['library']['ms']):.4f}; at 1 shard host us a matvec: launcher "
+          f"{one['times']['launcher']['host_us']}, K1's launcher {one['times']['K1']['host_us']}")
+    report = {}
+    for name in ("interior", "boundary"):
+        lib = lt["boundary library"]["ms"] if name == "boundary" else None
+        report["halo_" + name] = {
+            "err": max(r["err"] for r in out.values()), "ms": lt[name]["ms"], "plain_ms": lt[name + " plain"]["ms"],
+            "library_ms": lib, "bound": (main["bounds"][name], "bytes"),
+            "launches": main["launches"]["halo_" + name],
         }
-        print(f"    per shard call, f32: ell_spmv_split {t['split']:.4f} ms, plain {t['split_plain']:.4f}, "
-              f"torch.mv on the CSR {t['split_lib']:.4f}; halo_pack {t['pack']:.4f} ms, plain {t['pack_plain']:.4f}, "
-              f"torch.index_select {t['pack_lib']:.4f}")
-        nnz = sum(int((c < p.n_own + p.n_halo).sum()) for p, c in zip(plans, cols))
-        n_send = sum(len(p.send_idx) for p in plans)
-        # Per call, the mean over the shards: val and col (K entries a row)
-        # read, x_own and the halo read, y written; 2 operations a nonzero.
-        report["ell_spmv_split"].update(
-            ms=t["split"], plain_ms=t["split_plain"], library_ms=t["split_lib"],
-            bound=_bound(per * (n * col.shape[1] * 8 + 2 * n * 4 + sum(p.n_halo for p in plans) * 4),
-                         per * 2 * nnz, torch.float32),
-        )
-        report["halo_pack"].update(
-            ms=t["pack"], plain_ms=t["pack_plain"], library_ms=t["pack_lib"],
-            bound=_bound(per * n_send * 12, 0, torch.float32), launches=launches["halo_pack"],
-        )
-    print(f"  launches of the four shards' matvec: halo_pack {report['halo_pack']['launches']}")
-    _require(report["halo_pack"]["launches"] > 0, "halo_pack not launched")
-    return report
+    return report, {k: r["times"] for k, r in out.items() if "times" in r}
 
 
 def _newton_time_step(model, step, max_iter: int = 10) -> tuple[np.ndarray, int]:
@@ -2082,7 +1992,7 @@ def run_sharded(dev, chunks) -> dict:
     model.before_nonlinear_iteration()
     eq = model.equation_system
     x0 = eq.get_variable_values(iterate_index=0)
-    kernels = check_halo_kernels(dev, model)
+    kernels, routes = check_halo_kernels(model)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2113,7 +2023,18 @@ def run_sharded(dev, chunks) -> dict:
                 return out
 
             sn = ShardedNewton(model, mesh)
+            shard = sn.solver.dof_shard
+            matvecs = [0]
+
+            def matvec(op, x_own, _matvec=shard.matvec):
+                matvecs[0] += 1
+                return _matvec(op, x_own)
+
+            # Counts the sharded solve's matvecs, to hold them against the
+            # launches (the instance attribute shadows the method).
+            shard.matvec = matvec
             (dx_s, res_s), first_ms = counted(lambda: timed(sn.solve_once))
+            per_solve = {"matvecs": matvecs[0], **{k: launches[k] for k in ("halo_interior", "halo_boundary")}}
 
             def unsharded_once():
                 data, b = sn.assemble()
@@ -2131,9 +2052,13 @@ def run_sharded(dev, chunks) -> dict:
             scale = float(np.abs(dx_u).max())
             print(f"  solve_once {first_ms:.2f} ms first, then {[round(t, 2) for t in sharded_ms]} ms; unsharded "
                   f"assembly + solve {[round(t, 2) for t in unsharded_ms]} ms; |r| {res_s:.3e}, "
-                  f"{sn.solver.last_stats['krylov_iters']} Krylov iterations")
+                  f"{sn.solver.last_stats['krylov_iters']} Krylov iterations; one solve_once: {per_solve}")
             print(f"  increments: max |sharded - unsharded| {dx_diff:.3e} (max |dx| {scale:.3e}; bit-equal: {dx_diff == 0.0})")
-            _require(dx_diff <= 1e-12 * scale, f"sharded and unsharded increments differ by {dx_diff}")
+            _require(dx_diff == 0.0, f"one-rank sharded and unsharded increments differ by {dx_diff}")
+            _require(
+                per_solve["halo_interior"] == per_solve["matvecs"] > 0 and per_solve["halo_boundary"] == 0,
+                f"a one-rank matvec is one halo_interior launch: {per_solve}",
+            )
 
             x_s, newton = counted(lambda: _newton_time_step(model, sn.step))
             eq.set_variable_values(x0, iterate_index=0)
@@ -2150,11 +2075,13 @@ def run_sharded(dev, chunks) -> dict:
             fallbacks = FALLBACK_COUNTER["count"] - fallbacks0
             print(f"  one time step: {newton} Newton iterations sharded, {newton_u} unsharded; max |state "
                   f"difference| {state_diff:.3e}; host fallbacks {fallbacks}")
-            print(f"  kernel launches of the sharded runs: ell_spmv_split {launches['ell_spmv_split']}, "
-                  f"ell_spmv (K1, the preconditioner) {launches['ell_spmv']}, halo_pack {launches['halo_pack']}")
+            print(f"  kernel launches of the sharded runs: {matvecs[0]} matvecs, halo_interior "
+                  f"{launches['halo_interior']}, halo_boundary {launches['halo_boundary']}, ell_spmv (K1, the "
+                  f"preconditioner) {launches['ell_spmv']}")
             _require(state_diff <= 1e-10, f"sharded and unsharded states differ by {state_diff}")
             _require(fallbacks == 0, f"host fallbacks {fallbacks}")
-            _require(launches["ell_spmv_split"] > 0, "ell_spmv_split not launched")
+            _require(launches["halo_interior"] == matvecs[0] > 0, "halo_interior not launched once a matvec")
+            _require(launches["halo_boundary"] == 0, "halo_boundary launched on one rank")
             _require(launches["ell_spmv"] > 0, "K1 not launched in the preconditioner")
 
             print("phase 18c: the first and the largest K10 chunks of biot 1/64 through set_batch_mesh")
@@ -2172,7 +2099,9 @@ def run_sharded(dev, chunks) -> dict:
             dist.destroy_process_group()
     return {
         "kernels": kernels,
+        "routes": routes,
         "launches": launches,
+        "per_solve": per_solve,
         "sharded_ms": float(np.median(sharded_ms)),
         "unsharded_ms": float(np.median(unsharded_ms)),
         "dx_diff": dx_diff,
@@ -3006,10 +2935,10 @@ def main() -> int:
         "rachford_rice": ("flash.cu", "porepy_tpu/compositional/flash.py:80", report["rachford_rice"]["launches"]),
         "interp_lookup": ("interp_lookup.cu", "porepy_tpu/numerics/ad/operator_functions.py:117", report["interp_lookup"]["launches"]),
         "block_inverse": ("block_inverse.cu", "porepy_tpu/numerics/linalg/matrix_operations.py:105", report["block_inverse"]["launches"]),
-        # A one-rank group has no halo: halo_pack's launches are those of
-        # the four row shards of phase 18a.
-        "halo_pack": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", report["halo_pack"]["launches"]),
-        "ell_spmv_split": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", sharded["launches"]["ell_spmv_split"]),
+        # A one-rank group has no boundary rows: halo_boundary's launches
+        # are those of the four row shards of phase 18a.
+        "halo_interior": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", sharded["launches"]["halo_interior"]),
+        "halo_boundary": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", report["halo_boundary"]["launches"]),
         "upwind_flux": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer_dense["launches"]["upwind_flux"]),
         "upwind_select": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer_dense["launches"]["upwind_select"]),
         "tpfa_ad_flux": ("tpfa_ad.cu", "porepy_tpu/models/darcys_law_ad.py:71", darcy_ad["launches"]["tpfa_ad_flux"]),
@@ -3059,8 +2988,13 @@ def main() -> int:
     print(
         f"md 1/128 sharded on {smi}, one-rank NCCL group: solve_once {sharded['sharded_ms']:.2f} ms "
         f"(median of 3) against the unsharded assembly and solve {sharded['unsharded_ms']:.2f} ms, "
-        f"increments {sharded['dx_diff']:.3e} apart; a time step in {sharded['newton']} Newton iterations"
+        f"increments {sharded['dx_diff']:.3e} apart; a time step in {sharded['newton']} Newton iterations; "
+        f"one solve_once {sharded['per_solve']}"
     )
+    for (size, tag), t in sharded["routes"].items():
+        for route, r in t.items():
+            print(f"K19 at md 1/128, {size} shard(s), {tag}, {route}, per shard call on {smi}: host us {r['host_us']}, "
+                  f"device us {r['device_us']}, ms {r['ms']}, launches a matvec {r['launches']}")
     for tag, r in (("1/32, AMG", tracer), ("1/64, dense (reference CPU at 1/64: 132 ms)", tracer_dense)):
         print(
             f"tracer {tag} on {smi}: setup {r['setup_s']:.3f} s, {r['ms_per_newton']:.2f} ms per Newton "

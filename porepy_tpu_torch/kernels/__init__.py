@@ -23,8 +23,9 @@ K17       :func:`rachford_rice`          ``compositional/flash.py:80-122``
 K16       :func:`interp_lookup`,         ``numerics/ad/operator_functions.py:117-134``
           :func:`interp_tangent`
 K11       :func:`block_inverse`          ``numerics/linalg/matrix_operations.py:105-142``
-K19       :func:`halo_pack`,             ``numerics/linalg/device_solver.py:947-953`` (the
-          :func:`ell_spmv_split`         matvec under ``parallel/sharded.py``'s dof sharding)
+K19       :class:`HaloOperator`          ``numerics/linalg/device_solver.py:947-953`` (the
+          (``halo_interior``,            matvec under ``parallel/sharded.py``'s dof sharding)
+          ``halo_boundary``)
 K15       :func:`upwind_flux`,           ``numerics/fv/upwind.py:76-99`` (the upstream
           :func:`upwind_flux_tangent`,   selection and the advective face flux around it)
           :func:`upwind_select`,
@@ -55,7 +56,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     EllOperators,
     gmres_cycle,
     gmres_cycle_grid,
-    halo_pack,
+    HaloOperator,
     interp_lookup,
     interp_tangent,
     rachford_rice,
@@ -64,7 +65,6 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     dense_block_scatter,
     ell_jacobi_sweep,
     ell_spmv,
-    ell_spmv_split,
     dual_ew,
     DualGatherCopy,
     DualGatherVar,

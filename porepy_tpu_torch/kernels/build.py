@@ -4,16 +4,19 @@ The sources in ``csrc/`` have a plain C interface and include no PyTorch
 header, so ``torch.utils.cpp_extension.load`` compiles them in seconds.
 The shared library goes to ``kernels/_build/`` at first use and is then
 loaded with ``ctypes``; nothing is built when the package is imported.
+The flags carry a digest of the headers the sources include
+(:data:`HEADERS`), so that a changed header rebuilds the library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import threading
 import time
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "library", "build_seconds"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "HEADERS", "cflags", "library", "build_seconds"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -35,6 +38,7 @@ SOURCES = (
     "tpfa_ad.cu",
     "dual_ad.cu",
 )
+HEADERS = ("ell_rows.cuh",)
 _NAME = "porepy_tpu_torch_kernels"
 _CFLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
@@ -61,8 +65,8 @@ _SIGNATURES = {
     "ppt_rachford_rice": [_P] * 7 + [_I, _L, _I, _D, _P],
     "ppt_interp_lookup": [_P] * 7 + [_I, _L, _I, _P],
     "ppt_block_inverse": [_P] * 3 + [_I, _I, _P],
-    "ppt_halo_pack": [_P] * 3 + [_I, _P],
-    "ppt_ell_spmv_split": [_P] * 5 + [_I] * 4 + [_P],
+    "ppt_halo_interior": [_P] * 7 + [_I] * 4 + [_P],
+    "ppt_halo_boundary": [_P] * 6 + [_I] * 4 + [_P],
     "ppt_upwind_flux": [_P] * 6 + [_L] * 6 + [_P] * 6 + [_I] * 3 + [_P],
     "ppt_upwind_select": [_P] * 2 + [_L] * 2 + [_P] * 5 + [_I] * 2 + [_P],
     "ppt_upwind_select_pair": [_P] * 3 + [_L] * 3 + [_P] + [_I] * 2 + [_P],
@@ -94,6 +98,16 @@ _LOCK = threading.Lock()
 _BUILD_SECONDS = [None]
 
 
+def cflags(csrc: str = CSRC) -> list:
+    """The compiler flags: :data:`_CFLAGS` and a digest of the headers in
+    ``csrc``, which the build's version hash reads."""
+    digest = hashlib.sha256()
+    for h in HEADERS:
+        with open(os.path.join(csrc, h), "rb") as fh:
+            digest.update(fh.read())
+    return _CFLAGS + [f"-DPPT_HEADERS_DIGEST={digest.hexdigest()[:16]}"]
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiled on the first call. Raises if the
     CUDA toolkit or the build fails."""
@@ -107,7 +121,7 @@ def library() -> ctypes.CDLL:
             load(
                 name=_NAME,
                 sources=[os.path.join(CSRC, s) for s in SOURCES],
-                extra_cuda_cflags=_CFLAGS,
+                extra_cuda_cflags=cflags(),
                 build_directory=BUILD_DIR,
                 is_python_module=False,
                 verbose=False,

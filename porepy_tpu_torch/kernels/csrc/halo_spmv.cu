@@ -6,115 +6,144 @@
 // the ELL rows over the devices and inserts the gathers of the operand
 // vector. Here each rank owns the contiguous rows [lo, hi) and the matching
 // entries x_own = x[lo:hi]; the entries it reads from other ranks (the halo)
-// arrive by one all_to_all_single between two kernels:
+// arrive by one all_to_all_single between two launches. The shard's column
+// table is remapped: c < n_own reads x_own[c], n_own <= c < n_own + n_halo
+// reads x_halo[c - n_own], c = n_own + n_halo is padding (skipped). Its
+// rows are split once, on the host, into interior rows (every column owned
+// or padding) and boundary rows (at least one halo column):
 //
-//   halo_pack:      send[k] = x_own[send_idx[k]]
-//                   (the entries the other ranks read, grouped by rank);
-//   ell_spmv_split: y[i] = sum_k val[i, k] * src(col[i, k]), with
-//                   src(c) = x_own[c]            for c <  n_own,
-//                            x_halo[c - n_own]   for n_own <= c < n_own + n_halo,
-//                            0 (slot skipped)    for c == n_own + n_halo (padding).
+//   halo_interior (launch A, before the exchange): its first blocks write
+//     the send buffer send[k] = x_own[send_idx[k]], the others the interior
+//     rows y[rows[i]] from x_own alone. With no halo this is the matvec.
+//   halo_boundary (launch B, after it): the boundary rows from x_own and
+//     the received halo, read where they lie, never concatenated.
 //
-// ell_spmv_split sums the slots in K1's order (csrc/ell_spmv.cu) and
-// rounds as K1 does (each product rounded, then added: no contracted
-// multiply-add), so that on one rank (no halo, col = the global table) it
-// returns K1's result bit for bit; x_own and x_halo are read where they lie
-// and never concatenated.
+// The launcher (HaloOperator in kernels/ops.py) hands both kernels the
+// shard's rows reordered once per matrix, interior rows first, so that each
+// block's rows are one contiguous span of val and col, staged in shared
+// memory with 16-byte cp.async copies as K1 stages its rows; rows[i] is the
+// place of the i-th reordered row in y. Each row is summed and rounded by
+// K1's own code (ell_rows.cuh): one shard holding every row (interior rows
+// in order, no reordering) returns K1's result bit for bit.
 //
-// Bound: bytes, as K1. At md 1/128 over 4 ranks a shard is ~4,540 rows of
-// K = 9 (0.36 MB in f64) and its halo 600-1,200 entries, so both kernels
-// are launch-latency bound; one thread per row or per sent entry.
+// Bound: bytes, as K1: val and col read once, x_own and the halo read, y
+// written once. At md 1/128 over 4 ranks a shard is ~4,540 rows of K = 9
+// (0.37 MB in f32) and its halo 600-1,200 entries, 0.11 us at 3.35 TB/s:
+// launch-latency bound, hence one launch before the exchange, not two.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ell_rows.cuh"
+
 namespace {
 
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+constexpr int kMaxRows = 128;
 
 template <typename T>
-__global__ void halo_pack_kernel(const T* __restrict__ x_own,
-                                 const int* __restrict__ send_idx,
-                                 T* __restrict__ send, int n_send) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n_send) send[k] = x_own[send_idx[k]];
-}
-
-template <typename T>
-__global__ void ell_spmv_split_kernel(const T* __restrict__ val,
-                                      const int* __restrict__ col,
-                                      const T* __restrict__ x_own,
-                                      const T* __restrict__ x_halo,
-                                      T* __restrict__ y, int n_rows, int K,
-                                      int n_own, int n_halo) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows) return;
-  const T* v = val + (int64_t)i * K;
-  const int* c = col + (int64_t)i * K;
-  T acc = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int j = c[k];
-    if (j < n_own) {
-      acc = add_rn(acc, mul_rn(v[k], x_own[j]));
-    } else if (j - n_own < n_halo) {
-      acc = add_rn(acc, mul_rn(v[k], x_halo[j - n_own]));
-    }
+__global__ void __launch_bounds__(kMaxRows)
+halo_interior_kernel(const T* __restrict__ val, const int* __restrict__ col,
+                     const int* __restrict__ rows, const T* __restrict__ x_own,
+                     const int* __restrict__ send_idx, T* __restrict__ send,
+                     T* __restrict__ y, int n_rows, int K, int n_own, int n_send,
+                     int pack_blocks, int rows_per_block, int staged,
+                     int span_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if ((int)blockIdx.x < pack_blocks) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k < n_send) send[k] = x_own[send_idx[k]];
+    return;
   }
-  y[i] = acc;
+  const int row0 = (blockIdx.x - pack_blocks) * rows_per_block;
+  const int nr = min(rows_per_block, n_rows - row0);
+  const T* vs;
+  const int* cs;
+  block_rows(val, col, row0, nr, K, staged, span_bytes, smem, &vs, &cs);
+  for (int r = threadIdx.x; r < nr; r += blockDim.x)
+    y[rows[row0 + r]] = row_sum(vs + (int64_t)r * K, cs + (int64_t)r * K, K,
+                                Dense<T>{x_own, n_own});
 }
 
-constexpr int kThreads = 256;
+template <typename T>
+__global__ void __launch_bounds__(kMaxRows)
+halo_boundary_kernel(const T* __restrict__ val, const int* __restrict__ col,
+                     const int* __restrict__ rows, const T* __restrict__ x_own,
+                     const T* __restrict__ x_halo, T* __restrict__ y, int n_rows,
+                     int K, int n_own, int n_halo, int rows_per_block,
+                     int staged, int span_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row0 = blockIdx.x * rows_per_block;
+  const int nr = min(rows_per_block, n_rows - row0);
+  const T* vs;
+  const int* cs;
+  block_rows(val, col, row0, nr, K, staged, span_bytes, smem, &vs, &cs);
+  for (int r = threadIdx.x; r < nr; r += blockDim.x)
+    y[rows[row0 + r]] = row_sum(vs + (int64_t)r * K, cs + (int64_t)r * K, K,
+                                Split<T>{x_own, x_halo, n_own, n_halo});
+}
 
 template <typename T>
-int pack(const T* x_own, const int* send_idx, T* send, int n_send,
-         void* stream) {
-  if (n_send <= 0) return n_send < 0 ? (int)cudaErrorInvalidValue : 0;
-  halo_pack_kernel<T><<<(n_send + kThreads - 1) / kThreads, kThreads, 0,
-                        (cudaStream_t)stream>>>(x_own, send_idx, send, n_send);
+int interior(const T* val, const int* col, const int* rows, const T* x_own,
+             const int* send_idx, T* send, T* y, int n_rows, int K, int n_own,
+             int n_send, void* stream) {
+  if (n_rows < 0 || K < 0 || n_own < 0 || n_send < 0) return (int)cudaErrorInvalidValue;
+  const Tiling t = ell_tiling(n_rows, K, (int)sizeof(T));
+  const int pack_blocks = (n_send + t.rows - 1) / t.rows;
+  if (pack_blocks + t.blocks == 0) return 0;
+  halo_interior_kernel<T><<<pack_blocks + t.blocks, t.rows, t.smem,
+                            (cudaStream_t)stream>>>(
+      val, col, rows, x_own, send_idx, send, y, n_rows, K, n_own, n_send,
+      pack_blocks, t.rows, t.staged, t.val_span);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int spmv(const T* val, const int* col, const T* x_own, const T* x_halo, T* y,
-         int n_rows, int K, int n_own, int n_halo, void* stream) {
-  if (n_rows < 0 || K < 0 || n_own < 0 || n_halo < 0)
-    return (int)cudaErrorInvalidValue;
+int boundary(const T* val, const int* col, const int* rows, const T* x_own,
+             const T* x_halo, T* y, int n_rows, int K, int n_own, int n_halo,
+             void* stream) {
+  if (n_rows < 0 || K < 0 || n_own < 0 || n_halo < 0) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
-  ell_spmv_split_kernel<T><<<(n_rows + kThreads - 1) / kThreads, kThreads, 0,
-                             (cudaStream_t)stream>>>(val, col, x_own, x_halo,
-                                                     y, n_rows, K, n_own,
-                                                     n_halo);
+  const Tiling t = ell_tiling(n_rows, K, (int)sizeof(T));
+  halo_boundary_kernel<T><<<t.blocks, t.rows, t.smem, (cudaStream_t)stream>>>(
+      val, col, rows, x_own, x_halo, y, n_rows, K, n_own, n_halo, t.rows,
+      t.staged, t.val_span);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ppt_halo_pack_f32(const float* x_own, const int* send_idx,
-                                 float* send, int n_send, void* stream) {
-  return pack<float>(x_own, send_idx, send, n_send, stream);
+extern "C" int ppt_halo_interior_f32(const float* val, const int* col,
+                                     const int* rows, const float* x_own,
+                                     const int* send_idx, float* send, float* y,
+                                     int n_rows, int K, int n_own, int n_send,
+                                     void* stream) {
+  return interior<float>(val, col, rows, x_own, send_idx, send, y, n_rows, K,
+                         n_own, n_send, stream);
 }
 
-extern "C" int ppt_halo_pack_f64(const double* x_own, const int* send_idx,
-                                 double* send, int n_send, void* stream) {
-  return pack<double>(x_own, send_idx, send, n_send, stream);
+extern "C" int ppt_halo_interior_f64(const double* val, const int* col,
+                                     const int* rows, const double* x_own,
+                                     const int* send_idx, double* send,
+                                     double* y, int n_rows, int K, int n_own,
+                                     int n_send, void* stream) {
+  return interior<double>(val, col, rows, x_own, send_idx, send, y, n_rows, K,
+                          n_own, n_send, stream);
 }
 
-extern "C" int ppt_ell_spmv_split_f32(const float* val, const int* col,
-                                      const float* x_own, const float* x_halo,
-                                      float* y, int n_rows, int K, int n_own,
-                                      int n_halo, void* stream) {
-  return spmv<float>(val, col, x_own, x_halo, y, n_rows, K, n_own, n_halo,
-                     stream);
+extern "C" int ppt_halo_boundary_f32(const float* val, const int* col,
+                                     const int* rows, const float* x_own,
+                                     const float* x_halo, float* y, int n_rows,
+                                     int K, int n_own, int n_halo,
+                                     void* stream) {
+  return boundary<float>(val, col, rows, x_own, x_halo, y, n_rows, K, n_own,
+                         n_halo, stream);
 }
 
-extern "C" int ppt_ell_spmv_split_f64(const double* val, const int* col,
-                                      const double* x_own,
-                                      const double* x_halo, double* y,
-                                      int n_rows, int K, int n_own, int n_halo,
-                                      void* stream) {
-  return spmv<double>(val, col, x_own, x_halo, y, n_rows, K, n_own, n_halo,
-                      stream);
+extern "C" int ppt_halo_boundary_f64(const double* val, const int* col,
+                                     const int* rows, const double* x_own,
+                                     const double* x_halo, double* y,
+                                     int n_rows, int K, int n_own, int n_halo,
+                                     void* stream) {
+  return boundary<double>(val, col, rows, x_own, x_halo, y, n_rows, K, n_own,
+                          n_halo, stream);
 }

@@ -10,6 +10,8 @@ Some operators are plain functions with the same rule (the kernel for a
 CUDA tensor, the plain version for a CPU tensor), as they gain nothing from
 the dispatcher: K1's launcher :class:`EllOperator`, which the solve and the
 assembly call (the custom operator ``ell_spmv`` remains for ``torch.func``);
+K19's launcher :class:`HaloOperator`, one per shard matrix of the sharded
+solve;
 K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; K8's
 launchers :class:`DualGatherVar` and :class:`DualGatherCopy`, made once per
 step of the assembly's dual pass; and the K14, K15 and K8 operators at the end,
@@ -53,8 +55,7 @@ __all__ = [
     "interp_lookup",
     "interp_tangent",
     "block_inverse",
-    "halo_pack",
-    "ell_spmv_split",
+    "HaloOperator",
     "upwind_flux",
     "upwind_flux_tangent",
     "upwind_select",
@@ -92,8 +93,8 @@ LAUNCHES = {
     "rachford_rice": 0,
     "interp_lookup": 0,
     "block_inverse": 0,
-    "halo_pack": 0,
-    "ell_spmv_split": 0,
+    "halo_interior": 0,
+    "halo_boundary": 0,
     "upwind_flux": 0,
     "upwind_select": 0,
     "segment_sum_sorted": 0,
@@ -981,65 +982,137 @@ def _(a):
 # -- K19 --------------------------------------------------------------------------
 
 
-@torch.library.custom_op("porepy_tpu_torch::halo_pack", mutates_args=())
-def halo_pack(x_own: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
-    """The send buffer ``x_own[send_idx]`` of a halo exchange; ``send_idx``
-    int32, grouped by destination rank."""
-    return reference.halo_pack(x_own, send_idx)
+class HaloOperator:
+    """The row-sharded matvec of one shard matrix (K19) and its two
+    launches: :meth:`interior` (launch A: the send buffer ``send =
+    x_own[send_idx]`` and the interior rows of ``y`` from ``x_own`` alone),
+    then, once the caller has exchanged ``send`` into ``recv`` (the halo,
+    ``n_halo`` entries), :meth:`boundary` (launch B: the boundary rows from
+    ``x_own`` and ``recv``; no launch when the shard has none).
 
+    ``val`` (float32/float64 ``(n_own, K)``, the shard's rows) and the plan's
+    int32 tables: ``col`` (remapped: ``c < n_own`` reads ``x_own``, then the
+    halo, ``n_own + n_halo`` is padding), ``send_idx``, and the ``interior``
+    and ``boundary`` row lists (increasing, together every row once). All
+    are checked once, here; on the card the rows are reordered once,
+    interior first (not at all when every row is interior), the ctypes
+    functions resolved, the pointers read, and ``send`` and ``recv``
+    allocated, owned and reused by every call (the stream orders each
+    call's launches after the last call's exchange). A call checks
+    ``x_own``, allocates ``y`` (always a new tensor) and makes one ctypes
+    call a launch. A plan on the CPU runs the plain versions; any tensor
+    off the CPU puts the operator on the card, where every tensor must be."""
 
-@halo_pack.register_kernel("cuda")
-def _halo_pack_cuda(x_own, send_idx):
-    if send_idx.dtype != torch.int32:
-        raise TypeError("halo_pack: send_idx must be int32")
-    if x_own.dim() != 1 or send_idx.dim() != 1:
-        raise ValueError("halo_pack: needs (n_own,) x_own and (n_send,) send_idx")
-    _check("halo_pack", {"x_own": x_own, "send_idx": send_idx}, x_own.dtype)
-    send = torch.empty(send_idx.shape[0], dtype=x_own.dtype, device=x_own.device)
-    if send.numel():
-        _launch("halo_pack", x_own.dtype, x_own.data_ptr(), send_idx.data_ptr(),
-                send.data_ptr(), send.numel())
-    return send
+    __slots__ = (
+        "val", "col", "send_idx", "interior_rows", "boundary_rows", "n_own", "K", "n_halo",
+        "dtype", "send", "recv", "_dev", "_device", "_interior", "_boundary", "_tables",
+        "_args_a", "_args_b", "_n_int", "_n_bnd",
+    )
 
-
-@halo_pack.register_fake
-def _(x_own, send_idx):
-    return x_own.new_empty(send_idx.shape[0])
-
-
-@torch.library.custom_op("porepy_tpu_torch::ell_spmv_split", mutates_args=())
-def ell_spmv_split(
-    val: torch.Tensor, col: torch.Tensor, x_own: torch.Tensor, x_halo: torch.Tensor
-) -> torch.Tensor:
-    """The owned rows of ``A @ x`` from ``x_own`` and the received halo
-    ``x_halo``, not concatenated: ``col`` below ``n_own`` reads ``x_own``,
-    from ``n_own`` ``x_halo``, ``n_own + n_halo`` is padding (see
-    :func:`porepy_tpu_torch.kernels.reference.ell_spmv_split`)."""
-    return reference.ell_spmv_split(val, col, x_own, x_halo)
-
-
-@ell_spmv_split.register_kernel("cuda")
-def _ell_spmv_split_cuda(val, col, x_own, x_halo):
-    dtype = x_own.dtype
-    if col.dtype != torch.int32 or val.dtype != dtype or x_halo.dtype != dtype:
-        raise TypeError("ell_spmv_split: needs val, x_own, x_halo of one dtype and int32 col")
-    if val.dim() != 2 or col.shape != val.shape or x_own.dim() != 1 or x_halo.dim() != 1:
-        raise ValueError("ell_spmv_split: needs (n, K) val and col, 1-d x_own and x_halo")
-    _check("ell_spmv_split", {"val": val, "col": col, "x_own": x_own, "x_halo": x_halo}, dtype)
-    n_rows, K = val.shape
-    y = torch.empty(n_rows, dtype=dtype, device=x_own.device)
-    if n_rows:
-        _launch(
-            "ell_spmv_split", dtype,
-            val.data_ptr(), col.data_ptr(), x_own.data_ptr(), x_halo.data_ptr(),
-            y.data_ptr(), n_rows, K, x_own.shape[0], x_halo.shape[0],
+    def __init__(
+        self, val: torch.Tensor, col: torch.Tensor, send_idx: torch.Tensor,
+        interior: torch.Tensor, boundary: torch.Tensor, n_halo: int,
+    ) -> None:
+        tables = {"col": col, "send_idx": send_idx, "interior": interior, "boundary": boundary}
+        for arg, t in tables.items():
+            if t.dtype != torch.int32:
+                raise TypeError(f"halo: {arg} must be int32, not {t.dtype}")
+        if val.dtype not in _SUFFIX:
+            raise TypeError(f"halo: val must be float32/float64, not {val.dtype}")
+        if val.dim() != 2 or col.shape != val.shape:
+            raise ValueError("halo: needs (n_own, K) val and col")
+        if send_idx.dim() != 1 or interior.dim() != 1 or boundary.dim() != 1:
+            raise ValueError("halo: send_idx and the row lists must be 1-d")
+        if interior.shape[0] + boundary.shape[0] != val.shape[0]:
+            raise ValueError("halo: the interior and boundary rows must hold every row once")
+        self.val, self.col, self.send_idx = val, col, send_idx
+        self.interior_rows, self.boundary_rows = interior, boundary
+        self.n_own, self.K = val.shape
+        self.n_halo = int(n_halo)
+        self.dtype = val.dtype
+        self._n_int, self._n_bnd = interior.shape[0], boundary.shape[0]
+        self._interior = None
+        on_card = any(t.device.type != "cpu" for t in (val, *tables.values()))
+        if on_card:
+            _check("halo", {**tables, "val": val}, val.dtype)
+            if any(t.device != val.device for t in tables.values()):
+                raise ValueError("halo: val and the plan on different cards")
+        self.send = val.new_empty(send_idx.shape[0])
+        self.recv = val.new_empty(self.n_halo)
+        if not on_card:
+            return
+        if self._n_bnd:
+            rows = torch.cat([interior, boundary])
+            val, col = val.index_select(0, rows), col.index_select(0, rows)
+        else:
+            rows = interior
+        # The reordered rows, held so that the pointers below stay valid.
+        self._tables = (val, col, rows)
+        self._dev, self._device = val.get_device(), val.device
+        self._interior = _kernel("halo_interior", val.dtype)
+        self._boundary = _kernel("halo_boundary", val.dtype)
+        size = val.element_size()
+        self._args_a = (
+            val.data_ptr(), col.data_ptr(), rows.data_ptr(), send_idx.data_ptr(),
+            self.send.data_ptr(),
         )
-    return y
+        off = self._n_int * self.K
+        self._args_b = (
+            val.data_ptr() + off * size, col.data_ptr() + off * 4, rows.data_ptr() + 4 * self._n_int,
+            self.recv.data_ptr(),
+        )
 
+    def _x(self, x_own: torch.Tensor) -> None:
+        if self._interior is None:
+            if x_own.device.type != "cpu":
+                raise ValueError(f"halo: x_own is on {x_own.device}, the plan on the cpu")
+        elif not x_own.is_cuda or x_own.get_device() != self._dev:
+            raise ValueError(f"halo: x_own is on {x_own.device}, expected the plan's card")
+        if x_own.dtype != self.dtype:
+            raise TypeError(f"halo: x_own is {x_own.dtype}, val {self.dtype}")
+        if x_own.shape != (self.n_own,) or not x_own.is_contiguous():
+            raise ValueError(f"halo: needs a contiguous x_own of shape ({self.n_own},)")
 
-@ell_spmv_split.register_fake
-def _(val, col, x_own, x_halo):
-    return x_own.new_empty(val.shape[0])
+    def interior(self, x_own: torch.Tensor) -> torch.Tensor:
+        """Launch A: writes :attr:`send` and returns ``y`` with the interior
+        rows (the boundary rows are written by :meth:`boundary`)."""
+        self._x(x_own)
+        if self._interior is None:
+            send, y = reference.halo_interior(self.val, self.col, x_own, self.send_idx, self.interior_rows)
+            self.send.copy_(send)
+            return y
+        y = torch.empty(self.n_own, dtype=self.dtype, device=self._device)
+        if self._n_int == 0 and self.send.shape[0] == 0:
+            return y
+        val, col, rows, send_idx, send = self._args_a
+        rc = self._interior(
+            val, col, rows, x_own.data_ptr(), send_idx, send, y.data_ptr(), self._n_int, self.K,
+            self.n_own, self.send.shape[0], _current_stream(self._dev),
+        )
+        if rc != 0:
+            raise RuntimeError(f"halo_interior kernel launch failed with CUDA error {rc}")
+        LAUNCHES["halo_interior"] += 1
+        return y
+
+    def boundary(self, x_own: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Launch B: the boundary rows of ``y`` (in place) from ``x_own``
+        and :attr:`recv`; returns ``y``."""
+        if not self._n_bnd:
+            return y
+        self._x(x_own)
+        if y.shape != (self.n_own,) or y.dtype != self.dtype or y.device != x_own.device:
+            raise ValueError("halo: y must be the result of interior()")
+        if self._interior is None:
+            return reference.halo_boundary(self.val, self.col, x_own, self.recv, self.boundary_rows, y)
+        val, col, rows, recv = self._args_b
+        rc = self._boundary(
+            val, col, rows, x_own.data_ptr(), recv, y.data_ptr(), self._n_bnd, self.K, self.n_own,
+            self.n_halo, _current_stream(self._dev),
+        )
+        if rc != 0:
+            raise RuntimeError(f"halo_boundary kernel launch failed with CUDA error {rc}")
+        LAUNCHES["halo_boundary"] += 1
+        return y
 
 
 # -- K15 --------------------------------------------------------------------------

@@ -48,6 +48,8 @@ __all__ = [
     "block_inverse",
     "halo_pack",
     "ell_spmv_split",
+    "halo_interior",
+    "halo_boundary",
     "upwind_select",
     "upwind_select_pair",
     "upwind_masks",
@@ -365,15 +367,15 @@ def _seq_sum(terms) -> torch.Tensor:
 
 
 def ell_spmv_ordered(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``A x`` for a 1-d ``x`` as the K18b kernel forms it: each row's
-    products rounded, then added from 0.0 in slot order, padding slots
-    skipped."""
+    """``A x`` for a 1-d ``x`` as K1's rows form it (and the K18b kernel's):
+    each row's products rounded, then added from 0.0 in slot order, columns
+    at or past ``x``'s length (padding) skipped."""
     n_cols = x.shape[0]
     x_p = torch.cat([x, x.new_zeros(1)])
     acc = x.new_zeros(val.shape[0])
     for k in range(val.shape[1]):
         c = col[:, k]
-        acc = torch.where(c < n_cols, acc + val[:, k] * x_p[c], acc)
+        acc = torch.where(c < n_cols, acc + val[:, k] * x_p[c.clamp(max=n_cols)], acc)
     return acc
 
 
@@ -791,10 +793,36 @@ def ell_spmv_split(
 ) -> torch.Tensor:
     """``y_i = sum_k val[i, k] src(col[i, k])`` over a row shard: ``src``
     reads ``x_own`` below ``n_own = x_own.numel()``, ``x_halo`` from there,
-    and zero at the padding column ``n_own + x_halo.numel()``. Written as
-    :func:`ell_spmv` on ``[x_own, x_halo]``, so that one shard holding every
-    row gives :func:`ell_spmv`'s result bit for bit."""
-    return ell_spmv(val, col, torch.cat([x_own, x_halo]))
+    and zero at the padding column ``n_own + x_halo.numel()``; every row
+    summed as K1's (:func:`ell_spmv_ordered` on ``[x_own, x_halo]``), so that
+    one shard holding every row gives K1's result bit for bit. The yardstick
+    of :func:`halo_interior` and :func:`halo_boundary` composed."""
+    return ell_spmv_ordered(val, col, torch.cat([x_own, x_halo]))
+
+
+def halo_interior(
+    val: torch.Tensor, col: torch.Tensor, x_own: torch.Tensor, send_idx: torch.Tensor,
+    rows: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch A of the row-sharded matvec: the send buffer
+    ``x_own[send_idx]`` and ``y`` (``n_own`` rows) with ``y[rows]`` the
+    interior rows summed as K1's from ``x_own`` alone (a column from
+    ``n_own`` on is padding for them), the other rows 0."""
+    r = rows.long()
+    y = x_own.new_zeros(val.shape[0])
+    y[r] = ell_spmv_ordered(val[r], col[r], x_own)
+    return halo_pack(x_own, send_idx), y
+
+
+def halo_boundary(
+    val: torch.Tensor, col: torch.Tensor, x_own: torch.Tensor, x_halo: torch.Tensor,
+    rows: torch.Tensor, y: torch.Tensor,
+) -> torch.Tensor:
+    """Launch B: ``y[rows]`` (in place) the boundary rows summed as K1's
+    from ``x_own`` and the received halo ``x_halo``; returns ``y``."""
+    r = rows.long()
+    y[r] = ell_spmv_ordered(val[r], col[r], torch.cat([x_own, x_halo]))
+    return y
 
 
 # -- K15 --------------------------------------------------------------------------

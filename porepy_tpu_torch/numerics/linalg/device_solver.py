@@ -924,12 +924,14 @@ class DeviceLinearSolver:
                 return self._m_apply(m_state, r)
 
         else:
+            # The same two matrices' row shards, each with its K19 launcher.
+            op_eq, op32 = shard.operator(val_eq), shard.operator(val32)
 
             def mv_eq(y):
-                return shard.matvec(val_eq, y)
+                return shard.matvec(op_eq, y)
 
             def mv32(y):
-                return shard.matvec(val32, y)
+                return shard.matvec(op32, y)
 
             def M(r):
                 return shard.own(self._m_apply(m_state, shard.gather(r)))

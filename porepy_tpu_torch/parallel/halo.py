@@ -18,13 +18,18 @@ entries its rows' columns name. Its plan is built once on the host:
   transposing the lists (:func:`local_plans`);
 - the row shard's column table remapped: an owned column ``c`` to
   ``c - lo``, a remote one to ``n_own + k`` (its place in the halo), the
-  padding column ``n`` to ``n_own + n_halo``.
+  padding column ``n`` to ``n_own + n_halo``;
+- the shard's rows split into *interior* rows (every column owned or
+  padding) and *boundary* rows (at least one column in the halo).
 
-Each matvec is then ``halo_pack`` (gather the send entries), one
-``all_to_all_single`` and ``ell_spmv_split`` (the owned rows from ``x_own``
-and the received halo, not concatenated). :class:`DofShard` holds the plan
-on a rank's device with these steps and the all-reduced norms and dot
-products of the solve.
+A shard matrix is a :class:`~porepy_tpu_torch.kernels.HaloOperator`, made
+once per matrix (:meth:`DofShard.operator`). Each matvec is then one
+launch that packs the send entries and computes the interior rows, one
+``all_to_all_single`` into the operator's receive buffer, and one launch
+for the boundary rows from ``x_own`` and the received halo (not
+concatenated); with no halo, the first launch is the whole matvec.
+:class:`DofShard` holds the plan on a rank's device with these steps and
+the all-reduced norms and dot products of the solve.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ __all__ = [
     "HaloPlan",
     "local_plans",
     "exchange_local",
+    "matvec_local",
     "exchange_plan",
     "same_device",
     "DofShard",
@@ -68,8 +74,10 @@ class HaloPlan:
     table ``col`` (``(n_own, K)`` int32), the entries it receives from and
     sends to each rank (``recv_counts``, ``send_counts``, in rank order),
     the local rows of ``x_own`` it sends (``send_idx``, int32, grouped by
-    destination), and ``exchange``: whether any rank has a halo at all,
-    the same on every rank."""
+    destination), ``exchange``: whether any rank has a halo at all, the
+    same on every rank, and the local rows that read no halo entry
+    (``interior``) and those that read one (``boundary``), int32,
+    increasing: with no halo every row is interior."""
 
     lo: int
     hi: int
@@ -78,6 +86,8 @@ class HaloPlan:
     send_counts: list
     send_idx: np.ndarray
     exchange: bool
+    interior: np.ndarray
+    boundary: np.ndarray
 
     @property
     def n_own(self) -> int:
@@ -98,6 +108,7 @@ class HaloPlan:
         remote = (col < n) & ~own
         local[remote] = n_own + np.searchsorted(halo, col[remote])
         send = np.concatenate(sends) if sends else np.zeros(0, np.int64)
+        reads_halo = remote.any(axis=1)
         return cls(
             lo=lo,
             hi=hi,
@@ -106,6 +117,16 @@ class HaloPlan:
             send_counts=[int(v.size) for v in sends],
             send_idx=(send - lo).astype(np.int32),
             exchange=bool(exchange),
+            interior=np.flatnonzero(~reads_halo).astype(np.int32),
+            boundary=np.flatnonzero(reads_halo).astype(np.int32),
+        )
+
+    def tensors(self, device) -> tuple:
+        """``(col, send_idx, interior, boundary)`` on ``device``: the tables
+        a :class:`~porepy_tpu_torch.kernels.HaloOperator` takes after the
+        values."""
+        return tuple(
+            torch.tensor(a, device=device) for a in (self.col, self.send_idx, self.interior, self.boundary)
         )
 
 
@@ -130,6 +151,17 @@ def exchange_local(plans: list[HaloPlan], sends: list[torch.Tensor]) -> list[tor
     process: ``sends[q]`` is rank ``q``'s packed send buffer."""
     pieces = [list(torch.split(s, p.send_counts)) for p, s in zip(plans, sends)]
     return [torch.cat([pieces[q][r] for q in range(len(plans))]) for r in range(len(plans))]
+
+
+def matvec_local(plans: list[HaloPlan], ops: list, x_owns: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The matvecs of all ranks in one process, each rank's through its
+    :class:`~porepy_tpu_torch.kernels.HaloOperator`: every interior launch,
+    the exchange (:func:`exchange_local`) into the operators' receive
+    buffers, every boundary launch."""
+    ys = [op.interior(x) for op, x in zip(ops, x_owns)]
+    for op, h in zip(ops, exchange_local(plans, [op.send for op in ops])):
+        op.recv.copy_(h)
+    return [op.boundary(x, y) for op, x, y in zip(ops, x_owns, ys)]
 
 
 def exchange_plan(ell_col: np.ndarray, n: int, mesh) -> HaloPlan:
@@ -189,29 +221,33 @@ class DofShard:
         self.n = n
         self.lo, self.hi = plan.lo, plan.hi
         self.chunk = -(-n // mesh.size)
-        self.col = torch.tensor(plan.col, device=dev)
-        self.send_idx = torch.tensor(plan.send_idx, device=dev)
+        self.tables = plan.tensors(dev)
         self.ell_sel = ell_sel[self.lo : self.hi]
         self.ell_col = ell_col[self.lo : self.hi]
 
-    def matvec(self, val: torch.Tensor, x_own: torch.Tensor) -> torch.Tensor:
-        """The owned rows of ``A x`` for the owned rows ``val`` of the ELL
-        values (global column order): pack the entries the other ranks
-        read, exchange, and multiply from ``x_own`` and the received halo."""
+    def operator(self, val: torch.Tensor):
+        """The :class:`~porepy_tpu_torch.kernels.HaloOperator` of the owned
+        rows ``val`` of a matrix's ELL values (global column order), made
+        once per matrix."""
         from porepy_tpu_torch import kernels
 
-        send = kernels.halo_pack(x_own, self.send_idx)
-        recv = x_own.new_empty(self.plan.n_halo)
+        return kernels.HaloOperator(val, *self.tables, self.plan.n_halo)
+
+    def matvec(self, op, x_own: torch.Tensor) -> torch.Tensor:
+        """The owned rows of ``A x`` through ``op`` (:meth:`operator`): the
+        interior rows and the send buffer, the exchange into ``op.recv``,
+        then the boundary rows."""
+        y = op.interior(x_own)
         if self.plan.exchange:
             import torch.distributed as dist
 
             dist.all_to_all_single(
-                recv, send,
+                op.recv, op.send,
                 output_split_sizes=self.plan.recv_counts,
                 input_split_sizes=self.plan.send_counts,
                 group=self.mesh.group,
             )
-        return kernels.ell_spmv_split(val, self.col, x_own, recv)
+        return op.boundary(x_own, y)
 
     def _sum(self, t: torch.Tensor, op=None) -> torch.Tensor:
         import torch.distributed as dist

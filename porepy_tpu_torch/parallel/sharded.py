@@ -10,8 +10,9 @@ collectives to GSPMD. Here the collectives are written out:
 - the assembly (K8) runs replicated on every rank, and each rank keeps its
   own rows of the ELL values and of ``-residual``: the port's design for
   now (an assembly of owned rows only would cut the replicated work);
-- every Krylov matvec is a halo exchange between two kernels
-  (``halo_pack``, ``all_to_all_single``, ``ell_spmv_split``), every norm
+- every Krylov matvec is a halo exchange between the two launches of the
+  shard matrix's ``HaloOperator`` (``halo_interior``, which also packs
+  the send buffer; ``all_to_all_single``; ``halo_boundary``), every norm
   and dot product a local partial and one ``all_reduce``
   (:meth:`DeviceLinearSolver.set_dof_sharding`);
 - the preconditioner is built and applied replicated on the gathered

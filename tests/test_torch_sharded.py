@@ -1,8 +1,9 @@
 """The dof-sharded Newton solve (K19) of porepy_tpu_torch.
 
-- The plain versions of the K19 kernels on P = 1, 2, 3, 4, 8 row shards of
-  the md 1/16 test model's Jacobian, in one process (the halo exchange done
-  in-process): their concatenation is the global ``ell_spmv``.
+- K19's launcher (``HaloOperator``, its plain versions on the CPU) on P =
+  1, 2, 3, 4, 8 row shards of the md 1/16 test model's Jacobian, in one
+  process (the halo exchange done in-process): their concatenation is the
+  global ``ell_spmv``.
 - A gloo world of 2 and one of 4 CPU processes (spawned once each, by a
   module fixture) run ``ShardedNewton`` on the model of
   ``tests/parallel/test_sharded_framework.py`` and, at 4 ranks, the biot
@@ -262,15 +263,9 @@ def test_split_spmv_concatenates_to_global_spmv(md_ell, size):
     want = reference.ell_spmv(val, col, x)
     plans = halo.local_plans(col.numpy(), n, size)
     assert [(p.lo, p.hi) for p in plans] == halo.shard_bounds(n, size)
-    sends = [reference.halo_pack(x[p.lo : p.hi], torch.tensor(p.send_idx)) for p in plans]
-    halos = halo.exchange_local(plans, sends)
+    ops_ = [kernels.HaloOperator(val[p.lo : p.hi], *p.tensors("cpu"), p.n_halo) for p in plans]
     before = dict(kernels.LAUNCHES)
-    got = torch.cat(
-        [
-            kernels.ell_spmv_split(val[p.lo : p.hi], torch.tensor(p.col), x[p.lo : p.hi], h)
-            for p, h in zip(plans, halos)
-        ]
-    )
+    got = torch.cat(halo.matvec_local(plans, ops_, [x[p.lo : p.hi] for p in plans]))
     assert kernels.LAUNCHES == before, "the CPU route launched a kernel"
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-14 * float(want.abs().max())
@@ -287,20 +282,33 @@ def test_split_spmv_reads_padding_as_zero():
     val = torch.tensor([[2.0, 3.0, 5.0]])
     col = torch.tensor([[0, 2, 3]], dtype=torch.int32)
     x_own, x_halo = torch.tensor([1.0, 7.0]), torch.tensor([10.0])
-    got = kernels.ell_spmv_split(val, col, x_own, x_halo)
-    assert got.tolist() == [2.0 + 30.0]
-    assert kernels.halo_pack(torch.tensor([4.0, 5.0, 6.0]), torch.tensor([2, 0], dtype=torch.int32)).tolist() == [6.0, 4.0]
+    assert reference.ell_spmv_split(val, col, x_own, x_halo).tolist() == [2.0 + 30.0]
+    i32 = dict(dtype=torch.int32)
+    op = kernels.HaloOperator(
+        torch.tensor([[2.0, 3.0, 5.0], [1.0, 1.0, 0.0], [4.0, 0.0, 0.0]]),
+        torch.tensor([[0, 3, 4], [1, 4, 4], [2, 4, 4]], **i32),
+        torch.tensor([2, 0], **i32), torch.tensor([1, 2], **i32), torch.tensor([0], **i32), 1,
+    )
+    x = torch.tensor([4.0, 5.0, 6.0])
+    y = op.interior(x)
+    assert op.send.tolist() == [6.0, 4.0]
+    assert y[1:].tolist() == [5.0, 24.0]
+    op.recv.fill_(10.0)
+    assert op.boundary(x, y).tolist() == [8.0 + 30.0, 5.0, 24.0]
 
 
 def test_k19_cuda_wrappers_refuse_cpu_tensors():
-    x = torch.zeros(3, dtype=torch.float64)
-    idx = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="expected cuda"):
-        ops._halo_pack_cuda(x, idx)
-    with pytest.raises(ValueError, match="expected cuda"):
-        ops._ell_spmv_split_cuda(torch.zeros(2, 1, dtype=torch.float64), torch.zeros(2, 1, dtype=torch.int32), x, x)
+    """An operator with any tensor off the CPU takes the card's route, where
+    a CPU plan, a CPU ``x_own`` or a non-int32 table is refused."""
+    i32 = dict(dtype=torch.int32)
+    val = torch.zeros(2, 1, dtype=torch.float64)
+    plan = (torch.zeros(2, 1, **i32), torch.zeros(1, **i32), torch.arange(2, **i32), torch.zeros(0, **i32))
+    with pytest.raises(ValueError, match="col is on cpu, expected cuda"):
+        ops.HaloOperator(val.to("meta"), *plan, 0)
+    with pytest.raises(ValueError, match="is on meta, the plan on the cpu"):
+        ops.HaloOperator(val, *plan, 0).interior(torch.zeros(2, dtype=torch.float64, device="meta"))
     with pytest.raises(TypeError, match="int32"):
-        ops._halo_pack_cuda(x, idx.long())
+        ops.HaloOperator(val, plan[0], plan[1].long(), *plan[2:], 0)
 
 
 # -- the mesh and its errors ------------------------------------------------------------
@@ -428,24 +436,24 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_cuda_halo_kernels_match_plain(cuda, md_ell, dtype):
-    """The K19 kernels at 3 shards of the md test Jacobian: bit-equal to
-    the plain versions' rows for f64 sums in the same order, and one shard
-    equal to K1."""
+    """K19's launcher at 1 and 3 shards of the md test Jacobian: the
+    shards' rows bit-equal to the plain yardstick's, and to K1 (every row
+    summed in K1's order, wherever its entries come from)."""
     val, col, n, _m = md_ell
     val = val.to(dtype=dtype, device=cuda)
     x = torch.tensor(np.random.default_rng(3).standard_normal(n), dtype=dtype, device=cuda)
     for size in (1, 3):
         plans = halo.local_plans(col.numpy(), n, size)
-        sends = [kernels.halo_pack(x[p.lo : p.hi], torch.tensor(p.send_idx, device=cuda)) for p in plans]
-        for p, s in zip(plans, sends):
-            assert torch.equal(s, reference.halo_pack(x[p.lo : p.hi], torch.tensor(p.send_idx, device=cuda)))
-        halos = halo.exchange_local(plans, sends)
-        got = torch.cat(
+        ops_ = [kernels.HaloOperator(val[p.lo : p.hi], *p.tensors(cuda), p.n_halo) for p in plans]
+        got = torch.cat(halo.matvec_local(plans, ops_, [x[p.lo : p.hi] for p in plans]))
+        torch.cuda.synchronize()
+        halos = [op.recv for op in ops_]
+        want = torch.cat(
             [
-                kernels.ell_spmv_split(val[p.lo : p.hi], torch.tensor(p.col, device=cuda), x[p.lo : p.hi], h)
+                reference.ell_spmv_split(val[p.lo : p.hi], torch.tensor(p.col, device=cuda), x[p.lo : p.hi], h)
                 for p, h in zip(plans, halos)
             ]
         )
-        torch.cuda.synchronize()
-        k1 = kernels.ell_spmv(val, col.to(cuda), x)
+        assert torch.equal(got, want)
+        k1 = kernels.EllOperator(val, col.to(cuda))(x)
         assert torch.equal(got, k1)
