@@ -1934,7 +1934,7 @@ def check_halo_kernels(model, n_shards: int = 4) -> tuple[dict, dict]:
     print(f"  halo entries per shard with the spatial permutation {[p.n_halo for p in pplans]}; nnz locality "
           f"{nnz_locality(cs, n_shards):.4f}, with it {nnz_locality(cs, n_shards, perm):.4f}")
     with tempfile.TemporaryDirectory() as work:
-        old = check.old_route(check.OLD_DIR, work)
+        old = check.old_route(work)
         out = check.report(val64, col, n, old, sizes=(n_shards, 1))
     for (size, tag), r in out.items():
         for what, same in r["equal"].items():
@@ -1942,19 +1942,23 @@ def check_halo_kernels(model, n_shards: int = 4) -> tuple[dict, dict]:
         _require(r["launches"]["halo_interior"] == size, f"halo_interior launches {r['launches']}")
         _require((r["launches"]["halo_boundary"] > 0) == (size > 1), f"halo_boundary launches {r['launches']}")
     main, one = out[(n_shards, "float32")], out[(1, "float32")]
-    lt = main["launch_times"]
     print(f"  per shard call at {n_shards} shards, f32, median ms of the turns: launcher "
           f"{np.median(main['times']['launcher']['ms']):.4f}, two-launch route "
           f"{np.median(main['times']['two-launch']['ms']):.4f}, index_select + torch.mv "
           f"{np.median(main['times']['library']['ms']):.4f}; at 1 shard host us a matvec: launcher "
           f"{one['times']['launcher']['host_us']}, K1's launcher {one['times']['K1']['host_us']}")
+    # halo_interior's line is the one-rank matvec that phase 18b launches
+    # (every row interior, nothing to send), held against torch.mv on the
+    # CSR matrix; halo_boundary's the four shards' launch B, against
+    # torch.mv on the boundary rows' CSR matrix.
     report = {}
-    for name in ("interior", "boundary"):
-        lib = lt["boundary library"]["ms"] if name == "boundary" else None
+    err = max(r["err"] for r in out.values())
+    for name, run in (("interior", one), ("boundary", main)):
+        t = run["launch_times"]
         report["halo_" + name] = {
-            "err": max(r["err"] for r in out.values()), "ms": lt[name]["ms"], "plain_ms": lt[name + " plain"]["ms"],
-            "library_ms": lib, "bound": (main["bounds"][name], "bytes"),
-            "launches": main["launches"]["halo_" + name],
+            "err": err, "ms": t[name]["ms"], "plain_ms": t[name + " plain"]["ms"],
+            "library_ms": t[name + " library"]["ms"], "bound": (run["bounds"][name], "bytes"),
+            "launches": run["launches"]["halo_" + name],
         }
     return report, {k: r["times"] for k, r in out.items() if "times" in r}
 
@@ -2936,7 +2940,8 @@ def main() -> int:
         "interp_lookup": ("interp_lookup.cu", "porepy_tpu/numerics/ad/operator_functions.py:117", report["interp_lookup"]["launches"]),
         "block_inverse": ("block_inverse.cu", "porepy_tpu/numerics/linalg/matrix_operations.py:105", report["block_inverse"]["launches"]),
         # A one-rank group has no boundary rows: halo_boundary's launches
-        # are those of the four row shards of phase 18a.
+        # are those of the four row shards of phase 18a, halo_interior's
+        # those of phase 18b's one rank, timed at 1 shard in phase 18a.
         "halo_interior": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", sharded["launches"]["halo_interior"]),
         "halo_boundary": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", report["halo_boundary"]["launches"]),
         "upwind_flux": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer_dense["launches"]["upwind_flux"]),

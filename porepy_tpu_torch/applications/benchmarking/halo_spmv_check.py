@@ -2,7 +2,7 @@
 ``halo_boundary``) on the card, against its plain versions, K1, and the
 two-launch route it replaced.
 
-    python3 -m porepy_tpu_torch.applications.benchmarking.halo_spmv_check [--old-dir DIR]
+    python3 -m porepy_tpu_torch.applications.benchmarking.halo_spmv_check
 
 On md 1/128's first Jacobian in the solver's ELL layout (n 18,157, K 9),
 split into 4 row shards and into 1, in f64 and f32, it prints what ``nvcc
@@ -12,12 +12,13 @@ boundary rows after launch B), the shards against K1 (``EllOperator``) on
 the whole matrix, and the two-launch route against the same rows, all to
 the bit; then times, in turns, per shard call in f32: the launcher, the
 two-launch route (``halo_pack`` then ``ell_spmv_split``, each a custom
-operator, built from ``DIR/halo_spmv.cu``, by default the copy beside this
-script), and ``index_select`` + ``torch.mv`` on the shard's CSR matrix,
-each by host µs a call, device µs by CUDA-graph replay, ms by CUDA events
-over back-to-back calls, and launches a matvec; at 1 shard K1's launcher
-too; then each launch alone, its plain version, ``torch.mv`` on the
-boundary rows' CSR matrix, and the bounds (bytes). The exchange is done
+operator, built from the parent's ``halo_spmv.cu`` in ``two_launch/``
+beside this script), and ``index_select`` + ``torch.mv`` on the shard's CSR
+matrix, each by host µs a call, device µs by CUDA-graph replay, ms by CUDA
+events over back-to-back calls, and launches a matvec; at 1 shard K1's
+launcher too; then each launch alone, its plain version, the PyTorch calls
+that compute its rows (``index_select`` for the send buffer and
+``torch.mv`` on the rows' CSR matrix), and the bounds (bytes). The exchange is done
 once, in the process, before the times. Needs a
 CUDA card and ``nvcc``; exits non-zero when a launch and its plain version
 differ.
@@ -49,16 +50,16 @@ _OLD = {}
 # -- the two-launch route ---------------------------------------------------------
 
 
-def old_route(old_dir: str, workdir: str):
+def old_route(workdir: str):
     """``(halo_pack, ell_spmv_split)``: the replaced route's two custom
-    operators over ``old_dir/halo_spmv.cu`` built with ``nvcc`` into a
+    operators over ``OLD_DIR/halo_spmv.cu`` built with ``nvcc`` into a
     library with a plain C interface, each checking its tensors and
     allocating its output on every call, as they did on the sharded path."""
     if "ops" in _OLD:
         return _OLD["ops"]
     so = os.path.join(workdir, "old_k19.so")
     subprocess.run([_nvcc(), *_CFLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", so,
-                    os.path.join(old_dir, "halo_spmv.cu")], check=True)
+                    os.path.join(OLD_DIR, "halo_spmv.cu")], check=True)
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
     for suffix in _SUFFIX.values():
@@ -231,12 +232,15 @@ def time_routes(sh: Shards, old, turns=("launcher", "two-launch", "library", "li
 
 def _bytes(p, rows, size: int, send: bool) -> int:
     """Bytes that the rows ``rows`` of plan ``p`` move at least: their val
-    and col, the row list, the distinct entries of ``x_own`` and the halo
-    they read, and their results written; with ``send``, the send indices
-    read and the send buffer written."""
+    and col, the distinct entries of ``x_own`` and the halo they read, and
+    their results written; the row list only where the rows are a part of
+    the shard's (the whole shard's product needs none: K1 computes it
+    without one); with ``send``, the send indices read and the send buffer
+    written."""
     cols = p.col[rows]
     need = np.unique(cols[cols < p.n_own + p.n_halo]).size
-    nbytes = len(rows) * (p.col.shape[1] * (size + 4) + 4 + size) + need * size
+    listed = 4 if len(rows) < p.n_own else 0
+    nbytes = len(rows) * (p.col.shape[1] * (size + 4) + listed + size) + need * size
     return nbytes + (len(p.send_idx) * (4 + size) if send else 0)
 
 
@@ -255,27 +259,39 @@ def bounds_ms(sh: Shards, dtype) -> dict:
 
 def time_launches(sh: Shards) -> dict:
     """Per shard call: each launch alone and its plain version (ms by CUDA
-    events over back-to-back calls, device µs by graph replay), and
-    ``torch.mv`` on the boundary rows' CSR matrix, the one PyTorch call that
-    computes launch B's rows."""
+    events over back-to-back calls, device µs by graph replay), and the
+    PyTorch calls that compute the launch's output: for launch A
+    ``index_select`` for the send buffer (none where it is empty) and
+    ``torch.mv`` on the interior rows' CSR matrix, for launch B ``torch.mv``
+    on the boundary rows' CSR matrix. At 1 shard every row is interior and
+    launch A is the whole matvec: launch B is not timed."""
     from porepy_tpu_torch.kernels import reference
 
     ys = [op.interior(o) for op, o in zip(sh.ops, sh.own)]
-    csr_b = [_csr(v[t[3].long()], t[0][t[3].long()], len(p.boundary), p.n_own + p.n_halo)
+    csr_a = [_csr(v[t[2].long()], t[0][t[2].long()], len(p.interior), p.n_own)
              for v, t, p in zip(sh.vals, sh.tables, sh.plans)]
-    xcat = [torch.cat([o, op.recv]) for o, op in zip(sh.own, sh.ops)]
+    sends = [t[1] if len(p.send_idx) else None for t, p in zip(sh.tables, sh.plans)]
     fns = {
         "interior": lambda: [op.interior(o) for op, o in zip(sh.ops, sh.own)],
-        "boundary": lambda: [op.boundary(o, y) for op, o, y in zip(sh.ops, sh.own, ys)],
         "interior plain": lambda: [reference.halo_interior(v, t[0], o, t[1], t[2])
                                    for v, t, o in zip(sh.vals, sh.tables, sh.own)],
-        "boundary plain": lambda: [reference.halo_boundary(v, t[0], o, op.recv, t[3], y)
-                                   for v, t, o, op, y in zip(sh.vals, sh.tables, sh.own, sh.ops, ys)],
-        "boundary library": lambda: [torch.mv(m, xc) for m, xc in zip(csr_b, xcat)],
+        "interior library": lambda: [(None if i is None else torch.index_select(o, 0, i), torch.mv(m, o))
+                                     for o, i, m in zip(sh.own, sends, csr_a)],
     }
+    if sh.size > 1:
+        csr_b = [_csr(v[t[3].long()], t[0][t[3].long()], len(p.boundary), p.n_own + p.n_halo)
+                 for v, t, p in zip(sh.vals, sh.tables, sh.plans)]
+        xcat = [torch.cat([o, op.recv]) for o, op in zip(sh.own, sh.ops)]
+        fns.update({
+            "boundary": lambda: [op.boundary(o, y) for op, o, y in zip(sh.ops, sh.own, ys)],
+            "boundary plain": lambda: [reference.halo_boundary(v, t[0], o, op.recv, t[3], y)
+                                       for v, t, o, op, y in zip(sh.vals, sh.tables, sh.own, sh.ops, ys)],
+            "boundary library": lambda: [torch.mv(m, xc) for m, xc in zip(csr_b, xcat)],
+        })
     out = {name: {"ms": cuda_ms(fn, 20 if "plain" in name else 100) / sh.size} for name, fn in fns.items()}
-    for name in ("interior", "boundary"):
-        out[name]["device_us"] = graph_us(fns[name]) / sh.size
+    for name in fns:
+        if "plain" not in name:
+            out[name]["device_us"] = graph_us(fns[name]) / sh.size
     return out
 
 
@@ -300,20 +316,17 @@ def report(val64, col, n: int, old, sizes=(4, 1), seed: int = 18, timed=torch.fl
                     print(f"    per shard call, {name}: host us {[round(v, 2) for v in t['host_us']]}, device us "
                           f"{[round(v, 3) for v in t['device_us']]}, ms {[round(v, 4) for v in t['ms']]}, "
                           f"launches a matvec {t['launches']}")
-                if size > 1:  # one shard has no boundary rows: launch A is its matvec
-                    r["launch_times"] = time_launches(sh)
-                    for name, t in r["launch_times"].items():
-                        print(f"    per shard call, {name}: {t['ms']:.4f} ms"
-                              + (f", device {t['device_us']:.3f} us" if "device_us" in t else ""))
+                r["launch_times"] = time_launches(sh)
+                for name, t in r["launch_times"].items():
+                    print(f"    per shard call, {name}: {t['ms']:.4f} ms"
+                          + (f", device {t['device_us']:.3f} us" if "device_us" in t else ""))
                 print("    bound us (bytes): " + ", ".join(f"{k} {1e3 * v:.4f}" for k, v in r["bounds"].items()))
             out[(size, tag)] = r
     return out
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--old-dir", default=OLD_DIR)
-    args = parser.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     if not torch.cuda.is_available():
         print("halo_spmv_check: no CUDA device available", file=sys.stderr)
         return 1
@@ -330,7 +343,7 @@ def main(argv=None) -> int:
     print(f"kernels built in {build.build_seconds():.2f} s")
     with tempfile.TemporaryDirectory() as work:
         ptxas_report([os.path.join(build.CSRC, "halo_spmv.cu"), os.path.join(build.CSRC, "ell_spmv.cu")], work)
-        old = old_route(args.old_dir, work)
+        old = old_route(work)
         tic = time.perf_counter()
         Model, params = build_md_flow(1.0 / 128, device=str(dev))
         model = Model(params)

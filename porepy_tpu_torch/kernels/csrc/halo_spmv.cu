@@ -22,7 +22,9 @@
 // shard's rows reordered once per matrix, interior rows first, so that each
 // block's rows are one contiguous span of val and col, staged in shared
 // memory with 16-byte cp.async copies as K1 stages its rows; rows[i] is the
-// place of the i-th reordered row in y. Each row is summed and rounded by
+// place of the i-th reordered row in y. A shard with no boundary rows is not
+// reordered and halo_interior gets no row list (rows == nullptr): row i goes
+// to y[i], and one rank reads the bytes K1 reads. Each row is summed and rounded by
 // K1's own code (ell_rows.cuh): one shard holding every row (interior rows
 // in order, no reordering) returns K1's result bit for bit.
 //
@@ -60,8 +62,8 @@ halo_interior_kernel(const T* __restrict__ val, const int* __restrict__ col,
   const int* cs;
   block_rows(val, col, row0, nr, K, staged, span_bytes, smem, &vs, &cs);
   for (int r = threadIdx.x; r < nr; r += blockDim.x)
-    y[rows[row0 + r]] = row_sum(vs + (int64_t)r * K, cs + (int64_t)r * K, K,
-                                Dense<T>{x_own, n_own});
+    y[rows ? rows[row0 + r] : row0 + r] = row_sum(
+        vs + (int64_t)r * K, cs + (int64_t)r * K, K, Dense<T>{x_own, n_own});
 }
 
 template <typename T>

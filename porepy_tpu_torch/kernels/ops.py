@@ -995,7 +995,8 @@ class HaloOperator:
     halo, ``n_own + n_halo`` is padding), ``send_idx``, and the ``interior``
     and ``boundary`` row lists (increasing, together every row once). All
     are checked once, here; on the card the rows are reordered once,
-    interior first (not at all when every row is interior), the ctypes
+    interior first (not at all, and launch A given no row list, when every
+    row is interior), the ctypes
     functions resolved, the pointers read, and ``send`` and ``recv``
     allocated, owned and reused by every call (the stream orders each
     call's launches after the last call's exchange). A call checks
@@ -1053,7 +1054,7 @@ class HaloOperator:
         self._boundary = _kernel("halo_boundary", val.dtype)
         size = val.element_size()
         self._args_a = (
-            val.data_ptr(), col.data_ptr(), rows.data_ptr(), send_idx.data_ptr(),
+            val.data_ptr(), col.data_ptr(), rows.data_ptr() if self._n_bnd else None, send_idx.data_ptr(),
             self.send.data_ptr(),
         )
         off = self._n_int * self.K
