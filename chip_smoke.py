@@ -10,7 +10,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    shapes (n = 18,157 rows, K = 9, B = 11 seeds; the Givens step at
    j = 0, 35, 69 of restart 70), with CUDA-event times over 100 calls.
    Tolerance: |kernel - plain| <= 1e-13 (float64) or 1e-5 (float32) times
-   the row's sum of |terms|; K1's launcher (``EllOperator``) and custom
+   the row's sum of |terms|; K2 (``jacobi_sweeps``: one sweep from a given
+   y, eight from y = sinv r in one launch) equal to its plain version;
+   K1's launcher (``EllOperator``) and custom
    operator give the same bits, and its epilogue ``c -/+ A x`` the bits of
    the product followed by the torch subtraction or addition. The same for
    the structured (K12) and unstructured (K13) flow-step residuals and
@@ -20,12 +22,20 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    without the epilogue, against the plain version; device microseconds a
    launch (a CUDA graph of 100 launches, replayed), host microseconds a
    call of the launcher and of the custom operator in turns, the bound and
-   its share, the plain version, ``torch.mv`` on the CSR matrix; and K3, one
-   V-cycle apply at md 1/128, alone;
+   its share, the plain version, ``torch.mv`` on the CSR matrix; and, there
+   and inside phases 8 and 12, K3 (``amg_vcycle``, one launch a V-cycle) at
+   the final hierarchies of md 1/128, md 1/256, 3d 32^3 and biot 1/64
+   (``applications/benchmarking/vcycle_check.py``): equal to its plain
+   version in f32 and f64, within 1e-5 (f32) and 1e-12 (f64) of max |y| of
+   the composition it replaced (K1 launchers, one-sweep K2 launches,
+   ``torch.matmul``), one launch an apply, device microseconds an apply by
+   graph replay, host microseconds and CUDA-event ms in turns with the
+   composition, the plain version and the bound;
 4. run the md case at cell size 1/128 through ``run_time_dependent_model``
    for 26 time steps on the card, with every kernel's launch count reset
    just before and read just after; check 3 fused blocks committed, no host
-   fallback solve, every md kernel launched, a finite state, pressure
+   fallback solve, every md kernel launched, one ``amg_vcycle`` launch a
+   preconditioner apply (as many as ``fgmres_givens``), a finite state, pressure
    within the boundary data's range [0, 1], and the last step re-checked
    on the host with the plain path: its residual, and one more Newton
    increment (a direct solve) within the Newton tolerance;
@@ -70,8 +80,11 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    iteration and the reference's 567 ms;
 13. biot 1/16 (10 steps) and the fractured poromechanics "contact" case
    (``device_gmres``) on the card against the host plain path (1e-8 of
-   each field's max), and every Biot matrix at 1/64 by K10 against the
-   host LAPACK route (1e-12 relative);
+   each field's max; the contact case's AMG and Jacobi blocks launch
+   ``amg_vcycle`` and ``jacobi_sweeps``; K2 at the contact case's Jacobi
+   block with the case's own count, equal to its plain version, timed for
+   the kernels line), and every Biot matrix at 1/64 by
+   K10 against the host LAPACK route (1e-12 relative);
 14. the Jacobi-Krylov route (K18) on the first Newton system of biot 1/64
    (12,288 dofs): every launch of a BiCGStab solve (one cooperative K18a
    launch, ``bicgstab_cycle``, to start and one that runs every iteration)
@@ -123,8 +136,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    beside the unsharded solve of the same system (increments equal to the
    bit), one time step by ``step()`` to the Newton tolerance against the
    unsharded Newton loop (1e-10), 0 host fallbacks, one ``halo_interior``
-   launch a matvec and no ``halo_boundary`` launch, K1 launched in the
-   preconditioner; (c) the first K10 chunk of biot 1/64 through
+   launch a matvec and no ``halo_boundary`` launch, K1 and K3 launched in
+   the preconditioner; (c) the first K10 chunk of biot 1/64 through
    ``set_batch_mesh`` against the unsharded route (1e-12);
 19. hold the upstream-selection kernels (K15: ``upwind_flux``,
    ``upwind_select``) at the tracer 1/64 shapes (about 8,600 faces, 4,400
@@ -139,13 +152,18 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 20. run the tracer case for 26 steps of 60 s, at 1/32 (2,246 dofs) with
    the AMG preconditioner and at 1/64 (8,710 dofs) with dense frozen block
    inverses: 3 fused
-   blocks, no host fallback, the K15 kernels launched, ``pressure`` and
+   blocks, no host fallback, the K15 kernels launched (at 1/32 also
+   ``amg_vcycle``; its Jacobi count frozen at 1 is ``sinv r`` alone, no
+   ``jacobi_sweeps`` launch), ``pressure`` and
    ``z_tracer`` within 1e-8 of each field's largest value of the same case
    run on the host (plain path), one more host Newton increment within
    the case's Newton tolerance, ``z_tracer`` in [0, 0.2]; ms per Newton
    iteration beside the reference's 132 ms, the time steps outside the
    blocks with their Krylov counts, and one assembly at the final state
-   through the kernels and through their plain versions, in turns;
+   through the kernels and through their plain versions, in turns; then
+   K2 on the Jacobi block of 1/64's AMG field split at its final Jacobian
+   (``vcycle_check.check_sweeps``): s = 1, 2, 8, 40, each launch equal to
+   its plain version, timed beside s one-sweep launches;
 21. run the differentiable-permeability flow model of
    ``tests/models/test_darcys_law_ad.py`` at md width: ``DarcysLawAd`` +
    cubic-law fracture permeability + ``k(p) = k0 (1 + 0.3 p)`` over
@@ -216,7 +234,7 @@ from porepy_tpu_torch.applications.benchmarking.timing import host_us as _host_u
 
 N_ROWS, K_ELL, N_SEEDS, RESTART = 18157, 9, 11, 70
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
-MD_KERNELS = ("ell_spmv", "ell_jacobi_sweep", "fgmres_givens")
+MD_KERNELS = ("ell_spmv", "amg_vcycle", "fgmres_givens")
 K8_KERNELS = ("dual_ew", "dual_gather", "jac_gather")
 DENSE_KERNELS = ("dense_block_scatter", "gj_pivot_inverse", "dense_block_apply")
 N3D = 32
@@ -309,6 +327,9 @@ def check_kernels(dev) -> dict:
             print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
     report["ell_spmv"] = k1
 
+    # K2 at the md shapes: one sweep from a given y (``ell_jacobi_sweep``'s
+    # form) and 8 from y = sinv r in one launch, each the bits of its plain
+    # version.
     k2 = {"err": 0.0}
     for dtype in (torch.float32, torch.float64):
         val, col = _ell_operator(gen, dtype, dev)
@@ -316,21 +337,14 @@ def check_kernels(dev) -> dict:
             torch.randn(N_ROWS, generator=gen, dtype=torch.float64).to(dtype).to(dev)
             for _ in range(3)
         )
-        out = ops.ell_jacobi_sweep(val, col, sinv, r, y)
-        out_ref = reference.ell_jacobi_sweep(val, col, sinv, r, y)
-        absy = torch.cat([y.abs(), y.new_zeros(1)])
-        scale = y.abs() + sinv.abs() * (r.abs() + (val.abs() * absy[col]).sum(-1))
-        tag = f"ell_jacobi_sweep {str(dtype)[6:]}"
-        k2["err"] = max(k2["err"], _check(tag, (out - out_ref).abs(), TOL[dtype] * scale))
-        ms = _cuda_ms(lambda: ops.ell_jacobi_sweep(val, col, sinv, r, y))
-        plain_ms = _cuda_ms(lambda: reference.ell_jacobi_sweep(val, col, sinv, r, y))
-        print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
-        if dtype == torch.float32:
-            nnz = int((col < N_ROWS).sum())
-            k2.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                      bytes=val.numel() * 8 + 4 * N_ROWS * 4, flops=2 * nnz + 3 * N_ROWS,
-                      dtype=torch.float32)
-    report["ell_jacobi_sweep"] = k2
+        sinv *= 0.5 / (val.abs().sum(1) + 1.0)
+        for s, y0 in ((1, y), (8, None)):
+            out = ops.JacobiSweeps(val, col, sinv)(r, s, y0)
+            same = torch.equal(out, reference.jacobi_sweeps(val, col, sinv, r, y0, s))
+            print(f"  jacobi_sweeps {str(dtype)[6:]}, s = {s} from {'y' if s == 1 else 'sinv r'}: equal to "
+                  f"the plain version: {same}")
+            _require(same, f"jacobi_sweeps (s = {s}, {dtype}) differs from its plain version")
+    report["jacobi_sweeps"] = k2
 
     k4 = {"err": 0.0}
     for dtype in (torch.float32, torch.float64):
@@ -446,25 +460,17 @@ def check_k1_at(label: str, val, col, batch: int, seed: int) -> dict:
 
 
 def vcycle_times(solver, label: str) -> dict:
-    """K3 alone at the model's hierarchy: one V-cycle apply on a random
-    residual, ms per apply over back-to-back applies (CUDA events) and device
-    ms per apply (a CUDA graph of 20 applies, replayed), with its bound."""
-    (i, hier), = solver._hierarchies.items()
-    state = hier.state
-    n0 = hier.level_sizes[0]
-    r = torch.randn(n0, generator=torch.Generator().manual_seed(33), dtype=torch.float64).to(
-        hier.dtype).to(hier.device)
-    apply = lambda: hier.apply(state, r)  # noqa: E731
-    nbytes = sum(t.numel() * t.element_size() for lv in state["levels"] for t in lv.values())
-    nbytes += state["coarse_inv"].numel() * state["coarse_inv"].element_size() + 2 * n0 * r.element_size()
-    bound_ms, bound_by = _bound(nbytes, 0.0, hier.dtype)
-    ms = _cuda_ms(apply, 50)
-    dev_ms = 1e-3 * _graph_us(apply, launches=20)
-    K = [tuple(lv[m + "_col"].shape[1] for m in "APR") for lv in state["levels"]]
-    print(f"  K3 at {label}: V-cycle of levels {hier.level_sizes} (K of A, P, R per level {K}): "
-          f"{ms:.4f} ms an apply back to back, {dev_ms:.4f} ms of device time (graph replay); "
-          f"bound {bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)")
-    return {"ms": ms, "device_ms": dev_ms, "bound_ms": bound_ms, "levels": hier.level_sizes}
+    """K3 at every AMG hierarchy of the solver (its final state):
+    ``vcycle_check.check`` (the kernel to the bit against its plain
+    version in f32 and f64, against the composition it replaced, one launch
+    an apply, times in turns with the composition, the bound); the largest
+    hierarchy's numbers, each hierarchy's under ``"all"``."""
+    from porepy_tpu_torch.applications.benchmarking import vcycle_check
+
+    runs = [vcycle_check.check(hier, f"{label}, block {i}") for i, hier in sorted(solver._hierarchies.items())]
+    out = dict(max(runs, key=lambda r: r["levels"][0]))
+    out["all"] = runs
+    return out
 
 
 def largest_ell_k(model) -> int:
@@ -603,6 +609,11 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
     needed = MD_KERNELS + (() if functorch else K8_KERNELS)
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
+    # One V-cycle launch a preconditioner apply, and an apply a Givens step.
+    _require(launches["amg_vcycle"] == launches["fgmres_givens"],
+             f"amg_vcycle {launches['amg_vcycle']} launches, {launches['fgmres_givens']} applies")
+    print(f"  one amg_vcycle launch an apply: {launches['amg_vcycle']} applies, ell_spmv "
+          f"{launches['ell_spmv']} launches")
     if case:
         # Above the dense limit: the AMG preconditioner, as the case asks.
         solver = next(iter(model._device_solvers.values()))
@@ -624,12 +635,14 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
     if not functorch:
         out["routes"] = _assembly_routes_in_turns(model, case or "md")
         val, col, solver = _model_jacobian_ell(model)
-        label = f"{case}'s Jacobian" if case else f"md {cell_size:g}'s Jacobian"
+        name = case or f"md {cell_size:g}"
+        label = f"{name}'s Jacobian"
         print(f"phase 3c: K1 at {label} (the final state's, in the solver's ELL layout)")
         out["k1"] = {"f64 B17": check_k1_at(label, val, col, 17, 71)}
         if not case:
             out["k1"]["f32 B1"] = check_k1_at(label, val.to(torch.float32), col, 1, 70)
-            out["k3"] = vcycle_times(solver, label)
+        print(f"phase 3c: K3 at {name}'s hierarchy (the final state's)")
+        out["k3"] = vcycle_times(solver, name)
     return out
 
 
@@ -816,7 +829,9 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
     }
     _require(all(launches[k] > 0 for k in K8_KERNELS), f"K8 kernel not launched: {launches}")
     if not dense:
+        _require(all(launches[k] > 0 for k in MD_KERNELS), f"kernel not launched: {launches}")
         out["routes"] = _assembly_routes_in_turns(model, "3d")
+        out["k3"] = vcycle_times(solver, "3d 32^3")
         return out
     _require(solver._dense and solver._builder._block_dense == {0: True}, "dense demoted")
     needed = ("ell_spmv", "fgmres_givens") + DENSE_KERNELS
@@ -1232,7 +1247,7 @@ def run_biot(dev, dense: bool) -> dict:
     _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
     _require(disc_launches > 0, "region_solve not launched in the discretization")
-    needed = ("ell_spmv", "fgmres_givens") + (DENSE_KERNELS if dense else ("ell_jacobi_sweep",))
+    needed = ("ell_spmv", "fgmres_givens") + (DENSE_KERNELS if dense else ("amg_vcycle",))
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     _require(solver._dense == dense, f"dense {solver._dense}")
     if dense:
@@ -1261,6 +1276,7 @@ def run_biot(dev, dense: bool) -> dict:
     _require(all(launches[k] > 0 for k in K8_KERNELS), f"K8 kernel not launched: {launches}")
     if not dense:
         out["routes"] = _assembly_routes_in_turns(model, "biot")
+        out["k3"] = vcycle_times(solver, "biot 1/64")
         # Both routes once more on the prepared model, in turns.
         for route in ("host", "k10", "host", "k10"):
             torch.cuda.synchronize()
@@ -1318,7 +1334,7 @@ def build_fractured_poromechanics(device: str):
     return Model(params), params
 
 
-def compare_poro_small(dev) -> None:
+def compare_poro_small(dev) -> dict:
     import porepy_tpu_torch as pt
     from porepy_tpu_torch.applications.benchmarking.cases import build_biot
 
@@ -1345,11 +1361,24 @@ def compare_poro_small(dev) -> None:
         print(f"  biot 1/16 {var}: max |card - host| {err:.3e}, max |{var}| {scale:.3e}")
         _require(err <= 1e-8 * scale, f"biot 1/16 {var}: card and host differ by {err}")
 
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+
     finals = {}
     for device in (str(dev), "cpu"):
         model, params = build_fractured_poromechanics(device)
+        reset_launches()
         pt.run_time_dependent_model(model, params)
         finals[device] = model
+        if device != "cpu":
+            solver = next(iter(model._device_solvers.values()))
+            launched = {k: LAUNCHES[k] for k in ("amg_vcycle", "jacobi_sweeps")}
+            ((i, sweeps),) = solver._builder._jac_sweeps.items()
+            s = (sweeps or 8) - 1
+            print(f"  fractured, contact: methods {solver._builder.methods}, Jacobi sweeps frozen "
+                  f"{solver._builder._jac_sweeps} (0: 8 sweeps), s = {s} a jacobi_sweeps launch; launches {launched}")
+            _require(all(launched.values()), f"fractured: kernel not launched: {launched}")
+            k2 = check_jacobi_block(solver._m_state["jac"][i], "the contact case", (s,))
+            k2["launches"] = launched["jacobi_sweeps"]
     for var in ("pressure", "u", "contact_traction", "u_interface", "interface_darcy_flux"):
         got, want = (finals[d].equation_system.get_variable_values([var], iterate_index=0) for d in (str(dev), "cpu"))
         err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
@@ -1381,6 +1410,7 @@ def compare_poro_small(dev) -> None:
         scale = abs(want).max()
         print(f"  Biot 1/64 {key}: max |K10 - host| / max |host| {err / scale:.3e}")
         _require(err <= 1e-12 * scale, f"Biot matrix {key}: K10 and host differ by {err}")
+    return k2
 
 
 # -- K18, K17, K16 ----------------------------------------------------------------
@@ -2081,12 +2111,14 @@ def run_sharded(dev, chunks) -> dict:
                   f"difference| {state_diff:.3e}; host fallbacks {fallbacks}")
             print(f"  kernel launches of the sharded runs: {matvecs[0]} matvecs, halo_interior "
                   f"{launches['halo_interior']}, halo_boundary {launches['halo_boundary']}, ell_spmv (K1, the "
-                  f"preconditioner) {launches['ell_spmv']}")
+                  f"preconditioner) {launches['ell_spmv']}, amg_vcycle (K3, the preconditioner) "
+                  f"{launches['amg_vcycle']}")
             _require(state_diff <= 1e-10, f"sharded and unsharded states differ by {state_diff}")
             _require(fallbacks == 0, f"host fallbacks {fallbacks}")
             _require(launches["halo_interior"] == matvecs[0] > 0, "halo_interior not launched once a matvec")
             _require(launches["halo_boundary"] == 0, "halo_boundary launched on one rank")
             _require(launches["ell_spmv"] > 0, "K1 not launched in the preconditioner")
+            _require(launches["amg_vcycle"] > 0, "K3 not launched in the preconditioner")
 
             print("phase 18c: the first and the largest K10 chunks of biot 1/64 through set_batch_mesh")
             for chunk in chunks:
@@ -2578,7 +2610,8 @@ def _fields_close(model, host_model, names, tol) -> None:
 
 def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, turns: bool = False):
     """Phase 20: the tracer case at ``cell_size`` for 26 steps on ``dev``;
-    with ``turns`` also its assembly in turns (phases 20 and 23)."""
+    with ``turns`` also its assembly in turns (phases 20 and 23); with
+    ``dense``, K2 on the Jacobi block of the case's AMG field split."""
     from porepy_tpu_torch.applications.benchmarking.cases import build_tracer
 
     print(f"phase 20: tracer at cell size {cell_size:g}, 26 steps of 60 s, dense_precond={dense}")
@@ -2592,8 +2625,15 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, t
     launches = out["launches"]
     print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     needed = ("ell_spmv", "fgmres_givens", "upwind_flux", "upwind_select") + K8_KERNELS
-    _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     solver = next(iter(model._device_solvers.values()))
+    if not dense:
+        # The AMG field split: a V-cycle on the pressure block, sweeps on
+        # the transport block (``s = sweeps - 1`` a launch; a count frozen
+        # at 1 is ``sinv r`` alone and launches nothing).
+        needed += ("amg_vcycle",)
+        print(f"  methods {solver._builder.methods}, Jacobi sweeps frozen {solver._builder._jac_sweeps} "
+              f"(0: 8 sweeps); jacobi_sweeps launches {launches['jacobi_sweeps']}")
+    _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     _require(solver._dense == dense, f"dense {solver._dense}")
     x = model.equation_system.get_variable_values(time_step_index=0)
     _require(bool(np.all(np.isfinite(x))), "non-finite state")
@@ -2611,7 +2651,37 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, t
     if turns:
         out["assembly_turns"] = _assembly_in_turns(model, "tracer")
         out["routes"] = _assembly_routes_in_turns(model, "tracer")
+    if dense:
+        out["k2"] = check_jacobi_block(amg_jacobi_block(model), f"tracer {cell_size:g}'s", (1, 2, 8, 40))
     return out, host_model
+
+
+def check_jacobi_block(jb: dict, label: str, counts) -> dict:
+    """K2 on the Jacobi block ``jb`` (its ``val``, ``col``, ``sinv``):
+    ``vcycle_check.check_sweeps`` with each ``s`` in ``counts``; the last
+    count's numbers beside them."""
+    from porepy_tpu_torch.applications.benchmarking import vcycle_check
+
+    out = vcycle_check.check_sweeps(jb["val"], jb["col"], jb["sinv"], f"{label} Jacobi block", counts=counts)
+    out.update(out["by_s"][counts[-1]], s=counts[-1])
+    return out
+
+
+def amg_jacobi_block(model) -> dict:
+    """The Jacobi block of the model's AMG field split
+    (``dense_precond=False``) at its final Jacobian."""
+    from porepy_tpu_torch.numerics.linalg.device_solver import DeviceLinearSolver
+
+    dense = next(iter(model._device_solvers.values()))
+    solver = DeviceLinearSolver(
+        dense.system, blocks=dense._builder.blocks, methods=list(dense._builder.methods), dense=False
+    )
+    eq_sys = model.equation_system
+    solver.refresh_preconditioner(eq_sys.compiled_system().assemble(eq_sys)[0])
+    ((i, jb),) = solver._m_state["jac"].items()
+    print(f"phase 20: K2 at the Jacobi block of the final state's AMG field split (a build here would "
+          f"freeze {solver._builder._jac_sweeps[i]} sweeps)")
+    return jb
 
 
 def build_darcy_ad_model(cell_size: float, device: str):
@@ -2879,7 +2949,7 @@ def main() -> int:
     report["region_solve"] = check_region_kernel(dev)
     biot = run_biot(dev, dense=False)
     biot_dense = run_biot(dev, dense=True)
-    compare_poro_small(dev)
+    contact_k2 = compare_poro_small(dev)
     report.update(check_krylov(dev, *_first_newton_system(dev)))
     bicg = run_biot_krylov(dev, "bicgstab", biot)
     gmres = run_biot_krylov(dev, "gmres", biot)
@@ -2921,10 +2991,26 @@ def main() -> int:
         err=max([report["ell_spmv"]["err"]] + [r["err"] for m in (md, md256) for r in m["k1"].values()]),
     )
 
+    # K3 in the line: one apply at md 1/128's hierarchy (phase 3c); its error
+    # the largest against the composition at any hierarchy (each equal to
+    # its plain version).
+    k3 = md["k3"]
+    report["amg_vcycle"] = {
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"], "library_ms": None, "bound": (k3["bound_ms"], "bytes"),
+        "err": max(r["err"] for m in (md, md256, d3_amg, biot) for r in m["k3"]["all"]),
+    }
+    # K2 in the line: the contact case's Jacobi block at its own count
+    # (phase 13), the one path whose frozen count launches sweeps. No one
+    # PyTorch call runs s sweeps.
+    k2 = contact_k2
+    report["jacobi_sweeps"].update(ms=k2["ms"], plain_ms=k2["plain_ms"], library_ms=None,
+                                   bound=(k2["bound_ms"], k2["bound_by"]))
+
     csrc = "porepy_tpu_torch/kernels/csrc/"
     kernels = {
         "ell_spmv": ("ell_spmv.cu", "porepy_tpu/numerics/linalg/amg.py:59", md["launches"]["ell_spmv"]),
-        "ell_jacobi_sweep": ("ell_jacobi_sweep.cu", "porepy_tpu/numerics/linalg/amg.py:334", md["launches"]["ell_jacobi_sweep"]),
+        "amg_vcycle": ("amg_vcycle.cu", "porepy_tpu/numerics/linalg/amg.py:327", md["launches"]["amg_vcycle"]),
+        "jacobi_sweeps": ("amg_vcycle.cu", "porepy_tpu/numerics/linalg/device_solver.py:256", contact_k2["launches"]),
         "fgmres_givens": ("fgmres_givens.cu", "porepy_tpu/numerics/linalg/device_solver.py:198", md["launches"]["fgmres_givens"]),
         "dense_block_scatter": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:141", d3["launches"]["dense_block_scatter"]),
         "gj_pivot_inverse": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:104", d3["launches"]["gj_pivot_inverse"]),
@@ -3035,9 +3121,18 @@ def main() -> int:
                 f"({100 * r['product']['share']:.1f}%), host us a call {r['product']['host_us']}, plain "
                 f"{r['plain_ms']:.4f} ms, CSR yardstick {r['library_ms']:.4f} ms"
             )
-    k3 = md["k3"]
-    print(f"K3 (one V-cycle apply) at md 1/128 on {smi}: {k3['ms']:.4f} ms back to back, {k3['device_ms']:.4f} ms "
-          f"of device time, bound {k3['bound_ms']:.5f} ms")
+    for tag, m in (("md 1/128", md), ("md 1/256", md256), ("3d 32^3 AMG", d3_amg), ("biot 1/64 AMG", biot)):
+        for r in m["k3"]["all"]:
+            print(f"K3 (one V-cycle apply, one amg_vcycle launch) at {tag}, levels {r['levels']}, on {smi}: device "
+                  f"us {r['device_us']} (graph replay), host us {r['host_us']}, ms back to back {r['ms_turns']}, "
+                  f"bound {1e3 * r['bound_ms']:.3f} us ({100 * r['share']:.1f}%), launches an apply "
+                  f"{r['launches']} (composition {r['composition_launches']})")
+    for tag, k in (("tracer 1/64's", tracer_dense["k2"]), ("the contact case's", contact_k2)):
+        for s_, r in k["by_s"].items():
+            print(f"K2 (jacobi_sweeps) at {tag} Jacobi block (n {k['n']}, K {k['K']}), s = {s_}, on {smi}: "
+                  f"{r['ms']:.4f} ms ({r['device_us']:.2f} us device), {s_} one-sweep launches "
+                  f"{r['one_sweep_ms']:.4f} ms ({r['one_sweep_device_us']:.2f} us device), plain "
+                  f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.3f} us")
     a = report["bicgstab_cycle"]
     print(f"K18a (one BiCGStab solve's launch, {a['iters']} iterations, matvecs inside) on {smi}: {a['ms']:.4f} ms, "
           f"{a['us_per_iteration']} us an iteration, {a['host_us']} us of host time a launch, plain "

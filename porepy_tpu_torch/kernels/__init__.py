@@ -5,7 +5,10 @@ id        operator                       replaces (porepy_tpu)
 ========  =============================  =====================================================
 K1        :class:`EllOperator`,          ``numerics/linalg/amg.py:59`` ell_matvec (and the
           :func:`ell_spmv`               ``r - A y``, ``y + P z`` after it)
-K2        :func:`ell_jacobi_sweep`       ``numerics/linalg/amg.py:334-340``
+K2        :class:`JacobiSweeps`,         ``numerics/linalg/device_solver.py:256`` (a Jacobi
+          :func:`ell_jacobi_sweep`       block's sweeps, one cooperative kernel)
+K3        :class:`VCycleOperator`        ``numerics/linalg/amg.py:327-341`` (the V-cycle, one
+                                         cooperative kernel)
 K4g       :func:`fgmres_givens`          ``numerics/linalg/device_solver.py:198``
 K6        :func:`dense_block_scatter`    ``numerics/linalg/device_solver.py:141-146``
 K6        :func:`gj_pivot_inverse`       ``numerics/linalg/device_solver.py:104`` (pivot inverse)
@@ -59,6 +62,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     HaloOperator,
     interp_lookup,
     interp_tangent,
+    JacobiSweeps,
     rachford_rice,
     DualProgram,
     dense_block_apply,
@@ -89,4 +93,5 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     upwind_flux_tangent,
     upwind_select,
     upwind_select_pair,
+    VCycleOperator,
 )

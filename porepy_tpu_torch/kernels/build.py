@@ -23,7 +23,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = (
     "ell_spmv.cu",
-    "ell_jacobi_sweep.cu",
+    "amg_vcycle.cu",
     "fgmres_givens.cu",
     "dense_block.cu",
     "structured_flow.cu",
@@ -48,7 +48,9 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 _SIGNATURES = {
     "ppt_ell_spmv": [_P] * 5 + [_I] * 5 + [_P],
-    "ppt_ell_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # The level table is a host array (a ctypes array of int64).
+    "ppt_amg_vcycle": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "ppt_jacobi_sweeps": [_P] * 7 + [_I] * 3 + [_P],
     "ppt_fgmres_givens": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     "ppt_dense_block_scatter": [_P, _P, _P, _I, _I, _I, _P, _P],
     "ppt_gj_pivot_inverse": [_P, _P, _P, _I, _I, _P],

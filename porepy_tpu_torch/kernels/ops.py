@@ -10,6 +10,8 @@ Some operators are plain functions with the same rule (the kernel for a
 CUDA tensor, the plain version for a CPU tensor), as they gain nothing from
 the dispatcher: K1's launcher :class:`EllOperator`, which the solve and the
 assembly call (the custom operator ``ell_spmv`` remains for ``torch.func``);
+K2's :class:`JacobiSweeps`, one per Jacobi block, and K3's
+:class:`VCycleOperator`, one per AMG hierarchy state;
 K19's launcher :class:`HaloOperator`, one per shard matrix of the sharded
 solve;
 K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; K8's
@@ -36,6 +38,8 @@ __all__ = [
     "EllOperator",
     "EllOperators",
     "ell_jacobi_sweep",
+    "JacobiSweeps",
+    "VCycleOperator",
     "fgmres_givens",
     "dense_block_scatter",
     "gj_pivot_inverse",
@@ -78,7 +82,8 @@ __all__ = [
 #: Kernel launches per operator since the last :func:`reset_launches`.
 LAUNCHES = {
     "ell_spmv": 0,
-    "ell_jacobi_sweep": 0,
+    "amg_vcycle": 0,
+    "jacobi_sweeps": 0,
     "fgmres_givens": 0,
     "dense_block_scatter": 0,
     "gj_pivot_inverse": 0,
@@ -230,21 +235,23 @@ class EllOperator:
 
 
 class EllOperators:
-    """Launchers (:class:`EllOperator`) by matrix: ``ops(val, col)`` makes the
-    launcher of a ``(val, col)`` pair the first time it is seen and returns
-    the same one after. For holders of fixed matrices that are also called
-    with matrices built elsewhere (a preconditioner state handed in)."""
+    """Launchers by matrix: ``ops(val, col, *more)`` makes the launcher
+    ``cls(val, col, *more)`` (default :class:`EllOperator`) of those tensors
+    the first time they are seen and returns the same one after. For
+    holders of fixed matrices that are also called with matrices built
+    elsewhere (a preconditioner state handed in)."""
 
-    __slots__ = ("_ops",)
+    __slots__ = ("_ops", "_cls")
 
-    def __init__(self) -> None:
+    def __init__(self, cls=None) -> None:
         self._ops = {}
+        self._cls = cls or EllOperator
 
-    def __call__(self, val: torch.Tensor, col: torch.Tensor) -> EllOperator:
-        op = self._ops.get(id(val))
-        if op is None or op.val is not val or op.col is not col:
-            op = self._ops[id(val)] = EllOperator(val, col)
-        return op
+    def __call__(self, *tensors: torch.Tensor):
+        hit = self._ops.get(id(tensors[0]))
+        if hit is None or any(a is not b for a, b in zip(hit[0], tensors)):
+            hit = self._ops[id(tensors[0])] = (tensors, self._cls(*tensors))
+        return hit[1]
 
 
 @torch.library.custom_op("porepy_tpu_torch::ell_spmv", mutates_args=())
@@ -269,49 +276,181 @@ def _(val, col, x):
     return x.new_empty(x.shape[:-1] + (val.shape[0],))
 
 
-# -- K2 ---------------------------------------------------------------------------
+# -- K2 and K3 --------------------------------------------------------------------
+
+#: Levels of a V-cycle that one ``amg_vcycle`` launch takes (``kMaxLevels`` in
+#: ``csrc/amg_vcycle.cu``; ``amg.build_hierarchy``'s ``max_levels``).
+VCYCLE_MAX_LEVELS = 6
 
 
-@torch.library.custom_op("porepy_tpu_torch::ell_jacobi_sweep", mutates_args=())
+def _on_card(name: str, tensors: dict) -> bool:
+    """Whether the tensors lie on a card (then all on one, contiguous) or on
+    the CPU (then all there)."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) > 1:
+        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}, expected one device")
+    on_card = next(iter(devices)).type != "cpu"
+    if on_card:
+        _check(name, tensors, next(iter(tensors.values())).dtype)
+    return on_card
+
+
+class JacobiSweeps:
+    """A fixed square ELL matrix ``(val, col)`` with its smoother ``sinv``
+    and the K2 launch: ``op(r, s, y=None)`` is ``s`` sweeps ``y <- y + sinv
+    * (r - A y)`` from ``y``, or from ``y = sinv * r``, ``s >= 1``, in one
+    cooperative launch with a grid sync between sweeps. Checked once, here; the operator owns the scratch vector of the
+    sweeps, so a call checks ``r`` (and ``y``), allocates the result and
+    makes one ctypes call. A matrix on the CPU runs the plain version."""
+
+    __slots__ = ("val", "col", "sinv", "n", "K", "dtype", "_fn", "_dev", "_device", "_args",
+                 "_scratch")
+
+    def __init__(self, val: torch.Tensor, col: torch.Tensor, sinv: torch.Tensor) -> None:
+        if col.dtype != torch.int32 or val.dtype not in _SUFFIX or sinv.dtype != val.dtype:
+            raise TypeError("jacobi_sweeps: needs float32/float64 val and sinv of one dtype, int32 col")
+        if val.dim() != 2 or col.shape != val.shape or sinv.shape != (val.shape[0],):
+            raise ValueError("jacobi_sweeps: needs (n, K) val and col and (n,) sinv")
+        self.val, self.col, self.sinv = val, col, sinv
+        self.n, self.K = val.shape
+        self.dtype = val.dtype
+        self._fn = None
+        if _on_card("jacobi_sweeps", {"val": val, "col": col, "sinv": sinv}):
+            self._dev, self._device = val.get_device(), val.device
+            self._scratch = torch.empty_like(sinv)
+            self._args = (val.data_ptr(), col.data_ptr(), sinv.data_ptr())
+            self._fn = _kernel("jacobi_sweeps", val.dtype)
+
+    def _vector(self, name: str, v: torch.Tensor) -> None:
+        if v.dtype != self.dtype or v.shape != (self.n,) or not v.is_contiguous():
+            raise ValueError(f"jacobi_sweeps: {name} must be a contiguous ({self.n},) tensor in val's dtype")
+        on_cpu = v.device.type == "cpu"
+        if on_cpu != (self._fn is None) or (not on_cpu and v.get_device() != self._dev):
+            raise ValueError(f"jacobi_sweeps: {name} is on {v.device}, the matrix on {self.val.device}")
+
+    def __call__(self, r: torch.Tensor, s: int, y=None) -> torch.Tensor:
+        if s < 1:
+            raise ValueError(f"jacobi_sweeps: {s} sweeps, needs at least one")
+        self._vector("r", r)
+        if y is not None:
+            self._vector("y", y)
+        if self._fn is None:
+            return reference.jacobi_sweeps(self.val, self.col, self.sinv, r, y, s)
+        out = torch.empty_like(r)
+        if self.n == 0:
+            return out
+        rc = self._fn(
+            *self._args, r.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(),
+            self._scratch.data_ptr(), self.n, self.K, s, _current_stream(self._dev),
+        )
+        if rc != 0:
+            raise RuntimeError(f"jacobi_sweeps kernel launch failed with CUDA error {rc}")
+        LAUNCHES["jacobi_sweeps"] += 1
+        return out
+
+
 def ell_jacobi_sweep(
-    val: torch.Tensor,
-    col: torch.Tensor,
-    sinv: torch.Tensor,
-    r: torch.Tensor,
-    y: torch.Tensor,
+    val: torch.Tensor, col: torch.Tensor, sinv: torch.Tensor, r: torch.Tensor, y: torch.Tensor
 ) -> torch.Tensor:
-    """One smoother sweep ``y + sinv * (r - A y)``."""
-    return reference.ell_jacobi_sweep(val, col, sinv, r, y)
+    """One smoother sweep ``y + sinv * (r - A y)``: :class:`JacobiSweeps`
+    with ``s = 1`` from ``y`` (one ``jacobi_sweeps`` launch on the card)."""
+    return JacobiSweeps(val, col, sinv)(r, 1, y)
 
 
-@ell_jacobi_sweep.register_kernel("cuda")
-def _ell_jacobi_sweep_cuda(val, col, sinv, r, y):
-    dtype = y.dtype
-    if col.dtype != torch.int32 or any(t.dtype != dtype for t in (val, sinv, r)):
-        raise TypeError("ell_jacobi_sweep: needs one float dtype and int32 col")
-    n = y.shape[0]
-    if val.dim() != 2 or col.shape != val.shape or val.shape[0] != n or any(
-        t.shape != (n,) for t in (sinv, r, y)
-    ):
-        raise ValueError("ell_jacobi_sweep: needs (n, K) val/col and (n,) sinv, r, y")
-    _check(
-        "ell_jacobi_sweep",
-        {"val": val, "col": col, "sinv": sinv, "r": r, "y": y},
-        dtype,
-    )
-    K = val.shape[1]
-    out = torch.empty_like(y)
-    _launch(
-        "ell_jacobi_sweep", dtype,
-        val.data_ptr(), col.data_ptr(), sinv.data_ptr(), r.data_ptr(),
-        y.data_ptr(), out.data_ptr(), n, K,
-    )
-    return out
+_LEVEL = ("A_val", "A_col", "P_val", "P_col", "R_val", "R_col", "sinv")
 
 
-@ell_jacobi_sweep.register_fake
-def _(val, col, sinv, r, y):
-    return torch.empty_like(y)
+class VCycleOperator:
+    """The V(``nu``, ``nu``) cycle of one SA-AMG hierarchy state and its K3
+    launch: ``op(r)`` is the cycle's ``y`` for the residual ``r`` (see
+    :func:`porepy_tpu_torch.kernels.reference.amg_vcycle`), the whole cycle
+    one cooperative ``amg_vcycle`` launch on the card.
+
+    ``levels`` is the state's list of level dicts (``A_val``/``A_col``
+    ``(n_l, K)``, ``P_*`` ``(n_l, K)`` with columns into level ``l + 1``,
+    ``R_*`` ``(n_{l+1}, K)``, ``sinv`` ``(n_l,)``; float32/float64 values,
+    int32 columns), at most :data:`VCYCLE_MAX_LEVELS` of them, and
+    ``coarse_inv`` the ``(n_L, n_L)`` inverse of the coarse level. All are
+    checked once, here; on the card the kernel's ctypes function is
+    resolved, the level table (pointers and sizes) built, and the scratch
+    vectors of every level allocated, owned and reused by every call (the
+    stream orders one call after the last). A call checks ``r``, allocates
+    the result and makes one ctypes call. A state on the CPU runs the plain
+    version."""
+
+    __slots__ = ("levels", "coarse_inv", "nu", "n", "dtype", "_fn", "_dev", "_device", "_args",
+                 "_keep")
+
+    def __init__(self, levels, coarse_inv: torch.Tensor, nu: int) -> None:
+        if len(levels) > VCYCLE_MAX_LEVELS:
+            raise ValueError(f"amg_vcycle: {len(levels)} levels, at most {VCYCLE_MAX_LEVELS}")
+        if nu < 0:
+            raise ValueError(f"amg_vcycle: nu = {nu}")
+        dtype = coarse_inv.dtype
+        if dtype not in _SUFFIX:
+            raise TypeError(f"amg_vcycle: values must be float32/float64, not {dtype}")
+        nc = coarse_inv.shape[0]
+        if coarse_inv.dim() != 2 or coarse_inv.shape[1] != nc:
+            raise ValueError("amg_vcycle: the coarse inverse must be square")
+        tensors = {"coarse_inv": coarse_inv}
+        sizes = [lv["A_val"].shape[0] for lv in levels] + [nc]
+        for l, lv in enumerate(levels):
+            n, n_next = sizes[l], sizes[l + 1]
+            for m, rows in (("A", n), ("P", n), ("R", n_next)):
+                val, col = lv[m + "_val"], lv[m + "_col"]
+                if col.dtype != torch.int32:
+                    raise TypeError(f"amg_vcycle: level {l} {m}_col must be int32, not {col.dtype}")
+                if val.dtype != dtype:
+                    raise TypeError(f"amg_vcycle: level {l} {m}_val is {val.dtype}, the coarse inverse {dtype}")
+                if val.dim() != 2 or col.shape != val.shape or val.shape[0] != rows:
+                    raise ValueError(f"amg_vcycle: level {l} {m} must be ({rows}, K) val and col")
+            if lv["sinv"].dtype != dtype:
+                raise TypeError(f"amg_vcycle: level {l} sinv is {lv['sinv'].dtype}, the coarse inverse {dtype}")
+            if lv["sinv"].shape != (n,):
+                raise ValueError(f"amg_vcycle: level {l} sinv must be ({n},)")
+            tensors.update({f"level {l} {k}": lv[k] for k in _LEVEL})
+        self.levels, self.coarse_inv, self.nu = levels, coarse_inv, int(nu)
+        self.n, self.dtype = sizes[0], dtype
+        self._fn = None
+        if not _on_card("amg_vcycle", tensors):
+            return
+        self._dev, self._device = coarse_inv.get_device(), coarse_inv.device
+        y_coarse = coarse_inv.new_empty(nc)
+        keep, table = [y_coarse], []
+        for l, lv in enumerate(levels):
+            n, n_next = sizes[l], sizes[l + 1]
+            # y_a, y_b (level 0: a scratch, the result taking the other), t, r_next.
+            scratch = [coarse_inv.new_empty(n), coarse_inv.new_empty(n if l else 0),
+                       coarse_inv.new_empty(n), coarse_inv.new_empty(n_next)]
+            keep += scratch
+            table += [lv[k].data_ptr() for k in _LEVEL] + [t.data_ptr() for t in scratch]
+            table += [n, lv["A_col"].shape[1], lv["P_col"].shape[1], lv["R_col"].shape[1], n_next]
+        self._keep = keep
+        host_table = (ctypes.c_longlong * max(len(table), 1))(*table)
+        self._args = (host_table, len(levels), coarse_inv.data_ptr(), y_coarse.data_ptr(), nc, self.nu)
+        self._fn = _kernel("amg_vcycle", dtype)
+
+    def holds(self, levels, coarse_inv) -> bool:
+        """Whether this is the operator of the state ``(levels, coarse_inv)``."""
+        return self.levels is levels and self.coarse_inv is coarse_inv
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        if r.dtype != self.dtype or r.shape != (self.n,) or not r.is_contiguous():
+            raise ValueError(f"amg_vcycle: r must be a contiguous ({self.n},) tensor in the state's dtype")
+        if self._fn is None:
+            if r.device.type != "cpu":
+                raise ValueError(f"amg_vcycle: r is on {r.device}, the state on the cpu")
+            return reference.amg_vcycle(self.levels, self.coarse_inv, r, self.nu)
+        if not r.is_cuda or r.get_device() != self._dev:
+            raise ValueError(f"amg_vcycle: r is on {r.device}, expected the state's card")
+        out = torch.empty(self.n, dtype=self.dtype, device=self._device)
+        if self.n == 0:
+            return out
+        rc = self._fn(*self._args, r.data_ptr(), out.data_ptr(), _current_stream(self._dev))
+        if rc != 0:
+            raise RuntimeError(f"amg_vcycle kernel launch failed with CUDA error {rc}")
+        LAUNCHES["amg_vcycle"] += 1
+        return out
 
 
 # -- K4g --------------------------------------------------------------------------

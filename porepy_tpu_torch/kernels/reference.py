@@ -15,6 +15,8 @@ import torch
 __all__ = [
     "ell_spmv",
     "ell_jacobi_sweep",
+    "jacobi_sweeps",
+    "amg_vcycle",
     "fgmres_givens",
     "dense_block_scatter",
     "gj_pivot_inverse",
@@ -94,8 +96,42 @@ def ell_jacobi_sweep(
     r: torch.Tensor,
     y: torch.Tensor,
 ) -> torch.Tensor:
-    """One smoother sweep ``y + sinv * (r - A y)`` for square ELL ``A``."""
-    return y + sinv * (r - ell_spmv(val, col, y))
+    """One smoother sweep ``y + sinv * (r - A y)`` for square ELL ``A``
+    (:func:`jacobi_sweeps` with ``s = 1``)."""
+    return jacobi_sweeps(val, col, sinv, r, y, 1)
+
+
+def jacobi_sweeps(val, col, sinv, r, y, s: int) -> torch.Tensor:
+    """``s`` sweeps ``y <- y + sinv * (r - A y)`` from ``y``, or from ``y =
+    sinv * r`` when ``y`` is None, as the kernel rounds them: each row of
+    ``A y`` summed in slot order (:func:`ell_spmv_ordered`), then the
+    subtraction, the product and the sum, each rounded."""
+    y = sinv * r if y is None else y
+    for _ in range(s):
+        y = y + sinv * (r - ell_spmv_ordered(val, col, y))
+    return y
+
+
+def amg_vcycle(levels, coarse_inv: torch.Tensor, r: torch.Tensor, nu: int) -> torch.Tensor:
+    """The V(``nu``, ``nu``) cycle of ``amg.Hierarchy`` over ``levels`` (dicts
+    of the ELL tensors ``A_*``, ``P_*``, ``R_*`` and ``sinv``) and the coarse
+    inverse, as the kernel rounds it: rows of every product summed in slot
+    order, the coarse product row by row in column order."""
+    return _vcycle(levels, coarse_inv, r, nu, 0)
+
+
+def _vcycle(levels, coarse_inv, r, nu: int, l: int) -> torch.Tensor:
+    if l == len(levels):
+        acc = r.new_zeros(coarse_inv.shape[0])
+        for k in range(coarse_inv.shape[1]):
+            acc = acc + coarse_inv[:, k] * r[k]
+        return acc
+    lv = levels[l]
+    A, sinv = (lv["A_val"], lv["A_col"]), lv["sinv"]
+    y = jacobi_sweeps(*A, sinv, r, None, max(nu - 1, 0))
+    r_c = ell_spmv_ordered(lv["R_val"], lv["R_col"], r - ell_spmv_ordered(*A, y))
+    y = y + ell_spmv_ordered(lv["P_val"], lv["P_col"], _vcycle(levels, coarse_inv, r_c, nu, l + 1))
+    return jacobi_sweeps(*A, sinv, r, y, nu)
 
 
 def fgmres_givens(
@@ -372,10 +408,12 @@ def ell_spmv_ordered(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> t
     at or past ``x``'s length (padding) skipped."""
     n_cols = x.shape[0]
     x_p = torch.cat([x, x.new_zeros(1)])
+    # A padding slot's product is -0.0, which an addition leaves every value
+    # unchanged by (+0.0 and -0.0 included): the same bits as skipping it.
+    prod = (val * x_p[col.clamp(max=n_cols)]).masked_fill_(col >= n_cols, -0.0)
     acc = x.new_zeros(val.shape[0])
     for k in range(val.shape[1]):
-        c = col[:, k]
-        acc = torch.where(c < n_cols, acc + val[:, k] * x_p[c.clamp(max=n_cols)], acc)
+        acc = acc + prod[:, k]
     return acc
 
 

@@ -13,14 +13,12 @@ This module supplies the V-cycle:
   Galerkin coarse operators via scipy spgemm.
 * :class:`Hierarchy` holds the device form: every level's operator and
   transfer in padded-row (ELL) layout — a dense ``(n, K)`` value tensor and
-  an ``(n, K)`` int32 column tensor — applied by the hand-written ELL
-  kernels (K1 through its launchers,
-  :class:`~porepy_tpu_torch.kernels.EllOperator`, made when the state is
-  built, with the residual and the correction in its epilogue; K2
-  :func:`~porepy_tpu_torch.kernels.ell_jacobi_sweep`).
+  an ``(n, K)`` int32 column tensor — and the coarse inverse.
 * :meth:`Hierarchy.apply` is a function of ``(state, r)`` where ``state``
-  is the dict of level tensors; value updates
-  (:meth:`Hierarchy.update_values`) keep every shape.
+  is the dict of level tensors: the whole V-cycle (K3) is one launch of the
+  hand-written ``amg_vcycle`` kernel through the state's
+  :class:`~porepy_tpu_torch.kernels.VCycleOperator`, made when the state is
+  built; value updates (:meth:`Hierarchy.update_values`) keep every shape.
 
 Smoothers are damped sign-aware l1-Jacobi (scale-robust — the md systems
 mix O(1e-6) accumulation rows with O(1) flux rows), the coarsest level is a
@@ -282,11 +280,10 @@ class Hierarchy:
         return torch.tensor(np.asarray(a), device=self.device)
 
     def _device_state(self, levels_host, coarse_inv) -> dict:
-        """The level tensors, and their K1 launchers in ``self._ops`` (made
-        anew, so that launchers of an earlier state do not hold its
-        tensors)."""
+        """The level tensors, and their V-cycle launcher in
+        ``self._vcycles`` (made anew, so that launchers of an earlier state
+        do not hold its tensors)."""
         np_dtype = torch.empty(0, dtype=self.dtype).numpy().dtype
-        self._ops = kernels.EllOperators()
         state = {
             "levels": [],
             "coarse_inv": self._tensor(coarse_inv.astype(np_dtype)),
@@ -306,10 +303,18 @@ class Hierarchy:
                     "sinv": self._tensor(_l1_smoother(lv["A"]).astype(np_dtype)),
                 }
             )
-            level = state["levels"][-1]
-            for m in "APR":
-                self._ops(level[m + "_val"], level[m + "_col"])
+        self._vcycles = {}
+        self._vcycle(state)
         return state
+
+    def _vcycle(self, state: dict) -> kernels.VCycleOperator:
+        """The launcher of ``state``: made the first time a state is seen
+        (a state handed in from elsewhere gets its own), the same after."""
+        levels, coarse_inv = state["levels"], state["coarse_inv"]
+        op = self._vcycles.get(id(coarse_inv))
+        if op is None or not op.holds(levels, coarse_inv):
+            op = self._vcycles[id(coarse_inv)] = kernels.VCycleOperator(levels, coarse_inv, self.nu)
+        return op
 
     def update_values(self, A_new: sps.csr_matrix) -> None:
         """Refresh all level values from a new fine-level matrix, keeping the
@@ -331,27 +336,9 @@ class Hierarchy:
 
     def apply(self, state: dict, r: torch.Tensor) -> torch.Tensor:
         """V(nu, nu) cycle: a function of the state dict and the residual
-        (K3, composed from the K1/K2 kernels)."""
-        out_dtype = r.dtype
-        y = self._cycle(state, 0, r.to(self.dtype).contiguous())
-        return y.to(out_dtype)
-
-    def _cycle(self, state: dict, l: int, r: torch.Tensor) -> torch.Tensor:
-        levels = state["levels"]
-        if l == len(levels):
-            return torch.matmul(state["coarse_inv"], r)
-        lv = levels[l]
-        A_val, A_col, sinv = lv["A_val"], lv["A_col"], lv["sinv"]
-        y = sinv * r
-        for _ in range(self.nu - 1):
-            y = kernels.ell_jacobi_sweep(A_val, A_col, sinv, r, y)
-        ops = self._ops
-        # r - A y and y + P z in K1's epilogue: one launch each.
-        r_c = ops(lv["R_val"], lv["R_col"])(ops(A_val, A_col)(y, c=r, sign=-1))
-        y = ops(lv["P_val"], lv["P_col"])(self._cycle(state, l + 1, r_c).contiguous(), c=y)
-        for _ in range(self.nu):
-            y = kernels.ell_jacobi_sweep(A_val, A_col, sinv, r, y)
-        return y
+        (K3: one ``amg_vcycle`` launch on the card, its plain version on the
+        CPU)."""
+        return self._vcycle(state)(r.to(self.dtype).contiguous()).to(r.dtype)
 
 
 def _safe_inv(M: np.ndarray) -> np.ndarray:

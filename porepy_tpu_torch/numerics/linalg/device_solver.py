@@ -13,10 +13,11 @@ right-preconditioned FGMRES where
   the solve (no dispatcher),
 - the preconditioner is a frozen block operator built on the host from a
   recent Jacobian: smoothed-aggregation AMG V-cycles per elliptic field
-  block (:mod:`porepy_tpu_torch.numerics.linalg.amg`, on the K1/K2
-  kernels), exact Schur elimination of (block-)diagonal blocks (mortar
-  fluxes), and damped l1-Jacobi sweeps (K2) for anything else. Freezing the
-  preconditioner across Newton iterations trades a slightly stale
+  block (:mod:`porepy_tpu_torch.numerics.linalg.amg`, one ``amg_vcycle``
+  launch an apply), exact Schur elimination of (block-)diagonal blocks
+  (mortar fluxes), and damped l1-Jacobi sweeps (K2, one ``jacobi_sweeps``
+  launch a block) for anything else. Freezing the preconditioner across
+  Newton iterations trades a slightly stale
   approximate inverse (still a valid right preconditioner) for zero
   per-iteration host work; it is refreshed automatically when a solve
   stalls,
@@ -246,18 +247,20 @@ def _fgmres(matvec, M, b, x0, atol, restart, max_cycles, red=_Local):
     return x, res, iters
 
 
-def _jacobi_sweeps(val, col, sinv, r, sweeps):
-    """y ~= A^{-1} r by damped l1-Jacobi iteration, each sweep one K2
-    launch. Unlike a Chebyshev polynomial (which assumes a real positive
+def _jacobi_sweeps(op, r, sweeps):
+    """y ~= A^{-1} r by damped l1-Jacobi iteration: ``y = sinv r``, then
+    ``sweeps - 1`` sweeps, all in one K2 launch of the block's
+    :class:`~porepy_tpu_torch.kernels.JacobiSweeps` ``op`` (one sweep is
+    ``sinv r`` alone, with no launch). Unlike a
+    Chebyshev polynomial (which assumes a real positive
     spectrum and amplifies on nonsymmetric upwind-transport blocks), the
     damped l1-sweep is bounded for arbitrary matrices and contracts on the
     diagonally dominant M-matrix blocks (transport, contact
     complementarity) it is used for. Stationary => a valid Krylov
     preconditioner."""
-    y = sinv * r
-    for _ in range(1, sweeps):
-        y = kernels.ell_jacobi_sweep(val, col, sinv, r, y)
-    return y
+    if sweeps <= 1:
+        return op.sinv * r
+    return op(r, sweeps - 1)
 
 
 def _blockdiag_inverse(
@@ -659,14 +662,18 @@ class _BlockPrecondBuilder:
             if mat.nnz:
                 state["cpl"][key] = self._ell(mat)
 
-        # K1 launchers of the eliminations and couplings, made once here;
-        # apply(state, r) finds them by tensor (a state handed in from
-        # elsewhere gets its own on first use).
+        # K1 launchers of the eliminations and couplings and the K2
+        # launchers of the Jacobi blocks, made once here; apply(state, r)
+        # finds them by tensor (a state handed in from elsewhere gets its
+        # own on first use).
         ops = kernels.EllOperators()
         for dv, dc in state["dinv"].values():
             ops(dv, dc)
         for cv, cc in state["cpl"].values():
             ops(cv, cc)
+        jac_ops = kernels.EllOperators(kernels.JacobiSweeps)
+        for jb in state["jac"].values():
+            jac_ops(jb["val"], jb["col"], jb["sinv"])
         sizes = self._sizes
         methods = list(self.methods)
         jac_sweeps = dict(self._jac_sweeps)
@@ -703,7 +710,7 @@ class _BlockPrecondBuilder:
                 else:
                     jb = state["jac"][i]
                     y[i] = _jacobi_sweeps(
-                        jb["val"], jb["col"], jb["sinv"], ri.contiguous(),
+                        jac_ops(jb["val"], jb["col"], jb["sinv"]), ri.contiguous(),
                         jac_sweeps.get(i) or 8,
                     )
             # Back-substitute the eliminated blocks.

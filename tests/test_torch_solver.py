@@ -70,7 +70,7 @@ def test_field_split_and_hierarchy_match(solvers):
 
 
 def test_amg_apply_matches(solvers):
-    """One SA-AMG V-cycle (K3 on the K1/K2 kernels), float32."""
+    """One SA-AMG V-cycle (K3, one ``amg_vcycle`` launch), float32."""
     s_j, s_t = solvers["jax"], solvers["torch"]
     (i,) = s_t._hierarchies
     n = s_t._hierarchies[i].level_sizes[0]
@@ -163,18 +163,22 @@ def _two_operation_launchers(monkeypatch):
 
 @pytest.mark.parametrize("state", ["own", "jax"])
 def test_amg_apply_through_launchers_equals_two_operation_form(solvers, monkeypatch, state):
-    """The V-cycle (K3) with ``r - A y`` and ``y + P z`` in K1's epilogue
-    equals, to the bit, the same cycle with the product and the torch
-    operation apart; from the port's own state and from the jax package's
-    state handed in (md at 1/32, the smallest md case with a coarse level)."""
+    """The V-cycle composed from launchers (K1 with ``r - A y`` and ``y + P
+    z`` in its epilogue, the yardstick of ``vcycle_check.py`` that the one
+    ``amg_vcycle`` launch replaced) equals, to the bit, the same cycle with
+    the product and the torch operation apart; from the port's own state
+    and from the jax package's state handed in (md at 1/32, the smallest md
+    case with a coarse level)."""
+    from porepy_tpu_torch.applications.benchmarking.vcycle_check import Composition
+
     s_t = solvers["torch"]
     (i,) = s_t._hierarchies
     hier = s_t._hierarchies[i]
     st = hier.state if state == "own" else solvers["m_state_t"]["amg"][i]
     r = torch.tensor(np.random.default_rng(3).standard_normal(hier.level_sizes[0]).astype(np.float32))
-    fused = hier.apply(st, r)
+    fused = Composition(st, hier.nu)(r)
     _two_operation_launchers(monkeypatch)
-    assert torch.equal(fused, hier.apply(st, r))
+    assert torch.equal(fused, Composition(st, hier.nu)(r))
 
 
 @pytest.mark.parametrize("state", ["own", "jax"])
