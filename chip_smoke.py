@@ -50,7 +50,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 7. hold the K6 kernels against their plain versions at the 3d shapes: the
    scatter of the 3d block's pattern (223,232 entries) into a 32,768^2
    matrix, the pivot inverse on a batch of 128 x 128 blocks (one needing
-   row swaps, one singular), the blocked inverse at n = 4,096 by kernel
+   row swaps, one singular; timed also on one block, the dense build's
+   launch, beside ``torch.linalg.inv_ex``), the blocked inverse at n = 4,096 by kernel
    and plain route (max |S X - I| and the distance between the two X),
    and the apply with the 3d run's own 32,768^2 inverse (with GB/s);
 8. the same 3d run with the AMG preconditioner instead (its numbers; 3
@@ -61,7 +62,21 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    bench case runs it: 7 chained Newton steps from p = 2e5 (median ms),
    then Newton to |r| < 1e-6 or to the residual's rounding floor, on the
    card and on the host (plain path, 1e-6 abs apart), and the unstructured
-   step (K13) on the same problem (1e-4 abs from the structured one);
+   step (K13) on the same problem (1e-4 abs from the structured one). Each
+   step linearizes once (``structured_linearize``/``tpfa_linearize``) and
+   solves by ``FlowCycle`` (two cooperative launches a solve): the gates are
+   3 ``structured_jvp`` launches a structured step and no ``tpfa_jvp``, 2
+   cycle launches a solve, one linearization a step, and one host read a
+   solve (CUDA's sync debug mode counts them); then ms per Newton step by
+   this route and by the route it replaced (a host BiCGStab loop over the
+   jvp launches, ``old_structured_newton_step``/``old_tpfa_newton_step``),
+   in turns; 10b. at 32^3, in f32 and f64, for the stencil and for TPFA,
+   on phase 10's kernels (the buffers and ``FlowCycle`` their Newton steps
+   use), each linearization against its plain version (``TOL``) and every cycle
+   launch of one solve (the start, 1 and 7 iterations, the rest) against
+   its plain version from the same state, to the bit; device microseconds
+   an iteration (graph replay), host microseconds a launch, the bound
+   (``flow_cycle_check.py``);
 11. hold the batched interaction-region solve (K10) against its plain
    version on the chunks that the discretization of the biot 1/64 model
    (MPSA/Biot and MPFA) and of a 3d 16^3 Biot problem build (the largest
@@ -148,7 +163,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    versions on the card: values and tangents within 1e-12 of the plain
    result's largest entry, the same bits from two launches, CUDA-event
    times, the bound, and the time of ``torch.where`` + ``index_select``
-   and of ``index_add_`` for the two that one PyTorch call matches;
+   and of ``index_add_`` for the two that one PyTorch call matches, also as
+   device microseconds by graph replay, kernel and library call in turns;
 20. run the tracer case for 26 steps of 60 s, at 1/32 (2,246 dofs) with
    the AMG preconditioner and at 1/64 (8,710 dofs) with dense frozen block
    inverses: 3 fused
@@ -238,10 +254,6 @@ MD_KERNELS = ("ell_spmv", "amg_vcycle", "fgmres_givens")
 K8_KERNELS = ("dual_ew", "dual_gather", "jac_gather")
 DENSE_KERNELS = ("dense_block_scatter", "gj_pivot_inverse", "dense_block_apply")
 N3D = 32
-FLUID_3D = dict(
-    permeability=1.0, porosity=0.1, viscosity=1e-3, compressibility=1e-6,
-    rho_ref=1000.0, p_ref=1.0e5, dt=1.0,
-)
 # The least time of a kernel's work: its bytes (each input read once, each
 # output written once) over the H100's 3.35 TB/s, or its operations over the
 # card's peak for the type outside the tensor cores, which none of these
@@ -681,25 +693,15 @@ def compare_small(dev) -> None:
     _require(err <= 1e-8, f"cuda and cpu differ by {err}")
 
 
-def _bc_x(x, y, z):
-    return 1e5 + 1e4 * (1 - np.asarray(x))
-
-
-def _bc_faces(fc):
-    return 1e5 + 1e4 * (1 - fc[0])
-
-
 def check_flow_kernels(dev) -> dict:
     """K12 and K13 residual/tangent kernels against their plain versions
     at 32^3, f64 and f32, with CUDA-event times."""
+    from porepy_tpu_torch.applications.benchmarking import flow_cycle_check as fcc
     from porepy_tpu_torch.kernels import ops, reference
-    from porepy_tpu_torch.parallel.flow_step import build_cart_flow_kernel
-    from porepy_tpu_torch.parallel.structured_flow import build_structured_flow_kernel
 
     print(f"phase 3b: flow-step kernels against their plain versions at {N3D}^3")
     shape = (N3D,) * 3
-    ks, _ = build_structured_flow_kernel(shape, (1.0, 1.0, 1.0), bc_pressure=_bc_x, device=dev, **FLUID_3D)
-    ku, _ = build_cart_flow_kernel(list(shape), [1, 1, 1], bc_pressure=_bc_faces, device=dev, **FLUID_3D)
+    ks, ku = fcc.structured_kernel(N3D, dev), fcc.tpfa_kernel(N3D, dev)
     print(f"  cells {ku.num_cells}, faces {ku.num_faces}")
     gen = torch.Generator().manual_seed(1)
     report = {k: {"err": 0.0} for k in ("structured_residual", "structured_jvp", "tpfa_residual", "tpfa_jvp")}
@@ -912,10 +914,19 @@ def check_dense_kernels(dev, d3) -> dict:
         if dtype == torch.float32:
             lib_ms = _cuda_ms(lambda: torch.linalg.inv_ex(ad))
             print(f"    {lib_ms:.4f} ms torch.linalg.inv_ex alone")
+            # The line: the shape the dense build launches, one 128 x 128
+            # pivot a launch (256 launches at 32^3), not the batch of 64.
+            one, flag1 = ad[2:3].contiguous(), torch.zeros(1, dtype=torch.int32, device=dev)
+            one_ms = _cuda_ms(lambda: ops.gj_pivot_inverse(one, flag1))
+            one_us = _graph_us(lambda: ops.gj_pivot_inverse(one, flag1))
+            one_plain = _cuda_ms(lambda: reference.gj_pivot_inverse(one, flag1))
+            one_lib = _cuda_ms(lambda: torch.linalg.inv_ex(one))
+            print(f"    one block (the dense build's launch): {one_ms:.4f} ms kernel ({one_us:.2f} us device, graph "
+                  f"replay), {one_plain:.4f} ms plain, {one_lib:.4f} ms torch.linalg.inv_ex; the batch of {batch}: "
+                  f"{ms:.4f} ms")
             report["gj_pivot_inverse"].update(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bytes=2 * ad.numel() * 4 + batch * 4, flops=2.0 * batch * b**3,
-                dtype=torch.float32,
+                ms=one_ms, plain_ms=one_plain, library_ms=one_lib, device_us=one_us, batch_ms=ms,
+                bytes=2 * one.numel() * 4 + 4, flops=2.0 * b**3, dtype=torch.float32,
             )
 
     # The whole blocked inverse at n = 4096, kernel route against plain
@@ -997,17 +1008,104 @@ def _newton_to_floor(step, p0, tol=1e-6, max_iter=20):
     return p, hist
 
 
-def run_flow_steps(dev) -> dict:
+def old_structured_newton_step(kernel, p, p_prev, inner_iter: int = 200, refine: int = 3):
+    """The structured Newton step as it ran before its solves became
+    ``FlowCycle`` launches: a host BiCGStab loop (``krylov.bicgstab``, a flag
+    read an iteration) around one f32 ``structured_jvp`` launch a matvec.
+    The yardstick of phase 10's turns; the package no longer has it."""
+    from porepy_tpu_torch import kernels
+    from porepy_tpu_torch.numerics.linalg.krylov import bicgstab
+
+    arrays, coef = kernel._arrays(), kernel._coef()
+    r64 = kernels.structured_residual(p, p_prev, *arrays, coef)
+    rnorm = torch.linalg.vector_norm(r64)
+    diag32 = kernel._jacobi_diagonal(p).to(torch.float32)
+    kernel32 = kernel._as_dtype(torch.float32)
+    arrays32, coef32 = kernel32._arrays(), kernel32._coef()
+    p32 = p.to(torch.float32)
+
+    def solve32(rhs64):
+        nrm = torch.linalg.vector_norm(rhs64)
+        scale = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+        x, _ = bicgstab(lambda v: kernels.structured_jvp(p32, v, *arrays32, coef32),
+                        (rhs64 / scale).to(torch.float32), M=lambda v: v / diag32, tol=1e-6,
+                        atol=0.0, maxiter=inner_iter)
+        x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+        return x.to(torch.float64) * scale
+
+    dx = solve32(-r64)
+    for _ in range(refine):
+        dx = dx + solve32(-r64 - kernels.structured_jvp(p, dx, *arrays, coef))
+    return p + dx, rnorm
+
+
+def old_tpfa_newton_step(kernel, p, p_prev, tol: float = 1e-10, maxiter: int = 200):
+    """The unstructured Newton step as it ran before (a host BiCGStab loop
+    around one ``tpfa_jvp`` launch a matvec); phase 10's yardstick."""
+    from porepy_tpu_torch import kernels
+    from porepy_tpu_torch.numerics.linalg.krylov import bicgstab
+
+    arrays, coef = kernel._arrays(), kernel._coef()
+    r = kernels.tpfa_residual(p, p_prev, *arrays, coef)
+    diag = kernel._jacobi_diagonal(p)
+    nrm = torch.linalg.vector_norm(r)
+    scale = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    dx, _ = bicgstab(lambda v: kernels.tpfa_jvp(p, v, *arrays, coef), -r / scale, M=lambda x: x / diag,
+                     tol=tol, atol=0.0, maxiter=maxiter)
+    return p + torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx)) * scale, nrm
+
+
+def _host_reads(step, p, p_prev) -> int:
+    """The synchronizing operations of one ``step(p, p_prev)``: CUDA's sync
+    debug mode warns at each (a read of the device from the host); its
+    own notice that the mode is a prototype is not one."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(p, p_prev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def _routes_in_turns(new, old, p0, steps: int = 5) -> tuple:
+    """ms per Newton step of ``steps`` chained steps from ``p0`` by each
+    route, in turns (new, old, old, new): ``({route: [median ms, ...]},
+    {route: the launches of its last turn}, {route: [|r|, ...]})``."""
     from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
-    from porepy_tpu_torch.parallel.flow_step import build_cart_flow_kernel
-    from porepy_tpu_torch.parallel.structured_flow import build_structured_flow_kernel
+
+    ms, launches, hist = {"new": [], "old": []}, {}, {}
+    for route in ("new", "old", "old", "new"):
+        step = new if route == "new" else old
+        p, times, rs = p0, [], []
+        torch.cuda.synchronize()
+        reset_launches()
+        for _ in range(steps):
+            tic = time.perf_counter()
+            p, rn = step(p, p0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - tic)
+            rs.append(float(rn))
+        launches[route], hist[route] = dict(LAUNCHES), rs
+        ms[route].append(1e3 * float(np.median(times)))
+    return ms, launches, hist
+
+
+def run_flow_steps(dev) -> dict:
+    from porepy_tpu_torch.applications.benchmarking import flow_cycle_check as fcc
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
 
     print(f"phase 10: structured (K12) and unstructured (K13) flow steps at {N3D}^3")
     shape = (N3D,) * 3
     out = {}
     finals = []
     for on_card, device in ((True, dev), (False, torch.device("cpu"))):
-        kernel, _ = build_structured_flow_kernel(shape, (1.0, 1.0, 1.0), bc_pressure=_bc_x, device=device, **FLUID_3D)
+        kernel = fcc.structured_kernel(N3D, device)
         p_prev = torch.full(shape, 2.0e5, dtype=torch.float64, device=device)
         if on_card:
             reset_launches()
@@ -1023,35 +1121,125 @@ def run_flow_steps(dev) -> dict:
             out["structured_ms"] = 1e3 * float(np.median(times))
             print(f"  structured, 7 chained Newton steps: median {out['structured_ms']:.3f} ms per step")
         tic = time.perf_counter()
-        p, hist = _newton_to_floor(kernel.newton_step, p_prev)
+        iters = []
+        p, hist = _newton_to_floor(lambda a, b: kernel.newton_step(a, b, iterations=iters), p_prev)
         if on_card:
             torch.cuda.synchronize()
             out["structured_launches"] = dict(LAUNCHES)
+            out["structured_steps"] = 8 + len(hist)
+        out.setdefault("structured_iterations", []).append(iters)
         print(f"  structured on {device}: {len(hist)} Newton steps in {time.perf_counter() - tic:.3f} s, |r| {['%.3e' % h for h in hist]}")
+        print(f"    iterations of its {len(iters)} solves: {iters}")
         finals.append(p.cpu().numpy())
+        if on_card:
+            card_kernel, card_hist = kernel, hist
+        else:
+            out["structured_newton"] = (len(card_hist), len(hist))
     err = float(np.abs(finals[0] - finals[1]).max())
     print(f"  structured, max |card - host| {err:.3e}")
     _require(err <= 1e-6, f"structured card and host differ by {err}")
 
-    kernel, p0 = build_cart_flow_kernel(list(shape), [1, 1, 1], bc_pressure=_bc_faces, device=dev, **FLUID_3D)
+    kernel = fcc.tpfa_kernel(N3D, dev)
     q_prev = torch.full((kernel.num_cells,), 2.0e5, dtype=torch.float64, device=dev)
     reset_launches()
     torch.cuda.synchronize()
     tic = time.perf_counter()
-    q, hist = _newton_to_floor(kernel.newton_step, q_prev)
+    iters = []
+    q, hist = _newton_to_floor(lambda a, b: kernel.newton_step(a, b, iterations=iters), q_prev)
     torch.cuda.synchronize()
     out["tpfa_launches"] = dict(LAUNCHES)
+    out["tpfa_iterations"] = iters
+    out["tpfa_steps"] = len(hist)
+    out["tpfa_newton"] = len(hist)
     print(f"  unstructured on {dev}: {len(hist)} Newton steps in {time.perf_counter() - tic:.3f} s, |r| {['%.3e' % h for h in hist]}")
+    print(f"    iterations of its {len(iters)} solves: {iters}")
+    card_its, host_its = out["structured_iterations"]
+    gap = max((abs(a - b) for a, b in zip(card_its, host_its)), default=0)
+    print(f"  structured solves, card against host: {len(card_its)} and {len(host_its)} solves, iterations at most "
+          f"{gap} apart")
     # CartGrid numbers cells x fastest.
     q3 = q.cpu().numpy().reshape(shape[::-1]).T
     err = float(np.abs(finals[0] - q3).max())
     print(f"  max |structured - unstructured| {err:.3e}")
     _require(err < 1e-4, f"structured and unstructured differ by {err}")
-    for key, names in (("structured_launches", ("structured_residual", "structured_jvp")),
-                       ("tpfa_launches", ("tpfa_residual", "tpfa_jvp"))):
+    for key, names in (("structured_launches", ("structured_residual", "structured_jvp", "structured_linearize",
+                                                "bicgstab_stencil")),
+                       ("tpfa_launches", ("tpfa_residual", "tpfa_linearize", "bicgstab_tpfa"))):
         print(f"  kernel launches ({key[:-9]} run): {out[key]}")
         _require(all(out[key][k] > 0 for k in names), f"{names} not launched: {out[key]}")
+    # One linearization and, a solve, two cycle launches; the refinement's
+    # three f64 jvps a structured step, no jvp in the unstructured one.
+    s, u = out["structured_steps"], out["tpfa_steps"]
+    ls, lu = out["structured_launches"], out["tpfa_launches"]
+    want = {"structured_jvp": 3 * s, "structured_linearize": s, "bicgstab_stencil": 2 * 4 * s,
+            "tpfa_jvp": 0, "tpfa_linearize": u, "bicgstab_tpfa": 2 * u}
+    got = {k: (ls if k.startswith(("structured", "bicgstab_stencil")) else lu)[k] for k in want}
+    print(f"  launches in {s} structured and {u} unstructured Newton steps: {got} (expected {want})")
+    _require(got == want, f"flow-step launches {got}, expected {want}")
+    reads = {"structured": _host_reads(card_kernel.newton_step, p_prev.to(dev), p_prev.to(dev)),
+             "unstructured": _host_reads(kernel.newton_step, q_prev, q_prev)}
+    print(f"  host reads in one Newton step (sync debug mode): {reads} (4 and 1 solves)")
+    _require(reads == {"structured": 4, "unstructured": 1}, f"host reads a step {reads}, expected one a solve")
+    out["reads"] = reads
+
+    # The route before (host BiCGStab loops over the jvp launches) and this
+    # one, in turns, 5 chained steps from p = 2e5 each.
+    s_kernel = card_kernel
+    p_s = torch.full(shape, 2.0e5, dtype=torch.float64, device=dev)
+    out["turns"] = {}
+    for tag, new, old, start in (
+        ("structured", s_kernel.newton_step, lambda a, b: old_structured_newton_step(s_kernel, a, b), p_s),
+        ("unstructured", kernel.newton_step, lambda a, b: old_tpfa_newton_step(kernel, a, b), q_prev),
+    ):
+        ms, launches, rs = _routes_in_turns(new, old, start)
+        out["turns"][tag] = {"ms": ms, "launches": launches}
+        print(f"  {tag} ms per Newton step in turns (new, old, old, new; median of 5 chained steps): new "
+              f"{ms['new']}, old {ms['old']}; |r| new {['%.2e' % r for r in rs['new']]}, old "
+              f"{['%.2e' % r for r in rs['old']]}")
+    old_u = out["turns"]["unstructured"]["launches"]["old"]
+    print(f"  the old route's launches in 5 unstructured steps: tpfa_jvp {old_u['tpfa_jvp']}, "
+          f"structured: structured_jvp {out['turns']['structured']['launches']['old']['structured_jvp']}")
+    out["kernels"] = (s_kernel, kernel)
     return out
+
+
+def check_flow_cycles(dev, smi: str, ks, ku) -> dict:
+    """Phase 10b: the cycle launches and linearizations of phase 10's
+    kernels ``ks`` (structured) and ``ku`` (unstructured) at 32^3, on the
+    buffers their Newton steps use, against their plain versions, with
+    times (see ``applications/benchmarking/flow_cycle_check.py``)."""
+    from porepy_tpu_torch.applications.benchmarking import flow_cycle_check as fcc
+
+    print(f"phase 10b: the flow steps' BiCGStab (FlowCycle) and linearizations at {N3D}^3 against their plain versions")
+    gen = torch.Generator().manual_seed(10)
+    results = {}
+    for kind, kernel, shape in (("stencil", ks, (N3D,) * 3), ("tpfa", ku, (ku.num_cells,))):
+        p = (2e5 + 1e4 * torch.randn(shape, generator=gen, dtype=torch.float64)).to(dev)
+        p_prev = torch.full(shape, 2e5, dtype=torch.float64, device=dev)
+        for dtype in (torch.float32, torch.float64):
+            r = fcc.check(kind, kernel, p, p_prev, dtype)
+            print("  " + fcc.describe(r, smi))
+            _require(r["equal"], f"{kind} {dtype}: a cycle launch differs from its plain version")
+            _require(r["lin_ok"], f"{kind} {dtype}: the linearization differs from its plain version")
+            results[(kind, dtype)] = r
+    # What the syncs and reductions cost with little work: the same f32
+    # solve at 8^3 (4 tiles) and 16^3 (32 tiles).
+    floor = fcc.iteration_floor(dev)
+    for n, r in floor.items():
+        print(f"  {n}^3: " + fcc.describe(r, smi))
+        _require(r["equal"] and r["lin_ok"], f"{n}^3: a cycle launch or the linearization differs")
+    report = {"flow_floor": floor}
+    # The line: each kernel at the main path's dtype (f32 stencil, f64 TPFA).
+    for name, lin, key in (("bicgstab_stencil", "structured_linearize", ("stencil", torch.float32)),
+                           ("bicgstab_tpfa", "tpfa_linearize", ("tpfa", torch.float64))):
+        r = results[key]
+        report[name] = {"err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": None,
+                        "bound": r["bound"]}
+        # No one PyTorch call computes J(p)'s coefficients.
+        report[lin] = {"err": r["lin_err"], "ms": r["lin_ms"], "plain_ms": r["lin_plain_ms"], "library_ms": None,
+                       "bound": r["lin_bound"]}
+    report["flow_cycles"] = {f"{k} {str(d)[6:]}": r for (k, d), r in results.items()}
+    return report
 
 
 # -- K10 and the biot case --------------------------------------------------------
@@ -2298,6 +2486,15 @@ def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) 
         "bytes": 2 * 8 * B * nhf + 4 * (nface + 1 + nhf + ncell + 1) + 8 * B * (nface + ncell),
         "flops": 2 * B * nhf, "library_ms": _cuda_ms(sums_library),
     }
+    # The two kernels that one PyTorch call matches, by device time (CUDA-
+    # graph replay: no host dispatch in it), kernel and call in turns.
+    for name, kernel_fn, library_fn in (("upwind_select", lambda: select_pair(ops), select_library),
+                                        ("segment_sum_sorted", lambda: sums(ops), sums_library)):
+        us = {"kernel": [], "library": []}
+        for route in ("kernel", "library", "library", "kernel"):
+            us[route].append(_graph_us(kernel_fn if route == "kernel" else library_fn))
+        report[name]["device_us"] = us
+        print(f"  {name}, device us a call (graph replay, in turns): kernel {us['kernel']}, library {us['library']}")
     for name in ("upwind_flux", "upwind_select", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted"):
         r = report[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
@@ -2946,6 +3143,7 @@ def main() -> int:
     d3_amg = run_3d(dev, dense=False)
     compare_3d_small(dev)
     flow = run_flow_steps(dev)
+    report.update(check_flow_cycles(dev, smi, *flow.pop("kernels")))
     report["region_solve"] = check_region_kernel(dev)
     biot = run_biot(dev, dense=False)
     biot_dense = run_biot(dev, dense=True)
@@ -3018,7 +3216,16 @@ def main() -> int:
         "structured_residual": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:69", flow["structured_launches"]["structured_residual"]),
         "structured_jvp": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:116", flow["structured_launches"]["structured_jvp"]),
         "tpfa_residual": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:72", flow["tpfa_launches"]["tpfa_residual"]),
+        # The unstructured Newton step no longer launches tpfa_jvp (its
+        # solve is bicgstab_tpfa): 0 launches on the path, checked in phase
+        # 10; its times are phase 3b's.
         "tpfa_jvp": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]["tpfa_jvp"]),
+        "structured_linearize": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:124",
+                                 flow["structured_launches"]["structured_linearize"]),
+        "bicgstab_stencil": ("krylov.cu", "porepy_tpu/parallel/structured_flow.py:132",
+                             flow["structured_launches"]["bicgstab_stencil"]),
+        "tpfa_linearize": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]["tpfa_linearize"]),
+        "bicgstab_tpfa": ("krylov.cu", "porepy_tpu/parallel/flow_step.py:109", flow["tpfa_launches"]["bicgstab_tpfa"]),
         "region_solve": ("region_solve.cu", "porepy_tpu/numerics/fv/local_solves.py:168", biot["launches"]["region_solve"]),
         "bicgstab_cycle": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", bicg["launches"]),
         "gmres_cycle": ("krylov.cu", "porepy_tpu/numerics/linalg/krylov.py:42", gmres["launches"]),
@@ -3062,7 +3269,19 @@ def main() -> int:
         f"{d3_amg['setup_s']:.3f} s, {d3_amg['ms_per_newton']:.2f} ms per Newton iteration "
         f"(reference CPU: 6691 ms)"
     )
-    print(f"structured 32^3 on {smi}: {flow['structured_ms']:.3f} ms per Newton step (median of 7)")
+    print(f"structured 32^3 on {smi}: {flow['structured_ms']:.3f} ms per Newton step (median of 7); "
+          f"Newton steps to the floor, card and host: {flow['structured_newton']}; unstructured {flow['tpfa_newton']}")
+    for tag, t in flow["turns"].items():
+        print(f"{tag} 32^3 flow step on {smi}, in turns: FlowCycle route {t['ms']['new']} ms, host BiCGStab "
+              f"over the jvps {t['ms']['old']} ms per Newton step")
+    for n, r in report["flow_floor"].items():
+        print(f"flow cycle stencil float32 at {n}^3 (grid {r['grid']}) on {smi}: {r['iterations']} iterations, device "
+              f"{r['us_per_iteration']:.3f} us an iteration (graph replay), a solve's start {r['us_start']:.2f} us")
+    for tag, r in report["flow_cycles"].items():
+        print(f"flow cycle {tag} at 32^3 (grid {r['grid']}) on {smi}: {r['iterations']} iterations, device {r['us_per_iteration']:.3f} "
+              f"us an iteration (graph replay), host {r['host_us']:.2f} us a launch, a solve {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.2f} ms, bound {1e3 * r['bound_it'][0]:.3f} us an iteration; linearization "
+              f"{r['lin_ms']:.4f} ms, plain {r['lin_plain_ms']:.4f} ms")
     for tag, b in (("AMG", biot), ("dense", biot_dense)):
         print(
             f"biot 1/64 on {smi}, {tag}: setup {b['setup_s']:.3f} s (discretization by K10 "
@@ -3137,6 +3356,10 @@ def main() -> int:
     print(f"K18a (one BiCGStab solve's launch, {a['iters']} iterations, matvecs inside) on {smi}: {a['ms']:.4f} ms, "
           f"{a['us_per_iteration']} us an iteration, {a['host_us']} us of host time a launch, plain "
           f"{a['plain_ms']:.1f} ms, bound {1e3 * a['bound_it'][0]:.3f} us an iteration")
+    for k in ("upwind_select", "segment_sum_sorted"):
+        us = report[k]["device_us"]
+        print(f"{k} at its phase 19 shapes on {smi}, device us (graph replay, in turns): kernel {us['kernel']}, "
+              f"one PyTorch call {us['library']}")
     d = report["dual_gather"]
     print(f"dual_gather at md 1/128's shapes on {smi}, in turns: launchers {d['turns']['launchers']} ms, functional "
           f"wrappers {d['turns']['wrappers']} ms, index_select x2 + cat {d['turns']['library']} ms; host us a "

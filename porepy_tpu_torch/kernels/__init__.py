@@ -15,8 +15,13 @@ K6        :func:`gj_pivot_inverse`       ``numerics/linalg/device_solver.py:104`
 K6        :func:`dense_block_apply`      ``numerics/linalg/device_solver.py:702-706``
 K12       :func:`structured_residual`    ``parallel/structured_flow.py:69-100``
 K12       :func:`structured_jvp`         ``parallel/structured_flow.py:116,124`` (linearize)
+K12       :func:`structured_linearize`,  ``parallel/structured_flow.py:104-148`` (the Newton
+          :class:`FlowCycle`             step's jax BiCGStab on the linearized residual: a
+                                         solve, two cooperative launches)
 K13       :func:`tpfa_residual`          ``parallel/flow_step.py:64-97``
 K13       :func:`tpfa_jvp`               ``parallel/flow_step.py:104`` (linearize)
+K13       :func:`tpfa_linearize`,        ``parallel/flow_step.py:101-118`` (as for K12, on the
+          :class:`FlowCycle`             cell-cell matrix)
 K10       :func:`region_solve`           ``numerics/fv/local_solves.py:168-187``
 K18a      :func:`bicgstab_cycle`         ``numerics/linalg/krylov.py:42-61`` (jax BiCGStab: a
                                          solve, one cooperative kernel)
@@ -57,6 +62,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     block_inverse,
     EllOperator,
     EllOperators,
+    FlowCycle,
     gmres_cycle,
     gmres_cycle_grid,
     HaloOperator,
@@ -80,8 +86,10 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     region_solve,
     reset_launches,
     structured_jvp,
+    structured_linearize,
     structured_residual,
     tpfa_jvp,
+    tpfa_linearize,
     tpfa_residual,
     TpfaAdGeometry,
     segment_sum_sorted,

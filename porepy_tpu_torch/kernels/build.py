@@ -62,6 +62,12 @@ _SIGNATURES = {
     "ppt_region_solve": [_P] * 5 + [_I] * 4 + [_P],
     "ppt_bicgstab_cycle": [_P] * 17 + [_I] * 2 + [_P],
     "ppt_bicgstab_cycle_grid": [_I, _P],
+    "ppt_bicgstab_stencil": [_P] * 15 + [_I] * 4 + [_D] * 2 + [_P],
+    "ppt_bicgstab_stencil_grid": [_I, _P],
+    "ppt_bicgstab_tpfa": [_P] * 17 + [_I] * 2 + [_D] * 2 + [_P],
+    "ppt_bicgstab_tpfa_grid": [_I, _P],
+    "ppt_structured_linearize": [_P] * 10 + [_I] * 3 + [_P],
+    "ppt_tpfa_linearize": [_P] * 13 + [_I, _P],
     "ppt_gmres_cycle": [_P] * 14 + [_I] * 3 + [_P],
     "ppt_gmres_cycle_grid": [_I, _P],
     "ppt_rachford_rice": [_P] * 7 + [_I, _L, _I, _D, _P],
@@ -83,7 +89,8 @@ _SIGNATURES = {
     "ppt_jac_gather": [_P, _P, _I, _P, _P, _P, _P, _P],
 }
 # The dtypes each kernel is built for (default: both). K8, K10, K11, K14, K15,
-# K16, K17 and K18 are float64 only.
+# K16, K17 and K18 are float64 only; the flow steps' solves and
+# linearizations (K12, K13) take both.
 _F64_ONLY = (
     "ppt_region_solve", "ppt_bicgstab_cycle", "ppt_bicgstab_cycle_grid",
     "ppt_gmres_cycle", "ppt_gmres_cycle_grid",

@@ -8,7 +8,12 @@
 // K18a, a BiCGStab solve (jax 0.9's _bicgstab_solve) as ONE persistent
 // cooperative kernel, bicgstab_cycle: the two matvecs of every iteration
 // run inside it on the CSR matrix, and it runs iterations until the solve
-// stops or the launch's budget of iterations is spent. Each iteration:
+// stops or the launch's budget of iterations is spent. The same kernel,
+// bicgstab_kernel, is a template over the element type (f32, f64), the
+// matvec (CsrRows: K18a's matrix, and K13's Jacobian on its cell-cell
+// pattern; StencilRows: K12's Jacobian as a 7-point stencil) and the
+// preconditioner (Jacobi: M v = dinv v for K18a, v / diag for the flow
+// steps, the division kept as jax computes it). Each iteration:
 //
 //   p <- r + beta (p - omega q), phat = dinv p;            | grid sync |
 //   q = A phat, partials of <rhat, q>;                      | grid sync |
@@ -28,7 +33,21 @@
 // grid sync; the flag is tested on the device after every iteration.
 // Block 0 writes the scalars, the flag and the count of iterations back at
 // the end of the launch. With iterations = 0 a launch starts a solve from
-// x: r = b - A x, rhat = p = q = r, rho_ = beta = <r, r> and the flag.
+// x: r = b - A x, rhat = p = q = r, rho_ = beta = <r, r> and the flag
+// (K18a, the tolerance atol2 in the state). The flow steps' start (from_zero)
+// starts from x = 0 (r = b, as b - A 0), sets rho = alpha = omega = 1 and
+// the tolerance atol2 = max(tol2 <b, b>, abs2) itself, so a solve reads
+// nothing from the host before it runs, and a launcher's state needs no
+// reset between solves.
+//
+// K12/K13 (the flow steps' solves, porepy_tpu/parallel/structured_flow.py
+// :104-148 and flow_step.py:101-118): one structured solve at 32^3 is ~58
+// iterations of f32 on 32,768 rows, the Jacobian's 7 coefficient arrays
+// (0.9 MB) and ~10 vectors in L2; one unstructured solve ~84 of f64 on the
+// cell-cell CSR (223,232 nonzeros). Bound: bytes, ~1-2 us an iteration;
+// what sets the time is the 5 grid syncs an iteration. Before: a host loop
+// of ~25 torch launches and a host flag read an iteration around two jvp
+// launches, ~0.67 ms an iteration.
 //
 // K18b, one restart of the batched GMRES (_gmres_batched) as ONE persistent
 // cooperative kernel, gmres_cycle: the matvecs run inside it, on the
@@ -71,8 +90,9 @@
 // finishes the tile partials in the same fixed order (finish_rows: thread t
 // adds partials t, t + 128, ..., then the tree): no atomics, a run repeats
 // bit for bit. Every
-// operation is rounded on its own (__dmul_rn, __dadd_rn, __dsub_rn: no
-// multiply-add is contracted), so the plain passes of kernels/reference.py,
+// operation is rounded on its own in its type (rmul, radd, rsub, rdiv:
+// __dmul_rn, __fmul_rn and the like, no multiply-add contracted), so the
+// plain passes of kernels/reference.py,
 // which round the same operations in the same order, give the same bits.
 // Arrays written inside the kernel are read through plain pointers (no
 // __restrict__ on them): the read-only cache is not coherent across the
@@ -117,36 +137,48 @@ enum { kAtol = 0, kResNorm = 1 };
 
 constexpr int kRows = kMaxRestart + 2;  // rows summed at once: V[:k+1] w, <w, w>
 
+// Each operation rounded on its own, in the element type: no multiply-add
+// is contracted, so the plain passes give the same bits.
+__device__ __forceinline__ double rmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double radd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double rsub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double rdiv(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float rmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float radd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float rsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rdiv(float a, float b) { return __fdiv_rn(a, b); }
+
 // m rows of sh summed at once, each in the same tree (entry t adds entry
 // t + s, s = 64 .. 1): row j's sum ends in sh[j][0].
-__device__ void tree_rows(double (*sh)[kBlock], int m) {
+template <typename T>
+__device__ void tree_rows(T (*sh)[kBlock], int m) {
   __syncthreads();
   for (int s = kBlock / 2; s > 16; s >>= 1) {
     for (int idx = threadIdx.x; idx < m * s; idx += kBlock) {
       int j = idx / s, t = idx - j * s;
-      sh[j][t] = __dadd_rn(sh[j][t], sh[j][t + s]);
+      sh[j][t] = radd(sh[j][t], sh[j][t + s]);
     }
     __syncthreads();
   }
   // s = 16 .. 1 inside one warp a row: lane t adds lane t + s, as above.
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int j = warp; j < m; j += kBlock / 32) {
-    double v = sh[j][lane];
-    for (int s = 16; s > 0; s >>= 1) v = __dadd_rn(v, __shfl_down_sync(0xffffffffu, v, s));
+    T v = sh[j][lane];
+    for (int s = 16; s > 0; s >>= 1) v = radd(v, __shfl_down_sync(0xffffffffu, v, s));
     if (lane == 0) sh[j][0] = v;
   }
   __syncthreads();
 }
 
 // The sums of rows r0 .. r0 + m - 1 of partials (nb per row), each in
-// the same order (thread t from 0.0 over partials t, t + 128, ..., then the
+// the same order (thread t from 0 over partials t, t + 128, ..., then the
 // tree), into out[0 .. m - 1] (shared), seen by the whole block.
-__device__ void finish_rows(const double* partials, int r0, int m, int nb,
-                            double (*sh)[kBlock], double* out) {
+template <typename T>
+__device__ void finish_rows(const T* partials, int r0, int m, int nb, T (*sh)[kBlock], T* out) {
   for (int j = 0; j < m; ++j) {
-    const double* row = partials + (int64_t)(r0 + j) * nb;
-    double acc = 0.0;
-    for (int b = threadIdx.x; b < nb; b += kBlock) acc = __dadd_rn(acc, row[b]);
+    const T* row = partials + (int64_t)(r0 + j) * nb;
+    T acc = T(0);
+    for (int b = threadIdx.x; b < nb; b += kBlock) acc = radd(acc, row[b]);
     sh[j][threadIdx.x] = acc;
   }
   tree_rows(sh, m);
@@ -154,64 +186,122 @@ __device__ void finish_rows(const double* partials, int r0, int m, int nb,
   __syncthreads();
 }
 
-// Row i of A x: the products rounded, added from 0.0 in column order.
-__device__ double csr_row(const int* __restrict__ row_ptr,
-                          const int* __restrict__ cols,
-                          const double* __restrict__ vals, const double* x,
-                          int i) {
-  double acc = 0.0;
-  int p = row_ptr[i];
-  const int e = row_ptr[i + 1];
+// Row i of A x: the products rounded, added from 0 in column order.
+template <typename T>
+__device__ T csr_row(const int* __restrict__ row_ptr, const int* __restrict__ cols,
+                     const T* __restrict__ vals, const T* x, int i) {
+  T acc = T(0);
+  int p = __ldg(row_ptr + i);
+  const int e = __ldg(row_ptr + i + 1);
   // Four gathers in flight before their products are added, in order.
   for (; p + 4 <= e; p += 4) {
-    const double x0 = x[cols[p]], x1 = x[cols[p + 1]], x2 = x[cols[p + 2]], x3 = x[cols[p + 3]];
-    acc = __dadd_rn(acc, __dmul_rn(vals[p], x0));
-    acc = __dadd_rn(acc, __dmul_rn(vals[p + 1], x1));
-    acc = __dadd_rn(acc, __dmul_rn(vals[p + 2], x2));
-    acc = __dadd_rn(acc, __dmul_rn(vals[p + 3], x3));
+    const T x0 = x[__ldg(cols + p)], x1 = x[__ldg(cols + p + 1)];
+    const T x2 = x[__ldg(cols + p + 2)], x3 = x[__ldg(cols + p + 3)];
+    acc = radd(acc, rmul(__ldg(vals + p), x0));
+    acc = radd(acc, rmul(__ldg(vals + p + 1), x1));
+    acc = radd(acc, rmul(__ldg(vals + p + 2), x2));
+    acc = radd(acc, rmul(__ldg(vals + p + 3), x3));
   }
-  for (; p < e; ++p) acc = __dadd_rn(acc, __dmul_rn(vals[p], x[cols[p]]));
+  for (; p < e; ++p) acc = radd(acc, rmul(__ldg(vals + p), x[__ldg(cols + p)]));
   return acc;
 }
 
 // Sum of one value per thread over the block (the tree of tree_rows), by
 // thread 0 into row `row` of partials at tile t.
-__device__ void tile_sum(double v, double (*sh)[kBlock], double* partials, int row, int nb, int t) {
+template <typename T>
+__device__ void tile_sum(T v, T (*sh)[kBlock], T* partials, int row, int nb, int t) {
   sh[0][threadIdx.x] = v;
   tree_rows(sh, 1);
   if (threadIdx.x == 0) partials[(int64_t)row * nb + t] = sh[0][0];
   __syncthreads();
 }
 
-// -- K18a -------------------------------------------------------------------
+// -- K18a and the flow steps' solves ----------------------------------------
+
+// The matvecs of bicgstab_kernel: row i of A x. The matrix is read-only in
+// the kernel; x is written in it, so it is read through a plain pointer.
+
+// A CSR matrix (int32 row pointers and columns), each row summed in its
+// stored order: K18a's matrix, and K13's Jacobian on its cell-cell pattern.
+template <typename T>
+struct CsrRows {
+  const int* row_ptr;
+  const int* cols;
+  const T* vals;
+  __device__ T operator()(const T* x, int i) const { return csr_row(row_ptr, cols, vals, x, i); }
+};
+
+// K12's Jacobian on an (nx, ny, nz) C-order grid as a 7-point stencil:
+// coef is (7, n), rows centre, x-, x+, y-, y+, z-, z+ (0 where the
+// neighbour lies outside the grid, whose x is then read as 0). Row i is
+// c0 x_i, then each neighbour's product added in that order.
+template <typename T>
+struct StencilRows {
+  const T* coef;
+  int nx, ny, nz;
+  __device__ T operator()(const T* x, int i) const {
+    const int syz = ny * nz;
+    const int64_t n = (int64_t)nx * syz;
+    const int k = i % nz, j = (i / nz) % ny, l = i / syz;
+    const T* __restrict__ c = coef + i;
+    // The six gathers in flight before the products are added, in order.
+    const T x0 = x[i];
+    const T xl = l > 0 ? x[i - syz] : T(0), xh = l < nx - 1 ? x[i + syz] : T(0);
+    const T yl = j > 0 ? x[i - nz] : T(0), yh = j < ny - 1 ? x[i + nz] : T(0);
+    const T zl = k > 0 ? x[i - 1] : T(0), zh = k < nz - 1 ? x[i + 1] : T(0);
+    T acc = rmul(__ldg(c), x0);
+    acc = radd(acc, rmul(__ldg(c + n), xl));
+    acc = radd(acc, rmul(__ldg(c + 2 * n), xh));
+    acc = radd(acc, rmul(__ldg(c + 3 * n), yl));
+    acc = radd(acc, rmul(__ldg(c + 4 * n), yh));
+    acc = radd(acc, rmul(__ldg(c + 5 * n), zl));
+    acc = radd(acc, rmul(__ldg(c + 6 * n), zh));
+    return acc;
+  }
+};
+
+// The Jacobi preconditioner: dinv v (K18a), or v / diag (Divide: the flow
+// steps' M = v / diag, divided as jax divides).
+template <typename T, bool Divide>
+struct Jacobi {
+  const T* d;
+  __device__ T operator()(T v, int i) const { return Divide ? rdiv(v, __ldg(d + i)) : rmul(__ldg(d + i), v); }
+};
 
 // A BiCGStab solve: the start (iterations = 0) or up to `iterations`
 // iterations while cont[0] holds; see the head of the file. partials is
 // (6, nb); cont is (2,): the continue flag and the iterations run so far.
+// from_zero, tol2 and abs2: the flow steps' start (x = 0, the tolerance
+// from <b, b>).
+template <typename T, class Mat, class Pre>
 __global__ void __launch_bounds__(kBlock)
-bicgstab_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cols,
-                      const double* __restrict__ vals, const double* __restrict__ dinv,
-                      const double* __restrict__ b, double* x, double* r, double* rhat,
-                      double* p, double* q, double* phat, double* s, double* shat,
-                      double* t, double* partials, double* st, int* cont, int n, int nb,
-                      int iterations) {
+bicgstab_kernel(Mat A, Pre M, const T* __restrict__ b, T* x, T* r, T* rhat, T* p, T* q,
+                T* phat, T* s, T* shat, T* t, T* partials, T* st, int* cont, int n, int nb,
+                int iterations, int from_zero, T tol2, T abs2) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ double sh[3][kBlock];
-  __shared__ double sums[3];
+  __shared__ T sh[3][kBlock];
+  __shared__ T sums[3];
   const int tid = threadIdx.x;
   const bool lead = blockIdx.x == 0 && tid == 0;
   if (iterations == 0) {
-    // r = b - A x, rhat = p = q = r; partials of <r, r>.
+    // r = b - A x (from_zero: x = 0, r = b), rhat = p = q = r; partials
+    // of <r, r>.
     for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
       const int i = tile * kBlock + tid;
-      double v = 0.0;
+      T v = T(0);
       if (i < n) {
-        const double ri = __dsub_rn(b[i], csr_row(row_ptr, cols, vals, x, i));
+        T ri;
+        if (from_zero) {
+          x[i] = T(0);
+          ri = b[i];
+        } else {
+          ri = rsub(b[i], A(x, i));
+        }
         r[i] = ri;
         rhat[i] = ri;
         p[i] = ri;
         q[i] = ri;
-        v = __dmul_rn(ri, ri);
+        v = rmul(ri, ri);
       }
       tile_sum(v, sh, partials, kPartRr, nb, tile);
     }
@@ -219,10 +309,17 @@ bicgstab_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ c
     if (blockIdx.x == 0) {
       finish_rows(partials, kPartRr, 1, nb, sh, sums);
       if (tid == 0) {
-        const double rr = sums[0];
+        const T rr = sums[0];
+        if (from_zero) {
+          // <b, b> = <r, r>; a NaN is kept, as jax's maximum keeps it.
+          const T a = rmul(tol2, rr);
+          st[kAtol2] = a > abs2 || a != a ? a : abs2;
+          st[kRho] = st[kAlpha] = st[kOmega] = T(1);
+          st[kAlphaNew] = st[kOmegaNew] = st[kExit] = T(0);
+        }
         st[kRhoNew] = rr;
         st[kRr] = rr;
-        st[kBeta] = __ddiv_rn(__dmul_rn(__ddiv_rn(rr, st[kRho]), st[kAlpha]), st[kOmega]);
+        st[kBeta] = rdiv(rmul(rdiv(rr, st[kRho]), st[kAlpha]), st[kOmega]);
         cont[0] = rr > st[kAtol2];
         cont[1] = 0;
       }
@@ -230,46 +327,46 @@ bicgstab_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ c
     return;
   }
   // The scalar state, the same in every thread of every block.
-  double rho = st[kRho], alpha = st[kAlpha], omega = st[kOmega], rho_ = st[kRhoNew];
-  double beta = st[kBeta], alpha_ = st[kAlphaNew], omega_ = st[kOmegaNew];
-  double exit_early = st[kExit], rr = st[kRr];
-  const double atol2 = st[kAtol2];
+  T rho = st[kRho], alpha = st[kAlpha], omega = st[kOmega], rho_ = st[kRhoNew];
+  T beta = st[kBeta], alpha_ = st[kAlphaNew], omega_ = st[kOmegaNew];
+  T exit_early = st[kExit], rr = st[kRr];
+  const T atol2 = st[kAtol2];
   bool go = cont[0] != 0;
   int done = 0;
   while (done < iterations && go) {
-    // p <- r + beta (p - omega q), phat = dinv p.
+    // p <- r + beta (p - omega q), phat = M p.
     for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
       const int i = tile * kBlock + tid;
       if (i < n) {
-        const double pi = __dadd_rn(r[i], __dmul_rn(beta, __dsub_rn(p[i], __dmul_rn(omega, q[i]))));
+        const T pi = radd(r[i], rmul(beta, rsub(p[i], rmul(omega, q[i]))));
         p[i] = pi;
-        phat[i] = __dmul_rn(dinv[i], pi);
+        phat[i] = M(pi, i);
       }
     }
     grid.sync();
     // q = A phat; partials of <rhat, q>.
     for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
       const int i = tile * kBlock + tid;
-      double v = 0.0;
+      T v = T(0);
       if (i < n) {
-        const double qi = csr_row(row_ptr, cols, vals, phat, i);
+        const T qi = A(phat, i);
         q[i] = qi;
-        v = __dmul_rn(rhat[i], qi);
+        v = rmul(rhat[i], qi);
       }
       tile_sum(v, sh, partials, kPartRq, nb, tile);
     }
     grid.sync();
     finish_rows(partials, kPartRq, 1, nb, sh, sums);
-    alpha_ = __ddiv_rn(rho_, sums[0]);
-    // s = r - alpha_ q, shat = dinv s; partials of <s, s>.
+    alpha_ = rdiv(rho_, sums[0]);
+    // s = r - alpha_ q, shat = M s; partials of <s, s>.
     for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
       const int i = tile * kBlock + tid;
-      double v = 0.0;
+      T v = T(0);
       if (i < n) {
-        const double si = __dsub_rn(r[i], __dmul_rn(alpha_, q[i]));
+        const T si = rsub(r[i], rmul(alpha_, q[i]));
         s[i] = si;
-        shat[i] = __dmul_rn(dinv[i], si);
-        v = __dmul_rn(si, si);
+        shat[i] = M(si, i);
+        v = rmul(si, si);
       }
       tile_sum(v, sh, partials, kPartSs, nb, tile);
     }
@@ -277,12 +374,12 @@ bicgstab_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ c
     // t = A shat; partials of <t, s> and <t, t>.
     for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
       const int i = tile * kBlock + tid;
-      double ts = 0.0, tt = 0.0;
+      T ts = T(0), tt = T(0);
       if (i < n) {
-        const double ti = csr_row(row_ptr, cols, vals, shat, i);
+        const T ti = A(shat, i);
         t[i] = ti;
-        ts = __dmul_rn(ti, s[i]);
-        tt = __dmul_rn(ti, ti);
+        ts = rmul(ti, s[i]);
+        tt = rmul(ti, ti);
       }
       sh[0][tid] = ts;
       sh[1][tid] = tt;
@@ -292,25 +389,25 @@ bicgstab_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ c
     }
     grid.sync();
     finish_rows(partials, kPartSs, 3, nb, sh, sums);
-    exit_early = sums[0] < atol2 ? 1.0 : 0.0;
-    omega_ = __ddiv_rn(sums[1], sums[2]);
+    exit_early = sums[0] < atol2 ? T(1) : T(0);
+    omega_ = rdiv(sums[1], sums[2]);
     // x and r; partials of <r, r> and <rhat, r>.
     for (int tile = blockIdx.x; tile < nb; tile += gridDim.x) {
       const int i = tile * kBlock + tid;
-      double vr = 0.0, vh = 0.0;
+      T vr = T(0), vh = T(0);
       if (i < n) {
-        const double ap = __dmul_rn(alpha_, phat[i]);
-        double ri;
-        if (exit_early != 0.0) {
-          x[i] = __dadd_rn(x[i], ap);
+        const T ap = rmul(alpha_, phat[i]);
+        T ri;
+        if (exit_early != T(0)) {
+          x[i] = radd(x[i], ap);
           ri = s[i];
         } else {
-          x[i] = __dadd_rn(x[i], __dadd_rn(ap, __dmul_rn(omega_, shat[i])));
-          ri = __dsub_rn(s[i], __dmul_rn(omega_, t[i]));
+          x[i] = radd(x[i], radd(ap, rmul(omega_, shat[i])));
+          ri = rsub(s[i], rmul(omega_, t[i]));
         }
         r[i] = ri;
-        vr = __dmul_rn(ri, ri);
-        vh = __dmul_rn(rhat[i], ri);
+        vr = rmul(ri, ri);
+        vh = rmul(rhat[i], ri);
       }
       sh[0][tid] = vr;
       sh[1][tid] = vh;
@@ -321,13 +418,13 @@ bicgstab_cycle_kernel(const int* __restrict__ row_ptr, const int* __restrict__ c
     grid.sync();
     finish_rows(partials, kPartRr, 2, nb, sh, sums);
     rr = sums[0];
-    const bool breakdown = omega_ == 0.0 || alpha_ == 0.0 || rho_ == 0.0;
+    const bool breakdown = omega_ == T(0) || alpha_ == T(0) || rho_ == T(0);
     go = rr > atol2 && !breakdown;
     rho = rho_;
     alpha = alpha_;
     omega = omega_;
     rho_ = sums[1];
-    beta = __ddiv_rn(__dmul_rn(__ddiv_rn(rho_, rho), alpha), omega);
+    beta = rdiv(rmul(rdiv(rho_, rho), alpha), omega);
     ++done;
   }
   // Every block read st and cont before the first grid sync; after it the
@@ -554,10 +651,37 @@ int gmres_cycle_grid(int n) {
   return cycle_grid(reinterpret_cast<const void*>(&gmres_cycle_kernel), capacity, n);
 }
 
-int bicgstab_cycle_grid(int n) {
+// The grid of one bicgstab_kernel instantiation (its own occupancy).
+template <typename T, class Mat, class Pre>
+int bicgstab_grid(int n) {
   static int capacity[64] = {0};
-  return cycle_grid(reinterpret_cast<const void*>(&bicgstab_cycle_kernel), capacity, n);
+  return cycle_grid(reinterpret_cast<const void*>(&bicgstab_kernel<T, Mat, Pre>), capacity, n);
 }
+
+// One cooperative launch of bicgstab_kernel<T, Mat, Pre>.
+template <typename T, class Mat, class Pre>
+int launch_bicgstab(Mat A, Pre M, const T* b, T* x, T* r, T* rhat, T* p, T* q, T* phat, T* s,
+                    T* shat, T* t, T* partials, T* st, int* cont, int n, int iterations,
+                    int from_zero, double tol2, double abs2, void* stream) {
+  if (n == 0) return 0;
+  if (iterations < 0) return (int)cudaErrorInvalidValue;
+  int grid = bicgstab_grid<T, Mat, Pre>(n);
+  if (grid < 0) return -grid;
+  int nb = blocks_for(n);
+  T tol2_t = (T)tol2, abs2_t = (T)abs2;
+  void* args[] = {&A, &M, &b, &x, &r, &rhat, &p, &q, &phat, &s, &shat, &t, &partials, &st, &cont,
+                  &n, &nb, &iterations, &from_zero, &tol2_t, &abs2_t};
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&bicgstab_kernel<T, Mat, Pre>),
+                                              dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return last_error();
+}
+
+using K18aRows = CsrRows<double>;
+using K18aPre = Jacobi<double, false>;
 
 }  // namespace
 
@@ -591,7 +715,7 @@ extern "C" int ppt_gmres_cycle_f64(const int* row_ptr, const int* cols,
 
 extern "C" int ppt_bicgstab_cycle_grid_f64(int n, void* stream) {
   (void)stream;
-  return bicgstab_cycle_grid(n);
+  return bicgstab_grid<double, K18aRows, K18aPre>(n);
 }
 
 extern "C" int ppt_bicgstab_cycle_f64(const int* row_ptr, const int* cols,
@@ -602,18 +726,41 @@ extern "C" int ppt_bicgstab_cycle_f64(const int* row_ptr, const int* cols,
                                       double* t, double* partials, double* st,
                                       int* cont, int n, int iterations,
                                       void* stream) {
-  if (n == 0) return 0;
-  if (iterations < 0) return (int)cudaErrorInvalidValue;
-  int grid = bicgstab_cycle_grid(n);
-  if (grid < 0) return -grid;
-  int nb = blocks_for(n);
-  void* args[] = {&row_ptr, &cols, &vals, &dinv, &b, &x, &r, &rhat, &p, &q,
-                  &phat, &s, &shat, &t, &partials, &st, &cont, &n, &nb, &iterations};
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&bicgstab_cycle_kernel),
-                                              dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  return last_error();
+  return launch_bicgstab<double>(K18aRows{row_ptr, cols, vals}, K18aPre{dinv}, b, x, r, rhat, p, q,
+                                 phat, s, shat, t, partials, st, cont, n, iterations, 0, 0.0, 0.0,
+                                 stream);
 }
+
+// The flow steps' solves (M = v / diag, the start from x = 0 with the
+// tolerance on the device): K12's stencil and K13's cell-cell CSR, f32 and
+// f64.
+#define PPT_FLOW_CYCLE(T, SUFFIX)                                                                  \
+  extern "C" int ppt_bicgstab_stencil_grid##SUFFIX(int n, void* stream) {                          \
+    (void)stream;                                                                                  \
+    return bicgstab_grid<T, StencilRows<T>, Jacobi<T, true>>(n);                                   \
+  }                                                                                                \
+  extern "C" int ppt_bicgstab_stencil##SUFFIX(const T* coef, const T* diag, const T* b, T* x,      \
+                                              T* r, T* rhat, T* p, T* q, T* phat, T* s, T* shat,   \
+                                              T* t, T* partials, T* st, int* cont, int nx, int ny, \
+                                              int nz, int iterations, double tol2, double abs2,    \
+                                              void* stream) {                                      \
+    return launch_bicgstab<T>(StencilRows<T>{coef, nx, ny, nz}, Jacobi<T, true>{diag}, b, x, r,    \
+                              rhat, p, q, phat, s, shat, t, partials, st, cont, nx * ny * nz,      \
+                              iterations, 1, tol2, abs2, stream);                                  \
+  }                                                                                                \
+  extern "C" int ppt_bicgstab_tpfa_grid##SUFFIX(int n, void* stream) {                             \
+    (void)stream;                                                                                  \
+    return bicgstab_grid<T, CsrRows<T>, Jacobi<T, true>>(n);                                       \
+  }                                                                                                \
+  extern "C" int ppt_bicgstab_tpfa##SUFFIX(const int* row_ptr, const int* cols, const T* vals,     \
+                                           const T* diag, const T* b, T* x, T* r, T* rhat, T* p,   \
+                                           T* q, T* phat, T* s, T* shat, T* t, T* partials, T* st, \
+                                           int* cont, int n, int iterations, double tol2,          \
+                                           double abs2, void* stream) {                            \
+    return launch_bicgstab<T>(CsrRows<T>{row_ptr, cols, vals}, Jacobi<T, true>{diag}, b, x, r,     \
+                              rhat, p, q, phat, s, shat, t, partials, st, cont, n, iterations, 1,  \
+                              tol2, abs2, stream);                                                 \
+  }
+
+PPT_FLOW_CYCLE(float, _f32)
+PPT_FLOW_CYCLE(double, _f64)

@@ -23,6 +23,20 @@
 // second pass are needed. Bound: bytes (p, the tangent, pv and six
 // transmissibilities per cell; ~100 B per cell in f64), and at 32^3 launch
 // latency.
+//
+// ppt_structured_linearize writes J(p) once a linearization as the 7-point
+// stencil that bicgstab_kernel's StencilRows multiplies (krylov.cu), so the
+// Krylov loop only multiplies and adds and exp stays here: out is (7, n),
+// rows centre, x-, x+, y-, y+, z-, z+. A face between lo and hi contributes
+// F' = a_lo dlo + a_hi dhi with the upwind side frozen by the sign of q =
+// t (p_lo - p_hi) and w = rho(upwind) / visc:
+//   q >= 0: a_lo = comp rho(p_lo) / visc q + w t, a_hi = -w t;
+//   q < 0:  a_lo = w t, a_hi = comp rho(p_hi) / visc q - w t.
+// The centre is pv comp rho(p_c) / dt minus the x-, y-, z- faces' a_hi and
+// plus the x+, y+, z+ faces' a_lo; a neighbour's coefficient is -a_lo of
+// its low face or a_hi of its high face, 0 where the neighbour is a ghost
+// (its tangent is 0). Bound: bytes, ~1.2 MB in f32 at 32^3 (once a Newton
+// step).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,6 +155,70 @@ __global__ void structured_kernel(const T* __restrict__ p,
   }
 }
 
+// The coefficients of one face's tangent on its lo and hi values.
+template <typename T>
+__device__ __forceinline__ void face_coefs(T t, T plo, T phi, T rlo, T rhi,
+                                           T comp, T visc, T& alo, T& ahi) {
+  const T q = t * (plo - phi);
+  const bool up = q >= T(0);
+  const T wt = (up ? rlo : rhi) / visc * t;
+  if (up) {
+    alo = comp * rlo / visc * q + wt;
+    ahi = -wt;
+  } else {
+    alo = wt;
+    ahi = comp * rhi / visc * q - wt;
+  }
+}
+
+template <typename T>
+__global__ void structured_linearize_kernel(
+    const T* __restrict__ p, const T* __restrict__ tx, const T* __restrict__ ty,
+    const T* __restrict__ tz, const T* __restrict__ pbc_x,
+    const T* __restrict__ pbc_y, const T* __restrict__ pbc_z,
+    const T* __restrict__ pv, const T* __restrict__ coef, T* __restrict__ out,
+    int nx, int ny, int nz) {
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t syz = (int64_t)ny * nz;
+  const int64_t n = (int64_t)nx * syz;
+  if (c >= n) return;
+  const int k = (int)(c % nz);
+  const int j = (int)((c / nz) % ny);
+  const int i = (int)(c / syz);
+  const T rho_ref = coef[0], comp = coef[1], visc = coef[2], p_ref = coef[3],
+          dt = coef[4];
+
+  const T pc = p[c];
+  const bool in_xl = i > 0, in_xh = i < nx - 1;
+  const bool in_yl = j > 0, in_yh = j < ny - 1;
+  const bool in_zl = k > 0, in_zh = k < nz - 1;
+  const T pxl = in_xl ? p[c - syz] : pbc_x[(int64_t)j * nz + k];
+  const T pxh = in_xh ? p[c + syz] : pbc_x[syz + (int64_t)j * nz + k];
+  const T pyl = in_yl ? p[c - nz] : pbc_y[(int64_t)i * nz + k];
+  const T pyh = in_yh ? p[c + nz] : pbc_y[(int64_t)nx * nz + (int64_t)i * nz + k];
+  const T pzl = in_zl ? p[c - 1] : pbc_z[(int64_t)i * ny + j];
+  const T pzh = in_zh ? p[c + 1] : pbc_z[(int64_t)nx * ny + (int64_t)i * ny + j];
+  const int64_t iy = ((int64_t)i * (ny + 1) + j) * nz + k;
+  const int64_t iz = ((int64_t)i * ny + j) * (nz + 1) + k;
+
+  const T rc = density(pc, rho_ref, comp, p_ref);
+  T xl_lo, xl_hi, xh_lo, xh_hi, yl_lo, yl_hi, yh_lo, yh_hi, zl_lo, zl_hi, zh_lo, zh_hi;
+  face_coefs(tx[c], pxl, pc, density(pxl, rho_ref, comp, p_ref), rc, comp, visc, xl_lo, xl_hi);
+  face_coefs(tx[c + syz], pc, pxh, rc, density(pxh, rho_ref, comp, p_ref), comp, visc, xh_lo, xh_hi);
+  face_coefs(ty[iy], pyl, pc, density(pyl, rho_ref, comp, p_ref), rc, comp, visc, yl_lo, yl_hi);
+  face_coefs(ty[iy + nz], pc, pyh, rc, density(pyh, rho_ref, comp, p_ref), comp, visc, yh_lo, yh_hi);
+  face_coefs(tz[iz], pzl, pc, density(pzl, rho_ref, comp, p_ref), rc, comp, visc, zl_lo, zl_hi);
+  face_coefs(tz[iz + 1], pc, pzh, rc, density(pzh, rho_ref, comp, p_ref), comp, visc, zh_lo, zh_hi);
+
+  out[c] = pv[c] * (comp * rc) / dt - xl_hi + xh_lo - yl_hi + yh_lo - zl_hi + zh_lo;
+  out[n + c] = in_xl ? -xl_lo : T(0);
+  out[2 * n + c] = in_xh ? xh_hi : T(0);
+  out[3 * n + c] = in_yl ? -yl_lo : T(0);
+  out[4 * n + c] = in_yh ? yh_hi : T(0);
+  out[5 * n + c] = in_zl ? -zl_lo : T(0);
+  out[6 * n + c] = in_zh ? zh_hi : T(0);
+}
+
 template <typename T, bool JVP>
 int launch(const T* p, const T* q, const T* tx, const T* ty, const T* tz,
            const T* pbc_x, const T* pbc_y, const T* pbc_z, const T* pv,
@@ -170,3 +248,20 @@ PPT_STRUCTURED(ppt_structured_residual_f32, float, false)
 PPT_STRUCTURED(ppt_structured_residual_f64, double, false)
 PPT_STRUCTURED(ppt_structured_jvp_f32, float, true)
 PPT_STRUCTURED(ppt_structured_jvp_f64, double, true)
+
+#define PPT_STRUCTURED_LINEARIZE(NAME, T)                                     \
+  extern "C" int NAME(const T* p, const T* tx, const T* ty, const T* tz,      \
+                      const T* pbc_x, const T* pbc_y, const T* pbc_z,         \
+                      const T* pv, const T* coef, T* out, int nx, int ny,     \
+                      int nz, void* stream) {                                 \
+    const int64_t n = (int64_t)nx * ny * nz;                                  \
+    if (n == 0) return 0;                                                     \
+    const int threads = 256;                                                  \
+    structured_linearize_kernel<T><<<(unsigned)((n + threads - 1) / threads), \
+                                     threads, 0, (cudaStream_t)stream>>>(     \
+        p, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef, out, nx, ny, nz);      \
+    return (int)cudaGetLastError();                                           \
+  }
+
+PPT_STRUCTURED_LINEARIZE(ppt_structured_linearize_f32, float)
+PPT_STRUCTURED_LINEARIZE(ppt_structured_linearize_f64, double)

@@ -14,7 +14,10 @@ K2's :class:`JacobiSweeps`, one per Jacobi block, and K3's
 :class:`VCycleOperator`, one per AMG hierarchy state;
 K19's launcher :class:`HaloOperator`, one per shard matrix of the sharded
 solve;
-K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; K8's
+K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; the flow
+steps' :class:`FlowCycle`, one per linearization buffer (K12, K13: a
+BiCGStab solve in two cooperative launches) and their linearizations
+:func:`structured_linearize` and :func:`tpfa_linearize`; K8's
 launchers :class:`DualGatherVar` and :class:`DualGatherCopy`, made once per
 step of the assembly's dual pass; and the K14, K15 and K8 operators at the end,
 called from the dual-number pass of the assembly
@@ -46,8 +49,11 @@ __all__ = [
     "dense_block_apply",
     "structured_residual",
     "structured_jvp",
+    "structured_linearize",
     "tpfa_residual",
     "tpfa_jvp",
+    "tpfa_linearize",
+    "FlowCycle",
     "region_solve",
     "bicgstab_cycle",
     "bicgstab_cycle_grid",
@@ -90,8 +96,12 @@ LAUNCHES = {
     "dense_block_apply": 0,
     "structured_residual": 0,
     "structured_jvp": 0,
+    "structured_linearize": 0,
+    "bicgstab_stencil": 0,
     "tpfa_residual": 0,
     "tpfa_jvp": 0,
+    "tpfa_linearize": 0,
+    "bicgstab_tpfa": 0,
     "region_solve": 0,
     "bicgstab_cycle": 0,
     "gmres_cycle": 0,
@@ -606,7 +616,9 @@ def _(D, r):
 # -- K12 --------------------------------------------------------------------------
 
 
-def _structured_cuda(name, p, q, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+def _structured_args(name, p, q, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef) -> dict:
+    """The K12 kernels' tensors by name, checked: one dtype, the grid's
+    shapes, contiguous on the card."""
     dtype = p.dtype
     tensors = {
         "p": p, "q": q, "tx": tx, "ty": ty, "tz": tz, "pbc_x": pbc_x,
@@ -626,11 +638,14 @@ def _structured_cuda(name, p, q, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
         if tuple(tensors[arg].shape) != shape:
             raise ValueError(f"{name}: {arg} has shape {tuple(tensors[arg].shape)}, expected {shape}")
     _check(name, tensors, dtype)
+    return tensors
+
+
+def _structured_cuda(name, *args):
+    tensors = _structured_args(name, *args)
+    p = tensors["p"]
     out = torch.empty_like(p)
-    _launch(
-        name, dtype,
-        *(t.data_ptr() for t in tensors.values()), out.data_ptr(), nx, ny, nz,
-    )
+    _launch(name, p.dtype, *(t.data_ptr() for t in tensors.values()), out.data_ptr(), *p.shape)
     return out
 
 
@@ -696,7 +711,10 @@ def _(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
 # -- K13 --------------------------------------------------------------------------
 
 
-def _tpfa_cuda(name, p, q, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
+def _tpfa_args(name, p, q, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef) -> dict:
+    """The K13 kernels' tensors by name, checked: one dtype for the values,
+    int32 topology, consistent cell and face shapes, contiguous on the
+    card."""
     dtype = p.dtype
     if any(x.dtype != dtype for x in (q, t, bc_val, pv, coef)):
         raise TypeError(f"{name}: p, q, t, bc_val, pv, coef need one dtype")
@@ -717,12 +735,16 @@ def _tpfa_cuda(name, p, q, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, 
         "cell_faces": cell_faces, "coef": coef,
     }
     _check(name, tensors, dtype)
-    m = torch.empty(nf, dtype=dtype, device=p.device)
+    return tensors
+
+
+def _tpfa_cuda(name, *args):
+    tensors = _tpfa_args(name, *args)
+    p, nf = tensors["p"], tensors["t"].shape[0]
+    m = torch.empty(nf, dtype=p.dtype, device=p.device)
     out = torch.empty_like(p)
-    _launch(
-        name, dtype,
-        *(x.data_ptr() for x in tensors.values()), m.data_ptr(), out.data_ptr(), nc, nf,
-    )
+    _launch(name, p.dtype, *(x.data_ptr() for x in tensors.values()), m.data_ptr(), out.data_ptr(),
+            p.shape[0], nf)
     return out
 
 
@@ -787,6 +809,152 @@ def _tpfa_jvp_cuda(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, c
 @tpfa_jvp.register_fake
 def _(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
     return torch.empty_like(p)
+
+
+# -- K12 and K13: the Newton step's linearization and BiCGStab solve ----------------
+
+
+def structured_linearize(p, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef, out) -> None:
+    """``J(p)`` of :func:`structured_residual` as its 7-point stencil, into
+    ``out`` ``(7, nx, ny, nz)`` (see
+    :func:`porepy_tpu_torch.kernels.reference.structured_linearize`); one
+    launch on the card."""
+    if out.shape != (7,) + tuple(p.shape) or out.dtype != p.dtype:
+        raise ValueError("structured_linearize: out must be (7, *p.shape) in p's dtype")
+    if not p.is_cuda:
+        out.copy_(reference.structured_linearize(p, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef))
+        return
+    tensors = _structured_args("structured_linearize", p, p, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef)
+    _check("structured_linearize", {"out": out}, p.dtype)
+    del tensors["q"]
+    _launch("structured_linearize", p.dtype, *(t.data_ptr() for t in tensors.values()), out.data_ptr(),
+            *p.shape)
+
+
+def tpfa_linearize(p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef, slot, diag_slot,
+                   vals) -> None:
+    """``J(p)`` of :func:`tpfa_residual` as the values ``vals`` of a
+    cell-cell CSR matrix on a fixed pattern, in place (see
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_linearize`); one launch
+    on the card."""
+    if slot.shape != cell_faces.shape or diag_slot.shape != pv.shape:
+        raise ValueError("tpfa_linearize: slot must be like cell_faces, diag_slot like pv")
+    if vals.dtype != p.dtype or vals.dim() != 1:
+        raise ValueError("tpfa_linearize: vals must be 1-d in p's dtype")
+    if not p.is_cuda:
+        vals.copy_(reference.tpfa_linearize(p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces,
+                                            coef, slot, diag_slot, vals.shape[0]))
+        return
+    if slot.dtype != torch.int32 or diag_slot.dtype != torch.int32:
+        raise TypeError("tpfa_linearize: slot and diag_slot must be int32")
+    tensors = _tpfa_args("tpfa_linearize", p, p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef)
+    _check("tpfa_linearize", {"slot": slot, "diag_slot": diag_slot, "vals": vals}, p.dtype)
+    del tensors["q"]
+    _launch("tpfa_linearize", p.dtype, *(x.data_ptr() for x in tensors.values()), slot.data_ptr(),
+            diag_slot.data_ptr(), vals.data_ptr(), p.shape[0])
+
+
+class FlowCycle:
+    """A flow step's BiCGStab solve of ``J x = b`` with ``M v = v / diag``
+    (jax's ``bicgstab`` from ``x = 0``), ``J`` held as the coefficients of
+    one linearization: K12's stencil (``kind "stencil"``, ``op = (coef,)``,
+    ``coef`` ``(7, nx, ny, nz)`` of :func:`structured_linearize`) or K13's
+    cell-cell CSR matrix (``kind "tpfa"``, ``op = (row_ptr, cols, vals)``,
+    the values from :func:`tpfa_linearize`). ``op`` and ``diag`` ``(n,)``
+    are the caller's buffers, rewritten in place between solves.
+
+    A solve is two launches of one cooperative kernel (``bicgstab_kernel``
+    in ``csrc/krylov.cu``, counted as ``bicgstab_stencil`` or
+    ``bicgstab_tpfa``): one starts it (``x = 0``, ``r = b``, the tolerance
+    from ``<b, b>``), one runs its iterations, both matvecs inside, until it
+    stops on the device or spends ``maxiter``; the host reads the flag and
+    the count once, after the second. Everything is checked once, here: the
+    state (the vectors, partial sums, scalars and flag) is allocated, owned
+    and reused by every solve, the pointers and the kernel's ctypes function
+    resolved, so a launch makes one ctypes call. On the card it refuses to
+    run where there is no cooperative launch (``grid``: the blocks of a
+    launch, the co-resident maximum, at most one per 128-row tile); buffers
+    on the CPU run the plain version (``reference.bicgstab_stencil``/
+    ``bicgstab_tpfa``)."""
+
+    __slots__ = ("kind", "op", "diag", "n", "dtype", "state", "grid", "_fn", "_dev", "_head", "_tail",
+                 "_dims")
+
+    def __init__(self, kind: str, op: tuple, diag: torch.Tensor) -> None:
+        if kind not in ("stencil", "tpfa"):
+            raise ValueError(f"FlowCycle: kind {kind!r}, expected 'stencil' or 'tpfa'")
+        name = "bicgstab_" + kind
+        dtype, n = diag.dtype, diag.shape[0]
+        if dtype not in _SUFFIX or diag.dim() != 1:
+            raise TypeError(f"{name}: diag must be a float32/float64 vector")
+        if kind == "stencil":
+            (coef,) = op
+            if coef.dim() != 4 or coef.shape[0] != 7 or coef[0].numel() != n or coef.dtype != dtype:
+                raise ValueError(f"{name}: coef must be (7, nx, ny, nz) in diag's dtype, nx ny nz = {n}")
+            tensors = {"coef": coef, "diag": diag}
+            self._dims = tuple(coef.shape[1:])
+        else:
+            row_ptr, cols, vals = op
+            if row_ptr.shape != (n + 1,) or cols.dim() != 1 or vals.shape != cols.shape:
+                raise ValueError(f"{name}: needs a CSR matrix of {n} rows")
+            if row_ptr.dtype != torch.int32 or cols.dtype != torch.int32 or vals.dtype != dtype:
+                raise TypeError(f"{name}: needs int32 row_ptr and cols, vals in diag's dtype")
+            tensors = {"row_ptr": row_ptr, "cols": cols, "vals": vals, "diag": diag}
+            self._dims = (n,)
+        self.kind, self.op, self.diag, self.n, self.dtype = kind, tuple(op), diag, n, dtype
+        dev = diag.device
+        self.state = (
+            [torch.zeros(n, dtype=dtype, device=dev) for _ in range(9)]
+            + [torch.zeros(reference.BICG_ROWS, _nb(n), dtype=dtype, device=dev),
+               torch.zeros(reference.BICG_SLOTS, dtype=dtype, device=dev),
+               torch.zeros(2, dtype=torch.int32, device=dev)]
+        )
+        self._fn = self.grid = None
+        if not _on_card(name, {"diag": diag, **tensors}):
+            return
+        grid = _kernel(name + "_grid", dtype)(n, None)
+        if grid < 0:
+            raise RuntimeError(f"{name}: no cooperative launch (CUDA error {-grid})")
+        self.grid = grid
+        self._dev = diag.get_device()
+        self._head = tuple(t.data_ptr() for t in tensors.values())
+        self._tail = tuple(t.data_ptr() for t in self.state)
+        self._fn = _kernel(name, dtype)
+
+    def launch(self, b: torch.Tensor, iterations: int, tol: float, atol: float = 0.0) -> None:
+        """One launch on the state: the start (``iterations = 0``) or up to
+        ``iterations`` iterations. No host read: a CUDA graph may hold it."""
+        if b.dtype != self.dtype or b.shape != (self.n,) or not b.is_contiguous():
+            raise ValueError(f"bicgstab_{self.kind}: b must be a contiguous ({self.n},) tensor in diag's dtype")
+        if iterations < 0:
+            raise ValueError(f"bicgstab_{self.kind}: {iterations} iterations")
+        tol2, abs2 = float(tol) ** 2, float(atol) ** 2
+        if self._fn is None:
+            if b.device.type != "cpu":
+                raise ValueError(f"bicgstab_{self.kind}: b is on {b.device}, the operator on the cpu")
+            plain = reference.bicgstab_stencil if self.kind == "stencil" else reference.bicgstab_tpfa
+            plain(*self.op, self.diag, b, *self.state, iterations, tol2, abs2)
+            return
+        if not b.is_cuda or b.get_device() != self._dev:
+            raise ValueError(f"bicgstab_{self.kind}: b is on {b.device}, expected the operator's card")
+        if self.n == 0:
+            return
+        rc = self._fn(*self._head, b.data_ptr(), *self._tail, *self._dims, iterations, tol2, abs2,
+                      _current_stream(self._dev))
+        if rc != 0:
+            raise RuntimeError(f"bicgstab_{self.kind} kernel launch failed with CUDA error {rc}")
+        LAUNCHES["bicgstab_" + self.kind] += 1
+
+    def solve(self, b: torch.Tensor, tol: float, atol: float = 0.0, maxiter: int = 200) -> tuple:
+        """``(x, iterations)`` of jax's ``bicgstab(J, b, tol=tol,
+        atol=atol, maxiter=maxiter, M=lambda v: v / diag)``: two launches,
+        one host read. ``x`` is the state's vector, rewritten by the next
+        solve."""
+        self.launch(b, 0, tol, atol)
+        if maxiter > 0:
+            self.launch(b, maxiter, tol, atol)
+        _flag, k = self.state[-1].tolist()
+        return self.state[0], k
 
 
 # -- K10 --------------------------------------------------------------------------

@@ -23,8 +23,11 @@ __all__ = [
     "dense_block_apply",
     "structured_residual",
     "structured_jvp",
+    "structured_linearize",
+    "stencil_matvec",
     "tpfa_residual",
     "tpfa_jvp",
+    "tpfa_linearize",
     "region_solve_contract",
     "KRYLOV_BLOCK",
     "block_partials",
@@ -36,6 +39,8 @@ __all__ = [
     "bicgstab_xr",
     "bicgstab_scalars",
     "bicgstab_cycle",
+    "bicgstab_stencil",
+    "bicgstab_tpfa",
     "cgs_project",
     "cgs_update",
     "cgs_normalize",
@@ -267,6 +272,63 @@ def structured_jvp(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
     return pv * (comp * _density(p, coef) * dp) / dt - div
 
 
+def _face_coefficients(t, p_lo, p_hi, coef):
+    """A face's tangent ``dm = a_lo d_lo + a_hi d_hi`` at the frozen ``p``,
+    the upwind side fixed by the sign of ``q = t (p_lo - p_hi)``: returns
+    ``(a_lo, a_hi)`` (see ``csrc/structured_flow.cu``)."""
+    comp, visc = coef[1], coef[2]
+    r_lo, r_hi = _density(p_lo, coef), _density(p_hi, coef)
+    q = t * (p_lo - p_hi)
+    up = q >= 0
+    wt = torch.where(up, r_lo, r_hi) / visc * t
+    return (
+        torch.where(up, comp * r_lo / visc * q + wt, wt),
+        torch.where(up, -wt, comp * r_hi / visc * q - wt),
+    )
+
+
+def structured_linearize(p, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    """``J(p)`` of :func:`structured_residual` as a 7-point stencil, ``(7,
+    nx, ny, nz)``: the centre, then the x-, x+, y-, y+, z-, z+ neighbours'
+    coefficients (0 where the neighbour is a Dirichlet ghost, whose tangent
+    is 0), so that :func:`stencil_matvec` is :func:`structured_jvp`."""
+    comp, dt = coef[1], coef[4]
+
+    def axis_coefficients(t, ghosts, axis):
+        pg = torch.cat([ghosts[0].unsqueeze(axis), p, ghosts[1].unsqueeze(axis)], axis)
+        m = pg.shape[axis] - 1
+        return _face_coefficients(t, pg.narrow(axis, 0, m), pg.narrow(axis, 1, m), coef)
+
+    centre = pv * (comp * _density(p, coef)) / dt
+    out = [None] * 6
+    for axis, (t, ghosts) in enumerate(((tx, pbc_x), (ty, pbc_y), (tz, pbc_z))):
+        a_lo, a_hi = axis_coefficients(t, ghosts, axis)
+        m = a_lo.shape[axis] - 1
+        centre = centre - a_hi.narrow(axis, 0, m) + a_lo.narrow(axis, 1, m)
+        low, high = -a_lo.narrow(axis, 0, m), a_hi.narrow(axis, 1, m).clone()
+        low.narrow(axis, 0, 1).zero_()
+        high.narrow(axis, m - 1, 1).zero_()
+        out[2 * axis], out[2 * axis + 1] = low, high
+    return torch.stack([centre] + out)
+
+
+def stencil_matvec(coef: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``J x`` for the stencil ``coef`` ``(7, nx, ny, nz)`` of
+    :func:`structured_linearize` and a flat ``x``, as the K12 cycle's rows
+    form it: ``c_0 x_i``, then each neighbour's product (``x`` read as 0
+    outside the grid) added in the order x-, x+, y-, y+, z-, z+."""
+    xs = x.view(coef.shape[1:])
+    xp = torch.nn.functional.pad(xs, (1, 1, 1, 1, 1, 1))
+    neighbours = (
+        xp[:-2, 1:-1, 1:-1], xp[2:, 1:-1, 1:-1], xp[1:-1, :-2, 1:-1],
+        xp[1:-1, 2:, 1:-1], xp[1:-1, 1:-1, :-2], xp[1:-1, 1:-1, 2:],
+    )
+    acc = coef[0] * xs
+    for k, xn in enumerate(neighbours, 1):
+        acc = acc + coef[k] * xn
+    return acc.reshape(-1)
+
+
 # -- K13 --------------------------------------------------------------------------
 
 
@@ -323,6 +385,36 @@ def tpfa_jvp(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
     dmass = torch.where(is_neu, dq, dw * q + w * dq)
     div = _tpfa_divergence(dmass, cell_ptr, cell_faces, pv.shape[0])
     return pv * (comp * _density(p, coef) * dp) / dt + div
+
+
+def tpfa_linearize(p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef, slot, diag_slot,
+                   nnz: int):
+    """``J(p)`` of :func:`tpfa_residual` as the ``nnz`` values of a cell-cell
+    CSR matrix on a fixed pattern: ``slot[e]`` is the value index of entry
+    ``e`` of ``cell_faces``'s neighbour (-1 on a boundary face),
+    ``diag_slot[c]`` that of cell ``c``'s diagonal. Neumann faces add
+    nothing (their flux is prescribed)."""
+    comp, dt = coef[1], coef[4]
+    nc = pv.shape[0]
+    p_lo, p_hi = _tpfa_face_values(p, lo, hi, bc_val)
+    a_lo, a_hi = _face_coefficients(t, p_lo, p_hi, coef)
+    a_lo = torch.where(is_neu, torch.zeros_like(a_lo), a_lo)
+    a_hi = torch.where(is_neu, torch.zeros_like(a_hi), a_hi)
+    cf = cell_faces.long()
+    face = torch.where(cf >= 0, cf, -cf - 1)
+    own = cf >= 0
+    cell = torch.repeat_interleave(
+        torch.arange(nc, device=p.device), (cell_ptr[1:] - cell_ptr[:-1]).long()
+    )
+    diag = (pv * (comp * _density(p, coef)) / dt).index_add(
+        0, cell, torch.where(own, a_lo[face], -a_hi[face])
+    )
+    vals = p.new_zeros(nnz)
+    k = slot.long()
+    ok = k >= 0
+    vals.index_add_(0, k[ok], torch.where(own, a_hi[face], -a_lo[face])[ok])
+    vals[diag_slot.long()] = diag
+    return vals
 
 
 # -- K10 --------------------------------------------------------------------------
@@ -417,10 +509,11 @@ def ell_spmv_ordered(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> t
     return acc
 
 
-def bicgstab_p(r, q, dinv, st, p, phat) -> None:
-    """In place: ``p <- r + beta (p - omega q)``, ``phat = dinv p``."""
+def bicgstab_p(r, q, dinv, st, p, phat, divide: bool = False) -> None:
+    """In place: ``p <- r + beta (p - omega q)``, ``phat = dinv p`` (``p /
+    dinv`` with ``divide``)."""
     p.copy_(r + st[BICG_BETA] * (p - st[BICG_OMEGA] * q))
-    phat.copy_(dinv * p)
+    phat.copy_(p / dinv if divide else dinv * p)
 
 
 def krylov_dots(a, b, c, d, partials, ndots: int) -> None:
@@ -431,11 +524,11 @@ def krylov_dots(a, b, c, d, partials, ndots: int) -> None:
         partials[1] = block_partials(c * d)
 
 
-def bicgstab_s(r, q, dinv, st, s, shat, partials) -> None:
-    """In place: ``s = r - alpha_ q``, ``shat = dinv s``, partials of
-    ``<s, s>`` into ``partials[0]``."""
+def bicgstab_s(r, q, dinv, st, s, shat, partials, divide: bool = False) -> None:
+    """In place: ``s = r - alpha_ q``, ``shat = dinv s`` (``s / dinv`` with
+    ``divide``), partials of ``<s, s>`` into ``partials[0]``."""
     s.copy_(r - st[BICG_ALPHA_NEW] * q)
-    shat.copy_(dinv * s)
+    shat.copy_(s / dinv if divide else dinv * s)
     partials[0] = block_partials(s * s)
 
 
@@ -479,43 +572,89 @@ def bicgstab_scalars(partials, st, cont, stage: int) -> None:
         st[BICG_BETA] = hr / rho * alpha / omega
 
 
-def bicgstab_cycle(row_ptr, cols, vals, dinv, b, x, r, rhat, p, q, phat, s, shat, t,
-                   partials, st, cont, iterations: int) -> None:
-    """A BiCGStab solve with ``M = dinv *`` on the CSR matrix ``(row_ptr,
-    cols, vals)``, in place, as the K18a kernel runs it: with ``iterations
-    = 0`` the start from ``x`` (``r = b - A x``, ``rhat = p = q = r``,
-    :func:`bicgstab_scalars` ``STAGE_INIT``); otherwise up to
-    ``iterations`` iterations while ``cont[0]`` holds, each the plain
-    passes :func:`bicgstab_p`, :func:`krylov_dots`, :func:`bicgstab_s`,
-    :func:`bicgstab_xr` and :func:`bicgstab_scalars` around two matvecs
-    that round as the kernel's (:func:`ell_spmv_ordered`). ``partials`` is
-    ``(BICG_ROWS, nb)``, one row per dot product; ``cont`` int32 ``(2,)``:
-    the continue flag and the iterations run since the start."""
-    val, col = csr_ell(row_ptr, cols, vals, x.shape[0])
+def _bicgstab(matvec, dinv, divide: bool, b, x, r, rhat, p, q, phat, s, shat, t, partials, st,
+              cont, iterations: int, start=None) -> None:
+    """The BiCGStab launch of the K18a/K12/K13 kernel (``bicgstab_kernel``
+    in ``csrc/krylov.cu``) in plain passes, in place: with ``iterations =
+    0`` the start, otherwise up to ``iterations`` iterations while
+    ``cont[0]`` holds, each :func:`bicgstab_p`, :func:`krylov_dots`,
+    :func:`bicgstab_s`, :func:`bicgstab_xr` and :func:`bicgstab_scalars`
+    around two ``matvec`` calls that round as the kernel's. ``start`` is
+    None for K18a's start (``r = b - A x``, the tolerance in ``st``), or
+    ``(tol2, abs2)`` for the flow steps' (``x = 0``, ``r = b``, ``rho =
+    alpha = omega = 1``, ``atol2 = max(tol2 <b, b>, abs2)`` in ``b``'s
+    dtype, a NaN kept, as jax's maximum keeps it)."""
     flag = cont[:1]
     if iterations == 0:
-        r.copy_(b - ell_spmv_ordered(val, col, x))
+        if start is None:
+            r.copy_(b - matvec(x))
+        else:
+            x.zero_()
+            r.copy_(b)
         for v in (rhat, p, q):
             v.copy_(r)
         rows = partials[BICG_RR_ROW : BICG_RR_ROW + 1]
         krylov_dots(r, r, r, r, rows, 1)
+        if start is not None:
+            tol2, abs2 = (torch.tensor(v, dtype=b.dtype, device=b.device) for v in start)
+            a = tol2 * finish(rows)[0]
+            st[BICG_ATOL2] = torch.where((a > abs2) | torch.isnan(a), a, abs2)
+            st[[BICG_RHO, BICG_ALPHA, BICG_OMEGA]] = 1.0
+            st[[BICG_ALPHA_NEW, BICG_OMEGA_NEW, BICG_EXIT]] = 0.0
         bicgstab_scalars(rows, st, flag, STAGE_INIT)
         cont[1] = 0
         return
     done = 0
     while done < iterations and bool(flag):
-        bicgstab_p(r, q, dinv, st, p, phat)
-        q.copy_(ell_spmv_ordered(val, col, phat))
+        bicgstab_p(r, q, dinv, st, p, phat, divide)
+        q.copy_(matvec(phat))
         krylov_dots(rhat, q, rhat, q, partials[BICG_RQ : BICG_RQ + 1], 1)
         bicgstab_scalars(partials[BICG_RQ : BICG_RQ + 1], st, flag, STAGE_ALPHA)
-        bicgstab_s(r, q, dinv, st, s, shat, partials[BICG_SS : BICG_SS + 1])
-        t.copy_(ell_spmv_ordered(val, col, shat))
+        bicgstab_s(r, q, dinv, st, s, shat, partials[BICG_SS : BICG_SS + 1], divide)
+        t.copy_(matvec(shat))
         krylov_dots(t, s, t, t, partials[BICG_TS : BICG_TT + 1], 2)
         bicgstab_scalars(partials[BICG_SS : BICG_TT + 1], st, flag, STAGE_OMEGA)
         bicgstab_xr(x, r, phat, shat, s, t, rhat, st, partials[BICG_RR_ROW : BICG_HR + 1])
         bicgstab_scalars(partials[BICG_RR_ROW : BICG_HR + 1], st, flag, STAGE_NEXT)
         done += 1
     cont[1] += done
+
+
+def bicgstab_cycle(row_ptr, cols, vals, dinv, b, x, r, rhat, p, q, phat, s, shat, t,
+                   partials, st, cont, iterations: int) -> None:
+    """A BiCGStab solve with ``M = dinv *`` on the CSR matrix ``(row_ptr,
+    cols, vals)``, in place, as the K18a kernel runs it (:func:`_bicgstab`):
+    with ``iterations = 0`` the start from ``x`` (``r = b - A x``, ``rhat =
+    p = q = r``, :func:`bicgstab_scalars` ``STAGE_INIT``); otherwise up to
+    ``iterations`` iterations while ``cont[0]`` holds, the matvecs rounded
+    as the kernel's (:func:`ell_spmv_ordered`). ``partials`` is
+    ``(BICG_ROWS, nb)``, one row per dot product; ``cont`` int32 ``(2,)``:
+    the continue flag and the iterations run since the start."""
+    val, col = csr_ell(row_ptr, cols, vals, x.shape[0])
+    _bicgstab(lambda v: ell_spmv_ordered(val, col, v), dinv, False, b, x, r, rhat, p, q, phat, s,
+              shat, t, partials, st, cont, iterations)
+
+
+def bicgstab_stencil(coef, diag, b, x, r, rhat, p, q, phat, s, shat, t, partials, st, cont,
+                     iterations: int, tol2: float, abs2: float) -> None:
+    """A flow step's BiCGStab solve (K12) with ``M = v / diag`` on the
+    stencil ``coef`` ``(7, nx, ny, nz)`` of :func:`structured_linearize`
+    (:func:`stencil_matvec`), flat vectors, in place: ``iterations = 0``
+    starts it from ``x = 0`` with ``atol2 = max(tol2 <b, b>, abs2)``, as
+    :func:`_bicgstab` says; f32 or f64."""
+    _bicgstab(lambda v: stencil_matvec(coef, v), diag, True, b, x, r, rhat, p, q, phat, s, shat, t,
+              partials, st, cont, iterations, (tol2, abs2))
+
+
+def bicgstab_tpfa(row_ptr, cols, vals, diag, b, x, r, rhat, p, q, phat, s, shat, t, partials, st,
+                  cont, iterations: int, tol2: float, abs2: float) -> None:
+    """A flow step's BiCGStab solve (K13) with ``M = v / diag`` on the
+    cell-cell CSR matrix of :func:`tpfa_linearize`, each row summed in its
+    stored order (:func:`ell_spmv_ordered`), in place, started as
+    :func:`bicgstab_stencil`; f32 or f64."""
+    val, col = csr_ell(row_ptr, cols, vals, x.shape[0])
+    _bicgstab(lambda v: ell_spmv_ordered(val, col, v), diag, True, b, x, r, rhat, p, q, phat, s,
+              shat, t, partials, st, cont, iterations, (tol2, abs2))
 
 
 # The GMRES passes below round as the K18b kernel does, operation by

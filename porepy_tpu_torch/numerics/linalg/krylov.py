@@ -6,8 +6,11 @@ SolverStatistics, the tests and ``chip_smoke.py``).
 
 :func:`bicgstab` and :func:`gmres` are the matrix-free BiCGStab and GMRES
 (``solve_method="batched"``) of ``jax.scipy.sparse.linalg`` (jax 0.9) in
-plain PyTorch. The structured and unstructured flow steps
-(:mod:`porepy_tpu_torch.parallel`) solve with :func:`bicgstab`.
+plain PyTorch, host loops that read a flag every iteration: the
+matrix-free plain versions the tests compare with. The structured and
+unstructured flow steps (:mod:`porepy_tpu_torch.parallel`) solve with
+:class:`porepy_tpu_torch.kernels.FlowCycle`, the same BiCGStab in one
+cooperative kernel.
 
 :func:`solve_sparse` (K18, behind the ``jax_bicgstab``/``jax_gmres``
 linear-solver options) solves an assembled scipy matrix with the same two

@@ -1,12 +1,15 @@
 """Device-resident single-phase-flow Newton step on unstructured TPFA data.
 
-The whole per-iteration work -- residual, matrix-free Jacobian action,
-Krylov solve, update -- runs on fixed-shape tensors of one device, with no
-sparse matrices: the residual and its Jacobian action are one launch each
-of the hand-written TPFA kernels
+The whole per-iteration work -- residual, Jacobian, Krylov solve, update
+-- runs on fixed-shape tensors of one device: the residual and its
+Jacobian action are one launch each of the hand-written TPFA kernels
 (:func:`~porepy_tpu_torch.kernels.tpfa_residual`,
 :func:`~porepy_tpu_torch.kernels.tpfa_jvp`), and the solve is a
-Jacobi-preconditioned BiCGStab.
+Jacobi-preconditioned BiCGStab. The Newton step writes the Jacobian once
+as the values of a cell-cell matrix on a pattern fixed by the topology
+(:func:`~porepy_tpu_torch.kernels.tpfa_linearize`, one launch) and solves
+in two cooperative launches of
+:class:`~porepy_tpu_torch.kernels.FlowCycle`, the matvecs inside.
 
 Physics covered (matching the model-layer SinglePhaseFlow): compressible
 single-phase Darcy flow, TPFA fluxes with Dirichlet ghost values / Neumann
@@ -20,13 +23,13 @@ mesh is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Union
 
 import numpy as np
 import torch
 
 from porepy_tpu_torch import kernels
-from porepy_tpu_torch.numerics.linalg.krylov import bicgstab
 
 __all__ = ["TpfaFlowKernel", "build_cart_flow_kernel", "newton_step"]
 
@@ -46,6 +49,30 @@ def _cell_face_csr(lo: np.ndarray, hi: np.ndarray, num_cells: int):
     ptr = np.zeros(num_cells + 1, dtype=np.int64)
     ptr[1:] = np.cumsum(np.bincount(cells, minlength=num_cells))
     return ptr.astype(np.int32), codes[order].astype(np.int32)
+
+
+def _jacobian_pattern(lo, hi, cell_ptr, cell_faces, num_cells: int):
+    """The Jacobian's cell-cell pattern from the cell-to-face CSR of
+    :func:`_cell_face_csr`: each cell's row holds its diagonal and a column
+    for each neighbour across a face, in increasing column order. Returns
+    int32 ``(row_ptr, cols, slot, diag_slot)``: ``slot[e]`` the value index
+    of entry ``e``'s neighbour (-1 on a boundary face), ``diag_slot[c]``
+    that of cell ``c``'s diagonal."""
+    lo, hi = np.asarray(lo, dtype=np.int64), np.asarray(hi, dtype=np.int64)
+    cf = np.asarray(cell_faces, dtype=np.int64)
+    face = np.where(cf >= 0, cf, -cf - 1)
+    cell = np.repeat(np.arange(num_cells), np.diff(np.asarray(cell_ptr, dtype=np.int64)))
+    other = np.where(cf >= 0, hi[face], lo[face])
+    inner = other >= 0
+    rows = np.concatenate([np.arange(num_cells), cell[inner]])
+    cols = np.concatenate([np.arange(num_cells), other[inner]])
+    keys, where = np.unique(rows * num_cells + cols, return_inverse=True)
+    row_ptr = np.zeros(num_cells + 1, dtype=np.int64)
+    row_ptr[1:] = np.cumsum(np.bincount(keys // num_cells, minlength=num_cells))
+    slot = np.full(cf.size, -1, dtype=np.int64)
+    slot[inner] = where[num_cells:]
+    return (row_ptr.astype(np.int32), (keys % num_cells).astype(np.int32),
+            slot.astype(np.int32), where[:num_cells].astype(np.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,23 +189,52 @@ class TpfaFlowKernel:
 
     # -- Newton step ---------------------------------------------------------
 
-    def newton_step(self, p, p_prev, tol: float = 1e-10, maxiter: int = 200):
-        """One Newton iteration: matrix-free BiCGStab on the Jacobian
-        action. Returns ``(p_new, residual_norm_before)``."""
-        arrays, coef = self._arrays(), self._coef()
-        r = kernels.tpfa_residual(p, p_prev, *arrays, coef)
-        diag = self._jacobi_diagonal(p)
+    @functools.cached_property
+    def _solvers(self) -> dict:
+        """Per dtype, made at first use: ``(args, cycle)``, the
+        linearization's arguments (the kernel's arrays and fluid scalars in
+        that dtype and the Jacobian's pattern slots, :func:`_jacobian_pattern`,
+        built once on the host) and the
+        :class:`~porepy_tpu_torch.kernels.FlowCycle` over the Jacobian's
+        values and Jacobi diagonal, both rewritten each linearization."""
+        return {}
 
+    def _linearized(self, p, dtype):
+        """The solver of ``J(p)`` in ``dtype``: one ``tpfa_linearize``
+        launch at ``p`` cast to ``dtype``, and ``M = v / diag`` with the
+        Jacobi diagonal at ``p`` cast to it."""
+        solver = self._solvers.get(dtype)
+        if solver is None:
+            dev = self.t.device
+            pattern = _jacobian_pattern(
+                *(a.cpu().numpy() for a in (self.lo, self.hi, self.cell_ptr, self.cell_faces)),
+                self.num_cells,
+            )
+            row_ptr, cols, slot, diag_slot = (torch.tensor(a, device=dev) for a in pattern)
+            vals = torch.zeros(cols.shape[0], dtype=dtype, device=dev)
+            diag = torch.empty(self.num_cells, dtype=dtype, device=dev)
+            arrays = tuple(a.to(dtype) if a.is_floating_point() else a for a in self._arrays())
+            solver = self._solvers[dtype] = (
+                (*arrays, self._coef().to(dtype), slot, diag_slot),
+                kernels.FlowCycle("tpfa", (row_ptr, cols, vals), diag),
+            )
+        args, cycle = solver
+        kernels.tpfa_linearize(p.to(dtype), *args, cycle.op[-1])
+        cycle.diag.copy_(self._jacobi_diagonal(p))
+        return cycle
+
+    def newton_step(self, p, p_prev, tol: float = 1e-10, maxiter: int = 200, iterations: list | None = None):
+        """One Newton iteration: BiCGStab on the Jacobian, linearized once
+        (two launches); the solve's iteration count is appended to
+        ``iterations`` when a list is given. Returns
+        ``(p_new, residual_norm_before)``."""
+        r = kernels.tpfa_residual(p, p_prev, *self._arrays(), self._coef())
+        cycle = self._linearized(p, p.dtype)
         nrm = torch.linalg.vector_norm(r)
         scale = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-        dx, _ = bicgstab(
-            lambda v: kernels.tpfa_jvp(p, v, *arrays, coef),
-            -r / scale,
-            M=lambda x: x / diag,
-            tol=tol,
-            atol=0.0,
-            maxiter=maxiter,
-        )
+        dx, k = cycle.solve(-r / scale, tol=tol, atol=0.0, maxiter=maxiter)
+        if iterations is not None:
+            iterations.append(k)
         dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx)) * scale
         return p + dx, nrm
 

@@ -5,8 +5,13 @@ lives as an ``(nx, ny, nz)`` tensor, the residual and its Jacobian action
 are one launch each of the hand-written stencil kernels
 (:func:`~porepy_tpu_torch.kernels.structured_residual`,
 :func:`~porepy_tpu_torch.kernels.structured_jvp`), and the linear solve is
-a matrix-free BiCGStab in float32 wrapped in float64 iterative refinement,
-as in ``porepy_tpu/parallel/structured_flow.py``.
+a BiCGStab in float32 wrapped in float64 iterative refinement, as in
+``porepy_tpu/parallel/structured_flow.py``. The float32 Jacobian is
+written once a Newton step as a 7-point stencil
+(:func:`~porepy_tpu_torch.kernels.structured_linearize`, one launch) and
+each of the step's solves is two cooperative launches of
+:class:`~porepy_tpu_torch.kernels.FlowCycle`, the matvecs inside; the
+refinement's float64 residual keeps ``structured_jvp``.
 
 This is the structured-grid fast path behind the ``structured`` bench case
 of ``porepy_tpu``; the general unstructured path is
@@ -16,13 +21,13 @@ of ``porepy_tpu``; the general unstructured path is
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Union
 
 import numpy as np
 import torch
 
 from porepy_tpu_torch import kernels
-from porepy_tpu_torch.numerics.linalg.krylov import bicgstab
 
 __all__ = ["StructuredFlowKernel", "build_structured_flow_kernel"]
 
@@ -74,6 +79,31 @@ class StructuredFlowKernel:
 
     # -- Newton step with mixed-precision Krylov -----------------------------
 
+    @functools.cached_property
+    def _solvers(self) -> dict:
+        """Per dtype, made at first use: ``(args, cycle)``, the
+        linearization's arguments (the kernel's arrays and fluid scalars in
+        that dtype) and the :class:`~porepy_tpu_torch.kernels.FlowCycle`
+        over the Jacobian's stencil ``(7, nx, ny, nz)`` and Jacobi diagonal,
+        both rewritten each linearization."""
+        return {}
+
+    def _linearized(self, p, dtype):
+        """The solver of ``J(p)`` in ``dtype``: one ``structured_linearize``
+        launch at ``p`` cast to ``dtype`` (arrays in ``dtype``), and
+        ``M = v / diag`` with the Jacobi diagonal at ``p`` cast to it."""
+        solver = self._solvers.get(dtype)
+        if solver is None:
+            k = self if dtype == self.tx.dtype else self._as_dtype(dtype)
+            dev = self.tx.device
+            jac = torch.empty((7,) + tuple(self.shape), dtype=dtype, device=dev)
+            diag = torch.empty(jac[0].numel(), dtype=dtype, device=dev)
+            solver = self._solvers[dtype] = ((*k._arrays(), k._coef()), kernels.FlowCycle("stencil", (jac,), diag))
+        args, cycle = solver
+        kernels.structured_linearize(p.to(dtype), *args, cycle.op[0])
+        cycle.diag.copy_(self._jacobi_diagonal(p).reshape(-1))
+        return cycle
+
     def newton_step(
         self,
         p,
@@ -81,64 +111,45 @@ class StructuredFlowKernel:
         tol: float = 1e-9,
         inner_iter: int = 200,
         refine: int = 3,
+        iterations: list | None = None,
     ):
         """One Newton iteration. The Jacobian action is taken at ``p`` in
         f64 and, for the Krylov inner iterations, at ``p`` cast to f32 with
-        f32 coefficients; ``refine`` rounds of f64 iterative refinement
-        recover f64 accuracy. Returns ``(p_new, |r(p)|)``."""
+        f32 coefficients (one linearization, four solves of two launches
+        each); ``refine`` rounds of f64 iterative refinement recover f64
+        accuracy. Each solve's iteration count is appended to
+        ``iterations`` when a list is given. Returns ``(p_new, |r(p)|)``."""
         arrays, coef = self._arrays(), self._coef()
         r64 = kernels.structured_residual(p, p_prev, *arrays, coef)
         rnorm = torch.linalg.vector_norm(r64)
-
-        def jvp64(v):
-            return kernels.structured_jvp(p, v, *arrays, coef)
-
-        diag32 = self._jacobi_diagonal(p).to(torch.float32)
-        kernel32 = self._as_dtype(torch.float32)
-        arrays32, coef32 = kernel32._arrays(), kernel32._coef()
-        p32 = p.to(torch.float32)
-
-        def jvp32(v):
-            return kernels.structured_jvp(p32, v, *arrays32, coef32)
+        cycle = self._linearized(p, torch.float32)
 
         def solve32(rhs64):
             # Normalize (guards f32 underflow / Krylov breakdown on ~zero
             # right-hand sides) and sanitize non-finite outcomes.
             nrm = torch.linalg.vector_norm(rhs64)
             scale = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-            rhs32 = (rhs64 / scale).to(torch.float32)
-            x, _ = bicgstab(
-                jvp32,
-                rhs32,
-                M=lambda v: v / diag32,
-                tol=1e-6,
-                atol=0.0,
-                maxiter=inner_iter,
-            )
+            rhs32 = (rhs64 / scale).to(torch.float32).reshape(-1)
+            x, k = cycle.solve(rhs32, tol=1e-6, atol=0.0, maxiter=inner_iter)
+            if iterations is not None:
+                iterations.append(k)
             x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-            return x.to(torch.float64) * scale
+            return x.view(p.shape).to(torch.float64) * scale
 
         # Iterative refinement in f64.
         dx = solve32(-r64)
         for _ in range(refine):
-            rr = -r64 - jvp64(dx)
+            rr = -r64 - kernels.structured_jvp(p, dx, *arrays, coef)
             dx = dx + solve32(rr)
         return p + dx, rnorm
 
     def newton_step_f64(self, p, p_prev, tol: float = 1e-9, maxiter: int = 400):
-        """One Newton iteration with an f64 BiCGStab to ``tol``."""
-        arrays, coef = self._arrays(), self._coef()
-        r = kernels.structured_residual(p, p_prev, *arrays, coef)
-        diag = self._jacobi_diagonal(p)
-        dx, _ = bicgstab(
-            lambda v: kernels.structured_jvp(p, v, *arrays, coef),
-            -r,
-            M=lambda v: v / diag,
-            tol=tol,
-            atol=0.0,
-            maxiter=maxiter,
-        )
-        return p + dx, torch.linalg.vector_norm(r)
+        """One Newton iteration with an f64 BiCGStab to ``tol`` on the f64
+        linearization (two launches)."""
+        r = kernels.structured_residual(p, p_prev, *self._arrays(), self._coef())
+        cycle = self._linearized(p, torch.float64)
+        dx, _ = cycle.solve((-r).reshape(-1), tol=tol, atol=0.0, maxiter=maxiter)
+        return p + dx.view(p.shape), torch.linalg.vector_norm(r)
 
     def _jacobi_diagonal(self, p):
         w = self.density(p) / self.visc
