@@ -51,9 +51,15 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    scatter of the 3d block's pattern (223,232 entries) into a 32,768^2
    matrix, the pivot inverse on a batch of 128 x 128 blocks (one needing
    row swaps, one singular; timed also on one block, the dense build's
-   launch, beside ``torch.linalg.inv_ex``), the blocked inverse at n = 4,096 by kernel
-   and plain route (max |S X - I| and the distance between the two X),
-   and the apply with the 3d run's own 32,768^2 inverse (with GB/s);
+   launch, beside ``torch.linalg.inv_ex``: device us by graph replay in
+   turns, the kernel's below ``inv_ex``'s), the pivot inverse at b = 1, 7,
+   64 and 128 in f32 and f64 on blocks with many equal magnitudes (ties), a
+   zero leading entry and a singular block (flags as the plain version's,
+   inverses within 4 eps b cond(A) max |X|), the blocked inverse at n =
+   4,096 by kernel and plain route (max |S X - I| and the distance between
+   the two X), the dense build's Gauss-Jordan at 32^3's size (32,768, 256
+   pivots) by both routes in turns (seconds), and the apply with the 3d
+   run's own 32,768^2 inverse (with GB/s);
 8. the same 3d run with the AMG preconditioner instead (its numbers; 3
    blocks, no fallback);
 9. 3d at 1/16 with dense inverses on the card and on the host (plain
@@ -200,11 +206,18 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    gathers through their per-step launchers (``DualGatherVar``: tangent
    rows written once, then the value row alone; ``DualGatherCopy``), through
    the functional wrappers and by ``index_select`` x2 + ``cat`` in turns,
-   and the launchers' host us a call; and at every case's own shapes
+   and the launchers' host us a call; ``dual_ew`` through its launcher
+   (``DualEwLauncher``) at phase 22's program: device us by graph replay,
+   host us a call, the functional ``ops.dual_ew`` equal to it, and one
+   program a family of opcodes (every opcode) within 1e-13 of the plain
+   version, the same bits twice; and at every case's own shapes
    (md 1/256 included), inside its phase: every call of a K8 wrapper in one
    assembly and one residual of the case, with the programs and gather
    indices of its compiled equations, is repeated through the plain version
-   on the same inputs (1e-13 of the largest entry, NaN in the same places).
+   on the same inputs (1e-13 of the largest entry, NaN in the same places);
+   at md 1/128 the 63 ``dual_ew`` calls of one assembly are printed as a
+   histogram of (instructions, inputs, n, B) with the most slots a tape
+   needs, and their device us (graph replay) and host us summed.
    In phase 13 the contact case's residual must launch ``dual_ew`` as often
    as its assembly does;
 23. the assembly in turns (functorch, dual, dual, functorch: the K8 pass of
@@ -213,7 +226,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    1/64, tracer 1/64 and ``DarcysLawAd`` 1/128, inside their phases: both
    results within 1e-12 of the largest entry, median ms of each turn, the
    launches of one assembly by kernel, and the nodes without a dual rule per
-   equation, which must be 0; for tracer and ``DarcysLawAd`` phase 20's and
+   equation, which must be 0 (md 1/128: 113 launches an assembly, 63 of them
+   ``dual_ew``); for tracer and ``DarcysLawAd`` phase 20's and
    21's turns now time the dual route through the K15/K14 kernels against
    the same route through their plain versions;
 24. run md at cell size 1/256 (the case ``cases.build_case("md256")`` makes; AMG,
@@ -638,6 +652,7 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
     out = {
         "launches": launches,
         "setup_s": setup_s,
+        "blocks": [rec for _s, rec in model.block_log],
         "ms_per_newton": 1e3 * block_s / max(newton, 1),
         "newton": newton,
         "krylov": sum(rec["krylov_iters"] for _s, rec in model.block_log),
@@ -826,6 +841,7 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
     out = {
         "launches": launches,
         "setup_s": setup_s,
+        "blocks": [rec for _s, rec in model.block_log],
         "ms_per_newton": 1e3 * block_s / max(newton, 1),
         "blocks": [(s, dict(rec)) for s, rec in model.block_log],
     }
@@ -858,6 +874,7 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
 
 def check_dense_kernels(dev, d3) -> dict:
     """K6 kernels against their plain versions at the 3d shapes."""
+    from porepy_tpu_torch.applications.benchmarking.dual_pivot_check import pivot_blocks
     from porepy_tpu_torch.kernels import ops, reference
     from porepy_tpu_torch.numerics.linalg import device_solver as ds
 
@@ -928,6 +945,43 @@ def check_dense_kernels(dev, d3) -> dict:
                 ms=one_ms, plain_ms=one_plain, library_ms=one_lib, device_us=one_us, batch_ms=ms,
                 bytes=2 * one.numel() * 4 + 4, flops=2.0 * b**3, dtype=torch.float32,
             )
+            # Device us of the one block, kernel and torch.linalg.inv_ex in
+            # turns (graph replay: no host dispatch in it).
+            us = {"kernel": [], "inv_ex": []}
+            for route in ("kernel", "inv_ex", "inv_ex", "kernel"):
+                us[route].append(_graph_us(
+                    (lambda: ops.gj_pivot_inverse(one, flag1)) if route == "kernel"
+                    else (lambda: torch.linalg.inv_ex(one))
+                ))
+            print(f"    one block, device us a launch in turns (graph replay): kernel {us['kernel']}, "
+                  f"torch.linalg.inv_ex {us['inv_ex']}")
+            _require(max(us["kernel"]) < min(us["inv_ex"]),
+                     f"gj_pivot_inverse: {us['kernel']} us against inv_ex's {us['inv_ex']}")
+            report["gj_pivot_inverse"].update(device_us=min(us["kernel"]), device_us_turns=us)
+
+    # Every size class (b = 1, 7, 64, 128) on blocks with many equal
+    # magnitudes (ties in the pivot search), a zero leading entry and a
+    # singular block (a zero column: a zero pivot under any rounding); the
+    # flags equal the plain version's and a set flag stays set.
+    for dtype in (torch.float32, torch.float64):
+        for bs in (1, 7, 64, 128):
+            blocks = pivot_blocks(bs, 40 + bs)
+            ad = torch.tensor(blocks, dtype=dtype, device=dev)
+            flag = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev)
+            flag_ref = flag.clone()
+            inv = ops.gj_pivot_inverse(ad, flag)
+            inv_ref = reference.gj_pivot_inverse(ad, flag_ref)
+            _require(flag.tolist() == flag_ref.tolist() and flag.tolist()[2:] == [1, 1],
+                     f"gj flags at b {bs}: {flag.tolist()} against {flag_ref.tolist()}")
+            eps = float(torch.finfo(dtype).eps)
+            for m in (0, 1, 3):
+                if flag_ref[m] and m != 3:
+                    continue
+                bound = 4 * eps * bs * float(np.linalg.cond(blocks[m])) * float(inv_ref[m].abs().max())
+                e = float((inv[m].double() - inv_ref[m].double()).abs().max())
+                _require(e <= bound, f"gj_pivot_inverse b {bs} block {m}: {e} > {bound}")
+        print(f"  gj_pivot_inverse {str(dtype)[6:]}, b = 1, 7, 64, 128 (ties, a zero leading entry, a zero "
+              f"column): flags as the plain version's, inverses within 4 eps b cond(A) max |X|")
 
     # The whole blocked inverse at n = 4096, kernel route against plain
     # route. Bound: f32 and cond(S) ~ 3 give |S X - I| ~ n eps_f32 cond at
@@ -951,6 +1005,27 @@ def check_dense_kernels(dev, d3) -> dict:
     print(f"  max |X_kernel - X_plain| / max |X| {dist:.3e} (bound 1e-4)")
     _require(dist <= 1e-4, "blocked inverse routes differ")
     del routes, S
+
+    # The dense build's Gauss-Jordan at its own size (the 3d 32^3 block,
+    # 256 pivot launches), kernel route and plain route in turns.
+    n = -(-ni // ds._DENSE_GJ_BLOCK) * ds._DENSE_GJ_BLOCK
+    S = torch.randn(n, n, generator=gen).to(dev) / n**0.5
+    S.diagonal().add_(4.0)
+    gj_s = {"kernel": [], "plain": []}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        piv = ops.gj_pivot_inverse if route == "kernel" else reference.gj_pivot_inverse
+        M = S.clone()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        ds._dense_block_inv(M, pivot_inverse=piv)
+        torch.cuda.synchronize()
+        gj_s[route].append(time.perf_counter() - tic)
+        del M
+    print(f"  blocked Gauss-Jordan at n {n} ({n // ds._DENSE_GJ_BLOCK} pivots), seconds in turns: kernel route "
+          f"{gj_s['kernel']}, plain route {gj_s['plain']}")
+    report["gj_pivot_inverse"]["gj_s_turns"] = gj_s
+    del S
+    torch.cuda.empty_cache()
 
     D = d3["D"]
     report["dense_block_apply"] = {"err": 0.0}
@@ -2591,7 +2666,7 @@ def _launches_of_block():
             LAUNCHES[k] = v + LAUNCHES[k]
 
 
-def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13) -> dict:
+def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13, capture=None) -> dict:
     """Phase 22 at a case's own shapes: one assembly of the compiled system
     ``cs`` in which every call of a K8 wrapper (the equations' fused programs
     on their fields, the gathers of their unknowns and concatenations, the
@@ -2622,9 +2697,16 @@ def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13) -> dict:
         return call
 
     var_call, copy_call = ops.DualGatherVar.__call__, ops.DualGatherCopy.__call__
+    ew_call = ops.DualEwLauncher.__call__
+    if capture is not None:
+        def ew_kernel(self, inputs, batch):
+            capture.append((self, list(inputs), batch))
+            return ew_call(self, inputs, batch)
+    else:
+        ew_kernel = ew_call
     patches = [
-        (ops, "dual_ew", "dual_ew", ops.dual_ew,
-         lambda program, inputs, batch: reference.dual_ew(program.instrs, program.imm, inputs, batch)),
+        (ops.DualEwLauncher, "__call__", "dual_ew", ew_kernel,
+         lambda self, inputs, batch: reference.dual_ew(self.program.instrs, self.program.imm, inputs, batch)),
         (ops.DualGatherVar, "__call__", "dual_gather", var_call,
          lambda self, x, colors=None, batch=0: reference.dual_gather_var(
              x, self.idx, colors, batch if colors is not None else 0)),
@@ -2632,15 +2714,19 @@ def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13) -> dict:
          lambda self, pieces, batch: reference.dual_gather_copy(pieces, batch)),
         (kernels, "jac_gather", "jac_gather", kernels.jac_gather, reference.jac_gather),
     ]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _name, _kernel, _plain in patches]
     for mod, attr, name, kernel, plain in patches:
         setattr(mod, attr, held(name, kernel, plain))
     try:
         with _launches_of_block():
             cs.assemble(eq_sys)
+            n_assembly = len(capture) if capture is not None else 0
             cs.residual(eq_sys)
+        if capture is not None:
+            del capture[n_assembly:]  # the assembly's calls only
     finally:
-        for mod, attr, _name, kernel, _plain in patches:
-            setattr(mod, attr, kernel)
+        for mod, attr, original in originals:
+            setattr(mod, attr, original)
     print(
         f"  phase 22 at the {label} shapes: the K8 calls of one assembly and one residual against their "
         f"plain versions on the same inputs: calls {calls}, largest error over the largest entry {errs}"
@@ -2691,8 +2777,21 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
         f"nodes without a dual rule {ruleless}"
     )
     _require(not any(ruleless.values()), f"{label}: nodes without a dual rule: {ruleless}")
-    k8_err = _k8_calls_against_plain(cs, eq_sys, label)
-    return {"turns": turns, "launches": per_assembly, "err": max(errs), "k8_err": k8_err}
+    if label == "md":
+        # md 1/128's assembly: 113 launches, 63 of them dual_ew.
+        _require(sum(per_assembly.values()) == 113 and per_assembly.get("dual_ew") == 63,
+                 f"md: {sum(per_assembly.values())} launches an assembly, dual_ew {per_assembly.get('dual_ew')}")
+    capture = [] if label == "md" else None
+    k8_err = _k8_calls_against_plain(cs, eq_sys, label, capture=capture)
+    out = {"turns": turns, "launches": per_assembly, "err": max(errs), "k8_err": k8_err}
+    if capture:
+        # The histogram of the calls' (instructions, inputs, n, B), the slots
+        # their tapes need, and their device and host us summed (the
+        # launchers, in turns with themselves).
+        from porepy_tpu_torch.applications.benchmarking.dual_pivot_check import check_case_programs
+
+        out["dual_ew_programs"] = check_case_programs(f"phase 22 at the {label} shapes", capture, None)
+    return out
 
 
 def _assembly_in_turns(model, label: str, repeats: int = 5) -> dict:
@@ -2971,8 +3070,8 @@ def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
 def check_dual_kernels(dev) -> dict:
     """Phase 22: ``dual_ew``, ``dual_gather`` and ``jac_gather`` against their
     plain versions at the md 1/128 shapes, 16 seeds."""
+    from porepy_tpu_torch.applications.benchmarking import dual_pivot_check
     from porepy_tpu_torch.kernels import ops, reference
-    from porepy_tpu_torch.numerics.ad import forward
 
     print("phase 22: the K8 kernels at the md 1/128 shapes, 16 seeds")
     B, tol = 16, 1e-13
@@ -2981,38 +3080,48 @@ def check_dual_kernels(dev) -> dict:
     f64 = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
     report = {}
 
-    # A mass-balance-like expression: a constant field, a scalar, the larger
-    # of two duals, an exponential, a constant power and a quotient.
-    E = forward.ExprOps
-    ins = [forward._Expr("in", (), k) for k in range(5)]
-    larger = E.op("select", E.op("gt", ins[1], ins[0]), ins[1], ins[0])
-    density = E.op("exp", E.op("mul", ins[3], E.op("sub", ins[2], E.imm(0.5))))
-    expr = E.op(
-        "div", E.op("add", E.op("mul", larger, ins[4]), density), E.op("pow", ins[2], E.imm(-2.0))
-    )
-    program, order = forward.compile_expr(expr)
-    fields = [
-        (f64(rng.standard_normal(nc)), f64(rng.standard_normal((B, nc)))),
-        (f64(rng.standard_normal(nc)), f64(rng.standard_normal((B, nc)))),
-        (f64(0.5 + rng.random(nc)), f64(rng.standard_normal((B, nc)))),
-        (f64(1e-2), None),
-        (f64(rng.standard_normal(nc)), None),
-    ]
-    inputs = [fields[k] for k in order]
-    got = ops.dual_ew(program, inputs, B)
+    # Phase 22's program, a mass-balance-like expression: a constant field, a
+    # scalar, the larger of two duals, an exponential, a constant power and a
+    # quotient (dual_pivot_check.phase22_program).
+    program, inputs = dual_pivot_check.phase22_inputs(dev, B, nc)
+    launch = ops.DualEwLauncher(program)
+    got = launch(inputs, B)
     want = reference.dual_ew(program.instrs, program.imm, inputs, B)
     err = max(_rel_err(a, b) for a, b in zip(got, want))
     print(f"  dual_ew: {len(program.instrs)} instructions on {nc} elements, value and {B} tangents, max rel err {err:.3e}")
     _require(err <= tol, "dual_ew disagrees with its plain version")
-    _same_bits("dual_ew", lambda: torch.cat([t.reshape(-1) for t in ops.dual_ew(program, inputs, B)]))
-    value_only = ops.dual_ew(program, inputs, 0)
+    _same_bits("dual_ew", lambda: torch.cat([t.reshape(-1) for t in launch(inputs, B)]))
+    value_only = launch(inputs, 0)
     _require(value_only[1] is None and _rel_err(value_only[0], want[0]) <= tol, "dual_ew without seeds")
-    n_dual = sum(t is not None for _v, t in fields)
+    functional = ops.dual_ew(program, inputs, B)
+    _require(all(torch.equal(a, b) for a, b in zip(functional, got)), "ops.dual_ew and the launcher differ")
+    # Every opcode, a program a family, at the md 1/128 shapes.
+    for family, (fam_program, _order) in dual_pivot_check.family_programs().items():
+        fam_inputs = [
+            (f64(rng.uniform(-1.0, 1.0, nc)), None if k == 1 else f64(rng.standard_normal((B, nc))))
+            for k in range(fam_program.n_inputs)
+        ]
+        fam_launch = ops.DualEwLauncher(fam_program)
+        fam_got = fam_launch(fam_inputs, B)
+        fam_want = reference.dual_ew(fam_program.instrs, fam_program.imm, fam_inputs, B)
+        fam_err = max(_rel_err(a, b) for a, b in zip(fam_got, fam_want) if a is not None)
+        _require(fam_err <= tol, f"dual_ew, the {family} program: {fam_err}")
+        _same_bits(f"dual_ew {family}", lambda: torch.cat([t.reshape(-1) for t in fam_launch(fam_inputs, B)]))
+        err = max(err, fam_err)
+    print(f"  dual_ew: every opcode (seven programs) on {nc} elements, {B} tangents, within {tol:g}, the same bits twice")
+    tape = program.tape(tuple(t is None for _v, t in inputs))
+    device_us = _graph_us(lambda: launch(inputs, B))
+    launcher_host_us = _host_us(lambda: launch(inputs, B))
+    print(f"  dual_ew at phase 22's program: {device_us:.2f} us device a launch (graph replay), "
+          f"{launcher_host_us:.2f} us of host time a launcher call; tape of {len(tape.tape)} entries, "
+          f"{tape.n_slot} slots, {tape.n_part} partials")
+    n_dual = sum(t is not None for _v, t in inputs)
     report["dual_ew"] = {
-        "err": err, "ms": _cuda_ms(lambda: ops.dual_ew(program, inputs, B)),
+        "err": err, "ms": _cuda_ms(lambda: launch(inputs, B)),
         "plain_ms": _cuda_ms(lambda: reference.dual_ew(program.instrs, program.imm, inputs, B)),
         "bytes": 8 * nc * ((1 + B) * n_dual + 1) + 8 * (1 + B) * nc,
         "flops": (1 + B) * 3 * len(program.instrs) * nc, "library_ms": None,
+        "device_us": device_us, "host_us": launcher_host_us,
     }
 
     # The unknowns of the cells under one-hot seeds, and a concatenation.
@@ -3257,6 +3366,8 @@ def main() -> int:
             "launches": launches, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
         })
+        if k in ("gj_pivot_inverse", "dual_ew"):
+            entries[-1]["device_us"] = r["device_us"]
     kernels_line = {"kernels": entries}
     print(
         f"md 1/128 on {smi}: setup {md['setup_s']:.3f} s, "
@@ -3360,6 +3471,20 @@ def main() -> int:
         us = report[k]["device_us"]
         print(f"{k} at its phase 19 shapes on {smi}, device us (graph replay, in turns): kernel {us['kernel']}, "
               f"one PyTorch call {us['library']}")
+    g6 = report["gj_pivot_inverse"]
+    print(f"K6 gj_pivot_inverse, one 128^2 f32 block (the dense build's launch) on {smi}: device us in turns "
+          f"{g6['device_us_turns']['kernel']}, torch.linalg.inv_ex {g6['device_us_turns']['inv_ex']}; the dense "
+          f"build's Gauss-Jordan at 32^3's size, s in turns: kernel route {g6['gj_s_turns']['kernel']}, plain route "
+          f"{g6['gj_s_turns']['plain']}")
+    e8 = report["dual_ew"]
+    p8 = md["routes"]["dual_ew_programs"]
+    sums = p8["sums"]["launchers"]
+    print(f"K8 dual_ew at phase 22's program on {smi}: {e8['device_us']:.2f} us device (graph replay), "
+          f"{e8['host_us']:.2f} us host a launcher call; md 1/128's {p8['calls']} calls of an assembly, summed: "
+          f"device us {[round(t['device_us'], 2) for t in sums]}, host us {[round(t['host_us'], 2) for t in sums]}; "
+          f"at most {p8['max_slots']} slots")
+    for tag, m in (("md 1/128", md), ("md 1/256", md256)):
+        print(f"{tag} on {smi}: Newton / Krylov per block {[(rec['newton_iters'], rec['krylov_iters']) for rec in m['blocks']]}")
     d = report["dual_gather"]
     print(f"dual_gather at md 1/128's shapes on {smi}, in turns: launchers {d['turns']['launchers']} ms, functional "
           f"wrappers {d['turns']['wrappers']} ms, index_select x2 + cat {d['turns']['library']} ms; host us a "

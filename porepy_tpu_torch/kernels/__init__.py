@@ -41,11 +41,12 @@ K15       :func:`upwind_flux`,           ``numerics/fv/upwind.py:76-99`` (the up
 K14       :func:`tpfa_ad_flux`,          ``models/darcys_law_ad.py:71-147`` (the differentiable
           :func:`tpfa_ad_trace`,         TPFA flux and trace) and ``numerics/fv/fv_mesh.py:129-145``
           :func:`segment_sum_sorted`     (the segment sums of ``numerics/fv/tpfa.py``)
-K8        :func:`dual_ew`,               ``numerics/ad/equation_system.py:132-135`` (the colored
+K8        :class:`DualEwLauncher`,       ``numerics/ad/equation_system.py:132-135`` (the colored
           :class:`DualGatherVar`,        JVPs of one residual and the gather of the compressed
           :class:`DualGatherCopy`,       block into nonzero order), driven by the dual-number
           :func:`jac_gather`             pass of ``numerics/ad/forward.py``; the functional
-                                         :func:`dual_gather_var`, :func:`dual_gather_copy`
+                                         :func:`dual_ew`, :func:`dual_gather_var`,
+                                         :func:`dual_gather_copy`
 ========  =============================  =====================================================
 
 The CUDA sources live in ``csrc/`` and are built at first use (see
@@ -71,6 +72,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     JacobiSweeps,
     rachford_rice,
     DualProgram,
+    DualEwLauncher,
     dense_block_apply,
     dense_block_scatter,
     ell_jacobi_sweep,

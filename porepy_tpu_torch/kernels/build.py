@@ -82,7 +82,8 @@ _SIGNATURES = {
     "ppt_tpfa_ad_flux": [_P] * 10 + [_L] * 5 + [_P] * 9 + [_I] * 3 + [_P],
     "ppt_tpfa_ad_trace": [_P] * 10 + [_L] * 5 + [_P] * 9 + [_I] * 3 + [_P],
     # Pointer and stride tables are host arrays (ctypes arrays).
-    "ppt_dual_ew": [_P, _P, _I, _P, _P, _I, _P, _P, _L, _I, _I, _P],
+    # A launch table of int64 words in host memory (ops.DualEwLauncher).
+    "ppt_dual_ew": [_P, _P],
     "ppt_dual_gather_value": [_P, _P, _P, _I, _P],
     "ppt_dual_seed_rows": [_P, _P, _P, _I, _I, _P],
     "ppt_dual_gather_copy": [_P, _P, _I, _P, _L, _I, _P],

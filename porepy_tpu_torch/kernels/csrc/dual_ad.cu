@@ -8,9 +8,14 @@
 //
 //   dual_ew      an interpreter of a short elementwise program (the fused
 //                add/sub/mul/div/pow/neg nodes and elementwise functions of
-//                one subtree): one thread per element computes the value, then
-//                replays the program once per tangent row by the chain rule,
-//                with the registers of both passes in local memory;
+//                one subtree) in two passes over a tile of 32 elements: the
+//                value pass, one thread an element, runs the program once and
+//                leaves each instruction's partial derivatives (one or two
+//                numbers an element) in shared memory; the tangent pass
+//                spreads the threads over (element, tangent row), and each
+//                runs the program's tape, the chain rule as multiplies, adds
+//                and divides of its row's tangents by those partials, in a
+//                few slots of shared memory;
 //   dual_gather  the dual of the unknowns x[idx] under one-hot seeds by color
 //                (tangent row c is 1 where colors[idx[i]] == c) in two
 //                kernels: dual_seed_rows writes the tangent rows once per
@@ -31,13 +36,26 @@
 //
 // Bound: bytes. Each input and output element is touched once per row; at md
 // 1/128 (18,000 unknowns, 16 colors) a launch moves a few MB, microseconds at
-// 3.35 TB/s. The time is the launch and the host code around it; the
-// unknowns' tangent rows depend only on the gather indices and the colors,
-// both fixed once the equation is compiled, so an assembly writes only the
-// value row (16,969 cells of md 1/128: 0.41 MB instead of 2.65 MB).
+// 3.35 TB/s. The unknowns' tangent rows depend only on the gather indices and
+// the colors, both fixed once the equation is compiled, so an assembly writes
+// only the value row (16,969 cells of md 1/128: 0.41 MB instead of 2.65 MB).
+//
+// dual_ew's design: the host lowers a program once for each pattern of
+// constant inputs into a value code (what each instruction computes and which
+// partials it leaves) and a tangent tape (load an input's row, one operand
+// times or over a partial, two operands with two partials, a selection, a sum
+// or difference), with the tape's values placed in slots by liveness. So no
+// transcendental is computed again for a tangent row, the code and the tape
+// are read warp-uniformly from the kernel's parameters, and at md 1/128
+// (16,969 elements, 16 rows) the tangent pass has 272K threads' work where
+// one thread an element ran every row in series before. Each opcode keeps
+// the plain version's form (a product by, or a quotient over, one
+// derivative; mul as ta vb + va tb; div as (ta - tb r) / vb), with no
+// contraction into a fused multiply-add.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 #include <math.h>
 
 namespace {
@@ -45,9 +63,10 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxIn = 12;
 constexpr int kMaxInstr = 36;
-constexpr int kRegs = kMaxIn + kMaxInstr;
 constexpr int kPieces = 8;       // equations per jac_gather launch
 constexpr int kCopyPieces = 32;  // duals per dual_gather_copy launch
+constexpr int kTile = 32;        // elements a dual_ew block
+constexpr int kMaxGroups = 8;    // tangent row groups a dual_ew block (32 threads each)
 
 enum Op : int {
   LOADI = 0, ADD, SUB, MUL, DIV, POW, NEG, EXP, LOG, SIN, COS, TAN, ASIN, ACOS,
@@ -55,150 +74,237 @@ enum Op : int {
   SELECT, DETACH, CUSTOM
 };
 
-struct EwInputs {
+// Tape entries: dst = f(slot x, slot y, partials p0, p1); a slot index < 0
+// reads 0 (a constant operand of a selection).
+enum TapeOp : int {
+  T_LOAD = 0,  // dst = tangent row of input x
+  T_MUL1,      // dst = x * P0
+  T_DIV1,      // dst = x / P0
+  T_MUL2,      // dst = x * P0 + y * P1
+  T_DIVB,      // dst = -(y * P1) / P0      (div with a constant numerator)
+  T_DIV2,      // dst = (x - y * P1) / P0   (div)
+  T_NEG,       // dst = -x
+  T_ADD,       // dst = x + y
+  T_SUB,       // dst = x - y
+  T_SEL        // dst = P0 != 0 ? x : y
+};
+
+constexpr int kMaxTape = kMaxIn + kMaxInstr;  // loads and tangent entries
+
+// One launch: the operands, the output, and the lowered program itself, so
+// that the kernel reads its code and constants from the constant bank (the
+// parameter space, read warp-uniformly) and stages nothing.
+struct EwLaunch {
   const double* val[kMaxIn];
   const double* tan[kMaxIn];
   long long es[kMaxIn];  // element stride of value and tangent rows
   long long rs[kMaxIn];  // row stride of the tangent
+  double* out_v;
+  double* out_t;         // null: the value alone
+  long long out_rs;
+  double imm[kMaxInstr];
+  int vcode[kMaxInstr][6];  // op, a, b, c, p0, p1
+  int tape[kMaxTape][2];    // kind | dst << 4 | (x + 1) << 10 | (y + 1) << 17, (p0 + 1) | (p1 + 1) << 8
+  int n_in, n_instr, n_tape, n_load, n_part, n_slot, out_slot, n, batch, per;
 };
 
 __device__ __forceinline__ double sign_of(double x) {
   return (x > 0.0) ? 1.0 : ((x < 0.0) ? -1.0 : ((x == 0.0) ? 0.0 : x));
 }
 
-__device__ __forceinline__ bool is_const(unsigned long long mask, int r) {
-  return (mask >> r) & 1ULL;
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dadd_rn(a, -b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+// An 8-byte asynchronous copy from global to shared memory (sm_80+).
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 }
 
-__global__ void dual_ew_kernel(EwInputs in, int n_in, const int* __restrict__ code,
-                               const double* __restrict__ imm, int n_instr,
-                               double* __restrict__ out_v, double* __restrict__ out_t,
-                               long long out_rs, int n, int batch) {
-  int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  double v[kRegs];
-  double t[kRegs];
-  // Bit r set: register r is a constant (no tangent). The same for every
-  // thread, so the branches below do not diverge.
-  unsigned long long cmask = 0ULL;
-  for (int k = 0; k < n_in; ++k) {
-    v[k] = in.val[k][(long long)i * in.es[k]];
-    if (in.tan[k] == nullptr) cmask |= 1ULL << k;
-  }
-  for (int j = 0; j < n_instr; ++j) {
-    int op = code[4 * j], a = code[4 * j + 1], b = code[4 * j + 2], c = code[4 * j + 3];
-    int r = kMaxIn + j;
-    bool cst;
-    double x = (op == LOADI) ? 0.0 : v[a];
-    double res;
-    switch (op) {
-      case LOADI: res = imm[a]; cst = true; break;
-      case ADD: res = x + v[b]; cst = is_const(cmask, a) && is_const(cmask, b); break;
-      case SUB: res = x - v[b]; cst = is_const(cmask, a) && is_const(cmask, b); break;
-      case MUL: res = x * v[b]; cst = is_const(cmask, a) && is_const(cmask, b); break;
-      case DIV: res = x / v[b]; cst = is_const(cmask, a) && is_const(cmask, b); break;
-      case POW: res = pow(x, v[b]); cst = is_const(cmask, a) && is_const(cmask, b); break;
-      case NEG: res = -x; cst = is_const(cmask, a); break;
-      case EXP: res = exp(x); cst = is_const(cmask, a); break;
-      case LOG: res = log(x); cst = is_const(cmask, a); break;
-      case SIN: res = sin(x); cst = is_const(cmask, a); break;
-      case COS: res = cos(x); cst = is_const(cmask, a); break;
-      case TAN: res = tan(x); cst = is_const(cmask, a); break;
-      case ASIN: res = asin(x); cst = is_const(cmask, a); break;
-      case ACOS: res = acos(x); cst = is_const(cmask, a); break;
-      case ATAN: res = atan(x); cst = is_const(cmask, a); break;
-      case SINH: res = sinh(x); cst = is_const(cmask, a); break;
-      case COSH: res = cosh(x); cst = is_const(cmask, a); break;
-      case TANH: res = tanh(x); cst = is_const(cmask, a); break;
-      case ASINH: res = asinh(x); cst = is_const(cmask, a); break;
-      case ACOSH: res = acosh(x); cst = is_const(cmask, a); break;
-      case ATANH: res = atanh(x); cst = is_const(cmask, a); break;
-      case ABS: res = fabs(x); cst = is_const(cmask, a); break;
-      case SQRT: res = sqrt(x); cst = is_const(cmask, a); break;
-      case SIGN: res = sign_of(x); cst = true; break;
-      case GT: res = (x > v[b]) ? 1.0 : 0.0; cst = true; break;
-      case GE: res = (x >= v[b]) ? 1.0 : 0.0; cst = true; break;
-      case LEABS: res = (fabs(x) <= v[b]) ? 1.0 : 0.0; cst = true; break;
-      case SELECT:
-        res = (x != 0.0) ? v[b] : v[c];
-        cst = is_const(cmask, b) && is_const(cmask, c);
-        break;
-      case DETACH: res = x; cst = true; break;
-      case CUSTOM: res = x; cst = is_const(cmask, c); break;
-      default: res = nan(""); cst = true; break;
-    }
-    v[r] = res;
-    if (cst) cmask |= 1ULL << r;
-  }
-  int last = kMaxIn + n_instr - 1;
-  out_v[i] = v[last];
-  if (batch == 0 || out_t == nullptr || is_const(cmask, last)) return;
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
-  for (int row = 0; row < batch; ++row) {
-    for (int k = 0; k < n_in; ++k)
-      t[k] = (in.tan[k] != nullptr) ? in.tan[k][row * in.rs[k] + (long long)i * in.es[k]] : 0.0;
-    for (int j = 0; j < n_instr; ++j) {
-      int r = kMaxIn + j;
-      if (is_const(cmask, r)) { t[r] = 0.0; continue; }
-      int op = code[4 * j], a = code[4 * j + 1], b = code[4 * j + 2], c = code[4 * j + 3];
-      bool ca = is_const(cmask, a);
-      double x = v[a], ta = t[a], res = v[r];
-      double d;
+// The derivative factor d of a unary opcode at x with result r (the tangent
+// is t * d or t / d, as the tape says).
+__device__ __forceinline__ double unary_factor(int op, double x, double r) {
+  switch (op) {
+    case EXP: return r;
+    case LOG: return x;
+    case SIN: return cos(x);
+    case COS: return -sin(x);
+    case TAN: return add_rn(1.0, mul_rn(r, r));
+    case ASIN: return sqrt(sub_rn(1.0, mul_rn(x, x)));
+    case ACOS: return -sqrt(sub_rn(1.0, mul_rn(x, x)));
+    case ATAN: return add_rn(1.0, mul_rn(x, x));
+    case SINH: return cosh(x);
+    case COSH: return sinh(x);
+    case TANH: return sub_rn(1.0, mul_rn(r, r));
+    case ASINH: return sqrt(add_rn(mul_rn(x, x), 1.0));
+    case ACOSH: return sqrt(sub_rn(mul_rn(x, x), 1.0));
+    case ATANH: return sub_rn(1.0, mul_rn(x, x));
+    case ABS: return sign_of(x);
+    case SQRT: return mul_rn(2.0, r);
+    default: return 0.0;
+  }
+}
+
+// A block takes kTile elements with `groups` warps. Its threads first issue
+// the asynchronous copies of the tape's input rows (thread (e, g): rows g, g
+// + G, ... of element e, `per` of them) and warp 0 those of the inputs'
+// values; warp 0 then runs the value pass, one element a thread, leaving the
+// registers and partials in shared memory; after one barrier every thread
+// runs the tape's arithmetic on its rows, each entry decoded once for all of
+// them. Shared memory: the registers and partials of the tile and the slots
+// of every thread's rows.
+// Five blocks an SM (at most 51 registers a thread): md 1/128's 16,969
+// elements are 531 blocks, one wave on 132 SMs.
+__global__ void __launch_bounds__(kTile * kMaxGroups, 5)
+dual_ew_kernel(const __grid_constant__ EwLaunch p) {
+  extern __shared__ double smem[];
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int n_reg = p.n_in + p.n_instr;
+  double* vreg = smem;                      // n_reg x kTile
+  double* part = vreg + n_reg * kTile;      // n_part x kTile
+  double* slot = part + p.n_part * kTile;   // n_slot x per x nt
+  const int e = tid & (kTile - 1);
+  const long long i = (long long)blockIdx.x * kTile + e;
+  const bool live = i < p.n;
+  const bool tangents = p.batch > 0 && p.out_t != nullptr;
+  const int groups = nt / kTile;
+  const int g = tid / kTile;
+  double* my = slot + tid;  // slot s of the thread's row q at my[(s * per + q) * nt]
+
+  if (live) {
+    if (tangents) {
+      const int left = (p.batch - g + groups - 1) / groups;
+      const int rows = left < p.per ? left : p.per;
+      for (int q = 0; q < p.n_load; ++q) {
+        const int w0 = p.tape[q][0];
+        const int dst = (w0 >> 4) & 63, x = ((w0 >> 10) & 127) - 1;
+        const double* src = p.tan[x] + i * p.es[x] + g * p.rs[x];
+        const long long step = groups * p.rs[x];
+        double* to = my + dst * p.per * nt;
+        for (int r = 0; r < rows; ++r) cp_async8(to + r * nt, src + r * step);
+      }
+    }
+    if (tid < kTile)
+      for (int k = 0; k < p.n_in; ++k) cp_async8(vreg + k * kTile + e, p.val[k] + i * p.es[k]);
+  }
+  cp_async_wait_all();
+
+  if (tid < kTile && live) {
+    for (int j = 0; j < p.n_instr; ++j) {
+      const int op = p.vcode[j][0], p0 = p.vcode[j][4], p1 = p.vcode[j][5];
+      const double x = (op == LOADI) ? 0.0 : vreg[p.vcode[j][1] * kTile + e];
+      const double y = vreg[p.vcode[j][2] * kTile + e];
+      double res;
       switch (op) {
-        case ADD: d = ca ? t[b] : (is_const(cmask, b) ? ta : ta + t[b]); break;
-        case SUB: d = ca ? -t[b] : (is_const(cmask, b) ? ta : ta - t[b]); break;
+        case LOADI: res = p.imm[p.vcode[j][1]]; break;
+        case ADD: res = x + y; break;
+        case SUB: res = x - y; break;
         case MUL:
-          if (ca) d = x * t[b];
-          else if (is_const(cmask, b)) d = ta * v[b];
-          else d = ta * v[b] + x * t[b];
+          res = x * y;
+          if (p0 >= 0) part[p0 * kTile + e] = y;
+          if (p1 >= 0) part[p1 * kTile + e] = x;
           break;
         case DIV:
-          if (is_const(cmask, b)) d = ta / v[b];
-          else if (ca) d = -(t[b] * res) / v[b];
-          else d = (ta - t[b] * res) / v[b];
+          res = x / y;
+          if (p0 >= 0) part[p0 * kTile + e] = y;
+          if (p1 >= 0) part[p1 * kTile + e] = res;
           break;
-        case POW: {
-          double e = v[b];
-          d = 0.0;
-          bool any = false;
-          if (!ca) {
-            d = ta * ((e == 0.0) ? 0.0 : e * pow(x, e - 1.0));
-            any = true;
-          }
-          if (!is_const(cmask, b)) {
-            double w = (x == 0.0 && e >= 0.0) ? 0.0 : res * log(x);
-            d = any ? d + t[b] * w : t[b] * w;
-          }
+        case POW:
+          res = pow(x, y);
+          if (p0 >= 0) part[p0 * kTile + e] = (y == 0.0) ? 0.0 : mul_rn(y, pow(x, y - 1.0));
+          if (p1 >= 0) part[p1 * kTile + e] = (x == 0.0 && y >= 0.0) ? 0.0 : mul_rn(res, log(x));
           break;
-        }
-        case NEG: d = -ta; break;
-        case EXP: d = ta * res; break;
-        case LOG: d = ta / x; break;
-        case SIN: d = ta * cos(x); break;
-        case COS: d = ta * (-sin(x)); break;
-        case TAN: d = ta * (1.0 + res * res); break;
-        case ASIN: d = ta / sqrt(1.0 - x * x); break;
-        case ACOS: d = ta / (-sqrt(1.0 - x * x)); break;
-        case ATAN: d = ta / (1.0 + x * x); break;
-        case SINH: d = ta * cosh(x); break;
-        case COSH: d = ta * sinh(x); break;
-        case TANH: d = ta * (1.0 - res * res); break;
-        case ASINH: d = ta / sqrt(x * x + 1.0); break;
-        case ACOSH: d = ta / sqrt(x * x - 1.0); break;
-        case ATANH: d = ta / (1.0 - x * x); break;
-        case ABS: d = ta * sign_of(x); break;
-        case SQRT: d = ta / (2.0 * res); break;
-        case SELECT: {
-          int src = (x != 0.0) ? b : c;
-          d = is_const(cmask, src) ? 0.0 : t[src];
+        case NEG: res = -x; break;
+        case EXP: res = exp(x); break;
+        case LOG: res = log(x); break;
+        case SIN: res = sin(x); break;
+        case COS: res = cos(x); break;
+        case TAN: res = tan(x); break;
+        case ASIN: res = asin(x); break;
+        case ACOS: res = acos(x); break;
+        case ATAN: res = atan(x); break;
+        case SINH: res = sinh(x); break;
+        case COSH: res = cosh(x); break;
+        case TANH: res = tanh(x); break;
+        case ASINH: res = asinh(x); break;
+        case ACOSH: res = acosh(x); break;
+        case ATANH: res = atanh(x); break;
+        case ABS: res = fabs(x); break;
+        case SQRT: res = sqrt(x); break;
+        case SIGN: res = sign_of(x); break;
+        case GT: res = (x > y) ? 1.0 : 0.0; break;
+        case GE: res = (x >= y) ? 1.0 : 0.0; break;
+        case LEABS: res = (fabs(x) <= y) ? 1.0 : 0.0; break;
+        case SELECT:
+          res = (x != 0.0) ? y : vreg[p.vcode[j][3] * kTile + e];
+          if (p0 >= 0) part[p0 * kTile + e] = (x != 0.0) ? 1.0 : 0.0;
           break;
-        }
-        case CUSTOM: d = v[b] * t[c]; break;
-        default: d = 0.0; break;
+        case DETACH: res = x; break;
+        case CUSTOM:
+          res = x;
+          if (p0 >= 0) part[p0 * kTile + e] = y;
+          break;
+        default: res = nan(""); break;
       }
-      t[r] = d;
+      if (op >= EXP && op <= SQRT && op != SIGN && p0 >= 0)
+        part[p0 * kTile + e] = unary_factor(op, x, res);
+      vreg[(p.n_in + j) * kTile + e] = res;
     }
-    out_t[row * out_rs + i] = t[last];
+    p.out_v[i] = vreg[(n_reg - 1) * kTile + e];
+  }
+  if (!tangents) return;
+  __syncthreads();  // the partials and every thread's rows are in
+  if (!live) return;
+
+  for (int r0 = g; r0 < p.batch; r0 += groups * p.per) {
+    const int left = (p.batch - r0 + groups - 1) / groups;
+    const int rows = left < p.per ? left : p.per;
+    if (r0 != g) {  // a later chunk of rows: its loads now
+      for (int q = 0; q < p.n_load; ++q) {
+        const int w0 = p.tape[q][0];
+        const int dst = (w0 >> 4) & 63, x = ((w0 >> 10) & 127) - 1;
+        const double* src = p.tan[x] + i * p.es[x] + r0 * p.rs[x];
+        const long long step = groups * p.rs[x];
+        double* to = my + dst * p.per * nt;
+        for (int r = 0; r < rows; ++r) to[r * nt] = src[r * step];
+      }
+    }
+    for (int q = p.n_load; q < p.n_tape; ++q) {
+      const int w0 = p.tape[q][0], w1 = p.tape[q][1];
+      const int kind = w0 & 15, dst = (w0 >> 4) & 63;
+      const int x = ((w0 >> 10) & 127) - 1, y = ((w0 >> 17) & 127) - 1;
+      const int p0 = (w1 & 255) - 1, p1 = ((w1 >> 8) & 255) - 1;
+      const double P0 = (p0 >= 0) ? part[p0 * kTile + e] : 0.0;
+      const double P1 = (p1 >= 0) ? part[p1 * kTile + e] : 0.0;
+      const double* X = my + x * p.per * nt;
+      const double* Y = my + y * p.per * nt;
+      double* to = my + dst * p.per * nt;
+      for (int r = 0; r < rows; ++r) {
+        const double xv = (x >= 0) ? X[r * nt] : 0.0;
+        const double yv = (y >= 0) ? Y[r * nt] : 0.0;
+        double v;
+        switch (kind) {
+          case T_MUL1: v = mul_rn(xv, P0); break;
+          case T_DIV1: v = div_rn(xv, P0); break;
+          case T_MUL2: v = add_rn(mul_rn(xv, P0), mul_rn(yv, P1)); break;
+          case T_DIVB: v = div_rn(-mul_rn(yv, P1), P0); break;
+          case T_DIV2: v = div_rn(sub_rn(xv, mul_rn(yv, P1)), P0); break;
+          case T_NEG: v = -xv; break;
+          case T_ADD: v = add_rn(xv, yv); break;
+          case T_SUB: v = sub_rn(xv, yv); break;
+          case T_SEL: v = (P0 != 0.0) ? xv : yv; break;
+          default: v = nan(""); break;
+        }
+        to[r * nt] = v;
+      }
+    }
+    const double* res = my + p.out_slot * p.per * nt;
+    for (int r = 0; r < rows; ++r) p.out_t[(long long)(r0 + r * groups) * p.out_rs + i] = res[r * nt];
   }
 }
 
@@ -286,25 +392,77 @@ inline unsigned blocks_of(long long n) { return (unsigned)((n + kThreads - 1) / 
 
 }  // namespace
 
-// ptrs: n_in value pointers then n_in tangent pointers (null: constant);
-// strides: n_in element strides then n_in tangent row strides.
-extern "C" int ppt_dual_ew_f64(const void* const* ptrs, const long long* strides,
-                               int n_in, const int* code, const double* imm,
-                               int n_instr, double* out_v, double* out_t,
-                               long long out_rs, int n, int batch, void* stream) {
+// table (host memory, int64): n_in, n_instr, n_tape, n_load, n_imm, n_part,
+// n_slot, out_slot (the lowered program's sizes), the host addresses of its
+// code (int32: six words a value instruction, two a tape entry, the loads
+// first) and of its constants (double), out_v, out_t (0: the value alone),
+// out_rs, n, batch, then n_in value pointers, n_in tangent pointers (0:
+// constant), n_in element strides and n_in tangent row strides.
+extern "C" int ppt_dual_ew_f64(const long long* table, void* stream) {
+  EwLaunch p;
+  p.n_in = (int)table[0];
+  p.n_instr = (int)table[1];
+  p.n_tape = (int)table[2];
+  p.n_load = (int)table[3];
+  const int n_imm = (int)table[4];
+  p.n_part = (int)table[5];
+  p.n_slot = (int)table[6];
+  p.out_slot = (int)table[7];
+  const int* code = (const int*)table[8];
+  const double* imm = (const double*)table[9];
+  p.out_v = (double*)table[10];
+  p.out_t = (double*)table[11];
+  p.out_rs = table[12];
+  const long long n = table[13];
+  p.batch = (int)table[14];
   if (n == 0) return 0;
-  if (n_in < 1 || n_in > kMaxIn || n_instr < 1 || n_instr > kMaxInstr)
+  if (p.n_in < 1 || p.n_in > kMaxIn || p.n_instr < 1 || p.n_instr > kMaxInstr || p.batch < 0 ||
+      n < 0 || n > 0x7fffffffLL || n_imm < 0 || n_imm > kMaxInstr || p.n_part < 0 ||
+      p.n_part > 2 * kMaxInstr || p.n_slot < 0 || p.n_slot > kMaxTape || p.n_tape < 0 ||
+      p.n_tape > kMaxTape || p.n_load < 0 || p.n_load > p.n_tape || p.n_load > kMaxIn)
     return (int)cudaErrorInvalidValue;
-  EwInputs in;
+  p.n = (int)n;
+  const long long* ptrs = table + 15;
+  const long long* strides = ptrs + 2 * p.n_in;
   for (int k = 0; k < kMaxIn; ++k) {
-    bool live = k < n_in;
-    in.val[k] = live ? (const double*)ptrs[k] : nullptr;
-    in.tan[k] = live ? (const double*)ptrs[n_in + k] : nullptr;
-    in.es[k] = live ? strides[k] : 0;
-    in.rs[k] = live ? strides[n_in + k] : 0;
+    bool live = k < p.n_in;
+    p.val[k] = live ? (const double*)ptrs[k] : nullptr;
+    p.tan[k] = live ? (const double*)ptrs[p.n_in + k] : nullptr;
+    p.es[k] = live ? strides[k] : 0;
+    p.rs[k] = live ? strides[p.n_in + k] : 0;
   }
-  dual_ew_kernel<<<blocks_of(n), kThreads, 0, (cudaStream_t)stream>>>(
-      in, n_in, code, imm, n_instr, out_v, out_t, out_rs, n, batch);
+  memcpy(p.vcode, code, sizeof(int) * 6 * p.n_instr);
+  memcpy(p.tape, code + 6 * p.n_instr, sizeof(int) * 2 * p.n_tape);
+  memcpy(p.imm, imm, sizeof(double) * n_imm);
+  const bool tangents = p.out_t != nullptr && p.batch > 0;
+  const int groups = !tangents ? 1 : (p.batch < kMaxGroups ? p.batch : kMaxGroups);
+  const int threads = kTile * groups;
+  // Rows a thread holds at once: all of its rows where the slots fit 96 KB,
+  // else fewer (the tangent pass then takes the rows in chunks).
+  const size_t base = sizeof(double) * (size_t)(p.n_in + p.n_instr + p.n_part) * kTile;
+  const size_t row_bytes = sizeof(double) * (size_t)p.n_slot * threads;
+  p.per = !tangents ? 0 : (p.batch + groups - 1) / groups;
+  if (row_bytes > 0 && p.per > 1 && row_bytes * p.per > 96 * 1024) {
+    p.per = (int)((96 * 1024) / row_bytes);
+    if (p.per < 1) p.per = 1;
+  }
+  const size_t smem = base + row_bytes * p.per;
+  // A large program's slots over many rows need the opt-in above 48 KB, set
+  // once a device.
+  if (smem > 48 * 1024) {
+    static bool opted[64] = {false};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= 64) return (int)cudaErrorInvalidValue;
+    if (!opted[dev]) {
+      cudaError_t err = cudaFuncSetAttribute(dual_ew_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
+      if (err != cudaSuccess) return (int)err;
+      opted[dev] = true;
+    }
+  }
+  const unsigned blocks = (unsigned)((n + kTile - 1) / kTile);
+  dual_ew_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -18,8 +18,9 @@ K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; the flow
 steps' :class:`FlowCycle`, one per linearization buffer (K12, K13: a
 BiCGStab solve in two cooperative launches) and their linearizations
 :func:`structured_linearize` and :func:`tpfa_linearize`; K8's
-launchers :class:`DualGatherVar` and :class:`DualGatherCopy`, made once per
-step of the assembly's dual pass; and the K14, K15 and K8 operators at the end,
+launchers :class:`DualEwLauncher`, :class:`DualGatherVar` and
+:class:`DualGatherCopy`, made once per step of the assembly's dual pass;
+and the K14, K15 and K8 operators at the end,
 called from the dual-number pass of the assembly
 (:mod:`porepy_tpu_torch.numerics.ad.forward`) and from inside
 ``torch.autograd.Function``s, with optional seeds and row strides.
@@ -28,6 +29,7 @@ called from the dual-number pass of the assembly
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -77,6 +79,8 @@ __all__ = [
     "tpfa_ad_trace",
     "tpfa_ad_trace_tangent",
     "DualProgram",
+    "DualTape",
+    "DualEwLauncher",
     "dual_ew",
     "DualGatherVar",
     "DualGatherCopy",
@@ -1714,6 +1718,178 @@ def tpfa_ad_trace_tangent(geom: TpfaAdGeometry, primals, seeds):
 _JOINT = 8  # equations per jac_gather launch
 _COPY_PIECES = 32  # duals per dual_gather_copy launch
 _DUAL_BINARY = ("add", "sub", "mul", "div", "pow", "gt", "ge", "leabs")
+_DUAL_CONST = ("loadi", "sign", "gt", "ge", "leabs", "detach")
+# Unary opcodes whose tangent divides by their derivative factor (as
+# reference.dual_ew's table says); the others multiply by it.
+_DUAL_DIVIDE = ("log", "arcsin", "arccos", "arctan", "arcsinh", "arccosh", "arctanh", "sqrt")
+# The tape's entries, in the numbering of csrc/dual_ad.cu (TapeOp).
+(_T_LOAD, _T_MUL1, _T_DIV1, _T_MUL2, _T_DIVB, _T_DIV2, _T_NEG, _T_ADD, _T_SUB,
+ _T_SEL) = range(10)
+
+
+class DualTape:
+    """A :class:`DualProgram` lowered for one pattern of constant inputs,
+    as the ``dual_ew`` kernel runs it.
+
+    ``values``: one record ``(opcode, a, b, c, p0, p1)`` an instruction, with
+    the registers renumbered (inputs ``0 .. n_inputs - 1``, instruction ``j``
+    at ``n_inputs + j``; ``loadi`` keeps ``a``, the constant's index) and
+    ``p0, p1`` the partials the instruction leaves (indices into the
+    ``n_part`` partials of an element, -1 for none): ``mul`` leaves ``vb``
+    and ``va``, ``div`` ``vb`` and its result, ``pow`` its two derivative
+    factors, a unary opcode its factor, ``select`` the 0/1 choice and
+    ``custom`` ``vb``, each only where the tangent needs it.
+
+    ``tape``: the entries ``(kind, dst, x, y, p0, p1)`` of the tangent pass on
+    slots, its ``n_load`` loads first: ``load`` (input ``x``'s tangent row
+    into ``dst``), ``x * P0``,
+    ``x / P0``, ``x * P0 + y * P1``, ``-(y * P1) / P0``, ``(x - y * P1) /
+    P0``, ``-x``, ``x + y``, ``x - y`` and ``P0 != 0 ? x : y`` (a slot ``< 0``
+    reads 0); a tangent that only copies another (``add``, ``sub`` with a
+    constant operand) is that slot, and a tangent no output needs is not
+    computed. Slots are given by liveness: ``n_slot`` is the most tangents
+    alive at once, at most ``n_inputs + n_instr``; ``out_slot`` holds the
+    output's. ``out_const``: the output has no tangent (no tape)."""
+
+    __slots__ = ("values", "tape", "n_load", "n_part", "n_slot", "out_slot", "out_const")
+
+    def __init__(self, program: "DualProgram", const_inputs: tuple) -> None:
+        n_in, n_max = program.n_inputs, reference.DUAL_MAX_INPUTS
+        const = list(const_inputs) + [True] * (n_max - n_in)
+        ids: dict = {k: ("in", k) for k in range(n_in) if not const[k]}  # register -> tangent
+        entries = []  # (kind, dst id, x id, y id, partial key, partial key)
+        for j, (code, a, b, c) in enumerate(program.instrs):
+            name = reference.DUAL_OPCODES[code]
+            r, dst = n_max + j, ("r", j)
+            p0, p1 = (j, 0), (j, 1)
+            entry = None
+            if name in _DUAL_CONST:
+                pass
+            elif name == "select":
+                if not (const[b] and const[c]):
+                    entry = (_T_SEL, dst, ids.get(b), ids.get(c), p0, None)
+            elif name == "custom":
+                if not const[c]:
+                    entry = (_T_MUL1, dst, ids[c], None, p0, None)
+            elif name in _DUAL_BINARY:
+                ca, cb = const[a], const[b]
+                if ca and cb:
+                    pass
+                elif name in ("add", "sub") and (ca or cb):
+                    if cb:
+                        ids[r] = ids[a]  # the tangent of a, unchanged
+                    elif name == "add":
+                        ids[r] = ids[b]
+                    else:
+                        entry = (_T_NEG, dst, ids[b], None, None, None)
+                elif name in ("add", "sub"):
+                    entry = (_T_ADD if name == "add" else _T_SUB, dst, ids[a], ids[b], None, None)
+                elif name in ("mul", "pow"):
+                    # mul leaves (vb, va), pow (its factor in a, its factor in b).
+                    if cb:
+                        entry = (_T_MUL1, dst, ids[a], None, p0, None)
+                    elif ca:
+                        entry = (_T_MUL1, dst, ids[b], None, p1, None)
+                    else:
+                        entry = (_T_MUL2, dst, ids[a], ids[b], p0, p1)
+                else:  # div leaves (vb, result)
+                    if cb:
+                        entry = (_T_DIV1, dst, ids[a], None, p0, None)
+                    elif ca:
+                        entry = (_T_DIVB, dst, None, ids[b], p0, p1)
+                    else:
+                        entry = (_T_DIV2, dst, ids[a], ids[b], p0, p1)
+            elif not const[a]:
+                if name == "neg":
+                    entry = (_T_NEG, dst, ids[a], None, None, None)
+                else:
+                    kind = _T_DIV1 if name in _DUAL_DIVIDE else _T_MUL1
+                    entry = (kind, dst, ids[a], None, p0, None)
+            if entry is not None:
+                ids[r] = dst
+                entries.append(entry)
+            const.append(r not in ids)
+        out = ids.get(n_max + len(program.instrs) - 1)
+        self.out_const = out is None
+
+        # Keep what the output needs, and load each input's row before its
+        # first use.
+        needed = {out} if out is not None else set()
+        kept = []
+        for entry in reversed(entries):
+            if entry[1] in needed:
+                needed.update(t for t in entry[2:4] if t is not None)
+                kept.append(entry)
+        kept.reverse()
+        loads = []
+        for entry in kept + [(None, None, out, None, None, None)]:
+            for t in entry[2:4]:
+                if t is not None and t[0] == "in" and t not in loads:
+                    loads.append(t)
+        # The loads first: the kernel issues them before the value pass, so
+        # that their latency hides behind it.
+        tape = [(_T_LOAD, t, t, None, None, None) for t in loads] + kept
+        self.n_load = len(loads)
+
+        # Slots by liveness: an operand's slot is free once its last reader
+        # has read it (the reader's own result may take it).
+        last = {out: len(tape)} if out is not None else {}
+        for q, entry in enumerate(tape):
+            if entry[0] != _T_LOAD:
+                for t in entry[2:4]:
+                    if t is not None:
+                        last[t] = max(last.get(t, -1), q)
+        slot_of: dict = {}
+        free: list = []
+        n_slot = 0
+        for q, entry in enumerate(tape):
+            if entry[0] != _T_LOAD:
+                for t in {t for t in entry[2:4] if t is not None}:
+                    if last[t] == q:
+                        free.append(slot_of[t])
+            if free:
+                free.sort()
+                slot_of[entry[1]] = free.pop(0)
+            else:
+                slot_of[entry[1]] = n_slot
+                n_slot += 1
+        self.n_slot = n_slot
+        self.out_slot = slot_of.get(out, 0)
+
+        partial: dict = {}
+        for entry in tape:
+            for key in entry[4:6]:
+                if key is not None and key not in partial:
+                    partial[key] = len(partial)
+        self.n_part = len(partial)
+        values = []
+        for j, (code, a, b, c) in enumerate(program.instrs):
+            if reference.DUAL_OPCODES[code] == "loadi":
+                regs = (a, 0, 0)
+            else:
+                regs = tuple(r if r < n_max else n_in + r - n_max for r in (a, b, c))
+            values.append((code,) + regs + (partial.get((j, 0), -1), partial.get((j, 1), -1)))
+        self.values = tuple(values)
+        self.tape = tuple(
+            (
+                kind,
+                slot_of[dst],
+                x[1] if kind == _T_LOAD else (-1 if x is None else slot_of[x]),
+                -1 if y is None else slot_of[y],
+                -1 if k0 is None else partial[k0],
+                -1 if k1 is None else partial[k1],
+            )
+            for kind, dst, x, y, k0, k1 in tape
+        )
+
+    def code(self) -> list:
+        """The int32 words the kernel reads: the value records, six ints
+        each, then the tape's entries, two words each (``kind | dst << 4 |
+        (x + 1) << 10 | (y + 1) << 17`` and ``(p0 + 1) | (p1 + 1) << 8``)."""
+        words = [v for rec in self.values for v in rec]
+        for kind, dst, x, y, p0, p1 in self.tape:
+            words += [kind | dst << 4 | (x + 1) << 10 | (y + 1) << 17, (p0 + 1) | (p1 + 1) << 8]
+        return words
 
 
 class DualProgram:
@@ -1722,7 +1898,7 @@ class DualProgram:
     :data:`porepy_tpu_torch.kernels.reference.DUAL_OPCODES`; opcode by name
     or number), ``imm`` the constants that ``loadi`` reads, ``n_inputs`` the
     number of input registers. Everything the kernel relies on is checked
-    here, once; :func:`dual_ew` checks only its tensors."""
+    here, once; :meth:`tape` lowers it once a pattern of constant inputs."""
 
     def __init__(self, instrs, imm, n_inputs: int) -> None:
         n_max, i_max = reference.DUAL_MAX_INPUTS, reference.DUAL_MAX_INSTRS
@@ -1748,41 +1924,169 @@ class DualProgram:
             checked.append((code,) + tuple(int(r) for r in regs) + (0,) * (3 - arity))
         self.instrs = tuple(checked)
         self.n_inputs = n_inputs
-        self._on: dict = {}
-        self._out_const: dict = {}
+        self._tapes: dict = {}
+        self._launcher = None
 
-    def on(self, device) -> tuple:
-        """``(code, imm)`` on ``device``: the ``(n_instr, 4)`` int32
-        instructions and the float64 constants (one 0 where there is none)."""
-        t = self._on.get(device)
-        if t is None:
-            t = self._on[device] = (
-                torch.tensor(self.instrs, dtype=torch.int32, device=device),
-                torch.tensor(self.imm or (0.0,), dtype=torch.float64, device=device),
-            )
-        return t
+    def tape(self, const_inputs: tuple) -> DualTape:
+        """The :class:`DualTape` for the inputs flagged constant in
+        ``const_inputs``, lowered at the first call."""
+        hit = self._tapes.get(const_inputs)
+        if hit is None:
+            hit = self._tapes[const_inputs] = DualTape(self, const_inputs)
+        return hit
 
     def out_const(self, const_inputs: tuple) -> bool:
         """Whether the output is a constant when the inputs flagged in
-        ``const_inputs`` are (the kernel derives the same per register)."""
-        hit = self._out_const.get(const_inputs)
+        ``const_inputs`` are."""
+        return self.tape(const_inputs).out_const
+
+    def launcher(self) -> "DualEwLauncher":
+        """This program's own :class:`DualEwLauncher`, made at the first call."""
+        if self._launcher is None:
+            self._launcher = DualEwLauncher(self)
+        return self._launcher
+
+
+class DualEwLauncher:
+    """K8's ``dual_ew`` for one :class:`DualProgram`, made once per step of
+    the dual pass (and once for each fixed program): ``launch(inputs,
+    batch)`` returns ``(val, tan)`` of the program on the duals ``inputs``, a
+    list of ``(val, tan)`` (see
+    :func:`porepy_tpu_torch.kernels.reference.dual_ew`); on the card value
+    and tangent rows are views of one ``(batch + 1, n)`` buffer, row 0 the
+    value.
+
+    The lowering (:meth:`DualProgram.tape`) and its code are made once a
+    pattern of constant inputs, the launch table (one int64 array the
+    kernel's C entry reads: the program's sizes, code and constants, the
+    output, the operands' pointers and strides) once; a call
+    checks the operands, allocates the output, writes the pointers (the
+    strides and sizes only when they change) and makes one ctypes call of two
+    arguments. On the CPU the plain version runs; on a CUDA tensor the kernel
+    launches or the call raises. Counts under ``dual_ew``."""
+
+    __slots__ = (
+        "program", "_n_in", "_dev", "_fn", "_table", "_fmt", "_head", "_stride_key", "_states",
+        "_all_const",
+    )
+
+    # The launch table: 10 header words (n_in, n_instr, n_tape, n_load, n_imm,
+    # n_part, n_slot, out_slot, and the host addresses of the code and the
+    # constants), 5 call words (out_v, out_t, out_rs, n, batch), n_in value
+    # and n_in tangent pointers, n_in element and n_in row strides
+    # (csrc/dual_ad.cu, ppt_dual_ew_f64).
+    _HEAD, _CALL = 10, 5
+
+    def __init__(self, program: DualProgram) -> None:
+        self.program = program
+        self._n_in = program.n_inputs
+        self._dev = None
+        self._all_const = (True,) * program.n_inputs
+
+    def _bind(self, dev: int) -> None:
+        n_in = self._n_in
+        self._fn = _kernel("dual_ew", torch.float64)
+        self._dev = dev
+        self._table = (ctypes.c_longlong * (self._HEAD + self._CALL + 4 * n_in))()
+        self._fmt = f"{self._CALL + 2 * n_in}q"
+        self._head = None
+        self._stride_key = None
+        self._states = {}
+
+    def _state(self, pattern: tuple) -> tuple:
+        """``(tape, header words, code, constants)`` of ``pattern``: the code
+        and constants are host arrays that the C entry copies into the
+        kernel's parameters at every launch."""
+        hit = self._states.get(pattern)
         if hit is None:
-            n_max = reference.DUAL_MAX_INPUTS
-            const = list(const_inputs) + [True] * (n_max - len(const_inputs))
-            for code, a, b, c in self.instrs:
-                name = reference.DUAL_OPCODES[code]
-                if name in ("loadi", "sign", "gt", "ge", "leabs", "detach"):
-                    const.append(True)
-                elif name == "select":
-                    const.append(const[b] and const[c])
-                elif name == "custom":
-                    const.append(const[c])
-                elif name in _DUAL_BINARY:
-                    const.append(const[a] and const[b])
-                else:
-                    const.append(const[a])
-            hit = self._out_const[const_inputs] = const[-1]
+            program = self.program
+            tape = program.tape(pattern)
+            words = tape.code()
+            code = (ctypes.c_int * len(words))(*words)
+            imm = (ctypes.c_double * max(len(program.imm), 1))(*program.imm)
+            head = (
+                self._n_in, len(program.instrs), len(tape.tape), tape.n_load, len(program.imm),
+                tape.n_part, tape.n_slot, tape.out_slot, ctypes.addressof(code),
+                ctypes.addressof(imm),
+            )
+            hit = self._states[pattern] = (tape, head, code, imm)
         return hit
+
+    def __call__(self, inputs, batch: int):
+        ref = inputs[0][0]
+        if not ref.is_cuda:
+            program = self.program
+            return reference.dual_ew(program.instrs, program.imm, inputs, batch)
+        n_in = self._n_in
+        if len(inputs) != n_in:
+            raise ValueError(f"dual_ew: {len(inputs)} inputs for a program of {n_in}")
+        dev = ref.get_device()
+        if dev != self._dev:
+            self._bind(dev)
+        f64 = torch.float64
+        n, one_d = -1, False
+        vals, tans, strides, keep = [], [], [], []
+        for val, tan in inputs:
+            if val.dtype != f64 or val.get_device() != dev:
+                raise TypeError("dual_ew: values must be float64 tensors on the launcher's card")
+            dim = val.dim()
+            length = val.numel()
+            if dim == 1:
+                one_d = True
+                if length != 1:
+                    if n not in (-1, length):
+                        raise ValueError(f"dual_ew: operands of {n} and {length} elements")
+                    n = length
+            elif dim:
+                raise ValueError(f"dual_ew: value of shape {tuple(val.shape)}")
+            es = val.stride(0) if length > 1 else 0
+            vals.append(val.data_ptr())
+            if tan is None or not batch:
+                tans.append(0)
+                strides.append((es, 0))
+                continue
+            if (tan.dtype != f64 or tan.get_device() != dev
+                    or tan.shape != (batch, length if dim else 1)):
+                raise ValueError(
+                    f"dual_ew: tangent of shape {tuple(tan.shape)}, expected "
+                    f"({batch}, {length if dim else 1}) float64 on the launcher's card"
+                )
+            ts = tan.stride()
+            if length > 1 and ts[1] != es:
+                if es != 1:
+                    raise ValueError("dual_ew: value and tangent rows differ in element stride")
+                tan = tan.contiguous()
+                keep.append(tan)
+                ts = tan.stride()
+            tans.append(tan.data_ptr())
+            strides.append((es, ts[0]))
+        shape = (n,) if n >= 0 else ((1,) if one_d else ())
+        n = 1 if n < 0 else n
+        pattern = tuple(p == 0 for p in tans) if batch else self._all_const
+        tape, head, _code, _imm = self._state(pattern)
+        if tape.out_const or not batch:
+            out_v, out_t = ref.new_empty(n), None
+            out_ptrs = (out_v.data_ptr(), 0, n, n, 0)
+        else:
+            buf = ref.new_empty((batch + 1, n))
+            out_v, out_t = buf[0], buf[1:]
+            ptr = buf.data_ptr()
+            out_ptrs = (ptr, ptr + 8 * n, n, n, batch)
+        if n:
+            table = self._table
+            if head is not self._head:
+                table[: self._HEAD] = head
+                self._head = head
+            if strides != self._stride_key:
+                base = self._HEAD + self._CALL + 2 * n_in
+                table[base : base + 2 * n_in] = [e for e, _r in strides] + [r for _e, r in strides]
+                self._stride_key = strides
+            struct.pack_into(self._fmt, table, 8 * self._HEAD, *out_ptrs, *vals, *tans)
+            rc = self._fn(table, _current_stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"dual_ew kernel launch failed with CUDA error {rc}")
+            LAUNCHES["dual_ew"] += 1
+        return (out_v if shape == (n,) else out_v.reshape(shape)), out_t
 
 
 def _host_table(ctype, values):
@@ -1816,49 +2120,9 @@ def _dual_rows(name, val, tan, batch, n):
 def dual_ew(program: DualProgram, inputs, batch: int):
     """``(val, tan)`` of the elementwise ``program`` on the duals ``inputs``,
     a list of ``(val, tan)`` (see
-    :func:`porepy_tpu_torch.kernels.reference.dual_ew`). On the card value
-    and tangent rows are views of one ``(batch + 1, n)`` buffer, row 0 the
-    value."""
-    ref = inputs[0][0]
-    if not ref.is_cuda:
-        return reference.dual_ew(program.instrs, program.imm, inputs, batch)
-    if len(inputs) != program.n_inputs:
-        raise ValueError(f"dual_ew: {len(inputs)} inputs for a program of {program.n_inputs}")
-    n, one_d = -1, False
-    for val, _tan in inputs:
-        if val.dim() == 1:
-            one_d = True
-            if val.shape[0] != 1:
-                if n not in (-1, val.shape[0]):
-                    raise ValueError(f"dual_ew: operands of {n} and {val.shape[0]} elements")
-                n = val.shape[0]
-    shape = (n,) if n >= 0 else ((1,) if one_d else ())
-    n = 1 if n < 0 else n
-    ptrs_v, ptrs_t, es, rs, keep = [], [], [], [], []
-    for val, tan in inputs:
-        pv, pt, e, r, kept = _dual_rows("dual_ew", val, tan, batch, n)
-        ptrs_v.append(pv)
-        ptrs_t.append(pt)
-        es.append(e)
-        rs.append(r)
-        keep.append(kept)
-    const = program.out_const(tuple(p is None for p in ptrs_t))
-    if const or not batch:
-        out_v, out_t = torch.empty(n, dtype=torch.float64, device=ref.device), None
-    else:
-        buf = torch.empty((batch + 1, n), dtype=torch.float64, device=ref.device)
-        out_v, out_t = buf[0], buf[1:]
-    if n:
-        code, imm = program.on(ref.device)
-        _launch(
-            "dual_ew", torch.float64,
-            _host_table(ctypes.c_void_p, ptrs_v + ptrs_t),
-            _host_table(ctypes.c_longlong, es + rs),
-            len(inputs), code.data_ptr(), imm.data_ptr(), len(program.instrs),
-            out_v.data_ptr(), None if out_t is None else out_t.data_ptr(), n, n,
-            0 if out_t is None else batch,
-        )
-    return (out_v if shape == (n,) else out_v.reshape(shape)), out_t
+    :func:`porepy_tpu_torch.kernels.reference.dual_ew`): the functional form
+    of :class:`DualEwLauncher`, through the program's own launcher."""
+    return program.launcher()(inputs, batch)
 
 
 class DualGatherVar:

@@ -16,10 +16,10 @@ for a constant. At every assembly the steps run in order:
   assembly writes the value row alone);
 - a maximal subtree of ``add, sub, mul, div, pow, neg`` nodes and elementwise
   functions whose inner nodes have one consumer is one
-  :class:`~porepy_tpu_torch.kernels.DualProgram`, run by
-  :func:`~porepy_tpu_torch.kernels.dual_ew` in one launch (a node with
-  several consumers is materialized, as is a subtree that outgrows the
-  program's registers);
+  :class:`~porepy_tpu_torch.kernels.DualProgram`, run by the step's
+  :class:`~porepy_tpu_torch.kernels.DualEwLauncher` (``dual_ew``) in one
+  launch (a node with several consumers is materialized, as is a subtree
+  that outgrows the program's registers);
 - a constant sparse matrix is applied to value and tangent rows by the K1
   kernel (the matrix's :class:`~porepy_tpu_torch.kernels.EllOperator`, the
   launch without the dispatcher) in one stacked launch;
@@ -215,7 +215,8 @@ def compile_expr(expr: _Expr) -> tuple[ops.DualProgram, list]:
 
 
 def run_program(program: ops.DualProgram, duals: Sequence[Dual], batch: int) -> Dual:
-    """``program`` on ``duals`` through the ``dual_ew`` kernel."""
+    """``program`` on ``duals`` through the ``dual_ew`` kernel (the program's
+    own launcher, made at its first run)."""
     return Dual(*ops.dual_ew(program, [d.pair() for d in duals], batch))
 
 
@@ -538,9 +539,10 @@ class DualExecutor:
     def _fused(self, node, expr: _Expr) -> int:
         program, input_nodes = compile_expr(expr)
         slots = [self._materialize(n) for n in input_nodes]
+        launch = program.launcher()
 
         def step(R, run):
-            return Dual(*ops.dual_ew(program, [R[s].pair() for s in slots], run.batch))
+            return Dual(*launch([R[s].pair() for s in slots], run.batch))
 
         return self._new_slot(node, step, slots)
 

@@ -15,6 +15,7 @@ import scipy.sparse as sps
 import torch
 
 from porepy_tpu_torch import kernels
+from porepy_tpu_torch.applications.benchmarking.dual_pivot_check import pivot_blocks
 from porepy_tpu_torch.kernels import ops, reference
 from porepy_tpu_torch.numerics.ad.compiler import _EllMatvec
 from porepy_tpu_torch.numerics.linalg import device_solver as ds_torch
@@ -298,6 +299,33 @@ def test_cuda_dense_block_kernels_match_plain(cuda, dtype):
     y_ref = reference.dense_block_apply(D32, r)
     bound = 1e-5 * (D32[:ni, :ni].abs() @ r.abs().to(torch.float32)).to(dtype)
     assert y.dtype == dtype and bool(torch.all((y - y_ref).abs() <= bound))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("b", [1, 7, 64, 128])
+def test_cuda_gj_pivot_inverse_ties_sizes_and_flags(cuda, dtype, b):
+    """K6's pivot inverse against ``torch.linalg.inv_ex`` (its plain
+    version) for every size class: ties, a zero leading entry, a singular
+    block; flags equal to the plain version's and never cleared."""
+    a_np = pivot_blocks(b, 40 + b)
+    a = torch.tensor(a_np, dtype=dtype, device=cuda)
+    flag = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=cuda)
+    inv = kernels.gj_pivot_inverse(a, flag)
+    again = kernels.gj_pivot_inverse(a, torch.zeros(4, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    want_flag = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=cuda)
+    want = reference.gj_pivot_inverse(a, want_flag)
+    assert flag.tolist() == want_flag.tolist()
+    assert flag.tolist()[2:] == [1, 1]
+    eps = float(torch.finfo(dtype).eps)
+    for m in range(4):
+        if want_flag[m] and m != 3:
+            continue
+        X = inv[m].double()
+        assert torch.equal(inv[m], again[m])
+        bound = 4 * eps * b * float(np.linalg.cond(a_np[m])) * float(want[m].abs().max())
+        assert float((X - want[m].double()).abs().max()) <= bound, m
 
 
 @pytest.mark.cuda
