@@ -7,8 +7,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 1. print the card (``nvidia-smi`` name and power limit, and torch's name);
 2. build the hand-written kernels from ``porepy_tpu_torch/kernels/csrc``;
 3. hold each md kernel against its plain PyTorch version at the md 1/128
-   shapes (n = 18,157 rows, K = 9, B = 11 seeds; the Givens step at
-   j = 0, 35, 69 of restart 70), with CUDA-event times over 100 calls.
+   shapes (n = 18,157 rows, K = 9, B = 11 seeds), with CUDA-event times
+   over 100 calls.
    Tolerance: |kernel - plain| <= 1e-13 (float64) or 1e-5 (float32) times
    the row's sum of |terms|; K2 (``jacobi_sweeps``: one sweep from a given
    y, eight from y = sinv r in one launch) equal to its plain version;
@@ -30,12 +30,26 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the composition it replaced (K1 launchers, one-sweep K2 launches,
    ``torch.matmul``), one launch an apply, device microseconds an apply by
    graph replay, host microseconds and CUDA-event ms in turns with the
-   composition, the plain version and the bound;
+   composition, the plain version and the bound; and, inside phase 4 (3d),
+   K4 (``fgmres_arnoldi``: an FGMRES Arnoldi step, the matvec inside, one
+   cooperative launch) at md 1/128's Jacobian, Ruiz-equilibrated as the
+   solve runs it, restart 70, f32 and f64
+   (``applications/benchmarking/arnoldi_check.py``): every column of a
+   cycle equal to its plain version and to its split form (the sharded
+   solve's four launches) to the bit, breakdowns (``z = Z[j - 1]``) at
+   columns 8, 35 and 69; at columns 0, 8, 35 and 69, in turns with the
+   composition it replaced (K1's launcher, the CGS2 GEMVs and copies in
+   torch, the K4g custom operator from the parent's source), device
+   microseconds a step by graph replay (``j`` reset in the graph), host
+   microseconds a call, ms by events, the plain version's ms and the bound
+   and its share;
 4. run the md case at cell size 1/128 through ``run_time_dependent_model``
    for 26 time steps on the card, with every kernel's launch count reset
    just before and read just after; check 3 fused blocks committed, no host
    fallback solve, every md kernel launched, one ``amg_vcycle`` launch a
-   preconditioner apply (as many as ``fgmres_givens``), a finite state, pressure
+   preconditioner apply and one ``fgmres_arnoldi`` launch an apply (no
+   ``fgmres_givens``: the K4g launcher is retired), Newton counts a block
+   as the parent's (8; Krylov within one a solve of its 64), a finite state, pressure
    within the boundary data's range [0, 1], and the last step re-checked
    on the host with the plain path: its residual, and one more Newton
    increment (a direct solve) within the Newton tolerance;
@@ -43,7 +57,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the final states (1e-8 max abs);
 6. run the 3d case at 32^3 (32,768 dofs) for 26 steps with dense frozen
    block inverses (K6), as porepy_tpu ran it on the TPU: 3 fused blocks,
-   no host fallback, dense active and not demoted, every K1/K4g/K6 kernel
+   no host fallback, dense active and not demoted, every K1/K4/K6 kernel
    launched, a finite state with pressure in [1e5, 2e5] (the boundary data
    and the initial value), and one more host Newton increment <= 1e-10;
    prints setup, dense-build and Gauss-Jordan seconds and per-block times;
@@ -253,6 +267,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -264,7 +279,12 @@ from porepy_tpu_torch.applications.benchmarking.timing import host_us as _host_u
 
 N_ROWS, K_ELL, N_SEEDS, RESTART = 18157, 9, 11, 70
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
-MD_KERNELS = ("ell_spmv", "amg_vcycle", "fgmres_givens")
+MD_KERNELS = ("ell_spmv", "amg_vcycle", "fgmres_arnoldi")
+# Newton / Krylov iterations a fused block of md 1/128 and md 1/256 on the
+# route before the one-launch Arnoldi step (every block of the chip runs
+# recorded in PERF.md): this route keeps the Newton counts and moves a
+# solve's Krylov count by at most one.
+PARENT_BLOCKS = {"": (8, 64), "md256": (8, 72)}
 K8_KERNELS = ("dual_ew", "dual_gather", "jac_gather")
 DENSE_KERNELS = ("dense_block_scatter", "gj_pivot_inverse", "dense_block_apply")
 N3D = 32
@@ -372,51 +392,6 @@ def check_kernels(dev) -> dict:
             _require(same, f"jacobi_sweeps (s = {s}, {dtype}) differs from its plain version")
     report["jacobi_sweeps"] = k2
 
-    k4 = {"err": 0.0}
-    for dtype in (torch.float32, torch.float64):
-        for j0 in (0, 35, 69):
-            h = torch.randn(RESTART + 1, generator=gen, dtype=torch.float64)
-            h[j0 + 2 :] = 0
-            theta = torch.rand(RESTART, generator=gen, dtype=torch.float64) * 6.28
-            g = torch.zeros(RESTART + 1, dtype=torch.float64)
-            g[: j0 + 1] = torch.randn(j0 + 1, generator=gen, dtype=torch.float64)
-            inputs = [h, torch.cos(theta), torch.sin(theta), g]
-            atol = torch.tensor(1e-6, dtype=dtype, device=dev)
-
-            def fresh():
-                arrays = [a.to(dtype=dtype, device=dev, copy=True) for a in inputs]
-                j = torch.tensor(j0, dtype=torch.int32, device=dev)
-                flag = torch.zeros((), dtype=torch.int32, device=dev)
-                return arrays + [j, atol, flag]
-
-            got, want = fresh(), fresh()
-            ops.fgmres_givens(*got)
-            reference.fgmres_givens(*want)
-            scale = sum(float(a.abs().sum()) for a in want[:4]) + 1.0
-            err = torch.stack(
-                [(a - b).abs().max() for a, b in zip(got[:4], want[:4])]
-            ).max()
-            tag = f"fgmres_givens {str(dtype)[6:]} j={j0}"
-            k4["err"] = max(k4["err"], _check(tag, err, TOL[dtype] * scale))
-            same_int = all(int(a) == int(b) for a, b in zip(got[4::2], want[4::2]))
-            _require(same_int, f"{tag}: j or flag disagrees")
-            args = fresh()
-            j_dev = args[4]
-
-            def step(fn=ops.fgmres_givens):
-                j_dev.fill_(j0)
-                fn(*args)
-
-            ms = _cuda_ms(step)
-            plain_ms = _cuda_ms(lambda: step(reference.fgmres_givens))
-            print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain (both reset j)")
-            if dtype == torch.float32 and j0 == 35:
-                # hcol, g read and written, cs, sn read (j entries) and one
-                # of each written; 6 operations per rotation applied.
-                k4.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          bytes=4 * (4 * (RESTART + 1) + 2 * j0 + 2), flops=6 * (j0 + 1) + 8,
-                          dtype=torch.float32)
-    report["fgmres_givens"] = k4
     return report
 
 
@@ -635,11 +610,22 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
     needed = MD_KERNELS + (() if functorch else K8_KERNELS)
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
-    # One V-cycle launch a preconditioner apply, and an apply a Givens step.
-    _require(launches["amg_vcycle"] == launches["fgmres_givens"],
-             f"amg_vcycle {launches['amg_vcycle']} launches, {launches['fgmres_givens']} applies")
-    print(f"  one amg_vcycle launch an apply: {launches['amg_vcycle']} applies, ell_spmv "
-          f"{launches['ell_spmv']} launches")
+    # One V-cycle launch a preconditioner apply, and an apply an Arnoldi
+    # step, one fgmres_arnoldi launch with the matvec inside.
+    _require(launches["amg_vcycle"] == launches["fgmres_arnoldi"],
+             f"amg_vcycle {launches['amg_vcycle']} launches, {launches['fgmres_arnoldi']} Arnoldi steps")
+    _require(launches.get("fgmres_givens", 0) == 0, f"fgmres_givens launched: {launches}")
+    steps = launches["fgmres_arnoldi"]
+    print(f"  one amg_vcycle and one fgmres_arnoldi launch an apply: {steps} applies; fgmres_givens "
+          f"{launches.get('fgmres_givens', 0)} launches; ell_spmv {launches['ell_spmv']} launches, with the "
+          f"Arnoldi matvec outside the step (the parent's route, at these Krylov counts) "
+          f"{launches['ell_spmv'] + steps}")
+    blocks = [(rec["newton_iters"], rec["krylov_iters"]) for _s, rec in model.block_log]
+    newton_p, krylov_p = PARENT_BLOCKS[case if case in PARENT_BLOCKS else ""]
+    print(f"  Newton / Krylov a block {blocks}; the parent's route {[(newton_p, krylov_p)] * len(blocks)}")
+    if not functorch:
+        _require(all(nw == newton_p and abs(kr - krylov_p) <= nw for nw, kr in blocks),
+                 f"Newton / Krylov a block {blocks}, the parent's {(newton_p, krylov_p)}")
     if case:
         # Above the dense limit: the AMG preconditioner, as the case asks.
         solver = next(iter(model._device_solvers.values()))
@@ -670,6 +656,14 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
             out["k1"]["f32 B1"] = check_k1_at(label, val.to(torch.float32), col, 1, 70)
         print(f"phase 3c: K3 at {name}'s hierarchy (the final state's)")
         out["k3"] = vcycle_times(solver, name)
+        if not case:
+            from porepy_tpu_torch.applications.benchmarking import arnoldi_check
+
+            print(f"phase 3d: K4 (fgmres_arnoldi) at {label}, Ruiz-equilibrated as the solve runs it")
+            with tempfile.TemporaryDirectory() as work:
+                out["k4"] = arnoldi_check.check_step(
+                    arnoldi_check.solve_matrix(val, col, solver._m_state), col, label, work
+                )
     return out
 
 
@@ -852,7 +846,7 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
         out["k3"] = vcycle_times(solver, "3d 32^3")
         return out
     _require(solver._dense and solver._builder._block_dense == {0: True}, "dense demoted")
-    needed = ("ell_spmv", "fgmres_givens") + DENSE_KERNELS
+    needed = ("ell_spmv", "fgmres_arnoldi") + DENSE_KERNELS
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     _require(bool(np.all(np.isfinite(x))), "non-finite state")
     _require(x.min() >= 1e5 and x.max() <= 2e5, f"pressure {x.min()}..{x.max()}")
@@ -1510,7 +1504,7 @@ def run_biot(dev, dense: bool) -> dict:
     _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
     _require(disc_launches > 0, "region_solve not launched in the discretization")
-    needed = ("ell_spmv", "fgmres_givens") + (DENSE_KERNELS if dense else ("amg_vcycle",))
+    needed = ("ell_spmv", "fgmres_arnoldi") + (DENSE_KERNELS if dense else ("amg_vcycle",))
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     _require(solver._dense == dense, f"dense {solver._dense}")
     if dense:
@@ -2920,7 +2914,7 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, t
     model, out = _run_fused_case(dev, Model, params)
     launches = out["launches"]
     print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
-    needed = ("ell_spmv", "fgmres_givens", "upwind_flux", "upwind_select") + K8_KERNELS
+    needed = ("ell_spmv", "fgmres_arnoldi", "upwind_flux", "upwind_select") + K8_KERNELS
     solver = next(iter(model._device_solvers.values()))
     if not dense:
         # The AMG field split: a V-cycle on the pressure block, sweeps on
@@ -3045,7 +3039,7 @@ def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
     launches = out["launches"]
     print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     _require(out["setup_launches"]["segment_sum_sorted"] > 0, "segment_sum_sorted not launched in the discretization")
-    needed = ("ell_spmv", "fgmres_givens", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted") + K8_KERNELS
+    needed = ("ell_spmv", "fgmres_arnoldi", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted") + K8_KERNELS
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
     p = model.equation_system.get_variable_values(["pressure"], time_step_index=0)
     _require(bool(np.all(np.isfinite(p))), "non-finite state")
@@ -3306,6 +3300,13 @@ def main() -> int:
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "library_ms": None, "bound": (k3["bound_ms"], "bytes"),
         "err": max(r["err"] for m in (md, md256, d3_amg, biot) for r in m["k3"]["all"]),
     }
+    # K4 in the line: one step at column 8 of md 1/128's Jacobian in f32
+    # (phase 3d), the solve's type; every column of a cycle in f32 and f64
+    # equal to the plain version. No one PyTorch call runs an Arnoldi step.
+    k4 = md["k4"]["float32"]["timed"][8]
+    report["fgmres_arnoldi"] = {"ms": k4["ms"], "plain_ms": k4["plain_ms"], "library_ms": None, "err": 0.0,
+                                "bound": (1e-3 * k4["bound_us"], k4["bound_by"]),
+                                "device_us": min(k4["device_us"]["kernel"])}
     # K2 in the line: the contact case's Jacobi block at its own count
     # (phase 13), the one path whose frozen count launches sweeps. No one
     # PyTorch call runs s sweeps.
@@ -3318,7 +3319,8 @@ def main() -> int:
         "ell_spmv": ("ell_spmv.cu", "porepy_tpu/numerics/linalg/amg.py:59", md["launches"]["ell_spmv"]),
         "amg_vcycle": ("amg_vcycle.cu", "porepy_tpu/numerics/linalg/amg.py:327", md["launches"]["amg_vcycle"]),
         "jacobi_sweeps": ("amg_vcycle.cu", "porepy_tpu/numerics/linalg/device_solver.py:256", contact_k2["launches"]),
-        "fgmres_givens": ("fgmres_givens.cu", "porepy_tpu/numerics/linalg/device_solver.py:198", md["launches"]["fgmres_givens"]),
+        "fgmres_arnoldi": ("fgmres_arnoldi.cu", "porepy_tpu/numerics/linalg/device_solver.py:179-212",
+                           md["launches"]["fgmres_arnoldi"]),
         "dense_block_scatter": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:141", d3["launches"]["dense_block_scatter"]),
         "gj_pivot_inverse": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:104", d3["launches"]["gj_pivot_inverse"]),
         "dense_block_apply": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:702", d3["launches"]["dense_block_apply"]),
@@ -3366,7 +3368,7 @@ def main() -> int:
             "launches": launches, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
         })
-        if k in ("gj_pivot_inverse", "dual_ew"):
+        if k in ("gj_pivot_inverse", "dual_ew", "fgmres_arnoldi"):
             entries[-1]["device_us"] = r["device_us"]
     kernels_line = {"kernels": entries}
     print(
@@ -3463,6 +3465,12 @@ def main() -> int:
                   f"{r['ms']:.4f} ms ({r['device_us']:.2f} us device), {s_} one-sweep launches "
                   f"{r['one_sweep_ms']:.4f} ms ({r['one_sweep_device_us']:.2f} us device), plain "
                   f"{r['plain_ms']:.4f} ms, bound {1e3 * r['bound_ms']:.3f} us")
+    for dt in ("float32", "float64"):
+        for j, r in md["k4"][dt]["timed"].items():
+            print(f"K4 (one FGMRES Arnoldi step, one fgmres_arnoldi launch) at md 1/128's Jacobian, {dt}, column "
+                  f"{j}, on {smi}, in turns with the parent's composition: device us {r['device_us']} (graph "
+                  f"replay), host us {r['host_us']}, bound {r['bound_us']:.3f} us ({r['bound_by']}, "
+                  f"{100 * r['share']:.1f}%), plain {r['plain_ms']:.3f} ms")
     a = report["bicgstab_cycle"]
     print(f"K18a (one BiCGStab solve's launch, {a['iters']} iterations, matvecs inside) on {smi}: {a['ms']:.4f} ms, "
           f"{a['us_per_iteration']} us an iteration, {a['host_us']} us of host time a launch, plain "

@@ -1,3 +1,7 @@
+// The parent's K4g kernel (one thread: the Givens step of an FGMRES Arnoldi
+// step), kept beside arnoldi_check.py as the yardstick of the composition
+// that fgmres_arnoldi.cu replaced; no path of the package builds it.
+//
 // K4g: the Givens step of one FGMRES Arnoldi iteration, in place.
 //
 // Replaces porepy_tpu/numerics/linalg/device_solver.py:198-210 (the rotation

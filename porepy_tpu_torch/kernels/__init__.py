@@ -9,7 +9,9 @@ K2        :class:`JacobiSweeps`,         ``numerics/linalg/device_solver.py:256`
           :func:`ell_jacobi_sweep`       block's sweeps, one cooperative kernel)
 K3        :class:`VCycleOperator`        ``numerics/linalg/amg.py:327-341`` (the V-cycle, one
                                          cooperative kernel)
-K4g       :func:`fgmres_givens`          ``numerics/linalg/device_solver.py:198``
+K4        :class:`FgmresArnoldi`         ``numerics/linalg/device_solver.py:179-212`` (an FGMRES
+                                         Arnoldi step: matvec, CGS2, Givens step and flag, one
+                                         cooperative kernel)
 K6        :func:`dense_block_scatter`    ``numerics/linalg/device_solver.py:141-146``
 K6        :func:`gj_pivot_inverse`       ``numerics/linalg/device_solver.py:104`` (pivot inverse)
 K6        :func:`dense_block_apply`      ``numerics/linalg/device_solver.py:702-706``
@@ -82,7 +84,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     DualGatherVar,
     dual_gather_copy,
     dual_gather_var,
-    fgmres_givens,
+    FgmresArnoldi,
     gj_pivot_inverse,
     jac_gather,
     region_solve,

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = (
     "ell_spmv.cu",
     "amg_vcycle.cu",
-    "fgmres_givens.cu",
+    "fgmres_arnoldi.cu",
     "dense_block.cu",
     "structured_flow.cu",
     "tpfa_flow.cu",
@@ -51,7 +51,9 @@ _SIGNATURES = {
     # The level table is a host array (a ctypes array of int64).
     "ppt_amg_vcycle": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
     "ppt_jacobi_sweeps": [_P] * 7 + [_I] * 3 + [_P],
-    "ppt_fgmres_givens": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # A launch table of int64 words in host memory (ops.FgmresArnoldi).
+    "ppt_fgmres_arnoldi": [_P, _P, _P, _I, _P],
+    "ppt_fgmres_arnoldi_grid": [_I, _I, _P],
     "ppt_dense_block_scatter": [_P, _P, _P, _I, _I, _I, _P, _P],
     "ppt_gj_pivot_inverse": [_P, _P, _P, _I, _I, _P],
     "ppt_dense_block_apply": [_P, _P, _P, _I, _I, _P],

@@ -12,6 +12,7 @@ the dispatcher: K1's launcher :class:`EllOperator`, which the solve and the
 assembly call (the custom operator ``ell_spmv`` remains for ``torch.func``);
 K2's :class:`JacobiSweeps`, one per Jacobi block, and K3's
 :class:`VCycleOperator`, one per AMG hierarchy state;
+K4's :class:`FgmresArnoldi`, one per FGMRES cycle;
 K19's launcher :class:`HaloOperator`, one per shard matrix of the sharded
 solve;
 K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; the flow
@@ -45,7 +46,7 @@ __all__ = [
     "ell_jacobi_sweep",
     "JacobiSweeps",
     "VCycleOperator",
-    "fgmres_givens",
+    "FgmresArnoldi",
     "dense_block_scatter",
     "gj_pivot_inverse",
     "dense_block_apply",
@@ -94,7 +95,7 @@ LAUNCHES = {
     "ell_spmv": 0,
     "amg_vcycle": 0,
     "jacobi_sweeps": 0,
-    "fgmres_givens": 0,
+    "fgmres_arnoldi": 0,
     "dense_block_scatter": 0,
     "gj_pivot_inverse": 0,
     "dense_block_apply": 0,
@@ -467,58 +468,126 @@ class VCycleOperator:
         return out
 
 
-# -- K4g --------------------------------------------------------------------------
+# -- K4 ---------------------------------------------------------------------------
+
+#: Modes of a ``fgmres_arnoldi`` launch (``kFused`` .. ``kNormalize`` in
+#: ``csrc/fgmres_arnoldi.cu``): the whole step, or one of its four phases
+#: around the sharded solve's all-reduces.
+ARNOLDI_FUSED, ARNOLDI_DOTS, ARNOLDI_UPDATE, ARNOLDI_NORM, ARNOLDI_NORMALIZE = range(5)
 
 
-@torch.library.custom_op(
-    "porepy_tpu_torch::fgmres_givens",
-    mutates_args=("hcol", "cs", "sn", "g", "j", "flag"),
-)
-def fgmres_givens(
-    hcol: torch.Tensor,
-    cs: torch.Tensor,
-    sn: torch.Tensor,
-    g: torch.Tensor,
-    j: torch.Tensor,
-    atol: torch.Tensor,
-    flag: torch.Tensor,
-) -> None:
-    """Givens step of FGMRES Arnoldi column ``j`` (device int32 scalar),
-    in place; writes the continue flag and advances ``j``. A ``j``
-    outside ``[0, restart)`` only clears the flag."""
-    reference.fgmres_givens(hcol, cs, sn, g, j, atol, flag)
+class FgmresArnoldi:
+    """The Arnoldi steps of one FGMRES cycle and their K4 launch
+    (``fgmres_arnoldi``, one cooperative kernel a step): ``step(z)``
+    finishes column ``j`` (the device int32 scalar ``j``) from ``z =
+    M(V[j])``, as :func:`~porepy_tpu_torch.kernels.reference.fgmres_arnoldi`
+    computes it: ``w = A z`` by ``matrix`` (an
+    :class:`EllOperator`, the solve's), CGS2 against ``V[:j+1]``, ``V[j +
+    1]``, ``Z[j]``, column ``j`` of ``Ht``, the Givens step on ``cs``,
+    ``sn``, ``g``, ``flag = (j + 1 < restart) & (|g[j + 1]| > atol)`` and
+    ``j + 1``. ``step.split(z, w, all_sum)`` is the same step with ``w = A
+    z`` given and each finished sum passed through ``all_sum`` (a dof
+    shard's all-reduce), four launches on the card; it needs no ``matrix``.
 
+    ``V`` ``(restart + 1, n)``, ``Z`` ``(restart, n)``, ``Ht`` ``(restart,
+    restart + 1)``, ``cs``, ``sn`` ``(restart,)``, ``g`` ``(restart + 1,)``
+    and ``atol`` (one value) are float32/float64 tensors of one dtype,
+    ``j`` and ``flag`` one int32 value each: the cycle's state, updated in
+    place. All are checked once, here; on the card the grid is sized (the
+    co-resident maximum, at most one block per 128-row tile), the partial
+    sums allocated and the launch table (pointers and sizes) built, so a
+    step makes one ctypes call with ``z``'s pointer. State on the CPU runs
+    the plain version. ``LAUNCHES["fgmres_arnoldi"]`` counts launches."""
 
-@fgmres_givens.register_kernel("cuda")
-def _fgmres_givens_cuda(hcol, cs, sn, g, j, atol, flag):
-    dtype = hcol.dtype
-    if any(t.dtype != dtype for t in (cs, sn, g, atol)):
-        raise TypeError("fgmres_givens: hcol, cs, sn, g, atol need one dtype")
-    if j.dtype != torch.int32 or flag.dtype != torch.int32:
-        raise TypeError("fgmres_givens: j and flag must be int32")
-    restart = hcol.shape[0] - 1
-    if (
-        hcol.dim() != 1 or g.shape != hcol.shape
-        or cs.shape != (restart,) or sn.shape != (restart,)
-        or j.numel() != 1 or atol.numel() != 1 or flag.numel() != 1
-    ):
-        raise ValueError("fgmres_givens: needs hcol, g (restart + 1,), cs, sn (restart,), scalars")
-    _check(
-        "fgmres_givens",
-        {"hcol": hcol, "cs": cs, "sn": sn, "g": g, "j": j, "atol": atol,
-         "flag": flag},
-        dtype,
-    )
-    _launch(
-        "fgmres_givens", dtype,
-        hcol.data_ptr(), cs.data_ptr(), sn.data_ptr(), g.data_ptr(),
-        j.data_ptr(), atol.data_ptr(), flag.data_ptr(), restart,
-    )
+    __slots__ = ("V", "Z", "Ht", "cs", "sn", "g", "j", "atol", "flag", "matrix", "n", "restart",
+                 "dtype", "grid", "sums", "_fn", "_dev", "_table", "_partials", "_views")
 
+    def __init__(self, V, Z, Ht, cs, sn, g, j, atol, flag, matrix=None) -> None:
+        restart, n = Z.shape if Z.dim() == 2 else (-1, -1)
+        dtype = V.dtype
+        if dtype not in _SUFFIX or any(t.dtype != dtype for t in (Z, Ht, cs, sn, g, atol)):
+            raise TypeError("fgmres_arnoldi: V, Z, Ht, cs, sn, g and atol need one float32/float64 dtype")
+        if j.dtype != torch.int32 or flag.dtype != torch.int32:
+            raise TypeError("fgmres_arnoldi: j and flag must be int32")
+        if (restart < 0 or V.shape != (restart + 1, n) or Ht.shape != (restart, restart + 1)
+                or cs.shape != (restart,) or sn.shape != (restart,) or g.shape != (restart + 1,)
+                or j.numel() != 1 or atol.numel() != 1 or flag.numel() != 1):
+            raise ValueError("fgmres_arnoldi: needs V (restart + 1, n), Z (restart, n), Ht (restart, "
+                             "restart + 1), cs, sn (restart,), g (restart + 1,) and one-value j, atol, flag")
+        if matrix is not None and (matrix.dtype != dtype or matrix.n_rows != n):
+            raise ValueError(f"fgmres_arnoldi: the matrix must be {n} rows in V's dtype")
+        self.V, self.Z, self.Ht, self.cs, self.sn, self.g = V, Z, Ht, cs, sn, g
+        self.j, self.atol, self.flag, self.matrix = j, atol, flag, matrix
+        self.n, self.restart, self.dtype = n, restart, dtype
+        self.grid = self._fn = None
+        self._dev = V.get_device()  # -1 on the CPU
+        state = {"V": V, "Z": Z, "Ht": Ht, "cs": cs, "sn": sn, "g": g, "j": j, "atol": atol, "flag": flag}
+        if matrix is not None:
+            state.update(val=matrix.val, col=matrix.col)
+        if not _on_card("fgmres_arnoldi", state) or n == 0 or restart == 0:
+            return
+        grid = _kernel("fgmres_arnoldi_grid", dtype)(n, restart, None)
+        if grid < 0:
+            raise RuntimeError(f"fgmres_arnoldi: no cooperative launch (CUDA error {-grid})")
+        self.grid = grid
+        r1 = restart + 1
+        self._partials = V.new_empty(2 * r1 + 1, _nb(n))
+        self.sums = V.new_zeros(2 * r1 + 1)
+        # The slices the split route all-reduces: h, h2 (entries past j stay
+        # zero) and |w|^2.
+        self._views = (self.sums[:r1], self.sums[r1 : 2 * r1], self.sums[2 * r1 :])
+        # The kernel's launch table, ``kVal`` .. ``kGrid``.
+        table = [
+            matrix.val.data_ptr() if matrix is not None else 0,
+            matrix.col.data_ptr() if matrix is not None else 0,
+            *(t.data_ptr() for t in (V, Z, Ht, cs, sn, g, j, atol, flag, self._partials, self.sums)),
+            matrix.K if matrix is not None else 0, n, restart, grid,
+        ]
+        self._table = (ctypes.c_longlong * len(table))(*table)
+        self._fn = _kernel("fgmres_arnoldi", dtype)
 
-@fgmres_givens.register_fake
-def _(hcol, cs, sn, g, j, atol, flag):
-    return None
+    def _vector(self, name: str, v: torch.Tensor) -> None:
+        if v.dtype != self.dtype or v.shape != (self.n,) or not v.is_contiguous():
+            raise ValueError(f"fgmres_arnoldi: {name} must be a contiguous ({self.n},) tensor in V's dtype")
+        if v.get_device() != self._dev:
+            raise ValueError(f"fgmres_arnoldi: {name} is on {v.device}, the state on {self.V.device}")
+
+    def _launch(self, z, w, mode: int) -> None:
+        rc = self._fn(self._table, z, w, mode, _current_stream(self._dev))
+        if rc != 0:
+            raise RuntimeError(f"fgmres_arnoldi kernel launch failed with CUDA error {rc}")
+        LAUNCHES["fgmres_arnoldi"] += 1
+
+    def __call__(self, z: torch.Tensor) -> None:
+        if self.matrix is None:
+            raise ValueError("fgmres_arnoldi: a step with the matvec inside needs the matrix")
+        self._vector("z", z)
+        if self._fn is None:
+            if self.V.device.type == "cpu":
+                reference.fgmres_arnoldi(self.matrix.val, self.matrix.col, z, self.V, self.Z, self.Ht,
+                                         self.cs, self.sn, self.g, self.j, self.atol, self.flag)
+            else:  # n == 0 or restart == 0: no column to finish
+                self.flag.zero_()
+            return
+        self._launch(z.data_ptr(), None, ARNOLDI_FUSED)
+
+    def split(self, z: torch.Tensor, w: torch.Tensor, all_sum) -> None:
+        """The step with ``w = A z`` given; ``all_sum(t)`` sums ``t`` over
+        the ranks in place (and returns it) between the phases."""
+        self._vector("z", z)
+        self._vector("w", w)
+        if self._fn is None:
+            if self.V.device.type == "cpu":
+                reference.fgmres_arnoldi_split(z, w, self.V, self.Z, self.Ht, self.cs, self.sn, self.g,
+                                               self.j, self.atol, self.flag, all_sum)
+            else:
+                self.flag.zero_()
+            return
+        zp, wp = z.data_ptr(), w.data_ptr()
+        self._launch(zp, wp, ARNOLDI_DOTS)
+        for view, mode in zip(self._views, (ARNOLDI_UPDATE, ARNOLDI_NORM, ARNOLDI_NORMALIZE)):
+            all_sum(view)
+            self._launch(zp, wp, mode)
 
 
 # -- K6 ---------------------------------------------------------------------------

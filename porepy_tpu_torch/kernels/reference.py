@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -17,7 +18,6 @@ __all__ = [
     "ell_jacobi_sweep",
     "jacobi_sweeps",
     "amg_vcycle",
-    "fgmres_givens",
     "dense_block_scatter",
     "gj_pivot_inverse",
     "dense_block_apply",
@@ -33,6 +33,8 @@ __all__ = [
     "block_partials",
     "finish",
     "ell_spmv_ordered",
+    "fgmres_arnoldi",
+    "fgmres_arnoldi_split",
     "bicgstab_p",
     "krylov_dots",
     "bicgstab_s",
@@ -137,49 +139,6 @@ def _vcycle(levels, coarse_inv, r, nu: int, l: int) -> torch.Tensor:
     r_c = ell_spmv_ordered(lv["R_val"], lv["R_col"], r - ell_spmv_ordered(*A, y))
     y = y + ell_spmv_ordered(lv["P_val"], lv["P_col"], _vcycle(levels, coarse_inv, r_c, nu, l + 1))
     return jacobi_sweeps(*A, sinv, r, y, nu)
-
-
-def fgmres_givens(
-    hcol: torch.Tensor,
-    cs: torch.Tensor,
-    sn: torch.Tensor,
-    g: torch.Tensor,
-    j: torch.Tensor,
-    atol: torch.Tensor,
-    flag: torch.Tensor,
-) -> None:
-    """In place: rotate the new Hessenberg column ``hcol`` by the ``j``
-    previous Givens rotations, form rotation ``j``, update ``g``, set
-    ``flag = (j + 1 < restart) & (|g[j + 1]| > atol)`` and advance ``j``.
-    ``restart = hcol.numel() - 1``; ``j``/``flag`` are int32 scalars. A
-    ``j`` outside ``[0, restart)`` only clears the flag."""
-    jj = int(j)
-    restart = hcol.shape[0] - 1
-    if jj < 0 or jj >= restart:
-        flag.fill_(0)
-        return
-    h = hcol
-    for i in range(jj):
-        hi = h[i].clone()
-        hn = h[i + 1].clone()
-        h[i] = cs[i] * hi + sn[i] * hn
-        h[i + 1] = -sn[i] * hi + cs[i] * hn
-    denom = torch.sqrt(h[jj] * h[jj] + h[jj + 1] * h[jj + 1])
-    safe = torch.clamp(denom, min=1e-30)
-    c = h[jj] / safe
-    s = h[jj + 1] / safe
-    cs[jj] = c
-    sn[jj] = s
-    h[jj] = denom
-    h[jj + 1] = 0.0
-    gj = g[jj].clone()
-    g[jj + 1] = -s * gj
-    g[jj] = c * gj
-    flag.fill_(int(jj + 1 < restart and bool(torch.abs(g[jj + 1]) > atol)))
-    j.fill_(jj + 1)
-
-
-# -- K6 ---------------------------------------------------------------------------
 
 
 def dense_block_scatter(
@@ -507,6 +466,78 @@ def ell_spmv_ordered(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor) -> t
     for k in range(val.shape[1]):
         acc = acc + prod[:, k]
     return acc
+
+
+def _givens(h: torch.Tensor, cs, sn, g, j: int, atol, flag) -> None:
+    """In place: the ``j`` old Givens rotations applied to the Hessenberg
+    column ``h`` (``h[:j+2]`` set), the new one into ``cs[j]``, ``sn[j]``,
+    ``g[j]`` and ``g[j + 1]`` rotated, ``flag = (j + 1 < restart) & (|g[j +
+    1]| > atol)``. Scalar arithmetic in numpy scalars of ``h``'s dtype, one
+    rounding an operation in the kernel's order; ``max(x, 1e-30)`` keeps a
+    NaN, as ``torch.clamp`` does."""
+    ty = np.float32 if h.dtype == torch.float32 else np.float64
+    restart = cs.shape[0]
+    hv = h[: j + 2].cpu().numpy().copy()
+    c_old, s_old = cs[:j].cpu().numpy(), sn[:j].cpu().numpy()
+    gj = ty(float(g[j]))
+    tiny = ty(1e-30)
+    with np.errstate(all="ignore"):
+        for i in range(j):
+            hi, hn, c, s = hv[i], hv[i + 1], c_old[i], s_old[i]
+            hv[i] = c * hi + s * hn
+            hv[i + 1] = -s * hi + c * hn
+        a, b = hv[j], hv[j + 1]
+        denom = np.sqrt(a * a + b * b)
+        safe = tiny if denom < tiny else denom
+        c, s = a / safe, b / safe
+        hv[j], hv[j + 1] = denom, ty(0)
+        gn = -s * gj
+        g_j = c * gj
+    h[: j + 2] = torch.from_numpy(hv)
+    cs[j], sn[j] = float(c), float(s)
+    g[j], g[j + 1] = float(g_j), float(gn)
+    flag.fill_(int(j + 1 < restart and bool(abs(gn) > ty(float(atol)))))
+
+
+def fgmres_arnoldi_split(z, w, V, Z, Ht, cs, sn, g, j, atol, flag, all_sum=None) -> None:
+    """The FGMRES Arnoldi step of :func:`fgmres_arnoldi` with ``w = A z``
+    given, and each finished sum (``h``, ``h2``, ``|w|^2``, the rank's) handed
+    to ``all_sum`` (default: none; a dof shard's all-reduce) before it is
+    used: the sharded solve's step, four launches around its all-reduces on
+    the card."""
+    restart = Ht.shape[0]
+    jj = int(j)
+    if jj < 0 or jj >= restart:
+        flag.fill_(0)
+        return
+    reduce = all_sum or (lambda t: t)
+    m = jj + 1
+    Z[jj] = z
+    Vj = V[:m]
+    h = reduce(finish(block_partials(Vj * w)))
+    w = w - _seq_sum(Vj[r] * h[r] for r in range(m))
+    h2 = reduce(finish(block_partials(Vj * w)))
+    w = w - _seq_sum(Vj[r] * h2[r] for r in range(m))
+    hj1 = torch.sqrt(reduce(finish(block_partials(w * w)[None]))[0])
+    V[m] = w / torch.clamp(hj1, min=1e-30)
+    Ht[jj, :m] = h + h2
+    Ht[jj, m] = hj1
+    _givens(Ht[jj], cs, sn, g, jj, atol, flag)
+    j.fill_(m)
+
+
+def fgmres_arnoldi(val, col, z, V, Z, Ht, cs, sn, g, j, atol, flag) -> None:
+    """In place: FGMRES Arnoldi column ``j`` (a device int32 scalar) of a
+    cycle of ``restart = Ht.shape[0]`` columns, less the preconditioner:
+    ``w = A z`` (the ELL matrix ``(val, col)``, rows summed as K1 sums them),
+    ``Z[j] = z``; CGS2 against ``V[:j+1]`` (``h = V w``, ``w -= V^T h``,
+    ``h2 = V w``, ``w -= V^T h2``), ``hj1 = |w|``, ``V[j + 1] = w /
+    max(hj1, 1e-30)``; ``Ht[j][:j+1] = h + h2``, ``Ht[j][j+1] = hj1``; the
+    Givens step (:func:`_givens`) and ``j + 1``. A ``j`` outside ``[0,
+    restart)`` only clears ``flag``. Dots and norms are the kernel's tile
+    partials (:func:`block_partials`) finished in its order
+    (:func:`finish`), every operation rounded on its own."""
+    fgmres_arnoldi_split(z, ell_spmv_ordered(val, col, z), V, Z, Ht, cs, sn, g, j, atol, flag)
 
 
 def bicgstab_p(r, q, dinv, st, p, phat, divide: bool = False) -> None:

@@ -26,9 +26,11 @@ right-preconditioned FGMRES where
   iterative refinement (one f64 true-residual matvec per restart cycle),
   so that Krylov counts match the reference package. The H100 has native
   f64; whether plain f64 FGMRES is faster here is an open measurement,
-- each Arnoldi step's Givens update and convergence flag is one launch of
-  the K4g kernel (:func:`~porepy_tpu_torch.kernels.fgmres_givens`); the
-  host reads the flag to end the cycle early,
+- each Arnoldi step, less the preconditioner (the matvec, CGS2, the
+  norm, the Givens update and the convergence flag), is one cooperative
+  launch of the K4 kernel through the cycle's
+  :class:`~porepy_tpu_torch.kernels.FgmresArnoldi`; the host reads the flag
+  once a step to end the cycle early,
 - with a dof mesh set (:meth:`DeviceLinearSolver.set_dof_sharding`, K19)
   the solves of :meth:`DeviceLinearSolver.solve_device` run row-sharded
   over a ``torch.distributed`` group: halo-exchange matvecs and
@@ -167,14 +169,23 @@ class _Local:
     dot = staticmethod(torch.matmul)
 
     @staticmethod
+    def all_sum(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    @staticmethod
     def all_finite(d: torch.Tensor) -> torch.Tensor:
         return torch.all(torch.isfinite(d))
 
 
 def _fgmres(matvec, M, b, x0, atol, restart, max_cycles, red=_Local):
-    """Right-preconditioned restarted FGMRES: CGS2 orthogonalization as
-    matrix-vector products, the Givens least squares in the K4g kernel,
-    early exit on ``|g[j]| <= atol``. Right preconditioning keeps the
+    """Right-preconditioned restarted FGMRES: each Arnoldi step is ``z =
+    M(V[j])`` and one K4 launch (:class:`~porepy_tpu_torch.kernels.
+    FgmresArnoldi`: the matvec, CGS2, the norm, the Givens least squares
+    and the flag), early exit on ``|g[j]| <= atol``, read once a step.
+    ``matvec`` an :class:`~porepy_tpu_torch.kernels.EllOperator` and ``red``
+    :class:`_Local` run the matvec inside the launch; any other ``matvec``
+    (a dof shard's halo matvec) is called for ``w = A z`` and the step runs
+    as its phases around ``red.all_sum``. Right preconditioning keeps the
     recurrence in TRUE residual norms (``|g[j]|``), so the tolerance check
     needs no extra matvec and a frozen/approximate ``M`` cannot distort
     convergence reporting. ``atol`` is a scalar (tensor or float).
@@ -188,6 +199,7 @@ def _fgmres(matvec, M, b, x0, atol, restart, max_cycles, red=_Local):
     n = b.shape[0]
     dtype, dev = b.dtype, b.device
     atol = torch.as_tensor(atol, dtype=dtype, device=dev).reshape(())
+    fused = red is _Local and isinstance(matvec, kernels.EllOperator)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -207,23 +219,14 @@ def _fgmres(matvec, M, b, x0, atol, restart, max_cycles, red=_Local):
         g[0] = beta
         j_dev = torch.zeros((), dtype=torch.int32, device=dev)
         flag = ((beta > atol) & (restart > 0)).to(torch.int32)
+        step = kernels.FgmresArnoldi(V, Z, Ht, cs, sn, g, j_dev, atol, flag, matvec if fused else None)
         j = 0
         while j < restart and bool(flag):
             z = M(V[j])
-            w = matvec(z)
-            # CGS2: rows of V beyond j are zero, so only V[:j+1] enters.
-            Vj = V[: j + 1]
-            h = red.dot(Vj, w)
-            w = w - Vj.T @ h
-            h2 = red.dot(Vj, w)
-            w = w - Vj.T @ h2
-            hj1 = red.norm(w)
-            V[j + 1] = w / torch.clamp(hj1, min=1e-30)
-            Z[j] = z
-            hcol = Ht[j]
-            hcol[: j + 1] = h + h2
-            hcol[j + 1] = hj1
-            kernels.fgmres_givens(hcol, cs, sn, g, j_dev, atol, flag)
+            if fused:
+                step(z)
+            else:
+                step.split(z, matvec(z), red.all_sum)
             j += 1
         if j:
             R = Ht[:j, :j].T

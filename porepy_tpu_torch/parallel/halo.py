@@ -255,6 +255,12 @@ class DofShard:
         dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=self.mesh.group)
         return t
 
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks, in place (the finished sums of an
+        FGMRES Arnoldi step's phases, :class:`~porepy_tpu_torch.kernels.
+        FgmresArnoldi`); on one rank ``t`` as it is."""
+        return self._sum(t)
+
     def norm(self, v: torch.Tensor) -> torch.Tensor:
         """The global 2-norm, a 0-d tensor: the local norms' squares summed.
         On one rank this is the local norm to the bit (``sqrt(x * x) == x``

@@ -88,7 +88,9 @@ def test_ell_jacobi_sweep_matches_cycle_smoother(jx, dtype):
 
 @pytest.mark.parametrize("j", [0, 1, 6])
 def test_fgmres_givens_plain_matches_recurrence(j):
-    """One Givens step against device_solver.py:198-210 written in numpy."""
+    """The Givens part of the FGMRES Arnoldi step's plain version (K4,
+    ``reference._givens``) against device_solver.py:198-210 written in
+    numpy."""
     restart = 8
     rng = np.random.default_rng(4 + j)
     h = np.zeros(restart + 1)
@@ -109,24 +111,31 @@ def test_fgmres_givens_plain_matches_recurrence(j):
     gv[j + 1], gv[j] = -s * gv[j], c * gv[j]
 
     args = [torch.tensor(a) for a in (h, cs, sn, g)]
-    j_t = torch.tensor(j, dtype=torch.int32)
     flag = torch.zeros((), dtype=torch.int32)
     atol = torch.tensor(1e-3, dtype=torch.float64)
-    kernels.fgmres_givens(*args, j_t, atol, flag)
+    reference._givens(*args, j, atol, flag)
     for got, want in zip(args, (hv, csv, snv, gv)):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=1e-15)
-    assert int(j_t) == j + 1
     assert int(flag) == int(j + 1 < restart and abs(gv[j + 1]) > 1e-3)
 
 
 def test_fgmres_givens_past_last_column_only_clears_flag():
-    h, g = torch.ones(5, dtype=torch.float64), torch.ones(5, dtype=torch.float64)
-    cs, sn = torch.ones(4, dtype=torch.float64), torch.zeros(4, dtype=torch.float64)
-    j = torch.tensor(4, dtype=torch.int32)
+    """An Arnoldi step (K4's launcher, the plain version on the CPU) at
+    ``j = restart`` clears the flag and changes nothing else."""
+    restart, n = 4, 6
+    val, col = _ell(n, n, 3, np.float64, 9)
+    V, g = torch.ones(restart + 1, n, dtype=torch.float64), torch.ones(restart + 1, dtype=torch.float64)
+    Z, Ht = torch.ones(restart, n, dtype=torch.float64), torch.ones(restart, restart + 1, dtype=torch.float64)
+    cs, sn = torch.ones(restart, dtype=torch.float64), torch.zeros(restart, dtype=torch.float64)
+    j = torch.tensor(restart, dtype=torch.int32)
     flag = torch.ones((), dtype=torch.int32)
-    kernels.fgmres_givens(h, cs, sn, g, j, torch.tensor(0.0, dtype=torch.float64), flag)
-    assert int(flag) == 0 and int(j) == 4
-    assert bool(torch.all(h == 1)) and bool(torch.all(g == 1))
+    atol = torch.tensor(0.0, dtype=torch.float64)
+    state = (V, Z, Ht, cs, sn, g)
+    before = [t.clone() for t in state]
+    op = kernels.EllOperator(torch.tensor(val), torch.tensor(col))
+    kernels.FgmresArnoldi(V, Z, Ht, cs, sn, g, j, atol, flag, op)(torch.ones(n, dtype=torch.float64))
+    assert int(flag) == 0 and int(j) == restart
+    assert all(torch.equal(a, b) for a, b in zip(state, before))
 
 
 def _test_system(n=60, seed=5):
@@ -143,7 +152,7 @@ def _test_system(n=60, seed=5):
 
 @pytest.mark.parametrize("restart,max_cycles", [(40, 1), (6, 8)], ids=["one-cycle", "restarted"])
 def test_fgmres_matches_jax(jx, restart, max_cycles):
-    """The whole _fgmres (CGS2, Givens via the K4g operator, early exit,
+    """The whole _fgmres (each Arnoldi step through the K4 launcher, early exit,
     back-substitution) on a fixed matrix, float64, against porepy_tpu."""
     _, jnp, amg_jax, ds_jax = jx
     A, val, col, b = _test_system()
@@ -251,18 +260,27 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     want = reference.ell_jacobi_sweep(val, col, sinv, r, y)
     bound = tol * (y.abs() + sinv.abs() * (r.abs() + reference.ell_spmv(val.abs(), col, y.abs())))
     assert bool(torch.all((out - want).abs() <= bound))
-    h = torch.tensor(gen.standard_normal(71), dtype=dtype, device=cuda)
-    h[37:] = 0
-    got = [h.clone(), torch.ones(70, dtype=dtype, device=cuda) * 0.6,
-           torch.ones(70, dtype=dtype, device=cuda) * 0.8, h.clone()]
-    want = [t.clone() for t in got]
-    ints = [torch.tensor(35, dtype=torch.int32, device=cuda) for _ in range(4)]
-    atol = torch.tensor(1e-6, dtype=dtype, device=cuda)
-    kernels.fgmres_givens(*got, ints[0], atol, ints[1])
-    reference.fgmres_givens(*want, ints[2], atol, ints[3])
-    for a, b in zip(got, want):
-        assert float((a - b).abs().max()) <= tol * float(b.abs().sum() + 1)
-    assert int(ints[0]) == int(ints[2]) and int(ints[1]) == int(ints[3])
+    # K4: an FGMRES Arnoldi step at column 35 of restart 70 on this matrix,
+    # the kernel's bits those of its plain version.
+    restart, j0 = 70, 35
+    V = torch.linalg.qr(torch.tensor(gen.standard_normal((18157, restart + 1)), device=cuda))[0].T
+    V = V.contiguous().to(dtype)
+    V[j0 + 1 :] = 0
+    state = [V, torch.zeros(restart, 18157, dtype=dtype, device=cuda),
+             torch.zeros(restart, restart + 1, dtype=dtype, device=cuda),
+             torch.ones(restart, dtype=dtype, device=cuda) * 0.6,
+             torch.ones(restart, dtype=dtype, device=cuda) * 0.8,
+             torch.tensor(gen.standard_normal(restart + 1), dtype=dtype, device=cuda)]
+    runs = []
+    for _ in range(2):
+        st = [t.clone() for t in state] + [torch.tensor(j0, dtype=torch.int32, device=cuda),
+                                           torch.tensor(1e-6, dtype=dtype, device=cuda),
+                                           torch.ones((), dtype=torch.int32, device=cuda)]
+        runs.append(st)
+    kernels.FgmresArnoldi(*runs[0], kernels.EllOperator(val, col))(x[3].contiguous())
+    reference.fgmres_arnoldi(val, col, x[3].contiguous(), *runs[1])
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
