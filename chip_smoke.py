@@ -176,15 +176,22 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``set_batch_mesh`` against the unsharded route (1e-12);
 19. hold the upstream-selection kernels (K15: ``upwind_flux``,
    ``upwind_select``) at the tracer 1/64 shapes (about 8,600 faces, 4,400
-   cells, 16 seeds, faces with ``q = 0.0`` and ``-0.0`` among them) and the
-   differentiable-TPFA kernels (K14: ``tpfa_ad_flux``, ``tpfa_ad_trace``,
-   ``segment_sum_sorted``) at the 3d 32^3 shapes (32,768 cells, 101,376
-   faces, 196,608 half-faces, full tensors, 16 seeds) against their plain
-   versions on the card: values and tangents within 1e-12 of the plain
-   result's largest entry, the same bits from two launches, CUDA-event
-   times, the bound, and the time of ``torch.where`` + ``index_select``
-   and of ``index_add_`` for the two that one PyTorch call matches, also as
-   device microseconds by graph replay, kernel and library call in turns;
+   cells, 16 seeds, faces with ``q = 0.0`` and ``-0.0`` among them), the
+   one-launch differentiable-TPFA op (K14: ``tpfa_ad_dual``, the value and
+   every tangent of the flux or the trace in one launch) at ``DarcysLawAd``
+   1/128's own calls of one assembly (both subdomains, flux and trace, the
+   seeds the dual rule hands it: 33,088 faces, 65,536 half-faces) and at
+   the 3d 32^3 shapes (32,768 cells, 101,376 faces, 196,608 half-faces,
+   full tensors, 16 seeds of every input), and ``segment_sum_sorted`` at
+   32^3 against their plain versions on the card: values and tangents
+   within 1e-12 of the plain result's largest entry, the same bits from two
+   launches, the trace's faces outside its boundary list exactly 0 in
+   every row, CUDA-event times, the bound, K14's and ``upwind_flux``'s
+   device microseconds by graph replay and K14's host microseconds a call
+   (at both shapes; the kernels line takes 1/128's matrix subdomain), and
+   the time of ``torch.where`` + ``index_select`` and of ``index_add_`` for
+   the two that one PyTorch call matches, also as device microseconds by
+   graph replay, kernel and library call in turns;
 20. run the tracer case for 26 steps of 60 s, at 1/32 (2,246 dofs) with
    the AMG preconditioner and at 1/64 (8,710 dofs) with dense frozen block
    inverses: 3 fused
@@ -207,7 +214,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    128 cells), 26 steps, the md case's solver parameters, its TPFA
    discretization on the card (``PPT_LOCAL_SOLVE_DEVICE=1``, so the
    transmissibilities' sums run in ``segment_sum_sorted``): 3 fused blocks,
-   no host fallback, the K14 kernels launched, the Jacobian at the first
+   no host fallback, the K14 flux and trace each launched exactly once a
+   subdomain an assembly (2 x 32 each), the Jacobian at the first
    iterate and the final pressure against the same model on the host
    (plain path; 1e-10 and 1e-8 of the largest entry), one more host Newton
    increment <= 1e-10, and the assembly in turns as in phase 20;
@@ -216,7 +224,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    versions at the md 1/128 shapes (18,157 unknowns, 16,969 cells, 16 seeds,
    90,261 nonzeros): values and tangents within 1e-13 of the largest entry
    (the gathers equal), the same bits from two launches, CUDA-event times,
-   the bound (bytes read once and written once over 3.35 TB/s); the two
+   the bound (bytes read once and written once over 3.35 TB/s),
+   ``jac_gather``'s device us by graph replay; the two
    gathers through their per-step launchers (``DualGatherVar``: tangent
    rows written once, then the value row alone; ``DualGatherCopy``), through
    the functional wrappers and by ``index_select`` x2 + ``cat`` in turns,
@@ -2417,13 +2426,14 @@ def _same_bits(name: str, fn) -> None:
 
 def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) -> dict:
     """Phase 19: the K15 kernels at the tracer 1/64 shapes and the K14
-    kernels at the 3d 32^3 shapes against their plain versions."""
-    import porepy_tpu_torch as pt
+    launch at DarcysLawAd 1/128's own calls and at the 3d 32^3 shapes
+    against their plain versions."""
+    from porepy_tpu_torch.applications.benchmarking import tpfa_ad_calls as k14
     from porepy_tpu_torch.applications.benchmarking.cases import build_tracer
     from porepy_tpu_torch.kernels import ops, reference
-    from porepy_tpu_torch.models.darcys_law_ad import _DiffTpfaGeometry
 
-    print("phase 19: K15 at the tracer 1/64 shapes, K14 at the 3d 32^3 shapes, 16 seeds")
+    print("phase 19: K15 at the tracer 1/64 shapes, 16 seeds; K14 at DarcysLawAd 1/128's calls and at the 3d "
+          "32^3 shapes, 16 seeds")
     B, tol = 16, 1e-12
     rng = np.random.default_rng(19)
     f64 = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
@@ -2458,7 +2468,12 @@ def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) 
     report["upwind_flux"] = {
         "err": err, "ms": _cuda_ms(lambda: flux_pair(ops)), "plain_ms": _cuda_ms(lambda: flux_pair(reference)),
         "bytes": nbytes, "flops": 8 * (1 + B) * nf, "library_ms": None,
+        # The value and the tangent launch by graph replay, for the ranking
+        # of the kernels by device time.
+        "device_us": _graph_us(lambda: flux_pair(ops)),
     }
+    print(f"  upwind_flux: value and {B} tangents (two launches), device {report['upwind_flux']['device_us']:.2f} us "
+          f"(graph replay), bound {1e6 * nbytes / 3.35e12:.3f} us")
 
     # up(w) and the two-candidate selection, value and tangent rows at once.
     ws = torch.cat([w[None], dw])
@@ -2488,49 +2503,47 @@ def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) 
     }
     del model
 
-    # K14 at 32^3: Dirichlet on the x faces, Neumann elsewhere, full tensors.
-    grid = pt.CartGrid(np.array([n3d] * 3), np.array([1.0, 1.0, 1.0]))
-    grid.compute_geometry()
-    bf = grid.get_all_boundary_faces()
-    x_faces = bf[(grid.face_centers[0, bf] < 1e-9) | (grid.face_centers[0, bf] > 1 - 1e-9)]
-    dgeom = _DiffTpfaGeometry([grid], lambda sd: pt.BoundaryCondition(sd, x_faces, "dir"))
-    kg = dgeom.kernel_geometry(dev)[0]
-    ncell, nface, nhf = grid.num_cells, grid.num_faces, kg.num_half_faces
-
-    def tensors(scale):
-        sym = rng.standard_normal((ncell, 3, 3))
-        return (scale[:, None, None] * (np.eye(3)[None] + 0.1 * (sym + sym.transpose(0, 2, 1)))).reshape(-1)
-
-    sizes = (9 * ncell, ncell, ncell, nface, nface)
-    primals = (
-        f64(tensors(0.5 + rng.random(ncell))), f64(0.5 + rng.random(ncell)),
-        f64(rng.standard_normal(ncell)), f64(rng.standard_normal(nface)), f64(rng.standard_normal(nface)),
-    )
-    seeds = tuple(f64(rng.standard_normal((B, n))) for n in sizes)
-    print(f"  3d {n3d}^3: {ncell} cells, {nface} faces, {nhf} half-faces")
-    geom_bytes = 4 * (nface + 1) + 8 * nhf + 8 * nhf + 48 * nhf + 2 * nface
-    field_bytes = 8 * sum(sizes)
-    for name, value_op, tangent_op, plain in (
-        ("tpfa_ad_flux", ops.tpfa_ad_flux, ops.tpfa_ad_flux_tangent, reference.tpfa_ad_flux),
-        ("tpfa_ad_trace", ops.tpfa_ad_trace, ops.tpfa_ad_trace_tangent, reference.tpfa_ad_trace),
-    ):
-        def kernel_pair():
-            return value_op(kg, *primals), tangent_op(kg, primals, seeds)
-
-        def plain_pair():
-            return plain(kg, *primals), reference.tpfa_ad_tangent(plain, kg, primals, seeds)
-
-        got, want = kernel_pair(), plain_pair()
-        err = max(_rel_err(a, b) for a, b in zip(got, want))
-        print(f"  {name}: value and {B} tangents, max rel err {err:.3e}")
+    # K14: one launch a call (the value and every tangent, tpfa_ad_dual) at
+    # DarcysLawAd 1/128's own calls of one assembly (both subdomains, flux
+    # and trace, the seeds the dual rule hands it) and at 3d 32^3 (Dirichlet
+    # on the x faces, Neumann elsewhere, full tensors, 16 seeds of every
+    # input), against the plain version: 1e-12 of the largest entry, the
+    # same bits twice, the trace's unlisted faces 0 in every row. The
+    # kernels line takes the path's shape (1/128's matrix subdomain).
+    darcy_calls = k14.darcy_ad_calls(dev)
+    cubes = [k14.cube_call(dev, trace, n3d=n3d, B=B) for trace in (False, True)]
+    k14_err = {"tpfa_ad_flux": 0.0, "tpfa_ad_trace": 0.0}
+    for call in darcy_calls + cubes:
+        name = "tpfa_ad_trace" if call["trace"] else "tpfa_ad_flux"
+        err = k14.check_launch(call)
+        print(f"  {call['label']}: one launch, value and tangents within {err:.3e} of the plain version, "
+              f"the same bits twice{', unlisted faces 0' if call['trace'] else ''}")
         _require(err <= tol, f"{name} disagrees with its plain version")
-        _same_bits(name, lambda: torch.cat([t.reshape(-1) for t in kernel_pair()]))
-        report[name] = {
-            "err": err, "ms": _cuda_ms(kernel_pair), "plain_ms": _cuda_ms(plain_pair, repeats=10),
-            # Value launch and tangent launch each read fields and geometry.
-            "bytes": 2 * (geom_bytes + field_bytes) + B * field_bytes + 8 * (1 + B) * nface,
-            "flops": (1 + B) * 60 * nhf, "library_ms": None,
+        k14_err[name] = max(k14_err[name], err)
+
+    def k14_times(call):
+        launch = lambda: ops.tpfa_ad_dual(call["geom"], call["primals"], call["seeds"], call["trace"])  # noqa: E731
+        n_work = call["geom"].num_half_faces if not call["trace"] else call["geom"]["boundary_faces"].shape[0]
+        return {
+            "ms": _cuda_ms(launch),
+            "plain_ms": _cuda_ms(lambda: reference.tpfa_ad_dual(call["geom"], call["primals"], call["seeds"],
+                                                                call["trace"]), repeats=10),
+            "device_us": _graph_us(launch), "host_us": _host_us(launch),
+            "bytes": k14.dual_bytes(call), "flops": (1 + k14.batch_of(call)) * 60 * n_work,
         }
+
+    for call in [c for c in darcy_calls if c["geom"] is darcy_calls[0]["geom"]]:
+        name = "tpfa_ad_trace" if call["trace"] else "tpfa_ad_flux"
+        cube = cubes[int(call["trace"])]
+        report[name] = {"err": k14_err[name], "library_ms": None, "label": call["label"], **k14_times(call),
+                        "cube": {"label": cube["label"], **k14_times(cube)}}
+        for r in (report[name], report[name]["cube"]):
+            print(f"  {r['label']}: {r['ms']:.4f} ms by events, device {r['device_us']:.2f} us a launch (graph "
+                  f"replay), host {r['host_us']:.2f} us a call, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{1e6 * r['bytes'] / 3.35e12:.3f} us ({r['bytes'] / 1e6:.3f} MB)")
+    dgeom = cubes[0]["dgeom"]
+    ncell, nface, nhf = dgeom.num_cells, dgeom.num_faces, cubes[0]["geom"].num_half_faces
+    del darcy_calls, cubes
 
     mesh = dgeom.meshes[0]
     x_hf = f64(rng.standard_normal((B, nhf)))
@@ -2586,6 +2599,7 @@ def _plain_k14_k15():
         "tpfa_ad_trace": reference.tpfa_ad_trace,
         "tpfa_ad_flux_tangent": lambda g, p, s: reference.tpfa_ad_tangent(reference.tpfa_ad_flux, g, p, s),
         "tpfa_ad_trace_tangent": lambda g, p, s: reference.tpfa_ad_tangent(reference.tpfa_ad_trace, g, p, s),
+        "tpfa_ad_dual": reference.tpfa_ad_dual,
     }
     kernels = {name: getattr(ops, name) for name in plain}
     for name, fn in plain.items():
@@ -2974,55 +2988,15 @@ def amg_jacobi_block(model) -> dict:
     return jb
 
 
-def build_darcy_ad_model(cell_size: float, device: str):
-    """The differentiable-permeability flow model: ``DarcysLawAd`` with
-    cubic-law fracture permeability and ``k(p) = k0 (1 + 0.3 p)`` in the
-    matrix and the fracture, one fracture, TPFA, the md case's materials and
-    solver parameters."""
-    import porepy_tpu_torch as pt
-    from porepy_tpu_torch.applications.benchmarking.cases import _mat_flow, _nosave
-
-    class PressureDependentPerm:
-        def permeability(self, subdomains):
-            size = sum(sd.num_cells for sd in subdomains)
-            k0 = pt.ad.wrap_as_dense_ad_array(self.solid.permeability, size)
-            k = k0 * (pt.ad.Scalar(1.0) + pt.ad.Scalar(0.3) * self.pressure(subdomains))
-            return self.isotropic_second_order_tensor(subdomains, k)
-
-    class Model(
-        PressureDependentPerm,
-        pt.DarcysLawAd,
-        pt.constitutive_laws.CubicLawPermeability,
-        _nosave(pt.SinglePhaseFlow),
-    ):
-        def set_fractures(self):
-            self._fractures = [pt.LineFracture(np.array([[0.25, 0.75], [0.5, 0.5]]))]
-
-        def bc_values_pressure(self, bg):
-            return 1.0 - bg.cell_centers[0]
-
-        def darcy_flux_discretization(self, subdomains):
-            return pt.ad.TpfaAd(self.darcy_keyword, subdomains, self.mdg)
-
-    params = {
-        "grid_type": "cartesian",
-        "meshing_arguments": {"cell_size": cell_size},
-        "material_constants": _mat_flow(),
-        "time_manager": pt.TimeManager([0, 26.0], 1.0, constant_dt=True),
-        "linear_solver": "device_gmres",
-        "fused_time_steps": 8,
-        "fused_commit_states": "tail",
-        "device": device,
-    }
-    return Model, params
-
-
 def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
     """Phase 21: the ``DarcysLawAd`` model at 1/128 for 26 steps on ``dev``."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_darcy_ad
+    from porepy_tpu_torch.applications.benchmarking.tpfa_ad_calls import assemblies
+
     print(f"phase 21: DarcysLawAd + cubic law + k(p) at cell size {cell_size:g}, 26 steps, TPFA discretized on the card")
     first = {}
     for device in ("cpu", str(dev)):
-        Model, params = build_darcy_ad_model(cell_size, device)
+        Model, params = build_darcy_ad(cell_size, device)
         m = Model(params)
         m.prepare_simulation()
         first[device] = m.equation_system.assemble()
@@ -3032,15 +3006,24 @@ def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
     print(f"  first iterate, card against host: Jacobian {jac_diff:.3e}, residual {rhs_diff:.3e} (relative to the largest entry)")
     _require(jac_diff <= 1e-10 and rhs_diff <= 1e-10, "first Jacobian differs from the host plain path")
 
-    Model, params = build_darcy_ad_model(cell_size, "cpu")
+    Model, params = build_darcy_ad(cell_size, "cpu")
     host_model, _ = _run_fused_case(torch.device("cpu"), Model, params)
-    Model, params = build_darcy_ad_model(cell_size, str(dev))
-    model, out = _run_fused_case(dev, Model, params, local_solves="k10")
+    Model, params = build_darcy_ad(cell_size, str(dev))
+    with assemblies() as counted:
+        model, out = _run_fused_case(dev, Model, params, local_solves="k10")
     launches = out["launches"]
     print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     _require(out["setup_launches"]["segment_sum_sorted"] > 0, "segment_sum_sorted not launched in the discretization")
     needed = ("ell_spmv", "fgmres_arnoldi", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted") + K8_KERNELS
     _require(all(launches[k] > 0 for k in needed), f"kernel not launched: {launches}")
+    # K14: one launch a subdomain an assembly for the flux and for the trace.
+    n_sub = len([sd for sd in model.mdg.subdomains() if sd.dim > 0])
+    once = n_sub * sum(counted.values())
+    print(f"  K14: {launches['tpfa_ad_flux']} flux and {launches['tpfa_ad_trace']} trace launches in "
+          f"{sum(counted.values())} assemblies ({counted}) of {n_sub} subdomains")
+    _require(launches["tpfa_ad_flux"] == once and launches["tpfa_ad_trace"] == once,
+             f"K14 launches {launches['tpfa_ad_flux']}, {launches['tpfa_ad_trace']}: expected {once} each")
+    out["k14_assemblies"] = sum(counted.values())
     p = model.equation_system.get_variable_values(["pressure"], time_step_index=0)
     _require(bool(np.all(np.isfinite(p))), "non-finite state")
     print(f"  pressure in [{p.min():.6f}, {p.max():.6f}]")
@@ -3211,7 +3194,11 @@ def check_dual_kernels(dev) -> dict:
         # the residual read and written.
         "bytes": nnz * (4 + 4 + 8 + 8) + 2 * 8 * (nc + nm),
         "flops": nnz + nc + nm, "library_ms": _cuda_ms(jac_library),
+        # By graph replay, for the ranking of the kernels by device time.
+        "device_us": _graph_us(lambda: jac(ops)),
     }
+    print(f"  jac_gather: device {report['jac_gather']['device_us']:.2f} us a launch (graph replay), bound "
+          f"{1e6 * report['jac_gather']['bytes'] / 3.35e12:.3f} us")
     for name in K8_KERNELS:
         r = report[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
@@ -3368,7 +3355,8 @@ def main() -> int:
             "launches": launches, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
         })
-        if k in ("gj_pivot_inverse", "dual_ew", "fgmres_arnoldi"):
+        if k in ("gj_pivot_inverse", "dual_ew", "fgmres_arnoldi", "tpfa_ad_flux", "tpfa_ad_trace", "upwind_flux",
+                 "jac_gather"):
             entries[-1]["device_us"] = r["device_us"]
     kernels_line = {"kernels": entries}
     print(
@@ -3475,6 +3463,14 @@ def main() -> int:
     print(f"K18a (one BiCGStab solve's launch, {a['iters']} iterations, matvecs inside) on {smi}: {a['ms']:.4f} ms, "
           f"{a['us_per_iteration']} us an iteration, {a['host_us']} us of host time a launch, plain "
           f"{a['plain_ms']:.1f} ms, bound {1e3 * a['bound_it'][0]:.3f} us an iteration")
+    for k in ("tpfa_ad_flux", "tpfa_ad_trace"):
+        for r in (report[k], report[k]["cube"]):
+            print(f"K14 {k} (one launch: the value and the tangents), {r['label']}, on {smi}: device "
+                  f"{r['device_us']:.2f} us (graph replay), host {r['host_us']:.2f} us a call, {r['ms']:.4f} ms by "
+                  f"events, plain {r['plain_ms']:.4f} ms, bound {1e6 * r['bytes'] / 3.35e12:.3f} us")
+    for k in ("upwind_flux", "jac_gather"):
+        print(f"{k} at its phase {19 if k == 'upwind_flux' else 22} shapes on {smi}: device "
+              f"{report[k]['device_us']:.2f} us (graph replay), bound {1e6 * report[k]['bytes'] / 3.35e12:.3f} us")
     for k in ("upwind_select", "segment_sum_sorted"):
         us = report[k]["device_us"]
         print(f"{k} at its phase 19 shapes on {smi}, device us (graph replay, in turns): kernel {us['kernel']}, "

@@ -20,6 +20,9 @@ Configurations ported so far:
     fluxes are upwinded inside the residual by the K15 kernels
     (``kernels/csrc/upwind.cu``). ``device_gmres`` only: the Jacobi Krylov
     route of ``porepy_tpu`` diverges on this case.
+  - ``build_darcy_ad`` (not in :data:`CASE_BUILDERS`): ``DarcysLawAd`` with
+    the cubic law and ``k(p)`` on one fracture at 1/128, the one path whose
+    flux and pressure trace run the K14 kernels (``kernels/csrc/tpfa_ad.cu``).
 
 The other ``porepy_tpu`` cases (``thm``, ``berre3d``) follow in later
 slices of the port.
@@ -202,6 +205,48 @@ def build_tracer(cell_size: float = 1.0 / 64, device: str = "cuda"):
         "max_iterations": 30,
         "nl_convergence_tol": 1e-8,
         "nl_convergence_tol_res": 1e-8,
+        "linear_solver": "device_gmres",
+        "fused_time_steps": 8,
+        "fused_commit_states": "tail",
+        "device": device,
+    }
+    return Model, params
+
+
+def build_darcy_ad(cell_size: float = 1.0 / 128, device: str = "cuda"):
+    """The differentiable-permeability flow model at ``cell_size`` on
+    ``device``: ``DarcysLawAd`` with cubic-law fracture permeability and
+    ``k(p) = k0 (1 + 0.3 p)`` in the matrix and the fracture, one fracture,
+    TPFA, the md case's materials and solver parameters."""
+    import porepy_tpu_torch as pt
+
+    class PressureDependentPerm:
+        def permeability(self, subdomains):
+            size = sum(sd.num_cells for sd in subdomains)
+            k0 = pt.ad.wrap_as_dense_ad_array(self.solid.permeability, size)
+            k = k0 * (pt.ad.Scalar(1.0) + pt.ad.Scalar(0.3) * self.pressure(subdomains))
+            return self.isotropic_second_order_tensor(subdomains, k)
+
+    class Model(
+        PressureDependentPerm,
+        pt.DarcysLawAd,
+        pt.constitutive_laws.CubicLawPermeability,
+        _nosave(pt.SinglePhaseFlow),
+    ):
+        def set_fractures(self):
+            self._fractures = [pt.LineFracture(np.array([[0.25, 0.75], [0.5, 0.5]]))]
+
+        def bc_values_pressure(self, bg):
+            return 1.0 - bg.cell_centers[0]
+
+        def darcy_flux_discretization(self, subdomains):
+            return pt.ad.TpfaAd(self.darcy_keyword, subdomains, self.mdg)
+
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "material_constants": _mat_flow(),
+        "time_manager": pt.TimeManager([0, 26.0], 1.0, constant_dt=True),
         "linear_solver": "device_gmres",
         "fused_time_steps": 8,
         "fused_commit_states": "tail",

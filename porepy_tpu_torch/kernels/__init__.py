@@ -40,9 +40,11 @@ K15       :func:`upwind_flux`,           ``numerics/fv/upwind.py:76-99`` (the up
           :func:`upwind_flux_tangent`,   selection and the advective face flux around it)
           :func:`upwind_select`,
           :func:`upwind_select_pair`
-K14       :func:`tpfa_ad_flux`,          ``models/darcys_law_ad.py:71-147`` (the differentiable
-          :func:`tpfa_ad_trace`,         TPFA flux and trace) and ``numerics/fv/fv_mesh.py:129-145``
-          :func:`segment_sum_sorted`     (the segment sums of ``numerics/fv/tpfa.py``)
+K14       :class:`TpfaAdLauncher`        ``models/darcys_law_ad.py:71-147`` (the differentiable
+          (:func:`tpfa_ad_dual`,         TPFA flux and trace, value and tangents in one launch)
+          :func:`tpfa_ad_flux`,          and ``numerics/fv/fv_mesh.py:129-145`` (the segment
+          :func:`tpfa_ad_trace`),        sums of ``numerics/fv/tpfa.py``)
+          :func:`segment_sum_sorted`
 K8        :class:`DualEwLauncher`,       ``numerics/ad/equation_system.py:132-135`` (the colored
           :class:`DualGatherVar`,        JVPs of one residual and the gather of the compressed
           :class:`DualGatherCopy`,       block into nonzero order), driven by the dual-number
@@ -96,7 +98,9 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     tpfa_linearize,
     tpfa_residual,
     TpfaAdGeometry,
+    TpfaAdLauncher,
     segment_sum_sorted,
+    tpfa_ad_dual,
     tpfa_ad_flux,
     tpfa_ad_flux_tangent,
     tpfa_ad_trace,

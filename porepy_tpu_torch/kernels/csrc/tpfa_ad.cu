@@ -1,6 +1,6 @@
 // K14: the differentiable two-point flux approximation inside the residual
-// (value and forward-mode tangents), and the fixed-order segment sums of the
-// TPFA functions.
+// (the value and all forward-mode tangents in one launch), and the
+// fixed-order segment sums of the TPFA functions.
 //
 // Replaces porepy_tpu/models/darcys_law_ad.py:71-147 (_DiffTpfaGeometry's
 // flux_fn and trace_fn over numerics/fv/tpfa.py:55-134), which XLA ran as
@@ -21,36 +21,99 @@
 //   trace = is_dir_raw ? bco + lam
 //         : is_neu_raw ? p[c] - (bco + lam) / t_full : 0
 //
-// One thread per face walks its one or two half-faces through face_ptr and
-// face_hf, in the order of the grid's CSC matrix, so sums have a fixed
-// order and no atomics: two launches give the same bits. The face's count
-// of half-faces takes the place of the n_adj segment sum and of the
-// scatter-set of the jnp code. The arithmetic keeps the jnp code's order of
-// operations (round-to-nearest intrinsics, no contraction into FMAs).
-//
-// With seeds (batch > 0) the kernel writes the B tangents instead of the
-// value, the chain rule written out in the order forward-mode autodiff takes
-// it: d(1/x) = -dx (1/x)^2 at both reciprocals, so a cell of zero
+// and their tangents for B seed rows of (k9, vol, p, bco, lam), each row
+// with its stride (seeds are slices of (B, n_total) arrays; a null seed is
+// zero), written into one (1 + B, nf) buffer: row 0 the value, row 1 + b
+// the tangent of seed b. The chain rule is written out in the order forward
+// mode takes it: d(1/x) = -dx (1/x)^2 at both reciprocals, so a cell of zero
 // permeability gives t = 0 and a non-finite tangent on its faces, as
-// differentiating the plain version does. The guarded division of the trace
-// is a branch, so no such tangent leaks to faces that are not Neumann. Each
-// seed comes with its row stride (seeds are slices of (B, n_total) arrays);
-// a null seed reads 0.
+// differentiating the plain version does; the guarded division of the trace
+// is a branch, so no such tangent leaks to faces that are not Neumann.
 //
-// Bound: bytes. Per half-face 9 tensor entries (each cell's read about
-// twice per face pair, from L2), 6 geometry doubles, 2 ints and a sign; per
-// face two ints, two flags, bco, lam and one result per row. At the 3d 32^3
-// grid (196,608 half-faces, 101,376 faces) about 16 MB, 0.005 ms at
-// 3.35 TB/s; the tangents add 16 rows of seeds and results.
+// Design. The parent ran the value and the tangents as two launches of one
+// thread a face, each reading the geometry and the fields again, the seeds
+// in a serial loop of dependent loads with two divisions an iteration, and
+// the trace over every face. Here:
+//   1. One launch a call: a block of 256 threads takes a tile of faces (64
+//      for the flux, 32 for the trace). Its first tile-many threads, one a
+//      face, compute what no seed changes (the cells, signs, n, d, |d|^2,
+//      vol, t_hf, 1/t_hf and its square, t_full and its square, t, the cell
+//      part, coeff and bco + lam), write the value row and keep these in
+//      shared memory (14,336 bytes for the flux's tile, 7,168 for the
+//      trace's; 58 registers a thread).
+//   2. Then all threads of the block run over the (seed, face) pairs of the
+//      tile, face fastest, so that the dp, dbco and dlam reads and the
+//      output rows are coalesced and B seeds are spread over the block
+//      instead of one thread's loop: 2.5 pairs a thread at 1/128 with
+//      B = 10.
+//   3. 1/t_hf, its square and t_full^2 are computed once a face, not once a
+//      seed; the same operations on the same values, so no bit changes.
+//   4. The trace runs over the geometry's list of raw Dirichlet or Neumann
+//      faces only (TpfaAdGeometry.boundary_faces); blocks past the listed
+//      faces' tiles write the zeros of every other face's 1 + B entries in
+//      the same launch (their tiles skip the listed faces, so no two blocks
+//      write one entry).
+// What sets the flux's time: each (face, seed) pair reads the 9 dK entries
+// of both its cells, 72 strided bytes a cell, three 32-byte sectors, from
+// L2; faces of one tile share few cells, so at 1/128 with B = 10 that
+// is ~64 MB of sectors for 25 MB of bound, and at 3d 32^3 with B = 16
+// ~311 MB for 104 MB. On an H100 the value alone takes ~4.5 and ~12 us and
+// the seeds ~14.5 and ~99 us of the launch (tpfa_ad_check.py). Other tile
+// shapes (32-128 faces x 128-256 threads), staging the tile's dK rows
+// through shared memory, block-wide or a warp's own, and 16-byte loads of
+// the rows were each slower or no faster there.
+// The arithmetic keeps the parent's and the jnp code's order of operations
+// per (face, seed): round-to-nearest intrinsics, no contraction into FMAs,
+// no reassociation; a term of a null seed is left out, not added as 0
+// (the plain version differentiates only the seeded inputs). Sums have a
+// fixed order and there are no atomics: two launches give the same bits.
+//
+// Bound: bytes, each input once, only what the function needs, at 3.35 TB/s.
+// The flux: the geometry (face_ptr, face_hf, ci 4 B, sgn 8, nrm and dvec 48
+// a half-face; two mask bytes a face), the fields (88 B a cell, 16 a face),
+// each seed row (72 + 8 + 8 B a cell and 8 + 8 a face, for the non-null
+// seeds) and the (1 + B) nf result. DarcysLawAd 1/128's matrix subdomain
+// (33,088 faces, 65,536 half-faces, 16,384 cells), B = 10 with dk9, dp and
+// dlam: 4.39 + 1.97 + 15.75 + 2.91 = 25.0 MB, 7.47 us; 3d 32^3 with B = 16
+// and every seed: 103.6 MB, 30.9 us. The trace: the listed faces' inputs and
+// seeds (a Dirichlet face needs bco, lam and their seeds; a Neumann face
+// also its half-face's geometry, cell fields and seed rows) and the whole
+// (1 + B) nf result: 1/128, 640 listed faces, B = 3: 1.34 MB, 0.40 us (one
+// launch's latency sets it); 32^3, 6,144 listed faces, B = 16: 25.1 MB,
+// 7.5 us. The f64 arithmetic, ~60 operations a half-face and seed, is far
+// below the card's 34 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // segment_sum_sorted
+constexpr int kDualThreads = 256;  // tpfa_ad_dual
+// Faces a tile: the flux's, the trace's (powers of two, at most a block).
+template <bool kTrace>
+__host__ __device__ constexpr int tile_of() { return kTrace ? 32 : 64; }
 
-struct Fields {
+// The launch table's words (ops.TpfaAdLauncher writes them).
+enum Word {
+  kNf, kNhf, kNList, kBatch,
+  kFacePtr, kFaceHf, kCi, kSgn, kNrm, kDvec, kIsDir, kIsNeu, kList,
+  kK9, kVol, kP, kBco, kLam,
+  kDk9, kDvol, kDp, kDbco, kDlam,
+  kSdk9, kSdvol, kSdp, kSdbco, kSdlam,
+  kOut, kWords
+};
+
+struct Args {
+  const int* face_ptr;
+  const int* face_hf;
+  const int* ci;
+  const double* sgn;
+  const double* nrm;
+  const double* dvec;
+  const uint8_t* is_dir;  // effective masks for the flux, raw for the trace
+  const uint8_t* is_neu;
+  const int* list;        // the trace's listed faces
   const double* k9;
   const double* vol;
   const double* p;
@@ -62,15 +125,29 @@ struct Fields {
   const double* dbco;
   const double* dlam;
   long long sdk9, sdvol, sdp, sdbco, sdlam;
-  const int* face_ptr;
-  const int* face_hf;
-  const int* ci;
-  const double* sgn;
-  const double* nrm;
-  const double* dvec;
-  const uint8_t* is_dir;
-  const uint8_t* is_neu;
-  int nf, nhf;
+  double* out;  // (1 + batch, nf)
+  int nf, nhf, n_items, batch, work_blocks;
+};
+
+// What no seed changes, a face of the tile a column. A face's one or two
+// half-faces are slots 0 and 1, in CSC order.
+template <int kTile>
+struct Tile {
+  double n[2][3][kTile];
+  double d[2][3][kTile];
+  double vol[2][kTile];
+  double sgn[2][kTile];
+  double r2[2][kTile];     // (1 / t_hf)^2
+  double dist2[2][kTile];  // |d|^2
+  double t[kTile];
+  double t2[kTile];        // t_full^2
+  double t_full[kTile];
+  double cell_part[kTile];
+  double coeff[kTile];
+  double bval[kTile];      // bco + lam
+  int cell[2][kTile];
+  int face[kTile];         // -1 past the last item
+  int info[kTile];         // count | dir << 2 | neu << 3
 };
 
 __device__ __forceinline__ double dot3(const double* a, const double* b) {
@@ -88,114 +165,183 @@ __device__ __forceinline__ double ndot(const double* m, const double* n,
   return dot3(nk, d);
 }
 
-struct HalfFace {
-  int c;
-  double sgn, t_hf, dist2;
-  double n[3], d[3];
-};
-
-__device__ __forceinline__ HalfFace half_face(const Fields& a, int h) {
-  HalfFace x;
-  x.c = a.ci[h];
-  x.sgn = a.sgn[h];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    x.n[i] = a.nrm[(long long)i * a.nhf + h];
-    x.d[i] = a.dvec[(long long)i * a.nhf + h];
+// Phase 1 for one face: the seed-free constants into the tile, the value
+// into row 0.
+template <bool kTrace>
+__device__ void face_constants(const Args& a, Tile<tile_of<kTrace>()>& s, int j, int f) {
+  int h0 = a.face_ptr[f], h1 = a.face_ptr[f + 1];
+  // A face has one or two half-faces; more would be a broken grid.
+  int count = min(h1 - h0, 2);
+  bool dir = a.is_dir[f] != 0, neu = a.is_neu[f] != 0;
+  double bval = __dadd_rn(a.bco[f], a.lam[f]);
+  s.face[j] = f;
+  s.info[j] = count | (dir << 2) | (neu << 3);
+  s.bval[j] = bval;
+  if (count == 0) {
+    a.out[f] = 0.0;
+    return;
   }
-  double kv[9];
-  double v = a.vol[x.c];
+  // The trace needs no half-face on a Dirichlet face.
+  bool half_faces = !kTrace || !dir;
+  double recip = 0.0, cell_part = 0.0, p_last = 0.0, sgn_last = 0.0;
+  if (half_faces) {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) kv[i] = __dmul_rn(a.k9[9LL * x.c + i], v);
-  x.dist2 = dot3(x.d, x.d);
-  x.t_hf = __ddiv_rn(ndot(kv, x.n, x.d), x.dist2);
-  return x;
+    for (int k = 0; k < 2; ++k) {
+      if (k < count) {
+        int h = a.face_hf[h0 + k];
+        int c = a.ci[h];
+        double sg = a.sgn[h];
+        double n[3], d[3], kv[9];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          n[i] = a.nrm[(long long)i * a.nhf + h];
+          d[i] = a.dvec[(long long)i * a.nhf + h];
+        }
+        double v = a.vol[c];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) kv[i] = __dmul_rn(a.k9[9LL * c + i], v);
+        double dist2 = dot3(d, d);
+        double t_hf = __ddiv_rn(ndot(kv, n, d), dist2);
+        double r = __ddiv_rn(1.0, t_hf);
+        double pc = a.p[c];
+        recip = __dadd_rn(recip, r);
+        cell_part = __dadd_rn(cell_part, __dmul_rn(sg, pc));
+        p_last = pc;
+        sgn_last = sg;
+        s.cell[k][j] = c;
+        s.vol[k][j] = v;
+        s.sgn[k][j] = sg;
+        s.r2[k][j] = __dmul_rn(r, r);
+        s.dist2[k][j] = dist2;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          s.n[k][i][j] = n[i];
+          s.d[k][i][j] = d[i];
+        }
+      }
+    }
+  }
+  double t_full = __ddiv_rn(1.0, recip);
+  s.t_full[j] = t_full;
+  s.t2[j] = __dmul_rn(t_full, t_full);
+  double res;
+  if (!kTrace) {
+    double t = neu ? 0.0 : t_full;
+    double coeff = 0.0;
+    if (count == 1) coeff = dir ? __dmul_rn(-t, sgn_last) : (neu ? sgn_last : 0.0);
+    s.t[j] = t;
+    s.coeff[j] = coeff;
+    s.cell_part[j] = cell_part;
+    res = __dadd_rn(__dmul_rn(t, cell_part), __dmul_rn(coeff, bval));
+  } else {
+    res = dir ? bval : (neu ? __dsub_rn(p_last, __ddiv_rn(bval, t_full)) : 0.0);
+  }
+  a.out[f] = res;
 }
 
-// d t_hf for seed row b: d(kv) = dK vol + K dvol.
-__device__ __forceinline__ double half_face_tangent(const Fields& a,
-                                                    const HalfFace& x, long long b) {
+// d t_hf of half-face slot k for seed row b: d(kv) = dK vol + K dvol, the
+// term of a null seed left out.
+template <int kTile>
+__device__ __forceinline__ double half_face_tangent(const Args& a, const Tile<kTile>& s,
+                                                    int k, int j, long long b) {
+  int c = s.cell[k][j];
+  double v = s.vol[k][j];
+  double dv = a.dvol != nullptr ? a.dvol[b * a.sdvol + c] : 0.0;
   double dkv[9];
-  double v = a.vol[x.c];
-  double dv = a.dvol != nullptr ? a.dvol[b * a.sdvol + x.c] : 0.0;
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
-    double dk = a.dk9 != nullptr ? a.dk9[b * a.sdk9 + 9LL * x.c + i] : 0.0;
-    dkv[i] = __dadd_rn(__dmul_rn(dk, v), __dmul_rn(a.k9[9LL * x.c + i], dv));
+    if (a.dk9 != nullptr && a.dvol != nullptr) {
+      dkv[i] = __dadd_rn(__dmul_rn(a.dk9[b * a.sdk9 + 9LL * c + i], v),
+                         __dmul_rn(a.k9[9LL * c + i], dv));
+    } else if (a.dk9 != nullptr) {
+      dkv[i] = __dmul_rn(a.dk9[b * a.sdk9 + 9LL * c + i], v);
+    } else {
+      dkv[i] = __dmul_rn(a.k9[9LL * c + i], dv);
+    }
   }
-  return __ddiv_rn(ndot(dkv, x.n, x.d), x.dist2);
+  double n[3], d[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    n[i] = s.n[k][i][j];
+    d[i] = s.d[k][i][j];
+  }
+  return __ddiv_rn(ndot(dkv, n, d), s.dist2[k][j]);
+}
+
+// Phase 2 for one (face, seed) pair: the tangent.
+template <bool kTrace>
+__device__ double face_tangent(const Args& a, const Tile<tile_of<kTrace>()>& s, int j, long long b) {
+  int info = s.info[j];
+  int count = info & 3;
+  bool dir = (info >> 2) & 1, neu = (info >> 3) & 1;
+  int f = s.face[j];
+  if (count == 0) return 0.0;
+  double db = 0.0;
+  if (a.dbco != nullptr) db = a.dbco[b * a.sdbco + f];
+  if (a.dlam != nullptr) db = __dadd_rn(db, a.dlam[b * a.sdlam + f]);
+  if (kTrace && dir) return db;
+  bool seeded_kv = a.dk9 != nullptr || a.dvol != nullptr;
+  double drecip = 0.0, dcell = 0.0, dp_last = 0.0;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k < count) {
+      if (seeded_kv) {
+        double dt_hf = half_face_tangent(a, s, k, j, b);
+        drecip = __dadd_rn(drecip, __dmul_rn(-dt_hf, s.r2[k][j]));
+      }
+      if (a.dp != nullptr) {
+        dp_last = a.dp[b * a.sdp + s.cell[k][j]];
+        dcell = __dadd_rn(dcell, __dmul_rn(s.sgn[k][j], dp_last));
+      }
+    }
+  }
+  double t_full = s.t_full[j];
+  double dt_full = __dmul_rn(-drecip, s.t2[j]);
+  if (kTrace) {
+    if (!neu) return 0.0;
+    // d(b / t) = db / t - b dt / t^2
+    double dquot = __dsub_rn(__ddiv_rn(db, t_full),
+                             __ddiv_rn(__dmul_rn(s.bval[j], dt_full), s.t2[j]));
+    return __dsub_rn(dp_last, dquot);
+  }
+  double sgn_last = s.sgn[count - 1][j];
+  double dt = neu ? 0.0 : dt_full;
+  double dcoeff = (count == 1 && dir) ? __dmul_rn(-dt, sgn_last) : 0.0;
+  double res = __dadd_rn(__dmul_rn(dt, s.cell_part[j]), __dmul_rn(s.t[j], dcell));
+  return __dadd_rn(res, __dadd_rn(__dmul_rn(dcoeff, s.bval[j]), __dmul_rn(s.coeff[j], db)));
 }
 
 template <bool kTrace>
-__global__ void tpfa_ad_kernel(Fields a, double* __restrict__ out, int batch) {
-  int f = blockIdx.x * kThreads + threadIdx.x;
-  if (f >= a.nf) return;
-  int h0 = a.face_ptr[f], h1 = a.face_ptr[f + 1];
-  // A face has one or two half-faces; more would be a broken grid.
-  HalfFace hf[2];
-  int count = min(h1 - h0, 2);
-  double recip = 0.0, cell_part = 0.0;
-  for (int k = 0; k < count; ++k) {
-    hf[k] = half_face(a, a.face_hf[h0 + k]);
-    recip = __dadd_rn(recip, __ddiv_rn(1.0, hf[k].t_hf));
-    cell_part = __dadd_rn(cell_part, __dmul_rn(hf[k].sgn, a.p[hf[k].c]));
-  }
-  if (count == 0) {
-    for (int b = 0; b < max(batch, 1); ++b) out[(long long)b * a.nf + f] = 0.0;
+__global__ void __launch_bounds__(kDualThreads)
+    tpfa_ad_dual_kernel(Args a) {
+  constexpr int kTile = tile_of<kTrace>();
+  __shared__ Tile<kTile> s;
+  if (kTrace && (int)blockIdx.x >= a.work_blocks) {
+    // The zeros of the faces that are not listed, every row.
+    int f = (blockIdx.x - a.work_blocks) * kDualThreads + threadIdx.x;
+    if (f < a.nf && a.is_dir[f] == 0 && a.is_neu[f] == 0) {
+      for (long long r = 0; r <= a.batch; ++r) a.out[r * a.nf + f] = 0.0;
+    }
     return;
   }
-  double t_full = __ddiv_rn(1.0, recip);
-  bool dir = a.is_dir[f] != 0, neu = a.is_neu[f] != 0;
-  const HalfFace& last = hf[count - 1];
-  double bval = __dadd_rn(a.bco[f], a.lam[f]);
-  double t = neu ? 0.0 : t_full;
-  double coeff = 0.0;
-  if (!kTrace && count == 1) coeff = dir ? __dmul_rn(-t, last.sgn) : (neu ? last.sgn : 0.0);
-
-  if (batch == 0) {
-    double res;
-    if (!kTrace) {
-      res = __dadd_rn(__dmul_rn(t, cell_part), __dmul_rn(coeff, bval));
+  int j = threadIdx.x;
+  if (j < kTile) {
+    int item = blockIdx.x * kTile + j;
+    if (item < a.n_items) {
+      face_constants<kTrace>(a, s, j, kTrace ? a.list[item] : item);
     } else {
-      res = dir ? bval
-                : (neu ? __dsub_rn(a.p[last.c], __ddiv_rn(bval, t_full)) : 0.0);
+      s.face[j] = -1;
     }
-    out[f] = res;
-    return;
   }
-
-  for (long long b = 0; b < batch; ++b) {
-    double drecip = 0.0, dcell = 0.0;
-    for (int k = 0; k < count; ++k) {
-      double r = __ddiv_rn(1.0, hf[k].t_hf);
-      double dt_hf = half_face_tangent(a, hf[k], b);
-      drecip = __dadd_rn(drecip, __dmul_rn(-dt_hf, __dmul_rn(r, r)));
-      if (a.dp != nullptr)
-        dcell = __dadd_rn(dcell, __dmul_rn(hf[k].sgn, a.dp[b * a.sdp + hf[k].c]));
-    }
-    double dt_full = __dmul_rn(-drecip, __dmul_rn(t_full, t_full));
-    double db = 0.0;
-    if (a.dbco != nullptr) db = a.dbco[b * a.sdbco + f];
-    if (a.dlam != nullptr) db = __dadd_rn(db, a.dlam[b * a.sdlam + f]);
-    double res;
-    if (!kTrace) {
-      double dt = neu ? 0.0 : dt_full;
-      double dcoeff = (count == 1 && dir) ? __dmul_rn(-dt, last.sgn) : 0.0;
-      res = __dadd_rn(__dmul_rn(dt, cell_part), __dmul_rn(t, dcell));
-      res = __dadd_rn(res, __dadd_rn(__dmul_rn(dcoeff, bval), __dmul_rn(coeff, db)));
-    } else if (dir) {
-      res = db;
-    } else if (neu) {
-      double dp_face = a.dp != nullptr ? a.dp[b * a.sdp + last.c] : 0.0;
-      // d(b / t) = db / t - b dt / t^2
-      double dquot = __dsub_rn(
-          __ddiv_rn(db, t_full),
-          __ddiv_rn(__dmul_rn(bval, dt_full), __dmul_rn(t_full, t_full)));
-      res = __dsub_rn(dp_face, dquot);
-    } else {
-      res = 0.0;
-    }
-    out[b * a.nf + f] = res;
+  if (a.batch == 0) return;
+  __syncthreads();
+  int pairs = a.batch * kTile;
+  for (int i = threadIdx.x; i < pairs; i += kDualThreads) {
+    int jj = i & (kTile - 1);
+    int f = s.face[jj];
+    if (f < 0) continue;
+    long long b = i / kTile;
+    a.out[(b + 1) * a.nf + f] = face_tangent<kTrace>(a, s, jj, b);
   }
 }
 
@@ -213,48 +359,61 @@ __global__ void segment_sum_sorted_kernel(const double* __restrict__ x,
   out[b * num + s] = acc;
 }
 
-template <bool kTrace>
-int launch_tpfa_ad(const double* k9, const double* vol, const double* p,
-                   const double* bco, const double* lam, const double* dk9,
-                   const double* dvol, const double* dp, const double* dbco,
-                   const double* dlam, long long sdk9, long long sdvol,
-                   long long sdp, long long sdbco, long long sdlam,
-                   const int* face_ptr, const int* face_hf, const int* ci,
-                   const double* sgn, const double* nrm, const double* dvec,
-                   const uint8_t* is_dir, const uint8_t* is_neu, double* out,
-                   int nf, int nhf, int batch, void* stream) {
-  if (nf == 0) return 0;
-  Fields a{k9,    vol,   p,        bco,     lam, dk9,  dvol, dp,   dbco,   dlam,
-           sdk9,  sdvol, sdp,      sdbco,   sdlam,
-           face_ptr, face_hf, ci, sgn, nrm, dvec, is_dir, is_neu, nf, nhf};
-  int blocks = (nf + kThreads - 1) / kThreads;
-  tpfa_ad_kernel<kTrace><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a, out, batch);
-  return (int)cudaGetLastError();
+template <typename T>
+const T* word_ptr(const long long* w, int i) {
+  return reinterpret_cast<const T*>(w[i]);
 }
 
 }  // namespace
 
-#define PPT_TPFA_AD_ARGS                                                        \
-  const double *k9, const double *vol, const double *p, const double *bco,      \
-      const double *lam, const double *dk9, const double *dvol,                 \
-      const double *dp, const double *dbco, const double *dlam, long long sdk9, \
-      long long sdvol, long long sdp, long long sdbco, long long sdlam,         \
-      const int *face_ptr, const int *face_hf, const int *ci, const double *sgn, \
-      const double *nrm, const double *dvec, const uint8_t *is_dir,             \
-      const uint8_t *is_neu, double *out, int nf, int nhf, int batch, void *stream
-#define PPT_TPFA_AD_PASS                                                        \
-  k9, vol, p, bco, lam, dk9, dvol, dp, dbco, dlam, sdk9, sdvol, sdp, sdbco,     \
-      sdlam, face_ptr, face_hf, ci, sgn, nrm, dvec, is_dir, is_neu, out, nf,    \
-      nhf, batch, stream
-
-// batch == 0 writes the value (nf,), batch > 0 the tangents (batch, nf).
-extern "C" int ppt_tpfa_ad_flux_f64(PPT_TPFA_AD_ARGS) {
-  return launch_tpfa_ad<false>(PPT_TPFA_AD_PASS);
+// One launch: the value row and, with batch > 0, the batch tangent rows of
+// the flux (trace == 0) or of the trace, from the host launch table.
+extern "C" int ppt_tpfa_ad_dual_f64(const long long* w, int trace, void* stream) {
+  Args a;
+  a.face_ptr = word_ptr<int>(w, kFacePtr);
+  a.face_hf = word_ptr<int>(w, kFaceHf);
+  a.ci = word_ptr<int>(w, kCi);
+  a.sgn = word_ptr<double>(w, kSgn);
+  a.nrm = word_ptr<double>(w, kNrm);
+  a.dvec = word_ptr<double>(w, kDvec);
+  a.is_dir = word_ptr<uint8_t>(w, kIsDir);
+  a.is_neu = word_ptr<uint8_t>(w, kIsNeu);
+  a.list = word_ptr<int>(w, kList);
+  a.k9 = word_ptr<double>(w, kK9);
+  a.vol = word_ptr<double>(w, kVol);
+  a.p = word_ptr<double>(w, kP);
+  a.bco = word_ptr<double>(w, kBco);
+  a.lam = word_ptr<double>(w, kLam);
+  a.dk9 = word_ptr<double>(w, kDk9);
+  a.dvol = word_ptr<double>(w, kDvol);
+  a.dp = word_ptr<double>(w, kDp);
+  a.dbco = word_ptr<double>(w, kDbco);
+  a.dlam = word_ptr<double>(w, kDlam);
+  a.sdk9 = w[kSdk9];
+  a.sdvol = w[kSdvol];
+  a.sdp = w[kSdp];
+  a.sdbco = w[kSdbco];
+  a.sdlam = w[kSdlam];
+  a.out = reinterpret_cast<double*>(w[kOut]);
+  a.nf = (int)w[kNf];
+  a.nhf = (int)w[kNhf];
+  a.batch = (int)w[kBatch];
+  a.n_items = trace ? (int)w[kNList] : a.nf;
+  if (a.nf == 0) return 0;
+  int tile = trace ? tile_of<true>() : tile_of<false>();
+  a.work_blocks = (a.n_items + tile - 1) / tile;
+  int blocks = a.work_blocks;
+  if (trace) {
+    blocks += (a.nf + kDualThreads - 1) / kDualThreads;
+    tpfa_ad_dual_kernel<true><<<blocks, kDualThreads, 0, (cudaStream_t)stream>>>(a);
+  } else {
+    tpfa_ad_dual_kernel<false><<<blocks, kDualThreads, 0, (cudaStream_t)stream>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
-extern "C" int ppt_tpfa_ad_trace_f64(PPT_TPFA_AD_ARGS) {
-  return launch_tpfa_ad<true>(PPT_TPFA_AD_PASS);
-}
+// The launch table's length, for the launcher's check.
+extern "C" int ppt_tpfa_ad_dual_words_f64(void) { return kWords; }
 
 extern "C" int ppt_segment_sum_sorted_f64(const double* x, long long sx,
                                           const int* ptr, const int* idx,

@@ -240,8 +240,11 @@ class _TpfaAd(torch.autograd.Function):
     """The differentiable TPFA face flux (``trace=False``) or boundary
     pressure trace (``trace=True``) of one subdomain through the K14
     kernels. The geometry's arrays are arguments like the fields (in
-    ``TpfaAdGeometry.FIELDS`` order), so that they reach the kernel as plain
-    tensors whatever transform built them."""
+    ``TpfaAdGeometry.TENSORS`` order), so that they reach the kernel as plain
+    tensors whatever transform built them. Each call rebuilds the geometry
+    through ``TpfaAdGeometry.trusted``, so its launcher checks the geometry
+    and writes its launch table anew; the dual rule's calls keep theirs in
+    the model's geometry."""
 
     generate_vmap_rule = False
 
@@ -273,7 +276,8 @@ class _TpfaAd(torch.autograd.Function):
 
 class _TpfaAdTangent(torch.autograd.Function):
     """The tangent of :class:`_TpfaAd` for five seeds (``None``: zero);
-    under ``vmap`` they go to the kernel as one ``(B, ...)`` batch."""
+    under ``vmap`` they go to the kernel as one ``(B, ...)`` batch. The
+    launch also writes the value row, which is dropped."""
 
     generate_vmap_rule = False
 

@@ -15,6 +15,8 @@ K2's :class:`JacobiSweeps`, one per Jacobi block, and K3's
 K4's :class:`FgmresArnoldi`, one per FGMRES cycle;
 K19's launcher :class:`HaloOperator`, one per shard matrix of the sharded
 solve;
+K14's :class:`TpfaAdLauncher`, one per subdomain geometry and kind (the
+flux or the trace: value and all tangents in one launch);
 K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; the flow
 steps' :class:`FlowCycle`, one per linearization buffer (K12, K13: a
 BiCGStab solve in two cooperative launches) and their linearizations
@@ -75,6 +77,8 @@ __all__ = [
     "upwind_select_pair",
     "segment_sum_sorted",
     "TpfaAdGeometry",
+    "TpfaAdLauncher",
+    "tpfa_ad_dual",
     "tpfa_ad_flux",
     "tpfa_ad_flux_tangent",
     "tpfa_ad_trace",
@@ -1661,12 +1665,16 @@ class TpfaAdGeometry:
     ``ci`` ``(nhf,)`` int32, ``sgn`` ``(nhf,)``, ``nrm``, ``dvec`` ``(3, nhf)``
     float64 (outward area-weighted normal and face-minus-cell-center vector
     per half-face) and the bool face masks ``is_dir``, ``is_neu``
-    (effective) and ``is_dir_raw``, ``is_neu_raw``."""
+    (effective) and ``is_dir_raw``, ``is_neu_raw``. The constructor derives
+    ``boundary_faces``, the int32 list of the faces where ``is_dir_raw |
+    is_neu_raw`` (ascending), over which the trace kernel runs."""
 
     FIELDS = (
         "face_ptr", "face_hf", "ci", "sgn", "nrm", "dvec",
         "is_dir", "is_neu", "is_dir_raw", "is_neu_raw",
     )
+    #: What :meth:`tensors` gives out and :meth:`trusted` takes back.
+    TENSORS = FIELDS + ("boundary_faces",)
     _DTYPES = (torch.int32,) * 3 + (torch.float64,) * 3 + (torch.bool,) * 4
 
     def __init__(self, **arrays) -> None:
@@ -1683,20 +1691,24 @@ class TpfaAdGeometry:
         for name, shape in zip(self.FIELDS, shapes):
             if tuple(self.arrays[name].shape) != shape:
                 raise ValueError(f"TpfaAdGeometry: {name} must have shape {shape}")
+        listed = self.arrays["is_dir_raw"] | self.arrays["is_neu_raw"]
+        self.arrays["boundary_faces"] = torch.nonzero(listed).reshape(-1).to(torch.int32)
+        self._launchers = {}
 
     @classmethod
     def trusted(cls, tensors) -> "TpfaAdGeometry":
-        """A geometry over ``tensors`` (in ``FIELDS`` order) that a checked
+        """A geometry over ``tensors`` (in ``TENSORS`` order) that a checked
         instance gave out through :meth:`tensors`; nothing is checked again."""
         self = cls.__new__(cls)
-        self.arrays = dict(zip(cls.FIELDS, tensors))
+        self.arrays = dict(zip(cls.TENSORS, tensors))
         self.num_faces = tensors[0].shape[0] - 1
         self.num_half_faces = tensors[2].shape[0]
+        self._launchers = {}
         return self
 
     def tensors(self) -> tuple:
-        """The arrays in ``FIELDS`` order."""
-        return tuple(self.arrays.values())
+        """The arrays in ``TENSORS`` order."""
+        return tuple(self.arrays[name] for name in self.TENSORS)
 
     def __getitem__(self, name):
         return self.arrays[name]
@@ -1705,73 +1717,152 @@ class TpfaAdGeometry:
     def device(self):
         return self.arrays["sgn"].device
 
+    def launcher(self, trace: bool) -> "TpfaAdLauncher":
+        """This geometry's :class:`TpfaAdLauncher` of the flux or of the
+        trace, made at the first call."""
+        hit = self._launchers.get(trace)
+        if hit is None:
+            hit = self._launchers[trace] = TpfaAdLauncher(self, trace)
+        return hit
 
-def _tpfa_ad_cuda(name, geom, primals, seeds):
-    k9, vol, p, bco, lam = primals
-    nc, nf = vol.shape[0], geom.num_faces
-    sizes = (9 * nc, nc, nc, nf, nf)
-    for arg, t, n in zip(("k9", "vol", "p", "bco", "lam"), primals, sizes):
-        if t.dtype != torch.float64 or t.shape != (n,):
-            raise ValueError(f"{name}: {arg} must be float64 of shape ({n},)")
-    _check(name, dict(zip(("k9", "vol", "p", "bco", "lam"), primals)), torch.float64)
-    if geom.device != vol.device:
-        raise ValueError(f"{name}: geometry on {geom.device}, fields on {vol.device}")
-    raw = name == "tpfa_ad_trace"
-    masks = (geom["is_dir_raw"], geom["is_neu_raw"]) if raw else (geom["is_dir"], geom["is_neu"])
-    if seeds is None:
-        batch, s_ptrs, s_strides = 0, [None] * 5, [0] * 5
-        out = torch.empty(nf, dtype=torch.float64, device=vol.device)
-    else:
-        batch, s_ptrs, s_strides = 0, [], []
-        for arg, t, n in zip(("dk9", "dvol", "dp", "dbco", "dlam"), seeds, sizes):
-            b, (ptr,), (stride,) = _rows(name, n, **{arg: t})
-            if t is not None and t.dim() != 2:
-                raise ValueError(f"{name}: {arg} must be (B, {n})")
-            if b and batch and b != batch:
-                raise ValueError(f"{name}: seeds differ in batch size")
-            batch = batch or b
-            s_ptrs.append(ptr)
-            s_strides.append(stride)
-        if not batch:
-            raise ValueError(f"{name}: needs at least one seed")
-        out = torch.empty((batch, nf), dtype=torch.float64, device=vol.device)
-    if nf:
-        _launch(
-            name, torch.float64,
-            *(t.data_ptr() for t in primals), *s_ptrs, *s_strides,
-            geom["face_ptr"].data_ptr(), geom["face_hf"].data_ptr(), geom["ci"].data_ptr(),
-            geom["sgn"].data_ptr(), geom["nrm"].data_ptr(), geom["dvec"].data_ptr(),
-            masks[0].data_ptr(), masks[1].data_ptr(), out.data_ptr(),
-            nf, geom.num_half_faces, batch,
-        )
-    return out
+
+# The launch table's words (csrc/tpfa_ad.cu, Word): sizes, geometry,
+# fields, seeds, seed row strides, output.
+_TPFA_HEAD = 13  # kNf .. kList
+_TPFA_CALL = 16  # kK9 .. kOut
+_TPFA_GEOMETRY = ("face_ptr", "face_hf", "ci", "sgn", "nrm", "dvec")
+_TPFA_PRIMALS = ("k9", "vol", "p", "bco", "lam")
+_TPFA_SEEDS = ("dk9", "dvol", "dp", "dbco", "dlam")
+
+
+class TpfaAdLauncher:
+    """K14's flux (``trace=False``) or trace of one subdomain, made once per
+    :class:`TpfaAdGeometry` and kind (``geom.launcher(trace)``):
+    ``launcher(primals, seeds=None)`` returns ``(value (nf,), tangents (B,
+    nf) or None)`` of the function at the five ``primals`` ``(k9 (9 nc,), vol,
+    p (nc,), bco, lam (nf,))`` for the five ``seeds``, each ``(B, n)`` with
+    unit-strided rows or ``None`` (zero; all ``None``: the value alone), as
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_ad_dual` computes them.
+
+    On the card it is one launch of ``tpfa_ad_dual`` (``csrc/tpfa_ad.cu``),
+    value and tangents as rows 0 and ``1 ..`` of one ``(1 + B, nf)`` buffer.
+    The geometry is checked and its pointers written into the launch table
+    (int64 words the C entry reads) once, at the first call on the card; a
+    call checks the fields and seeds, allocates the buffer, writes their
+    pointers and makes one ctypes call. On the CPU the plain version runs;
+    on a CUDA tensor the kernel launches or the call raises. Counts under
+    ``tpfa_ad_flux`` or ``tpfa_ad_trace``."""
+
+    __slots__ = ("geom", "trace", "name", "_fn", "_dev", "_table")
+
+    def __init__(self, geom: TpfaAdGeometry, trace: bool) -> None:
+        self.geom, self.trace = geom, bool(trace)
+        self.name = "tpfa_ad_trace" if trace else "tpfa_ad_flux"
+        self._fn = None
+        self._dev = None
+
+    def _bind(self) -> None:
+        geom, name = self.geom, self.name
+        masks = ("is_dir_raw", "is_neu_raw") if self.trace else ("is_dir", "is_neu")
+        arrays = {k: geom[k] for k in (*_TPFA_GEOMETRY, *masks, "boundary_faces")}
+        _check(name, arrays, torch.float64)
+        if len({t.device for t in arrays.values()}) != 1:
+            raise ValueError(f"{name}: the geometry's arrays lie on more than one card")
+        words = _kernel("tpfa_ad_dual_words", torch.float64)()
+        if words != _TPFA_HEAD + _TPFA_CALL:
+            raise RuntimeError(f"{name}: the kernel's launch table has {words} words, expected "
+                               f"{_TPFA_HEAD + _TPFA_CALL}")
+        table = (ctypes.c_longlong * words)()
+        nf = geom.num_faces
+        table[:_TPFA_HEAD] = [
+            nf, geom.num_half_faces, geom["boundary_faces"].shape[0], 0,
+            *(t.data_ptr() for t in arrays.values()),
+        ]
+        self._table = table
+        self._dev = geom["sgn"].get_device()
+        self._fn = _kernel("tpfa_ad_dual", torch.float64)
+
+    def __call__(self, primals, seeds=None):
+        if not primals[1].is_cuda:
+            return reference.tpfa_ad_dual(self.geom, primals, seeds, self.trace)
+        return self._cuda(primals, seeds)
+
+    def _cuda(self, primals, seeds):
+        if self._fn is None:
+            self._bind()
+        name, dev, nf = self.name, self._dev, self.geom.num_faces
+        f64 = torch.float64
+        nc = primals[1].shape[0] if primals[1].dim() == 1 else -1
+        sizes = (9 * nc, nc, nc, nf, nf)
+        ptrs = []
+        for arg, t, n in zip(_TPFA_PRIMALS, primals, sizes):
+            if t.dtype is not f64 or t.shape != (n,):
+                raise ValueError(f"{name}: {arg} must be float64 of shape ({n},)")
+            if t.get_device() != dev:
+                raise ValueError(f"{name}: {arg} is on {t.device}, the geometry on card {dev}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: {arg} must be contiguous")
+            ptrs.append(t.data_ptr())
+        batch = 0
+        s_ptrs, s_strides = [0] * 5, [0] * 5
+        if seeds is not None:
+            for i, (arg, t, n) in enumerate(zip(_TPFA_SEEDS, seeds, sizes)):
+                if t is None:
+                    continue
+                shape, stride = t.shape, t.stride()
+                if t.dtype is not f64 or len(shape) != 2 or shape[1] != n:
+                    raise ValueError(f"{name}: {arg} must be float64 of shape (B, {n})")
+                if t.get_device() != dev:
+                    raise ValueError(f"{name}: {arg} is on {t.device}, the geometry on card {dev}")
+                if n > 1 and stride[1] != 1:
+                    raise ValueError(f"{name}: {arg} needs unit-stride rows")
+                if batch and shape[0] != batch:
+                    raise ValueError(f"{name}: seeds differ in batch size")
+                batch = shape[0]
+                s_ptrs[i] = t.data_ptr()
+                s_strides[i] = stride[0]
+        buf = primals[1].new_empty((1 + batch, nf))
+        if nf:
+            table = self._table
+            table[3] = batch
+            struct.pack_into("16q", table, 8 * _TPFA_HEAD, *ptrs, *s_ptrs, *s_strides, buf.data_ptr())
+            rc = self._fn(table, self.trace, _current_stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+            LAUNCHES[name] += 1
+        return buf[0], (buf[1:] if batch else None)
+
+
+def tpfa_ad_dual(geom: TpfaAdGeometry, primals, seeds=None, trace: bool = False):
+    """``(value (nf,), tangents (B, nf) or None)`` of the flux (or, with
+    ``trace``, the boundary pressure trace) of one subdomain at the five
+    ``primals`` for the five ``seeds`` (each ``(B, n)`` or ``None``), in one
+    launch of the geometry's :class:`TpfaAdLauncher` on the card (see
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_ad_dual`)."""
+    return geom.launcher(trace)(primals, seeds)
 
 
 def tpfa_ad_flux(geom: TpfaAdGeometry, k9, vol, p, bco, lam):
     """The differentiable TPFA face flux of one subdomain (see
     :func:`porepy_tpu_torch.kernels.reference.tpfa_ad_flux`): ``k9``
     ``(9 nc,)`` cell-major, ``vol``, ``p`` ``(nc,)``, ``bco``, ``lam``
-    ``(nf,)``, float64."""
-    if not vol.is_cuda:
-        return reference.tpfa_ad_flux(geom, k9, vol, p, bco, lam)
-    return _tpfa_ad_cuda("tpfa_ad_flux", geom, (k9, vol, p, bco, lam), None)
+    ``(nf,)``, float64; the value row of :func:`tpfa_ad_dual`."""
+    return tpfa_ad_dual(geom, (k9, vol, p, bco, lam))[0]
 
 
 def tpfa_ad_flux_tangent(geom: TpfaAdGeometry, primals, seeds):
     """Tangents ``(B, nf)`` of :func:`tpfa_ad_flux` at the five ``primals``
-    for the five ``seeds``, each ``(B, n)`` or ``None`` (zero), in one
-    launch of the flux kernel (counted under ``tpfa_ad_flux``)."""
+    for the five ``seeds``, each ``(B, n)`` or ``None`` (zero): the tangent
+    rows of :func:`tpfa_ad_dual` (counted under ``tpfa_ad_flux``)."""
     if not primals[1].is_cuda:
         return reference.tpfa_ad_tangent(reference.tpfa_ad_flux, geom, primals, seeds)
-    return _tpfa_ad_cuda("tpfa_ad_flux", geom, tuple(primals), tuple(seeds))
+    return _tangent_rows("tpfa_ad_flux", geom, primals, seeds, False)
 
 
 def tpfa_ad_trace(geom: TpfaAdGeometry, k9, vol, p, bco, lam):
     """The boundary pressure trace of one subdomain (see
     :func:`porepy_tpu_torch.kernels.reference.tpfa_ad_trace`)."""
-    if not vol.is_cuda:
-        return reference.tpfa_ad_trace(geom, k9, vol, p, bco, lam)
-    return _tpfa_ad_cuda("tpfa_ad_trace", geom, (k9, vol, p, bco, lam), None)
+    return tpfa_ad_dual(geom, (k9, vol, p, bco, lam), trace=True)[0]
 
 
 def tpfa_ad_trace_tangent(geom: TpfaAdGeometry, primals, seeds):
@@ -1779,7 +1870,13 @@ def tpfa_ad_trace_tangent(geom: TpfaAdGeometry, primals, seeds):
     :func:`tpfa_ad_flux_tangent`."""
     if not primals[1].is_cuda:
         return reference.tpfa_ad_tangent(reference.tpfa_ad_trace, geom, primals, seeds)
-    return _tpfa_ad_cuda("tpfa_ad_trace", geom, tuple(primals), tuple(seeds))
+    return _tangent_rows("tpfa_ad_trace", geom, primals, seeds, True)
+
+
+def _tangent_rows(name, geom, primals, seeds, trace):
+    if all(s is None for s in seeds):
+        raise ValueError(f"{name}: needs at least one seed")
+    return tpfa_ad_dual(geom, tuple(primals), tuple(seeds), trace)[1]
 
 
 # -- K8 ---------------------------------------------------------------------------

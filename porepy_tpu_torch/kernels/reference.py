@@ -68,6 +68,7 @@ __all__ = [
     "tpfa_ad_flux",
     "tpfa_ad_trace",
     "tpfa_ad_tangent",
+    "tpfa_ad_dual",
     "DUAL_OPCODES",
     "DUAL_OP",
     "DUAL_MAX_INPUTS",
@@ -1204,6 +1205,18 @@ def tpfa_ad_tangent(fn, geom, primals, seeds):
         return torch.func.jvp(partial, tuple(primals[i] for i in live), tangents)[1]
 
     return torch.func.vmap(one)(*(seeds[i] for i in live))
+
+
+def tpfa_ad_dual(geom, primals, seeds=None, trace=False):
+    """``(value, tangents)`` of :func:`tpfa_ad_flux` (or, with ``trace``,
+    :func:`tpfa_ad_trace`) at the five ``primals``: the value and, for the
+    ``(B, ...)`` ``seeds`` (``None`` is a zero seed), the ``(B, nf)``
+    tangents of :func:`tpfa_ad_tangent`; ``None`` when every seed is."""
+    fn = tpfa_ad_trace if trace else tpfa_ad_flux
+    val = fn(geom, *primals)
+    if seeds is None or all(s is None for s in seeds):
+        return val, None
+    return val, tpfa_ad_tangent(fn, geom, primals, seeds)
 
 
 # -- K8 ---------------------------------------------------------------------------

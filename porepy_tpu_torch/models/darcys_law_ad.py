@@ -17,10 +17,11 @@ residual and forward-mode differentiation goes through it exactly. No
 rediscretization, no lagging.
 
 On a CUDA tensor the node runs the K14 kernels ``tpfa_ad_flux`` and
-``tpfa_ad_trace`` (``kernels/csrc/tpfa_ad.cu``: value and all colored
-tangents, one launch each per subdomain). The assembly's forward-mode pass
-calls them directly through the node's dual rule (on a CPU tensor their
-plain versions in ``kernels/reference.py``); the traced function that
+``tpfa_ad_trace`` (``kernels/csrc/tpfa_ad.cu``: the value and all colored
+tangents in one launch per subdomain). The assembly's forward-mode pass
+calls them directly through the node's dual rule, by
+``kernels.tpfa_ad_dual`` (on a CPU tensor their plain versions in
+``kernels/reference.py``); the traced function that
 ``torch.func`` differentiates reaches them through autograd Functions, and
 on a CPU tensor runs the plain functions of ``numerics/fv/tpfa.py``.
 """
@@ -108,8 +109,8 @@ class _DiffTpfaGeometry:
     def _per_subdomain(self, plain, kernel, trace: bool):
         """``(k9, vol, p, bco, lam) -> face field``: ``kernel`` per subdomain
         for CUDA tensors, ``plain`` (on the host meshes) for CPU tensors. The
-        function's ``dual_rule`` calls the K14 value and tangent operators of
-        the pressure trace (``trace``) or of the flux per subdomain."""
+        function's ``dual_rule`` calls :func:`~porepy_tpu_torch.kernels.tpfa_ad_dual`
+        of the pressure trace (``trace``) or of the flux once per subdomain."""
         geos = list(zip(self.meshes, self.masks))
         co, fo = self.cell_offsets, self.face_offsets
 
@@ -137,30 +138,22 @@ class _DiffTpfaGeometry:
 
         def dual_rule(run, k9, vol, p, bco, lam):
             """The same face field on duals: value and the tangent rows of
-            all seeds, one K14 launch each per subdomain, concatenated by the
-            rule's own launcher."""
-            if trace:
-                value_op, tangent_op = ops.tpfa_ad_trace, ops.tpfa_ad_trace_tangent
-            else:
-                value_op, tangent_op = ops.tpfa_ad_flux, ops.tpfa_ad_flux_tangent
+            all seeds in one K14 launch per subdomain (the geometry's
+            launcher), concatenated by the rule's own launcher."""
             geoms = self.kernel_geometry(p.val.device)
+            duals = (k9, vol, p, bco, lam)
             out = []
             for i, geom in enumerate(geoms):
                 spans = (
                     (9 * co[i], 9 * co[i + 1]), (co[i], co[i + 1]), (co[i], co[i + 1]),
                     (fo[i], fo[i + 1]), (fo[i], fo[i + 1]),
                 )
-                duals = (k9, vol, p, bco, lam)
                 primals = [d.val[lo:hi] for d, (lo, hi) in zip(duals, spans)]
-                val = value_op(geom, *primals)
                 seeds = [
                     None if d.tan is None else d.tan[:, lo:hi]
                     for d, (lo, hi) in zip(duals, spans)
                 ]
-                if all(s is None for s in seeds):
-                    out.append(forward.Dual(val))
-                else:
-                    out.append(forward.Dual(val, tangent_op(geom, primals, seeds)))
+                out.append(forward.Dual(*ops.tpfa_ad_dual(geom, primals, seeds, trace)))
             return forward.concat(run, out, gather)
 
         fn.dual_rule = dual_rule

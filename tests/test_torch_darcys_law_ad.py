@@ -285,7 +285,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     primals, _ = _fields(gt, "iso", False, 0)
     pt_ = tuple(map(torch.tensor, primals))
     with pytest.raises(ValueError, match="expected cuda"):
-        ops._tpfa_ad_cuda("tpfa_ad_flux", kg, pt_, None)
+        kg.launcher(False)._cuda(pt_, None)
     with pytest.raises(ValueError, match="at least one seed"):
         ops.tpfa_ad_flux_tangent(kg, pt_, (None,) * 5)
     with pytest.raises(NotImplementedError, match="batched primal"):
@@ -415,6 +415,38 @@ def test_cuda_tpfa_ad_kernels_match_plain(cuda, grid):
         val_g, tan_g = on(cuda)
         assert (val_g.cpu() - val_c).abs().max() <= 1e-12 * val_c.abs().max()
         assert (tan_g.cpu() - tan_c).abs().max() <= 1e-12 * tan_c.abs().max()
+    # The one-launch op of the dual rule against its plain version, with
+    # every seed and with dvol and dbco None as on the model's path; the
+    # trace's unlisted faces exactly 0 in every row, the same bits twice.
+    for i, kg in enumerate(gt.kernel_geometry(cuda)):
+        kc = gt.kernel_geometry("cpu")[i]
+        co, fo = gt.cell_offsets, gt.face_offsets
+        spans = ((9 * co[i], 9 * co[i + 1]), (co[i], co[i + 1]), (co[i], co[i + 1]),
+                 (fo[i], fo[i + 1]), (fo[i], fo[i + 1]))
+        prim = [torch.tensor(p[lo:hi]) for p, (lo, hi) in zip(primals, spans)]
+        full = [torch.tensor(s[:, lo:hi]) for s, (lo, hi) in zip(seeds, spans)]
+        listed = (kc["is_dir_raw"] | kc["is_neu_raw"]).numpy()
+        for seed_set in (full, [full[0], None, full[2], None, full[4]], None):
+            for trace in (False, True):
+                want = ops.tpfa_ad_dual(kc, prim, seed_set, trace)
+
+                def launch():
+                    return ops.tpfa_ad_dual(
+                        kg, [t.to(cuda) for t in prim],
+                        None if seed_set is None else [None if t is None else t.to(cuda) for t in seed_set],
+                        trace,
+                    )
+
+                got = launch()
+                assert (got[1] is None) == (seed_set is None)
+                for a, b in zip(got, want):
+                    if b is None:
+                        continue
+                    assert (a.cpu() - b).abs().max() <= 1e-12 * b.abs().max().clamp_min(1e-300)
+                    if trace:
+                        assert np.all(a.cpu().numpy()[..., ~listed] == 0.0)
+                again = launch()
+                assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
     mesh = gt.meshes[0]
     x = torch.tensor(rng.standard_normal((B, mesh.num_half_faces)))
     mesh_g = FvMesh.from_grid(sds_t[0], device=cuda)

@@ -589,7 +589,7 @@ _MODELS = {}
 def _model(case):
     if case not in _MODELS:
         if case == "darcy_ad":
-            Model, params = chip_smoke.build_darcy_ad_model(1.0 / 8, "cpu")
+            Model, params = cases_torch.build_darcy_ad(1.0 / 8, "cpu")
             model = Model(params)
         elif case == "contact":
             model, params = chip_smoke.build_fractured_poromechanics("cpu")
