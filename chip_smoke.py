@@ -137,8 +137,13 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    host Newton increment <= 1e-10; ms per Newton iteration, host assembly
    and solve ms, Krylov iterations per solve;
 15. the constant-K flash (K17) at 2048^2 points, nc = 2 and 3, against its
-   plain version (V, x, y within 1e-12, equal flags and iteration counts),
-   and ``ConstantKFlash.compute_flash`` on the card;
+   plain version (V, x, y within 1e-12, equal flags and iteration counts;
+   each point stops once its iterate repeats one of its last 8), at nc = 3
+   against a plain run of all 150 iterations (V, x, y and the flags to the
+   bit), the iterations (mean, the mean over warps of each warp's slowest
+   lane, the points at 150), the kernel's time beside the bound at the
+   iterations these inputs need, and ``ConstantKFlash.compute_flash`` on
+   the card;
 16. the table lookup (K16) of a 201 x 201 table at 2048^2 points, inside
    and outside the table: value and four tangents against the plain
    version (1e-13 of the largest value), then ``tab(p, T)`` in an
@@ -146,13 +151,15 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    card against the CPU (1e-12), with K16 launched;
 17. the batched block inverse (K11) on the interaction-region matrices of
    phase 11 (3,969 blocks of 20 from biot 1/64, 1,374 of 81 from the 3d
-   16^3 Biot problem), a batch with a zero leading entry and one of 160
-   (device workspace): the kernel against its plain version (1e-12 of the
-   plain result's largest entry), max |A X - I| per block within 1e-10
-   ||A|| ||X|| (max-row-sum norms), CUDA-event times of kernel, plain
-   version, ``torch.linalg.inv_ex`` and the copies; then a block-diagonal
-   matrix of sizes 1-12, 20, 81 and 160 through ``invert_diagonal_blocks``
-   on the card (one launch per size) against ``method="python"``;
+   16^3 Biot problem), a batch with a zero leading entry, one of 160 (in
+   shared memory) and one of 200 (device workspace): the kernel against its
+   plain version (1e-12 of the plain result's largest entry; whether equal),
+   max |A X - I| per block within 1e-10 ||A|| ||X|| (max-row-sum norms),
+   CUDA-event times of kernel, plain version, ``torch.linalg.inv_ex`` and
+   the copies, at (1,374, 81) the copies pageable and pinned in turns; then
+   a block-diagonal matrix of sizes 1-12, 20, 81 and 160 through
+   ``invert_diagonal_blocks`` on the card (one launch per size) against
+   ``method="python"``;
 18. the dof-sharded Newton solve (K19) on md 1/128: (a) its first Jacobian
    in the solver's ELL layout split into 4 row shards and into 1 on the
    card, halo plans built in one process, through the shards'
@@ -1993,8 +2000,9 @@ def _fluid(pt, nc):
 
 
 def check_flash(dev) -> dict:
-    """K17 at 2048^2 points against its plain version, and ConstantKFlash
-    through its public entry point on the card."""
+    """K17 at 2048^2 points against its plain version (and, at nc = 3,
+    against a plain run of all max_iter iterations, to the bit), and
+    ConstantKFlash through its public entry point on the card."""
     import porepy_tpu_torch as pt
     from porepy_tpu_torch.kernels import LAUNCHES, ops, reference, reset_launches
 
@@ -2013,20 +2021,27 @@ def check_flash(dev) -> dict:
             report["err"] = max(report["err"], err)
         _require(torch.equal(got[3], want[3]), f"nc {nc}: converged flags differ")
         _require(torch.equal(got[4], want[4]), f"nc {nc}: iteration counts differ")
+        if nc == 3:
+            full = reference.rachford_rice_full(zs, Kt, 150, 1e-8)
+            for tag, g, w in zip(("V", "x", "y", "converged"), got[:4], full):
+                same = reference.same_bits(g, w)
+                print(f"  rachford_rice nc {nc} {tag}: the bits of a plain run of all 150 iterations: {same}")
+                _require(same, f"nc {nc}: {tag} differs from the full-loop plain run")
         iters = got[4].long()
+        stats = reference.flash_iteration_stats(got[4], 150)
         ms = _cuda_ms(lambda: ops.rachford_rice(zs, Kt, 150, 1e-8), 10)
         plain_ms = _cuda_ms(lambda: reference.rachford_rice(zs, Kt, 150, 1e-8), 2)
         copy_ms = _cuda_ms(lambda: torch.tensor(z_host, device=dev), 5)
         back_ms = _cuda_ms(lambda: [a.cpu() for a in got[:4]], 5)
-        # Per iteration 9 nc + 5 operations, per point 11 nc + 12 around the
-        # iterations; bytes: z in, V, x, y, the flags and counts out.
-        flops = float(iters.sum()) * (9 * nc + 5) + N_POINTS * (11 * nc + 12)
-        bound = _bound(8.0 * (3 * nc + 1) * N_POINTS + 5.0 * N_POINTS, flops)
+        # The iterations these inputs need (each point's own count).
+        bound = _bound(*reference.flash_work(got[4], nc))
         two_phase = int(((got[0] > 0) & (got[0] < 1)).sum())
         print(
             f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, copies {copy_ms:.4f} ms to the card, "
             f"{back_ms:.4f} ms back; {two_phase} two-phase points, {int(iters.sum())} iterations "
-            f"(mean {float(iters.float().mean()):.2f}, max {int(iters.max())}); bound {bound[0]:.4f} ms ({bound[1]})"
+            f"(mean {stats['mean']:.3f}, the slowest lane of a warp {stats['warp_slowest']:.3f} on average, "
+            f"max {int(iters.max())}, {stats['at_max']} points at 150); bound {bound[0]:.4f} ms ({bound[1]}), "
+            f"{100 * bound[0] / ms:.1f}% of it"
         )
         if nc == 3:
             report.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound)
@@ -2037,7 +2052,7 @@ def check_flash(dev) -> dict:
         _require(launches > 0, "ConstantKFlash did not launch K17")
         _require(np.array_equal(state.y[1], got[0].cpu().numpy()), "compute_flash V differs from the kernel's")
         _require(np.array_equal(success == 0, got[3].cpu().numpy()), "compute_flash flags differ")
-        print(f"  ConstantKFlash.compute_flash on {flash.device}, nc {nc}: {launches} launch, "
+        print(f"  ConstantKFlash.compute_flash on {flash.device}, nc {nc}: {launches} launches, "
               f"{int((success == 0).sum())} of {success.size} converged")
         report["launches"] = launches
     return report
@@ -2140,6 +2155,28 @@ def _inf_norm(m: torch.Tensor) -> torch.Tensor:
     return m.abs().sum(2).amax(1)
 
 
+def _copies_in_turns(host: torch.Tensor, X: torch.Tensor, reps: int = 10) -> None:
+    """The copies around a K11 batch, pageable and pinned, in turns
+    (pageable, pinned, pinned, pageable): the batch to the card and the
+    inverses back, ms by CUDA events (``invert_diagonal_blocks`` takes the
+    pinned route)."""
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    back = torch.empty(X.shape, dtype=X.dtype, pin_memory=True)
+    routes = {
+        "pageable": (lambda: host.to(X.device), lambda: X.cpu()),
+        "pinned": (lambda: pinned.to(X.device, non_blocking=True), lambda: back.copy_(X, non_blocking=True)),
+    }
+    out = {k: {"to": [], "back": []} for k in routes}
+    for k in ("pageable", "pinned", "pinned", "pageable"):
+        out[k]["to"].append(_cuda_ms(routes[k][0], reps))
+        out[k]["back"].append(_cuda_ms(routes[k][1], reps))
+    _require(torch.equal(back, X.cpu()), "the pinned copy differs")
+    for k, v in out.items():
+        print(f"    copies {k}, in turns: to the card {', '.join(f'{t:.4f}' for t in v['to'])} ms, "
+              f"back {', '.join(f'{t:.4f}' for t in v['back'])} ms")
+
+
 def check_block_inverse(dev, real) -> dict:
     """K11 on the real region matrices and two synthetic batches against
     its plain version, then ``invert_diagonal_blocks`` on the card."""
@@ -2154,7 +2191,8 @@ def check_block_inverse(dev, real) -> dict:
     a = gen.standard_normal((64, 20, 20)) + 10.0 * np.eye(20)
     a[0, 0, 0] = 0.0
     batches.append(("synthetic, zero leading entry", a))
-    batches.append(("synthetic, device workspace", gen.standard_normal((3, 160, 160)) + 80.0 * np.eye(160)))
+    batches.append(("synthetic, n 160 in shared memory", gen.standard_normal((3, 160, 160)) + 80.0 * np.eye(160)))
+    batches.append(("synthetic, device workspace", gen.standard_normal((2, 200, 200)) + 100.0 * np.eye(200)))
     report = {"err": 0.0}
     for source, arr in batches:
         B, n = arr.shape[0], arr.shape[1]
@@ -2165,6 +2203,8 @@ def check_block_inverse(dev, real) -> dict:
         err = float((X - W).abs().max())
         scale = float(W.abs().max())
         _check(f"block_inverse {source}: B {B}, n {n}", torch.tensor(err), 1e-12 * scale)
+        print(f"    equal to the plain version (the same pivots and roundings): {torch.equal(X, W)}; "
+              f"{float((A == 0).double().mean()):.3f} of the entries 0")
         report["err"] = max(report["err"], err)
         eye = torch.eye(n, dtype=A.dtype, device=dev)
         resid = (A @ X - eye).abs().amax(dim=(1, 2))
@@ -2185,6 +2225,7 @@ def check_block_inverse(dev, real) -> dict:
         )
         if source == "biot 3d 16^3":
             report.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bound)
+            _copies_in_turns(host, X)
 
     # The entry point on one block-diagonal matrix of both real sizes and
     # a few odd ones, seeded and well conditioned (cond < 10), so that

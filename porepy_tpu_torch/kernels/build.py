@@ -72,7 +72,7 @@ _SIGNATURES = {
     "ppt_tpfa_linearize": [_P] * 13 + [_I, _P],
     "ppt_gmres_cycle": [_P] * 14 + [_I] * 3 + [_P],
     "ppt_gmres_cycle_grid": [_I, _P],
-    "ppt_rachford_rice": [_P] * 7 + [_I, _L, _I, _D, _P],
+    "ppt_rachford_rice": [_P] * 9 + [_I, _L, _I, _D, _P],
     "ppt_interp_lookup": [_P] * 7 + [_I, _L, _I, _P],
     "ppt_block_inverse": [_P] * 3 + [_I, _I, _P],
     "ppt_halo_interior": [_P] * 7 + [_I] * 4 + [_P],

@@ -1225,21 +1225,30 @@ def rachford_rice(
 
 @rachford_rice.register_kernel("cuda")
 def _rachford_rice_cuda(zs, K, max_iter, tol):
+    # Two launches: each point capped at flash.cu's kTailCap iterations, then
+    # the compact list of the points still running (its count, then the
+    # indices), which starts them again from V_0.
     if zs.dtype != torch.float64 or K.dtype != torch.float64:
         raise TypeError("rachford_rice: zs and K must be float64")
     if zs.dim() != 2 or K.shape != (zs.shape[0],) or not 1 <= zs.shape[0] <= 8:
         raise ValueError("rachford_rice: needs zs (nc, N), K (nc,), 1 <= nc <= 8")
+    if max_iter < 0:
+        raise ValueError("rachford_rice: max_iter must be >= 0")
     _check("rachford_rice", {"zs": zs, "K": K}, zs.dtype)
     nc, n = zs.shape
     V = torch.empty(n, dtype=zs.dtype, device=zs.device)
     x, y = torch.empty_like(zs), torch.empty_like(zs)
     converged = torch.empty(n, dtype=torch.bool, device=zs.device)
     iters = torch.empty(n, dtype=torch.int32, device=zs.device)
+    listed = torch.empty(n + 1, dtype=torch.int32, device=zs.device)
     _launch(
         "rachford_rice", zs.dtype,
         zs.data_ptr(), K.data_ptr(), V.data_ptr(), x.data_ptr(), y.data_ptr(),
-        converged.data_ptr(), iters.data_ptr(), nc, n, max_iter, float(tol),
+        converged.data_ptr(), iters.data_ptr(), listed.data_ptr(), listed[1:].data_ptr(),
+        nc, n, max_iter, float(tol),
     )
+    if n:
+        LAUNCHES["rachford_rice"] += 1
     return V, x, y, converged, iters
 
 
@@ -1349,8 +1358,9 @@ def _block_inverse_cuda(a):
     if out.numel() == 0:
         return out
     work = None
-    if 8 * n * (2 * n + 1) > _SMEM_MAX:
-        work = torch.empty((B, n, 2 * n), dtype=a.dtype, device=a.device)
+    if n > 32 and 8 * n * (n | 1) + 28 * n > _SMEM_MAX:
+        # The matrix does not fit in shared memory: a block's in a workspace.
+        work = torch.empty((B, n, n | 1), dtype=a.dtype, device=a.device)
     _launch(
         "block_inverse", a.dtype,
         a.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(), B, n,

@@ -53,6 +53,12 @@ __all__ = [
     "csr_ell",
     "gmres_cycle",
     "rachford_rice",
+    "rachford_rice_full",
+    "rachford_rice_iterates",
+    "flash_iteration_stats",
+    "flash_work",
+    "same_bits",
+    "FLASH_RING",
     "interp_lookup",
     "block_inverse",
     "halo_pack",
@@ -852,56 +858,137 @@ def gmres_cycle(row_ptr, cols, vals, dinv, b, x, V, H, y, w, partials, flags, st
 # -- K17 --------------------------------------------------------------------------
 
 
+#: The iterates a K17 point keeps for its cycle exit (``flash.cu``'s ring).
+FLASH_RING = 8
+
+
+def _flash_parts(zs: torch.Tensor, K: torch.Tensor):
+    """What K17's loops share, in the jnp code's order
+    (``porepy_tpu/compositional/flash.py:80-122``): ``(V_0, single, newton,
+    finish)``, the first iterate, the single-phase points, the guarded
+    Newton map ``V -> V'`` and ``finish(V, tol) -> (V, x, y, converged)``,
+    the ending from the last iterate."""
+    Kc = K[:, None]
+    km1 = Kc - 1.0
+    all_liquid = torch.sum(zs * Kc, dim=0) <= 1.0
+    all_vapor = torch.sum(zs / Kc, dim=0) <= 1.0
+    one = torch.ones((), dtype=zs.dtype, device=zs.device)
+
+    def h_fun(V):
+        return torch.sum(zs * km1 / (1.0 + V * km1), dim=0)
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    Kmax, Kmin = torch.max(Kc), torch.min(Kc)
+    lo = torch.where(Kmax > 1.0, 1.0 / (1.0 - Kmax), -1e10 * one) + 1e-12
+    hi = torch.where(Kmin < 1.0, 1.0 / (1.0 - Kmin), 1e10 * one) - 1e-12
+
+    def newton(V):
+        dh = -torch.sum(zs * (km1 * km1) / ((1.0 + V * km1) * (1.0 + V * km1)), dim=0)
+        return clip(V - h_fun(V) / torch.where(torch.abs(dh) > 1e-30, dh, -one), lo, hi)
+
+    def finish(V, tol):
+        V = torch.where(all_liquid, 0.0 * one, torch.where(all_vapor, one, V))
+        V = clip(V, 0.0 * one, one)
+        x = zs / (1.0 + V[None] * km1)
+        y = Kc * x
+        x = x / torch.sum(x, dim=0)
+        y = y / torch.sum(y, dim=0)
+        resid = torch.abs(h_fun(clip(V, lo, hi)))
+        two_phase = ~(all_liquid | all_vapor)
+        return V, x, y, torch.where(two_phase, resid < tol, torch.ones_like(two_phase))
+
+    V0 = clip(torch.full((zs.shape[1],), 0.5, dtype=zs.dtype, device=zs.device), lo, hi)
+    return V0, all_liquid | all_vapor, newton, finish
+
+
 def rachford_rice(zs: torch.Tensor, K: torch.Tensor, max_iter: int, tol: float):
     """The constant-K Rachford-Rice flash of ``ConstantKFlash``: ``zs``
     ``(nc, N)``, ``K`` ``(nc,)``. Returns ``(V, x, y, converged, iters)``:
     the vapor fraction ``(N,)``, the normalised liquid and vapor
     compositions ``(nc, N)``, the convergence flags and, per point, the
-    number of guarded Newton iterations until one left ``V`` unchanged
-    (``max_iter`` if none did; the later iterations repeat it; 0 for a
-    single-phase point, whose ``V`` the corners set)."""
-    Kc = K[:, None]
-    km1 = Kc - 1.0
-    all_liquid = torch.sum(zs * Kc, dim=0) <= 1.0
-    all_vapor = torch.sum(zs / Kc, dim=0) <= 1.0
+    number of guarded Newton iterations it ran (0 for a single-phase point,
+    whose ``V`` the corners set).
 
-    def h_fun(V):
-        return torch.sum(zs * km1 / (1.0 + V * km1), dim=0)
+    ``V`` is the ``max_iter``-th iterate, as in ``porepy_tpu``'s loop of
+    ``max_iter`` steps. A point stops once its iterate repeats one of its
+    last ``FLASH_RING``, ``V_it = V_{it - m}``: the Newton map depends on
+    ``V`` alone, so the orbit is periodic from ``s = it - m`` on and the
+    ``max_iter``-th iterate is ``V_{s + (max_iter - s) mod m}``, which the
+    ring holds (a fixed point is ``m = 1``). The result has the bits of all
+    ``max_iter`` iterations (:func:`rachford_rice_full`); ``iters`` is
+    ``it`` (``max_iter`` for a point without a repeat)."""
+    V0, single, newton, finish = _flash_parts(zs, K)
+    # ring[q] = V_{it - 1 - q}; NaN before V_0 (never equal to an iterate).
+    ring = torch.full((FLASH_RING, zs.shape[1]), float("nan"), dtype=zs.dtype, device=zs.device)
+    ring[0] = V0
+    done = single.clone()
+    V = V0.clone()
+    iters = torch.zeros(zs.shape[1], dtype=torch.int32, device=zs.device)
+    slots = torch.arange(1, FLASH_RING + 1, device=zs.device)[:, None]
+    for it in range(1, max_iter + 1):
+        if bool(done.all()):
+            break
+        Vn = newton(ring[0])
+        # The least period m with V_it = V_{it - m} (FLASH_RING + 1: none).
+        m = torch.where(Vn[None] == ring, slots, FLASH_RING + 1).amin(0)
+        hit = ~done & (m <= FLASH_RING)
+        m = torch.where(hit, m, 1)
+        pos = m - 1 - torch.remainder(max_iter - (it - m), m)
+        V = torch.where(hit, ring.gather(0, pos[None]).squeeze(0), V)
+        iters = torch.where(hit, it, iters)
+        done = done | hit
+        ring = torch.roll(ring, 1, 0)
+        ring[0] = Vn
+        V = torch.where(done, V, Vn)
+        iters = torch.where(done, iters, it)
+    return (*finish(V, tol), iters)
 
-    def dh_fun(V):
-        return -torch.sum(zs * (km1 * km1) / ((1.0 + V * km1) * (1.0 + V * km1)), dim=0)
 
-    def clip(v, lo, hi):
-        return torch.minimum(torch.maximum(v, lo), hi)
+def rachford_rice_iterates(zs: torch.Tensor, K: torch.Tensor, max_iter: int):
+    """``V_0, ..., V_max_iter`` of the guarded Newton map at every point,
+    with no exit (each ``(N,)``, yielded one at a time)."""
+    V, _, newton, _ = _flash_parts(zs, K)
+    yield V
+    for _ in range(max_iter):
+        V = newton(V)
+        yield V
 
-    one = torch.ones((), dtype=zs.dtype, device=zs.device)
-    Kmax, Kmin = torch.max(Kc), torch.min(Kc)
-    lo = torch.where(Kmax > 1.0, 1.0 / (1.0 - Kmax), -1e10 * one) + 1e-12
-    hi = torch.where(Kmin < 1.0, 1.0 / (1.0 - Kmin), 1e10 * one) - 1e-12
-    V = clip(torch.full((zs.shape[1],), 0.5, dtype=zs.dtype, device=zs.device), lo, hi)
-    # A single-phase point's V is replaced by 0 or 1 after the iterations:
-    # the kernel skips them there and counts 0.
-    single = all_liquid | all_vapor
-    iters = torch.where(single, 0, max_iter).to(torch.int32)
-    running = ~single
-    for it in range(max_iter):
-        dh = dh_fun(V)
-        step = h_fun(V) / torch.where(torch.abs(dh) > 1e-30, dh, -one)
-        Vn = clip(V - step, lo, hi)
-        fixed = running & (Vn == V)
-        iters = torch.where(fixed, torch.full_like(iters, it + 1), iters)
-        running = running & ~fixed
-        V = Vn
-    V = torch.where(all_liquid, 0.0 * one, torch.where(all_vapor, one, V))
-    V = clip(V, 0.0 * one, one)
-    x = zs / (1.0 + V[None] * km1)
-    y = Kc * x
-    x = x / torch.sum(x, dim=0)
-    y = y / torch.sum(y, dim=0)
-    resid = torch.abs(h_fun(clip(V, lo, hi)))
-    two_phase = ~(all_liquid | all_vapor)
-    converged = torch.where(two_phase, resid < tol, torch.ones_like(two_phase))
-    return V, x, y, converged, iters
+
+def rachford_rice_full(zs: torch.Tensor, K: torch.Tensor, max_iter: int, tol: float):
+    """The flash with all ``max_iter`` Newton steps at every point and no
+    exit, as ``porepy_tpu``'s ``fori_loop`` runs it: ``(V, x, y,
+    converged)``, the result that every early stop must reproduce."""
+    for V in rachford_rice_iterates(zs, K, max_iter):
+        pass
+    return _flash_parts(zs, K)[3](V, tol)
+
+
+def flash_iteration_stats(iters: torch.Tensor, max_iter: int) -> dict:
+    """K17's iterations: the mean a point, the mean over warps (32
+    consecutive points) of each warp's slowest lane, and the points at
+    ``max_iter``."""
+    it = iters.long()
+    pad = (-it.numel()) % 32
+    warps = torch.cat([it, it.new_zeros(pad)]).view(-1, 32).amax(1)
+    return {"mean": float(it.double().mean()), "warp_slowest": float(warps.double().mean()),
+            "at_max": int((it == max_iter).sum())}
+
+
+def flash_work(iters: torch.Tensor, nc: int) -> tuple[float, float]:
+    """K17's work at these inputs, ``(bytes, f64 operations)``: z in, V, x,
+    y, the flags and the counts out; ``9 nc + 5`` operations an iteration
+    that the points ran, ``11 nc + 12`` a point around them."""
+    n = iters.numel()
+    return 8.0 * (3 * nc + 1) * n + 5.0 * n, float(iters.sum()) * (9 * nc + 5) + n * (11 * nc + 12)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits (a float64 tensor's as int64), or equal (any other)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
 
 
 # -- K16 --------------------------------------------------------------------------

@@ -120,7 +120,9 @@ def _invert_blocks_batched(
     """Group blocks by size; one batched f64 dense inverse per group: the
     host builds the dense batch, which is copied to ``device`` once,
     inverted there by :func:`porepy_tpu_torch.kernels.block_inverse` and
-    copied back."""
+    copied back. On a card the batch is built in pinned host memory and
+    both copies are asynchronous (``non_blocking``), the result landing in a
+    pinned buffer; one synchronization a group."""
     from porepy_tpu_torch.kernels import block_inverse
 
     coo = mat.tocoo()
@@ -140,9 +142,17 @@ def _invert_blocks_batched(
         # Position of each member block within the batch.
         batch_index_of_block = np.full(s.size, -1)
         batch_index_of_block[members] = np.arange(members.size)
-        dense = np.zeros((members.size, size, size))
-        dense[batch_index_of_block[blk[sel]], lr[sel], lc[sel]] = coo.data[sel]
-        inv = block_inverse(torch.from_numpy(dense).to(device)).cpu().numpy()
+        pinned = device.type == "cuda"
+        host = torch.zeros((members.size, size, size), dtype=torch.float64, pin_memory=pinned)
+        host.numpy()[batch_index_of_block[blk[sel]], lr[sel], lc[sel]] = coo.data[sel]
+        inv_dev = block_inverse(host.to(device, non_blocking=pinned))
+        if pinned:
+            back = torch.empty(host.shape, dtype=torch.float64, pin_memory=True)
+            back.copy_(inv_dev, non_blocking=True)
+            torch.cuda.current_stream(device).synchronize()
+            inv = back.numpy()
+        else:
+            inv = inv_dev.numpy()
         for k, b in enumerate(members):
             inv_data_per_block[b] = inv[k].ravel()
 

@@ -142,3 +142,124 @@ def test_cuda_block_inverse_matches_plain(cuda, n):
     assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
     eye = torch.eye(n, dtype=a.dtype, device=cuda)
     assert float((a @ got - eye).abs().max()) <= 1e-10 * n
+
+
+def _numpy_gauss_jordan(a):
+    """Gauss-Jordan on ``[A | I]`` with physical row swaps, in numpy: per
+    column k the first row i >= k of largest |M_ik| (``np.argmax``) is
+    swapped into row k, row k is divided by its pivot and ``M_ik`` times it
+    is subtracted from every row i (product and difference rounded apart).
+    Returns the inverse and the original row of each step's pivot."""
+    n = a.shape[0]
+    M = np.hstack([a, np.eye(n)])
+    rows = np.arange(n)
+    pivots = []
+    for k in range(n):
+        p = k + int(np.argmax(np.abs(M[k:, k])))
+        M[[k, p]] = M[[p, k]]
+        rows[[k, p]] = rows[[p, k]]
+        pivots.append(int(rows[k]))
+        M[k] = M[k] / M[k, k]
+        f = M[:, k].copy()
+        f[k] = 0.0
+        M = M - f[:, None] * M[k][None, :]
+    return M[:, n:], pivots
+
+
+# Step 0 takes row 2 (|2|) into position 0 and row 0 into position 2; step
+# 1 then finds |-1| in row 1 (position 1) tied with |1| in row 0 (position
+# 2): the swapped order takes row 1, the stored order would take row 0.
+TIE_IN_SWAPPED_ORDER = np.array([[1.0, 1.0, 1.0], [1.0, -1.0, 2.0], [2.0, 0.0, 1.0]])
+
+
+def _tie_batch(n, seed, count=6):
+    """Small-integer blocks (many tied magnitudes at every step), the
+    tie-in-the-swapped-order block in the leading corner of the first, none
+    singular."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < count:
+        a = rng.integers(-2, 3, (n, n)).astype(float)
+        if not out and n >= 3:
+            a[:3, :3] = TIE_IN_SWAPPED_ORDER
+            a[:3, 3:] = 0.0
+        if abs(np.linalg.det(a)) > 0.5:
+            out.append(a)
+    return np.stack(out)
+
+
+def test_tie_block_breaks_the_tie_in_the_swapped_order():
+    _, pivots = _numpy_gauss_jordan(TIE_IN_SWAPPED_ORDER)
+    assert pivots[:2] == [2, 1]
+
+
+@pytest.mark.parametrize("n", [3, 5, 12, 33])
+def test_plain_version_keeps_the_tie_rule_of_row_swaps(n):
+    """The plain Gauss-Jordan (the yardstick of K11) equals the numpy one
+    with physical row swaps to the bit, on blocks full of ties."""
+    a = _tie_batch(n, 100 + n)
+    got = reference.block_inverse(torch.tensor(a)).numpy()
+    for g, blk in zip(got, a):
+        want, _ = _numpy_gauss_jordan(blk)
+        assert np.array_equal(g.view(np.int64), want.view(np.int64))
+
+
+def _cuda_against_plain(a, cuda):
+    a = torch.tensor(a, device=cuda)
+    before = kernels.LAUNCHES["block_inverse"]
+    got = kernels.block_inverse(a)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["block_inverse"] == before + 1
+    return got, reference.block_inverse(a)
+
+
+@pytest.mark.cuda
+def test_cuda_warp_route_equals_plain_at_every_small_size(cuda):
+    """n = 1..32 (one warp a matrix): the kernel equals its plain version
+    (the same pivots, the same roundings), with row swaps in every block."""
+    for n in range(1, 33):
+        rng = np.random.default_rng(n)
+        a = rng.standard_normal((9, n, n)) * 10.0 ** rng.uniform(-3, 3, (9, n, 1)) + np.eye(n)
+        got, want = _cuda_against_plain(a, cuda)
+        assert torch.equal(got, want), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 81, 120, 160, 200], ids=lambda n: f"n{n}")
+def test_cuda_block_route_equals_plain(cuda, n):
+    """n > 32 (a block a matrix): in shared memory up to 167, n = 200 from
+    the device workspace; the kernel equals its plain version, and A X = I
+    to rounding."""
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((5, n, n)) * 10.0 ** rng.uniform(-2, 2, (5, n, 1)) + np.eye(n)
+    got, want = _cuda_against_plain(a, cuda)
+    assert torch.equal(got, want)
+    scaled = torch.tensor(a, device=cuda)
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    resid = (scaled @ got - eye).abs().amax(dim=(1, 2))
+    norms = scaled.abs().sum(2).amax(1) * got.abs().sum(2).amax(1)
+    assert float((resid / norms).max()) <= 1e-13
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 12, 20, 33, 81], ids=lambda n: f"n{n}")
+def test_cuda_ties_in_the_swapped_order(cuda, n):
+    """Blocks of small integers (tied magnitudes at every step, one tie that
+    the swapped order breaks otherwise than the stored order): the kernel
+    takes the plain version's pivots, so its result is the plain version's."""
+    got, want = _cuda_against_plain(_tie_batch(n, 100 + n), cuda)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 20, 81], ids=lambda n: f"n{n}")
+def test_cuda_singular_block_is_non_finite(cuda, n):
+    """A block with a zero column has a zero pivot on both routes: its
+    inverse is non-finite on the card as in the plain version; the other
+    blocks are exact."""
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((3, n, n)) + n * np.eye(n)
+    a[1, :, n // 2] = 0.0
+    got, want = _cuda_against_plain(a, cuda)
+    assert not bool(torch.isfinite(got[1]).all()) and not bool(torch.isfinite(want[1]).all())
+    assert torch.equal(got[[0, 2]], want[[0, 2]])

@@ -132,20 +132,64 @@ def test_constant_k_flash_matches_jax(K):
         assert np.abs(ph.x - ph_jax.x).max() <= 1e-13
 
 
+PHASE15_K = {2: [2.5, 0.3], 3: [3.0, 0.8, 0.2], 5: [4.0, 1.6, 0.9, 0.35, 0.05]}
+
+
+@pytest.mark.parametrize("max_iter", [7, 149, 150, 151])
+@pytest.mark.parametrize("nc", [2, 3, 5])
+def test_flash_cycle_exit_equals_the_full_loop(nc, max_iter):
+    """The plain version, whose points stop once an iterate repeats one of
+    the last ``FLASH_RING``, equals a loop of all ``max_iter`` steps to the
+    bit in V, x, y and the flags, on 2^14 points of ``chip_smoke.py`` phase
+    15's generator; ``max_iter`` 7, 149, 150 and 151 put the end of the loop
+    at every phase of a 2-cycle and of most longer ones."""
+    K = torch.tensor(PHASE15_K[nc], dtype=torch.float64)
+    raw = np.random.default_rng(15 + nc).random((nc, 1 << 14)) + 0.02
+    zs = torch.tensor(raw / raw.sum(axis=0))
+    got = reference.rachford_rice(zs, K, max_iter, 1e-8)
+    want = reference.rachford_rice_full(zs, K, max_iter, 1e-8)
+    for g, w in zip(got[:4], want):
+        assert reference.same_bits(g, w)
+    iters = got[4]
+    two_phase = (got[0] > 0) & (got[0] < 1)
+    assert int(two_phase.sum()) > 1000
+    # Points stop early: fewer iterations than max_iter on most of them.
+    if max_iter >= 149:
+        assert float(iters[two_phase].float().mean()) < 10
+
+
 def test_flash_plain_version_counts_the_iterations_it_needs():
-    """The plain version records, per point, the iteration after which V
-    stops changing (0 for a single-phase point); a run cut to that many
-    iterations gives those points the same V: the early stop of the kernel
-    changes no result."""
+    """The plain version records, per point, the iterations it ran: 0 for a
+    single-phase point, else the first ``it`` whose iterate repeats one of
+    the ``FLASH_RING`` before it in the full loop's orbit (``max_iter``
+    where none does), and it ends with the full loop's V to the bit."""
     K = torch.tensor([3.0, 0.8, 0.2], dtype=torch.float64)
     rng = np.random.default_rng(2)
     raw = rng.random((3, 500)) + 0.05
     zs = torch.tensor(raw / raw.sum(axis=0))
     V, x, y, conv, iters = reference.rachford_rice(zs, K, 150, 1e-8)
+    V_full = reference.rachford_rice_full(zs, K, 150, 1e-8)[0]
+    orbit = torch.stack(list(reference.rachford_rice_iterates(zs, K, 150)))
+    assert reference.same_bits(V, V_full)
     single = (V == 0) | (V == 1)
     assert torch.equal(iters == 0, single)
+    # repeat[it, i]: V_it equals one of V_{it - 1} .. V_{it - FLASH_RING}.
+    window = reference.FLASH_RING
+    repeat = torch.zeros_like(orbit, dtype=torch.bool)
+    for m in range(1, window + 1):
+        repeat[m:] |= orbit[m:] == orbit[:-m]
+    first = torch.where(repeat[1:].any(0), repeat[1:].to(torch.int8).argmax(0) + 1, 150)
+    assert torch.equal(iters[~single].long(), first[~single])
     stopped = iters < 150
-    cut = int(iters[stopped].max())
-    assert 0 < cut < 150 and int(stopped.sum()) > 300
-    V_cut, *_ = reference.rachford_rice(zs, K, cut, 1e-8)
-    assert torch.equal(V[stopped], V_cut[stopped])
+    assert int((stopped & ~single).sum()) > 300 and int(iters.max()) <= 150
+
+
+def test_flash_iteration_stats_and_work():
+    """The K17 helpers that phase 15 and the check script print: the mean
+    iterations a point, the mean over warps of the slowest lane (the last
+    warp padded with zeros), the points at ``max_iter``, and the bytes and
+    f64 operations of the bound."""
+    iters = torch.tensor([0] * 31 + [150] + [3] * 32 + [5] * 4, dtype=torch.int32)
+    stats = reference.flash_iteration_stats(iters, 150)
+    assert stats == {"mean": 266 / 68, "warp_slowest": (150 + 3 + 5) / 3, "at_max": 1}
+    assert reference.flash_work(iters, 3) == (8.0 * 10 * 68 + 5.0 * 68, 266.0 * 32 + 68 * 45)
