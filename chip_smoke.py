@@ -181,9 +181,15 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    launch a matvec and no ``halo_boundary`` launch, K1 and K3 launched in
    the preconditioner; (c) the first K10 chunk of biot 1/64 through
    ``set_batch_mesh`` against the unsharded route (1e-12);
-19. hold the upstream-selection kernels (K15: ``upwind_flux``,
-   ``upwind_select``) at the tracer 1/64 shapes (about 8,600 faces, 4,400
-   cells, 16 seeds, faces with ``q = 0.0`` and ``-0.0`` among them), the
+19. hold the upstream-selection kernel (K15: ``upwind_dual``, counted as
+   ``upwind_flux`` and ``upwind_select``) through its entry points at the
+   tracer 1/64 shapes (about 8,600 faces, 4,400 cells, 16 seeds, faces with
+   ``q = 0.0`` and ``-0.0`` among them) and at every call the dual rules
+   make in one assembly of md 1/128 and of tracer 1/64 (one launch a call,
+   the value and every tangent, the interface rule's product inside; equal
+   to the plain version and to a second launch to the bit; device us by
+   graph replay, host us a call and the bound at each kind's first call;
+   the kernels line takes tracer 1/64's calls), the
    one-launch differentiable-TPFA op (K14: ``tpfa_ad_dual``, the value and
    every tangent of the flux or the trace in one launch) at ``DarcysLawAd``
    1/128's own calls of one assembly (both subdomains, flux and trace, the
@@ -245,7 +251,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    assembly and one residual of the case, with the programs and gather
    indices of its compiled equations, is repeated through the plain version
    on the same inputs (1e-13 of the largest entry, NaN in the same places);
-   at md 1/128 the 63 ``dual_ew`` calls of one assembly are printed as a
+   at md 1/128 the 61 ``dual_ew`` calls of one assembly are printed as a
    histogram of (instructions, inputs, n, B) with the most slots a tape
    needs, and their device us (graph replay) and host us summed.
    In phase 13 the contact case's residual must launch ``dual_ew`` as often
@@ -256,10 +262,12 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    1/64, tracer 1/64 and ``DarcysLawAd`` 1/128, inside their phases: both
    results within 1e-12 of the largest entry, median ms of each turn, the
    launches of one assembly by kernel, and the nodes without a dual rule per
-   equation, which must be 0 (md 1/128: 113 launches an assembly, 63 of them
-   ``dual_ew``); for tracer and ``DarcysLawAd`` phase 20's and
-   21's turns now time the dual route through the K15/K14 kernels against
-   the same route through their plain versions;
+   equation, which must be 0 (md 1/128: 108 launches an assembly, 61 of them
+   ``dual_ew``, 3 of K15, one a rule; tracer 1/64: 6 of K15); for tracer and
+   ``DarcysLawAd`` phase 20's and 21's turns now time the dual route through
+   the K15/K14 kernels against the same route through their plain versions,
+   and ``DarcysLawAd``'s functorch assembly is timed with its K14 launchers
+   found by the geometry tensors' pointers and bound a call, in turns;
 24. run md at cell size 1/256 (the case ``cases.build_case("md256")`` makes; AMG,
    as the system is above the dense limit) for 26 steps: 3 fused blocks, 0
    host fallbacks, every md and K8 kernel launched, pressure in [0, 1], one
@@ -2506,15 +2514,9 @@ def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) 
     _require(err <= tol, "upwind_flux disagrees with its plain version")
     _same_bits("upwind_flux", lambda: torch.cat([t.reshape(-1) for t in flux_pair(ops)]))
     nbytes = 8 * (2 * nf + nc) + 16 * nf + 2 * nf + 8 * nf + 8 * B * (2 * nf + nc) + 8 * (1 + B) * nf
-    report["upwind_flux"] = {
-        "err": err, "ms": _cuda_ms(lambda: flux_pair(ops)), "plain_ms": _cuda_ms(lambda: flux_pair(reference)),
-        "bytes": nbytes, "flops": 8 * (1 + B) * nf, "library_ms": None,
-        # The value and the tangent launch by graph replay, for the ranking
-        # of the kernels by device time.
-        "device_us": _graph_us(lambda: flux_pair(ops)),
-    }
-    print(f"  upwind_flux: value and {B} tangents (two launches), device {report['upwind_flux']['device_us']:.2f} us "
-          f"(graph replay), bound {1e6 * nbytes / 3.35e12:.3f} us")
+    synthetic = {"upwind_flux": {"device_us": _graph_us(lambda: flux_pair(ops)), "bytes": nbytes}}
+    print(f"  upwind_flux: value and {B} tangents (the entry points' two launches), device "
+          f"{synthetic['upwind_flux']['device_us']:.2f} us (graph replay), bound {1e6 * nbytes / 3.35e12:.3f} us")
 
     # up(w) and the two-candidate selection, value and tangent rows at once.
     ws = torch.cat([w[None], dw])
@@ -2537,12 +2539,47 @@ def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) 
     def select_library():
         return torch.where(q >= 0, ws.index_select(1, lo_c), ws.index_select(1, hi_c)), torch.where(q >= 0, a2, b2)
 
-    report["upwind_select"] = {
-        "err": 0.0, "ms": _cuda_ms(lambda: select_pair(ops)), "plain_ms": _cuda_ms(lambda: select_pair(reference)),
-        "bytes": 8 * nf + 16 * nf + 2 * nf + 8 * (1 + B) * (nc + nf) + 8 * nf + 8 * 3 * B * nf,
-        "flops": (1 + 2 * B) * nf, "library_ms": _cuda_ms(select_library),
-    }
+    synthetic["upwind_select"] = {"library_ms": _cuda_ms(select_library)}
     del model
+
+    # K15 at the calls the dual rules make: every call of one assembly of md
+    # 1/128 (the main path) and of tracer 1/64, at the first iterate, one
+    # upwind_dual launch each (the value and every tangent; the interface
+    # rule's product inside), equal to the plain version and to a second
+    # launch to the bit; device us by graph replay, host us a call and the
+    # bound at the first call of each kind. The kernels line takes tracer
+    # 1/64's (its launches are tracer 1/64's): the flux and the interface
+    # selection, which no one PyTorch call computes with its product.
+    from porepy_tpu_torch.applications.benchmarking import upwind_calls
+
+    for case in ("md", "tracer"):
+        seen = set()
+        for call in upwind_calls.case_calls(dev, case):
+            name = call["launcher"].name
+            with _launches_of_block() as counted:
+                upwind_calls.launch(call)()
+            _require(counted == {name: 1}, f"{call['label']}: launches {counted} for one call")
+            upwind_calls.check_launch(call)
+            if call["kind"] in seen:
+                print(f"  {call['label']}: one launch, equal to the plain version and a second launch to the bit")
+                continue
+            seen.add(call["kind"])
+            fn = upwind_calls.launch(call)
+            plain = upwind_calls.launch(
+                call, lambda L, p, sd=None: reference.upwind_dual(L.kind, L.geometry, p, sd))
+            B_call, n = upwind_calls.batch_of(call), call["primals"][0].shape[0]
+            r = {"label": call["label"], "err": 0.0, "ms": _cuda_ms(fn), "plain_ms": _cuda_ms(plain, repeats=20),
+                 "device_us": _graph_us(fn), "host_us": _host_us(fn), "bytes": upwind_calls.dual_bytes(call),
+                 "flops": (6 + 9 * B_call) * n if call["kind"] == "flux" else (1 + 3 * B_call) * n,
+                 "library_ms": None}
+            print(f"  {call['label']}: one launch, equal to the plain version and a second launch to the bit; "
+                  f"device {r['device_us']:.2f} us (graph replay), host {r['host_us']:.2f} us a call, "
+                  f"{r['ms']:.4f} ms by events, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{1e6 * r['bytes'] / 3.35e12:.3f} us ({r['bytes'] / 1e6:.3f} MB)")
+            if case == "tracer":
+                report[name] = r
+    report["upwind_flux"]["synthetic"] = synthetic["upwind_flux"]
+    report["upwind_select"]["synthetic"] = synthetic["upwind_select"]
 
     # K14: one launch a call (the value and every tangent, tpfa_ad_dual) at
     # DarcysLawAd 1/128's own calls of one assembly (both subdomains, flux
@@ -2616,7 +2653,7 @@ def check_upwind_tpfa_kernels(dev, cell_size: float = 1.0 / 64, n3d: int = N3D) 
         us = {"kernel": [], "library": []}
         for route in ("kernel", "library", "library", "kernel"):
             us[route].append(_graph_us(kernel_fn if route == "kernel" else library_fn))
-        report[name]["device_us"] = us
+        (report[name]["synthetic"] if name == "upwind_select" else report[name])["device_us"] = us
         print(f"  {name}, device us a call (graph replay, in turns): kernel {us['kernel']}, library {us['library']}")
     for name in ("upwind_flux", "upwind_select", "tpfa_ad_flux", "tpfa_ad_trace", "segment_sum_sorted"):
         r = report[name]
@@ -2641,6 +2678,7 @@ def _plain_k14_k15():
         "tpfa_ad_flux_tangent": lambda g, p, s: reference.tpfa_ad_tangent(reference.tpfa_ad_flux, g, p, s),
         "tpfa_ad_trace_tangent": lambda g, p, s: reference.tpfa_ad_tangent(reference.tpfa_ad_trace, g, p, s),
         "tpfa_ad_dual": reference.tpfa_ad_dual,
+        "upwind_dual": lambda L, p, sd=None: reference.upwind_dual(L.kind, L.geometry, p, sd),
     }
     kernels = {name: getattr(ops, name) for name in plain}
     for name, fn in plain.items():
@@ -2827,12 +2865,18 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
     )
     _require(not any(ruleless.values()), f"{label}: nodes without a dual rule: {ruleless}")
     if label == "md":
-        # md 1/128's assembly: 113 launches, 63 of them dual_ew.
-        _require(sum(per_assembly.values()) == 113 and per_assembly.get("dual_ew") == 63,
+        # md 1/128's assembly: 108 launches, 61 of them dual_ew, 3 K15 (one
+        # a rule: the flux and twice the interface, its product inside).
+        _require(sum(per_assembly.values()) == 108 and per_assembly.get("dual_ew") == 61,
                  f"md: {sum(per_assembly.values())} launches an assembly, dual_ew {per_assembly.get('dual_ew')}")
+    if label in ("md", "tracer"):
+        k15 = per_assembly.get("upwind_flux", 0) + per_assembly.get("upwind_select", 0)
+        _require(k15 == (3 if label == "md" else 6), f"{label}: {k15} K15 launches an assembly")
     capture = [] if label == "md" else None
     k8_err = _k8_calls_against_plain(cs, eq_sys, label, capture=capture)
     out = {"turns": turns, "launches": per_assembly, "err": max(errs), "k8_err": k8_err}
+    if label == "DarcysLawAd":
+        out["functorch_binding"] = _functorch_binding_in_turns(cs, eq_sys, results["dual"], repeats)
     if capture:
         # The histogram of the calls' (instructions, inputs, n, B), the slots
         # their tapes need, and their device and host us summed (the
@@ -2841,6 +2885,33 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
 
         out["dual_ew_programs"] = check_case_programs(f"phase 22 at the {label} shapes", capture, None)
     return out
+
+
+def _functorch_binding_in_turns(cs, eq_sys, dual, repeats: int) -> dict:
+    """The ``torch.func`` route's assembly with the K14 geometry (and its
+    launchers) found again by the tensors' pointers
+    (``TpfaAdGeometry.cached``) and with a geometry and launcher bound a call
+    (``TpfaAdGeometry.trusted``, as before), in turns (cached, per call, per
+    call, cached): median ms, each within 1e-12 of the K8 pass's result."""
+    from unittest import mock
+
+    from porepy_tpu_torch.kernels import ops
+
+    per_call = classmethod(lambda cls, tensors: cls.trusted(tensors))
+    turns = {"cached": [], "per_call": []}
+    errs = []
+    for route in ("cached", "per_call", "per_call", "cached"):
+        patch = mock.patch.object(ops.TpfaAdGeometry, "cached", per_call) if route == "per_call" else (
+            contextlib.nullcontext())
+        with _functorch_route(), patch:
+            got = cs.assemble(eq_sys)
+            errs.append(max(_rel_err(a, b) for a, b in zip(got, dual)))
+            turns[route].append(_timed_assemblies(cs, eq_sys, repeats))
+    print(f"  phase 23, DarcysLawAd functorch assembly in turns, median ms: the K14 launchers found by the "
+          f"tensors' pointers {turns['cached']}, bound a call {turns['per_call']}; within {max(errs):.1e} of the "
+          f"dual route")
+    _require(max(errs) <= 1e-12, f"DarcysLawAd: the functorch route differs from the dual route by {errs}")
+    return turns
 
 
 def _assembly_in_turns(model, label: str, repeats: int = 5) -> dict:
@@ -3377,7 +3448,7 @@ def main() -> int:
         "halo_interior": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", sharded["launches"]["halo_interior"]),
         "halo_boundary": ("halo_spmv.cu", "porepy_tpu/numerics/linalg/device_solver.py:947", report["halo_boundary"]["launches"]),
         "upwind_flux": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer_dense["launches"]["upwind_flux"]),
-        "upwind_select": ("upwind.cu", "porepy_tpu/numerics/fv/upwind.py:82", tracer_dense["launches"]["upwind_select"]),
+        "upwind_select": ("upwind.cu", "porepy_tpu/models/constitutive_laws.py:605", tracer_dense["launches"]["upwind_select"]),
         "tpfa_ad_flux": ("tpfa_ad.cu", "porepy_tpu/models/darcys_law_ad.py:71", darcy_ad["launches"]["tpfa_ad_flux"]),
         "tpfa_ad_trace": ("tpfa_ad.cu", "porepy_tpu/models/darcys_law_ad.py:108", darcy_ad["launches"]["tpfa_ad_trace"]),
         "segment_sum_sorted": ("tpfa_ad.cu", "porepy_tpu/numerics/fv/fv_mesh.py:129", darcy_ad["launches"]["segment_sum_sorted"]),
@@ -3397,7 +3468,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
         })
         if k in ("gj_pivot_inverse", "dual_ew", "fgmres_arnoldi", "tpfa_ad_flux", "tpfa_ad_trace", "upwind_flux",
-                 "jac_gather"):
+                 "upwind_select", "jac_gather"):
             entries[-1]["device_us"] = r["device_us"]
     kernels_line = {"kernels": entries}
     print(
@@ -3509,13 +3580,20 @@ def main() -> int:
             print(f"K14 {k} (one launch: the value and the tangents), {r['label']}, on {smi}: device "
                   f"{r['device_us']:.2f} us (graph replay), host {r['host_us']:.2f} us a call, {r['ms']:.4f} ms by "
                   f"events, plain {r['plain_ms']:.4f} ms, bound {1e6 * r['bytes'] / 3.35e12:.3f} us")
-    for k in ("upwind_flux", "jac_gather"):
-        print(f"{k} at its phase {19 if k == 'upwind_flux' else 22} shapes on {smi}: device "
-              f"{report[k]['device_us']:.2f} us (graph replay), bound {1e6 * report[k]['bytes'] / 3.35e12:.3f} us")
-    for k in ("upwind_select", "segment_sum_sorted"):
-        us = report[k]["device_us"]
-        print(f"{k} at its phase 19 shapes on {smi}, device us (graph replay, in turns): kernel {us['kernel']}, "
-              f"one PyTorch call {us['library']}")
+    for k in ("upwind_flux", "upwind_select"):
+        r = report[k]
+        print(f"K15 {k} (one upwind_dual launch: the value and the tangents), {r['label']}, on {smi}: device "
+              f"{r['device_us']:.2f} us (graph replay), host {r['host_us']:.2f} us a call, {r['ms']:.4f} ms by "
+              f"events, plain {r['plain_ms']:.4f} ms, bound {1e6 * r['bytes'] / 3.35e12:.3f} us")
+    r = report["upwind_flux"]["synthetic"]
+    print(f"upwind_flux at the synthetic tracer 1/64 shapes, 16 seeds (the entry points' value and tangent "
+          f"launches) on {smi}: device {r['device_us']:.2f} us (graph replay), bound {1e6 * r['bytes'] / 3.35e12:.3f} us")
+    print(f"jac_gather at its phase 22 shapes on {smi}: device {report['jac_gather']['device_us']:.2f} us (graph "
+          f"replay), bound {1e6 * report['jac_gather']['bytes'] / 3.35e12:.3f} us")
+    for k, us in (("upwind_select", report["upwind_select"]["synthetic"]["device_us"]),
+                  ("segment_sum_sorted", report["segment_sum_sorted"]["device_us"])):
+        print(f"{k} at its phase 19 synthetic shapes on {smi}, device us (graph replay, in turns): kernel "
+              f"{us['kernel']}, one PyTorch call {us['library']}")
     g6 = report["gj_pivot_inverse"]
     print(f"K6 gj_pivot_inverse, one 128^2 f32 block (the dense build's launch) on {smi}: device us in turns "
           f"{g6['device_us_turns']['kernel']}, torch.linalg.inv_ex {g6['device_us_turns']['inv_ex']}; the dense "

@@ -36,10 +36,12 @@ K11       :func:`block_inverse`          ``numerics/linalg/matrix_operations.py:
 K19       :class:`HaloOperator`          ``numerics/linalg/device_solver.py:947-953`` (the
           (``halo_interior``,            matvec under ``parallel/sharded.py``'s dof sharding)
           ``halo_boundary``)
-K15       :func:`upwind_flux`,           ``numerics/fv/upwind.py:76-99`` (the upstream
-          :func:`upwind_flux_tangent`,   selection and the advective face flux around it)
-          :func:`upwind_select`,
-          :func:`upwind_select_pair`
+K15       :class:`UpwindLauncher`        ``numerics/fv/upwind.py:76-99`` (the upstream
+          (:func:`upwind_dual`,          selection and the advective face flux around it) and
+          :func:`upwind_flux`,           ``models/constitutive_laws.py:585-619`` (the interface
+          :func:`upwind_flux_tangent`,   selection and its product): one kernel, the value and
+          :func:`upwind_select`,         every tangent of a rule in one launch
+          :func:`upwind_select_pair`)
 K14       :class:`TpfaAdLauncher`        ``models/darcys_law_ad.py:71-147`` (the differentiable
           (:func:`tpfa_ad_dual`,         TPFA flux and trace, value and tangents in one launch)
           :func:`tpfa_ad_flux`,          and ``numerics/fv/fv_mesh.py:129-145`` (the segment
@@ -105,8 +107,11 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     tpfa_ad_flux_tangent,
     tpfa_ad_trace,
     tpfa_ad_trace_tangent,
+    UpwindLauncher,
+    upwind_dual,
     upwind_flux,
     upwind_flux_tangent,
+    upwind_pair_launcher,
     upwind_select,
     upwind_select_pair,
     VCycleOperator,

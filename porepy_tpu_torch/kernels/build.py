@@ -77,9 +77,9 @@ _SIGNATURES = {
     "ppt_block_inverse": [_P] * 3 + [_I, _I, _P],
     "ppt_halo_interior": [_P] * 7 + [_I] * 4 + [_P],
     "ppt_halo_boundary": [_P] * 6 + [_I] * 4 + [_P],
-    "ppt_upwind_flux": [_P] * 6 + [_L] * 6 + [_P] * 6 + [_I] * 3 + [_P],
-    "ppt_upwind_select": [_P] * 2 + [_L] * 2 + [_P] * 5 + [_I] * 2 + [_P],
-    "ppt_upwind_select_pair": [_P] * 3 + [_L] * 3 + [_P] + [_I] * 2 + [_P],
+    # A launch table of int64 words in host memory (ops.UpwindLauncher).
+    "ppt_upwind_dual": [_P, _P],
+    "ppt_upwind_dual_words": [],
     "ppt_segment_sum_sorted": [_P, _L, _P, _P, _P, _I, _I, _P],
     # A launch table of int64 words in host memory (ops.TpfaAdLauncher).
     "ppt_tpfa_ad_dual": [_P, _I, _P],
@@ -99,7 +99,7 @@ _F64_ONLY = (
     "ppt_region_solve", "ppt_bicgstab_cycle", "ppt_bicgstab_cycle_grid",
     "ppt_gmres_cycle", "ppt_gmres_cycle_grid",
     "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
-    "ppt_upwind_flux", "ppt_upwind_select", "ppt_upwind_select_pair",
+    "ppt_upwind_dual", "ppt_upwind_dual_words",
     "ppt_segment_sum_sorted", "ppt_tpfa_ad_dual", "ppt_tpfa_ad_dual_words",
     "ppt_dual_ew", "ppt_dual_gather_value", "ppt_dual_seed_rows", "ppt_dual_gather_copy",
     "ppt_jac_gather",

@@ -15,9 +15,12 @@ kernel as one ``(B, ...)`` launch. There is no backward rule: the port, as
 - :func:`upwind_flux`, :func:`upwind_select`, :func:`upwind_select_pair`
   (K15): the upstream selection is taken from the flux as data, so the flux
   direction carries no tangent (the stop-gradient of ``porepy_tpu``). Primal
-  fields may themselves be batched.
+  fields may themselves be batched. Each call is the value rows or the
+  tangent rows of one ``upwind_dual`` launch through the launcher that
+  ``ops`` keeps for the geometry tensors (found by their pointers).
 - :func:`tpfa_ad_flux`, :func:`tpfa_ad_trace` (K14): batched seeds at
-  unbatched primals; a batched primal raises.
+  unbatched primals; a batched primal raises. The geometry, and with it its
+  launcher, is found by the tensors' pointers (``TpfaAdGeometry.cached``).
 - :func:`segment_sum_sorted` (K14): linear, so its tangent is itself.
 """
 
@@ -241,10 +244,10 @@ class _TpfaAd(torch.autograd.Function):
     pressure trace (``trace=True``) of one subdomain through the K14
     kernels. The geometry's arrays are arguments like the fields (in
     ``TpfaAdGeometry.TENSORS`` order), so that they reach the kernel as plain
-    tensors whatever transform built them. Each call rebuilds the geometry
-    through ``TpfaAdGeometry.trusted``, so its launcher checks the geometry
-    and writes its launch table anew; the dual rule's calls keep theirs in
-    the model's geometry."""
+    tensors whatever transform built them. A call finds its geometry through
+    ``TpfaAdGeometry.cached`` (by the tensors' pointers and shapes), so its
+    launcher checks the geometry and writes its launch table once, as the
+    dual rule's calls do through the model's geometry."""
 
     generate_vmap_rule = False
 
@@ -252,7 +255,7 @@ class _TpfaAd(torch.autograd.Function):
     def forward(trace, k9, vol, p, bco, lam, *geom):
         op = ops.tpfa_ad_trace if trace else ops.tpfa_ad_flux
         fields = (t.contiguous() for t in (k9, vol, p, bco, lam))
-        return op(ops.TpfaAdGeometry.trusted(geom), *fields)
+        return op(ops.TpfaAdGeometry.cached(geom), *fields)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -285,7 +288,7 @@ class _TpfaAdTangent(torch.autograd.Function):
     def _op(trace, primals, seeds, geom):
         op = ops.tpfa_ad_trace_tangent if trace else ops.tpfa_ad_flux_tangent
         return op(
-            ops.TpfaAdGeometry.trusted(geom),
+            ops.TpfaAdGeometry.cached(geom),
             [t.contiguous() for t in primals],
             [_unit_rows(s) for s in seeds],
         )

@@ -17,6 +17,8 @@ K19's launcher :class:`HaloOperator`, one per shard matrix of the sharded
 solve;
 K14's :class:`TpfaAdLauncher`, one per subdomain geometry and kind (the
 flux or the trace: value and all tangents in one launch);
+K15's :class:`UpwindLauncher`, one per geometry, kind and device (a dual
+rule's value and all tangents in one launch);
 K18a's :func:`bicgstab_cycle` and K18b's :func:`gmres_cycle`; the flow
 steps' :class:`FlowCycle`, one per linearization buffer (K12, K13: a
 BiCGStab solve in two cooperative launches) and their linearizations
@@ -71,6 +73,10 @@ __all__ = [
     "interp_tangent",
     "block_inverse",
     "HaloOperator",
+    "UPWIND_KINDS",
+    "UpwindLauncher",
+    "upwind_pair_launcher",
+    "upwind_dual",
     "upwind_flux",
     "upwind_flux_tangent",
     "upwind_select",
@@ -1554,32 +1560,224 @@ def _check_upwind_geometry(name, nf, lo, hi, is_dir, is_neu, sgn_div=None):
     _check(name, tensors, torch.float64)
 
 
-def _upwind_flux_cuda(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div, tangent):
-    nf, nc = q.shape[-1], w.shape[-1]
-    _check_upwind_geometry("upwind_flux", nf, lo, hi, is_dir, is_neu, sgn_div)
-    b_face, p_face, s_face = _rows("upwind_flux", nf, q=q, bc=bc, dq=dq, dbc=dbc)
-    b_cell, p_cell, s_cell = _rows("upwind_flux", nc, w=w, dw=dw)
-    if b_face and b_cell and b_face != b_cell:
-        raise ValueError("upwind_flux: face and cell fields differ in batch size")
-    batch = b_face or b_cell
-    shape = (batch, nf) if batch else (nf,)
-    out = torch.empty(shape, dtype=torch.float64, device=q.device)
-    if nf:
-        _launch(
-            "upwind_flux", torch.float64,
-            p_face[0], p_cell[0], p_face[1], p_face[2], p_cell[1], p_face[3],
-            s_face[0], s_cell[0], s_face[1], s_face[2], s_cell[1], s_face[3],
-            lo.data_ptr(), hi.data_ptr(), is_dir.data_ptr(), is_neu.data_ptr(),
-            sgn_div.data_ptr(), out.data_ptr(), nf, max(batch, 1), int(tangent),
+class _Bound:
+    """Objects made once per set of tensors (a launcher, a geometry) and
+    found again by the tensors' pointers, shapes, dtypes, devices and
+    versions. An entry holds its tensors, so that no other tensor takes
+    their memory while it lives; beyond ``size`` entries the oldest goes."""
+
+    def __init__(self, make, size: int = 64) -> None:
+        self._make, self._size, self._entries = make, size, {}
+
+    def __call__(self, *tensors):
+        key = tuple(
+            None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype, t.device, t._version)
+            for t in tensors
         )
-    return out
+        hit = self._entries.get(key)
+        if hit is None:
+            if len(self._entries) >= self._size:
+                self._entries.pop(next(iter(self._entries)))
+            hit = self._entries[key] = (self._make(*tensors), tensors)
+        return hit[0]
+
+
+#: The functions of K15's one kernel (``csrc/upwind.cu``, ``Mode``).
+UPWIND_KINDS = reference.UPWIND_KINDS
+# The launch table's words (csrc/upwind.cu, Word): the head written once a
+# launcher, the words of a call.
+_UPWIND_HEAD = 5  # kMode .. kSgnDiv
+_UPWIND_CALL = 16  # kN .. kOut
+# The primals and seeds each kind reads (the others are ignored), and the
+# primals a call must give.
+_UPWIND_READS = {"flux": (0, 1, 2), "apply": (0, 1), "pair": (0, 1, 2), "interface": (0, 1, 2)}
+_UPWIND_SEEDS = {"flux": (0, 1, 2), "apply": (1,), "pair": (1, 2), "interface": (0, 1, 2)}
+_UPWIND_NEEDS = {"flux": (0, 1, 2), "apply": (0, 1), "pair": (0,), "interface": (0,)}
+_DUAL_ROWS, _VALUE_ROWS, _TANGENT_ROWS = 0, 1, 2
+
+
+class UpwindLauncher:
+    """K15's one kernel for one function ``kind`` (of :data:`UPWIND_KINDS`)
+    and, for the flux and apply, one ``geometry`` ``(lo, hi, is_dir, is_neu,
+    sgn_div)`` of ``nf`` faces on one device (int64, bool, float64;
+    ``sgn_div`` may be ``None`` for apply): ``launcher(primals, seeds=None)``
+    returns ``(value (n,), tangents (B, n) or None)`` of the function at the
+    three ``primals`` (``(n,)``, the flux's and apply's cell field ``(nc,)``)
+    for the three ``seeds`` (each ``(B, n)`` with unit-strided rows or
+    ``None``), as :func:`porepy_tpu_torch.kernels.reference.upwind_dual`
+    computes them.
+
+    On the card it is one launch of ``upwind_dual`` (``csrc/upwind.cu``),
+    value and tangents as rows 0 and ``1 ..`` of one ``(1 + B, n)`` buffer.
+    At the first call on the card the geometry is checked, its int32 and
+    byte copies made and their pointers written into the launch table (int64
+    words the C entry reads); a call checks the fields and seeds, allocates
+    the buffer, writes their pointers and makes one ctypes call.
+    :meth:`rows` is the same launch for the value rows alone or the tangent
+    rows alone, primals and seeds ``(n,)`` or ``(B, n)`` (the entry points of
+    the ``torch.func`` route). On the CPU the call runs the plain version; on
+    a CUDA tensor the kernel launches or the call raises. The flux counts
+    under ``upwind_flux``, the other kinds under ``upwind_select``."""
+
+    __slots__ = ("kind", "geometry", "name", "_mode", "_fn", "_dev", "_table", "_copies", "_n", "_nc")
+
+    def __init__(self, kind: str, geometry=None) -> None:
+        if kind not in UPWIND_KINDS:
+            raise ValueError(f"UpwindLauncher: kind {kind!r} is not one of {UPWIND_KINDS}")
+        if (geometry is None) != (kind in ("pair", "interface")):
+            raise ValueError(f"UpwindLauncher: {kind} takes {'no' if geometry is None else 'a'} geometry")
+        self.kind, self._mode = kind, UPWIND_KINDS.index(kind)
+        self.geometry = None if geometry is None else tuple(geometry)
+        self.name = "upwind_flux" if kind == "flux" else "upwind_select"
+        self._fn = None
+        self._dev = None
+
+    def _bind(self, dev: int) -> None:
+        name = self.name
+        if dev < 0:
+            raise ValueError(f"{name}: the kernel takes CUDA tensors")
+        words = _kernel("upwind_dual_words", torch.float64)()
+        if words != _UPWIND_HEAD + _UPWIND_CALL:
+            raise RuntimeError(f"{name}: the kernel's launch table has {words} words, expected "
+                               f"{_UPWIND_HEAD + _UPWIND_CALL}")
+        table = (ctypes.c_longlong * words)()
+        table[0] = self._mode
+        self._n = self._nc = None
+        if self.geometry is not None:
+            lo, hi, is_dir, is_neu, sgn_div = self.geometry
+            nf = lo.shape[0]
+            if self.kind == "flux" and sgn_div is None:
+                raise ValueError(f"{name}: the flux needs sgn_div")
+            _check_upwind_geometry(name, nf, lo, hi, is_dir, is_neu, sgn_div)
+            if any(t.get_device() != dev for t in self.geometry if t is not None):
+                raise ValueError(f"{name}: the geometry is not on card {dev}")
+            flags = is_dir.to(torch.uint8) | (is_neu.to(torch.uint8) << 1)
+            self._copies = (lo.to(torch.int32), hi.to(torch.int32), flags)
+            table[1:_UPWIND_HEAD] = [
+                *(t.data_ptr() for t in self._copies), 0 if sgn_div is None else sgn_div.data_ptr(),
+            ]
+            self._n = nf
+            # The cell field must hold every cell a face names.
+            self._nc = int(torch.maximum(lo.max(), hi.max())) + 1 if nf else 0
+        self._table, self._dev = table, dev
+        self._fn = _kernel("upwind_dual", torch.float64)
+
+    def __call__(self, primals, seeds=None):
+        if not primals[0].is_cuda:
+            return reference.upwind_dual(self.kind, self.geometry, primals, seeds)
+        buf = self._launch(primals, seeds, _DUAL_ROWS)
+        return buf[0], (buf[1:] if buf.shape[0] > 1 else None)
+
+    def rows(self, primals, seeds=None) -> torch.Tensor:
+        """On the card only: the value rows (``seeds`` ``None``) or the
+        tangent rows of the ``seeds`` alone, one a batch row of the inputs,
+        ``(n,)`` when none is batched. Primals and seeds are ``(len,)`` (one
+        row for all) or ``(B, len)``."""
+        return self._launch(primals, seeds, _VALUE_ROWS if seeds is None else _TANGENT_ROWS)
+
+    def _launch(self, primals, seeds, rows: int) -> torch.Tensor:
+        p0 = primals[0]
+        dev = p0.get_device()
+        if self._fn is None:
+            self._bind(dev)
+        name, kind = self.name, self.kind
+        n = p0.shape[-1]
+        if self._n is not None and n != self._n:
+            raise ValueError(f"{name}: {n} faces, the geometry has {self._n}")
+        dual = rows == _DUAL_ROWS
+        words = [0] * 12  # primals, their row strides, seeds, their row strides
+        batch = 0
+        for slot, t, seed in self._operands(primals, seeds):
+            shape = t.shape
+            if t.dtype is not torch.float64 or t.get_device() != dev:
+                raise ValueError(f"{name}: operand {slot} must be float64 on card {dev}")
+            length = shape[-1] if shape else -1
+            if slot == 1 and self._nc is not None:
+                if length < self._nc:
+                    raise ValueError(f"{name}: the cell field has {length} entries, the faces name {self._nc}")
+            elif length != n:
+                raise ValueError(f"{name}: operand {slot} has shape {tuple(shape)}, expected (B?, {n})")
+            strides = t.stride()
+            if len(shape) == 2 and not (dual and not seed):
+                if batch and shape[0] != batch:
+                    raise ValueError(f"{name}: operands differ in batch size")
+                batch = shape[0]
+                stride = strides[0]
+            elif len(shape) == 1 and not (dual and seed):
+                stride = 0
+            else:
+                raise ValueError(f"{name}: operand {slot} has shape {tuple(shape)} (a dual call takes "
+                                 f"unbatched primals and (B, n) seeds)")
+            if length > 1 and strides[-1] != 1:
+                raise ValueError(f"{name}: operand {slot} needs unit-stride rows")
+            k = slot + 6 * seed
+            words[k] = t.data_ptr()
+            words[k + 3] = stride
+        if any(words[i] == 0 for i in _UPWIND_NEEDS[kind]) or not (words[1] or words[2]):
+            raise ValueError(f"{name}: needs at least one candidate" if kind in ("pair", "interface")
+                             else f"{name}: a primal is missing")
+        if rows == _TANGENT_ROWS and not (words[6] or words[7] or words[8]):
+            raise ValueError(f"{name}: needs at least one seed")
+        if dual:
+            nv, nt = 1, batch
+            buf = p0.new_empty((1 + batch, n))
+        else:
+            lead = batch or 1
+            nv, nt = (lead, 0) if rows == _VALUE_ROWS else (0, lead)
+            buf = p0.new_empty((batch, n) if batch else (n,))
+        if n:
+            table = self._table
+            struct.pack_into("16q", table, 8 * _UPWIND_HEAD, n, nv, nt, *words, buf.data_ptr())
+            rc = self._fn(table, _current_stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+            LAUNCHES[name] += 1
+        return buf
+
+    def _operands(self, primals, seeds):
+        """``(slot, tensor, is_seed)`` of the operands the kind reads."""
+        out = [(i, primals[i], 0) for i in _UPWIND_READS[self.kind] if primals[i] is not None]
+        if seeds is not None:
+            out += [(i, seeds[i], 1) for i in _UPWIND_SEEDS[self.kind] if seeds[i] is not None]
+        return out
+
+
+_UPWIND_LAUNCHERS = {
+    kind: _Bound(lambda *geometry, kind=kind: UpwindLauncher(kind, geometry)) for kind in ("flux", "apply")
+}
+_PAIR_LAUNCHERS: dict = {}
+
+
+def upwind_pair_launcher(kind: str, device: int) -> UpwindLauncher:
+    """The geometry-less launcher of ``kind`` (``"pair"`` or
+    ``"interface"``) for card ``device`` (``-1``: the CPU), made once."""
+    key = (kind, device)
+    hit = _PAIR_LAUNCHERS.get(key)
+    if hit is None:
+        hit = _PAIR_LAUNCHERS[key] = UpwindLauncher(kind)
+    return hit
+
+
+def upwind_dual(launcher: UpwindLauncher, primals, seeds=None):
+    """``(value (n,), tangents (B, n) or None)`` of the launcher's function
+    at ``primals`` for ``seeds``: one ``upwind_dual`` launch on the card (see
+    :class:`UpwindLauncher` and
+    :func:`porepy_tpu_torch.kernels.reference.upwind_dual`)."""
+    return launcher(primals, seeds)
+
+
+def _upwind_flux_cuda(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div, tangent):
+    launcher = _UPWIND_LAUNCHERS["flux"](lo, hi, is_dir, is_neu, sgn_div)
+    return launcher.rows((q, w, bc), (dq, dw, dbc) if tangent else None)
 
 
 def upwind_flux(q, w, bc, lo, hi, is_dir, is_neu, sgn_div):
     """The upwinded advective face flux (see
     :func:`porepy_tpu_torch.kernels.reference.upwind_flux`): ``q``, ``bc``
     ``(nf,)`` or ``(B, nf)``, ``w`` ``(nc,)`` or ``(B, nc)``, float64; ``lo``,
-    ``hi`` int64, ``is_dir``, ``is_neu`` bool, ``sgn_div`` float64 ``(nf,)``."""
+    ``hi`` int64, ``is_dir``, ``is_neu`` bool, ``sgn_div`` float64 ``(nf,)``.
+    On the card the value rows of the geometry's flux launcher (made once
+    for these geometry tensors)."""
     if not q.is_cuda:
         return reference.upwind_flux(q, w, bc, lo, hi, is_dir, is_neu, sgn_div)
     return _upwind_flux_cuda(q, w, bc, None, None, None, lo, hi, is_dir, is_neu, sgn_div, False)
@@ -1587,8 +1785,8 @@ def upwind_flux(q, w, bc, lo, hi, is_dir, is_neu, sgn_div):
 
 def upwind_flux_tangent(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div):
     """Tangents of :func:`upwind_flux` for the seeds ``(dq, dw, dbc)``, each
-    ``(n,)``, ``(B, n)`` or ``None`` (zero), in one launch; the same kernel
-    as the flux, so its launches count under ``upwind_flux``."""
+    ``(n,)``, ``(B, n)`` or ``None`` (zero), in one launch of the tangent
+    rows alone; counted under ``upwind_flux``."""
     if dq is None and dw is None and dbc is None:
         raise ValueError("upwind_flux_tangent: needs at least one seed")
     if not q.is_cuda:
@@ -1601,42 +1799,22 @@ def upwind_flux_tangent(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div):
 def upwind_select(q, w, lo, hi, is_dir, is_neu):
     """The upstream value ``up(w)`` per face (see
     :func:`porepy_tpu_torch.kernels.reference.upwind_select`); ``q`` ``(nf,)``
-    or ``(B, nf)``, ``w`` ``(nc,)`` or ``(B, nc)``."""
+    or ``(B, nf)``, ``w`` ``(nc,)`` or ``(B, nc)``. On the card the value
+    rows of the geometry's apply launcher."""
     if not q.is_cuda:
         return reference.upwind_select(q, w, lo, hi, is_dir, is_neu)
-    nf, nc = q.shape[-1], w.shape[-1]
-    _check_upwind_geometry("upwind_select", nf, lo, hi, is_dir, is_neu)
-    bq, (pq,), (sq,) = _rows("upwind_select", nf, q=q)
-    bw, (pw,), (sw,) = _rows("upwind_select", nc, w=w)
-    if bq and bw and bq != bw:
-        raise ValueError("upwind_select: q and w differ in batch size")
-    batch = bq or bw
-    out = torch.empty((batch, nf) if batch else (nf,), dtype=torch.float64, device=q.device)
-    if nf:
-        _launch(
-            "upwind_select", torch.float64,
-            pq, pw, sq, sw, lo.data_ptr(), hi.data_ptr(), is_dir.data_ptr(),
-            is_neu.data_ptr(), out.data_ptr(), nf, max(batch, 1),
-        )
-    return out
+    return _UPWIND_LAUNCHERS["apply"](lo, hi, is_dir, is_neu, None).rows((q, w, None))
 
 
 def upwind_select_pair(s, a, b):
     """``a`` where ``s >= 0`` else ``b``; each ``(n,)`` or ``(B, n)``, a
-    ``None`` candidate reads 0. Counts under ``upwind_select``."""
-    if not s.is_cuda:
-        return reference.upwind_select_pair(s, a, b)
+    ``None`` candidate reads 0. On the card the value rows of the pair
+    launcher; counts under ``upwind_select``."""
     if a is None and b is None:
         raise ValueError("upwind_select_pair: needs at least one candidate")
-    n = s.shape[-1]
-    batch, ptrs, strides = _rows("upwind_select_pair", n, s=s, a=a, b=b)
-    out = torch.empty((batch, n) if batch else (n,), dtype=torch.float64, device=s.device)
-    if n:
-        _launch(
-            "upwind_select_pair", torch.float64,
-            *ptrs, *strides, out.data_ptr(), n, max(batch, 1), count_as="upwind_select",
-        )
-    return out
+    if not s.is_cuda:
+        return reference.upwind_select_pair(s, a, b)
+    return upwind_pair_launcher("pair", s.get_device()).rows((s, a, b))
 
 
 # -- K14 --------------------------------------------------------------------------
@@ -1716,6 +1894,14 @@ class TpfaAdGeometry:
         self._launchers = {}
         return self
 
+    @classmethod
+    def cached(cls, tensors) -> "TpfaAdGeometry":
+        """:meth:`trusted` over ``tensors``, made once per set of tensors (found
+        again by their pointers, shapes, dtypes, devices and versions), so
+        that its launchers check the geometry and write their launch tables
+        once."""
+        return _TRUSTED_TPFA(*tensors)
+
     def tensors(self) -> tuple:
         """The arrays in ``TENSORS`` order."""
         return tuple(self.arrays[name] for name in self.TENSORS)
@@ -1735,6 +1921,8 @@ class TpfaAdGeometry:
             hit = self._launchers[trace] = TpfaAdLauncher(self, trace)
         return hit
 
+
+_TRUSTED_TPFA = _Bound(lambda *tensors: TpfaAdGeometry.trusted(tensors))
 
 # The launch table's words (csrc/tpfa_ad.cu, Word): sizes, geometry,
 # fields, seeds, seed row strides, output.

@@ -70,6 +70,8 @@ __all__ = [
     "upwind_masks",
     "upwind_flux",
     "upwind_flux_tangent",
+    "UPWIND_KINDS",
+    "upwind_dual",
     "segment_sum_sorted",
     "tpfa_ad_flux",
     "tpfa_ad_trace",
@@ -1196,6 +1198,96 @@ def upwind_flux_tangent(q, w, bc, dq, dw, dbc, lo, hi, is_dir, is_neu, sgn_div):
     if out is None:
         raise ValueError("upwind_flux_tangent: needs at least one seed")
     return out
+
+
+#: The functions of the one K15 kernel, in the kernel's order (``Mode``).
+UPWIND_KINDS = ("flux", "apply", "pair", "interface")
+
+
+def upwind_dual(kind, geometry, primals, seeds=None):
+    """``(value (n,), tangents (B, n) or None)`` of one K15 function, the
+    rows of the kernel's ``(1 + B, n)`` buffer, by its operations in its
+    order. ``kind`` is one of :data:`UPWIND_KINDS`:
+
+    - ``"flux"``: ``primals = (q, w, bc)``, ``seeds = (dq, dw, dbc)``; the
+      value and tangents of :func:`upwind_flux` and
+      :func:`upwind_flux_tangent` (a tangent without ``dq`` starts from 0.0,
+      as the kernel's sum does);
+    - ``"apply"``: ``(q, w, _)``, ``(_, dw, _)``; ``up(w)`` and ``up(dw)``;
+    - ``"pair"``: ``(s, a, b)``, ``(_, da, db)``; ``s >= 0 ? a : b`` and the
+      same choice of the seeds (``None`` reads 0);
+    - ``"interface"``: ``(lam, a, b)``, ``(dlam, da, db)``; ``lam * sel``
+      with ``sel`` the pair's choice, and the tangent of ``dual_ew``'s
+      ``mul``: ``dlam sel + dsel lam``, one product where one operand has no
+      seed.
+
+    ``geometry`` is ``(lo, hi, is_dir, is_neu, sgn_div)`` for the flux and
+    apply (``sgn_div`` may be ``None`` for apply), ``None`` for the others.
+    Primals are ``(n,)`` (the cell field ``(nc,)``), seeds ``(B, n)`` or
+    ``None``; none that the kind reads (or ``seeds=None``): the value alone.
+    The choice is taken from the first primal as data."""
+    if kind not in UPWIND_KINDS:
+        raise ValueError(f"upwind_dual: kind {kind!r} is not one of {UPWIND_KINDS}")
+    s = primals[0].detach()
+    n = s.shape[-1]
+    reads = {"flux": (0, 1, 2), "apply": (1,), "pair": (1, 2), "interface": (0, 1, 2)}[kind]
+    live = [seeds[i] for i in reads if seeds[i] is not None] if seeds is not None else []
+    batch = live[0].shape[0] if live else 0
+    zero = torch.zeros((), dtype=s.dtype, device=s.device)
+    first = s >= 0
+    if kind in ("flux", "apply"):
+        lo, hi, is_dir, is_neu, sgn_div = geometry
+        up = torch.where(first, lo, hi)
+        outside = up < 0
+        take = ~(outside | is_neu)
+        idx = up.clamp(min=0)
+
+        def chosen(x):
+            return torch.where(take, x[..., idx], zero)
+
+    else:
+
+        def chosen(a, b):
+            return torch.where(first, zero if a is None else a, zero if b is None else b)
+
+    out = s.new_empty((1 + batch, n))
+    if kind == "flux":
+        q, w, bc = primals
+        dir_mask = (is_dir & outside).to(s.dtype)
+        neu = torch.where(is_neu, sgn_div, zero)
+        w_up = chosen(w)
+        out[0] = q * w_up + dir_mask * q * bc + neu * bc
+        if batch:
+            dq, dw, dbc = seeds
+            t = torch.zeros((batch, n), dtype=s.dtype, device=s.device)
+            if dq is not None:
+                t = dq * (w_up + dir_mask * bc)
+            if dw is not None:
+                t = t + q * chosen(dw)
+            if dbc is not None:
+                t = t + (dir_mask * q + neu) * dbc
+            out[1:] = t
+    elif kind == "apply":
+        out[0] = chosen(primals[1])
+        if batch:
+            out[1:] = chosen(seeds[1])
+    elif kind == "pair":
+        out[0] = chosen(primals[1], primals[2])
+        if batch:
+            out[1:] = chosen(seeds[1], seeds[2])
+    else:
+        lam = primals[0]
+        sel = chosen(primals[1], primals[2])
+        out[0] = lam * sel
+        if batch:
+            dlam, da, db = seeds
+            if dlam is None:
+                out[1:] = chosen(da, db) * lam
+            elif da is None and db is None:
+                out[1:] = dlam * sel
+            else:
+                out[1:] = dlam * sel + chosen(da, db) * lam
+    return out[0], (out[1:] if batch else None)
 
 
 # -- K14 --------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from porepy_tpu_torch.numerics.fv.upwind import (
     upwind_apply_dual,
     upwind_flux,
     upwind_flux_dual,
+    upwind_interface_dual,
     upwind_select_pair,
     upwind_select_pair_dual,
 )
@@ -616,7 +617,7 @@ class AdvectiveFlux:
             return out
 
         def dual_rule(run, lam_d, wp, ws):
-            return forward.mul(run, lam_d, upwind_select_pair_dual(lam_d, wp, ws))
+            return upwind_interface_dual(lam_d, wp, ws)
 
         fn = ad.Function(
             f, name="interface_upwind", pattern_fn=pattern_fn, dual_rule=dual_rule

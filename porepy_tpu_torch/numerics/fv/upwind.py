@@ -19,7 +19,9 @@ Two faces of the same scheme:
   The ``*_dual`` functions are the same operations on the
   :class:`~porepy_tpu_torch.numerics.ad.forward.Dual` values of the
   assembly's forward-mode pass: the value and the tangent rows of all color
-  seeds, one direct kernel call each.
+  seeds in one ``upwind_dual`` launch a call, through a launcher made once
+  per geometry, kind and device (:meth:`UpwindGeometry.launcher`; the
+  interface selection's has no geometry).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ __all__ = [
     "upwind_apply_dual",
     "upwind_flux_dual",
     "upwind_select_pair_dual",
+    "upwind_interface_dual",
     "UpwindCoupling",
 ]
 
@@ -55,7 +58,8 @@ class UpwindGeometry:
     ``lo``/``hi`` are the cells behind/in front of each face (normal points
     lo -> hi); -1 where missing (boundary). ``sgn_div`` is the column sum of
     the divergence (+-1 on boundary faces). The attributes are host arrays;
-    :meth:`on` gives their tensors on a device, made once per device.
+    :meth:`on` gives their tensors on a device, made once per device, and
+    :meth:`launcher` the K15 launchers over them.
     """
 
     def __init__(self, subdomains, bcs) -> None:
@@ -76,6 +80,7 @@ class UpwindGeometry:
         self.sgn_div = np.concatenate(sgn_div or [np.zeros(0)]).astype(float)
         self.num_cells = c_off
         self._on: dict = {}
+        self._launchers: dict = {}
 
     def on(self, device: Union[str, torch.device]) -> dict:
         """``{"lo", "hi", "is_dir", "is_neu", "sgn_div"}`` as tensors on
@@ -88,6 +93,20 @@ class UpwindGeometry:
                 for name in ("lo", "hi", "is_dir", "is_neu", "sgn_div")
             }
         return t
+
+    def launcher(self, kind: str, device: int) -> ops.UpwindLauncher:
+        """The :class:`~porepy_tpu_torch.kernels.ops.UpwindLauncher` of
+        ``kind`` (``"flux"`` or ``"apply"``) over this geometry on card
+        ``device`` (``-1``: the CPU, the plain version), made at the first
+        call."""
+        key = (kind, device)
+        hit = self._launchers.get(key)
+        if hit is None:
+            g = self.on("cpu" if device < 0 else torch.device("cuda", device))
+            hit = self._launchers[key] = ops.UpwindLauncher(
+                kind, tuple(g[k] for k in ("lo", "hi", "is_dir", "is_neu", "sgn_div"))
+            )
+        return hit
 
     def structural_pattern(self) -> sps.csr_matrix:
         """Bool (faces x cells): each face may depend on both neighbors."""
@@ -152,41 +171,58 @@ def _rows(t: torch.Tensor, n: int) -> torch.Tensor:
     return t if n <= 1 or t.stride(-1) == 1 else t.contiguous()
 
 
+def _seeds(duals, n: int):
+    """The duals' tangents with unit-strided rows over ``n`` elements, or
+    ``None`` when none has one."""
+    if all(d.tan is None for d in duals):
+        return None
+    return tuple(None if d.tan is None else _rows(d.tan, n) for d in duals)
+
+
 def upwind_apply_dual(geom: UpwindGeometry, q: Dual, w: Dual) -> Dual:
     """:func:`upwind_apply` on duals: the selection follows ``q``'s value
     and carries no tangent, so the tangent is the same selection of ``w``'s
-    rows."""
-    g = geom.on(q.val.device)
-    masks = (g["lo"], g["hi"], g["is_dir"], g["is_neu"])
-    val = ops.upwind_select(q.val, w.val, *masks)
-    return Dual(val, None if w.tan is None else ops.upwind_select(q.val, w.tan, *masks))
+    rows; one launch."""
+    launcher = geom.launcher("apply", q.val.get_device())
+    qv = _rows(q.val, geom.lo.size)
+    seeds = None if w.tan is None else (None, w.tan, None)
+    return Dual(*ops.upwind_dual(launcher, (qv, w.val, None), seeds))
 
 
 def upwind_flux_dual(geom: UpwindGeometry, q: Dual, w: Dual, bc: Dual) -> Dual:
-    """:func:`upwind_flux` on duals: one launch for the value and one for
-    the tangent rows of all seeds."""
-    g = geom.on(q.val.device)
-    nf = g["lo"].shape[0]
-    geo = (g["lo"], g["hi"], g["is_dir"], g["is_neu"], g["sgn_div"])
-    qv, wv, bcv = _rows(q.val, nf), w.val, _rows(bc.val, nf)
-    val = ops.upwind_flux(qv, wv, bcv, *geo)
-    if q.tan is None and w.tan is None and bc.tan is None:
-        return Dual(val)
-    dq = None if q.tan is None else _rows(q.tan, nf)
-    dbc = None if bc.tan is None else _rows(bc.tan, nf)
-    return Dual(val, ops.upwind_flux_tangent(qv, wv, bcv, dq, w.tan, dbc, *geo))
+    """:func:`upwind_flux` on duals: the value and the tangent rows of all
+    seeds in one launch."""
+    nf = geom.lo.size
+    launcher = geom.launcher("flux", q.val.get_device())
+    primals = (_rows(q.val, nf), w.val, _rows(bc.val, nf))
+    seeds = None
+    if not (q.tan is None and w.tan is None and bc.tan is None):
+        dq = None if q.tan is None else _rows(q.tan, nf)
+        seeds = (dq, w.tan, None if bc.tan is None else _rows(bc.tan, nf))
+    return Dual(*ops.upwind_dual(launcher, primals, seeds))
+
+
+def _width(*duals: Dual) -> int:
+    return max(d.val.shape[-1] if d.val.dim() else 1 for d in duals)
 
 
 def upwind_select_pair_dual(s: Dual, a: Dual, b: Dual) -> Dual:
-    """:func:`upwind_select_pair` on duals; the choice follows ``s``'s value."""
-    n = max(t.shape[-1] if t.dim() else 1 for t in (s.val, a.val, b.val))
-    sv = _rows(s.val, n)
-    val = ops.upwind_select_pair(sv, _rows(a.val, n), _rows(b.val, n))
-    if a.tan is None and b.tan is None:
-        return Dual(val)
-    da = None if a.tan is None else _rows(a.tan, n)
-    db = None if b.tan is None else _rows(b.tan, n)
-    return Dual(val, ops.upwind_select_pair(sv, da, db))
+    """:func:`upwind_select_pair` on duals, one launch; the choice follows
+    ``s``'s value."""
+    n = _width(s, a, b)
+    launcher = ops.upwind_pair_launcher("pair", s.val.get_device())
+    primals = (_rows(s.val, n), _rows(a.val, n), _rows(b.val, n))
+    return Dual(*ops.upwind_dual(launcher, primals, _seeds((Dual(s.val), a, b), n)))
+
+
+def upwind_interface_dual(lam: Dual, a: Dual, b: Dual) -> Dual:
+    """``lam * upwind_select_pair(lam, a, b)`` on duals, the interface
+    advective flux, in one launch: the selection follows ``lam``'s value, and
+    the product rounds as ``forward.mul``'s (``dlam sel + dsel lam``)."""
+    n = _width(lam, a, b)
+    launcher = ops.upwind_pair_launcher("interface", lam.val.get_device())
+    primals = (_rows(lam.val, n), _rows(a.val, n), _rows(b.val, n))
+    return Dual(*ops.upwind_dual(launcher, primals, _seeds((lam, a, b), n)))
 
 
 class Upwind:
