@@ -26,9 +26,19 @@ Configurations ported so far:
 
 The other ``porepy_tpu`` cases (``thm``, ``berre3d``) follow in later
 slices of the port.
+
+Beside the builders, the inputs that ``chip_smoke.py``, the kernel checks
+and the tests share: K10's region batches (:func:`region_batches`, the
+chunks that :func:`capture_chunks` records from biot's discretizations),
+the Biot problem of a grid (:func:`biot_problem`, :func:`biot_matrices`),
+the route of the region solves (:func:`local_solves`), and K16's table,
+points and system (:func:`lookup_inputs`, :func:`table_system`).
 """
 
 from __future__ import annotations
+
+import os
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -40,6 +50,17 @@ FRACTURES_2D = [
     np.array([[0.5, 0.5], [0.125, 0.875]]),
     np.array([[0.75, 0.75], [0.125, 0.875]]),
 ]
+
+#: K16's table, points and system (``chip_smoke.py`` phase 16): a 201 x 201
+#: table of ``(p, T)``, 2048² points, a 1024² grid.
+TABLE = ([1e5, 280.0], [5e7, 480.0], [201, 201])
+N_POINTS = 2048 * 2048
+NX_TABLE = 1024
+BIOT_MECH_KEYS = ("stress", "bound_stress", "bound_displacement_cell", "bound_displacement_face")
+BIOT_COUPLING_KEYS = (
+    "scalar_gradient", "displacement_divergence", "boundary_displacement_divergence",
+    "mpsa_consistency", "bound_displacement_pressure",
+)
 
 
 def _mat_flow():
@@ -268,3 +289,147 @@ def build_case(name: str):
     """Instantiate the case's model: ``(model, params)``."""
     cls, params = CASE_BUILDERS[name]()
     return cls(params), params
+
+
+# -- K10's region batches and K16's table -------------------------------------------
+
+
+def capture_chunks(run) -> dict:
+    """The dense ``(a, rhs, w)`` chunks that ``iter_solve_and_contract``
+    builds while ``run()`` discretizes by the host route: the first chunk of
+    each ``(n, m, q)`` bucket."""
+    from porepy_tpu_torch.numerics.fv import local_solves as ls
+
+    chunks = {}
+    solve = ls._solve_chunk
+
+    def record(a, rhs, w):
+        chunks.setdefault((a.shape[1], rhs.shape[2], w.shape[1]), (a, rhs, w))
+        return ls._solve_chunk_host(a, rhs, w)
+
+    ls._solve_chunk = record
+    try:
+        run()
+    finally:
+        ls._solve_chunk = solve
+    return chunks
+
+
+def biot_problem(nx):
+    """Grid and data of a ``Biot("mechanics")`` discretization on a unit
+    Cartesian grid, with the inputs of the Biot matrix parity test: seeded
+    moduli, alternating Dirichlet/Neumann boundary faces."""
+    import porepy_tpu_torch as pt
+
+    g = pt.CartGrid(list(nx), [1.0] * len(nx))
+    g.compute_geometry()
+    rng = np.random.default_rng(5 + len(nx))
+    nc = g.num_cells
+    bf = g.get_boundary_faces()
+    d = pt.initialize_data(
+        {},
+        "mechanics",
+        {
+            "fourth_order_tensor": pt.FourthOrderTensor(rng.uniform(0.5, 2.0, nc), rng.uniform(0.5, 2.0, nc)),
+            "bc": pt.BoundaryConditionVectorial(g, bf, ["dir" if i % 2 == 0 else "neu" for i in range(bf.size)]),
+            "scalar_vector_mappings": {"flow": 0.8},
+        },
+    )
+    return g, d
+
+
+def biot_matrices(g, d) -> dict:
+    """``Biot("mechanics").discretize(g, d)``'s matrices by name."""
+    import porepy_tpu_torch as pt
+
+    pt.Biot("mechanics").discretize(g, d)
+    md = d[pt.DISCRETIZATION_MATRICES]["mechanics"]
+    out = {k: md[k] for k in BIOT_MECH_KEYS}
+    out.update({k: md[k]["flow"] for k in BIOT_COUPLING_KEYS})
+    return out
+
+
+def region_batches(dev) -> list:
+    """``(source, (n, m, q), (a, rhs, w))`` numpy batches: the first chunk of
+    each bucket of biot 1/64's discretization and of the Biot discretization
+    of a 3d 16³ grid, a synthetic batch whose first region needs a row swap
+    at the first step, and one that runs on the device workspace."""
+    Model, params = build_biot(1.0 / 64, device=str(dev))
+    batches = [("biot 1/64", k, v) for k, v in capture_chunks(lambda: Model(params).prepare_simulation()).items()]
+    g3, d3 = biot_problem([16, 16, 16])
+    batches += [("biot 3d 16^3", k, v) for k, v in capture_chunks(lambda: biot_matrices(g3, d3)).items()]
+    gen = np.random.default_rng(11)
+    for B, n, m, q, what in ((64, 20, 12, 20, "zero leading entry"), (3, 180, 20, 30, "device workspace")):
+        a = gen.standard_normal((B, n, n)) + 0.5 * n * np.eye(n)
+        a *= 10.0 ** gen.uniform(-3, 3, (B, n, 1))
+        a[0, 0, 0] = 0.0
+        batches.append(("synthetic, " + what, (n, m, q),
+                        (a, gen.standard_normal((B, n, m)), gen.standard_normal((B, q, n)))))
+    return batches
+
+
+def table_fn(p, T):
+    return np.log(p + 1e6) * np.exp(-T / 300.0) + 1e-8 * p * np.sin(T / 20.0)
+
+
+def table_system(nx: int, device, rule=None):
+    """``tab(p, T) = 0`` on an ``nx`` x ``nx`` grid, ``(es, op, fun)``: the
+    201 x 201 table, states drawn a tenth of the span beyond each side of
+    it; ``rule(fun)`` replaces the function's dual rule."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.grids.md_grid import MixedDimensionalGrid
+
+    g = pt.CartGrid([nx, nx], physdims=[1.0, 1.0])
+    g.compute_geometry()
+    mdg = MixedDimensionalGrid()
+    mdg.add_subdomains(g)
+    mdg.compute_geometry()
+    es = pt.ad.EquationSystem(mdg, device=device)
+    p = es.create_variables("pressure", dof_info={"cells": 1}, subdomains=[g])
+    T = es.create_variables("temperature", dof_info={"cells": 1}, subdomains=[g])
+    rng = np.random.default_rng(16)
+    (lo_p, lo_T), (hi_p, hi_T), _ = TABLE
+    es.set_variable_values(rng.uniform(lo_p - 0.1 * (hi_p - lo_p), hi_p + 0.1 * (hi_p - lo_p), g.num_cells),
+                           ["pressure"], iterate_index=0)
+    es.set_variable_values(rng.uniform(lo_T - 0.1 * (hi_T - lo_T), hi_T + 0.1 * (hi_T - lo_T), g.num_cells),
+                           ["temperature"], iterate_index=0)
+    fun = pt.ad.InterpolatedFunction(table_fn, "tab", *TABLE)
+    if rule is not None:
+        fun.func.dual_rule = rule(fun)
+    op = fun(p, T)
+    op.set_name("table_equation")
+    es.set_equation(op, [g], {"cells": 1})
+    return es, op, fun
+
+
+def lookup_inputs(dev):
+    """Phase 16's table on ``dev`` and its points: ``(table, x (2, N), dx
+    (4, 2, N))``, a tenth of the span beyond each side of the table."""
+    import torch
+
+    import porepy_tpu_torch as pt
+
+    fun = pt.ad.InterpolatedFunction(table_fn, "tab", *TABLE)
+    tab = fun.device_table(dev)
+    rng = np.random.default_rng(17)
+    lo, hi = np.array(TABLE[0]), np.array(TABLE[1])
+    span = hi - lo
+    x = torch.tensor(rng.uniform(lo - 0.1 * span, hi + 0.1 * span, (N_POINTS, 2)).T.copy(), device=dev)
+    dx = torch.tensor(rng.standard_normal((4, 2, N_POINTS)) * span[None, :, None] * 1e-3, device=dev)
+    return tab, x, dx
+
+
+@contextmanager
+def local_solves(route: str):
+    """Region solves by ``route`` inside the block: ``"k10"`` sets
+    ``PPT_LOCAL_SOLVE_DEVICE=1`` and restores it after, ``"host"`` clears
+    it."""
+    before = os.environ.pop("PPT_LOCAL_SOLVE_DEVICE", None)
+    if route == "k10":
+        os.environ["PPT_LOCAL_SOLVE_DEVICE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("PPT_LOCAL_SOLVE_DEVICE", None)
+        if before is not None:
+            os.environ["PPT_LOCAL_SOLVE_DEVICE"] = before

@@ -25,10 +25,12 @@ def cuda_ms(fn, repeats: int = 100) -> float:
     return start.elapsed_time(stop) / repeats
 
 
-def graph_us(fn, launches: int = 100, replays: int = 5) -> float:
+def graph_us(fn, launches: int = 100, replays: int = 5, mode: str = "global") -> float:
     """Device microseconds per call of ``fn``: a CUDA graph of ``launches``
     calls, replayed ``replays`` times between two CUDA events (no host
-    dispatch in the interval)."""
+    dispatch in the interval); ``mode`` is the capture's error mode
+    (``"relaxed"`` lets ``fn`` make calls that are not stream work, such as
+    setting a kernel's attribute)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -36,7 +38,7 @@ def graph_us(fn, launches: int = 100, replays: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode=mode):
         for _ in range(launches):
             fn()
     graph.replay()

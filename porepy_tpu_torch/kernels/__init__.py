@@ -30,8 +30,10 @@ K18a      :func:`bicgstab_cycle`         ``numerics/linalg/krylov.py:42-61`` (ja
 K18b      :func:`gmres_cycle`            ``numerics/linalg/krylov.py:42-61`` (jax GMRES: one
                                          restart, one cooperative kernel)
 K17       :func:`rachford_rice`          ``compositional/flash.py:80-122``
-K16       :func:`interp_lookup`,         ``numerics/ad/operator_functions.py:117-134``
-          :func:`interp_tangent`
+K16       :class:`InterpLauncher`        ``numerics/ad/operator_functions.py:117-134`` (the
+          (:func:`interp_launcher`,      lookup and its tangents: a dual rule's value and every
+          :func:`interp_lookup`,         tangent in one launch, on a corner-block table)
+          :func:`interp_tangent`)
 K11       :func:`block_inverse`          ``numerics/linalg/matrix_operations.py:105-142``
 K19       :class:`HaloOperator`          ``numerics/linalg/device_solver.py:947-953`` (the
           (``halo_interior``,            matvec under ``parallel/sharded.py``'s dof sharding)
@@ -73,8 +75,10 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     gmres_cycle,
     gmres_cycle_grid,
     HaloOperator,
+    interp_launcher,
     interp_lookup,
     interp_tangent,
+    InterpLauncher,
     JacobiSweeps,
     rachford_rice,
     DualProgram,
@@ -92,6 +96,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     gj_pivot_inverse,
     jac_gather,
     region_solve,
+    region_solve_route,
     reset_launches,
     structured_jvp,
     structured_linearize,

@@ -62,6 +62,7 @@ _SIGNATURES = {
     "ppt_tpfa_residual": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_tpfa_jvp": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_region_solve": [_P] * 5 + [_I] * 4 + [_P],
+    "ppt_region_solve_route": [_I, _I],
     "ppt_bicgstab_cycle": [_P] * 17 + [_I] * 2 + [_P],
     "ppt_bicgstab_cycle_grid": [_I, _P],
     "ppt_bicgstab_stencil": [_P] * 15 + [_I] * 4 + [_D] * 2 + [_P],
@@ -73,7 +74,9 @@ _SIGNATURES = {
     "ppt_gmres_cycle": [_P] * 14 + [_I] * 3 + [_P],
     "ppt_gmres_cycle_grid": [_I, _P],
     "ppt_rachford_rice": [_P] * 9 + [_I, _L, _I, _D, _P],
-    "ppt_interp_lookup": [_P] * 7 + [_I, _L, _I, _P],
+    # A launch table of int64 words in host memory (ops.InterpLauncher).
+    "ppt_interp_dual": [_P, _P],
+    "ppt_interp_dual_words": [],
     "ppt_block_inverse": [_P] * 3 + [_I, _I, _P],
     "ppt_halo_interior": [_P] * 7 + [_I] * 4 + [_P],
     "ppt_halo_boundary": [_P] * 6 + [_I] * 4 + [_P],
@@ -96,9 +99,9 @@ _SIGNATURES = {
 # K16, K17 and K18 are float64 only; the flow steps' solves and
 # linearizations (K12, K13) take both.
 _F64_ONLY = (
-    "ppt_region_solve", "ppt_bicgstab_cycle", "ppt_bicgstab_cycle_grid",
+    "ppt_region_solve", "ppt_region_solve_route", "ppt_bicgstab_cycle", "ppt_bicgstab_cycle_grid",
     "ppt_gmres_cycle", "ppt_gmres_cycle_grid",
-    "ppt_rachford_rice", "ppt_interp_lookup", "ppt_block_inverse",
+    "ppt_rachford_rice", "ppt_interp_dual", "ppt_interp_dual_words", "ppt_block_inverse",
     "ppt_upwind_dual", "ppt_upwind_dual_words",
     "ppt_segment_sum_sorted", "ppt_tpfa_ad_dual", "ppt_tpfa_ad_dual_words",
     "ppt_dual_ew", "ppt_dual_gather_value", "ppt_dual_seed_rows", "ppt_dual_gather_copy",

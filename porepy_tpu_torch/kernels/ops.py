@@ -69,8 +69,11 @@ __all__ = [
     "K18A",
     "K18B",
     "rachford_rice",
+    "region_solve_route",
     "interp_lookup",
     "interp_tangent",
+    "InterpLauncher",
+    "interp_launcher",
     "block_inverse",
     "HaloOperator",
     "UPWIND_KINDS",
@@ -190,6 +193,28 @@ def _launch(name: str, dtype: torch.dtype, *args, count_as: str = "") -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     LAUNCHES[count_as or name] += 1
+
+
+class _Bound:
+    """Objects made once per set of tensors (a launcher, a geometry) and
+    found again by the tensors' pointers, shapes, dtypes, devices and
+    versions. An entry holds its tensors, so that no other tensor takes
+    their memory while it lives; beyond ``size`` entries the oldest goes."""
+
+    def __init__(self, make, size: int = 64) -> None:
+        self._make, self._size, self._entries = make, size, {}
+
+    def __call__(self, *tensors):
+        key = tuple(
+            None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype, t.device, t._version)
+            for t in tensors
+        )
+        hit = self._entries.get(key)
+        if hit is None:
+            if len(self._entries) >= self._size:
+                self._entries.pop(next(iter(self._entries)))
+            hit = self._entries[key] = (self._make(*tensors), tensors)
+        return hit[0]
 
 
 # -- K1 ---------------------------------------------------------------------------
@@ -1042,17 +1067,36 @@ class FlowCycle:
 
 # -- K10 --------------------------------------------------------------------------
 
-# Dynamic shared memory the region-solve and block-inverse kernels may take
-# (``kSmemMax`` in ``csrc/region_solve.cu`` and ``csrc/block_inverse.cu``);
-# larger systems work from a device workspace.
+# Dynamic shared memory the block-inverse kernel may take (``kSmemMax`` in
+# ``csrc/block_inverse.cu``; the same in ``csrc/region_solve.cu``, which
+# states its own routes); larger systems work from a device workspace.
 _SMEM_MAX = 231424
+
+
+#: K10's routes by their number in ``csrc/region_solve.cu`` (``route``).
+_REGION_ROUTES = ("warp", "block16", "shared", "workspace")
+
+
+def region_solve_route(n: int, m: int) -> str:
+    """The route K10 takes for regions of size ``n`` with ``m`` right-hand
+    sides, as the kernel library states it (``route`` in
+    ``csrc/region_solve.cu``; the first call builds the library): a warp a
+    region with ``[A | RHS]`` in registers, a block of 16 x 16 threads with A
+    in registers and the RHS in shared memory, else ``[A | RHS]`` in shared
+    memory or, where that does not fit, in a device workspace that the
+    wrapper allocates."""
+    return _REGION_ROUTES[_kernel("region_solve_route", torch.float64)(n, m)]
 
 
 @torch.library.custom_op("porepy_tpu_torch::region_solve", mutates_args=())
 def region_solve(a: torch.Tensor, rhs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``W @ solve(A / s, RHS / s)`` per region, ``s`` the row maxima of
-    ``|A|`` (see :func:`porepy_tpu_torch.kernels.reference.region_solve_contract`);
-    ``(B, n, n)``, ``(B, n, m)``, ``(B, q, n)`` float64 in, ``(B, q, m)`` out."""
+    ``|A|``; ``(B, n, n)``, ``(B, n, m)``, ``(B, q, n)`` float64 in, ``(B, q,
+    m)`` out. On the card the kernel equals
+    :func:`porepy_tpu_torch.kernels.reference.region_solve_ordered` to the
+    bit; on the CPU this runs
+    :func:`~porepy_tpu_torch.kernels.reference.region_solve_contract`
+    (``torch.linalg.solve``, within 1e-12 of it)."""
     return reference.region_solve_contract(a, rhs, w)
 
 
@@ -1071,7 +1115,7 @@ def _region_solve_cuda(a, rhs, w):
     if out.numel() == 0:
         return out
     work = None
-    if 8 * n * (n + m + 1) > _SMEM_MAX:
+    if region_solve_route(n, m) == "workspace":
         work = torch.empty((B, n, n + m), dtype=a.dtype, device=a.device)
     _launch(
         "region_solve", a.dtype,
@@ -1269,36 +1313,156 @@ def _(zs, K, max_iter, tol):
 
 # -- K16 --------------------------------------------------------------------------
 
+# The launch table's words (csrc/interp_lookup.cu, Word): the head written
+# once a launcher, the words of a call.
+_INTERP_HEAD = 14  # kD .. kStride0 + 2
+_INTERP_CALL = 13  # kN .. kOut
 
-def _interp_cuda(values, fgeom, igeom, x, dx):
-    d, n = x.shape
-    if not 1 <= d <= 3:
-        raise ValueError(f"interp_lookup: {d} parameters, the kernel takes 1 to 3")
-    if any(t.dtype != torch.float64 for t in (values, fgeom, x)) or igeom.dtype != torch.int32 or (
-        dx is not None and dx.dtype != torch.float64
-    ):
-        raise TypeError("interp_lookup: needs float64 values, fgeom, x, dx and int32 igeom")
-    if values.dim() != 1 or fgeom.shape != (2 * d,) or igeom.shape != (2 * d,):
-        raise ValueError("interp_lookup: needs flat values, fgeom = [low, h], igeom = [npt, strides]")
-    tensors = {"values": values, "fgeom": fgeom, "igeom": igeom, "x": x}
-    if dx is not None:
-        if dx.dim() != 3 or dx.shape[1:] != (d, n):
-            raise ValueError("interp_lookup: dx must be (B, d, N)")
-        tensors["dx"] = dx
-    _check("interp_lookup", tensors, torch.float64)
-    if dx is None:
-        out = torch.empty(n, dtype=x.dtype, device=x.device)
-        ptrs = (0, out.data_ptr(), 0, 0)
-    else:
-        out = torch.empty((dx.shape[0], n), dtype=x.dtype, device=x.device)
-        ptrs = (dx.data_ptr(), 0, out.data_ptr(), dx.shape[0])
-    dx_ptr, out_ptr, dout_ptr, batch = ptrs
-    _launch(
-        "interp_lookup", torch.float64,
-        values.data_ptr(), fgeom.data_ptr(), igeom.data_ptr(), x.data_ptr(),
-        dx_ptr or None, out_ptr or None, dout_ptr or None, d, n, batch,
-    )
-    return out
+
+class InterpLauncher:
+    """K16's one kernel for one table on one device: flat float64
+    ``values``, ``fgeom = [low, h]`` float64 and ``igeom = [npt, strides]``
+    int32 (``d <= 3`` parameters on the card). ``launcher(xs, tans=None)``
+    returns the ``(1 + B, N)`` rows of
+    :func:`porepy_tpu_torch.kernels.reference.interp_dual`: the lookup at the
+    points whose ``d`` coordinates are the ``(N,)`` tensors ``xs``, then its
+    tangents for ``tans``, one ``(B, N)`` tensor with unit-stride rows a
+    coordinate (``None``: a constant coordinate); ``tans`` ``None`` (or all
+    ``None``): the value alone, ``(1, N)``.
+
+    On the card it is one launch of ``interp_dual`` (``csrc/interp_lookup.cu``)
+    reading the corner-block table (:func:`reference.corner_table`, ``2^d``
+    times the flat table). At the first call on the card the table is
+    checked, the corner table built and the launch table's head written
+    (``low``, ``h``, ``npt`` and the cell strides as words); a call checks
+    the coordinates and tangents, allocates the buffer and makes one ctypes
+    call. :meth:`rows` is the same launch for the value alone ``(N,)`` or the
+    tangent rows alone ``(B, N)`` (the ``torch.func`` route's operators). On
+    the CPU the call runs the plain version on the flat table; on a CUDA
+    tensor the kernel launches or the call raises. Counted under
+    ``interp_lookup``."""
+
+    __slots__ = ("values", "fgeom", "igeom", "d", "_fn", "_dev", "_table", "_corners")
+
+    def __init__(self, values: torch.Tensor, fgeom: torch.Tensor, igeom: torch.Tensor) -> None:
+        d = igeom.shape[0] // 2 if igeom.dim() == 1 else 0
+        if values.dim() != 1 or d < 1 or fgeom.shape != (2 * d,) or igeom.shape != (2 * d,):
+            raise ValueError("interp_lookup: needs flat values, fgeom = [low, h], igeom = [npt, strides]")
+        if values.dtype != torch.float64 or fgeom.dtype != torch.float64 or igeom.dtype != torch.int32:
+            raise TypeError("interp_lookup: needs float64 values and fgeom, int32 igeom")
+        self.values, self.fgeom, self.igeom, self.d = values, fgeom, igeom, d
+        self._fn = None
+        self._dev = None
+        self._corners = None
+
+    def corners(self) -> tuple:
+        """``(corners, cgeom)`` of :func:`reference.corner_table` on the
+        table's device, made once."""
+        if self._corners is None:
+            self._corners = reference.corner_table(self.values, self.igeom)
+        return self._corners
+
+    def _bind(self, dev: int) -> None:
+        d = self.d
+        if dev < 0:
+            raise ValueError("interp_lookup: the kernel takes CUDA tensors")
+        if not 1 <= d <= 3:
+            raise ValueError(f"interp_lookup: {d} parameters, the kernel takes 1 to 3")
+        tensors = {"values": self.values, "fgeom": self.fgeom, "igeom": self.igeom}
+        _check("interp_lookup", tensors, torch.float64)
+        if any(t.get_device() != dev for t in tensors.values()):
+            raise ValueError(f"interp_lookup: the table is not on card {dev}")
+        words = _kernel("interp_dual_words", torch.float64)()
+        if words != _INTERP_HEAD + _INTERP_CALL:
+            raise RuntimeError(f"interp_lookup: the kernel's launch table has {words} words, expected "
+                               f"{_INTERP_HEAD + _INTERP_CALL}")
+        corners, cgeom = self.corners()
+        geom = self.fgeom.tolist()
+        ints = cgeom.tolist()
+        pad = 3 - d
+        table = (ctypes.c_longlong * words)()
+        table[0], table[1] = d, corners.data_ptr()
+        struct.pack_into("6d", table, 16, *geom[:d], *[0.0] * pad, *geom[d:], *[1.0] * pad)
+        table[8:14] = [*ints[:d], *[2] * pad, *ints[d:], *[0] * pad]
+        self._table, self._dev = table, dev
+        self._fn = _kernel("interp_dual", torch.float64)
+
+    def __call__(self, xs, tans=None) -> torch.Tensor:
+        if not xs[0].is_cuda:
+            return reference.interp_dual(self.values, self.fgeom, self.igeom, xs, tans)
+        return self._launch(xs, tans, True)
+
+    def rows(self, xs, tans=None) -> torch.Tensor:
+        """The value ``(N,)`` (``tans`` ``None``) or the tangent rows alone
+        ``(B, N)``."""
+        if tans is not None and all(t is None for t in tans):
+            raise ValueError("interp_lookup: needs at least one tangent")
+        if not xs[0].is_cuda:
+            out = self(xs, tans)
+            return out[0] if tans is None else out[1:]
+        out = self._launch(xs, tans, tans is None)
+        return out[0] if tans is None else out
+
+    def _launch(self, xs, tans, value: bool) -> torch.Tensor:
+        x0 = xs[0]
+        dev = x0.get_device()
+        if self._fn is None:
+            self._bind(dev)
+        elif dev != self._dev:
+            raise ValueError(f"interp_lookup: the points are on card {dev}, the table on card {self._dev}")
+        d = self.d
+        if len(xs) != d or (tans is not None and len(tans) != d):
+            raise ValueError(f"interp_lookup: the table takes {d} coordinates")
+        n = x0.shape[0] if x0.dim() == 1 else -1
+        words = [0] * 9  # coordinates, tangents, the tangents' row strides
+        for k, x in enumerate(xs):
+            if x.dtype is not torch.float64 or x.get_device() != dev or x.shape != (n,) or (
+                n > 1 and x.stride(0) != 1
+            ):
+                raise ValueError(f"interp_lookup: coordinate {k} must be a unit-stride float64 ({n},) "
+                                 f"tensor on card {dev}")
+            words[k] = x.data_ptr()
+        batch = 0
+        if tans is not None:
+            for k, t in enumerate(tans):
+                if t is None:
+                    continue
+                if t.dtype is not torch.float64 or t.get_device() != dev or t.dim() != 2 or (
+                    t.shape[1] != n or (batch and t.shape[0] != batch) or (n > 1 and t.stride(1) != 1)
+                ):
+                    raise ValueError(f"interp_lookup: tangent {k} must be a float64 (B, {n}) tensor with "
+                                     f"unit-stride rows on card {dev}, one B for all")
+                batch = t.shape[0]
+                words[3 + k] = t.data_ptr()
+                words[6 + k] = t.stride(0)
+        vrow = 1 if value else 0
+        buf = x0.new_empty((vrow + batch, n))
+        if n and vrow + batch:
+            table = self._table
+            struct.pack_into("13q", table, 8 * _INTERP_HEAD, n, vrow, batch, *words, buf.data_ptr())
+            rc = self._fn(table, _current_stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"interp_lookup kernel launch failed with CUDA error {rc}")
+            LAUNCHES["interp_lookup"] += 1
+        return buf
+
+
+_INTERP_LAUNCHERS = _Bound(InterpLauncher)
+
+
+def interp_launcher(values: torch.Tensor, fgeom: torch.Tensor, igeom: torch.Tensor) -> InterpLauncher:
+    """The :class:`InterpLauncher` of these table tensors, made once and
+    found again by their pointers."""
+    return _INTERP_LAUNCHERS(values, fgeom, igeom)
+
+
+def _interp_rows(values, fgeom, igeom, x, dx):
+    if x.dim() != 2 or x.dtype != torch.float64:
+        raise ValueError("interp_lookup: x must be a float64 (d, N) tensor")
+    if dx is not None and (dx.dim() != 3 or dx.shape[1:] != x.shape):
+        raise ValueError("interp_lookup: dx must be (B, d, N)")
+    tans = None if dx is None else list(dx.unbind(1))
+    return interp_launcher(values, fgeom, igeom).rows(list(x.unbind(0)), tans)
 
 
 @torch.library.custom_op("porepy_tpu_torch::interp_lookup", mutates_args=())
@@ -1306,13 +1470,14 @@ def interp_lookup(
     values: torch.Tensor, fgeom: torch.Tensor, igeom: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:
     """Multilinear table lookup at the points ``x`` ``(d, N)``, ``d <= 3``;
-    ``fgeom = [low, h]`` float64, ``igeom = [npt, strides]`` int32."""
+    ``fgeom = [low, h]`` float64, ``igeom = [npt, strides]`` int32. On the
+    card the value row of one ``interp_dual`` launch (:class:`InterpLauncher`)."""
     return reference.interp_lookup(values, fgeom, igeom, x)
 
 
 @interp_lookup.register_kernel("cuda")
 def _interp_lookup_cuda(values, fgeom, igeom, x):
-    return _interp_cuda(values, fgeom, igeom, x, None)
+    return _interp_rows(values, fgeom, igeom, x, None)
 
 
 @interp_lookup.register_fake
@@ -1326,14 +1491,14 @@ def interp_tangent(
     dx: torch.Tensor,
 ) -> torch.Tensor:
     """Tangents ``(B, N)`` of :func:`interp_lookup` at ``x`` for the seeds
-    ``dx`` ``(B, d, N)``; the same kernel as the lookup, so its launches
-    count under ``interp_lookup``."""
+    ``dx`` ``(B, d, N)``; on the card the tangent rows of one
+    ``interp_dual`` launch, counted under ``interp_lookup``."""
     return reference.interp_tangent(values, fgeom, igeom, x, dx)
 
 
 @interp_tangent.register_kernel("cuda")
 def _interp_tangent_cuda(values, fgeom, igeom, x, dx):
-    return _interp_cuda(values, fgeom, igeom, x, dx)
+    return _interp_rows(values, fgeom, igeom, x, dx)
 
 
 @interp_tangent.register_fake
@@ -1558,28 +1723,6 @@ def _check_upwind_geometry(name, nf, lo, hi, is_dir, is_neu, sgn_div=None):
         if t.shape != (nf,):
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected ({nf},)")
     _check(name, tensors, torch.float64)
-
-
-class _Bound:
-    """Objects made once per set of tensors (a launcher, a geometry) and
-    found again by the tensors' pointers, shapes, dtypes, devices and
-    versions. An entry holds its tensors, so that no other tensor takes
-    their memory while it lives; beyond ``size`` entries the oldest goes."""
-
-    def __init__(self, make, size: int = 64) -> None:
-        self._make, self._size, self._entries = make, size, {}
-
-    def __call__(self, *tensors):
-        key = tuple(
-            None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype, t.device, t._version)
-            for t in tensors
-        )
-        hit = self._entries.get(key)
-        if hit is None:
-            if len(self._entries) >= self._size:
-                self._entries.pop(next(iter(self._entries)))
-            hit = self._entries[key] = (self._make(*tensors), tensors)
-        return hit[0]
 
 
 #: The functions of K15's one kernel (``csrc/upwind.cu``, ``Mode``).

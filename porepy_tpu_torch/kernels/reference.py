@@ -29,6 +29,7 @@ __all__ = [
     "tpfa_jvp",
     "tpfa_linearize",
     "region_solve_contract",
+    "region_solve_ordered",
     "KRYLOV_BLOCK",
     "block_partials",
     "finish",
@@ -60,6 +61,9 @@ __all__ = [
     "same_bits",
     "FLASH_RING",
     "interp_lookup",
+    "interp_tangent",
+    "corner_table",
+    "interp_dual",
     "block_inverse",
     "halo_pack",
     "ell_spmv_split",
@@ -396,6 +400,40 @@ def region_solve_contract(a: torch.Tensor, rhs: torch.Tensor, w: torch.Tensor) -
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     x = torch.linalg.solve(a / scale, rhs / scale)
     return w @ x
+
+
+def region_solve_ordered(a: torch.Tensor, rhs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`region_solve_contract` with the kernel's operations in the
+    kernel's order, so that the two agree to the bit: rows of ``[A | RHS]``
+    divided by their scale; per column ``k`` the first row ``i >= k`` of
+    largest ``|M[i, k]|`` (NaN the largest) swapped into row ``k``, the
+    multipliers ``M[i, k] / M[k, k]`` and ``M[i, j] - l_i M[k, j]`` (product
+    and difference rounded apart) for the rows below and the columns right
+    of ``k``; back substitution column by column from the last row, ``x_k =
+    y_k / u_kk``, then ``y_i - u_ik x_k`` above it; ``OUT = W X`` as a sum
+    over ``j`` ascending from 0.0, each product rounded before it is added.
+    A zero pivot leaves inf/NaN, as the LU does."""
+    B, n, _ = a.shape
+    scale = a.abs().amax(dim=2, keepdim=True)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    M = torch.cat([a / scale, rhs / scale], dim=2)
+    batch = torch.arange(B, device=a.device)
+    for k in range(n):
+        p = k + torch.argmax(M[:, k:, k].abs(), dim=1)
+        row_k = M[:, k].clone()
+        M[:, k] = M[batch, p]
+        M[batch, p] = row_k
+        lk = M[:, k + 1 :, k] / M[:, k, k : k + 1]
+        M[:, k + 1 :, k + 1 :] = M[:, k + 1 :, k + 1 :] - lk[:, :, None] * M[:, None, k, k + 1 :]
+    for k in range(n - 1, -1, -1):
+        x = M[:, k, n:] / M[:, k, k : k + 1]
+        M[:, k, n:] = x
+        M[:, :k, n:] = M[:, :k, n:] - M[:, :k, k : k + 1] * x[:, None, :]
+    X = M[:, :, n:]
+    out = torch.zeros((B, w.shape[1], rhs.shape[2]), dtype=a.dtype, device=a.device)
+    for j in range(n):
+        out = out + w[:, :, j : j + 1] * X[:, None, j, :]
+    return out
 
 
 # -- K18 --------------------------------------------------------------------------
@@ -1051,6 +1089,55 @@ def interp_tangent(values, fgeom, igeom, x, dx):
             dw = dw + term
         out = out + dw * v
     return out
+
+
+def corner_table(values, igeom):
+    """The corner-block table that K16's kernel reads in place of a flat
+    table (``igeom = [npt, strides]``, ``npt >= 2`` on every axis):
+    ``(corners, cgeom)``, ``corners`` of shape
+    ``(prod(npt - 1), 2^d)`` holding each cell's ``2^d`` corner values
+    contiguous in ``itertools.product`` order (the first axis's bit the most
+    significant), cells numbered with the first axis fastest, and ``cgeom =
+    [npt, cell strides]`` (int32). It holds ``2^d`` times the flat table's
+    entries, less the last point of each axis."""
+    d = igeom.shape[0] // 2
+    npt, strides = igeom[:d].long(), igeom[d:].long()
+    cells = (npt - 1).tolist()
+    if min(cells) < 1:
+        raise ValueError(f"corner_table: needs at least 2 points per axis, got {npt.tolist()}")
+    cstride = [1]
+    for c in cells[:-1]:
+        cstride.append(cstride[-1] * c)
+    grids = torch.meshgrid(*(torch.arange(c, device=values.device) for c in cells), indexing="ij")
+    base = [g.permute(*reversed(range(d))).reshape(-1) for g in grids]  # first axis fastest
+    corners = torch.stack(
+        [
+            values[sum((base[k] + ((c >> (d - 1 - k)) & 1)) * strides[k] for k in range(d))]
+            for c in range(1 << d)
+        ],
+        dim=1,
+    )
+    cgeom = torch.tensor(npt.tolist() + cstride, dtype=torch.int32, device=igeom.device)
+    return corners.contiguous(), cgeom
+
+
+def interp_dual(values, fgeom, igeom, xs, tans=None):
+    """Value and tangents of the multilinear lookup in one ``(1 + B, N)``
+    tensor: row 0 :func:`interp_lookup` at the points whose ``d``
+    coordinates are the ``(N,)`` tensors ``xs``, rows ``1 ..``
+    :func:`interp_tangent` for ``tans``, one ``(B, N)`` tensor a coordinate
+    (``None``: a constant coordinate, its seed rows zero) or ``tans``
+    ``None`` (the value alone, ``(1, N)``). The kernel computes the same rows
+    from the corner-block table (:func:`corner_table`) to the bit: a constant
+    coordinate's tangent is 0.0 divided by ``h`` and multiplied through
+    there, as a zero seed row is here."""
+    x = torch.stack(list(xs))
+    val = interp_lookup(values, fgeom, igeom, x)[None]
+    if tans is None or all(t is None for t in tans):
+        return val
+    zeros = x.new_zeros(next(t.shape for t in tans if t is not None))
+    dx = torch.stack([zeros if t is None else t for t in tans], dim=1)
+    return torch.cat([val, interp_tangent(values, fgeom, igeom, x, dx)])
 
 
 # -- K11 --------------------------------------------------------------------------

@@ -192,10 +192,11 @@ class InterpolatedFunction(Function):
     extrapolation outside the table), with piecewise-constant multilinear
     gradients. The lookup and its forward-mode tangents run in the K16
     kernel (``kernels/csrc/interp_lookup.cu``, ``d <= 3`` on the card), the
-    plain version on the CPU: called directly by the function's dual rule in
-    the assembly, and through an autograd Function where ``torch.func``
-    differentiates the traced residual. The table follows the argument's
-    device on first use.
+    plain version on the CPU: the function's dual rule in the assembly is one
+    launch of the table's launcher for the value and every tangent; where
+    ``torch.func`` differentiates the traced residual, an autograd Function
+    launches the value or the tangent rows alone. The table follows the
+    argument's device on first use.
     """
 
     def __init__(
@@ -240,33 +241,33 @@ class InterpolatedFunction(Function):
             return _InterpLookup.apply(c["values"], c["fgeom"], c["igeom"], x)
 
         def dual_rule(run, *duals):
-            c = self.device_table(duals[0].val.device)
-            vals = [torch.atleast_1d(d.val) for d in duals]
-            x = torch.stack(vals).contiguous()
-            val = kernels.interp_lookup(c["values"], c["fgeom"], c["igeom"], x)
+            # One launch: the value in row 0, the tangents below it; a
+            # constant argument's tangent is None, no rows are stacked.
+            launcher = self.device_table(duals[0].val.device)["launcher"]
+            xs = [torch.atleast_1d(d.val).contiguous() for d in duals]
             if all(d.tan is None for d in duals):
-                return forward.Dual(val)
-            # (B, d, N) seeds; a constant argument's rows are zero.
-            zeros = None
-            rows = []
-            for d, v in zip(duals, vals):
-                if d.tan is None:
-                    if zeros is None:
-                        zeros = v.new_zeros((run.batch, v.shape[0]))
-                    rows.append(zeros)
-                else:
-                    rows.append(d.tan)
-            dx = torch.stack(rows, dim=1).contiguous()
-            tan = kernels.interp_tangent(c["values"], c["fgeom"], c["igeom"], x, dx)
-            return forward.Dual(val, tan)
+                return forward.Dual(launcher(xs)[0])
+            # The kernel reads (B, N) tangents by unit-stride rows; a CSR
+            # projection's tangent comes transposed and is copied.
+            tans = [d.tan if d.tan is None or d.tan.stride(1) == 1 else d.tan.contiguous() for d in duals]
+            buf = launcher(xs, tans)
+            return forward.Dual(buf[0], buf[1:])
 
         super().__init__(lookup, name, dual_rule=dual_rule)
 
     def device_table(self, device) -> dict:
         """The K16 inputs on ``device``: flat ``values``, ``fgeom = [low, h]``
-        (float64) and ``igeom = [npt, strides]`` (int32), copied once."""
+        (float64) and ``igeom = [npt, strides]`` (int32), copied once, and
+        their :class:`~porepy_tpu_torch.kernels.InterpLauncher` (which builds
+        the corner-block table, ``2^d`` times the flat one, at its first
+        call)."""
         dev = torch.device(device)
         c = self._on_device.get(dev)
         if c is None:
-            c = self._on_device[dev] = {k: v.to(dev) for k, v in self._host.items()}
+            # Made outside any torch.func transform: a copy made inside one
+            # is a wrapper without storage, which no launcher can point at.
+            with torch._C._DisableFuncTorch():
+                c = {k: v.to(dev) for k, v in self._host.items()}
+                c["launcher"] = kernels.interp_launcher(c["values"], c["fgeom"], c["igeom"])
+            self._on_device[dev] = c
         return c

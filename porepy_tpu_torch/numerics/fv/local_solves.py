@@ -12,10 +12,11 @@ as in ``porepy_tpu``:
 
 - the default, the host: ``np.linalg.solve`` (LAPACK) on the stacked
   batch, one ``dgesv`` per region, then a stacked GEMM;
-- ``PPT_LOCAL_SOLVE_DEVICE=1``, the card: the chunk is copied to the
-  first CUDA device and solved there by the hand-written batched LU and
-  contraction of :func:`porepy_tpu_torch.kernels.region_solve` (K10), in
-  f64; its output comes back for the host scatter. Without CUDA this
+- ``PPT_LOCAL_SOLVE_DEVICE=1``, the card: the chunk is built in
+  page-locked memory, copied to the first CUDA device without blocking and
+  solved there by the hand-written batched LU and contraction of
+  :func:`porepy_tpu_torch.kernels.region_solve` (K10), in f64; its output
+  comes back through a pinned buffer for the host scatter. Without CUDA this
   raises: it never falls back to the host.
 
 Discretization is one-time setup; the per-Newton-iteration path (assembly
@@ -77,12 +78,44 @@ class RegionBatches:
     w_val: np.ndarray
 
 
-def _dense_batch(B, nrows, ncols, region_of, local_of, row, col, val, dtype):
+def _dense_batch(B, nrows, ncols, region_of, local_of, row, col, val, dtype, pinned=False):
     """Scatter triplets into a (B, nrows, ncols) dense batch (host numpy —
-    cheap integer work)."""
-    out = np.zeros((B, nrows, ncols), dtype=dtype)
+    cheap integer work); with ``pinned``, the numpy view of a zeroed
+    page-locked tensor, which the device route copies asynchronously."""
+    if pinned:
+        out = torch.zeros((B, nrows, ncols), dtype=torch.float64, pin_memory=True).numpy()
+    else:
+        out = np.zeros((B, nrows, ncols), dtype=dtype)
     np.add.at(out, (local_of[region_of], row, col), val)
     return out
+
+
+def _pinned_route() -> bool:
+    """Whether the chunks are built in page-locked memory: the device route
+    on a card (the host route and the CPU plain version need none)."""
+    return _use_device() and torch.cuda.is_available()
+
+
+def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``x`` on ``dev``: an asynchronous copy from page-locked memory (a
+    pinned batch from :func:`_dense_batch`), else an ordinary one."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type == "cuda":
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _to_host(out: torch.Tensor) -> np.ndarray:
+    """``out`` as numpy: from a card into a page-locked buffer, one
+    synchronization of the device's current stream."""
+    if out.device.type != "cuda":
+        return out.numpy()
+    back = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    back.copy_(out, non_blocking=True)
+    torch.cuda.current_stream(out.device).synchronize()
+    return back.numpy()
 
 
 def _use_device() -> bool:
@@ -141,17 +174,19 @@ def _shard_batch(a_dense, rhs_dense, w_dense):
         w_dense = np.concatenate([w_dense, np.zeros((pad,) + w_dense.shape[1:])])
     per = (B + pad) // mesh.size
     rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
-    put = lambda x: torch.from_numpy(np.ascontiguousarray(x[rows])).to(mesh.device)
-    return put(a_dense), put(rhs_dense), put(w_dense), pad
+    return (*(_to_device(x[rows], torch.device(mesh.device)) for x in (a_dense, rhs_dense, w_dense)), pad)
 
 
 def _solve_chunk_device(a_dense, rhs_dense, w_dense, device=None):
     """The chunk on ``device`` (default: the first CUDA device, which must
     exist) through the K10 operator: f64 LU with partial pivoting of the
     row-equilibrated systems and the contraction, as the host route
-    computes them. On a CUDA device the kernel runs; on an explicit CPU
-    device its plain version. With a batch mesh set, each rank solves its
-    slice on the mesh's device and the whole result is gathered."""
+    computes them. On a CUDA device the kernel runs, the batch copied from
+    page-locked memory (the chunk's pinned buffers, or a pinned copy) without
+    blocking and the result brought back into a pinned buffer, one
+    synchronization a chunk; on an explicit CPU device its plain version.
+    With a batch mesh set, each rank solves its slice on the mesh's device
+    and the whole result is gathered."""
     from porepy_tpu_torch.kernels import ops
     from porepy_tpu_torch.utils import device_policy
 
@@ -163,11 +198,11 @@ def _solve_chunk_device(a_dense, rhs_dense, w_dense, device=None):
         out = ops.region_solve(a, rhs, w)
         parts = [torch.empty_like(out) for _ in range(mesh.size)]
         dist.all_gather(parts, out, group=mesh.group)
-        out = torch.cat(parts).cpu().numpy()
+        out = _to_host(torch.cat(parts))
         return out[: out.shape[0] - pad] if pad else out
     dev = device_policy.accelerator() if device is None else torch.device(device)
-    a, rhs, w = (torch.from_numpy(x).to(dev) for x in (a_dense, rhs_dense, w_dense))
-    return ops.region_solve(a, rhs, w).cpu().numpy()
+    a, rhs, w = (_to_device(x, dev) for x in (a_dense, rhs_dense, w_dense))
+    return _to_host(ops.region_solve(a, rhs, w))
 
 
 def _solve_chunk(a_dense, rhs_dense, w_dense):
@@ -275,11 +310,12 @@ def iter_solve_and_contract(
             rr, rrow, rcol, rval = gather(r_ptr, r_reg, r_row, r_col, r_val)
             wr, wrow, wcol, wval = gather(w_ptr, w_reg, w_row, w_col, w_val)
 
-            a_dense = _dense_batch(B, n, n, ar, local, arow, acol, aval, float)
+            pinned = _pinned_route()
+            a_dense = _dense_batch(B, n, n, ar, local, arow, acol, aval, float, pinned)
             rhs_dense = _dense_batch(
-                B, n, m_max, rr, local, rrow, rcol, rval, float)
+                B, n, m_max, rr, local, rrow, rcol, rval, float, pinned)
             w_dense = _dense_batch(
-                B, q_max, n, wr, local, wrow, wcol, wval, float)
+                B, q_max, n, wr, local, wrow, wcol, wval, float, pinned)
 
             out = _solve_chunk(a_dense, rhs_dense, w_dense)  # (B, q_max, m_max)
 
