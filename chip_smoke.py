@@ -16,7 +16,12 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    operator give the same bits, and its epilogue ``c -/+ A x`` the bits of
    the product followed by the torch subtraction or addition. The same for
    the structured (K12) and unstructured (K13) flow-step residuals and
-   tangents at 32^3 (32,768 cells, 101,376 faces), in f64 and f32. Inside
+   tangents at 32^3 (32,768 cells, 101,376 faces), in f64 and f32, with
+   the four residual/tangent kernels' device us by graph replay and K12's
+   Newton-step launches (the residual that writes the densities, the
+   refinement round ``c - J(p) dx``) against their plain versions and ``-r -
+   structured_jvp``, to the bit
+   (``applications/benchmarking/structured_refine_check.py``). Inside
    phases 4 and 24 (3c): K1 at md 1/128's Jacobian (f32, B = 1, the
    solve's shape; f64, B = 17) and md 1/256's (f64, B = 17), with and
    without the epilogue, against the plain version; device microseconds a
@@ -52,7 +57,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    as the parent's (8; Krylov within one a solve of its 64), a finite state, pressure
    within the boundary data's range [0, 1], and the last step re-checked
    on the host with the plain path: its residual, and one more Newton
-   increment (a direct solve) within the Newton tolerance;
+   increment (a direct solve) within the Newton tolerance; K5 (ms a solve
+   by events, the card's busy share of one) and K7 (device us an apply by
+   graph replay, host us) at the final Newton system;
 5. run md at 1/16 on the card and on the host (plain path) and compare
    the final states (1e-8 max abs);
 6. run the 3d case at 32^3 (32,768 dofs) for 26 steps with dense frozen
@@ -85,9 +92,14 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    step (K13) on the same problem (1e-4 abs from the structured one). Each
    step linearizes once (``structured_linearize``/``tpfa_linearize``) and
    solves by ``FlowCycle`` (two cooperative launches a solve): the gates are
-   3 ``structured_jvp`` launches a structured step and no ``tpfa_jvp``, 2
+   one residual (it writes the densities too) and 3 ``structured_refine``
+   launches a structured step, no ``structured_jvp`` and no ``tpfa_jvp``, 2
    cycle launches a solve, one linearization a step, and one host read a
-   solve (CUDA's sync debug mode counts them); then ms per Newton step by
+   solve (CUDA's sync debug mode counts them); a refinement round and 7
+   chained steps in turns with the parent's route (``structured_jvp`` and
+   two torch operations a round): the same bits, the same iteration
+   counts, device and host us a round, ms a step, and the residual's and
+   the refinement's launches a step (5 against 11); then ms per Newton step by
    this route and by the route it replaced (a host BiCGStab loop over the
    jvp launches, ``old_structured_newton_step``/``old_tpfa_newton_step``),
    in turns; 10b. at 32^3, in f32 and f64, for the stencil and for TPFA,
@@ -239,12 +251,17 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    (plain path; 1e-10 and 1e-8 of the largest entry), one more host Newton
    increment <= 1e-10, and the assembly in turns as in phase 20;
 22. hold the kernels of the hand-written forward-mode assembly (K8:
-   ``dual_ew``, ``dual_gather``, ``jac_gather``) against their plain
-   versions at the md 1/128 shapes (18,157 unknowns, 16,969 cells, 16 seeds,
-   90,261 nonzeros): values and tangents within 1e-13 of the largest entry
+   ``dual_ew``, ``dual_gather``, and ``dual_ew_scatter``, each equation's
+   root writing its nonzeros and right-hand side rows) against their plain
+   versions at the md 1/128 shapes (18,157 unknowns, 16,969 cells, 16 seeds):
+   values and tangents within 1e-13 of the largest entry
    (the gathers equal), the same bits from two launches, CUDA-event times,
-   the bound (bytes read once and written once over 3.35 TB/s),
-   ``jac_gather``'s device us by graph replay; the two
+   the bound (bytes read once and written once over 3.35 TB/s); md 1/128's
+   own roots (inside phase 4) against their plain version to the bit and
+   against the parent's route (the roots in ``dual_ew``'s row layout, then
+   the parent's ``jac_gather``, built from
+   ``applications/benchmarking/parent_jac_gather/``), device us by graph
+   replay and host us in turns; the two
    gathers through their per-step launchers (``DualGatherVar``: tangent
    rows written once, then the value row alone; ``DualGatherCopy``), through
    the functional wrappers and by ``index_select`` x2 + ``cat`` in turns,
@@ -256,8 +273,12 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    (md 1/256 included), inside its phase: every call of a K8 wrapper in one
    assembly and one residual of the case, with the programs and gather
    indices of its compiled equations, is repeated through the plain version
-   on the same inputs (1e-13 of the largest entry, NaN in the same places);
-   at md 1/128 the 61 ``dual_ew`` calls of one assembly are printed as a
+   on the same inputs (1e-13 of the largest entry, NaN in the same places;
+   md 1/128's root scatters to the bit), and one assembly and residual by
+   the parent's route, to the bit, with the assembly in turns (least and
+   median of 20, host us) and the launches of one assembly by route (md
+   1/128, md 1/256, tracer 1/64, biot 1/64, ``DarcysLawAd`` 1/128, 3d 32^3);
+   at md 1/128 the 59 ``dual_ew`` calls of one assembly are printed as a
    histogram of (instructions, inputs, n, B) with the most slots a tape
    needs, and their device us (graph replay) and host us summed.
    In phase 13 the contact case's residual must launch ``dual_ew`` as often
@@ -268,8 +289,11 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    1/64, tracer 1/64 and ``DarcysLawAd`` 1/128, inside their phases: both
    results within 1e-12 of the largest entry, median ms of each turn, the
    launches of one assembly by kernel, and the nodes without a dual rule per
-   equation, which must be 0 (md 1/128: 108 launches an assembly, 61 of them
-   ``dual_ew``, 3 of K15, one a rule; tracer 1/64: 6 of K15); for tracer and
+   equation, which must be 0 (md 1/128: 107 launches an assembly, 59 of them
+   ``dual_ew`` and 2 root scatters, 3 of K15, one a rule; tracer 1/64: 6 of
+   K15; one root scatter an equation, no ``jac_gather``), and each route's
+   difference from the functorch route, the parent's and this one's, which
+   must not grow; for tracer and
    ``DarcysLawAd`` phase 20's and 21's turns now time the dual route through
    the K15/K14 kernels against the same route through their plain versions,
    and ``DarcysLawAd``'s functorch assembly is timed with its K14 launchers
@@ -316,7 +340,9 @@ MD_KERNELS = ("ell_spmv", "amg_vcycle", "fgmres_arnoldi")
 # recorded in PERF.md): this route keeps the Newton counts and moves a
 # solve's Krylov count by at most one.
 PARENT_BLOCKS = {"": (8, 64), "md256": (8, 72)}
-K8_KERNELS = ("dual_ew", "dual_gather", "jac_gather")
+K8_KERNELS = ("dual_ew", "dual_gather", "dual_ew_scatter")
+# The parents' kernels of the yardsticks (built once, in main).
+_PARENT: dict = {}
 DENSE_KERNELS = ("dense_block_scatter", "gj_pivot_inverse", "dense_block_apply")
 N3D = 32
 # The least time of a kernel's work: its bytes (each input read once, each
@@ -583,6 +609,56 @@ def timed_model(base):
     return Timed
 
 
+def retime_solver(model, label: str, repeats: int = 10) -> dict:
+    """K5 and K7 re-timed at the model's final Newton system (their times
+    dated from PRs 1-2): ms a K5 solve (``solve_device``, CUDA events over
+    ``repeats`` solves, and the host clock), the card's busy share of one
+    solve (``torch.profiler``'s device time over the host clock), and a K7
+    apply (the block preconditioner on an f32 vector, as the solve calls it):
+    device us by graph replay, host us a call, ms by events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eq_sys = model.equation_system
+    data, rhs = eq_sys.compiled_system().assemble(eq_sys)
+    solver = next(iter(model._device_solvers.values()))
+    solver.solve_device(data, rhs)
+    solve_ms = _cuda_ms(lambda: solver.solve_device(data, rhs), repeats=repeats)
+    iters = solver.last_stats["krylov_iters"]
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        solver.solve_device(data, rhs)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - tic))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        solver.solve_device(data, rhs)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - tic)
+    device_ms = 1e-3 * sum(
+        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) for e in prof.key_averages()
+    )
+    r = torch.randn(solver.n, generator=torch.Generator().manual_seed(5), dtype=torch.float64).to(
+        torch.float32).to(data.device)
+
+    def apply():
+        return solver._m_apply(solver._m_state, r)
+
+    out = {
+        "solve_ms": solve_ms, "solve_wall_ms": [float(np.min(walls)), float(np.median(walls))],
+        "krylov_iters": iters, "busy_ms": device_ms, "traced_ms": traced_ms,
+        "apply_device_us": _graph_us(apply, mode="relaxed"), "apply_host_us": _host_us(apply),
+        "apply_ms": _cuda_ms(apply),
+    }
+    print(f"  K5 at {label}'s final Newton system: {out['solve_ms']:.3f} ms a solve by events ({iters} Krylov "
+          f"iterations), host clock least / median {out['solve_wall_ms']}; the card busy {device_ms:.3f} ms of a "
+          f"traced solve's {traced_ms:.3f} ms; K7, an apply: device {out['apply_device_us']:.2f} us (graph replay), "
+          f"host {out['apply_host_us']:.2f} us a call, {out['apply_ms']:.4f} ms by events")
+    return out
+
+
 def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = False) -> dict:
     """Phase 4: md at ``cell_size``; phase 24 with ``case="md256"`` (class
     and parameters as ``cases.build_case`` takes them), once more through the
@@ -685,6 +761,8 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
         out["k1"] = {"f64 B17": check_k1_at(label, val, col, 17, 71)}
         if not case:
             out["k1"]["f32 B1"] = check_k1_at(label, val.to(torch.float32), col, 1, 70)
+            print(f"phase 4: K5 and K7 re-timed at {name}'s final state")
+            out["retime"] = retime_solver(model, name)
         print(f"phase 3c: K3 at {name}'s hierarchy (the final state's)")
         out["k3"] = vcycle_times(solver, name)
         if not case:
@@ -781,6 +859,15 @@ def check_flow_kernels(dev) -> dict:
                         # densities, the divergence, the accumulation).
                         flops=40 * n_cells,
                     )
+    # The flow steps' four residual/tangent kernels' device us (graph replay), and the Newton step's
+    # residual with its densities and refinement round against their plain
+    # versions and the route they replaced, to the bit
+    # (applications/benchmarking/structured_refine_check.py).
+    from porepy_tpu_torch.applications.benchmarking import structured_refine_check as src
+
+    report["flow_kernels"] = src.flow_kernels(dev, N3D)
+    bits = src.check_launches(ks, dev)
+    _require(all(bits.values()), f"K12's launches against their plain versions: {bits}")
     return report
 
 
@@ -1262,16 +1349,18 @@ def run_flow_steps(dev) -> dict:
     err = float(np.abs(finals[0] - q3).max())
     print(f"  max |structured - unstructured| {err:.3e}")
     _require(err < 1e-4, f"structured and unstructured differ by {err}")
-    for key, names in (("structured_launches", ("structured_residual", "structured_jvp", "structured_linearize",
+    for key, names in (("structured_launches", ("structured_residual", "structured_refine", "structured_linearize",
                                                 "bicgstab_stencil")),
                        ("tpfa_launches", ("tpfa_residual", "tpfa_linearize", "bicgstab_tpfa"))):
         print(f"  kernel launches ({key[:-9]} run): {out[key]}")
         _require(all(out[key][k] > 0 for k in names), f"{names} not launched: {out[key]}")
-    # One linearization and, a solve, two cycle launches; the refinement's
-    # three f64 jvps a structured step, no jvp in the unstructured one.
+    # One linearization and, a solve, two cycle launches; one residual (with
+    # its densities) and the three rounds' refinement launches a structured
+    # step, no jvp in either step.
     s, u = out["structured_steps"], out["tpfa_steps"]
     ls, lu = out["structured_launches"], out["tpfa_launches"]
-    want = {"structured_jvp": 3 * s, "structured_linearize": s, "bicgstab_stencil": 2 * 4 * s,
+    want = {"structured_residual": s, "structured_refine": 3 * s, "structured_jvp": 0,
+            "structured_linearize": s, "bicgstab_stencil": 2 * 4 * s,
             "tpfa_jvp": 0, "tpfa_linearize": u, "bicgstab_tpfa": 2 * u}
     got = {k: (ls if k.startswith(("structured", "bicgstab_stencil")) else lu)[k] for k in want}
     print(f"  launches in {s} structured and {u} unstructured Newton steps: {got} (expected {want})")
@@ -1281,6 +1370,20 @@ def run_flow_steps(dev) -> dict:
     print(f"  host reads in one Newton step (sync debug mode): {reads} (4 and 1 solves)")
     _require(reads == {"structured": 4, "unstructured": 1}, f"host reads a step {reads}, expected one a solve")
     out["reads"] = reads
+
+    # The refinement round and the step against the parent's route (a
+    # structured_jvp and two torch operations a round), in turns: the bits,
+    # the counts and the launches of a step.
+    from porepy_tpu_torch.applications.benchmarking import structured_refine_check as src
+
+    out["round"] = src.round_in_turns(card_kernel, dev)
+    out["parent_steps"] = src.steps_in_turns(card_kernel, dev)
+    _require(out["round"]["equal"], "a refinement round differs from the parent's")
+    _require(out["parent_steps"]["equal"] and out["parent_steps"]["same_iterations"],
+             "the structured steps differ from the parent route's")
+    refinement = {r: k["refinement_launches"] for r, k in out["parent_steps"]["step_kernels"].items()}
+    print(f"  launches a structured step of the residual and the refinement: {refinement} (5 and 11 expected)")
+    _require(refinement == {"new": 5, "parent": 11}, f"a structured step's refinement launches {refinement}")
 
     # The route before (host BiCGStab loops over the jvp launches) and this
     # one, in turns, 5 chained steps from p = 2e5 each.
@@ -2669,10 +2772,11 @@ def _launches_of_block():
 def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13, capture=None) -> dict:
     """Phase 22 at a case's own shapes: one assembly of the compiled system
     ``cs`` in which every call of a K8 wrapper (the equations' fused programs
-    on their fields, the gathers of their unknowns and concatenations, the
-    gather into the nonzero order with the system's own indices) is repeated
-    through its plain version on the same inputs and held against it (``tol``
-    of the largest entry). The largest error by kernel."""
+    on their fields, the gathers of their unknowns and concatenations, each
+    root's scatter into the nonzeros and the right-hand side with the
+    system's own indices) is repeated through its plain version on the same
+    inputs and held against it (``tol`` of the largest entry; the roots of md
+    1/128 to the bit). The largest error by kernel."""
     from porepy_tpu_torch import kernels
     from porepy_tpu_torch.kernels import ops, reference
 
@@ -2712,11 +2816,29 @@ def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13, capture=
              x, self.idx, colors, batch if colors is not None else 0)),
         (ops.DualGatherCopy, "__call__", "dual_gather", copy_call,
          lambda self, pieces, batch: reference.dual_gather_copy(pieces, batch)),
-        (kernels, "jac_gather", "jac_gather", kernels.jac_gather, reference.jac_gather),
     ]
+    scatter = ops.DualEwLauncher.scatter
+    bits = {"dual_ew_scatter": True}
+
+    def scatter_held(self, inputs, batch, target, data, rhs):
+        scatter(self, inputs, batch, target, data, rhs)
+        prog = self.program
+        want_v, want_d = reference.dual_ew_scatter(prog.instrs, prog.imm, inputs, batch, target.gather_color,
+                                                   target.gather_row)
+        pairs = [(rhs[target.row_off:target.row_off + target.rows], want_v)]
+        if batch:
+            pairs.append((data[target.nnz_off:target.nnz_off + target.nnz], want_d))
+        for got, want in pairs:
+            if want.numel():
+                bits["dual_ew_scatter"] &= bool(torch.equal(got, want))
+                errs["dual_ew_scatter"] = max(errs["dual_ew_scatter"], _rel_err(got, want))
+        calls["dual_ew_scatter"] += 1
+
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _name, _kernel, _plain in patches]
+    originals.append((ops.DualEwLauncher, "scatter", scatter))
     for mod, attr, name, kernel, plain in patches:
         setattr(mod, attr, held(name, kernel, plain))
+    ops.DualEwLauncher.scatter = scatter_held
     try:
         with _launches_of_block():
             cs.assemble(eq_sys)
@@ -2729,11 +2851,15 @@ def _k8_calls_against_plain(cs, eq_sys, label: str, tol: float = 1e-13, capture=
             setattr(mod, attr, original)
     print(
         f"  phase 22 at the {label} shapes: the K8 calls of one assembly and one residual against their "
-        f"plain versions on the same inputs: calls {calls}, largest error over the largest entry {errs}"
+        f"plain versions on the same inputs: calls {calls}, largest error over the largest entry {errs}; "
+        f"the root scatters {'equal to the bit' if bits['dual_ew_scatter'] else 'not equal to the bit'}"
     )
-    _require(all(calls[k] > 0 for k in ("dual_ew", "dual_gather")), f"{label}: a K8 wrapper was not called: {calls}")
-    _require(calls["jac_gather"] > 0, f"{label}: jac_gather was not called")
+    _require(all(calls[k] > 0 for k in K8_KERNELS), f"{label}: a K8 wrapper was not called: {calls}")
+    _require(calls["dual_ew_scatter"] == 2 * len(cs.ces), f"{label}: {calls['dual_ew_scatter']} root scatters "
+             f"for {len(cs.ces)} equations in an assembly and a residual")
     _require(max(errs.values()) <= tol, f"{label}: a K8 kernel disagrees with its plain version: {errs}")
+    if label == "md":
+        _require(bits["dual_ew_scatter"], "md: a root scatter differs from its plain version")
     return errs
 
 
@@ -2777,10 +2903,15 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
         f"nodes without a dual rule {ruleless}"
     )
     _require(not any(ruleless.values()), f"{label}: nodes without a dual rule: {ruleless}")
+    # Each equation's root writes its nonzeros and rows: one scatter launch
+    # an equation, no separate gather.
+    _require(per_assembly.get("dual_ew_scatter") == len(cs.ces) and "jac_gather" not in per_assembly,
+             f"{label}: {per_assembly.get('dual_ew_scatter')} root scatters for {len(cs.ces)} equations")
     if label == "md":
-        # md 1/128's assembly: 108 launches, 61 of them dual_ew, 3 K15 (one
-        # a rule: the flux and twice the interface, its product inside).
-        _require(sum(per_assembly.values()) == 108 and per_assembly.get("dual_ew") == 61,
+        # md 1/128's assembly: 107 launches, 59 dual_ew and the 2 roots'
+        # scatters, 3 K15 (one a rule: the flux and twice the interface,
+        # its product inside).
+        _require(sum(per_assembly.values()) == 107 and per_assembly.get("dual_ew") == 59,
                  f"md: {sum(per_assembly.values())} launches an assembly, dual_ew {per_assembly.get('dual_ew')}")
     if label in ("md", "tracer"):
         k15 = per_assembly.get("upwind_flux", 0) + per_assembly.get("upwind_select", 0)
@@ -2788,6 +2919,7 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
     capture = [] if label == "md" else None
     k8_err = _k8_calls_against_plain(cs, eq_sys, label, capture=capture)
     out = {"turns": turns, "launches": per_assembly, "err": max(errs), "k8_err": k8_err}
+    out.update(_scatter_against_parent(cs, eq_sys, label, results))
     if label == "DarcysLawAd":
         out["functorch_binding"] = _functorch_binding_in_turns(cs, eq_sys, results["dual"], repeats)
     if capture:
@@ -2797,6 +2929,59 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
         from porepy_tpu_torch.applications.benchmarking.dual_pivot_check import check_case_programs
 
         out["dual_ew_programs"] = check_case_programs(f"phase 22 at the {label} shapes", capture, None)
+    return out
+
+
+def _scatter_against_parent(cs, eq_sys, label: str, results: dict) -> dict:
+    """Phase 22 and 23 at a case's shapes against the parent's route (each
+    root in ``dual_ew``'s row layout, then the parent's ``jac_gather``):
+    one assembly and residual by both routes to the bit, the assembly in
+    turns (least and median of 20, host us) with the launches of one
+    assembly by route, and the distance of each route from the functorch
+    route (phase 23's difference, before and after: it must not grow). At
+    md 1/128, the roots' scatter launches against their plain version to the
+    bit and their device us by graph replay in turns with the parent's pair
+    (``applications/benchmarking/root_scatter_check.py``)."""
+    from porepy_tpu_torch.applications.benchmarking import root_scatter_check as rsc
+    from porepy_tpu_torch.kernels import reference
+
+    parent = _PARENT["k8"]
+    asm = rsc.assembly_in_turns(cs, eq_sys, parent, f"phase 23, {label}", repeats=20)
+    _require(asm["equal"], f"{label}: the root scatter's assembly differs from the parent route's")
+    _require(asm["launches"]["new"].get("dual_ew_scatter") == len(cs.ces), f"{label}: {asm['launches']['new']}")
+    with rsc.parent_route(parent):
+        before = cs.assemble(eq_sys)
+    diff = {
+        "before": max(_rel_err(a, b) for a, b in zip(before, results["functorch"])),
+        "after": max(_rel_err(a, b) for a, b in zip(results["dual"], results["functorch"])),
+    }
+    print(f"  phase 23, {label}: the K8 pass against the functorch route, largest difference over the largest "
+          f"entry: the parent's route {diff['before']:.3e}, the root scatter {diff['after']:.3e}")
+    _require(diff["after"] <= diff["before"], f"{label}: the difference from the functorch route grew: {diff}")
+    out = {"parent_turns": asm, "functorch_diff": diff}
+    if label == "md":
+        calls = rsc.capture_roots(cs, eq_sys)
+        plain = rsc.check_roots(calls, f"phase 22, {label}")
+        _require(plain["equal"], f"{label}: a root scatter differs from its plain version")
+        roots = rsc.roots_in_turns(calls, parent, cs, f"phase 22, {label}")
+        _require(roots["equal"], f"{label}: the roots by both routes differ")
+        # The line's shape: the mass balance's root, one launch.
+        launcher, inputs, batch, target = calls[0]
+        data = torch.empty(cs._nnz_offsets[-1], dtype=torch.float64, device=inputs[0][0].device)
+        rhs = torch.empty(cs.num_rows, dtype=torch.float64, device=data.device)
+        prog = launcher.program
+
+        def one():
+            launcher.scatter(inputs, batch, target, data, rhs)
+
+        roots["line"] = {
+            "err": 0.0 if plain["equal"] else plain["err"], "ms": _cuda_ms(one), "device_us": _graph_us(one),
+            "plain_ms": _cuda_ms(lambda: reference.dual_ew_scatter(prog.instrs, prog.imm, inputs, batch,
+                                                                   target.gather_color, target.gather_row)),
+            "bytes": rsc.root_bytes(calls[:1]), "flops": (target.nnz + target.rows) * 3 * len(prog.instrs),
+            "library_ms": None,
+        }
+        out["roots"] = roots
     return out
 
 
@@ -3070,14 +3255,15 @@ def run_darcy_ad(dev, cell_size: float = 1.0 / 128) -> dict:
 
 
 def check_dual_kernels(dev) -> dict:
-    """Phase 22: ``dual_ew``, ``dual_gather`` and ``jac_gather`` against their
-    plain versions at the md 1/128 shapes, 16 seeds."""
+    """Phase 22: ``dual_ew`` and ``dual_gather`` against their plain
+    versions at the md 1/128 shapes, 16 seeds (the roots' scatter at md
+    1/128's own roots, inside phase 4: ``_scatter_against_parent``)."""
     from porepy_tpu_torch.applications.benchmarking import dual_pivot_check
     from porepy_tpu_torch.kernels import ops, reference
 
     print("phase 22: the K8 kernels at the md 1/128 shapes, 16 seeds")
     B, tol = 16, 1e-13
-    ndof, nc, nm, nnz = N_ROWS, 16969, 1188, 90261
+    ndof, nc, nm = N_ROWS, 16969, 1188
     rng = np.random.default_rng(22)
     f64 = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
     report = {}
@@ -3181,50 +3367,7 @@ def check_dual_kernels(dev) -> dict:
         "turns": turns, "host_us": host_us,
     }
 
-    # The two md equations' compressed blocks into nonzero order.
-    rows = (nc, nm)
-    n_colors = (11, 5)
-    nnz_off, row_off = [0, nnz - 4 * nm, nnz], [0, nc, nc + nm]
-    vals = [f64(rng.standard_normal(n)) for n in rows]
-    tans = [f64(rng.standard_normal((b, n))) for b, n in zip(n_colors, rows)]
-    gc = np.concatenate([rng.integers(0, b, nnz_off[e + 1] - nnz_off[e]) for e, b in enumerate(n_colors)])
-    rj = np.concatenate([rng.integers(0, n, nnz_off[e + 1] - nnz_off[e]) for e, n in enumerate(rows)])
-    gc_t = torch.tensor(gc, dtype=torch.int32, device=dev)
-    rj_t = torch.tensor(rj, dtype=torch.int32, device=dev)
-
-    def jac(mod):
-        return mod.jac_gather(vals, tans, gc_t, rj_t, nnz_off, row_off)
-
-    got, want = jac(ops), jac(reference)
-    _require(all(torch.equal(a, b) for a, b in zip(got, want)), "jac_gather disagrees with its plain version")
-    _require(
-        torch.equal(ops.jac_gather(vals, [tans[0], None], gc_t, rj_t, nnz_off, row_off)[0],
-                    reference.jac_gather(vals, [tans[0], None], gc_t, rj_t, nnz_off, row_off)[0]),
-        "jac_gather with an equation that has no tangent",
-    )
-    _same_bits("jac_gather", lambda: torch.cat(jac(ops)))
-    print(f"  jac_gather: {nnz} nonzeros and {nc + nm} residual rows of two equations: equal to the plain version")
-    flat = [
-        torch.tensor(gc[nnz_off[e]:nnz_off[e + 1]] * rows[e] + rj[nnz_off[e]:nnz_off[e + 1]], device=dev)
-        for e in range(2)
-    ]
-
-    def jac_library():
-        data = torch.cat([t.reshape(-1).index_select(0, f) for t, f in zip(tans, flat)])
-        return data, -torch.cat(vals)
-
-    report["jac_gather"] = {
-        "err": 0.0, "ms": _cuda_ms(lambda: jac(ops)), "plain_ms": _cuda_ms(lambda: jac(reference)),
-        # Each nonzero: two int32 indices read, one value read and written;
-        # the residual read and written.
-        "bytes": nnz * (4 + 4 + 8 + 8) + 2 * 8 * (nc + nm),
-        "flops": nnz + nc + nm, "library_ms": _cuda_ms(jac_library),
-        # By graph replay, for the ranking of the kernels by device time.
-        "device_us": _graph_us(lambda: jac(ops)),
-    }
-    print(f"  jac_gather: device {report['jac_gather']['device_us']:.2f} us a launch (graph replay), bound "
-          f"{1e6 * report['jac_gather']['bytes'] / 3.35e12:.3f} us")
-    for name in K8_KERNELS:
+    for name in ("dual_ew", "dual_gather"):
         r = report[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
     return report
@@ -3244,8 +3387,15 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"phase 1: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
 
+    from porepy_tpu_torch.applications.benchmarking import root_scatter_check
+
+    # The parent's K8 gather (the yardstick of the roots' scatter) builds
+    # beside the library.
+    parent_dir = tempfile.TemporaryDirectory()
+    parent_build = root_scatter_check.start_build(parent_dir.name)
     build.library()
     print(f"phase 2: kernels built in {build.build_seconds():.2f} s")
+    _PARENT["k8"] = root_scatter_check.ParentJacGather(parent_dir.name, parent_build)
 
     report = check_kernels(dev)
     report.update(check_flow_kernels(dev))
@@ -3289,6 +3439,14 @@ def main() -> int:
     md256 = run_md256(dev)
     print(f"phases 22 and 24 took {time.perf_counter() - tic:.1f} s")
 
+    # The roots' scatter in the line: md 1/128's mass-balance root, one
+    # launch (phase 4); its error the largest over every case's roots.
+    report["dual_ew_scatter"] = md["routes"]["roots"]["line"]
+    # K12's refinement launch in the line: phase 10's round at 32^3 (f64).
+    fr = flow["round"]
+    report["structured_refine"] = {"err": 0.0, "ms": fr["ms"], "plain_ms": fr["plain_ms"], "library_ms": None,
+                                   "bytes": fr["bytes"], "flops": 60 * 32768,
+                                   "device_us": min(fr["turns"]["new"]["device_us"])}
     # The K8 kernels' error: the largest of phase 22's and of every case's
     # own calls (phase 22 at the cases' shapes).
     for r in (md, d3_amg, biot, tracer_dense, darcy_ad, md256):
@@ -3337,7 +3495,12 @@ def main() -> int:
         "gj_pivot_inverse": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:104", d3["launches"]["gj_pivot_inverse"]),
         "dense_block_apply": ("dense_block.cu", "porepy_tpu/numerics/linalg/device_solver.py:702", d3["launches"]["dense_block_apply"]),
         "structured_residual": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:69", flow["structured_launches"]["structured_residual"]),
+        # The structured Newton step no longer launches structured_jvp (its
+        # refinement is structured_refine): 0 launches on the path, checked
+        # in phase 10; its times are phase 3b's.
         "structured_jvp": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:116", flow["structured_launches"]["structured_jvp"]),
+        "structured_refine": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:140",
+                              flow["structured_launches"]["structured_refine"]),
         "tpfa_residual": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:72", flow["tpfa_launches"]["tpfa_residual"]),
         # The unstructured Newton step no longer launches tpfa_jvp (its
         # solve is bicgstab_tpfa): 0 launches on the path, checked in phase
@@ -3367,7 +3530,8 @@ def main() -> int:
         "segment_sum_sorted": ("tpfa_ad.cu", "porepy_tpu/numerics/fv/fv_mesh.py:129", darcy_ad["launches"]["segment_sum_sorted"]),
         "dual_ew": ("dual_ad.cu", "porepy_tpu/numerics/ad/equation_system.py:132", md256["launches"]["dual_ew"]),
         "dual_gather": ("dual_ad.cu", "porepy_tpu/numerics/ad/equation_system.py:132", md256["launches"]["dual_gather"]),
-        "jac_gather": ("dual_ad.cu", "porepy_tpu/numerics/ad/equation_system.py:132", md256["launches"]["jac_gather"]),
+        "dual_ew_scatter": ("dual_ad.cu", "porepy_tpu/numerics/ad/equation_system.py:134",
+                            md256["launches"]["dual_ew_scatter"]),
     }
     entries = []
     for k, (src, replaces, launches) in kernels.items():
@@ -3381,7 +3545,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
         })
         if k in ("gj_pivot_inverse", "dual_ew", "fgmres_arnoldi", "tpfa_ad_flux", "tpfa_ad_trace", "upwind_flux",
-                 "upwind_select", "jac_gather", "region_solve", "interp_lookup"):
+                 "upwind_select", "dual_ew_scatter", "structured_refine", "region_solve", "interp_lookup"):
             entries[-1]["device_us"] = r["device_us"]
     kernels_line = {"kernels": entries}
     print(
@@ -3501,8 +3665,31 @@ def main() -> int:
     r = report["upwind_flux"]["synthetic"]
     print(f"upwind_flux at the synthetic tracer 1/64 shapes, 16 seeds (the entry points' value and tangent "
           f"launches) on {smi}: device {r['device_us']:.2f} us (graph replay), bound {1e6 * r['bytes'] / 3.35e12:.3f} us")
-    print(f"jac_gather at its phase 22 shapes on {smi}: device {report['jac_gather']['device_us']:.2f} us (graph "
-          f"replay), bound {1e6 * report['jac_gather']['bytes'] / 3.35e12:.3f} us")
+    ro = md["routes"]["roots"]
+    print(f"K8's roots at md 1/128 (the gather inside each root's launch) on {smi}, in turns: device us (graph "
+          f"replay) scatter {ro['turns']['new']['device_us']}, parent (rows + jac_gather) "
+          f"{ro['turns']['parent']['device_us']}; host us {ro['turns']['new']['host_us']} / "
+          f"{ro['turns']['parent']['host_us']}; bound {ro['bound_us']:.3f} us; plain {ro['plain_ms']:.4f} ms; the "
+          f"gather by index_select x2 + cat x2 + negation {ro['library_ms']:.4f} ms ({ro['library_device_us']:.2f} us "
+          f"device)")
+    for tag, r in (("md 1/128", md), ("md 1/256", md256), ("tracer 1/64", tracer_dense), ("biot 1/64", biot),
+                   ("DarcysLawAd 1/128", darcy_ad), ("3d 32^3", d3_amg)):
+        t = r["routes"]["parent_turns"]
+        print(f"{tag} assembly on {smi}, the roots' scatter against the parent's route in turns: least ms "
+              f"{t['turns']['new']['least']} / {t['turns']['parent']['least']}, median {t['turns']['new']['median']} / "
+              f"{t['turns']['parent']['median']}, host us {t['turns']['new']['host_us']} / "
+              f"{t['turns']['parent']['host_us']}; launches an assembly {sum(t['launches']['new'].values())} "
+              f"{t['launches']['new']} / {sum(t['launches']['parent'].values())}; from the functorch route "
+              f"{r['routes']['functorch_diff']}")
+    rt = md["retime"]
+    print(f"K5/K7/K9 at md 1/128 on {smi}: a solve {rt['solve_ms']:.3f} ms by events ({rt['krylov_iters']} Krylov), "
+          f"card busy {rt['busy_ms']:.3f} of {rt['traced_ms']:.3f} ms traced; a K7 apply {rt['apply_device_us']:.2f} "
+          f"us device, {rt['apply_host_us']:.2f} us host; {md['ms_per_newton']:.2f} ms per Newton iteration")
+    fr, fs = flow["round"], flow["parent_steps"]
+    print(f"K12 refinement round at 32^3 on {smi}, in turns: device us {fr['turns']['new']['device_us']} against the "
+          f"parent's {fr['turns']['parent']['device_us']}, host us {fr['turns']['new']['host_us']} / "
+          f"{fr['turns']['parent']['host_us']}; a structured step {fs['ms']['new']} / {fs['ms']['parent']} ms; the "
+          f"residual/tangent kernels' device us {dict((k, round(v['device_us'], 2)) for k, v in report['flow_kernels'].items())}")
     for k, us in (("upwind_select", report["upwind_select"]["synthetic"]["device_us"]),
                   ("segment_sum_sorted", report["segment_sum_sorted"]["device_us"])):
         print(f"{k} at its phase 19 synthetic shapes on {smi}, device us (graph replay, in turns): kernel "

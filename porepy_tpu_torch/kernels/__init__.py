@@ -17,6 +17,9 @@ K6        :func:`gj_pivot_inverse`       ``numerics/linalg/device_solver.py:104`
 K6        :func:`dense_block_apply`      ``numerics/linalg/device_solver.py:702-706``
 K12       :func:`structured_residual`    ``parallel/structured_flow.py:69-100``
 K12       :func:`structured_jvp`         ``parallel/structured_flow.py:116,124`` (linearize)
+K12       :class:`StructuredLauncher`    ``parallel/structured_flow.py:116,140-143`` (the Newton
+                                         step's residual with its densities, and a refinement
+                                         round's ``-r - J dx``, one launch each)
 K12       :func:`structured_linearize`,  ``parallel/structured_flow.py:104-148`` (the Newton
           :class:`FlowCycle`             step's jax BiCGStab on the linearized residual: a
                                          solve, two cooperative launches)
@@ -52,7 +55,9 @@ K14       :class:`TpfaAdLauncher`        ``models/darcys_law_ad.py:71-147`` (the
 K8        :class:`DualEwLauncher`,       ``numerics/ad/equation_system.py:132-135`` (the colored
           :class:`DualGatherVar`,        JVPs of one residual and the gather of the compressed
           :class:`DualGatherCopy`,       block into nonzero order), driven by the dual-number
-          :func:`jac_gather`             pass of ``numerics/ad/forward.py``; the functional
+          :class:`RootScatter`           pass of ``numerics/ad/forward.py``; each equation's
+                                         root writes its nonzeros and right-hand side rows
+                                         (``DualEwLauncher.scatter``); the functional
                                          :func:`dual_ew`, :func:`dual_gather_var`,
                                          :func:`dual_gather_copy`
 ========  =============================  =====================================================
@@ -81,6 +86,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     InterpLauncher,
     JacobiSweeps,
     rachford_rice,
+    RootScatter,
     DualProgram,
     DualEwLauncher,
     dense_block_apply,
@@ -94,13 +100,13 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     dual_gather_var,
     FgmresArnoldi,
     gj_pivot_inverse,
-    jac_gather,
     region_solve,
     region_solve_route,
     reset_launches,
     structured_jvp,
     structured_linearize,
     structured_residual,
+    StructuredLauncher,
     tpfa_jvp,
     tpfa_linearize,
     tpfa_residual,

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "ppt_dense_block_apply": [_P, _P, _P, _I, _I, _P],
     "ppt_structured_residual": [_P] * 11 + [_I] * 3 + [_P],
     "ppt_structured_jvp": [_P] * 11 + [_I] * 3 + [_P],
+    "ppt_structured_residual_rho": [_P] * 12 + [_I] * 3 + [_P],
+    "ppt_structured_refine": [_P] * 13 + [_I] * 3 + [_P],
     "ppt_tpfa_residual": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_tpfa_jvp": [_P] * 13 + [_I] * 2 + [_P],
     "ppt_region_solve": [_P] * 5 + [_I] * 4 + [_P],
@@ -93,7 +95,6 @@ _SIGNATURES = {
     "ppt_dual_gather_value": [_P, _P, _P, _I, _P],
     "ppt_dual_seed_rows": [_P, _P, _P, _I, _I, _P],
     "ppt_dual_gather_copy": [_P, _P, _I, _P, _L, _I, _P],
-    "ppt_jac_gather": [_P, _P, _I, _P, _P, _P, _P, _P],
 }
 # The dtypes each kernel is built for (default: both). K8, K10, K11, K14, K15,
 # K16, K17 and K18 are float64 only; the flow steps' solves and
@@ -105,7 +106,6 @@ _F64_ONLY = (
     "ppt_upwind_dual", "ppt_upwind_dual_words",
     "ppt_segment_sum_sorted", "ppt_tpfa_ad_dual", "ppt_tpfa_ad_dual_words",
     "ppt_dual_ew", "ppt_dual_gather_value", "ppt_dual_seed_rows", "ppt_dual_gather_copy",
-    "ppt_jac_gather",
 )
 _SUFFIXES = {name: ("_f64",) for name in _F64_ONLY}
 

@@ -24,6 +24,23 @@
 // transmissibilities per cell; ~100 B per cell in f64), and at 32^3 launch
 // latency.
 //
+// The Newton step's residual and refinement (newton_step, :116-143 of the
+// jax code: jax.linearize keeps the primal's densities for its tangent
+// map). ppt_structured_residual_rho is the residual launch that also
+// writes the cell densities rho(p) (one value a cell); ppt_structured_refine
+// writes out = c - J(p) dx in one launch, the interior neighbours' and the
+// cell's densities read from that buffer and exp evaluated only for the
+// Dirichlet ghosts, with c = -r computed once a step: a round of the step's
+// f64 iterative refinement is one launch that evaluates no exp for a cell.
+//
+// The faces' fused multiply-adds are written out where nvcc's default
+// contraction puts them (a product fused into the sum after it): a
+// divergence term F_lo - F_hi is fma(-w_hi, q_hi, w_lo q_lo), a face's
+// tangent dw q + w dq is fma(w, dq, dw q). So every instantiation rounds
+// alike whatever the compiler decides, the refinement's c - J dx is (-r)
+// - J dx to the bit, and the plain versions (kernels/reference.py, with
+// reference.fma) form the same roundings.
+//
 // ppt_structured_linearize writes J(p) once a linearization as the 7-point
 // stencil that bicgstab_kernel's StencilRows multiplies (krylov.cu), so the
 // Krylov loop only multiplies and adds and exp stays here: out is (7, n),
@@ -48,15 +65,32 @@ __device__ __forceinline__ T density(T p, T rho_ref, T comp, T p_ref) {
   return rho_ref * exp(comp * (p - p_ref));
 }
 
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// The upwind weight of a face and its flux q = t (p_lo - p_hi).
 template <typename T>
-__device__ __forceinline__ T mass_flux(T t, T plo, T phi, T rlo, T rhi,
-                                       T visc) {
-  const T q = t * (plo - phi);
-  const T w = (q >= T(0) ? rlo : rhi) / visc;
-  return w * q;
+__device__ __forceinline__ void face_flux(T t, T plo, T phi, T rlo, T rhi, T visc,
+                                          T& w, T& q) {
+  q = t * (plo - phi);
+  w = (q >= T(0) ? rlo : rhi) / visc;
 }
 
-// Tangent of mass_flux: d/ds of F(p + s dp) with the upwind side frozen.
+// A cell's divergence term along one axis: the mass flux w q of its low
+// face less that of its high face, F_lo - F_hi = fma(-w_hi, q_hi, w_lo q_lo).
+template <typename T>
+__device__ __forceinline__ T flux_difference(T tl, T pl, T pc, T ph, T th, T rl, T rc,
+                                             T rh, T visc) {
+  T wl, ql, wh, qh;
+  face_flux(tl, pl, pc, rl, rc, visc, wl, ql);
+  face_flux(th, pc, ph, rc, rh, visc, wh, qh);
+  return fma_rn(-wh, qh, mul_rn(wl, ql));
+}
+
+// Tangent of a face's mass flux: d/ds of F(p + s dp) with the upwind side
+// frozen, dw q + w dq = fma(w, dq, dw q).
 template <typename T>
 __device__ __forceinline__ T mass_flux_dot(T t, T plo, T phi, T dlo, T dhi,
                                            T rlo, T rhi, T drlo, T drhi,
@@ -66,13 +100,19 @@ __device__ __forceinline__ T mass_flux_dot(T t, T plo, T phi, T dlo, T dhi,
   const bool up = q >= T(0);
   const T w = (up ? rlo : rhi) / visc;
   const T dw = (up ? drlo : drhi) / visc;
-  return dw * q + w * dq;
+  return fma_rn(w, dq, mul_rn(dw, q));
 }
 
-// JVP = false: res at p with p_prev = q. JVP = true: J(p) q.
-template <typename T, bool JVP>
+enum Mode : int { kResidual = 0, kJvp = 1, kRefine = 2 };
+
+// kResidual: out = res at p with p_prev = q (and rho = rho(p) where rho is
+// not null). kJvp: out = J(p) q. kRefine: out = c - J(p) q with the cell
+// densities rho(p) read from rho (exp for the ghosts only).
+template <typename T, int MODE>
 __global__ void structured_kernel(const T* __restrict__ p,
                                   const T* __restrict__ q,
+                                  const T* __restrict__ c_in,
+                                  T* __restrict__ rho,
                                   const T* __restrict__ tx,
                                   const T* __restrict__ ty,
                                   const T* __restrict__ tz,
@@ -112,25 +152,26 @@ __global__ void structured_kernel(const T* __restrict__ p,
   const T tyl = ty[iy], tyh = ty[iy + nz];
   const T tzl = tz[iz], tzh = tz[iz + 1];
 
-  const T rc = density(pc, rho_ref, comp, p_ref);
-  const T rxl = density(pxl, rho_ref, comp, p_ref);
-  const T rxh = density(pxh, rho_ref, comp, p_ref);
-  const T ryl = density(pyl, rho_ref, comp, p_ref);
-  const T ryh = density(pyh, rho_ref, comp, p_ref);
-  const T rzl = density(pzl, rho_ref, comp, p_ref);
-  const T rzh = density(pzh, rho_ref, comp, p_ref);
+  // Densities: computed here, or, for the refinement, read from the
+  // residual launch's buffer wherever the neighbour is a cell.
+  const bool given = MODE == kRefine;
+  const T rc = given ? rho[c] : density(pc, rho_ref, comp, p_ref);
+  const T rxl = given && in_xl ? rho[c - syz] : density(pxl, rho_ref, comp, p_ref);
+  const T rxh = given && in_xh ? rho[c + syz] : density(pxh, rho_ref, comp, p_ref);
+  const T ryl = given && in_yl ? rho[c - nz] : density(pyl, rho_ref, comp, p_ref);
+  const T ryh = given && in_yh ? rho[c + nz] : density(pyh, rho_ref, comp, p_ref);
+  const T rzl = given && in_zl ? rho[c - 1] : density(pzl, rho_ref, comp, p_ref);
+  const T rzh = given && in_zh ? rho[c + 1] : density(pzh, rho_ref, comp, p_ref);
 
-  if (!JVP) {
+  if (MODE == kResidual) {
     const T div =
-        ((mass_flux(txl, pxl, pc, rxl, rc, visc) -
-          mass_flux(txh, pc, pxh, rc, rxh, visc)) +
-         (mass_flux(tyl, pyl, pc, ryl, rc, visc) -
-          mass_flux(tyh, pc, pyh, rc, ryh, visc))) +
-        (mass_flux(tzl, pzl, pc, rzl, rc, visc) -
-         mass_flux(tzh, pc, pzh, rc, rzh, visc));
+        (flux_difference(txl, pxl, pc, pxh, txh, rxl, rc, rxh, visc) +
+         flux_difference(tyl, pyl, pc, pyh, tyh, ryl, rc, ryh, visc)) +
+        flux_difference(tzl, pzl, pc, pzh, tzh, rzl, rc, rzh, visc);
     const T acc =
         pv[c] * (rc - density(q[c], rho_ref, comp, p_ref)) / dt;
     out[c] = acc - div;
+    if (rho != nullptr) rho[c] = rc;
   } else {
     const T dc = q[c];
     const T dxl = in_xl ? q[c - syz] : T(0);
@@ -151,7 +192,8 @@ __global__ void structured_kernel(const T* __restrict__ p,
           mass_flux_dot(tyh, pc, pyh, dc, dyh, rc, ryh, drc, dryh, visc))) +
         (mass_flux_dot(tzl, pzl, pc, dzl, dc, rzl, rc, drzl, drc, visc) -
          mass_flux_dot(tzh, pc, pzh, dc, dzh, rc, rzh, drc, drzh, visc));
-    out[c] = pv[c] * drc / dt - ddiv;
+    const T jv = pv[c] * drc / dt - ddiv;
+    out[c] = MODE == kRefine ? c_in[c] - jv : jv;
   }
 }
 
@@ -219,35 +261,65 @@ __global__ void structured_linearize_kernel(
   out[6 * n + c] = in_zh ? zh_hi : T(0);
 }
 
-template <typename T, bool JVP>
-int launch(const T* p, const T* q, const T* tx, const T* ty, const T* tz,
-           const T* pbc_x, const T* pbc_y, const T* pbc_z, const T* pv,
+template <typename T, int MODE>
+int launch(const T* p, const T* q, const T* c_in, T* rho, const T* tx, const T* ty,
+           const T* tz, const T* pbc_x, const T* pbc_y, const T* pbc_z, const T* pv,
            const T* coef, T* out, int nx, int ny, int nz, void* stream) {
   const int64_t n = (int64_t)nx * ny * nz;
   if (n == 0) return 0;
+  if (MODE == kRefine && (c_in == nullptr || rho == nullptr)) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
-  structured_kernel<T, JVP><<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-      p, q, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef, out, nx, ny, nz);
+  structured_kernel<T, MODE><<<(unsigned)blocks, threads, 0,
+                               (cudaStream_t)stream>>>(
+      p, q, c_in, rho, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef, out, nx, ny, nz);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define PPT_STRUCTURED(NAME, T, JVP)                                          \
+#define PPT_STRUCTURED(NAME, T, MODE)                                         \
   extern "C" int NAME(const T* p, const T* q, const T* tx, const T* ty,       \
                       const T* tz, const T* pbc_x, const T* pbc_y,            \
                       const T* pbc_z, const T* pv, const T* coef, T* out,     \
                       int nx, int ny, int nz, void* stream) {                 \
-    return launch<T, JVP>(p, q, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef,    \
-                          out, nx, ny, nz, stream);                           \
+    return launch<T, MODE>(p, q, nullptr, nullptr, tx, ty, tz, pbc_x, pbc_y,  \
+                           pbc_z, pv, coef, out, nx, ny, nz, stream);         \
   }
 
-PPT_STRUCTURED(ppt_structured_residual_f32, float, false)
-PPT_STRUCTURED(ppt_structured_residual_f64, double, false)
-PPT_STRUCTURED(ppt_structured_jvp_f32, float, true)
-PPT_STRUCTURED(ppt_structured_jvp_f64, double, true)
+PPT_STRUCTURED(ppt_structured_residual_f32, float, kResidual)
+PPT_STRUCTURED(ppt_structured_residual_f64, double, kResidual)
+PPT_STRUCTURED(ppt_structured_jvp_f32, float, kJvp)
+PPT_STRUCTURED(ppt_structured_jvp_f64, double, kJvp)
+
+// The residual and, into rho, the cell densities rho(p).
+#define PPT_STRUCTURED_RESIDUAL_RHO(NAME, T)                                  \
+  extern "C" int NAME(const T* p, const T* q, const T* tx, const T* ty,       \
+                      const T* tz, const T* pbc_x, const T* pbc_y,            \
+                      const T* pbc_z, const T* pv, const T* coef, T* out,     \
+                      T* rho, int nx, int ny, int nz, void* stream) {         \
+    if (rho == nullptr) return (int)cudaErrorInvalidValue;                    \
+    return launch<T, kResidual>(p, q, nullptr, rho, tx, ty, tz, pbc_x, pbc_y, \
+                                pbc_z, pv, coef, out, nx, ny, nz, stream);    \
+  }
+
+PPT_STRUCTURED_RESIDUAL_RHO(ppt_structured_residual_rho_f32, float)
+PPT_STRUCTURED_RESIDUAL_RHO(ppt_structured_residual_rho_f64, double)
+
+// out = c - J(p) dx, with rho the cell densities of the residual launch.
+#define PPT_STRUCTURED_REFINE(NAME, T)                                        \
+  extern "C" int NAME(const T* p, const T* dx, const T* c, const T* rho,      \
+                      const T* tx, const T* ty, const T* tz,                  \
+                      const T* pbc_x, const T* pbc_y, const T* pbc_z,         \
+                      const T* pv, const T* coef, T* out, int nx, int ny,     \
+                      int nz, void* stream) {                                 \
+    return launch<T, kRefine>(p, dx, c, const_cast<T*>(rho), tx, ty, tz,      \
+                              pbc_x, pbc_y, pbc_z, pv, coef, out, nx, ny, nz, \
+                              stream);                                        \
+  }
+
+PPT_STRUCTURED_REFINE(ppt_structured_refine_f32, float)
+PPT_STRUCTURED_REFINE(ppt_structured_refine_f64, double)
 
 #define PPT_STRUCTURED_LINEARIZE(NAME, T)                                     \
   extern "C" int NAME(const T* p, const T* tx, const T* ty, const T* tz,      \

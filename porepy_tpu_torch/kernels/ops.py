@@ -36,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import struct
 
+import numpy as np
 import torch
 
 from porepy_tpu_torch.kernels import reference
@@ -100,7 +101,8 @@ __all__ = [
     "DualGatherCopy",
     "dual_gather_var",
     "dual_gather_copy",
-    "jac_gather",
+    "RootScatter",
+    "StructuredLauncher",
 ]
 
 #: Kernel launches per operator since the last :func:`reset_launches`.
@@ -114,6 +116,7 @@ LAUNCHES = {
     "dense_block_apply": 0,
     "structured_residual": 0,
     "structured_jvp": 0,
+    "structured_refine": 0,
     "structured_linearize": 0,
     "bicgstab_stencil": 0,
     "tpfa_residual": 0,
@@ -135,7 +138,7 @@ LAUNCHES = {
     "tpfa_ad_trace": 0,
     "dual_ew": 0,
     "dual_gather": 0,
-    "jac_gather": 0,
+    "dual_ew_scatter": 0,
 }
 
 #: The operators of a BiCGStab solve (K18a) and of one GMRES(30) restart
@@ -814,6 +817,64 @@ def _structured_jvp_cuda(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
 @structured_jvp.register_fake
 def _(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
     return torch.empty_like(p)
+
+
+class StructuredLauncher:
+    """K12's Newton-step launches on one problem's arrays (``tx, ty, tz,
+    pbc_x, pbc_y, pbc_z, pv, coef``, checked once, here): :meth:`residual`
+    ``(r, rho)``, the residual and the cell densities ``rho(p)`` in one
+    launch (counted as ``structured_residual``), and :meth:`refine` ``c -
+    J(p) dx`` from those densities in one launch (``structured_refine``);
+    each a ctypes call. On the CPU the plain versions run
+    (:func:`~porepy_tpu_torch.kernels.reference.structured_residual_rho`,
+    :func:`~porepy_tpu_torch.kernels.reference.structured_refine`); on a
+    CUDA tensor the kernel launches or the call raises."""
+
+    __slots__ = ("arrays", "shape", "dtype", "_dev", "_ptrs", "_residual", "_refine")
+
+    def __init__(self, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef) -> None:
+        self.arrays = (tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef)
+        self.shape, self.dtype = tuple(pv.shape), pv.dtype
+        self._dev = None
+        if pv.is_cuda:
+            _structured_args("structured_residual", pv, pv, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef)
+            self._dev = pv.get_device()
+            self._ptrs = tuple(t.data_ptr() for t in self.arrays)
+            self._residual = _kernel("structured_residual_rho", self.dtype)
+            self._refine = _kernel("structured_refine", self.dtype)
+
+    def _operands(self, name, *fields) -> None:
+        for t in fields:
+            if (t.dtype != self.dtype or tuple(t.shape) != self.shape or not t.is_cuda
+                    or t.get_device() != self._dev or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name}: fields must be contiguous {self.dtype} {self.shape} tensors on the launcher's card"
+                )
+
+    def residual(self, p, p_prev) -> tuple:
+        if self._dev is None:
+            return reference.structured_residual_rho(p, p_prev, *self.arrays)
+        self._operands("structured_residual", p, p_prev)
+        out, rho = torch.empty_like(p), torch.empty_like(p)
+        rc = self._residual(p.data_ptr(), p_prev.data_ptr(), *self._ptrs, out.data_ptr(), rho.data_ptr(),
+                            *self.shape, _current_stream(self._dev))
+        if rc != 0:
+            raise RuntimeError(f"structured_residual kernel launch failed with CUDA error {rc}")
+        LAUNCHES["structured_residual"] += 1
+        return out, rho
+
+    def refine(self, p, dx, c, rho):
+        if self._dev is None:
+            return reference.structured_refine(p, dx, c, rho, *self.arrays)
+        self._operands("structured_refine", p, dx, c, rho)
+        out = torch.empty_like(p)
+        tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef = self._ptrs
+        rc = self._refine(p.data_ptr(), dx.data_ptr(), c.data_ptr(), rho.data_ptr(), tx, ty, tz, pbc_x,
+                          pbc_y, pbc_z, pv, coef, out.data_ptr(), *self.shape, _current_stream(self._dev))
+        if rc != 0:
+            raise RuntimeError(f"structured_refine kernel launch failed with CUDA error {rc}")
+        LAUNCHES["structured_refine"] += 1
+        return out
 
 
 # -- K13 --------------------------------------------------------------------------
@@ -2222,7 +2283,6 @@ def _tangent_rows(name, geom, primals, seeds, trace):
 
 # -- K8 ---------------------------------------------------------------------------
 
-_JOINT = 8  # equations per jac_gather launch
 _COPY_PIECES = 32  # duals per dual_gather_copy launch
 _DUAL_BINARY = ("add", "sub", "mul", "div", "pow", "gt", "ge", "leabs")
 _DUAL_CONST = ("loadi", "sign", "gt", "ge", "leabs", "detach")
@@ -2454,6 +2514,36 @@ class DualProgram:
         return self._launcher
 
 
+class RootScatter:
+    """Where an equation's root program writes in the assembly's layout (see
+    :meth:`DualEwLauncher.scatter`): rows ``row_off .. row_off + rows`` of
+    the right-hand side and nonzeros ``nnz_off .. nnz_off + nnz`` of the
+    data. ``gather_color``, ``gather_row`` (numpy, one entry a nonzero of the
+    equation, row-major: ``gather_row`` nondecreasing) are the tangent row
+    and the element of each nonzero; they go to ``device`` as int32 with
+    ``tile``, the first nonzero of each tile of 32 elements (the
+    ``dual_ew`` tile), and ``max_pairs``, the most nonzeros of a tile. Made
+    once an equation."""
+
+    __slots__ = ("rows", "nnz", "row_off", "nnz_off", "gather_color", "gather_row", "tile", "max_pairs")
+    TILE = 32
+
+    def __init__(self, gather_color, gather_row, rows: int, row_off: int, nnz_off: int, device) -> None:
+        gc, gr = np.asarray(gather_color), np.asarray(gather_row)
+        if gc.shape != gr.shape or gc.ndim != 1:
+            raise ValueError("RootScatter: gather_color and gather_row must be 1-d, of one length")
+        if gr.size and (np.any(np.diff(gr) < 0) or gr[0] < 0 or gr[-1] >= rows):
+            raise ValueError("RootScatter: gather_row must be nondecreasing, within the rows")
+        if gr.size >= 2**31:
+            raise ValueError("RootScatter: more nonzeros than an int32 counts")
+        self.rows, self.nnz = int(rows), int(gr.size)
+        self.row_off, self.nnz_off = int(row_off), int(nnz_off)
+        tile = np.searchsorted(gr, np.arange(0, rows + self.TILE, self.TILE)[: -(-rows // self.TILE) + 1])
+        self.max_pairs = int(np.diff(tile).max()) if tile.size > 1 else 0
+        as_int32 = lambda a: torch.tensor(a.astype(np.int32), device=device)  # noqa: E731
+        self.gather_color, self.gather_row, self.tile = as_int32(gc), as_int32(gr), as_int32(tile)
+
+
 class DualEwLauncher:
     """K8's ``dual_ew`` for one :class:`DualProgram`, made once per step of
     the dual pass (and once for each fixed program): ``launch(inputs,
@@ -2461,7 +2551,8 @@ class DualEwLauncher:
     list of ``(val, tan)`` (see
     :func:`porepy_tpu_torch.kernels.reference.dual_ew`); on the card value
     and tangent rows are views of one ``(batch + 1, n)`` buffer, row 0 the
-    value.
+    value. :meth:`scatter` runs the program as an equation's root, in the
+    assembly's layout.
 
     The lowering (:meth:`DualProgram.tape`) and its code are made once a
     pattern of constant inputs, the launch table (one int64 array the
@@ -2470,7 +2561,8 @@ class DualEwLauncher:
     checks the operands, allocates the output, writes the pointers (the
     strides and sizes only when they change) and makes one ctypes call of two
     arguments. On the CPU the plain version runs; on a CUDA tensor the kernel
-    launches or the call raises. Counts under ``dual_ew``."""
+    launches or the call raises. Counts under ``dual_ew`` (``scatter``:
+    ``dual_ew_scatter``)."""
 
     __slots__ = (
         "program", "_n_in", "_dev", "_fn", "_table", "_fmt", "_head", "_stride_key", "_states",
@@ -2479,10 +2571,11 @@ class DualEwLauncher:
 
     # The launch table: 10 header words (n_in, n_instr, n_tape, n_load, n_imm,
     # n_part, n_slot, out_slot, and the host addresses of the code and the
-    # constants), 5 call words (out_v, out_t, out_rs, n, batch), n_in value
+    # constants), 9 call words (out_v, out_t, out_rs, n, batch, and the
+    # scatter's tile, gc, gr and max_pairs, 0 for a plain launch), n_in value
     # and n_in tangent pointers, n_in element and n_in row strides
     # (csrc/dual_ad.cu, ppt_dual_ew_f64).
-    _HEAD, _CALL = 10, 5
+    _HEAD, _CALL = 10, 9
 
     def __init__(self, program: DualProgram) -> None:
         self.program = program
@@ -2519,11 +2612,11 @@ class DualEwLauncher:
             hit = self._states[pattern] = (tape, head, code, imm)
         return hit
 
-    def __call__(self, inputs, batch: int):
+    def _operands(self, inputs, batch: int) -> tuple:
+        """The checked operands on the card: ``(n, shape, vals, tans,
+        strides, keep)`` (pointers, ``(element, row)`` strides, the copies
+        made here, which must outlive the launch)."""
         ref = inputs[0][0]
-        if not ref.is_cuda:
-            program = self.program
-            return reference.dual_ew(program.instrs, program.imm, inputs, batch)
         n_in = self._n_in
         if len(inputs) != n_in:
             raise ValueError(f"dual_ew: {len(inputs)} inputs for a program of {n_in}")
@@ -2568,7 +2661,29 @@ class DualEwLauncher:
             tans.append(tan.data_ptr())
             strides.append((es, ts[0]))
         shape = (n,) if n >= 0 else ((1,) if one_d else ())
-        n = 1 if n < 0 else n
+        return (1 if n < 0 else n), shape, vals, tans, strides, keep
+
+    def _launch(self, head, strides, words, count_as: str) -> None:
+        table = self._table
+        if head is not self._head:
+            table[: self._HEAD] = head
+            self._head = head
+        if strides != self._stride_key:
+            base = self._HEAD + self._CALL + 2 * self._n_in
+            table[base : base + 2 * self._n_in] = [e for e, _r in strides] + [r for _e, r in strides]
+            self._stride_key = strides
+        struct.pack_into(self._fmt, table, 8 * self._HEAD, *words)
+        rc = self._fn(table, _current_stream(self._dev))
+        if rc != 0:
+            raise RuntimeError(f"{count_as} kernel launch failed with CUDA error {rc}")
+        LAUNCHES[count_as] += 1
+
+    def __call__(self, inputs, batch: int):
+        ref = inputs[0][0]
+        if not ref.is_cuda:
+            program = self.program
+            return reference.dual_ew(program.instrs, program.imm, inputs, batch)
+        n, shape, vals, tans, strides, _keep = self._operands(inputs, batch)
         pattern = tuple(p == 0 for p in tans) if batch else self._all_const
         tape, head, _code, _imm = self._state(pattern)
         if tape.out_const or not batch:
@@ -2580,20 +2695,54 @@ class DualEwLauncher:
             ptr = buf.data_ptr()
             out_ptrs = (ptr, ptr + 8 * n, n, n, batch)
         if n:
-            table = self._table
-            if head is not self._head:
-                table[: self._HEAD] = head
-                self._head = head
-            if strides != self._stride_key:
-                base = self._HEAD + self._CALL + 2 * n_in
-                table[base : base + 2 * n_in] = [e for e, _r in strides] + [r for _e, r in strides]
-                self._stride_key = strides
-            struct.pack_into(self._fmt, table, 8 * self._HEAD, *out_ptrs, *vals, *tans)
-            rc = self._fn(table, _current_stream(dev))
-            if rc != 0:
-                raise RuntimeError(f"dual_ew kernel launch failed with CUDA error {rc}")
-            LAUNCHES["dual_ew"] += 1
+            self._launch(head, strides, out_ptrs + (0, 0, 0, 0) + tuple(vals) + tuple(tans), "dual_ew")
         return (out_v if shape == (n,) else out_v.reshape(shape)), out_t
+
+    def scatter(self, inputs, batch: int, target: RootScatter, data, rhs) -> None:
+        """The program as an equation's root, in the assembly's layout
+        (``dual_ew_scatter``; see
+        :func:`porepy_tpu_torch.kernels.reference.dual_ew_scatter`): writes
+        the negated value into ``rhs[target.row_off:][:target.rows]`` and,
+        where ``batch``, the tangent of each of the equation's nonzeros into
+        ``data[target.nnz_off:][:target.nnz]`` (zeros where the output is a
+        constant). ``data`` and ``rhs`` are float64 and contiguous; ``data``
+        may be ``None`` when ``batch`` is 0. One launch on the card, the
+        plain version on the CPU."""
+        ref = inputs[0][0]
+        rows, nnz = target.rows, target.nnz
+        if rhs.dtype != torch.float64 or not rhs.is_contiguous() or rhs.numel() < target.row_off + rows:
+            raise ValueError("dual_ew_scatter: rhs must be a contiguous float64 tensor over the equation's rows")
+        if batch and (data is None or data.dtype != torch.float64 or not data.is_contiguous()
+                      or data.numel() < target.nnz_off + nnz):
+            raise ValueError("dual_ew_scatter: data must be a contiguous float64 tensor over the equation's nonzeros")
+        if not ref.is_cuda:
+            program = self.program
+            v, d = reference.dual_ew_scatter(
+                program.instrs, program.imm, inputs, batch, target.gather_color, target.gather_row
+            )
+            if v.numel() != rows:
+                raise ValueError(f"dual_ew_scatter: a value of {v.numel()} elements for {rows} rows")
+            rhs[target.row_off : target.row_off + rows] = v
+            if batch:
+                data[target.nnz_off : target.nnz_off + nnz] = d
+            return
+        n, _shape, vals, tans, strides, _keep = self._operands(inputs, batch)
+        if n != rows:
+            raise ValueError(f"dual_ew_scatter: a value of {n} elements for {rows} rows")
+        if rhs.get_device() != self._dev or (batch and data.get_device() != self._dev) or (
+                target.tile.get_device() != self._dev):
+            raise ValueError("dual_ew_scatter: data, rhs and the scatter's tables must be on the launcher's card")
+        batch = batch if nnz else 0
+        pattern = tuple(p == 0 for p in tans) if batch else self._all_const
+        _tape, head, _code, _imm = self._state(pattern)
+        out_ptrs = (
+            rhs.data_ptr() + 8 * target.row_off,
+            data.data_ptr() + 8 * target.nnz_off if batch else 0,
+            0, n, batch, target.tile.data_ptr(), target.gather_color.data_ptr(),
+            target.gather_row.data_ptr(), target.max_pairs,
+        )
+        if rows:
+            self._launch(head, strides, out_ptrs + tuple(vals) + tuple(tans), "dual_ew_scatter")
 
 
 def _host_table(ctype, values):
@@ -2808,49 +2957,3 @@ def dual_gather_copy(pieces, batch: int):
     functional form of :class:`DualGatherCopy`, a launcher made for the
     call. Counts under ``dual_gather``."""
     return DualGatherCopy()(pieces, batch)
-
-
-def jac_gather(vals, tans, gather_color, gather_row, nnz_offsets, row_offsets):
-    """``(data, rhs)``: the Jacobian nonzeros of all equations in the global
-    nonzero order and the negated, concatenated residual (see
-    :func:`porepy_tpu_torch.kernels.reference.jac_gather`), eight equations
-    to a launch. ``gather_color``, ``gather_row`` int32 ``(nnz,)``; the
-    offsets are host sequences."""
-    ref = vals[0]
-    if not ref.is_cuda:
-        return reference.jac_gather(vals, tans, gather_color, gather_row, nnz_offsets, row_offsets)
-    nnz, n_rows = nnz_offsets[-1], row_offsets[-1]
-    if gather_color.dtype != torch.int32 or gather_row.dtype != torch.int32:
-        raise TypeError("jac_gather: gather_color and gather_row must be int32")
-    if gather_color.shape != (nnz,) or gather_row.shape != (nnz,):
-        raise ValueError(f"jac_gather: gather_color and gather_row must have shape ({nnz},)")
-    _check("jac_gather", {"gather_color": gather_color, "gather_row": gather_row}, torch.float64)
-    data = torch.empty(nnz, dtype=torch.float64, device=ref.device)
-    rhs = torch.empty(n_rows, dtype=torch.float64, device=ref.device)
-    for lo in range(0, len(vals), _JOINT):
-        hi = min(lo + _JOINT, len(vals))
-        ptrs_v, ptrs_t, rs, keep = [], [], [], []
-        for e in range(lo, hi):
-            rows = row_offsets[e + 1] - row_offsets[e]
-            val = vals[e]
-            if val.shape != (rows,):
-                raise ValueError(f"jac_gather: equation {e} has shape {tuple(val.shape)}, expected ({rows},)")
-            val = val.contiguous()
-            pv, pt, _es, r, kept = _dual_rows(
-                "jac_gather", val, tans[e], 0 if tans[e] is None else tans[e].shape[0], rows
-            )
-            ptrs_v.append(pv)
-            ptrs_t.append(pt)
-            rs.append(r)
-            keep.append((val, kept))
-        _launch(
-            "jac_gather", torch.float64,
-            _host_table(ctypes.c_void_p, ptrs_v + ptrs_t),
-            _host_table(
-                ctypes.c_longlong,
-                rs + list(nnz_offsets[lo : hi + 1]) + list(row_offsets[lo : hi + 1]),
-            ),
-            hi - lo, gather_color.data_ptr(), gather_row.data_ptr(),
-            data.data_ptr(), rhs.data_ptr(),
-        )
-    return data, rhs

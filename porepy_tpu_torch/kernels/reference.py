@@ -22,7 +22,10 @@ __all__ = [
     "gj_pivot_inverse",
     "dense_block_apply",
     "structured_residual",
+    "structured_residual_rho",
     "structured_jvp",
+    "structured_refine",
+    "fma",
     "structured_linearize",
     "stencil_matvec",
     "tpfa_residual",
@@ -90,6 +93,7 @@ __all__ = [
     "dual_gather_var",
     "dual_gather_copy",
     "jac_gather",
+    "dual_ew_scatter",
 ]
 
 
@@ -187,32 +191,141 @@ def dense_block_apply(D: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 # -- K12 --------------------------------------------------------------------------
 
+# Veltkamp's splitting constant, 2^ceil(p / 2) + 1, and the integer view of
+# each type (the last mantissa bit of a value).
+_SPLIT = {torch.float64: 134217729.0, torch.float32: 4097.0}
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a):
+    c = _SPLIT[a.dtype] * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _fma_values(a, b, c):
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    uh = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    even = (v.view(_BITS[v.dtype]) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(v, float("inf")), torch.full_like(v, float("-inf")))
+    v = torch.where((err != 0) & even, torch.nextafter(v, toward), v)
+    out = th + v
+    # A product that is 0 or not finite needs no correction term.
+    return torch.where(torch.isfinite(uh) & (uh != 0), out, uh + c)
+
+
+class _Fma(torch.autograd.Function):
+    """:func:`fma` with its tangent ``da b + a db + dc`` (``torch.func``'s
+    forward mode and ``vmap`` go through it)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, b, c):
+        return _fma_values(a, b, c)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0], inputs[1])
+
+    @staticmethod
+    def jvp(ctx, da, db, dc):
+        a, b = ctx.saved_tensors
+        out = None
+        for term in (None if da is None else da * b, None if db is None else a * db, dc):
+            if term is not None:
+                out = term if out is None else out + term
+        return out
+
+
+def fma(a, b, c):
+    """``a * b + c`` rounded once, as the card's fused multiply-add rounds
+    it, from operations of the operands' type: Dekker's exact product ``uh
+    + ul``, ``th + tl = c + uh`` exactly, ``v = tl + ul`` rounded to odd,
+    then ``th + v`` rounded to nearest (Boldo and Melquiond's emulation;
+    exact for operands whose products neither overflow nor underflow). The
+    K12 kernels' faces are formed so, where ``nvcc`` contracts a product and
+    a sum into one instruction."""
+    return _Fma.apply(a, b, c)
+
 
 def _density(p, coef):
     return coef[0] * torch.exp(coef[1] * (p - coef[3]))
+
+
+def _padded(p, ghosts, axis):
+    return torch.cat([ghosts[0].unsqueeze(axis), p, ghosts[1].unsqueeze(axis)], axis)
 
 
 def structured_residual(p, p_prev, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
     """Mass-balance residual of the 7-point TPFA stencil on an ``(nx, ny,
     nz)`` grid with Dirichlet ghost values ``pbc_*`` on the six sides;
     ``coef = [rho_ref, comp, visc, p_ref, dt]``. The upwind side follows
-    the sign of the (detached) flux."""
+    the sign of the (detached) flux. Each cell's divergence term along an
+    axis, its low face's mass flux less its high face's, is
+    ``fma(-w_hi, q_hi, w_lo q_lo)``, as the kernel forms it."""
     visc, dt = coef[2], coef[4]
 
-    def axis_fluxes(t, ghosts, axis):
-        pg = torch.cat([ghosts[0].unsqueeze(axis), p, ghosts[1].unsqueeze(axis)], axis)
+    def axis_difference(t, ghosts, axis):
+        pg = _padded(p, ghosts, axis)
         m = pg.shape[axis] - 1
         lo, hi = pg.narrow(axis, 0, m), pg.narrow(axis, 1, m)
         q = t * (lo - hi)
         w = torch.where(q.detach() >= 0, _density(lo, coef), _density(hi, coef)) / visc
-        return w * q
+        k = m - 1
+        w_lo, q_lo = w.narrow(axis, 0, k), q.narrow(axis, 0, k)
+        return fma(-w.narrow(axis, 1, k), q.narrow(axis, 1, k), w_lo * q_lo)
 
-    fx = axis_fluxes(tx, pbc_x, 0)
-    fy = axis_fluxes(ty, pbc_y, 1)
-    fz = axis_fluxes(tz, pbc_z, 2)
-    div = (fx[:-1] - fx[1:]) + (fy[:, :-1] - fy[:, 1:]) + (fz[:, :, :-1] - fz[:, :, 1:])
+    div = (axis_difference(tx, pbc_x, 0) + axis_difference(ty, pbc_y, 1)) + axis_difference(tz, pbc_z, 2)
     accumulation = pv * (_density(p, coef) - _density(p_prev, coef)) / dt
     return accumulation - div
+
+
+def structured_residual_rho(p, p_prev, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    """``(residual, rho)``: :func:`structured_residual` and the cell
+    densities ``rho(p)`` that the step's refinement reads
+    (:func:`structured_refine`)."""
+    return structured_residual(p, p_prev, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef), _density(p, coef)
+
+
+def _structured_tangent(p, dp, rho, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    """``J(p) dp`` with the cell densities ``rho`` given and the ghosts'
+    computed; a face's tangent ``dw q + w dq`` is ``fma(w, dq, dw q)``, as
+    the kernel forms it."""
+    comp, visc, dt = coef[1], coef[2], coef[4]
+
+    def axis_tangent(t, ghosts, axis):
+        zero = torch.zeros_like(ghosts[0])
+        pg = _padded(p, ghosts, axis)
+        dg = _padded(dp, (zero, zero), axis)
+        rg = _padded(rho, (_density(ghosts[0], coef), _density(ghosts[1], coef)), axis)
+        m = pg.shape[axis] - 1
+        lo, hi = pg.narrow(axis, 0, m), pg.narrow(axis, 1, m)
+        dlo, dhi = dg.narrow(axis, 0, m), dg.narrow(axis, 1, m)
+        rlo, rhi = rg.narrow(axis, 0, m), rg.narrow(axis, 1, m)
+        q = t * (lo - hi)
+        dq = t * (dlo - dhi)
+        up = q >= 0
+        w = torch.where(up, rlo, rhi) / visc
+        dw = torch.where(up, comp * rlo * dlo, comp * rhi * dhi) / visc
+        return fma(w, dq, dw * q)
+
+    fx = axis_tangent(tx, pbc_x, 0)
+    fy = axis_tangent(ty, pbc_y, 1)
+    fz = axis_tangent(tz, pbc_z, 2)
+    div = (fx[:-1] - fx[1:]) + (fy[:, :-1] - fy[:, 1:]) + (fz[:, :, :-1] - fz[:, :, 1:])
+    return pv * (comp * rho * dp) / dt - div
 
 
 def structured_jvp(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
@@ -220,28 +333,15 @@ def structured_jvp(p, dp, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
     derivative written out (upwind side fixed by the primal flux, ghost
     tangents 0). The tests hold it against ``torch.func.jvp`` of the
     residual, which costs ten times more per call."""
-    comp, visc, dt = coef[1], coef[2], coef[4]
+    return _structured_tangent(p, dp, _density(p, coef), tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef)
 
-    def axis_tangent(t, ghosts, axis):
-        zero = torch.zeros_like(ghosts[0]).unsqueeze(axis)
-        pg = torch.cat([ghosts[0].unsqueeze(axis), p, ghosts[1].unsqueeze(axis)], axis)
-        dg = torch.cat([zero, dp, zero], axis)
-        m = pg.shape[axis] - 1
-        lo, hi = pg.narrow(axis, 0, m), pg.narrow(axis, 1, m)
-        dlo, dhi = dg.narrow(axis, 0, m), dg.narrow(axis, 1, m)
-        q = t * (lo - hi)
-        dq = t * (dlo - dhi)
-        rlo, rhi = _density(lo, coef), _density(hi, coef)
-        up = q >= 0
-        w = torch.where(up, rlo, rhi) / visc
-        dw = torch.where(up, comp * rlo * dlo, comp * rhi * dhi) / visc
-        return dw * q + w * dq
 
-    fx = axis_tangent(tx, pbc_x, 0)
-    fy = axis_tangent(ty, pbc_y, 1)
-    fz = axis_tangent(tz, pbc_z, 2)
-    div = (fx[:-1] - fx[1:]) + (fy[:, :-1] - fy[:, 1:]) + (fz[:, :, :-1] - fz[:, :, 1:])
-    return pv * (comp * _density(p, coef) * dp) / dt - div
+def structured_refine(p, dx, c, rho, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef):
+    """``c - J(p) dx`` with the cell densities ``rho`` of
+    :func:`structured_residual_rho`: the refinement round of the structured
+    Newton step, with ``c = -r``; the bits of ``c -
+    structured_jvp(p, dx, ...)``."""
+    return c - _structured_tangent(p, dx, rho, tx, ty, tz, pbc_x, pbc_y, pbc_z, pv, coef)
 
 
 def _face_coefficients(t, p_lo, p_hi, coef):
@@ -1542,6 +1642,44 @@ def dual_ew(instrs, imm, inputs, batch: int):
     ``a != 0`` else ``c``; ``custom`` has the value of ``a`` and the tangent
     ``b * tangent(c)``. With ``batch == 0`` only values are computed. The
     tangent is ``None`` when the output is a constant."""
+    val, tan, shape = _dual_program(instrs, imm, inputs, batch, lambda v: v)
+    val = val.expand(shape).contiguous()
+    if tan is not None:
+        tan = tan.expand((batch,) + (tuple(shape) or (1,))).contiguous()
+    return val, tan
+
+
+def dual_ew_scatter(instrs, imm, inputs, batch: int, gather_color, gather_row):
+    """:func:`dual_ew` in the assembly's layout, as ``dual_ew_scatter``
+    computes it: ``(rhs, data)`` with ``rhs`` the negated value and
+    ``data[k]`` the tangent row ``gather_color[k]`` at element
+    ``gather_row[k]`` (int32 ``(nnz,)``), each nonzero's tangent computed
+    from its own entries of the inputs' tangents and its element's values by
+    the operations of :func:`dual_ew` (so the pair equals ``dual_ew``
+    followed by the gather, to the bit); zeros where the output is a
+    constant, ``None`` for ``batch == 0``."""
+    gc, gr = gather_color.long(), gather_row.long()
+    picked = [
+        (v, None if t is None or not batch else t[gc, gr if t.shape[1] > 1 else 0])
+        for v, t in inputs
+    ]
+    val, tan, shape = _dual_program(
+        instrs, imm, picked, batch, lambda v: v if v.numel() <= 1 else v[gr]
+    )
+    rhs = -val.expand(shape)
+    if not batch:
+        return rhs, None
+    if tan is None:
+        return rhs, torch.zeros(gc.shape[0], dtype=rhs.dtype, device=rhs.device)
+    return rhs, tan.expand(gc.shape).contiguous()
+
+
+def _dual_program(instrs, imm, inputs, batch: int, pick):
+    """The value, the tangent (``None`` for a constant) and the broadcast
+    shape of the values of :func:`dual_ew`'s program. ``pick`` takes a value
+    (or a partial derivative) to the tangents' layout: the identity where
+    tangents are ``(batch, n)`` rows, the nonzeros' elements where they are
+    one entry a nonzero."""
     ref = inputs[0][0]
     dtype, dev = ref.dtype, ref.device
     regs: list = [None] * DUAL_MAX_INPUTS
@@ -1559,7 +1697,7 @@ def dual_ew(instrs, imm, inputs, batch: int):
             r = fn(va)
             t = None
             if ta is not None:
-                d = dfn(va, r)
+                d = pick(dfn(va, r))
                 t = ta / d if divide else ta * d
             regs.append((r, t))
             continue
@@ -1577,27 +1715,27 @@ def dual_ew(instrs, imm, inputs, batch: int):
             vb, tb = regs[b]
             regs.append((
                 va * vb,
-                _dual_add_t(None if ta is None else ta * vb, None if tb is None else va * tb),
+                _dual_add_t(None if ta is None else ta * pick(vb), None if tb is None else pick(va) * tb),
             ))
         elif name == "div":
             vb, tb = regs[b]
             r = va / vb
             if tb is None:
-                t = None if ta is None else ta / vb
+                t = None if ta is None else ta / pick(vb)
             elif ta is None:
-                t = -(tb * r) / vb
+                t = -(tb * pick(r)) / pick(vb)
             else:
-                t = (ta - tb * r) / vb
+                t = (ta - tb * pick(r)) / pick(vb)
             regs.append((r, t))
         elif name == "pow":
             vb, tb = regs[b]
             r = torch.pow(va, vb)
             t = None
             if ta is not None:
-                t = ta * torch.where(vb == 0.0, zero, vb * torch.pow(va, vb - 1.0))
+                t = ta * pick(torch.where(vb == 0.0, zero, vb * torch.pow(va, vb - 1.0)))
             if tb is not None:
                 w = torch.where((va == 0.0) & (vb >= 0.0), zero, r * torch.log(va))
-                t = _dual_add_t(t, tb * w)
+                t = _dual_add_t(t, tb * pick(w))
             regs.append((r, t))
         elif name in ("gt", "ge", "leabs"):
             vb, _tb = regs[b]
@@ -1608,19 +1746,15 @@ def dual_ew(instrs, imm, inputs, batch: int):
             mask = va != 0.0
             t = None
             if tb is not None or tc is not None:
-                t = torch.where(mask, zero if tb is None else tb, zero if tc is None else tc)
+                t = torch.where(pick(mask), zero if tb is None else tb, zero if tc is None else tc)
             regs.append((torch.where(mask, vb, vc), t))
         elif name == "custom":
             (vb, _tb), (_vc, tc) = regs[b], regs[c]
-            regs.append((va, None if tc is None else vb * tc))
+            regs.append((va, None if tc is None else pick(vb) * tc))
         else:
             raise ValueError(f"dual_ew: unknown opcode {name_code}")
     val, tan = regs[-1]
-    shape = torch.broadcast_shapes(*(v.shape for v, _t in inputs))
-    val = val.expand(shape).contiguous()
-    if tan is not None:
-        tan = tan.expand((batch,) + (tuple(shape) or (1,))).contiguous()
-    return val, tan
+    return val, tan, torch.broadcast_shapes(*(v.shape for v, _t in inputs))
 
 
 def dual_seed_rows(idx, colors, batch: int):

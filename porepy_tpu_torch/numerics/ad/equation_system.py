@@ -11,9 +11,9 @@ Each named equation's operator DAG is traced once into a torch function of
 the global dof vector (``compiler.build_function``); its structural
 sparsity and column coloring are computed once; per-assembly work is one
 hand-written forward-mode pass per equation over (value, tangent rows of
-the color seeds) pairs (K8: ``compiler.dual_jvps``, the executor of
-``numerics/ad/forward.py``) and one ``jac_gather`` launch that puts every
-equation's compressed block into the global nonzero order, on the equation
+the color seeds) pairs (K8: the executor of ``numerics/ad/forward.py``),
+whose root launch writes the equation's Jacobian nonzeros, in the global
+nonzero order, and its rows of the right-hand side, on the equation
 system's ``device``. Historic states flow through the ``env`` arguments, so
 nothing is retraced across time steps/iterations.
 """
@@ -109,9 +109,10 @@ class _CompiledSystem:
     residual — the device-resident Newton assembly. Counterpart of the
     reference's ``EquationSystem.assemble`` (ref
     ``equation_system.py:1450``), but with no host scipy matrix in the
-    loop. One forward-mode pass per equation (``compiler.dual_jvps``); the
-    nonzeros of all of them come from their colored tangent rows by one
-    gather ``compressed[gc, rj]`` in ``kernels.jac_gather`` (K8)."""
+    loop. One forward-mode pass per equation (K8), whose root program writes
+    ``compressed[gc, rj]`` of its colored tangent rows into the equation's
+    nonzeros and its negated value into its rows of the right-hand side
+    (``DualExecutor.scatter``, one launch an equation)."""
 
     def __init__(self, eq_sys: "EquationSystem", names: Sequence[str]) -> None:
         self.names = tuple(names)
@@ -135,20 +136,18 @@ class _CompiledSystem:
         )
         self.indices_np = indices
         self.indices = torch.tensor(indices, dtype=torch.int64, device=dev)
-        # The static inputs of jac_gather: per nonzero its color and its row
-        # within its equation, and the equations' offsets.
+        # Where each equation's root writes: per nonzero its color and its
+        # row within its equation, and the equations' offsets.
         self._nnz_offsets = [0]
         self._row_offsets = [0]
+        self._targets = []
         for ce in self.ces:
+            self._targets.append(kernels.RootScatter(
+                ce.gather_color, ce.rows, ce.pattern.shape[0], self._row_offsets[-1],
+                self._nnz_offsets[-1], dev,
+            ))
             self._nnz_offsets.append(self._nnz_offsets[-1] + ce.rows.size)
             self._row_offsets.append(self._row_offsets[-1] + ce.pattern.shape[0])
-
-        def joined(arrays):
-            flat = np.concatenate(arrays) if arrays else np.zeros(0)
-            return torch.tensor(flat, dtype=torch.int32, device=dev)
-
-        self._gather_color = joined([ce.gather_color for ce in self.ces])
-        self._gather_row = joined([ce.rows for ce in self.ces])
         self._colors = [ce.colors_on(dev) for ce in self.ces]
 
     def _empty(self) -> torch.Tensor:
@@ -156,21 +155,17 @@ class _CompiledSystem:
 
     def _data_and_rhs(self, x, envs) -> tuple[torch.Tensor, torch.Tensor]:
         """(nonzero data, -residual) at ``x`` for the given env tensors."""
-        if not self.ces:
-            return self._empty(), self._empty()
-        vals, tans = [], []
-        for ce, env, colors in zip(self.ces, envs, self._colors):
-            val, tan = compiler.dual_jvps(ce.fn, x, env, colors, ce.n_colors)
-            vals.append(val)
-            tans.append(tan)
-        return kernels.jac_gather(
-            vals, tans, self._gather_color, self._gather_row,
-            self._nnz_offsets, self._row_offsets,
-        )
+        data = torch.empty(self._nnz_offsets[-1], dtype=torch.float64, device=x.device)
+        rhs = torch.empty(self.num_rows, dtype=torch.float64, device=x.device)
+        for ce, env, colors, target in zip(self.ces, envs, self._colors, self._targets):
+            ce.fn.dual.scatter(x, env, colors, ce.n_colors, target, data, rhs)
+        return data, rhs
 
     def _rhs_only(self, x, envs) -> torch.Tensor:
-        vals = [compiler.dual_jvps(ce.fn, x, env, None, 0)[0] for ce, env in zip(self.ces, envs)]
-        return -torch.cat(vals) if vals else self._empty()
+        rhs = torch.empty(self.num_rows, dtype=torch.float64, device=x.device)
+        for ce, env, target in zip(self.ces, envs, self._targets):
+            ce.fn.dual.scatter(x, env, None, 0, target, None, rhs)
+        return rhs
 
     def _envs(self, eq_sys) -> tuple:
         return tuple(

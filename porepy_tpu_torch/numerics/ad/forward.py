@@ -23,6 +23,11 @@ for a constant. At every assembly the steps run in order:
 - a constant sparse matrix is applied to value and tangent rows by the K1
   kernel (the matrix's :class:`~porepy_tpu_torch.kernels.EllOperator`, the
   launch without the dispatcher) in one stacked launch;
+- the root, when the system assembles, writes the equation's Jacobian
+  nonzeros and right-hand side rows itself
+  (:meth:`DualExecutor.scatter`: the root program's launch in the
+  assembly's layout, ``dual_ew_scatter``; a root that is not a fused
+  program gets an identity program);
 - concatenations go through the step's
   :class:`~porepy_tpu_torch.kernels.DualGatherCopy`;
 - an ``evaluate`` node runs the *dual rule* of its function (the function's
@@ -225,6 +230,9 @@ _IN = [_Expr("in", (), k) for k in range(3)]
 _MUL2 = compile_expr(_E.op("mul", _IN[0], _IN[1]))[0]
 _MUL3 = compile_expr(_E.op("mul", _E.op("mul", _IN[0], _IN[1]), _IN[2]))[0]
 _NEG = compile_expr(_E.op("neg", _IN[0]))[0]
+# The root program of an equation whose root is not a fused program: x * 1
+# keeps the value's and the tangent's bits.
+_IDENTITY = compile_expr(_E.op("mul", _IN[0], _E.imm(1.0)))[0]
 
 
 def mul(run: "_Run", *duals: Dual) -> Dual:
@@ -307,7 +315,9 @@ class DualExecutor:
     compressed)`` with ``compressed[c] = J @ seeds[c]`` for the one-hot seeds
     of ``colors`` (``None`` where the residual does not depend on ``x``), as
     :func:`~porepy_tpu_torch.numerics.ad.compiler.colored_jvps` does;
-    ``executor(x, env)`` returns ``(val, None)``."""
+    ``executor(x, env)`` returns ``(val, None)``. :meth:`scatter` writes the
+    equation's nonzeros and right-hand side rows instead, from its root
+    program."""
 
     def __init__(self, op: Operator, eq_sys, env_spec, const_mats: dict) -> None:
         self.eq_sys = eq_sys
@@ -322,9 +332,11 @@ class DualExecutor:
         self._exprs: dict[int, _Expr] = {}
         self._keep: list = []  # nodes whose ids key the tables above
         self._gathers: list[ops.DualGatherVar] = []  # the unknowns' launchers
+        self._programs: dict[int, tuple] = {}  # slot -> (launcher, input slots) of a fused step
         self._consumers = self._count_consumers(op)
         self._root = self._materialize(op)
         self._plan_frees()
+        self._plan_root()
 
     # -- compile time ---------------------------------------------------------
 
@@ -544,7 +556,9 @@ class DualExecutor:
         def step(R, run):
             return Dual(*launch([R[s].pair() for s in slots], run.batch))
 
-        return self._new_slot(node, step, slots)
+        slot = self._new_slot(node, step, slots)
+        self._programs[slot] = (launch, slots)
+        return slot
 
     def _plan_frees(self) -> None:
         """After which step each slot's buffer can go: its last consumer."""
@@ -558,20 +572,46 @@ class DualExecutor:
                 frees[i].append(s)
         self._frees = frees
 
+    def _plan_root(self) -> None:
+        """The program :meth:`scatter` launches as the root and the steps
+        before it: the root step's own program when the root is a fused
+        step (the last one), else :data:`_IDENTITY` on the root's result
+        after every step."""
+        last = len(self._steps) - 1
+        if self._root == last and last in self._programs:
+            self._root_program, self._root_steps = self._programs[last], last
+        else:
+            self._root_program, self._root_steps = (_IDENTITY.launcher(), (self._root,)), len(self._steps)
+
     # -- run time --------------------------------------------------------------
 
-    def __call__(self, x, env, colors=None, n_colors: int = 0):
-        run = _Run(x, env, colors, n_colors if colors is not None else 0)
+    def _run(self, run: _Run, n_steps: int) -> list:
         R: list = [None] * len(self._steps)
-        for (step, slot, _inputs), frees in zip(self._steps, self._frees):
+        for (step, slot, _inputs), frees in zip(self._steps[:n_steps], self._frees):
             R[slot] = step(R, run)
             for s in frees:
                 R[s] = None
-        out = R[self._root]
+        return R
+
+    def __call__(self, x, env, colors=None, n_colors: int = 0):
+        run = _Run(x, env, colors, n_colors if colors is not None else 0)
+        out = self._run(run, len(self._steps))[self._root]
         if any(g.holds(t) for g in self._gathers for t in (out.val, out.tan) if t is not None):
             # A view of an unknowns' buffer, which the next pass overwrites.
             return out.val.clone(), None if out.tan is None else out.tan.clone()
         return out.val, out.tan
+
+    def scatter(self, x, env, colors, n_colors: int, target: ops.RootScatter, data, rhs) -> None:
+        """The pass with the root program in the assembly's layout
+        (:meth:`~porepy_tpu_torch.kernels.DualEwLauncher.scatter`): the
+        negated residual into ``rhs``'s rows of ``target`` and, with
+        ``colors``, the Jacobian's nonzeros of ``target`` into ``data`` (as
+        ``compressed[gather_color, gather_row]`` of :meth:`__call__`, to the
+        bit; zeros where the residual does not depend on ``x``)."""
+        run = _Run(x, env, colors, n_colors if colors is not None else 0)
+        R = self._run(run, self._root_steps)
+        launch, slots = self._root_program
+        launch.scatter([R[s].pair() for s in slots], run.batch, target, data, rhs)
 
 
 def _ruleless(func, run: _Run, duals) -> Dual:

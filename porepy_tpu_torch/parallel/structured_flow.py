@@ -10,8 +10,11 @@ a BiCGStab in float32 wrapped in float64 iterative refinement, as in
 written once a Newton step as a 7-point stencil
 (:func:`~porepy_tpu_torch.kernels.structured_linearize`, one launch) and
 each of the step's solves is two cooperative launches of
-:class:`~porepy_tpu_torch.kernels.FlowCycle`, the matvecs inside; the
-refinement's float64 residual keeps ``structured_jvp``.
+:class:`~porepy_tpu_torch.kernels.FlowCycle`, the matvecs inside. The
+step's float64 residual writes the cell densities beside it, and each
+refinement round's ``-r - J dx`` is one launch that reads them
+(:class:`~porepy_tpu_torch.kernels.StructuredLauncher`), as
+``jax.linearize`` keeps the primal's intermediates for its tangent map.
 
 This is the structured-grid fast path behind the ``structured`` bench case
 of ``porepy_tpu``; the general unstructured path is
@@ -80,6 +83,12 @@ class StructuredFlowKernel:
     # -- Newton step with mixed-precision Krylov -----------------------------
 
     @functools.cached_property
+    def _launcher(self) -> "kernels.StructuredLauncher":
+        """The step's residual and refinement launches on these arrays,
+        made at first use."""
+        return kernels.StructuredLauncher(*self._arrays(), self._coef())
+
+    @functools.cached_property
     def _solvers(self) -> dict:
         """Per dtype, made at first use: ``(args, cycle)``, the
         linearization's arguments (the kernel's arrays and fluid scalars in
@@ -118,9 +127,12 @@ class StructuredFlowKernel:
         f32 coefficients (one linearization, four solves of two launches
         each); ``refine`` rounds of f64 iterative refinement recover f64
         accuracy. Each solve's iteration count is appended to
-        ``iterations`` when a list is given. Returns ``(p_new, |r(p)|)``."""
-        arrays, coef = self._arrays(), self._coef()
-        r64 = kernels.structured_residual(p, p_prev, *arrays, coef)
+        ``iterations`` when a list is given. The residual launch also writes
+        the cell densities, ``c = -r`` is formed once, and each refinement
+        round is one launch of ``c - J(p) dx`` from those densities. Returns
+        ``(p_new, |r(p)|)``."""
+        launcher = self._launcher
+        r64, rho = launcher.residual(p, p_prev)
         rnorm = torch.linalg.vector_norm(r64)
         cycle = self._linearized(p, torch.float32)
 
@@ -137,10 +149,10 @@ class StructuredFlowKernel:
             return x.view(p.shape).to(torch.float64) * scale
 
         # Iterative refinement in f64.
-        dx = solve32(-r64)
+        c = -r64
+        dx = solve32(c)
         for _ in range(refine):
-            rr = -r64 - kernels.structured_jvp(p, dx, *arrays, coef)
-            dx = dx + solve32(rr)
+            dx = dx + solve32(launcher.refine(p, dx, c, rho))
         return p + dx, rnorm
 
     def newton_step_f64(self, p, p_prev, tol: float = 1e-9, maxiter: int = 400):

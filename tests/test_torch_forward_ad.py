@@ -11,7 +11,7 @@
     ``_CompiledSystem`` on the same state (the tolerances of
     ``test_torch_assembly.py``);
 (d) the plain versions of ``dual_ew``, ``dual_gather`` and ``jac_gather``
-    against numpy;
+    (the parent's last stage, the oracle of the root scatter) against numpy;
 (e) the per-step launchers of the gathers: three passes in a row at
     different states equal to ``colored_jvps`` to the bit (md, biot,
     tracer), the unknowns' tangent rows written once per color set, no
@@ -802,6 +802,17 @@ def _jac_inputs(rng, n_eq=3):
     return vals, tans, np.concatenate(gc), np.concatenate(rj), nnz_off, row_off
 
 
+def _scatter_pattern(rng, n, batch):
+    """A row-major sparsity of ``n`` rows under ``batch`` colors: each row
+    holds up to four nonzeros of distinct colors, some none."""
+    gc, gr = [], []
+    for r in range(n):
+        k = int(rng.integers(0, min(4, batch) + 1))
+        gc.extend(rng.permutation(batch)[:k])
+        gr.extend([r] * k)
+    return np.asarray(gc, dtype=np.int64), np.asarray(gr, dtype=np.int64)
+
+
 def test_plain_jac_gather_against_numpy():
     vals, tans, gc, rj, nnz_off, row_off = _jac_inputs(np.random.default_rng(14))
     data, rhs = reference.jac_gather(
@@ -996,18 +1007,40 @@ def test_cuda_dual_gather_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_jac_gather_matches_plain(cuda):
-    vals, tans, gc, rj, nnz_off, row_off = _jac_inputs(np.random.default_rng(22), n_eq=11)
-    host = (
-        [_t(v) for v in vals], [None if t is None else _t(t) for t in tans],
-        torch.tensor(gc, dtype=torch.int32), torch.tensor(rj, dtype=torch.int32),
-    )
-    card = (
-        [v.to(cuda) for v in host[0]], [None if t is None else t.to(cuda) for t in host[1]],
-        host[2].to(cuda), host[3].to(cuda),
-    )
-    data, rhs = ops.jac_gather(*card, nnz_off, row_off)
-    want_data, want_rhs = reference.jac_gather(*host, nnz_off, row_off)
+    """The assembly's last stage, now inside each root's launch: the scatter
+    mode of ``dual_ew`` (``DualEwLauncher.scatter``) against its plain
+    version to the bit, for equations with tangents, one whose output is a
+    constant (zeros in its nonzeros) and a pass without seeds."""
+    rng = np.random.default_rng(22)
+    program = _program("div", 2)
+    rows, batch = (300, 41, 77), 5
+    pattern = [_scatter_pattern(rng, n, batch) for n in rows]
+    nnz_off = np.concatenate([[0], np.cumsum([gc.size for gc, _gr in pattern])])
+    row_off = np.concatenate([[0], np.cumsum(rows)])
+    data = torch.full((int(nnz_off[-1]),), float("nan"), dtype=torch.float64, device=cuda)
+    rhs = torch.full((int(row_off[-1]),), float("nan"), dtype=torch.float64, device=cuda)
+    want_data, want_rhs = torch.empty_like(data).cpu(), torch.empty_like(rhs).cpu()
+    for e, (n, (gc, gr)) in enumerate(zip(rows, pattern)):
+        host = [
+            (_t(rng.uniform(1.0, 2.0, n)), None if e == 1 else _t(rng.standard_normal((batch, n)))),
+            (_t(rng.uniform(1.0, 2.0, n)), None if e == 1 else _t(rng.standard_normal((batch, n)))),
+        ]
+        card = [(v.to(cuda), None if t is None else t.to(cuda)) for v, t in host]
+        target = ops.RootScatter(gc, gr, n, int(row_off[e]), int(nnz_off[e]), cuda)
+        program.launcher().scatter(card, batch, target, data, rhs)
+        v, d = reference.dual_ew_scatter(program.instrs, program.imm, host, batch,
+                                         torch.tensor(gc, dtype=torch.int32), torch.tensor(gr, dtype=torch.int32))
+        want_rhs[row_off[e]:row_off[e + 1]] = v
+        want_data[nnz_off[e]:nnz_off[e + 1]] = d
+    torch.cuda.synchronize()
     assert torch.equal(data.cpu(), want_data) and torch.equal(rhs.cpu(), want_rhs)
+    assert not bool(want_data[nnz_off[1]:nnz_off[2]].any())
+    rhs_only = torch.empty_like(rhs)
+    for e, (n, (gc, gr)) in enumerate(zip(rows, pattern)):
+        vals = [(_t(np.full(n, 1.5)).to(cuda), None), (_t(np.full(n, 3.0)).to(cuda), None)]
+        target = ops.RootScatter(gc, gr, n, int(row_off[e]), int(nnz_off[e]), cuda)
+        program.launcher().scatter(vals, 0, target, None, rhs_only)
+    assert torch.equal(rhs_only.cpu(), torch.full_like(want_rhs, -0.5))
 
 
 @pytest.mark.cuda
