@@ -16,7 +16,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    operator give the same bits, and its epilogue ``c -/+ A x`` the bits of
    the product followed by the torch subtraction or addition. The same for
    the structured (K12) and unstructured (K13) flow-step residuals and
-   tangents at 32^3 (32,768 cells, 101,376 faces), in f64 and f32, with
+   tangents at 32^3 (32,768 cells, 101,376 faces), in f64 and f32 (K13's,
+   one launch a call, to the bit of its plain version), with
    the four residual/tangent kernels' device us by graph replay and K12's
    Newton-step launches (the residual that writes the densities, the
    refinement round ``c - J(p) dx``) against their plain versions and ``-r -
@@ -89,13 +90,24 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    bench case runs it: 7 chained Newton steps from p = 2e5 (median ms),
    then Newton to |r| < 1e-6 or to the residual's rounding floor, on the
    card and on the host (plain path, 1e-6 abs apart), and the unstructured
-   step (K13) on the same problem (1e-4 abs from the structured one). Each
-   step linearizes once (``structured_linearize``/``tpfa_linearize``) and
-   solves by ``FlowCycle`` (two cooperative launches a solve): the gates are
-   one residual (it writes the densities too) and 3 ``structured_refine``
-   launches a structured step, no ``structured_jvp`` and no ``tpfa_jvp``, 2
-   cycle launches a solve, one linearization a step, and one host read a
-   solve (CUDA's sync debug mode counts them); a refinement round and 7
+   step (K13) on the same problem (1e-4 abs from the structured one). A
+   structured step linearizes once (``structured_linearize``), an
+   unstructured one writes its residual, Jacobian values and Jacobi
+   diagonal in one ``tpfa_step`` launch; each solves by ``FlowCycle`` (two
+   cooperative launches a solve): the gates are one residual (it writes the
+   densities too) and 3 ``structured_refine`` launches a structured step,
+   one ``tpfa_step`` and no ``tpfa_residual``, ``tpfa_linearize`` or
+   ``tpfa_jvp`` an unstructured one, no ``structured_jvp``, 2 cycle
+   launches a solve, one linearization a structured step, and one host read
+   a solve (CUDA's sync debug mode counts them); every K13 mode (residual,
+   jvp, linearize, step; f64 and f32) against its plain version and the
+   parent's kernels to the bit; the unstructured step's operands at a
+   random state (against ``reference.tpfa_step`` too) and 7 chained steps
+   in turns with the parent's route (its residual and ``tpfa_linearize`` kernels, built from
+   ``parent_tpfa_flow/``, and the torch diagonal;
+   ``applications/benchmarking/tpfa_step_check.py``): the same bits, the
+   same iteration counts, device and host us, ms a step, the kernels of a
+   step; a refinement round and 7
    chained steps in turns with the parent's route (``structured_jvp`` and
    two torch operations a round): the same bits, the same iteration
    counts, device and host us a round, ms a step, and the residual's and
@@ -104,7 +116,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    jvp launches, ``old_structured_newton_step``/``old_tpfa_newton_step``),
    in turns; 10b. at 32^3, in f32 and f64, for the stencil and for TPFA,
    on phase 10's kernels (the buffers and ``FlowCycle`` their Newton steps
-   use), each linearization against its plain version (``TOL``) and every cycle
+   use), each linearization against its plain version (TPFA's to the bit,
+   the stencil's within ``TOL``) and every cycle
    launch of one solve (the start, 1 and 7 iterations, the rest) against
    its plain version from the same state, to the bit; device microseconds
    an iteration (graph replay), host microseconds a launch, the bound
@@ -813,8 +826,9 @@ def compare_small(dev) -> None:
 
 def check_flow_kernels(dev) -> dict:
     """K12 and K13 residual/tangent kernels against their plain versions
-    at 32^3, f64 and f32, with CUDA-event times."""
+    at 32^3, f64 and f32 (K13's to the bit), with CUDA-event times."""
     from porepy_tpu_torch.applications.benchmarking import flow_cycle_check as fcc
+    from porepy_tpu_torch.applications.benchmarking import tpfa_step_check as tsc
     from porepy_tpu_torch.kernels import ops, reference
 
     print(f"phase 3b: flow-step kernels against their plain versions at {N3D}^3")
@@ -840,11 +854,18 @@ def check_flow_kernels(dev) -> dict:
             for name, second in zip(names, (q, v)):
                 kern, plain = getattr(ops, name), getattr(reference, name)
                 got, want = kern(p, second, *args), plain(p, second, *args)
-                # The scale of the summed terms: the largest entry of the
-                # result and of the result along |q|.
-                scale = want.abs().max() + plain(p, second.abs(), *args).abs().max()
                 tag = f"{name} {str(dtype)[6:]}"
-                err = _check(tag, (got - want).abs(), TOL[dtype] * scale)
+                if name.startswith("tpfa"):
+                    # K13's one launch rounds as its plain version.
+                    same = tsc.same_bits(got, want)
+                    print(f"  {tag}: {'the same bits as its plain version' if same else 'DIFFERENT bits'}")
+                    _require(same, f"{tag} differs from its plain version")
+                    err = 0.0
+                else:
+                    # The scale of the summed terms: the largest entry of
+                    # the result and of the result along |q|.
+                    scale = want.abs().max() + plain(p, second.abs(), *args).abs().max()
+                    err = _check(tag, (got - want).abs(), TOL[dtype] * scale)
                 report[name]["err"] = max(report[name]["err"], err)
                 ms = _cuda_ms(lambda: kern(p, second, *args))
                 plain_ms = _cuda_ms(lambda: plain(p, second, *args))
@@ -1351,17 +1372,18 @@ def run_flow_steps(dev) -> dict:
     _require(err < 1e-4, f"structured and unstructured differ by {err}")
     for key, names in (("structured_launches", ("structured_residual", "structured_refine", "structured_linearize",
                                                 "bicgstab_stencil")),
-                       ("tpfa_launches", ("tpfa_residual", "tpfa_linearize", "bicgstab_tpfa"))):
+                       ("tpfa_launches", ("tpfa_step", "bicgstab_tpfa"))):
         print(f"  kernel launches ({key[:-9]} run): {out[key]}")
         _require(all(out[key][k] > 0 for k in names), f"{names} not launched: {out[key]}")
-    # One linearization and, a solve, two cycle launches; one residual (with
-    # its densities) and the three rounds' refinement launches a structured
-    # step, no jvp in either step.
+    # A solve, two cycle launches; one residual (with its densities), the
+    # three rounds' refinement launches and one linearization a structured
+    # step; one tpfa_step launch (the residual, the Jacobian's values and
+    # the diagonal) an unstructured step; no jvp in either step.
     s, u = out["structured_steps"], out["tpfa_steps"]
     ls, lu = out["structured_launches"], out["tpfa_launches"]
     want = {"structured_residual": s, "structured_refine": 3 * s, "structured_jvp": 0,
             "structured_linearize": s, "bicgstab_stencil": 2 * 4 * s,
-            "tpfa_jvp": 0, "tpfa_linearize": u, "bicgstab_tpfa": 2 * u}
+            "tpfa_step": u, "tpfa_residual": 0, "tpfa_linearize": 0, "tpfa_jvp": 0, "bicgstab_tpfa": 2 * u}
     got = {k: (ls if k.startswith(("structured", "bicgstab_stencil")) else lu)[k] for k in want}
     print(f"  launches in {s} structured and {u} unstructured Newton steps: {got} (expected {want})")
     _require(got == want, f"flow-step launches {got}, expected {want}")
@@ -1384,6 +1406,29 @@ def run_flow_steps(dev) -> dict:
     refinement = {r: k["refinement_launches"] for r, k in out["parent_steps"]["step_kernels"].items()}
     print(f"  launches a structured step of the residual and the refinement: {refinement} (5 and 11 expected)")
     _require(refinement == {"new": 5, "parent": 11}, f"a structured step's refinement launches {refinement}")
+
+    # The unstructured step's operands (one tpfa_step launch) and its steps
+    # against the parent's route (its residual and linearization kernels
+    # and the torch diagonal), in turns: the bits, the counts, the kernels.
+    from porepy_tpu_torch.applications.benchmarking import tpfa_step_check as tsc
+
+    modes = tsc.check_modes(kernel, dev, _PARENT["k13"])
+    _require(all(modes.values()), f"a K13 mode differs: {[k for k, ok in modes.items() if not ok]}")
+    out["tpfa_operands"] = tsc.step_in_turns(kernel, dev)
+    out["tpfa_parent_steps"] = tsc.steps_in_turns(kernel, dev)
+    _require(all(out["tpfa_operands"]["equal"].values()),
+             f"the step's operands differ from their plain version or the parent route's: "
+             f"{out['tpfa_operands']['equal']}")
+    _require(out["tpfa_parent_steps"]["equal"] and out["tpfa_parent_steps"]["same_iterations"],
+             "the unstructured steps differ from the parent route's")
+    one = out["tpfa_parent_steps"]["step_kernels"]["new"]
+    k13 = {k: v for k, v in one["kernels"].items() if k.startswith("tpfa_")}
+    print(f"  one unstructured step: K13 kernels {k13}, counted {one['counted']}; the operands' CUDA kernels "
+          f"{out['tpfa_operands']['launches']}, counted {out['tpfa_operands']['counted']}")
+    _require(one["counted"] == {"tpfa_step": 1, "bicgstab_tpfa": 2} and k13 == {"tpfa_kernel<double, 3>": 1},
+             f"an unstructured step's launches {one['counted']}, {k13}")
+    _require(out["tpfa_operands"]["counted"] == {"tpfa_step": 1},
+             f"the step's operands are not one launch: {out['tpfa_operands']['counted']}")
 
     # The route before (host BiCGStab loops over the jvp launches) and this
     # one, in turns, 5 chained steps from p = 2e5 each.
@@ -3387,15 +3432,18 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"phase 1: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
 
-    from porepy_tpu_torch.applications.benchmarking import root_scatter_check
+    from porepy_tpu_torch.applications.benchmarking import root_scatter_check, tpfa_step_check
 
     # The parent's K8 gather (the yardstick of the roots' scatter) builds
     # beside the library.
     parent_dir = tempfile.TemporaryDirectory()
     parent_build = root_scatter_check.start_build(parent_dir.name)
+    # The parent's K13 kernels (the yardstick of the unstructured step).
+    k13_build = tpfa_step_check.start_build(parent_dir.name)
     build.library()
     print(f"phase 2: kernels built in {build.build_seconds():.2f} s")
     _PARENT["k8"] = root_scatter_check.ParentJacGather(parent_dir.name, parent_build)
+    _PARENT["k13"] = tpfa_step_check.ParentTpfa(parent_dir.name, k13_build)
 
     report = check_kernels(dev)
     report.update(check_flow_kernels(dev))
@@ -3442,6 +3490,11 @@ def main() -> int:
     # The roots' scatter in the line: md 1/128's mass-balance root, one
     # launch (phase 4); its error the largest over every case's roots.
     report["dual_ew_scatter"] = md["routes"]["roots"]["line"]
+    # K13's step launch in the line: phase 10's operands at 32^3 (f64), its
+    # error the largest difference from reference.tpfa_step there.
+    fo = flow["tpfa_operands"]
+    report["tpfa_step"] = {"err": fo["err"], "ms": fo["ms"], "plain_ms": fo["plain_ms"], "library_ms": None,
+                           "bytes": fo["bytes"], "flops": fo["flops"], "device_us": fo["device_us"]}
     # K12's refinement launch in the line: phase 10's round at 32^3 (f64).
     fr = flow["round"]
     report["structured_refine"] = {"err": 0.0, "ms": fr["ms"], "plain_ms": fr["plain_ms"], "library_ms": None,
@@ -3501,15 +3554,19 @@ def main() -> int:
         "structured_jvp": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:116", flow["structured_launches"]["structured_jvp"]),
         "structured_refine": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:140",
                               flow["structured_launches"]["structured_refine"]),
+        # The unstructured Newton step launches neither tpfa_residual nor
+        # tpfa_jvp (its operands are one tpfa_step launch, its solve
+        # bicgstab_tpfa): 0 launches on the path, checked in phase 10; their
+        # times are phase 3b's.
         "tpfa_residual": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:72", flow["tpfa_launches"]["tpfa_residual"]),
-        # The unstructured Newton step no longer launches tpfa_jvp (its
-        # solve is bicgstab_tpfa): 0 launches on the path, checked in phase
-        # 10; its times are phase 3b's.
         "tpfa_jvp": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]["tpfa_jvp"]),
+        "tpfa_step": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104-105", flow["tpfa_launches"]["tpfa_step"]),
         "structured_linearize": ("structured_flow.cu", "porepy_tpu/parallel/structured_flow.py:124",
                                  flow["structured_launches"]["structured_linearize"]),
         "bicgstab_stencil": ("krylov.cu", "porepy_tpu/parallel/structured_flow.py:132",
                              flow["structured_launches"]["bicgstab_stencil"]),
+        # The step's linearization is inside tpfa_step: 0 launches on the
+        # path; its times are phase 10b's.
         "tpfa_linearize": ("tpfa_flow.cu", "porepy_tpu/parallel/flow_step.py:104", flow["tpfa_launches"]["tpfa_linearize"]),
         "bicgstab_tpfa": ("krylov.cu", "porepy_tpu/parallel/flow_step.py:109", flow["tpfa_launches"]["bicgstab_tpfa"]),
         "region_solve": ("region_solve.cu", "porepy_tpu/numerics/fv/local_solves.py:168", biot["launches"]["region_solve"]),
@@ -3545,7 +3602,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": r["library_ms"],
         })
         if k in ("gj_pivot_inverse", "dual_ew", "fgmres_arnoldi", "tpfa_ad_flux", "tpfa_ad_trace", "upwind_flux",
-                 "upwind_select", "dual_ew_scatter", "structured_refine", "region_solve", "interp_lookup"):
+                 "upwind_select", "dual_ew_scatter", "structured_refine", "region_solve", "interp_lookup",
+                 "tpfa_step"):
             entries[-1]["device_us"] = r["device_us"]
     kernels_line = {"kernels": entries}
     print(
@@ -3685,6 +3743,11 @@ def main() -> int:
     print(f"K5/K7/K9 at md 1/128 on {smi}: a solve {rt['solve_ms']:.3f} ms by events ({rt['krylov_iters']} Krylov), "
           f"card busy {rt['busy_ms']:.3f} of {rt['traced_ms']:.3f} ms traced; a K7 apply {rt['apply_device_us']:.2f} "
           f"us device, {rt['apply_host_us']:.2f} us host; {md['ms_per_newton']:.2f} ms per Newton iteration")
+    fo, ft = flow["tpfa_operands"], flow["tpfa_parent_steps"]
+    print(f"K13 step operands at 32^3 on {smi}, in turns: device us {fo['turns']['new']['device_us']} against the "
+          f"parent route's {fo['turns']['parent']['device_us']} (its tpfa_linearize alone {fo['parent_linearize_us']}), "
+          f"host us {fo['turns']['new']['host_us']} / {fo['turns']['parent']['host_us']}, launches {fo['launches']}; "
+          f"an unstructured step {ft['ms']['new']} / {ft['ms']['parent']} ms")
     fr, fs = flow["round"], flow["parent_steps"]
     print(f"K12 refinement round at 32^3 on {smi}, in turns: device us {fr['turns']['new']['device_us']} against the "
           f"parent's {fr['turns']['parent']['device_us']}, host us {fr['turns']['new']['host_us']} / "

@@ -9,7 +9,8 @@ At n^3 cells (default 32^3, the flow steps' size in ``chip_smoke.py``
 phase 10), in f32 and f64, for the stencil and for TPFA, from a state
 near 2e5 Pa and the normalized negative residual as the right-hand side,
 it prints what ``nvcc -Xptxas -v`` reports for the three sources, holds
-each linearization launch against its plain version (within ``TOL`` of
+each linearization launch against its plain version (TPFA to the bit, the
+stencil within ``TOL`` of
 the largest coefficient) and every cycle launch of one solve (the start, 1
 and 7 iterations, then the rest) against its plain version from the same
 state (the same bits), and times: device µs an iteration (CUDA-graph
@@ -33,8 +34,9 @@ import torch
 
 from porepy_tpu_torch.applications.benchmarking.krylov_cycle_check import ptxas_report, same_bits
 
-#: Linearizations against their plain versions, relative to the largest
-#: coefficient (``exp`` and contractions differ by an ulp or two).
+#: The stencil's linearization against its plain version, relative to the
+#: largest coefficient (``exp`` and contractions differ by an ulp or two);
+#: TPFA's equals its plain version to the bit.
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 #: Tolerance and iteration budget of each solve, as the Newton steps call
 #: them: the structured f32 inner solve, its f64 variant
@@ -107,7 +109,7 @@ def linearization(kind: str, kernel, p, dtype) -> tuple:
     from porepy_tpu_torch.kernels import reference
 
     cycle = kernel._linearized(p, dtype)
-    args, _ = kernel._solvers[dtype]
+    args = kernel._solvers[dtype][0]
     pd, out = p.to(dtype), cycle.op[-1]
     if kind == "stencil":
         return (cycle, lambda: kernels.structured_linearize(pd, *args, out),
@@ -168,7 +170,8 @@ def check(kind: str, kernel, p, p_prev, dtype, chunks=(1, 7), timing: bool = Tru
     report = {
         "kind": kind, "dtype": str(dtype)[6:], "n": p.numel(), "grid": cycle.grid,
         "lin_err": lin_err, "lin_scale": lin_scale,
-        "lin_ok": lin_err <= TOL[dtype] * lin_scale, "jvp_rel": jv_err, "held": held,
+        "lin_ok": torch.equal(out, want) if kind == "tpfa" else lin_err <= TOL[dtype] * lin_scale,
+        "jvp_rel": jv_err, "held": held,
         "equal": equal, "iterations": iters, "flag": flag, "res": res,
     }
     if not timing:
@@ -207,7 +210,7 @@ def check(kind: str, kernel, p, p_prev, dtype, chunks=(1, 7), timing: bool = Tru
     bound_it = bound_ms(bytes_it, flops_it, dtype)
     # The linearization: p, its arguments once (the kernel's arrays and
     # scalars; TPFA's pattern slots too), the coefficients out.
-    args, _ = kernel._solvers[dtype]
+    args = kernel._solvers[dtype][0]
     lin_in = p.numel() * s + sum(a.numel() * a.element_size() for a in args)
     lin_bound = bound_ms(lin_in + out.numel() * s, 60.0 * n, dtype)
     report.update(

@@ -47,8 +47,9 @@ import torch
 from porepy_tpu_torch import kernels
 from porepy_tpu_torch.applications.benchmarking import flow_cycle_check as fcc
 from porepy_tpu_torch.applications.benchmarking.krylov_cycle_check import _CFLAGS, _nvcc
-from porepy_tpu_torch.applications.benchmarking.timing import cuda_ms, graph_us, host_us
-from porepy_tpu_torch.kernels import LAUNCHES, ops, reference, reset_launches
+from porepy_tpu_torch.applications.benchmarking.timing import (counted, cuda_kernels, cuda_ms, graph_us, host_us,
+                                                                 nbytes)
+from porepy_tpu_torch.kernels import ops, reference
 
 HBM = 3.35e12
 PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "parent_structured_flow")
@@ -110,10 +111,6 @@ def parent_newton_step(kernel, p, p_prev, inner_iter: int = 200, refine: int = R
     return p + dx, rnorm
 
 
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
-
-
 def flow_kernels(dev, n: int = 32, seed: int = 1) -> dict:
     """The four residual/tangent kernels at n^3 in f64: device us (graph replay), host
     us, events ms, the bound, and whether each equals its plain version."""
@@ -131,13 +128,13 @@ def flow_kernels(dev, n: int = 32, seed: int = 1) -> dict:
             got, want = kern(p, second, *args), plain(p, second, *args)
             equal = bool(torch.equal(got, want))
             err = float((got - want).abs().max() / want.abs().max())
-            nbytes = _nbytes(p, second, *args) + 8 * p.numel()
+            size = nbytes(p, second, *args) + 8 * p.numel()
             r = {
                 "device_us": graph_us(lambda: kern(p, second, *args)),
                 "host_us": host_us(lambda: kern(p, second, *args)),
                 "ms": cuda_ms(lambda: kern(p, second, *args)),
                 "plain_ms": cuda_ms(lambda: plain(p, second, *args)),
-                "bytes": nbytes, "bound_us": 1e6 * nbytes / HBM, "equal": equal, "err": err,
+                "bytes": size, "bound_us": 1e6 * size / HBM, "equal": equal, "err": err,
             }
             r["share"] = r["bound_us"] / r["device_us"]
             out[name] = r
@@ -211,8 +208,8 @@ def round_in_turns(kernel, dev, seed: int = 3) -> dict:
         turns[route]["host_us"].append(host_us(fn))
     # Bytes the round must move: p, dx, c and rho, the transmissibilities,
     # the ghosts and pv read once, the result written once.
-    nbytes = _nbytes(p, dx, c, rho, *arrays, coef) + 8 * p.numel()
-    out = {"turns": turns, "bytes": nbytes, "bound_us": 1e6 * nbytes / HBM, "equal": torch.equal(new(), old()),
+    size = nbytes(p, dx, c, rho, *arrays, coef) + 8 * p.numel()
+    out = {"turns": turns, "bytes": size, "bound_us": 1e6 * size / HBM, "equal": torch.equal(new(), old()),
            "ms": cuda_ms(new), "plain_ms": cuda_ms(lambda: reference.structured_refine(p, dx, c, rho, *arrays, coef))}
     print(f"  a refinement round at {shape} f64, in turns: device us (graph replay) new "
           f"{['%.2f' % t for t in turns['new']['device_us']]}, parent {['%.2f' % t for t in turns['parent']['device_us']]}; "
@@ -222,39 +219,10 @@ def round_in_turns(kernel, dev, seed: int = 3) -> dict:
     return out
 
 
-def _short(name: str) -> str:
-    """A kernel's name without its template and call arguments, with the
-    elementwise functor it runs (``neg``, ``add``, ``Mul``...) where it has
-    one."""
-    for key in ("neg", "exp", "Mul", "Div", "add", "where", "Fill", "copy", "Norm", "compare", "Abs", "Eq", "Cat"):
-        if key in name and name.startswith(("void at::native", "void at::")):
-            return "torch " + key
-    head = name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
-    return head if head.startswith("structured_kernel<") else head.split("<")[0]
-
-
 def _step_kernels(step, p, p_prev) -> dict:
-    """The CUDA kernels of one ``step(p, p_prev)`` by name
-    (``torch.profiler``, the second of two steps: the profiler's first step
-    warms it up and loses its first kernels), and the package's launch
-    counters of that step."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
-                 acc_events=True) as prof:
-        for i in range(2):
-            if i == 1:
-                reset_launches()
-            step(p, p_prev)
-            torch.cuda.synchronize()
-            prof.step()
-    names: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = _short(e.name)
-            names[name] = names.get(name, 0) + 1
-    return {"kernels": names, "counted": {k: v for k, v in LAUNCHES.items() if v}}
+    """The CUDA kernels of one ``step(p, p_prev)`` by name and the
+    package's launch counters of one step."""
+    return {"kernels": cuda_kernels(lambda: step(p, p_prev)), "counted": counted(lambda: step(p, p_prev))}
 
 
 def steps_in_turns(kernel, dev, steps: int = 7) -> dict:

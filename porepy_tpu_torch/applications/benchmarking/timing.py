@@ -1,6 +1,8 @@
 """Timing on the card: CUDA events over back-to-back calls, device time by
-CUDA-graph replay, and the host's time to issue a call. Each needs a CUDA
-card."""
+CUDA-graph replay, and the host's time to issue a call; the CUDA kernels of
+a call by ``torch.profiler`` and the package's launch counters of a call;
+the bytes of a set of tensors. Each but :func:`nbytes` and
+:func:`short_name` needs a CUDA card."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import time
 
 import torch
 
-__all__ = ["cuda_ms", "graph_us", "host_us"]
+__all__ = ["counted", "cuda_kernels", "cuda_ms", "graph_us", "host_us", "nbytes", "short_name"]
 
 
 def cuda_ms(fn, repeats: int = 100) -> float:
@@ -64,3 +66,61 @@ def host_us(fn, calls: int = 200) -> float:
     host = time.perf_counter() - tic
     torch.cuda.synchronize()
     return 1e6 * host / calls
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of the tensors among ``tensors``."""
+    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+
+
+#: Kernels named with their template arguments: the flow steps' own.
+_TEMPLATED = ("structured_kernel<", "tpfa_", "bicgstab_kernel")
+#: The elementwise functors by which torch's kernels are named, first match.
+_FUNCTORS = ("neg", "exp", "Mul", "Div", "add", "where", "Fill", "copy", "Norm", "compare", "Abs", "Eq", "Cat",
+             "isfinite", "reduce")
+
+
+def short_name(name: str) -> str:
+    """A CUDA kernel's name without its call arguments: torch's by the
+    elementwise functor it runs (``torch neg``, ``torch add``...), the flow
+    steps' kernels with their template arguments, others without."""
+    if name.startswith(("void at::native", "void at::")):
+        for key in _FUNCTORS:
+            if key in name:
+                return "torch " + key
+    head = name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+    return head if head.startswith(_TEMPLATED) else head.split("<")[0]
+
+
+def cuda_kernels(fn, reps: int = 1) -> dict:
+    """The CUDA kernels of one ``fn()`` by :func:`short_name`:
+    ``torch.profiler`` over ``reps`` calls after one that warms it up (the
+    profiler's first step loses its first kernels), each count over
+    ``reps``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for calls in (1, reps):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = short_name(e.name)
+            names[name] = names.get(name, 0) + 1
+    return {k: v // reps if v % reps == 0 else v / reps for k, v in names.items()}
+
+
+def counted(fn) -> dict:
+    """The package's launch counters (``kernels.LAUNCHES``) of one
+    ``fn()``, those that moved."""
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in LAUNCHES.items() if v}

@@ -25,6 +25,9 @@ K12       :func:`structured_linearize`,  ``parallel/structured_flow.py:104-148``
                                          solve, two cooperative launches)
 K13       :func:`tpfa_residual`          ``parallel/flow_step.py:64-97``
 K13       :func:`tpfa_jvp`               ``parallel/flow_step.py:104`` (linearize)
+K13       :class:`TpfaLauncher`          ``parallel/flow_step.py:104-105,119-137`` (the Newton
+                                         step's residual, Jacobian values and Jacobi diagonal
+                                         at ``p``, one launch; each mode one launch a call)
 K13       :func:`tpfa_linearize`,        ``parallel/flow_step.py:101-118`` (as for K12, on the
           :class:`FlowCycle`             cell-cell matrix)
 K10       :func:`region_solve`           ``numerics/fv/local_solves.py:168-187``
@@ -111,6 +114,7 @@ from porepy_tpu_torch.kernels.ops import (  # noqa: F401
     tpfa_linearize,
     tpfa_residual,
     TpfaAdGeometry,
+    TpfaLauncher,
     TpfaAdLauncher,
     segment_sum_sorted,
     tpfa_ad_dual,

@@ -61,8 +61,9 @@ _SIGNATURES = {
     "ppt_structured_jvp": [_P] * 11 + [_I] * 3 + [_P],
     "ppt_structured_residual_rho": [_P] * 12 + [_I] * 3 + [_P],
     "ppt_structured_refine": [_P] * 13 + [_I] * 3 + [_P],
-    "ppt_tpfa_residual": [_P] * 13 + [_I] * 2 + [_P],
-    "ppt_tpfa_jvp": [_P] * 13 + [_I] * 2 + [_P],
+    "ppt_tpfa_residual": [_P] * 12 + [_I, _P],
+    "ppt_tpfa_jvp": [_P] * 12 + [_I, _P],
+    "ppt_tpfa_step": [_P] * 17 + [_I, _P],
     "ppt_region_solve": [_P] * 5 + [_I] * 4 + [_P],
     "ppt_region_solve_route": [_I, _I],
     "ppt_bicgstab_cycle": [_P] * 17 + [_I] * 2 + [_P],

@@ -61,6 +61,7 @@ __all__ = [
     "tpfa_residual",
     "tpfa_jvp",
     "tpfa_linearize",
+    "TpfaLauncher",
     "FlowCycle",
     "region_solve",
     "bicgstab_cycle",
@@ -122,6 +123,7 @@ LAUNCHES = {
     "tpfa_residual": 0,
     "tpfa_jvp": 0,
     "tpfa_linearize": 0,
+    "tpfa_step": 0,
     "bicgstab_tpfa": 0,
     "region_solve": 0,
     "bicgstab_cycle": 0,
@@ -880,41 +882,33 @@ class StructuredLauncher:
 # -- K13 --------------------------------------------------------------------------
 
 
-def _tpfa_args(name, p, q, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef) -> dict:
-    """The K13 kernels' tensors by name, checked: one dtype for the values,
-    int32 topology, consistent cell and face shapes, contiguous on the
-    card."""
-    dtype = p.dtype
-    if any(x.dtype != dtype for x in (q, t, bc_val, pv, coef)):
-        raise TypeError(f"{name}: p, q, t, bc_val, pv, coef need one dtype")
+def _tpfa_topology(name, nc, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef) -> dict:
+    """The K13 kernels' problem arrays by name, checked: ``t``, ``bc_val``,
+    ``pv`` and ``coef`` in one floating dtype, int32 topology, a bool
+    ``is_neu``, ``nc`` cells' and ``t``'s faces' shapes; contiguous on the
+    card where ``pv`` is."""
+    dtype = pv.dtype
+    if dtype not in _SUFFIX or any(x.dtype != dtype for x in (t, bc_val, coef)):
+        raise TypeError(f"{name}: t, bc_val, pv, coef need one dtype, float32 or float64")
     if any(x.dtype != torch.int32 for x in (lo, hi, cell_ptr, cell_faces)):
         raise TypeError(f"{name}: lo, hi, cell_ptr, cell_faces must be int32")
     if is_neu.dtype != torch.bool:
         raise TypeError(f"{name}: is_neu must be bool")
-    nc, nf = p.shape[0], t.shape[0]
+    nf = t.shape[0] if t.dim() == 1 else -1
     if (
-        p.dim() != 1 or q.shape != (nc,) or pv.shape != (nc,)
-        or any(x.shape != (nf,) for x in (lo, hi, t, is_neu, bc_val))
+        nf < 0 or pv.shape != (nc,) or any(x.shape != (nf,) for x in (lo, hi, is_neu, bc_val))
         or cell_ptr.shape != (nc + 1,) or cell_faces.dim() != 1 or coef.shape != (5,)
     ):
         raise ValueError(f"{name}: inconsistent cell/face shapes")
     tensors = {
-        "p": p, "q": q, "lo": lo, "hi": hi, "t": t, "is_neu": is_neu,
-        "bc_val": bc_val, "pv": pv, "cell_ptr": cell_ptr,
-        "cell_faces": cell_faces, "coef": coef,
+        "lo": lo, "hi": hi, "t": t, "is_neu": is_neu, "bc_val": bc_val, "pv": pv,
+        "cell_ptr": cell_ptr, "cell_faces": cell_faces, "coef": coef,
     }
-    _check(name, tensors, dtype)
+    if pv.is_cuda:
+        _check(name, tensors, dtype)
+        if any(x.get_device() != pv.get_device() for x in tensors.values()):
+            raise ValueError(f"{name}: every array must be on pv's card")
     return tensors
-
-
-def _tpfa_cuda(name, *args):
-    tensors = _tpfa_args(name, *args)
-    p, nf = tensors["p"], tensors["t"].shape[0]
-    m = torch.empty(nf, dtype=p.dtype, device=p.device)
-    out = torch.empty_like(p)
-    _launch(name, p.dtype, *(x.data_ptr() for x in tensors.values()), m.data_ptr(), out.data_ptr(),
-            p.shape[0], nf)
-    return out
 
 
 @torch.library.custom_op("porepy_tpu_torch::tpfa_residual", mutates_args=())
@@ -932,7 +926,8 @@ def tpfa_residual(
     coef: torch.Tensor,
 ) -> torch.Tensor:
     """Unstructured TPFA mass-balance residual (see
-    :func:`porepy_tpu_torch.kernels.reference.tpfa_residual`)."""
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_residual`); on the card
+    one launch through a :class:`TpfaLauncher` made for the call."""
     return reference.tpfa_residual(
         p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef
     )
@@ -940,9 +935,7 @@ def tpfa_residual(
 
 @tpfa_residual.register_kernel("cuda")
 def _tpfa_residual_cuda(p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
-    return _tpfa_cuda(
-        "tpfa_residual", p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef
-    )
+    return TpfaLauncher(lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef).residual(p, p_prev)
 
 
 @tpfa_residual.register_fake
@@ -964,20 +957,136 @@ def tpfa_jvp(
     cell_faces: torch.Tensor,
     coef: torch.Tensor,
 ) -> torch.Tensor:
-    """``J(p) dp`` of :func:`tpfa_residual`, upwind side frozen."""
+    """``J(p) dp`` of :func:`tpfa_residual`, upwind side frozen (see
+    :func:`porepy_tpu_torch.kernels.reference.tpfa_jvp`); on the card one
+    launch through a :class:`TpfaLauncher` made for the call."""
     return reference.tpfa_jvp(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef)
 
 
 @tpfa_jvp.register_kernel("cuda")
 def _tpfa_jvp_cuda(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
-    return _tpfa_cuda(
-        "tpfa_jvp", p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef
-    )
+    return TpfaLauncher(lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef).jvp(p, dp)
 
 
 @tpfa_jvp.register_fake
 def _(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
     return torch.empty_like(p)
+
+
+class TpfaLauncher:
+    """K13's launches on one problem's arrays (``lo, hi, t, is_neu, bc_val,
+    pv, cell_ptr, cell_faces, coef``, and for the Newton step's operands
+    ``t_sum`` and the Jacobian pattern's ``slot``, ``diag_slot``; checked
+    once, here, their pointers kept), each one ctypes call of one
+    ``csrc/tpfa_flow.cu`` launch: :meth:`residual` (counted as
+    ``tpfa_residual``), :meth:`jvp` (``tpfa_jvp``), :meth:`linearize`
+    (``tpfa_linearize``) and :meth:`step` (``tpfa_step``: the residual, the
+    Jacobian's values and the Jacobi diagonal at ``p``). A call checks its
+    fields' dtype, shape, device and contiguity. On the CPU the plain
+    versions run (:func:`~porepy_tpu_torch.kernels.reference.tpfa_residual`,
+    :func:`~porepy_tpu_torch.kernels.reference.tpfa_jvp`,
+    :func:`~porepy_tpu_torch.kernels.reference.tpfa_linearize`,
+    :func:`~porepy_tpu_torch.kernels.reference.tpfa_step`); on a CUDA
+    tensor the kernel launches or the call raises."""
+
+    __slots__ = ("arrays", "t_sum", "slot", "diag_slot", "nc", "nnz", "dtype", "device", "_dev", "_ptrs",
+                 "_fns")
+
+    def __init__(self, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef, t_sum=None, slot=None,
+                 diag_slot=None, nnz: int = 0) -> None:
+        self.nc, self.dtype, self.device = pv.shape[0], pv.dtype, pv.device
+        tensors = _tpfa_topology("TpfaLauncher", self.nc, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces,
+                                 coef)
+        self.arrays = tuple(tensors.values())
+        self.t_sum, self.slot, self.diag_slot, self.nnz = t_sum, slot, diag_slot, int(nnz)
+        if slot is not None:
+            if diag_slot is None:
+                raise ValueError("TpfaLauncher: slot needs diag_slot")
+            if slot.dtype != torch.int32 or diag_slot.dtype != torch.int32:
+                raise TypeError("TpfaLauncher: slot and diag_slot must be int32")
+            if slot.shape != cell_faces.shape or diag_slot.shape != (self.nc,):
+                raise ValueError("TpfaLauncher: slot must be like cell_faces, diag_slot like pv")
+        if t_sum is not None and (t_sum.dtype != self.dtype or t_sum.shape != (self.nc,)):
+            raise ValueError("TpfaLauncher: t_sum must be like pv")
+        self._dev = None
+        if not pv.is_cuda:
+            return
+        pattern = {k: x for k, x in (("t_sum", t_sum), ("slot", slot), ("diag_slot", diag_slot)) if x is not None}
+        if pattern:
+            _check("TpfaLauncher", pattern, self.dtype)
+            if any(x.get_device() != pv.get_device() for x in pattern.values()):
+                raise ValueError("TpfaLauncher: every array must be on pv's card")
+        self._dev = pv.get_device()
+        self._ptrs = tuple(x.data_ptr() for x in self.arrays)
+        self._fns = {name: _kernel(name, self.dtype) for name in
+                     ("tpfa_residual", "tpfa_jvp", "tpfa_linearize", "tpfa_step")}
+
+    def _fields(self, name, *fields) -> None:
+        for x in fields:
+            if x.dtype != self.dtype or x.shape != (self.nc,) or x.device != self.device or not x.is_contiguous():
+                raise ValueError(f"{name}: fields must be contiguous {self.dtype} ({self.nc},) tensors on "
+                                 f"{self.device}")
+
+    def _values(self, name, vals) -> None:
+        if self.slot is None:
+            raise ValueError(f"{name}: the launcher has no Jacobian pattern (slot, diag_slot)")
+        if (vals.dtype != self.dtype or vals.shape != (self.nnz,) or vals.device != self.device
+                or not vals.is_contiguous()):
+            raise ValueError(f"{name}: vals must be a contiguous {self.dtype} ({self.nnz},) tensor on {self.device}")
+
+    def _run(self, name, *args) -> None:
+        rc = self._fns[name](*args, _current_stream(self._dev))
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+        LAUNCHES[name] += 1
+
+    def residual(self, p, p_prev):
+        """The residual at ``p`` (one ``tpfa_residual`` launch)."""
+        self._fields("tpfa_residual", p, p_prev)
+        if self._dev is None:
+            return reference.tpfa_residual(p, p_prev, *self.arrays)
+        out = torch.empty_like(p)
+        self._run("tpfa_residual", p.data_ptr(), p_prev.data_ptr(), *self._ptrs, out.data_ptr(), self.nc)
+        return out
+
+    def jvp(self, p, dp):
+        """``J(p) dp`` (one ``tpfa_jvp`` launch)."""
+        self._fields("tpfa_jvp", p, dp)
+        if self._dev is None:
+            return reference.tpfa_jvp(p, dp, *self.arrays)
+        out = torch.empty_like(p)
+        self._run("tpfa_jvp", p.data_ptr(), dp.data_ptr(), *self._ptrs, out.data_ptr(), self.nc)
+        return out
+
+    def linearize(self, p, vals) -> None:
+        """``J(p)``'s values into ``vals`` (one ``tpfa_linearize`` launch)."""
+        self._values("tpfa_linearize", vals)
+        self._fields("tpfa_linearize", p)
+        if self._dev is None:
+            vals.copy_(reference.tpfa_linearize(p, *self.arrays, self.slot, self.diag_slot, self.nnz))
+            return
+        self._run("tpfa_linearize", p.data_ptr(), *self._ptrs, self.slot.data_ptr(),
+                  self.diag_slot.data_ptr(), vals.data_ptr(), self.nc)
+
+    def step(self, p, p_prev, vals, diag):
+        """The Newton step's operands at ``p``: returns the residual and
+        writes ``J(p)``'s values into ``vals`` and the Jacobi diagonal into
+        ``diag`` (one ``tpfa_step`` launch)."""
+        self._values("tpfa_step", vals)
+        if self.t_sum is None:
+            raise ValueError("tpfa_step: the launcher has no t_sum")
+        self._fields("tpfa_step", p, p_prev, diag)
+        if self._dev is None:
+            r, v, d = reference.tpfa_step(p, p_prev, *self.arrays, self.t_sum, self.slot, self.diag_slot,
+                                          self.nnz)
+            vals.copy_(v)
+            diag.copy_(d)
+            return r
+        out = torch.empty_like(p)
+        self._run("tpfa_step", p.data_ptr(), p_prev.data_ptr(), *self._ptrs, self.t_sum.data_ptr(),
+                  self.slot.data_ptr(), self.diag_slot.data_ptr(), out.data_ptr(), vals.data_ptr(),
+                  diag.data_ptr(), self.nc)
+        return out
 
 
 # -- K12 and K13: the Newton step's linearization and BiCGStab solve ----------------
@@ -1005,22 +1114,15 @@ def tpfa_linearize(p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef,
     """``J(p)`` of :func:`tpfa_residual` as the values ``vals`` of a
     cell-cell CSR matrix on a fixed pattern, in place (see
     :func:`porepy_tpu_torch.kernels.reference.tpfa_linearize`); one launch
-    on the card."""
+    on the card (a :class:`TpfaLauncher`'s ``linearize``, the launcher made
+    for the call)."""
     if slot.shape != cell_faces.shape or diag_slot.shape != pv.shape:
         raise ValueError("tpfa_linearize: slot must be like cell_faces, diag_slot like pv")
     if vals.dtype != p.dtype or vals.dim() != 1:
         raise ValueError("tpfa_linearize: vals must be 1-d in p's dtype")
-    if not p.is_cuda:
-        vals.copy_(reference.tpfa_linearize(p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces,
-                                            coef, slot, diag_slot, vals.shape[0]))
-        return
-    if slot.dtype != torch.int32 or diag_slot.dtype != torch.int32:
-        raise TypeError("tpfa_linearize: slot and diag_slot must be int32")
-    tensors = _tpfa_args("tpfa_linearize", p, p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef)
-    _check("tpfa_linearize", {"slot": slot, "diag_slot": diag_slot, "vals": vals}, p.dtype)
-    del tensors["q"]
-    _launch("tpfa_linearize", p.dtype, *(x.data_ptr() for x in tensors.values()), slot.data_ptr(),
-            diag_slot.data_ptr(), vals.data_ptr(), p.shape[0])
+    launcher = TpfaLauncher(lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef, None, slot, diag_slot,
+                            vals.shape[0])
+    launcher.linearize(p, vals)
 
 
 class FlowCycle:

@@ -411,17 +411,44 @@ def _tpfa_face_values(p, lo, hi, bc_val):
     return p_lo, p_hi
 
 
-def _tpfa_divergence(mass_flux, cell_ptr, cell_faces, nc):
-    """Per cell, the sum of ``+m[f]`` over faces where it is ``lo`` and
-    ``-m[f]`` where it is ``hi``, through the CSR."""
+def tpfa_rows(cell_ptr, cell_faces):
+    """Each cell's row of the cell-to-face CSR padded to the longest row:
+    ``(face, own, valid)``, each ``(nc, D)``: the face of entry ``j`` of
+    the cell's row, whether the cell is that face's ``lo`` (the entry
+    ``f``, else ``-f - 1``), and whether the row has an entry ``j``."""
+    nc = cell_ptr.shape[0] - 1
+    start, deg = cell_ptr[:-1].long(), (cell_ptr[1:] - cell_ptr[:-1]).long()
+    width = int(deg.max()) if nc > 0 else 0
+    j = torch.arange(width, device=cell_ptr.device)
+    valid = j < deg[:, None]
     cf = cell_faces.long()
-    face = torch.where(cf >= 0, cf, -cf - 1)
-    contrib = torch.where(cf >= 0, mass_flux[face], -mass_flux[face])
-    cell = torch.repeat_interleave(
-        torch.arange(nc, device=mass_flux.device), (cell_ptr[1:] - cell_ptr[:-1]).long()
-    )
-    div = torch.zeros(nc, dtype=mass_flux.dtype, device=mass_flux.device)
-    return div.index_add(0, cell, contrib)
+    code = cf[torch.where(valid, start[:, None] + j, 0)] if cf.numel() else torch.zeros_like(valid, dtype=torch.long)
+    own = code >= 0
+    return torch.where(own, code, -code - 1), own, valid
+
+
+def _tpfa_divergence(face_values, cell_ptr, cell_faces):
+    """Per cell, ``+m[f]`` over the faces where it is ``lo`` and ``-m[f]``
+    where it is ``hi``, added to 0 one at a time in ``cell_faces`` order,
+    as the kernel's walk adds them."""
+    face, own, valid = tpfa_rows(cell_ptr, cell_faces)
+    m = face_values[face]
+    terms = torch.where(own, m, -m)
+    acc = face_values.new_zeros(valid.shape[0])
+    for j in range(valid.shape[1]):
+        acc = torch.where(valid[:, j], acc + terms[:, j], acc)
+    return acc
+
+
+def _tpfa_mass_flux(p, lo, hi, t, is_neu, bc_val, coef):
+    """Each face's mass flux: its prescribed flux on a Neumann face, else
+    ``w q`` with ``q = t (p_lo - p_hi)`` and ``w`` the upwind density over
+    the viscosity (the side chosen by the detached ``q``)."""
+    p_lo, p_hi = _tpfa_face_values(p, lo, hi, bc_val)
+    q = torch.where(is_neu, bc_val, t * (p_lo - p_hi))
+    upstream = q.detach() >= 0
+    w = torch.where(upstream, _density(p_lo, coef), _density(p_hi, coef)) / coef[2]
+    return torch.where(is_neu, q, w * q)
 
 
 def tpfa_residual(p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
@@ -429,22 +456,22 @@ def tpfa_residual(p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces
     fluxes (Dirichlet ghosts from ``bc_val`` where ``lo``/``hi`` is -1,
     prescribed fluxes on ``is_neu`` faces, detached upwind choice), summed
     into each cell through the CSR ``cell_ptr``/``cell_faces`` (``f`` where
-    the cell is ``lo[f]``, ``-f - 1`` where it is ``hi[f]``)."""
-    visc, dt = coef[2], coef[4]
-    p_lo, p_hi = _tpfa_face_values(p, lo, hi, bc_val)
-    q = torch.where(is_neu, bc_val, t * (p_lo - p_hi))
-    upstream = q.detach() >= 0
-    w = torch.where(upstream, _density(p_lo, coef), _density(p_hi, coef)) / visc
-    mass_flux = torch.where(is_neu, q, w * q)
-    div = _tpfa_divergence(mass_flux, cell_ptr, cell_faces, pv.shape[0])
-    accumulation = pv * (_density(p, coef) - _density(p_prev, coef)) / dt
+    the cell is ``lo[f]``, ``-f - 1`` where it is ``hi[f]``) in its order,
+    then added to the accumulation ``pv (rho(p) - rho(p_prev)) / dt``, its
+    difference ``fma(rho_ref, exp(comp (p - p_ref)), -rho(p_prev))``, as the
+    kernel forms it."""
+    div = _tpfa_divergence(_tpfa_mass_flux(p, lo, hi, t, is_neu, bc_val, coef), cell_ptr, cell_faces)
+    growth = torch.exp(coef[1] * (p - coef[3]))
+    accumulation = pv * fma(coef[0], growth, -_density(p_prev, coef)) / coef[4]
     return accumulation + div
 
 
 def tpfa_jvp(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
     """``J(p) dp`` of :func:`tpfa_residual`: its forward-mode derivative
-    written out (upwind side fixed by the primal flux, ghost tangents 0).
-    The tests hold it against ``torch.func.jvp`` of the residual."""
+    written out (upwind side fixed by the primal flux, ghost tangents 0, a
+    Neumann face's tangent 0). A face's tangent ``dw q + w dq`` is
+    ``fma(dw, q, w dq)``, as the kernel forms it. The tests hold it
+    against ``torch.func.jvp`` of the residual."""
     comp, visc, dt = coef[1], coef[2], coef[4]
     p_lo, p_hi = _tpfa_face_values(p, lo, hi, bc_val)
     d_lo, d_hi = _tpfa_face_values(dp, lo, hi, torch.zeros_like(bc_val))
@@ -454,9 +481,26 @@ def tpfa_jvp(p, dp, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef):
     up = q >= 0
     w = torch.where(up, r_lo, r_hi) / visc
     dw = torch.where(up, comp * r_lo * d_lo, comp * r_hi * d_hi) / visc
-    dmass = torch.where(is_neu, dq, dw * q + w * dq)
-    div = _tpfa_divergence(dmass, cell_ptr, cell_faces, pv.shape[0])
+    dmass = torch.where(is_neu, dq, fma(dw, q, w * dq))
+    div = _tpfa_divergence(dmass, cell_ptr, cell_faces)
     return pv * (comp * _density(p, coef) * dp) / dt + div
+
+
+def _tpfa_face_coefficients(t, p_lo, p_hi, coef):
+    """A face's tangent ``dm = a_lo d_lo + a_hi d_hi`` at the frozen ``p``,
+    the upwind side fixed by the sign of ``q = t (p_lo - p_hi)``: ``(a_lo,
+    a_hi)``, with ``wt = w t``, ``a_lo = fma(comp rho / visc, q, wt)`` and
+    ``a_hi = (comp rho / visc) q - wt`` (the product rounded), as the kernel
+    forms them (see ``csrc/tpfa_flow.cu``)."""
+    comp, visc = coef[1], coef[2]
+    r_lo, r_hi = _density(p_lo, coef), _density(p_hi, coef)
+    q = t * (p_lo - p_hi)
+    up = q >= 0
+    wt = torch.where(up, r_lo, r_hi) / visc * t
+    return (
+        torch.where(up, fma(comp * r_lo / visc, q, wt), wt),
+        torch.where(up, -wt, comp * r_hi / visc * q - wt),
+    )
 
 
 def tpfa_linearize(p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef, slot, diag_slot,
@@ -464,29 +508,54 @@ def tpfa_linearize(p, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef,
     """``J(p)`` of :func:`tpfa_residual` as the ``nnz`` values of a cell-cell
     CSR matrix on a fixed pattern: ``slot[e]`` is the value index of entry
     ``e`` of ``cell_faces``'s neighbour (-1 on a boundary face),
-    ``diag_slot[c]`` that of cell ``c``'s diagonal. Neumann faces add
-    nothing (their flux is prescribed)."""
+    ``diag_slot[c]`` that of cell ``c``'s diagonal. Each cell walks its row
+    in ``cell_faces`` order, as the kernel does: the diagonal from ``pv
+    (comp rho(p)) / dt`` gains ``a_lo`` where the cell is ``lo`` and loses
+    ``a_hi`` where it is ``hi``, the neighbour's value (from 0) gains
+    ``a_hi`` or loses ``a_lo``. Neumann faces add nothing (their flux is
+    prescribed)."""
     comp, dt = coef[1], coef[4]
-    nc = pv.shape[0]
     p_lo, p_hi = _tpfa_face_values(p, lo, hi, bc_val)
-    a_lo, a_hi = _face_coefficients(t, p_lo, p_hi, coef)
-    a_lo = torch.where(is_neu, torch.zeros_like(a_lo), a_lo)
-    a_hi = torch.where(is_neu, torch.zeros_like(a_hi), a_hi)
-    cf = cell_faces.long()
-    face = torch.where(cf >= 0, cf, -cf - 1)
-    own = cf >= 0
-    cell = torch.repeat_interleave(
-        torch.arange(nc, device=p.device), (cell_ptr[1:] - cell_ptr[:-1]).long()
-    )
-    diag = (pv * (comp * _density(p, coef)) / dt).index_add(
-        0, cell, torch.where(own, a_lo[face], -a_hi[face])
-    )
+    a_lo, a_hi = _tpfa_face_coefficients(t, p_lo, p_hi, coef)
+    face, own, valid = tpfa_rows(cell_ptr, cell_faces)
+    live = valid & ~is_neu[face]
+    lo_f, hi_f = a_lo[face], a_hi[face]
+    to_diag = torch.where(own, lo_f, -hi_f)
+    to_other = torch.where(own, hi_f, -lo_f)
+    nc, width = valid.shape
+    k = torch.full((nc, width), -1, dtype=torch.long, device=p.device)
+    if width:
+        k[valid] = slot.long()
+    diag = pv * (comp * _density(p, coef)) / dt
     vals = p.new_zeros(nnz)
-    k = slot.long()
-    ok = k >= 0
-    vals.index_add_(0, k[ok], torch.where(own, a_hi[face], -a_lo[face])[ok])
+    for j in range(width):
+        diag = torch.where(live[:, j], diag + to_diag[:, j], diag)
+        # A cell's slots are its own, so one column writes each slot once.
+        sel = live[:, j] & (k[:, j] >= 0)
+        kj = k[sel, j]
+        vals[kj] = vals[kj] + to_other[sel, j]
     vals[diag_slot.long()] = diag
     return vals
+
+
+def tpfa_jacobi_diagonal(p, t_sum, pv, coef):
+    """The Newton step's Jacobi diagonal (``TpfaFlowKernel._jacobi_diagonal``):
+    ``t_sum w + ((pv comp) rho) / dt`` with ``w = rho(p) / visc``, 1 where
+    its magnitude is at most 1e-30."""
+    rho = _density(p, coef)
+    diag = t_sum * (rho / coef[2])
+    diag = diag + pv * coef[1] * rho / coef[4]
+    return torch.where(torch.abs(diag) > 1e-30, diag, torch.ones_like(diag))
+
+
+def tpfa_step(p, p_prev, lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef, t_sum, slot, diag_slot,
+              nnz: int):
+    """The unstructured Newton step's operands at ``p``: ``(r, vals,
+    diag)``, :func:`tpfa_residual`, :func:`tpfa_linearize` and
+    :func:`tpfa_jacobi_diagonal`, which the kernel's one launch writes."""
+    args = (lo, hi, t, is_neu, bc_val, pv, cell_ptr, cell_faces, coef)
+    return (tpfa_residual(p, p_prev, *args), tpfa_linearize(p, *args, slot, diag_slot, nnz),
+            tpfa_jacobi_diagonal(p, t_sum, pv, coef))
 
 
 # -- K10 --------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """Device-resident single-phase-flow Newton step on unstructured TPFA data.
 
 The whole per-iteration work -- residual, Jacobian, Krylov solve, update
--- runs on fixed-shape tensors of one device: the residual and its
-Jacobian action are one launch each of the hand-written TPFA kernels
-(:func:`~porepy_tpu_torch.kernels.tpfa_residual`,
-:func:`~porepy_tpu_torch.kernels.tpfa_jvp`), and the solve is a
-Jacobi-preconditioned BiCGStab. The Newton step writes the Jacobian once
-as the values of a cell-cell matrix on a pattern fixed by the topology
-(:func:`~porepy_tpu_torch.kernels.tpfa_linearize`, one launch) and solves
-in two cooperative launches of
-:class:`~porepy_tpu_torch.kernels.FlowCycle`, the matvecs inside.
+-- runs on fixed-shape tensors of one device. A Newton step makes one
+launch of the hand-written TPFA kernel at ``p``
+(:class:`~porepy_tpu_torch.kernels.TpfaLauncher`'s ``step``): the
+residual, the Jacobian's values on a cell-cell pattern fixed by the
+topology and the Jacobi diagonal, each cell walking its own faces; then
+the norm, the scaled right-hand side and a Jacobi-preconditioned BiCGStab
+in two cooperative launches of :class:`~porepy_tpu_torch.kernels.FlowCycle`
+(the matvecs inside), one host read. The residual, the Jacobian action and
+the Jacobian alone are one launch each of the same kernel
+(:meth:`TpfaFlowKernel.residual`, :meth:`TpfaFlowKernel.jvp`,
+:meth:`TpfaFlowKernel._linearized`).
 
 Physics covered (matching the model-layer SinglePhaseFlow): compressible
 single-phase Darcy flow, TPFA fluxes with Dirichlet ghost values / Neumann
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from porepy_tpu_torch import kernels
+from porepy_tpu_torch.kernels import reference
 
 __all__ = ["TpfaFlowKernel", "build_cart_flow_kernel", "newton_step"]
 
@@ -178,31 +181,30 @@ class TpfaFlowKernel:
         )
 
     def residual(self, p, p_prev):
-        """Mass-balance residual, one launch of the TPFA kernel (face pass
-        and cell gather)."""
-        return kernels.tpfa_residual(p, p_prev, *self._arrays(), self._coef())
+        """Mass-balance residual, one launch of the TPFA kernel (each cell
+        walking its faces)."""
+        return self._solver(p.dtype)[1].residual(p, p_prev)
 
     def jvp(self, p, dp):
         """``J(p) dp``, the Jacobian action at ``p`` (what ``jax.linearize``
         gives ``porepy_tpu``), one launch of the TPFA kernel."""
-        return kernels.tpfa_jvp(p, dp, *self._arrays(), self._coef())
+        return self._solver(p.dtype)[1].jvp(p, dp)
 
     # -- Newton step ---------------------------------------------------------
 
     @functools.cached_property
     def _solvers(self) -> dict:
-        """Per dtype, made at first use: ``(args, cycle)``, the
+        """Per dtype, made at first use: ``(args, launcher, cycle)``, the
         linearization's arguments (the kernel's arrays and fluid scalars in
         that dtype and the Jacobian's pattern slots, :func:`_jacobian_pattern`,
-        built once on the host) and the
+        built once on the host), the
+        :class:`~porepy_tpu_torch.kernels.TpfaLauncher` over them (and the
+        transmissibility row sums of the diagonal), and the
         :class:`~porepy_tpu_torch.kernels.FlowCycle` over the Jacobian's
         values and Jacobi diagonal, both rewritten each linearization."""
         return {}
 
-    def _linearized(self, p, dtype):
-        """The solver of ``J(p)`` in ``dtype``: one ``tpfa_linearize``
-        launch at ``p`` cast to ``dtype``, and ``M = v / diag`` with the
-        Jacobi diagonal at ``p`` cast to it."""
+    def _solver(self, dtype) -> tuple:
         solver = self._solvers.get(dtype)
         if solver is None:
             dev = self.t.device
@@ -214,22 +216,31 @@ class TpfaFlowKernel:
             vals = torch.zeros(cols.shape[0], dtype=dtype, device=dev)
             diag = torch.empty(self.num_cells, dtype=dtype, device=dev)
             arrays = tuple(a.to(dtype) if a.is_floating_point() else a for a in self._arrays())
+            args = (*arrays, self._coef().to(dtype), slot, diag_slot)
+            launcher = kernels.TpfaLauncher(*args[:-2], self.t_sum.to(dtype), slot, diag_slot, cols.shape[0])
             solver = self._solvers[dtype] = (
-                (*arrays, self._coef().to(dtype), slot, diag_slot),
-                kernels.FlowCycle("tpfa", (row_ptr, cols, vals), diag),
+                args, launcher, kernels.FlowCycle("tpfa", (row_ptr, cols, vals), diag),
             )
-        args, cycle = solver
-        kernels.tpfa_linearize(p.to(dtype), *args, cycle.op[-1])
+        return solver
+
+    def _linearized(self, p, dtype):
+        """The solver of ``J(p)`` in ``dtype``: one ``tpfa_linearize``
+        launch at ``p`` cast to ``dtype``, and ``M = v / diag`` with the
+        Jacobi diagonal at ``p`` (:meth:`_jacobi_diagonal`) cast to it."""
+        _args, launcher, cycle = self._solver(dtype)
+        launcher.linearize(p.to(dtype), cycle.op[-1])
         cycle.diag.copy_(self._jacobi_diagonal(p))
         return cycle
 
     def newton_step(self, p, p_prev, tol: float = 1e-10, maxiter: int = 200, iterations: list | None = None):
-        """One Newton iteration: BiCGStab on the Jacobian, linearized once
-        (two launches); the solve's iteration count is appended to
-        ``iterations`` when a list is given. Returns
-        ``(p_new, residual_norm_before)``."""
-        r = kernels.tpfa_residual(p, p_prev, *self._arrays(), self._coef())
-        cycle = self._linearized(p, p.dtype)
+        """One Newton iteration in ``p``'s dtype: one ``tpfa_step`` launch
+        at ``p`` writes the residual, the Jacobian's values and the Jacobi
+        diagonal (into the :class:`~porepy_tpu_torch.kernels.FlowCycle`'s
+        buffers), then BiCGStab on the Jacobian (two launches, one host
+        read); the solve's iteration count is appended to ``iterations``
+        when a list is given. Returns ``(p_new, residual_norm_before)``."""
+        _args, launcher, cycle = self._solver(p.dtype)
+        r = launcher.step(p, p_prev, cycle.op[-1], cycle.diag)
         nrm = torch.linalg.vector_norm(r)
         scale = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
         dx, k = cycle.solve(-r / scale, tol=tol, atol=0.0, maxiter=maxiter)
@@ -241,11 +252,9 @@ class TpfaFlowKernel:
     def _jacobi_diagonal(self, p):
         """Diagonal of the Jacobian: accumulation part analytically + flux
         part approximated by transmissibility row sums (exact for
-        incompressible flow)."""
-        w = self.density(p) / self.visc
-        diag = self.t_sum * w
-        diag = diag + self.pv * self.comp * self.density(p) / self.dt
-        return torch.where(torch.abs(diag) > 1e-30, diag, torch.ones_like(diag))
+        incompressible flow). The torch composition that ``tpfa_step``'s
+        diagonal equals, :func:`~porepy_tpu_torch.kernels.reference.tpfa_jacobi_diagonal`."""
+        return reference.tpfa_jacobi_diagonal(p, self.t_sum, self.pv, self._coef())
 
 
 def build_cart_flow_kernel(
