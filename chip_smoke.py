@@ -299,7 +299,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 23. the assembly in turns (functorch, dual, dual, functorch: the K8 pass of
    ``numerics/ad/forward.py`` against ``torch.func`` over the traced
    residual, its plain version) at the final state of md 1/128, 3d 32^3, biot
-   1/64, tracer 1/64 and ``DarcysLawAd`` 1/128, inside their phases: both
+   1/64, tracer 1/64, ``DarcysLawAd`` 1/128, thm 1/16 and berre3d, inside
+   their phases: both
    results within 1e-12 of the largest entry, median ms of each turn, the
    launches of one assembly by kernel, and the nodes without a dual rule per
    equation, which must be 0 (md 1/128: 107 launches an assembly, 59 of them
@@ -316,7 +317,52 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    host fallbacks, every md and K8 kernel launched, pressure in [0, 1], one
    more host Newton increment <= 1e-10, and the final state within 1e-8 of
    the same run through the functorch route; setup seconds, Newton and
-   Krylov counts, ms per Newton iteration of both.
+   Krylov counts, ms per Newton iteration of both;
+25. run the thm case (``cases.build_thm_contact_3d``: 3d thermoporomechanics
+   with frictional contact, four fractures, 25,120 dofs at 1/16) for its 10
+   steps of 1.0 (``THM_STEPS``), discretized and rediscretized by K10:
+   every Newton iteration rediscretizes the fracture MPFA, so the host
+   Newton loop runs, each iteration assembled by the K8 pass and solved on
+   the card with dense frozen block inverses (K6). Gates: 25,120 dofs, 0
+   host fallbacks, every sweep block dense (none demoted; the pivots' fate
+   printed: the contact block is built in its sparse LU's row order), the
+   K1, K4, K6, K8, K10 and K15 kernels launched, all eight fields finite,
+   one more Newton iteration by the plain route (rediscretized by host
+   LAPACK, assembled by ``torch.func`` with every kernel's plain version and
+   no launch, a dense f64 LU solve on the card) below the Newton tolerance
+   1e-10. Prints the field split,
+   each step's seconds, Newton and Krylov counts, ms per Newton iteration
+   (the run's wall time over its Newton iterations) split into the
+   rediscretization, the assembly, the solve (the preconditioner's builds
+   apart) and the host bookkeeping, the launches of the run and of one
+   assembly, beside the reference's 54,683 ms. Then phase 23 at thm's
+   final state (the K8 pass against the functorch route, every K8 call of
+   an assembly against its plain version, no node without a dual rule);
+   (d) every K15 call of
+   one assembly, one launch each, to the bit of its plain version; (c) the
+   discretization by host LAPACK and by K10 in turns (every matrix within
+   1e-12 of the host's largest entry), every region bucket's first chunk
+   through the kernel to the bits of ``region_solve_ordered``, with device
+   us at (81, 64, 112), and one Newton iteration's rediscretization by both
+   routes in turns; (b) thm 1/4 (664 dofs, 2 steps) on the card against the
+   host plain path, all eight fields within 1e-8 of each field's max;
+26. run Berre et al. 3d case 2 (``cases.build_berre3d``: md flow on the
+   native 16^3 tet lattice, 31,578 dofs in 106 subdomains) for its 10 steps
+   (``BERRE3D_STEPS``): 2 blocks of 4 steps committed, 0 host fallbacks,
+   the md kernels and K8 launched, a finite state, one more Newton
+   increment (assembled by ``torch.func`` with every kernel's plain version
+   and no launch, a dense f64 LU solve on the card) below 1e-10, and phase
+   23 at the final state; prints setup seconds (grid, prepare, discretization, the
+   equations' compile and first assembly, the preconditioner's builds),
+   Newton and Krylov counts per block, ms per Newton iteration in the blocks
+   beside the reference's 98,254 ms, the launches of one assembly and its
+   ms; then (b) the 8^3 lattice (5,136 dofs, 4 steps, one 2-step block) on
+   the card against the host plain path, pressure and mortar fluxes within
+   1e-8 of each field's max.
+
+Phases 25 and 26 alone, on a card: ``python3 -c "import torch, chip_smoke as c;
+d = c.build_kernels(); c.bench_summary(c.bench_cases(torch.device('cuda'), 10,
+10), '')"``.
 
 All fused runs (phases 4-21) assemble through the K8 pass. The line before
 the last is a JSON object with one entry per kernel (ms,
@@ -559,12 +605,15 @@ def largest_ell_k(model) -> int:
     return max(ks)
 
 
-def last_step_check(model) -> tuple[float, float]:
-    """The last time step re-checked on the host CPU with the plain path:
-    the md equations at the final state ``x_26`` with the previous-step
-    state ``x_25`` of the last block. Returns ``|F| / sqrt(n)`` and the
-    norm ``|dx| / sqrt(n)`` of one more Newton increment, ``J dx = -F``
-    solved directly with scipy — the quantity the Newton tolerance bounds."""
+def last_step_check(model, device: str = "cpu") -> tuple[float, float]:
+    """The last time step re-checked with the plain path: the md equations
+    at the final state ``x_26`` with the previous-step state ``x_25`` of
+    the last block. Returns ``|F| / sqrt(n)`` and the norm ``|dx| /
+    sqrt(n)`` of one more Newton increment, ``J dx = -F``. The assembly runs
+    on ``device`` by the plain route (:func:`_plain_assembly`: ``torch.func``
+    over the traced residuals, every kernel's plain version, no launch);
+    on the host CPU (``device="cpu"``) scipy solves directly, on a card a
+    dense f64 LU (:func:`_dense_increment`)."""
     import scipy.sparse as sps
     import scipy.sparse.linalg as spla
 
@@ -573,22 +622,40 @@ def last_step_check(model) -> tuple[float, float]:
     eq_sys = model.equation_system
     cs = eq_sys.compiled_system()
     subst = model._fused_block_substitution(cs)
-    x_prev, x_last = (t.cpu() for t in model._last_block_states[-2:])
+    x_prev, x_last = (t.to(device) for t in model._last_block_states[-2:])
     data, vals = [], []
-    for ce, smap in zip(cs.ces, subst):
-        env = ce.env_spec.fetch(eq_sys, device="cpu")
-        env = [x_prev[smap[i][0] : smap[i][1]] if i in smap else e for i, e in enumerate(env)]
-        # The plain version of the assembly: torch.func over the traced residual.
-        seeds = torch.tensor(ce.seeds, dtype=torch.float64)
-        val, compressed = compiler.colored_jvps(ce.fn, x_last, env, seeds)
-        data.append(compressed.numpy()[ce.gather_color, ce.rows])
-        vals.append(val.numpy())
+    with _plain_assembly():
+        for ce, smap in zip(cs.ces, subst):
+            env = ce.env_spec.fetch(eq_sys, device=device)
+            env = [x_prev[smap[i][0] : smap[i][1]] if i in smap else e for i, e in enumerate(env)]
+            seeds = torch.tensor(ce.seeds, dtype=torch.float64, device=device)
+            val, compressed = compiler.colored_jvps(ce.fn, x_last, env, seeds)
+            data.append(compressed.cpu().numpy()[ce.gather_color, ce.rows])
+            vals.append(val.cpu().numpy())
+    F = np.concatenate(vals)
+    sqrt_n = np.sqrt(F.size)
+    if device != "cpu":
+        return float(np.linalg.norm(F) / sqrt_n), _dense_increment(cs.indices_np, np.concatenate(data), -F, device)
     rows, cols = cs.indices_np[:, 0], cs.indices_np[:, 1]
     J = sps.csr_matrix((np.concatenate(data), (rows, cols)), shape=cs.shape)
-    F = np.concatenate(vals)
     dx = spla.spsolve(J.tocsc(), -F)
-    sqrt_n = np.sqrt(F.size)
     return float(np.linalg.norm(F) / sqrt_n), float(np.linalg.norm(dx) / sqrt_n)
+
+
+def _dense_increment(indices, data, b, device) -> float:
+    """``|dx| / sqrt(n)`` of ``J dx = b`` for the square COO matrix
+    ``(indices, data)`` (duplicates summed), by a dense f64 LU with partial
+    pivoting on ``device`` (``torch.linalg.solve``): a direct solve of the
+    Newton system that shares nothing with the Krylov path, where scipy's
+    sparse LU of thm's Jacobian is slow (``PERF.md`` §6)."""
+    n = b.size
+    J = torch.zeros(n, n, dtype=torch.float64, device=device)
+    idx = torch.as_tensor(np.ascontiguousarray(indices), device=device)
+    J.index_put_((idx[:, 0], idx[:, 1]), torch.as_tensor(data, dtype=torch.float64, device=device), accumulate=True)
+    dx = torch.linalg.solve(J, torch.as_tensor(b, dtype=torch.float64, device=device))
+    del J
+    torch.cuda.empty_cache()
+    return float(torch.linalg.vector_norm(dx)) / np.sqrt(n)
 
 
 def timed_model(base):
@@ -2798,6 +2865,27 @@ def _functorch_route():
 
 
 @contextlib.contextmanager
+def _plain_assembly():
+    """The plain route of an assembly inside the block: the compiled
+    systems through :func:`_functorch_route`, K14 and K15 through their
+    plain versions (:func:`_plain_k14_k15`), and the constant matrices'
+    products through K1's plain version (``reference.ell_spmv`` where
+    ``compiler._EllMatvec`` calls the kernel). Fails if the block launched
+    any kernel."""
+    from porepy_tpu_torch import kernels
+    from porepy_tpu_torch.kernels import reference
+
+    ell_spmv = kernels.ell_spmv
+    kernels.ell_spmv = reference.ell_spmv
+    try:
+        with _functorch_route(), _plain_k14_k15(), _launches_of_block() as counted:
+            yield
+    finally:
+        kernels.ell_spmv = ell_spmv
+    _require(not counted, f"the plain assembly launched kernels: {counted}")
+
+
+@contextlib.contextmanager
 def _launches_of_block():
     """The launches made inside the block, by kernel, in the dict it yields;
     the running counts go on as if the block had not reset them."""
@@ -3086,10 +3174,12 @@ def _assembly_in_turns(model, label: str, repeats: int = 5) -> dict:
     return turns
 
 
-def _run_fused_case(dev, Model, params, local_solves: str = "host"):
-    """``Model(params)`` prepared (its discretization by ``local_solves``)
-    and run on ``dev`` with launch counts reset just before; the model, the
-    counts and the times."""
+def _run_fused_case(dev, Model, params, local_solves: str = "host", blocks: int = 3, compile_first: bool = False):
+    """``Model(params)`` prepared (its discretization by ``local_solves``;
+    with ``compile_first`` its equations then compiled and assembled once,
+    timed apart) and run on ``dev`` with launch counts reset just before;
+    ``blocks`` fused blocks committed. The model, the counts and the
+    times."""
     import porepy_tpu_torch as pt
     from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
     from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
@@ -3117,25 +3207,42 @@ def _run_fused_case(dev, Model, params, local_solves: str = "host"):
     model.block_log = []
     model.block_states = {}
     model.step_log = []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    disc_s = []
+    discretize = model.discretize
+
+    def timed_discretize():
+        sync()
+        tic = time.perf_counter()
+        discretize()
+        sync()
+        disc_s.append(time.perf_counter() - tic)
+
+    model.discretize = timed_discretize
     fallbacks0 = FALLBACK_COUNTER["count"]
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    sync()
     reset_launches()
     tic = time.perf_counter()
     with _local_solves(local_solves):
         model.prepare_simulation()
     model._prepared = True
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    sync()
     setup_s = time.perf_counter() - tic
+    model.discretize = discretize
+    compile_s = None
+    if compile_first:
+        tic = time.perf_counter()
+        model.equation_system.compiled_system().assemble(model.equation_system)
+        sync()
+        compile_s = time.perf_counter() - tic
     setup_launches = dict(LAUNCHES)
     tic = model.step_tic = time.perf_counter()
     pt.run_time_dependent_model(model, params)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    sync()
     run_s = time.perf_counter() - tic
     launches = dict(LAUNCHES)
-    print(f"  on {dev}: dofs {model.equation_system.num_dofs()}, setup {setup_s:.3f} s, 26 steps {run_s:.3f} s")
+    steps = len(model.nonlinear_solver_statistics.history)
+    print(f"  on {dev}: dofs {model.equation_system.num_dofs()}, setup {setup_s:.3f} s, {steps} steps {run_s:.3f} s")
     for i, (secs, newton, loop, krylov) in enumerate(model.step_log):
         print(
             f"  step {i + 1} outside the blocks: {secs:.3f} s, {newton} Newton iterations in the "
@@ -3147,18 +3254,21 @@ def _run_fused_case(dev, Model, params, local_solves: str = "host"):
             f"{rec['newton_iters']} Newton, {rec['krylov_iters']} Krylov, "
             f"{1e3 * secs / max(rec['newton_iters'], 1):.2f} ms per Newton iteration"
         )
-    _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
+    _require(getattr(model, "_ftb_blocks_committed", 0) == blocks, f"blocks {getattr(model, '_ftb_blocks_committed', 0)}")
     _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
     newton = sum(rec["newton_iters"] for _s, rec in model.block_log)
     block_s = sum(s for s, _rec in model.block_log)
     return model, {
         "launches": launches, "setup_launches": setup_launches, "setup_s": setup_s,
+        "disc_s": sum(disc_s), "compile_s": compile_s,
         "ms_per_newton": 1e3 * block_s / max(newton, 1), "newton": newton,
         "krylov": sum(rec["krylov_iters"] for _s, rec in model.block_log),
     }
 
 
 def _fields_close(model, host_model, names, tol) -> None:
+    """Each field of ``names`` of ``model``'s final state within ``tol`` of
+    the field's largest value of ``host_model``'s final state."""
     for name in names:
         a = model.equation_system.get_variable_values([name], time_step_index=0)
         b = host_model.equation_system.get_variable_values([name], time_step_index=0)
@@ -3418,6 +3528,525 @@ def check_dual_kernels(dev) -> dict:
     return report
 
 
+# -- the thm and berre3d bench cases ----------------------------------------------
+
+# Steps of the full-width runs of phases 25 and 26 (the cases' own: 10).
+THM_STEPS, BERRE3D_STEPS = 10, 10
+
+THM_FIELDS = (
+    "u", "pressure", "temperature", "contact_traction", "u_interface",
+    "interface_darcy_flux", "interface_fourier_flux", "interface_enthalpy_flux",
+)
+# The reference's ms per Newton iteration on its CPU (tools/ref_baselines.json:
+# thm_contact_3d_16, berre3d_case2_flow_16).
+REF_MS = {"thm": 54683.0, "berre3d": 98254.0}
+
+
+def _discretization_matrices(model) -> dict:
+    """Every matrix of the model's registered discretizations, by (keyword,
+    grid number, name), copied."""
+    import scipy.sparse as sps
+
+    from porepy_tpu_torch.utils.common_constants import DISCRETIZATION_MATRICES
+
+    grids = {id(sd): i for i, sd in enumerate(model.mdg.subdomains())}
+    out = {}
+
+    def walk(prefix, d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(prefix + (k,), v)
+            elif sps.issparse(v):
+                out[prefix + (k,)] = v.tocsr(copy=True)
+
+    for discr, sd, data in model._discretizations:
+        walk((discr.keyword, grids[id(sd)]), data[DISCRETIZATION_MATRICES].get(discr.keyword, {}))
+    return out
+
+
+def _region_bucket(source: str, key, arrays, dev, timed: bool) -> dict:
+    """One K10 bucket's first chunk: the kernel against its plain versions
+    (``region_solve_ordered``'s bits, ``linalg.solve``'s within 1e-12),
+    with times when ``timed``."""
+    from porepy_tpu_torch.kernels import ops, reference
+
+    n, m, q = key
+    a, rhs, w = (torch.from_numpy(x).to(dev) for x in arrays)
+    got = ops.region_solve(a, rhs, w)
+    want = reference.region_solve_contract(a, rhs, w)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    tag = f"region_solve {source}: B {a.shape[0]}, n {n}, m {m}, q {q}, {ops.region_solve_route(n, m)} route"
+    _check(tag, torch.tensor(err), 1e-12 * scale)
+    _require(reference.same_bits(got, reference.region_solve_ordered(a, rhs, w)),
+             f"{tag}: the kernel differs from region_solve_ordered")
+    out = {"B": a.shape[0], "n": n, "m": m, "q": q, "err": err}
+    if timed:
+        out.update(
+            ms=_cuda_ms(lambda: ops.region_solve(a, rhs, w), 20),
+            device_us=_graph_us(lambda: ops.region_solve(a, rhs, w), launches=10, replays=3),
+            plain_ms=_cuda_ms(lambda: reference.region_solve_contract(a, rhs, w), 20),
+        )
+        print(f"    the ordered plain version's bits; {out['ms']:.4f} ms kernel, device {out['device_us']:.2f} us "
+              f"(graph replay), {out['plain_ms']:.4f} ms plain")
+    return out
+
+
+def _thm_model(dev, cell_size: float, steps: int):
+    """The thm case at ``cell_size`` for ``steps`` steps on ``dev``, its
+    host Newton loop logged: seconds of each rediscretization, assembly and
+    solve (synchronized), each step's Newton and Krylov counts, and at the
+    last step one more Newton iteration by the plain route: rediscretized at
+    the converged state by host LAPACK, assembled by :func:`_plain_assembly`
+    on ``dev``, solved directly (a dense f64 LU on a card, scipy on the
+    host)."""
+    import scipy.sparse as sps
+    import scipy.sparse.linalg as sps_linalg
+
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import build_thm_contact_3d
+
+    Model, params = build_thm_contact_3d(cell_size, device=str(dev))
+    params["time_manager"] = pt.TimeManager([0, float(steps)], 1.0, constant_dt=True)
+    log = {key: [] for key in ("rediscretize", "assemble", "solve", "update", "check", "loop", "ref_residual",
+                               "steps", "krylov", "step_s")}
+    log["tic"] = None
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(key, fn):
+        sync()
+        tic = time.perf_counter()
+        out = fn()
+        sync()
+        log[key].append(time.perf_counter() - tic)
+        return out
+
+    class Logged(Model):
+        def before_nonlinear_loop(self):
+            log["tic"] = time.perf_counter()
+            timed("loop", super().before_nonlinear_loop)
+            es = self.equation_system
+            if "assemble" not in vars(es):
+                # The Newton loop's reference residual, once a step.
+                assemble = es.assemble
+
+                def residual_timed(*args, **kwargs):
+                    if kwargs.get("evaluate_jacobian", True):
+                        return assemble(*args, **kwargs)
+                    return timed("ref_residual", lambda: assemble(*args, **kwargs))
+
+                es.assemble = residual_timed
+
+        def rediscretize(self):
+            timed("rediscretize", super().rediscretize)
+
+        def assemble_linear_system(self):
+            timed("assemble", super().assemble_linear_system)
+
+        def solve_linear_system(self):
+            x = timed("solve", super().solve_linear_system)
+            log["krylov"].append(next(iter(self._device_solvers.values())).last_stats["krylov_iters"])
+            return x
+
+        def after_nonlinear_iteration(self, increment):
+            timed("update", lambda: super(Logged, self).after_nonlinear_iteration(increment))
+
+        def check_convergence(self, *args):
+            return timed("check", lambda: super(Logged, self).check_convergence(*args))
+
+        def after_nonlinear_convergence(self):
+            k = self.nonlinear_solver_statistics.num_iteration
+            done = sum(n for n, _ in log["steps"])
+            log["steps"].append((k, log["krylov"][done:done + k]))
+            if len(log["steps"]) == steps:
+                # One more Newton iteration by the plain route, sharing no
+                # kernel with the run.
+                tic = time.perf_counter()
+                with _local_solves("host"):
+                    Model.rediscretize(self)
+                es = self.equation_system
+                cs = es.compiled_system()
+                with _plain_assembly():
+                    data, rhs = (t.cpu().numpy() for t in cs.assemble(es))
+                log["residual"] = float(np.linalg.norm(rhs) / np.sqrt(rhs.size))
+                if dev.type == "cuda":
+                    log["increment"] = _dense_increment(cs.indices_np, data, rhs, dev)
+                else:
+                    A = sps.csr_matrix((data, (cs.indices_np[:, 0], cs.indices_np[:, 1])), shape=cs.shape)
+                    dx = sps_linalg.spsolve(A.tocsc(), rhs)
+                    log["increment"] = float(np.linalg.norm(dx) / np.sqrt(dx.size))
+                log["check_s"] = time.perf_counter() - tic
+            super().after_nonlinear_convergence()
+            log["step_s"].append(time.perf_counter() - log["tic"] - log.get("check_s", 0.0))
+
+    model = Logged(params)
+    model.log = log
+    return model, params
+
+
+@contextlib.contextmanager
+def _timed_builds():
+    """The seconds of every preconditioner build or refresh inside the
+    block (``DeviceLinearSolver.refresh_preconditioner``, synchronized), in
+    the list it yields."""
+    from porepy_tpu_torch.numerics.linalg.device_solver import DeviceLinearSolver
+
+    secs = []
+    refresh = DeviceLinearSolver.refresh_preconditioner
+
+    def timed(self, data):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        refresh(self, data)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - tic)
+
+    DeviceLinearSolver.refresh_preconditioner = timed
+    try:
+        yield secs
+    finally:
+        DeviceLinearSolver.refresh_preconditioner = refresh
+
+
+def run_thm(dev, steps: int) -> dict:
+    """Phase 25a: the thm case at 1/16 (25,120 dofs) for ``steps`` steps of
+    1.0 on ``dev``, discretized (and rediscretized every Newton iteration)
+    by K10, the host Newton loop, dense frozen block inverses."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    cut = "" if steps == 10 else f" (cut from the case's 10: the first {steps})"
+    print(f"phase 25: thm (3d thermoporomechanics, frictional contact) at cell size 1/16, {steps} steps of 1.0"
+          f"{cut} on {dev}, dense_precond=True, discretized by K10, the host Newton loop")
+    model, params = _thm_model(dev, 1.0 / 16, steps)
+    log = model.log
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tic = time.perf_counter()
+    with _local_solves("k10"):
+        model.prepare_simulation()
+        model._prepared = True
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - tic
+        setup_launches = dict(LAUNCHES)
+        reset_launches()
+        tic = time.perf_counter()
+        with _timed_builds() as builds:
+            pt.run_time_dependent_model(model, params)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - tic - log["check_s"]
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    eq_sys = model.equation_system
+    solver = next(iter(model._device_solvers.values()))
+    newton = sum(n for n, _ in log["steps"])
+    krylov = sum(log["krylov"])
+    builder = solver._builder
+    sweep = [i for i, m in enumerate(builder.methods) if m != "eliminate"]
+    sizes = builder._sizes
+    print(f"  dofs {eq_sys.num_dofs()}, setup {setup_s:.3f} s (K10 launches {setup_launches.get('region_solve', 0)}), "
+          f"{steps} steps {run_s:.3f} s, {newton} Newton / {krylov} Krylov iterations; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; largest K of a K1 matrix {largest_ell_k(model)}")
+    decl = model.linear_solver_blocks()["blocks"]
+    print(f"  field split (unknowns, rows, method): "
+          f"{[(v, size, m) for (_eqs, v), size, m in zip(decl, sizes, builder.methods)]}")
+    print(f"  dense inverses, the pivots' fate (rows, built or demoted, inverted in the block's sparse LU's row "
+          f"order after a singular 128-row pivot block): "
+          f"{ {i: (sizes[i], builder._block_dense.get(i), builder._block_reordered.get(i)) for i in sweep} }")
+    for i, ((k, kry), secs) in enumerate(zip(log["steps"], log["step_s"])):
+        print(f"  step {i + 1}: {secs:.3f} s, {k} Newton, Krylov {kry}")
+    per = {key: 1e3 * sum(log[key]) / max(newton, 1) for key in ("rediscretize", "assemble", "solve", "update",
+                                                                 "check", "loop", "ref_residual")}
+    per["builds"] = 1e3 * sum(builds) / max(newton, 1)
+    ms = 1e3 * run_s / max(newton, 1)
+    print(f"  ms per Newton iteration {ms:.2f} (the run's wall time over its Newton iterations): rediscretization "
+          f"{per['rediscretize']:.2f}, assembly {per['assemble']:.2f}, solve {per['solve']:.2f} (of it the "
+          f"preconditioner's {len(builds)} builds {per['builds']:.2f}: {[round(t, 3) for t in builds]} s), the "
+          f"iterate's update {per['update']:.2f}, the convergence check {per['check']:.2f}, the steps' set-up "
+          f"{per['loop']:.2f} and reference residual {per['ref_residual']:.2f}, the rest "
+          f"{ms - sum(v for k, v in per.items() if k != 'builds'):.2f}; the "
+          f"reference's CPU {REF_MS['thm']:.0f}")
+    print(f"  kernel launches in the run: {launches}")
+    _require(eq_sys.num_dofs() == 25120, f"thm dofs {eq_sys.num_dofs()}")
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
+    _require(len(log["steps"]) == steps, f"{len(log['steps'])} steps")
+    _require(solver._dense and all(builder._block_dense.get(i) for i in sweep),
+             f"a dense block demoted or not built: {builder._block_dense}")
+    needed = ("ell_spmv", "fgmres_arnoldi", "upwind_flux", "upwind_select", "region_solve") + DENSE_KERNELS + K8_KERNELS
+    _require(all(launches.get(k, 0) > 0 for k in needed), f"kernel not launched: {launches}")
+    for var in THM_FIELDS:
+        v = eq_sys.get_variable_values([var], time_step_index=0)
+        _require(bool(np.all(np.isfinite(v))), f"thm {var} not finite")
+    tol = 1e-10
+    print(f"  last step by the plain route (rediscretized by host LAPACK, assembled by torch.func with the "
+          f"kernels' plain versions, a dense f64 LU solve on the card, {log['check_s']:.2f} s): "
+          f"|F|/sqrt(n) {log['residual']:.3e}, next Newton increment |dx|/sqrt(n) {log['increment']:.3e}, "
+          f"tolerance {tol:.0e}")
+    _require(log["increment"] <= tol, f"Newton increment {log['increment']} > {tol}")
+    cs = eq_sys.compiled_system()
+    with _launches_of_block() as per_assembly:
+        cs.assemble(eq_sys)
+    print(f"  launches of one assembly {per_assembly} (sum {sum(per_assembly.values())})")
+    return {
+        "model": model, "launches": launches, "per_assembly": per_assembly, "setup_s": setup_s, "run_s": run_s,
+        "ms_per_newton": ms, "split": per, "newton": newton, "krylov": krylov, "steps": log["steps"],
+        "builds": builds,
+    }
+
+
+def compare_thm_small(dev) -> None:
+    """Phase 25b: thm in 3d at 1/4 (664 dofs), two steps, on the card (K10)
+    and on the host plain path: all eight fields within 1e-8 of each
+    field's largest value."""
+    import porepy_tpu_torch as pt
+
+    print("phase 25b: thm at cell size 1/4, 2 steps, on the card against the host plain path")
+    runs = {}
+    for device in (str(dev), "cpu"):
+        model, params = _thm_model(torch.device(device), 1.0 / 4, 2)
+        with _local_solves("host" if device == "cpu" else "k10"):
+            pt.run_time_dependent_model(model, params)
+        runs[device] = model
+    for var in THM_FIELDS:
+        got, want = (runs[d].equation_system.get_variable_values([var], time_step_index=0) for d in (str(dev), "cpu"))
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"  {var}: max |card - host| {err:.3e}, max |{var}| {scale:.3e}")
+        _require(bool(np.all(np.isfinite(got))), f"thm 1/4 {var} not finite")
+        _require(err <= 1e-8 * scale, f"thm 1/4 {var}: card and host differ by {err}")
+    print(f"  Newton / Krylov a step, card {runs[str(dev)].log['steps']}, host {runs['cpu'].log['steps']}")
+
+
+def check_thm_k10(dev, model) -> dict:
+    """Phase 25c: thm 1/16's discretization by K10 and by host LAPACK in
+    turns (host, K10, K10, host; the first host turn records each bucket's
+    first chunk): every matrix within 1e-12 of the host's largest entry;
+    each bucket's chunk through the kernel, ``region_solve_ordered``'s bits;
+    then one Newton iteration's fracture rediscretization by each route, in
+    turns."""
+    from porepy_tpu_torch.applications.benchmarking.cases import capture_chunks
+
+    print("phase 25c: thm 1/16's discretization by K10 and by host LAPACK, in turns")
+    secs = {"host": [], "k10": []}
+    mats = {}
+    chunks = {}
+    for route in ("host", "k10", "k10", "host"):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        if route == "host" and not chunks:
+            chunks = capture_chunks(model.discretize)
+        else:
+            with _local_solves(route):
+                model.discretize()
+        torch.cuda.synchronize()
+        secs[route].append(time.perf_counter() - tic)
+        mats.setdefault(route, _discretization_matrices(model))
+    worst = 0.0
+    for key, want in mats["host"].items():
+        got = mats["k10"][key]
+        diff = abs(got - want)
+        err = (diff.max() if diff.nnz else 0.0) / max(abs(want).max() if want.nnz else 0.0, 1e-300)
+        worst = max(worst, err)
+        _require(err <= 1e-12, f"thm matrix {key}: K10 and host differ by {err} of the largest entry")
+    print(f"  {len(mats['host'])} matrices, the largest difference K10 - host over the host's largest entry "
+          f"{worst:.3e}; seconds in turns: host {secs['host']}, K10 {secs['k10']}")
+    print(f"  {len(chunks)} buckets (n, m, q): B of the first chunk "
+          f"{ {k: v[0].shape[0] for k, v in sorted(chunks.items())} }")
+    out = {"disc_s": secs, "buckets": {}, "worst": worst}
+    for key, arrays in sorted(chunks.items()):
+        out["buckets"][key] = _region_bucket("thm 1/16", key, arrays, dev, timed=key == (81, 64, 112))
+    _require((81, 64, 112) in out["buckets"], f"thm 1/16 has no (81, 64, 112) bucket: {sorted(chunks)}")
+    redisc = {"host": [], "k10": []}
+    for route in ("k10", "host", "host", "k10"):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        with _local_solves(route):
+            model.rediscretize()
+        torch.cuda.synchronize()
+        redisc[route].append(time.perf_counter() - tic)
+    print(f"  one Newton iteration's fracture rediscretization (and the compiled constants' refresh), s in "
+          f"turns: K10 {redisc['k10']}, host {redisc['host']}")
+    out["redisc_s"] = redisc
+    return out
+
+
+def check_thm_k15(model) -> dict:
+    """Phase 25d: every K15 call of one thm 1/16 assembly at its final
+    state, one launch each, against its plain version and a second launch
+    to the bit; times at each kind's first call."""
+    from porepy_tpu_torch.applications.benchmarking import upwind_calls
+    from porepy_tpu_torch.kernels import reference
+
+    print("phase 25d: K15 at every call of one thm 1/16 assembly")
+    calls = upwind_calls.assembly_calls(model, "thm 1/16")
+    out = {}
+    for call in calls:
+        name = call["launcher"].name
+        with _launches_of_block() as counted:
+            upwind_calls.launch(call)()
+        _require(counted == {name: 1}, f"{call['label']}: launches {counted} for one call")
+        upwind_calls.check_launch(call)
+        if call["kind"] in out:
+            print(f"  {call['label']}: one launch, equal to the plain version and a second launch to the bit")
+            continue
+        fn = upwind_calls.launch(call)
+        plain = upwind_calls.launch(call, lambda L, p, sd=None: reference.upwind_dual(L.kind, L.geometry, p, sd))
+        r = {"label": call["label"], "device_us": _graph_us(fn), "host_us": _host_us(fn), "ms": _cuda_ms(fn),
+             "plain_ms": _cuda_ms(plain, repeats=20), "bound_us": upwind_calls.bound_us(call)}
+        out[call["kind"]] = r
+        print(f"  {call['label']}: one launch, equal to the plain version and a second launch to the bit; device "
+              f"{r['device_us']:.2f} us (graph replay), host {r['host_us']:.2f} us a call, {r['ms']:.4f} ms by "
+              f"events, plain {r['plain_ms']:.4f} ms, bound {r['bound_us']:.3f} us")
+    _require(len(calls) > 0 and {"flux", "interface"} <= set(out), f"thm 1/16's K15 calls: {sorted(out)}")
+    return {"calls": len(calls), "kinds": out}
+
+
+def run_berre3d(dev, steps: int) -> dict:
+    """Phase 26a: Berre et al. 3d case 2 at refinement level 0 (the 16^3
+    tet lattice, 31,578 dofs) for ``steps`` steps of 1.0 on ``dev``: 2
+    per-step solves, then fused 4-step blocks."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_berre3d
+
+    cut = "" if steps == 10 else f" (cut from the case's 10: the first {steps})"
+    print(f"phase 26: berre3d (Berre et al. 3d case 2, native tet mesh) at refinement 0, {steps} steps of 1.0"
+          f"{cut} on {dev}, fused 4-step blocks")
+    tic = time.perf_counter()
+    Model, params = build_berre3d(device=str(dev))
+    grid_s = time.perf_counter() - tic
+    import porepy_tpu_torch as pt
+
+    params["time_manager"] = pt.TimeManager([0, float(steps)], 1.0, constant_dt=True)
+    blocks = -(-(steps - 2) // 4)
+    with _timed_builds() as builds:
+        model, out = _run_fused_case(dev, Model, params, blocks=blocks, compile_first=True)
+    print(f"  the preconditioner's builds: {[round(t, 3) for t in builds]} s")
+    eq_sys = model.equation_system
+    launches = {k: v for k, v in out["launches"].items() if v}
+    print(f"  setup: grid {grid_s:.3f} s, prepare_simulation {out['setup_s']:.3f} s (discretization "
+          f"{out['disc_s']:.3f} s), the equations' compile and first assembly {out['compile_s']:.3f} s; "
+          f"{len(model.mdg.subdomains())} subdomains, {len(model.mdg.interfaces())} interfaces")
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
+    print(f"  Newton / Krylov per block {[(rec['newton_iters'], rec['krylov_iters']) for _s, rec in model.block_log]}; "
+          f"{out['ms_per_newton']:.2f} ms per Newton iteration in the blocks; the reference's CPU "
+          f"{REF_MS['berre3d']:.0f}")
+    _require(eq_sys.num_dofs() == 31578, f"berre3d dofs {eq_sys.num_dofs()}")
+    needed = ("ell_spmv", "fgmres_arnoldi", "amg_vcycle") + K8_KERNELS
+    _require(all(launches.get(k, 0) > 0 for k in needed), f"kernel not launched: {launches}")
+    p = eq_sys.get_variable_values(["pressure"], time_step_index=0)
+    _require(bool(np.all(np.isfinite(eq_sys.get_variable_values(time_step_index=0)))), "berre3d: non-finite state")
+    print(f"  pressure in [{p.min():.6e}, {p.max():.6e}]")
+    tic = time.perf_counter()
+    res, inc = last_step_check(model, device=str(dev))
+    tol = 1e-10
+    print(f"  last step by the plain route (torch.func with the kernels' plain versions, a dense f64 LU solve on the "
+          f"card, {time.perf_counter() - tic:.2f} s): "
+          f"|F|/sqrt(n) {res:.3e}, next Newton increment |dx|/sqrt(n) {inc:.3e}, tolerance {tol:.0e}")
+    _require(inc <= tol, f"Newton increment {inc} > {tol}")
+    cs = eq_sys.compiled_system()
+    with _launches_of_block() as per_assembly:
+        cs.assemble(eq_sys)
+    print(f"  launches of one assembly {per_assembly} (sum {sum(per_assembly.values())}); "
+          f"{len(cs.ces)} equations; an assembly {_timed_assemblies(cs, eq_sys, 5):.2f} ms (median of 5)")
+    out.update(grid_s=grid_s, per_assembly=per_assembly, blocks=[rec for _s, rec in model.block_log], builds=builds,
+               routes=_assembly_routes_in_turns(model, "berre3d"))
+    return out
+
+
+def compare_berre3d_small(dev) -> None:
+    """Phase 26b: berre3d on the 8^3 lattice (5,136 dofs), 4 steps (2
+    per-step solves and one fused 2-step block), on the card and on the
+    host plain path: pressure and mortar fluxes within 1e-8 of each field's
+    largest value."""
+    from porepy_tpu_torch.applications.benchmarking.cases import berre3d_lattice_mdg, berre3d_on
+
+    import porepy_tpu_torch as pt
+
+    print("phase 26b: berre3d on the 8^3 lattice, 4 steps, on the card against the host plain path")
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        Model, params = berre3d_on(berre3d_lattice_mdg(8), device=str(d))
+        params["time_manager"] = pt.TimeManager([0, 4.0], 1.0, constant_dt=True)
+        runs[d.type], _ = _run_fused_case(d, Model, params, blocks=1)
+    _fields_close(runs["cuda"], runs["cpu"], ("pressure", "interface_darcy_flux"), 1e-8)
+
+
+def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
+    """Phases 25 (thm, ``thm_steps`` steps at 1/16) and 26 (berre3d,
+    ``berre3d_steps`` steps); a phase whose steps are ``None`` is not
+    run."""
+    out = {}
+    if thm_steps is not None:
+        tic = time.perf_counter()
+        thm = run_thm(dev, thm_steps)
+        model = thm.pop("model")
+        thm["routes"] = _assembly_routes_in_turns(model, "thm")
+        thm["k15"] = check_thm_k15(model)
+        thm["k10"] = check_thm_k10(dev, model)
+        del model
+        torch.cuda.empty_cache()
+        compare_thm_small(dev)
+        thm["seconds"] = time.perf_counter() - tic
+        print(f"phase 25 took {thm['seconds']:.1f} s")
+        out["thm"] = thm
+    if berre3d_steps is not None:
+        tic = time.perf_counter()
+        berre = run_berre3d(dev, berre3d_steps)
+        compare_berre3d_small(dev)
+        berre["seconds"] = time.perf_counter() - tic
+        print(f"phase 26 took {berre['seconds']:.1f} s")
+        out["berre3d"] = berre
+    return out
+
+
+def bench_summary(bench: dict, smi: str) -> None:
+    """Phases 25 and 26's numbers, one line each."""
+    t = bench.get("thm")
+    if t:
+        s = t["split"]
+        b = t["k10"]["buckets"][(81, 64, 112)]
+        print(f"thm 1/16 on {smi}: {t['ms_per_newton']:.2f} ms per Newton iteration (rediscretization "
+              f"{s['rediscretize']:.2f}, assembly {s['assemble']:.2f}, solve {s['solve']:.2f} with the preconditioner's "
+              f"{len(t['builds'])} builds {s['builds']:.2f}, update {s['update']:.2f}, convergence check "
+              f"{s['check']:.2f}, steps' set-up {s['loop']:.2f}, reference residual {s['ref_residual']:.2f}), "
+              f"{t['newton']} Newton / "
+              f"{t['krylov']} Krylov in {len(t['steps'])} steps, setup {t['setup_s']:.3f} s, launches of one "
+              f"assembly {sum(t['per_assembly'].values())} ({t['per_assembly'].get('dual_ew', 0)} dual_ew); the "
+              f"reference's CPU {REF_MS['thm']:.0f} ms")
+        print(f"thm 1/16 discretization on {smi}, s in turns: host {t['k10']['disc_s']['host']}, K10 "
+              f"{t['k10']['disc_s']['k10']}; a fracture rediscretization: host {t['k10']['redisc_s']['host']}, K10 "
+              f"{t['k10']['redisc_s']['k10']}; K10 at (81, 64, 112), B {b['B']}: {b['device_us']:.2f} us device "
+              f"(graph replay), {b['ms']:.4f} ms, plain {b['plain_ms']:.4f} ms")
+        for kind, r in t["k15"]["kinds"].items():
+            print(f"K15 at thm 1/16's {kind} call ({r['label']}) on {smi}: device {r['device_us']:.2f} us, host "
+                  f"{r['host_us']:.2f} us, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_us']:.3f} us")
+    b = bench.get("berre3d")
+    if b:
+        print(f"berre3d (refinement 0) on {smi}: {b['ms_per_newton']:.2f} ms per Newton iteration in the blocks, "
+              f"Newton / Krylov per block {[(r['newton_iters'], r['krylov_iters']) for r in b['blocks']]}, setup: grid "
+              f"{b['grid_s']:.3f} s, prepare {b['setup_s']:.3f} s (discretization {b['disc_s']:.3f} s), compile and "
+              f"first assembly {b['compile_s']:.3f} s, the preconditioner's builds {[round(x, 3) for x in b['builds']]} s; "
+              f"launches of one assembly {sum(b['per_assembly'].values())} "
+              f"({b['per_assembly'].get('dual_ew', 0)} dual_ew); the reference's CPU {REF_MS['berre3d']:.0f} ms")
+
+
+def build_kernels() -> tempfile.TemporaryDirectory:
+    """Phase 2: the library and, beside it, the parents' K8 gather (the
+    yardstick of the roots' scatter) and K13 kernels (the yardstick of the
+    unstructured step), into ``_PARENT``; the parents' build directory,
+    which lives as long as the returned object."""
+    from porepy_tpu_torch.applications.benchmarking import root_scatter_check, tpfa_step_check
+    from porepy_tpu_torch.kernels import build
+
+    parent_dir = tempfile.TemporaryDirectory()
+    parent_build = root_scatter_check.start_build(parent_dir.name)
+    k13_build = tpfa_step_check.start_build(parent_dir.name)
+    build.library()
+    _PARENT["k8"] = root_scatter_check.ParentJacGather(parent_dir.name, parent_build)
+    _PARENT["k13"] = tpfa_step_check.ParentTpfa(parent_dir.name, k13_build)
+    return parent_dir
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3432,18 +4061,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"phase 1: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
 
-    from porepy_tpu_torch.applications.benchmarking import root_scatter_check, tpfa_step_check
-
-    # The parent's K8 gather (the yardstick of the roots' scatter) builds
-    # beside the library.
-    parent_dir = tempfile.TemporaryDirectory()
-    parent_build = root_scatter_check.start_build(parent_dir.name)
-    # The parent's K13 kernels (the yardstick of the unstructured step).
-    k13_build = tpfa_step_check.start_build(parent_dir.name)
-    build.library()
+    parent_dir = build_kernels()
     print(f"phase 2: kernels built in {build.build_seconds():.2f} s")
-    _PARENT["k8"] = root_scatter_check.ParentJacGather(parent_dir.name, parent_build)
-    _PARENT["k13"] = tpfa_step_check.ParentTpfa(parent_dir.name, k13_build)
 
     report = check_kernels(dev)
     report.update(check_flow_kernels(dev))
@@ -3486,6 +4105,7 @@ def main() -> int:
     report.update(check_dual_kernels(dev))
     md256 = run_md256(dev)
     print(f"phases 22 and 24 took {time.perf_counter() - tic:.1f} s")
+    bench = bench_cases(dev, THM_STEPS, BERRE3D_STEPS)
 
     # The roots' scatter in the line: md 1/128's mass-balance root, one
     # launch (phase 4); its error the largest over every case's roots.
@@ -3497,12 +4117,12 @@ def main() -> int:
                            "bytes": fo["bytes"], "flops": fo["flops"], "device_us": fo["device_us"]}
     # K12's refinement launch in the line: phase 10's round at 32^3 (f64).
     fr = flow["round"]
-    report["structured_refine"] = {"err": 0.0, "ms": fr["ms"], "plain_ms": fr["plain_ms"], "library_ms": None,
+    report["structured_refine"] = {"err": fr["err"], "ms": fr["ms"], "plain_ms": fr["plain_ms"], "library_ms": None,
                                    "bytes": fr["bytes"], "flops": 60 * 32768,
                                    "device_us": min(fr["turns"]["new"]["device_us"])}
     # The K8 kernels' error: the largest of phase 22's and of every case's
     # own calls (phase 22 at the cases' shapes).
-    for r in (md, d3_amg, biot, tracer_dense, darcy_ad, md256):
+    for r in (md, d3_amg, biot, tracer_dense, darcy_ad, md256, *bench.values()):
         for k, err in r["routes"]["k8_err"].items():
             report[k]["err"] = max(report[k]["err"], err)
 
@@ -3667,7 +4287,8 @@ def main() -> int:
         print(f"{tag} assembly (dual route) on {smi}, in turns: plain versions {t['plain']} ms, K14/K15 kernels {t['kernels']} ms")
     for tag, r in (
         ("md 1/128", md), ("3d 32^3", d3_amg), ("biot 1/64", biot), ("tracer 1/64", tracer_dense),
-        ("DarcysLawAd 1/128", darcy_ad), ("md 1/256", md256),
+        ("DarcysLawAd 1/128", darcy_ad), ("md 1/256", md256), ("thm 1/16", bench["thm"]),
+        ("berre3d", bench["berre3d"]),
     ):
         t = r["routes"]
         print(
@@ -3731,7 +4352,8 @@ def main() -> int:
           f"gather by index_select x2 + cat x2 + negation {ro['library_ms']:.4f} ms ({ro['library_device_us']:.2f} us "
           f"device)")
     for tag, r in (("md 1/128", md), ("md 1/256", md256), ("tracer 1/64", tracer_dense), ("biot 1/64", biot),
-                   ("DarcysLawAd 1/128", darcy_ad), ("3d 32^3", d3_amg)):
+                   ("DarcysLawAd 1/128", darcy_ad), ("3d 32^3", d3_amg), ("thm 1/16", bench["thm"]),
+                   ("berre3d", bench["berre3d"])):
         t = r["routes"]["parent_turns"]
         print(f"{tag} assembly on {smi}, the roots' scatter against the parent's route in turns: least ms "
               f"{t['turns']['new']['least']} / {t['turns']['parent']['least']}, median {t['turns']['new']['median']} / "
@@ -3779,6 +4401,7 @@ def main() -> int:
     print(f"K18b (one GMRES(30) restart, 31 matvecs inside) on {smi}: {g['ms_turns']} ms, {g['host_us']:.2f} us "
           f"of host time a launch, grid {g['grid']} blocks, plain {g['plain_ms']:.4f} ms, bound {g['bound'][0]:.6f} ms; "
           f"torch.mv(V, w) {g['mv_ms']:.4f} ms")
+    bench_summary(bench, smi)
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

@@ -2,8 +2,10 @@
 
 Same model framework and the same flat ``pp.`` names as ``porepy_tpu``, for
 the part ported so far: single-phase flow in fractured 2d and 3d domains
-(TPFA/MPFA, mortar coupling) and poromechanics (MPSA/Biot, momentum
-balance, frictional contact mechanics), tracer transport with upwinding
+(TPFA/MPFA, mortar coupling; the Berre et al. 3d case 2 geometry of
+``mdg_library`` on its native tet mesh), poromechanics (MPSA/Biot, momentum
+balance, frictional contact mechanics), mass and energy balance and
+thermoporomechanics, tracer transport with upwinding
 inside the residual and the differentiable-permeability Darcy flux
 (``DarcysLawAd``), assembled and solved on a ``torch.device`` with the
 hand-written kernels of :mod:`porepy_tpu_torch.kernels`, and the constant-K
@@ -22,9 +24,11 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
+from porepy_tpu_torch.applications.md_grids import mdg_library  # noqa: F401
 from porepy_tpu_torch.compositional.flash import ConstantKFlash, Flash  # noqa: F401
 from porepy_tpu_torch.compositional.materials import (  # noqa: F401
     FluidComponent,
+    ReferenceVariableValues,
     SolidConstants,
 )
 from porepy_tpu_torch.compositional.peng_robinson import (  # noqa: F401
@@ -43,9 +47,15 @@ from porepy_tpu_torch.models.darcys_law_ad import (  # noqa: F401
     FouriersLawAd,
 )
 from porepy_tpu_torch.models.fluid_mass_balance import SinglePhaseFlow  # noqa: F401
+from porepy_tpu_torch.models.mass_and_energy_balance import (  # noqa: F401
+    MassAndEnergyBalance,
+)
 from porepy_tpu_torch.models.momentum_balance import MomentumBalance  # noqa: F401
 from porepy_tpu_torch.models.poromechanics import Poromechanics  # noqa: F401
 from porepy_tpu_torch.models.run_models import run_time_dependent_model  # noqa: F401
+from porepy_tpu_torch.models.thermoporomechanics import (  # noqa: F401
+    Thermoporomechanics,
+)
 from porepy_tpu_torch.numerics import ad  # noqa: F401
 from porepy_tpu_torch.numerics.fv.biot import Biot  # noqa: F401
 from porepy_tpu_torch.numerics.fv.mpsa import Mpsa  # noqa: F401
@@ -66,8 +76,10 @@ __all__ = [
     "DarcysLawAd",
     "FouriersLawAd",
     "SinglePhaseFlow",
+    "MassAndEnergyBalance",
     "MomentumBalance",
     "Poromechanics",
+    "Thermoporomechanics",
     "ContactMechanics",
     "Mpsa",
     "Biot",
@@ -79,11 +91,13 @@ __all__ = [
     "LineFracture",
     "SolidConstants",
     "FluidComponent",
+    "ReferenceVariableValues",
     "TimeManager",
     "Domain",
     "BoundaryCondition",
     "run_time_dependent_model",
     "ad",
+    "mdg_library",
     "Flash",
     "ConstantKFlash",
     "PengRobinsonFlash",

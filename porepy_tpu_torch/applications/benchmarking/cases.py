@@ -20,17 +20,27 @@ Configurations ported so far:
     fluxes are upwinded inside the residual by the K15 kernels
     (``kernels/csrc/upwind.cu``). ``device_gmres`` only: the Jacobi Krylov
     route of ``porepy_tpu`` diverges on this case.
+  - ``thm``: thermoporomechanics with frictional contact in the unit cube
+    at cell size 1/16 (25,120 dofs), three horizontal fractures and one
+    vertical, 10 steps of 1.0. The fracture MPFA is rediscretized every
+    Newton iteration, so the case runs the host Newton loop (each
+    iteration assembled and solved on the card), with dense frozen block
+    inverses (K6) in the field split.
+  - ``berre3d``: Berre et al. (2021) 3d benchmark case 2, md single-phase
+    flow on the native fracture-conforming tet mesh (a 16^3 lattice at
+    refinement level 0: 31,578 dofs in 106 subdomains), 10 steps of 1.0 in
+    fused 4-step blocks.
   - ``build_darcy_ad`` (not in :data:`CASE_BUILDERS`): ``DarcysLawAd`` with
     the cubic law and ``k(p)`` on one fracture at 1/128, the one path whose
     flux and pressure trace run the K14 kernels (``kernels/csrc/tpfa_ad.cu``).
 
-The other ``porepy_tpu`` cases (``thm``, ``berre3d``) follow in later
-slices of the port.
+These are all of ``porepy_tpu``'s bench cases.
 
 Beside the builders, the inputs that ``chip_smoke.py``, the kernel checks
 and the tests share: K10's region batches (:func:`region_batches`, the
 chunks that :func:`capture_chunks` records from biot's discretizations),
 the Biot problem of a grid (:func:`biot_problem`, :func:`biot_matrices`),
+berre3d's small grid (:func:`berre3d_lattice_mdg`, run by :func:`berre3d_on`),
 the route of the region solves (:func:`local_solves`), and K16's table,
 points and system (:func:`lookup_inputs`, :func:`table_system`).
 """
@@ -276,12 +286,166 @@ def build_darcy_ad(cell_size: float = 1.0 / 128, device: str = "cuda"):
     return Model, params
 
 
+def build_thm_contact_3d(cell_size: float = 1.0 / 16, device: str = "cuda"):
+    """The 3d thermoporomechanics case with frictional contact at
+    ``cell_size`` on ``device``: the unit cube with three horizontal
+    fractures (z = 0.25, 0.5, 0.75) and one vertical (x = 0.5), the north
+    side sheared and compressed, a pressure and a temperature gradient on
+    the boundary."""
+    import porepy_tpu_torch as pt
+
+    class Model(_nosave(pt.Thermoporomechanics)):
+        def set_domain(self):
+            self._domain = pt.Domain(
+                {"xmin": 0, "xmax": 1, "ymin": 0, "ymax": 1,
+                 "zmin": 0, "zmax": 1}
+            )
+
+        def set_fractures(self):
+            f = []
+            for z in (0.25, 0.5, 0.75):
+                f.append(np.array(
+                    [[0.25, 0.75, 0.75, 0.25], [0.25, 0.25, 0.75, 0.75],
+                     [z, z, z, z]]
+                ))
+            f.append(np.array(
+                [[0.5, 0.5, 0.5, 0.5], [0.25, 0.25, 0.75, 0.75],
+                 [0.25, 0.75, 0.75, 0.25]]
+            ))
+            self._fractures = f
+
+        def bc_values_displacement(self, bg):
+            vals = np.zeros((self.nd, bg.num_cells))
+            north = self.domain_boundary_sides(bg).north
+            vals[0, north] = 0.01
+            vals[1, north] = -0.005
+            return vals.ravel("F")
+
+        def bc_values_pressure(self, bg):
+            return 1e-3 * (1.0 - bg.cell_centers[1])
+
+        def bc_values_temperature(self, bg):
+            return 1.0 + 0.1 * bg.cell_centers[0]
+
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "material_constants": {
+            "solid": pt.SolidConstants(
+                residual_aperture=0.01,
+                normal_permeability=1.0,
+                permeability=1.0,
+                porosity=0.1,
+                thermal_expansion=1e-4,
+                thermal_conductivity=1.0,
+                specific_heat_capacity=1.0,
+                biot_coefficient=0.8,
+            ),
+            "fluid": pt.FluidComponent(
+                compressibility=1e-3,
+                viscosity=1.0,
+                density=1.0,
+                thermal_conductivity=0.5,
+                specific_heat_capacity=1.0,
+                thermal_expansion=2e-4,
+            ),
+        },
+        "time_manager": pt.TimeManager([0, 10.0], 1.0, constant_dt=True),
+        "linear_solver": "device_gmres",
+        # The fracture MPFA is rediscretized every Newton iteration, so no
+        # step runs in a fused block; the chunk is porepy_tpu's.
+        "fused_time_steps": 2,
+        "fused_commit_states": "tail",
+        # Dense frozen block inverses (K6). The contact equations and the
+        # tractions pair with no AMG or elimination slot of the field split,
+        # so they fall into its trailing block, whose preconditioner without
+        # dense inverses is damped l1-Jacobi sweeps
+        # (device_solver._jacobi_sweeps), and the sweeps barely contract on
+        # the semismooth contact block: porepy_tpu's record of this case at
+        # 1/16 is 560 Krylov iterations stalled at |r| 4.2 from |b| 5.5 and
+        # a host fallback solve, against 56 iterations to 1e-8 with the
+        # block inverted densely; at 1/4 the port's last solve of the first
+        # step takes 262 iterations with the sweeps and 73 with the dense
+        # inverses.
+        "dense_precond": True,
+        "device": device,
+    }
+    return Model, params
+
+
+def build_berre3d(refinement_level: int = 0, device: str = "cuda"):
+    """Berre et al. (2021) 3d benchmark case 2 at ``refinement_level`` on
+    ``device``: md single-phase flow on the native tet mesh
+    (``mdg_library.benchmark_3d_case_2``), a pressure gradient along x on
+    the boundary."""
+    from porepy_tpu_torch.applications.md_grids.mdg_library import benchmark_3d_case_2
+
+    mdg, _network = benchmark_3d_case_2(refinement_level=refinement_level)
+    return berre3d_on(mdg, device)
+
+
+def berre3d_lattice_mdg(lattice: int):
+    """Berre et al. 3d case 2's fracture network on a ``lattice``^3 cube
+    lattice of tets (``benchmark_3d_case_2`` meshes 16^3 at refinement 0):
+    the small grid on which the tests and the card-against-host check run
+    the case through :func:`berre3d_on`."""
+    from porepy_tpu_torch.fracs.fracture_importer import network_3d_from_csv
+    from porepy_tpu_torch.fracs.structured_simplex import tet_cart_grid
+
+    lib = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "md_grids", "file_library", "benchmark_3d_case_2")
+    network = network_3d_from_csv(os.path.join(lib, "fracture_network.csv"))
+    mdg = tet_cart_grid([f.pts for f in network.fractures], np.array([lattice] * 3), physdims=[1.0, 1.0, 1.0])
+    mdg.compute_geometry()
+    return mdg
+
+
+def berre3d_on(mdg, device: str = "cuda"):
+    """The berre3d case's model class and params on the grid ``mdg``."""
+    import porepy_tpu_torch as pt
+
+    class Model(_nosave(pt.SinglePhaseFlow)):
+        def set_geometry(self):
+            self.mdg = mdg
+            self.nd = 3
+            self._domain = pt.Domain(
+                {"xmin": 0, "xmax": 1, "ymin": 0, "ymax": 1,
+                 "zmin": 0, "zmax": 1}
+            )
+            self.set_well_network()
+
+        def bc_values_pressure(self, bg):
+            return 1.0e5 + 1.0e4 * (1.0 - bg.cell_centers[0])
+
+    params = {
+        "material_constants": {
+            "solid": pt.SolidConstants(
+                permeability=1.0,
+                porosity=0.1,
+                residual_aperture=1e-2,
+                normal_permeability=1.0,
+            ),
+            "fluid": pt.FluidComponent(
+                compressibility=1e-6, viscosity=1e-3, density=1000.0
+            ),
+        },
+        "time_manager": pt.TimeManager([0, 10.0], 1.0, constant_dt=True),
+        "linear_solver": "device_gmres",
+        "fused_time_steps": 4,
+        "fused_commit_states": "tail",
+        "device": device,
+    }
+    return Model, params
+
+
 CASE_BUILDERS = {
     "3d": build_3d_flow,
     "biot": build_biot,
     "tracer": build_tracer,
     "md": build_md_flow,
     "md256": lambda: build_md_flow(1.0 / 256),
+    "thm": build_thm_contact_3d,
+    "berre3d": build_berre3d,
 }
 
 

@@ -209,13 +209,16 @@ def round_in_turns(kernel, dev, seed: int = 3) -> dict:
     # Bytes the round must move: p, dx, c and rho, the transmissibilities,
     # the ghosts and pv read once, the result written once.
     size = nbytes(p, dx, c, rho, *arrays, coef) + 8 * p.numel()
+    plain = reference.structured_refine(p, dx, c, rho, *arrays, coef)
     out = {"turns": turns, "bytes": size, "bound_us": 1e6 * size / HBM, "equal": torch.equal(new(), old()),
+           "err": float((new() - plain).abs().max()),
            "ms": cuda_ms(new), "plain_ms": cuda_ms(lambda: reference.structured_refine(p, dx, c, rho, *arrays, coef))}
     print(f"  a refinement round at {shape} f64, in turns: device us (graph replay) new "
           f"{['%.2f' % t for t in turns['new']['device_us']]}, parent {['%.2f' % t for t in turns['parent']['device_us']]}; "
           f"host us new {['%.1f' % t for t in turns['new']['host_us']]}, parent "
           f"{['%.1f' % t for t in turns['parent']['host_us']]}; bound {out['bound_us']:.3f} us; routes "
-          f"{'equal to the bit' if out['equal'] else 'DIFFERENT'}; {out['ms']:.4f} ms by events, plain {out['plain_ms']:.4f} ms")
+          f"{'equal to the bit' if out['equal'] else 'DIFFERENT'}; against the plain version, largest difference "
+          f"{out['err']:.3e}; {out['ms']:.4f} ms by events, plain {out['plain_ms']:.4f} ms")
     return out
 
 

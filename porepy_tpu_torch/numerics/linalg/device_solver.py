@@ -75,8 +75,16 @@ logger = logging.getLogger(__name__)
 # condition estimate); inside each 128-row pivot block the
 # ``gj_pivot_inverse`` kernel pivots by rows, as ``jax.numpy.linalg.inv``
 # does. A singular or non-finite pivot sets a device flag that the build
-# reads once and turns into FloatingPointError, so the block demotes to its
-# sparse method like a block the condition gate rejects.
+# reads once and turns into FloatingPointError. porepy_tpu's pivot blocks
+# hold 1024 rows, so a block of up to 1024 rows (thm's contact block at 1/16:
+# 768) is pivoted whole there; here a well-conditioned block can have a
+# singular leading 128-row pivot block (the contact block's tangential rows
+# have no diagonal entry). Such a block is built once more with its rows in
+# the order of its partially pivoted sparse LU (:func:`_pivot_row_order`),
+# in which every leading pivot block is nonsingular, and the inverse's
+# columns are put back in the block's order. Only a block that fails in
+# that order too demotes to its sparse method, like a block the condition
+# gate rejects.
 
 #: Rows of a pivot block: a power of two, at most 128, so that one pivot
 #: (66 KB in f32) fits the shared memory of one SM. porepy_tpu uses 1024,
@@ -158,6 +166,17 @@ def _dense_inv_fn(
             f"(n = {ni}, pivot block {_DENSE_GJ_BLOCK})"
         )
     return D
+
+
+def _pivot_row_order(S: sps.spmatrix) -> np.ndarray:
+    """Where each row of the square ``S`` goes so that every leading
+    principal block of the reordered matrix is nonsingular: the row
+    permutation of the sparse LU of ``S`` with partial pivoting in the
+    natural column order (``splu``'s ``perm_r``; row ``r`` of ``S`` becomes
+    row ``perm_r[r]``)."""
+    import scipy.sparse.linalg as spla
+
+    return spla.splu(sps.csc_matrix(S), permc_spec="NATURAL", diag_pivot_thresh=1.0).perm_r
 
 
 class _Local:
@@ -389,6 +408,10 @@ class _BlockPrecondBuilder:
         # the block for good).
         self.dense_limit: int = 0
         self._block_dense: dict[int, bool] = {}
+        # Per dense block: whether its inverse was built in its LU's row
+        # order (see _pivot_row_order); counted by the builds that needed it.
+        self._block_reordered: dict[int, bool] = {}
+        self._pivot_reorders: int = 0
 
     @staticmethod
     def _cond_estimate(S_eq: sps.csr_matrix, iters: int = 8) -> float:
@@ -441,7 +464,8 @@ class _BlockPrecondBuilder:
         within 5%. A mis-predicted block is caught downstream by FGMRES's
         true residual and the counted host fallback, never silently. The
         pivot flag of the inverse catches a pivot block that the gate
-        passes but Gauss-Jordan cannot invert."""
+        passes but Gauss-Jordan cannot invert; the block is then inverted
+        in its LU's row order, and raises if that fails too."""
         import os
 
         ni = Sii.shape[0]
@@ -461,13 +485,17 @@ class _BlockPrecondBuilder:
                 f"{cond:.2e} > {cond_max:.0e} (n = {ni}; f32 Gauss-Jordan "
                 f"error ~ cond * eps_f32 would breach the 5% contract)"
             )
-        inv = _dense_inv_fn(
-            ni,
-            n_pad,
-            self._tensor(eq_vals.astype(np.float32)),
-            self._tensor(coo.row.astype(np.int32)),
-            self._tensor(coo.col.astype(np.int32)),
-        )
+        vals = self._tensor(eq_vals.astype(np.float32))
+        cols = self._tensor(coo.col.astype(np.int32))
+        try:
+            inv = _dense_inv_fn(ni, n_pad, vals, self._tensor(coo.row.astype(np.int32)), cols)
+        except FloatingPointError:
+            # A singular leading pivot block: the rows in the LU's order,
+            # then the columns of the inverse back (S^-1 = (P S)^-1 P).
+            perm = _pivot_row_order(S_eq)
+            inv = _dense_inv_fn(ni, n_pad, vals, self._tensor(perm[coo.row].astype(np.int32)), cols)
+            inv = inv[:, self._tensor(np.concatenate([perm, np.arange(ni, n_pad)]))]
+            self._pivot_reorders += 1
         # Raw-space inverse Minv = Dc inv_eq Dr (pad scales are 1), in place.
         dcp = self._tensor(np.pad(dc, (0, n_pad - ni), constant_values=1.0).astype(np.float32))
         drp = self._tensor(np.pad(dr, (0, n_pad - ni), constant_values=1.0).astype(np.float32))
@@ -605,8 +633,10 @@ class _BlockPrecondBuilder:
             )
             if want_dense:
                 try:
+                    reorders = self._pivot_reorders
                     state["dense"][i] = self._build_dense_block(Sii)
                     self._block_dense[i] = True
+                    self._block_reordered[i] = self._pivot_reorders > reorders
                     continue
                 except Exception:
                     logger.exception(

@@ -233,19 +233,77 @@ def test_zero_leading_pivot_inverts_through_pivoting():
     assert np.abs(minv - minv_j).max() <= 1e-5 * np.abs(minv_j).max()
 
 
-def test_singular_pivot_block_demotes_through_the_pivot_flag():
+def _swapped_halves(n=256):
     """A permutation matrix (condition number 1, so the gate passes) whose
-    leading 128 x 128 pivot block is zero: the unpivoted block elimination
-    cannot invert it, the pivot flag turns that into FloatingPointError,
-    and the build demotes the block."""
-    n = 256
+    leading 128 x 128 pivot block is zero."""
     P = np.zeros((n, n))
     P[np.arange(128), np.arange(128, 256)] = 1.0
     P[np.arange(128, 256), np.arange(128)] = 1.0
-    A = sps.csr_matrix(P)
+    return sps.csr_matrix(P)
+
+
+def test_singular_pivot_block_demotes_through_the_pivot_flag(monkeypatch):
+    """A block whose leading pivot block is singular in its own order and
+    in the row order the second build takes (here made the same order):
+    the unpivoted block elimination cannot invert it, the pivot flag turns
+    that into FloatingPointError, and the build demotes the block."""
+    A = _swapped_halves()
+    n = A.shape[0]
+    monkeypatch.setattr(ds_torch, "_pivot_row_order", lambda S: np.arange(S.shape[0]))
     b = ds_torch._BlockPrecondBuilder([(np.arange(n), np.arange(n))], ["jacobi"], None, None, "cpu")
     b.dense_limit = 1024
     with pytest.raises(FloatingPointError, match="pivot"):
         b._build_dense_block(A)
     b.build(A)
     assert b._block_dense.get(0) is False
+
+
+def test_singular_leading_pivot_block_inverts_in_the_lu_row_order():
+    """The same block in the default route: the pivot flag of the first
+    build sends it to a second one with its rows in its sparse LU's order,
+    where every leading pivot block is nonsingular, and the inverse comes
+    back in the block's order: exact here, as porepy_tpu's (which pivots
+    over 1024-row blocks, so over this block whole), and the block stays
+    dense, marked as reordered."""
+    A = _swapped_halves()
+    n = A.shape[0]
+    perm = ds_torch._pivot_row_order(A)
+    assert sorted(perm) == list(range(n))
+    lead = A.toarray()[np.argsort(perm)][:128, :128]
+    assert np.linalg.matrix_rank(lead) == 128
+    b = ds_torch._BlockPrecondBuilder([(np.arange(n), np.arange(n))], ["jacobi"], None, None, "cpu")
+    b.dense_limit = 1024
+    minv = b._build_dense_block(A).numpy()[:n, :n]
+    np.testing.assert_array_equal(minv, A.toarray().T)
+    bj = ds_jax._BlockPrecondBuilder([(np.arange(n), np.arange(n))], ["jacobi"], None, None)
+    bj.dense_limit = 1024
+    np.testing.assert_array_equal(minv, np.asarray(bj._build_dense_block(A))[:n, :n])
+    b.build(A)
+    assert b._block_dense.get(0) is True and b._block_reordered.get(0) is True
+    assert b._pivot_reorders == 2
+
+
+def test_lu_row_order_inverts_rows_without_leading_entries():
+    """A well-conditioned, unsymmetric block ``[[0, E], [F, G]]`` (64 + 128
+    rows) whose first 64 rows read the last 64 columns only, as thm's
+    contact block's tangential rows read no tangential column: its leading
+    128-row pivot block is singular. The reordered build inverts it to f32
+    level, and agrees with porepy_tpu's inverse."""
+    rng = np.random.default_rng(21)
+    n = 192
+    A = np.zeros((n, n))
+    A[:64, 128:] = _well_conditioned(64, 22)
+    A[64:, :128] = _well_conditioned(128, 23)
+    A[64:, 128:] = 0.1 * rng.standard_normal((128, 64))
+    assert np.linalg.cond(A) < 10.0
+    assert np.linalg.matrix_rank(A[:128, :128]) == 64
+    A = sps.csr_matrix(A)
+    b = ds_torch._BlockPrecondBuilder([(np.arange(n), np.arange(n))], ["jacobi"], None, None, "cpu")
+    b.dense_limit = 1024
+    minv = b._build_dense_block(A).numpy()[:n, :n].astype(np.float64)
+    assert b._pivot_reorders == 1
+    assert np.abs(A @ minv - np.eye(n)).max() <= INV_RESIDUAL_TOL
+    bj = ds_jax._BlockPrecondBuilder([(np.arange(n), np.arange(n))], ["jacobi"], None, None)
+    bj.dense_limit = 1024
+    minv_j = np.asarray(bj._build_dense_block(A))[:n, :n]
+    assert np.abs(minv - minv_j).max() <= INV_RESIDUAL_TOL * np.abs(minv_j).max()

@@ -72,3 +72,61 @@ def test_host_copy_matches_source(rel):
     with open(os.path.join(PORT, rel)) as fh:
         got = fh.read()
     assert got == want, f"porepy_tpu_torch/{rel} drifted from porepy_tpu/{rel}"
+
+
+# Data directories of the port copied from porepy_tpu: every file in them
+# that is not a module equals its source byte for byte.
+DATA_DIRS = ("applications/md_grids/file_library",)
+
+
+def _copied_data_files():
+    out = []
+    for top in DATA_DIRS:
+        for dirpath, _dirs, files in os.walk(os.path.join(PORT, top)):
+            for f in files:
+                if not f.endswith((".py", ".pyc")):
+                    out.append(os.path.relpath(os.path.join(dirpath, f), PORT))
+    return sorted(out)
+
+
+DATA_FILES = _copied_data_files()
+
+
+def test_copied_data_files_exist():
+    """The Berre et al. 3d case 2 files that ``mdg_library`` reads beside
+    itself are in the port."""
+    lib = "applications/md_grids/file_library/benchmark_3d_case_2/"
+    want = {lib + f for f in os.listdir(os.path.join(SOURCE, lib))}
+    assert want <= set(DATA_FILES)
+    assert lib + "fracture_network.csv" in DATA_FILES
+
+
+@pytest.mark.parametrize("rel", DATA_FILES)
+def test_data_file_matches_source(rel):
+    with open(os.path.join(SOURCE, rel), "rb") as fh:
+        want = fh.read()
+    with open(os.path.join(PORT, rel), "rb") as fh:
+        got = fh.read()
+    assert got == want, f"porepy_tpu_torch/{rel} differs from porepy_tpu/{rel}"
+
+
+@pytest.mark.parametrize(
+    "name, module",
+    [
+        ("Thermoporomechanics", "porepy_tpu_torch.models.thermoporomechanics"),
+        ("MassAndEnergyBalance", "porepy_tpu_torch.models.mass_and_energy_balance"),
+        ("mdg_library", "porepy_tpu_torch.applications.md_grids.mdg_library"),
+    ],
+)
+def test_exported_names_are_the_ports_own(name, module):
+    """The names this slice adds to ``porepy_tpu_torch`` resolve to the
+    port's objects, never to porepy_tpu's."""
+    import porepy_tpu as pt_jax
+    import porepy_tpu_torch as pt
+
+    obj = getattr(pt, name)
+    assert getattr(obj, "__module__", getattr(obj, "__name__", None)) == module
+    assert obj is not getattr(pt_jax, name)
+    if name == "mdg_library":
+        assert obj.benchmark_3d_case_2.__module__ == module
+        assert obj.create_mdg.__module__ == "porepy_tpu_torch.grids.mdg_generation"
