@@ -358,13 +358,38 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    beside the reference's 98,254 ms, the launches of one assembly and its
    ms; then (b) the 8^3 lattice (5,136 dofs, 4 steps, one 2-step block) on
    the card against the host plain path, pressure and mortar fluxes within
-   1e-8 of each field's max.
+   1e-8 of each field's max;
+27. run Flemisch et al. (2018) 2d case 4 (``cases.build_flow_benchmark_2d_case_4``:
+   the published 63 fractures on 700 m x 600 m, the native simplex mesh at
+   5 m, 43,790 dofs in 149 subdomains and 233 interfaces; the example's
+   one step, the host Newton loop, the pressure block above the dense limit
+   on AMG): the size, 0 host fallbacks, the field split's AMG and
+   elimination kept (no block demoted), at least one
+   preconditioner build, the md kernels, K8 and K15 launched, a finite
+   state with pressure within the boundary data's [1e6, 4e6], and one more
+   Newton increment by the plain route (a dense f64 LU on the card, 15.3
+   GB) within ``FB2D4_INCREMENT_TOL``; prints the setup split (mesh,
+   prepare, discretization, compile and first assembly, the
+   preconditioner's builds), the field split, the largest K of a K1
+   matrix, Newton and Krylov counts and ms per Newton iteration, the
+   launches of one assembly and its median ms of 5, phase 23 at the final
+   state and K5/K7 re-timed at the final system; 3c at its final state: K1
+   at its Jacobian (f64, B = 17, and f32, B = 1, as at md 1/128) and K3 at
+   every hierarchy of its solver (the pressure block's, levels with rows
+   up to 2,435 wide), each against its plain version; then (b) case 4 at
+   20 m (4,594 dofs) on the card against the host plain path (the same
+   ``device_gmres`` route on the CPU), pressure and mortar fluxes within
+   ``FB2D4_FIELD_TOL`` of each field's max.
 
-Phases 25 and 26 alone, on a card: ``python3 -c "import torch, chip_smoke as c;
+Phases 25, 26 and 27 alone, on a card: ``python3 -c "import torch, chip_smoke as c;
 d = c.build_kernels(); c.bench_summary(c.bench_cases(torch.device('cuda'), 10,
-10), '')"``.
+10), '')"`` (``None`` for a phase's steps leaves it out).
 
-All fused runs (phases 4-21) assemble through the K8 pass. The line before
+The host plain-path runs of phases 26b, 27b and 20 (``HOST_RUNS``) need no
+card: they run in two worker processes that see no CUDA device, started
+after phase 22, the last phase whose times go into the kernels line, and
+running beside phases 21 and 24-27 (phase 20 runs last); each phase waits
+for its own. All fused runs (phases 4-21) assemble through the K8 pass. The line before
 the last is a JSON object with one entry per kernel (ms,
 plain ms, the bound and what sets it, the time of one PyTorch call of the
 same function where there is one); the
@@ -376,6 +401,7 @@ before printing either.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -613,7 +639,11 @@ def last_step_check(model, device: str = "cpu") -> tuple[float, float]:
     on ``device`` by the plain route (:func:`_plain_assembly`: ``torch.func``
     over the traced residuals, every kernel's plain version, no launch);
     on the host CPU (``device="cpu"``) scipy solves directly, on a card a
-    dense f64 LU (:func:`_dense_increment`)."""
+    dense f64 LU (:func:`_dense_increment`). A model that ran no fused
+    block (the host Newton loop) is assembled at its final state with the
+    committed state as the previous one: the last step's system where the
+    residual does not depend on the previous state (an incompressible
+    fluid's, as fb2d4's)."""
     import scipy.sparse as sps
     import scipy.sparse.linalg as spla
 
@@ -621,17 +651,22 @@ def last_step_check(model, device: str = "cpu") -> tuple[float, float]:
 
     eq_sys = model.equation_system
     cs = eq_sys.compiled_system()
-    subst = model._fused_block_substitution(cs)
-    x_prev, x_last = (t.to(device) for t in model._last_block_states[-2:])
     data, vals = [], []
-    with _plain_assembly():
-        for ce, smap in zip(cs.ces, subst):
-            env = ce.env_spec.fetch(eq_sys, device=device)
-            env = [x_prev[smap[i][0] : smap[i][1]] if i in smap else e for i, e in enumerate(env)]
-            seeds = torch.tensor(ce.seeds, dtype=torch.float64, device=device)
-            val, compressed = compiler.colored_jvps(ce.fn, x_last, env, seeds)
-            data.append(compressed.cpu().numpy()[ce.gather_color, ce.rows])
-            vals.append(val.cpu().numpy())
+    if getattr(model, "_last_block_states", None) is None:
+        with _plain_assembly():
+            J, rhs = (t.cpu().numpy() for t in cs.assemble(eq_sys))
+        data, vals = [J], [-rhs]
+    else:
+        subst = model._fused_block_substitution(cs)
+        x_prev, x_last = (t.to(device) for t in model._last_block_states[-2:])
+        with _plain_assembly():
+            for ce, smap in zip(cs.ces, subst):
+                env = ce.env_spec.fetch(eq_sys, device=device)
+                env = [x_prev[smap[i][0] : smap[i][1]] if i in smap else e for i, e in enumerate(env)]
+                seeds = torch.tensor(ce.seeds, dtype=torch.float64, device=device)
+                val, compressed = compiler.colored_jvps(ce.fn, x_last, env, seeds)
+                data.append(compressed.cpu().numpy()[ce.gather_color, ce.rows])
+                vals.append(val.cpu().numpy())
     F = np.concatenate(vals)
     sqrt_n = np.sqrt(F.size)
     if device != "cpu":
@@ -658,16 +693,19 @@ def _dense_increment(indices, data, b, device) -> float:
     return float(torch.linalg.vector_norm(dx)) / np.sqrt(n)
 
 
-def timed_model(base):
+def timed_model(base, dev):
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
     class Timed(base):
-        """The md model with a synchronized wall clock around each fused
-        block, keeping the last block's states for the residual check."""
+        """The md model with a wall clock around each fused block
+        (synchronized with the card when it runs on ``dev``, a CUDA device),
+        keeping the last block's states for the residual check."""
 
         def fused_time_block(self, n_steps, nl_params):
-            torch.cuda.synchronize()
+            sync()
             tic = time.perf_counter()
             n = super().fused_time_block(n_steps, nl_params)
-            torch.cuda.synchronize()
+            sync()
             if n:
                 self.block_log.append((time.perf_counter() - tic, dict(self._ftb_last)))
                 # The state at the end of each block, by its time.
@@ -756,7 +794,7 @@ def run_md(dev, cell_size: float = 1.0 / 128, case: str = "", functorch: bool = 
     else:
         print(f"phase 4: md at cell size {cell_size:g}, 26 steps on {dev}")
         Model, params = build_md_flow(cell_size, device=str(dev))
-    model = timed_model(Model)(params)
+    model = timed_model(Model, dev)(params)
     model.block_log = []
     model.block_states = {}
     fallbacks0 = FALLBACK_COUNTER["count"]
@@ -972,7 +1010,7 @@ def run_3d(dev, dense: bool, cell_size: float = 1.0 / N3D) -> dict:
     print(f"phase {phase}: 3d at cell size {cell_size:g}, 26 steps on {dev}, dense_precond={dense}")
     Model, params = build_3d_flow(cell_size, device=str(dev))
     params["dense_precond"] = dense
-    model = timed_model(Model)(params)
+    model = timed_model(Model, dev)(params)
     model.block_log = []
     model.block_states = {}
     times = {"build": [], "inverse": [], "gj": []}
@@ -1630,7 +1668,7 @@ def run_biot(dev, dense: bool) -> dict:
     print(f"phase 12: biot at cell size 1/64, 26 steps on {dev}, dense_precond={dense}, discretized by K10")
     Model, params = build_biot(1.0 / 64, device=str(dev))
     params["dense_precond"] = dense
-    model = timed_model(Model)(params)
+    model = timed_model(Model, dev)(params)
     model.block_log = []
     model.block_states = {}
     disc_s = []
@@ -3184,7 +3222,7 @@ def _run_fused_case(dev, Model, params, local_solves: str = "host", blocks: int 
     from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
     from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
 
-    class Logged(timed_model(Model)):
+    class Logged(timed_model(Model, dev)):
         """Keeps the Newton and Krylov counts and the wall time of every
         time step that ran outside a fused block."""
 
@@ -3266,31 +3304,152 @@ def _run_fused_case(dev, Model, params, local_solves: str = "host", blocks: int 
     }
 
 
-def _fields_close(model, host_model, names, tol) -> None:
+def _final_fields(model, names=None) -> dict:
+    """``model``'s final state by field: those of ``names``, or every
+    variable's."""
+    es = model.equation_system
+    names = names or sorted({v.name for v in es.variables})
+    return {name: es.get_variable_values([name], time_step_index=0) for name in names}
+
+
+def _fields_close(model, host, names, tol) -> None:
     """Each field of ``names`` of ``model``'s final state within ``tol`` of
-    the field's largest value of ``host_model``'s final state."""
+    the field's largest value of the host's final state (``host``: a model,
+    or its fields by name)."""
+    host = host if isinstance(host, dict) else _final_fields(host, names)
     for name in names:
         a = model.equation_system.get_variable_values([name], time_step_index=0)
-        b = host_model.equation_system.get_variable_values([name], time_step_index=0)
+        b = host[name]
         diff, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
         print(f"  {name}: card against host max |diff| {diff:.3e} (largest value {scale:.3e})")
         _require(diff <= tol * scale, f"{name} differs from the host plain path by {diff}")
 
 
-def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, turns: bool = False):
+def tracer_case(cell_size: float, dense: bool, dev) -> tuple:
+    """The tracer case at ``cell_size``, 26 steps of 60 s, on ``dev`` with
+    ``dense_precond=dense`` (phase 20, and its host plain path): the model
+    and :func:`_run_fused_case`'s numbers."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_tracer
+
+    Model, params = build_tracer(cell_size, device=str(dev))
+    params["dense_precond"] = dense
+    return _run_fused_case(dev, Model, params)
+
+
+def berre3d_small_case(dev) -> tuple:
+    """berre3d on the 8^3 lattice (5,136 dofs), 4 steps of 1.0 (2 per-step
+    solves and one fused 2-step block) on ``dev`` (phase 26b, on the card
+    and on the host): the model and :func:`_run_fused_case`'s numbers."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import berre3d_lattice_mdg, berre3d_on
+
+    Model, params = berre3d_on(berre3d_lattice_mdg(8), device=str(dev))
+    params["time_manager"] = pt.TimeManager([0, 4.0], 1.0, constant_dt=True)
+    return _run_fused_case(dev, Model, params, blocks=1)
+
+
+def fb2d4_case(cell_size: float, dev) -> tuple:
+    """Case 4 at ``cell_size`` on ``dev``, the example's one step, with no
+    host fallback (phase 27b, on the card and on the host): the model and
+    ``None``."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    fallbacks0, tic = FALLBACK_COUNTER["count"], time.perf_counter()
+    model, params = _fb2d4_model(dev, cell_size)
+    pt.run_time_dependent_model(model, params)
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"fb2d4 at {cell_size:g} m on {dev}: host fallbacks")
+    print(f"  on {dev}: {model.equation_system.num_dofs()} dofs, {time.perf_counter() - tic:.3f} s, Krylov per "
+          f"solve {model.log['krylov']}")
+    return model, None
+
+
+#: The host plain-path runs that phases 26b, 27b and 20 hold the card
+#: against: each the phase's own case with the device left out, the
+#: longest first, then in the order the phases need them.
+#: :func:`start_host_runs` starts them in worker processes; a phase finds
+#: its run by the case and its arguments (:func:`host_fields`).
+HOST_RUNS = (
+    functools.partial(tracer_case, 1.0 / 64, False),
+    functools.partial(berre3d_small_case),
+    functools.partial(fb2d4_case, 20.0),
+    functools.partial(tracer_case, 1.0 / 32, False),
+)
+_HOST = {"pool": None, "futures": {}}
+
+
+def _run_key(run) -> tuple:
+    return run.func, run.args, tuple(sorted(run.keywords.items()))
+
+
+def _host_worker_init() -> None:
+    # The workers compute on the host alone: no CUDA device is visible to
+    # them, so none opens a context on the card; two threads each, below
+    # the card's phases in priority.
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(10)
+    torch.set_num_threads(2)
+
+
+def _host_job(run) -> tuple[str, dict]:
+    """``run`` on the host CPU: its printed lines and its final fields."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        model, _ = run(torch.device("cpu"))
+    return out.getvalue(), _final_fields(model)
+
+
+def _host_worker(run) -> tuple[str, dict]:
+    text, fields = _host_job(run)
+    _require(not torch.cuda.is_initialized(), f"the host run {run} initialized CUDA")
+    return text, fields
+
+
+def start_host_runs() -> None:
+    """Start every run of ``HOST_RUNS`` in two spawned worker processes;
+    :func:`stop_host_runs` ends them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_host_worker_init)
+    _HOST["pool"] = pool
+    for run in HOST_RUNS:
+        _HOST["futures"][_run_key(run)] = pool.submit(_host_worker, run)
+    print(f"the host plain-path runs started in 2 worker processes of 2 threads each, on a host of "
+          f"{os.cpu_count()} cores ({len(os.sched_getaffinity(0))} usable by this process)")
+
+
+def stop_host_runs() -> None:
+    """Cancel the host runs not yet started and wait for those running."""
+    pool, _HOST["pool"] = _HOST["pool"], None
+    _HOST["futures"].clear()
+    if pool is not None:
+        pool.shutdown(cancel_futures=True)
+
+
+def host_fields(run) -> dict:
+    """The final fields of ``run`` (a case with its device left out) on the
+    host: from the worker that runs it (``HOST_RUNS``), once it is done, or
+    run here when no worker has it (no pool started, as when a phase runs
+    alone); its printed lines are printed here."""
+    future = _HOST["futures"].pop(_run_key(run), None)
+    tic = time.perf_counter()
+    text, fields = future.result() if future is not None else _host_job(run)
+    print(f"  the host plain path ({run.func.__name__}{run.args}{', in a worker process' if future else ''}; "
+          f"waited {time.perf_counter() - tic:.1f} s):")
+    print(text, end="")
+    return fields
+
+
+def run_tracer(dev, dense: bool, cell_size: float = 1.0 / 64, turns: bool = False):
     """Phase 20: the tracer case at ``cell_size`` for 26 steps on ``dev``;
     with ``turns`` also its assembly in turns (phases 20 and 23); with
     ``dense``, K2 on the Jacobi block of the case's AMG field split."""
-    from porepy_tpu_torch.applications.benchmarking.cases import build_tracer
-
     print(f"phase 20: tracer at cell size {cell_size:g}, 26 steps of 60 s, dense_precond={dense}")
-    if host_model is None:
-        Model, params = build_tracer(cell_size, device="cpu")
-        params["dense_precond"] = False
-        host_model, _ = _run_fused_case(torch.device("cpu"), Model, params)
-    Model, params = build_tracer(cell_size, device=str(dev))
-    params["dense_precond"] = dense
-    model, out = _run_fused_case(dev, Model, params)
+    model, out = tracer_case(cell_size, dense, dev)
     launches = out["launches"]
     print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {largest_ell_k(model)}")
     needed = ("ell_spmv", "fgmres_arnoldi", "upwind_flux", "upwind_select") + K8_KERNELS
@@ -3309,9 +3468,11 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, t
     z = model.equation_system.get_variable_values(["z_tracer"], time_step_index=0)
     print(f"  z_tracer in [{z.min():.3e}, {z.max():.6f}]")
     _require(z.min() >= -1e-8 and z.max() <= 0.2 + 1e-8, f"z_tracer {z.min()}..{z.max()}")
-    _fields_close(model, host_model, ("pressure", "z_tracer"), 1e-8)
+    # The host plain path runs the AMG field split at either size.
+    host = host_fields(functools.partial(tracer_case, cell_size, False))
+    _fields_close(model, host, ("pressure", "z_tracer"), 1e-8)
     res, inc = last_step_check(model)
-    tol = float(params["nl_convergence_tol"])
+    tol = float(model.params["nl_convergence_tol"])
     print(
         f"  last step on the host, plain path: |F|/sqrt(n) {res:.3e}, "
         f"next Newton increment |dx|/sqrt(n) {inc:.3e}, tolerance {tol:.0e}"
@@ -3322,7 +3483,7 @@ def run_tracer(dev, dense: bool, host_model=None, cell_size: float = 1.0 / 64, t
         out["routes"] = _assembly_routes_in_turns(model, "tracer")
     if dense:
         out["k2"] = check_jacobi_block(amg_jacobi_block(model), f"tracer {cell_size:g}'s", (1, 2, 8, 40))
-    return out, host_model
+    return out
 
 
 def check_jacobi_block(jb: dict, label: str, counts) -> dict:
@@ -3954,27 +4115,208 @@ def run_berre3d(dev, steps: int) -> dict:
 
 
 def compare_berre3d_small(dev) -> None:
-    """Phase 26b: berre3d on the 8^3 lattice (5,136 dofs), 4 steps (2
-    per-step solves and one fused 2-step block), on the card and on the
-    host plain path: pressure and mortar fluxes within 1e-8 of each field's
-    largest value."""
-    from porepy_tpu_torch.applications.benchmarking.cases import berre3d_lattice_mdg, berre3d_on
-
-    import porepy_tpu_torch as pt
-
+    """Phase 26b: berre3d on the 8^3 lattice on the card and on the host
+    plain path (:func:`berre3d_small_case`): pressure and mortar fluxes
+    within 1e-8 of each field's largest value."""
     print("phase 26b: berre3d on the 8^3 lattice, 4 steps, on the card against the host plain path")
-    runs = {}
-    for d in (dev, torch.device("cpu")):
-        Model, params = berre3d_on(berre3d_lattice_mdg(8), device=str(d))
-        params["time_manager"] = pt.TimeManager([0, 4.0], 1.0, constant_dt=True)
-        runs[d.type], _ = _run_fused_case(d, Model, params, blocks=1)
-    _fields_close(runs["cuda"], runs["cpu"], ("pressure", "interface_darcy_flux"), 1e-8)
+    model, _ = berre3d_small_case(dev)
+    host = host_fields(functools.partial(berre3d_small_case))
+    _fields_close(model, host, ("pressure", "interface_darcy_flux"), 1e-8)
+
+
+#: Phase 27's gate on one more Newton increment of fb2d4 at 5 m by the
+#: plain route, ``|dx| / sqrt(n)`` in the model's units (Pa, the pressures
+#: carry the norm). The system is ill conditioned (a 1-norm condition
+#: estimate of ~1.3e26 at 20 m: permeabilities 1e-14 and 1e-8, aperture
+#: 1e-2): at 20 m two direct solves of bit-equal systems differ by up to
+#: 3.2 Pa (8.1e-7 of the largest pressure, 4e6 Pa), the port's host and
+#: device_gmres routes by 0.53 Pa at most and 0.028 Pa in the root mean
+#: square. The increment is such a distance, from the card's solution to
+#: the dense LU's, in the root mean square: 1 Pa is twice the routes' 20 m
+#: spread at its largest and 35 times it in the mean, 2.5e-7 of the largest
+#: pressure.
+FB2D4_INCREMENT_TOL = 1.0
+#: Phase 27b's tolerance, relative to each field's largest value, between
+#: the card and the host plain path at 20 m. Both run the same route
+#: (``device_gmres``, the kernels on the card and their plain versions on
+#: the host), so they differ by rounding that the conditioning amplifies
+#: through the Krylov solve's stopping point: at most by as much as two
+#: routes that stop at different points, which is what the port's own two
+#: CPU routes at 20 m (the host's direct solve and ``device_gmres``) show:
+#: 1.3e-7 (pressure) and 2.2e-7 (mortar fluxes). 1e-6 is 4.5 times the
+#: larger, and 77 times the 1.3e-8 that the mortar fluxes read on an H100
+#: against the host (the pressure 1.4e-9).
+FB2D4_FIELD_TOL = 1e-6
+#: Case 4 at 5 m: the dofs, subdomains (the matrix, 63 fractures, 85
+#: intersection points) and interfaces of the native simplex mesh.
+FB2D4_SIZE = (43790, 149, 233)
+
+
+def _fb2d4_model(dev, cell_size: float):
+    """Case 4 at ``cell_size`` on ``dev`` (``cases.build_flow_benchmark_2d_case_4``),
+    its setup and Newton loop timed (synchronized): the mesh
+    (``set_geometry``), the discretization, each assembly and solve, and
+    each solve's Krylov count."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_flow_benchmark_2d_case_4
+
+    Model, params = build_flow_benchmark_2d_case_4(cell_size, device=str(dev))
+    log = {key: [] for key in ("mesh", "discretize", "assemble", "solve", "krylov")}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(key, fn):
+        sync()
+        tic = time.perf_counter()
+        out = fn()
+        sync()
+        log[key].append(time.perf_counter() - tic)
+        return out
+
+    class Logged(Model):
+        def set_geometry(self):
+            timed("mesh", super().set_geometry)
+
+        def discretize(self):
+            timed("discretize", super().discretize)
+
+        def assemble_linear_system(self):
+            timed("assemble", super().assemble_linear_system)
+
+        def solve_linear_system(self):
+            x = timed("solve", super().solve_linear_system)
+            if self._device_solvers:
+                log["krylov"].append(next(iter(self._device_solvers.values())).last_stats["krylov_iters"])
+            return x
+
+    model = Logged(params)
+    model.log = log
+    return model, params
+
+
+def run_fb2d4(dev, cell_size: float = 5.0) -> dict:
+    """Phase 27a: Flemisch et al. 2d case 4 at 5 m (43,790 dofs in 149
+    subdomains) on ``dev``: the example's one step, the host Newton loop,
+    each iteration assembled by the K8 pass and solved by the block
+    preconditioned FGMRES (the pressure block above the dense limit takes
+    AMG); then K1 and K3 at its final state's shapes (3c)."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    print(f"phase 27: fb2d4 (Flemisch et al. 2d flow benchmark case 4, 63 fractures, native simplex mesh) at "
+          f"{cell_size:g} m on {dev}, the example's time manager, the host Newton loop")
+    model, params = _fb2d4_model(dev, cell_size)
+    log = model.log
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    with _timed_builds() as builds:
+        torch.cuda.synchronize()
+        reset_launches()
+        tic = time.perf_counter()
+        model.prepare_simulation()
+        model._prepared = True
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - tic
+        eq_sys = model.equation_system
+        tic = time.perf_counter()
+        eq_sys.compiled_system().assemble(eq_sys)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - tic
+        reset_launches()
+        tic = time.perf_counter()
+        pt.run_time_dependent_model(model, params)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - tic
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+    mdg = model.mdg
+    dofs, n_sd, n_intf = eq_sys.num_dofs(), len(mdg.subdomains()), len(mdg.interfaces())
+    newton = len(log["solve"])
+    solver = next(iter(model._device_solvers.values()))
+    mesh_s, disc_s = sum(log["mesh"]), sum(log["discretize"])
+    build_s = sum(builds)
+    solve_s = sum(log["solve"])
+    print(f"  setup: prepare_simulation {setup_s:.3f} s (the mesh {mesh_s:.3f} s and the discretization "
+          f"{disc_s:.3f} s inside it), the equations' compile and first assembly {compile_s:.3f} s; the "
+          f"preconditioner's builds {[round(t, 3) for t in builds]} s; {dofs} dofs, {n_sd} subdomains, {n_intf} "
+          f"interfaces; field split methods {solver._builder.methods}, block sizes {solver._builder._sizes}")
+    ms_per_newton = 1e3 * run_s / max(newton, 1)
+    print(f"  the run: {run_s:.3f} s, {newton} Newton iterations, Krylov per solve {log['krylov']}; "
+          f"{ms_per_newton:.2f} ms per Newton iteration (assembly {1e3 * sum(log['assemble']):.2f} ms, solve "
+          f"{1e3 * solve_s:.2f} ms of which the preconditioner's builds {1e3 * build_s:.2f} ms)")
+    ell_k = largest_ell_k(model)
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {ell_k}; "
+          f"host fallbacks {FALLBACK_COUNTER['count'] - fallbacks0}")
+    _require((dofs, n_sd, n_intf) == FB2D4_SIZE, f"fb2d4 size {(dofs, n_sd, n_intf)}, not {FB2D4_SIZE}")
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"fb2d4: host fallbacks {FALLBACK_COUNTER}")
+    # The pressure block on AMG, the mortar block eliminated: a block the
+    # build demoted (to Jacobi sweeps) would show here.
+    _require(solver._builder.methods == ["amg", "eliminate"], f"fb2d4: field split {solver._builder.methods}")
+    _require(len(builds) > 0, "fb2d4: the preconditioner was never built")
+    needed = ("ell_spmv", "fgmres_arnoldi", "amg_vcycle") + K8_KERNELS
+    missing = [k for k in needed if not launches.get(k)]
+    k15 = launches.get("upwind_flux", 0) + launches.get("upwind_select", 0)
+    _require(not missing and k15 > 0, f"fb2d4: kernels not launched {missing}, K15 {k15}: {launches}")
+    state = eq_sys.get_variable_values(time_step_index=0)
+    _require(bool(np.all(np.isfinite(state))), "fb2d4: non-finite state")
+    p = eq_sys.get_variable_values(["pressure"], time_step_index=0)
+    print(f"  pressure in [{p.min():.6e}, {p.max():.6e}]")
+    _require(p.min() > 1e6 - 1.0 and p.max() < 4e6 + 1.0, f"fb2d4: pressure outside [1e6, 4e6]: {p.min()}, {p.max()}")
+    tic = time.perf_counter()
+    res, inc = last_step_check(model, device=str(dev))
+    print(f"  the step by the plain route (torch.func with the kernels' plain versions, a dense f64 LU solve on the "
+          f"card, {time.perf_counter() - tic:.2f} s): |F|/sqrt(n) {res:.3e}, next Newton increment |dx|/sqrt(n) "
+          f"{inc:.3e} Pa, tolerance {FB2D4_INCREMENT_TOL:g} Pa (above the 20 m spread of two solution routes)")
+    _require(inc <= FB2D4_INCREMENT_TOL, f"fb2d4: Newton increment {inc} > {FB2D4_INCREMENT_TOL}")
+    cs = eq_sys.compiled_system()
+    with _launches_of_block() as per_assembly:
+        cs.assemble(eq_sys)
+    assembly_ms = _timed_assemblies(cs, eq_sys, 5)
+    print(f"  launches of one assembly {per_assembly} (sum {sum(per_assembly.values())}); {len(cs.ces)} equations; "
+          f"an assembly {assembly_ms:.2f} ms (median of 5)")
+    out = {
+        "dofs": dofs, "subdomains": n_sd, "interfaces": n_intf, "mesh_s": mesh_s, "setup_s": setup_s,
+        "disc_s": disc_s, "compile_s": compile_s, "builds": builds, "run_s": run_s, "newton": newton,
+        "krylov": list(log["krylov"]), "ms_per_newton": ms_per_newton, "launches": launches,
+        "per_assembly": per_assembly, "assembly_ms": assembly_ms, "ell_k": ell_k,
+        "increment": inc,
+    }
+    out["routes"] = _assembly_routes_in_turns(model, "fb2d4")
+    out["retime"] = retime_solver(model, "fb2d4")
+    # K1 and K3 at fb2d4's own shapes, each against its plain version: the
+    # Jacobian as the solve gathers it, and every level of the pressure
+    # block's hierarchy (rows up to the largest K).
+    label = f"fb2d4 {cell_size:g} m"
+    val, col, solver = _model_jacobian_ell(model)
+    print(f"phase 3c: K1 at {label}'s Jacobian (the final state's, in the solver's ELL layout)")
+    out["k1"] = {"f64 B17": check_k1_at(f"{label}'s Jacobian", val, col, 17, 71),
+                 "f32 B1": check_k1_at(f"{label}'s Jacobian", val.to(torch.float32), col, 1, 70)}
+    del val, col
+    # The widest K1 rows of the path: the AMG level whose A has the largest
+    # K (the Schur-folded pressure block's), in the hierarchy's type, one
+    # vector, as the V-cycle multiplies by it.
+    lv = max((lv for h in solver._hierarchies.values() for lv in h.state["levels"]),
+             key=lambda lv: lv["A_col"].shape[1])
+    tag = f"{label}'s widest AMG level"
+    print(f"phase 3c: K1 at {tag} (n {lv['A_col'].shape[0]}, K {lv['A_col'].shape[1]})")
+    out["k1"]["level B1"] = check_k1_at(tag, lv["A_val"], lv["A_col"], 1, 72)
+    print(f"phase 3c: K3 at {label}'s hierarchy (the final state's)")
+    out["k3"] = vcycle_times(solver, label)
+    return out
+
+
+def compare_fb2d4_small(dev, cell_size: float = 20.0) -> None:
+    """Phase 27b: case 4 at 20 m (4,594 dofs) on the card and on the host
+    plain path, both by ``device_gmres`` (:func:`fb2d4_case`): pressure
+    and mortar fluxes within ``FB2D4_FIELD_TOL`` of each field's largest
+    value."""
+    print(f"phase 27b: fb2d4 at {cell_size:g} m on the card against the host plain path")
+    model, _ = fb2d4_case(cell_size, dev)
+    host = host_fields(functools.partial(fb2d4_case, cell_size))
+    _fields_close(model, host, ("pressure", "interface_darcy_flux"), FB2D4_FIELD_TOL)
 
 
 def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
-    """Phases 25 (thm, ``thm_steps`` steps at 1/16) and 26 (berre3d,
-    ``berre3d_steps`` steps); a phase whose steps are ``None`` is not
-    run."""
+    """Phases 25 (thm, ``thm_steps`` steps at 1/16), 26 (berre3d,
+    ``berre3d_steps`` steps) and 27 (Flemisch et al. 2d case 4 at 5 m); a
+    phase whose steps are ``None`` is not run."""
     out = {}
     if thm_steps is not None:
         tic = time.perf_counter()
@@ -3996,11 +4338,18 @@ def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
         berre["seconds"] = time.perf_counter() - tic
         print(f"phase 26 took {berre['seconds']:.1f} s")
         out["berre3d"] = berre
+    tic = time.perf_counter()
+    fb = run_fb2d4(dev)
+    torch.cuda.empty_cache()
+    compare_fb2d4_small(dev)
+    fb["seconds"] = time.perf_counter() - tic
+    print(f"phase 27 took {fb['seconds']:.1f} s")
+    out["fb2d4"] = fb
     return out
 
 
 def bench_summary(bench: dict, smi: str) -> None:
-    """Phases 25 and 26's numbers, one line each."""
+    """Phases 25, 26 and 27's numbers, one line each."""
     t = bench.get("thm")
     if t:
         s = t["split"]
@@ -4028,6 +4377,24 @@ def bench_summary(bench: dict, smi: str) -> None:
               f"first assembly {b['compile_s']:.3f} s, the preconditioner's builds {[round(x, 3) for x in b['builds']]} s; "
               f"launches of one assembly {sum(b['per_assembly'].values())} "
               f"({b['per_assembly'].get('dual_ew', 0)} dual_ew); the reference's CPU {REF_MS['berre3d']:.0f} ms")
+    f = bench.get("fb2d4")
+    if f:
+        r = f["retime"]
+        print(f"fb2d4 (5 m, {f['dofs']} dofs, {f['subdomains']} subdomains, {f['interfaces']} interfaces) on {smi}: "
+              f"{f['ms_per_newton']:.2f} ms per Newton iteration ({f['newton']} Newton, Krylov {f['krylov']}), setup: "
+              f"mesh {f['mesh_s']:.3f} s, prepare {f['setup_s']:.3f} s (discretization {f['disc_s']:.3f} s), compile "
+              f"and first assembly {f['compile_s']:.3f} s, the preconditioner's builds "
+              f"{[round(x, 3) for x in f['builds']]} s; largest K {f['ell_k']}; launches of one assembly "
+              f"{sum(f['per_assembly'].values())}, an assembly {f['assembly_ms']:.2f} ms; a solve at the final "
+              f"system {r['solve_ms']:.3f} ms ({r['krylov_iters']} Krylov); no reference time")
+        k1, k3, kl = f["k1"]["f64 B17"], f["k3"], f["k1"]["level B1"]
+        print(f"fb2d4 (5 m) K1 and K3 on {smi}: the Jacobian n {k1['n']}, K {k1['K']}, f64 B = 17 device "
+              f"{k1['product']['device_us']:.2f} us, f32 B = 1 {f['k1']['f32 B1']['product']['device_us']:.2f} us; "
+              f"the widest AMG level n {kl['n']}, K {kl['K']}, nnz {kl['nnz']}, device "
+              f"{kl['product']['device_us']:.2f} us (bound {1e3 * kl['product']['bound_ms']:.2f}); "
+              f"V-cycle levels {k3['levels']}, K of A, P, R {k3['K']}, device {min(k3['device_us']['kernel']):.2f} us "
+              f"an apply (composition {min(k3['device_us']['composition']):.2f}), {k3['ms']:.4f} ms by events, "
+              f"largest error against the composition {max(r['err'] for r in k3['all']):.3e}")
 
 
 def build_kernels() -> tempfile.TemporaryDirectory:
@@ -4061,6 +4428,13 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"phase 1: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
 
+    try:
+        return _main(dev, smi, name, build)
+    finally:
+        stop_host_runs()
+
+
+def _main(dev, smi: str, name: str, build) -> int:
     parent_dir = build_kernels()
     print(f"phase 2: kernels built in {build.build_seconds():.2f} s")
 
@@ -4092,20 +4466,23 @@ def main() -> int:
     print(f"phases 17-18 took {time.perf_counter() - tic:.1f} s")
     tic = time.perf_counter()
     report.update(check_upwind_tpfa_kernels(dev))
+    report.update(check_dual_kernels(dev))
+    print(f"phases 19 and 22 took {time.perf_counter() - tic:.1f} s")
+    # Every time of the kernels line is taken: the host plain-path runs of
+    # phases 26b, 27b and 20 start in their workers beside the phases left.
+    start_host_runs()
+    tic = time.perf_counter()
+    darcy_ad = run_darcy_ad(dev)
+    md256 = run_md256(dev)
+    print(f"phases 21 and 24 took {time.perf_counter() - tic:.1f} s")
+    bench = bench_cases(dev, THM_STEPS, BERRE3D_STEPS)
+    tic = time.perf_counter()
     # The AMG run at 1/32 (its first two time steps cost a minute and a half
     # at 1/64, on the card and on the host); the dense run, the assembly in
     # turns and the kernels' launch counts at 1/64.
-    tracer, tracer_host = run_tracer(dev, dense=False, cell_size=1.0 / 32)
-    del tracer_host
-    tracer_dense, tracer_host = run_tracer(dev, dense=True, turns=True)
-    del tracer_host
-    darcy_ad = run_darcy_ad(dev)
-    print(f"phases 19-21 took {time.perf_counter() - tic:.1f} s")
-    tic = time.perf_counter()
-    report.update(check_dual_kernels(dev))
-    md256 = run_md256(dev)
-    print(f"phases 22 and 24 took {time.perf_counter() - tic:.1f} s")
-    bench = bench_cases(dev, THM_STEPS, BERRE3D_STEPS)
+    tracer = run_tracer(dev, dense=False, cell_size=1.0 / 32)
+    tracer_dense = run_tracer(dev, dense=True, turns=True)
+    print(f"phase 20 took {time.perf_counter() - tic:.1f} s")
 
     # The roots' scatter in the line: md 1/128's mass-balance root, one
     # launch (phase 4); its error the largest over every case's roots.
@@ -4132,7 +4509,8 @@ def main() -> int:
     report["ell_spmv"].update(
         ms=k1["product"]["ms"], plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
         bound=(k1["product"]["bound_ms"], k1["product"]["bound_by"]),
-        err=max([report["ell_spmv"]["err"]] + [r["err"] for m in (md, md256) for r in m["k1"].values()]),
+        err=max([report["ell_spmv"]["err"]] + [r["err"] for m in (md, md256, bench["fb2d4"])
+                                                for r in m["k1"].values()]),
     )
 
     # K3 in the line: one apply at md 1/128's hierarchy (phase 3c); its error
@@ -4141,7 +4519,7 @@ def main() -> int:
     k3 = md["k3"]
     report["amg_vcycle"] = {
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "library_ms": None, "bound": (k3["bound_ms"], "bytes"),
-        "err": max(r["err"] for m in (md, md256, d3_amg, biot) for r in m["k3"]["all"]),
+        "err": max(r["err"] for m in (md, md256, d3_amg, biot, bench["fb2d4"]) for r in m["k3"]["all"]),
     }
     # K4 in the line: one step at column 8 of md 1/128's Jacobian in f32
     # (phase 3d), the solve's type; every column of a cycle in f32 and f64
@@ -4288,7 +4666,7 @@ def main() -> int:
     for tag, r in (
         ("md 1/128", md), ("3d 32^3", d3_amg), ("biot 1/64", biot), ("tracer 1/64", tracer_dense),
         ("DarcysLawAd 1/128", darcy_ad), ("md 1/256", md256), ("thm 1/16", bench["thm"]),
-        ("berre3d", bench["berre3d"]),
+        ("berre3d", bench["berre3d"]), ("fb2d4 5 m", bench["fb2d4"]),
     ):
         t = r["routes"]
         print(
@@ -4353,7 +4731,7 @@ def main() -> int:
           f"device)")
     for tag, r in (("md 1/128", md), ("md 1/256", md256), ("tracer 1/64", tracer_dense), ("biot 1/64", biot),
                    ("DarcysLawAd 1/128", darcy_ad), ("3d 32^3", d3_amg), ("thm 1/16", bench["thm"]),
-                   ("berre3d", bench["berre3d"])):
+                   ("berre3d", bench["berre3d"]), ("fb2d4 5 m", bench["fb2d4"])):
         t = r["routes"]["parent_turns"]
         print(f"{tag} assembly on {smi}, the roots' scatter against the parent's route in turns: least ms "
               f"{t['turns']['new']['least']} / {t['turns']['parent']['least']}, median {t['turns']['new']['median']} / "

@@ -3,7 +3,9 @@
 Same model framework and the same flat ``pp.`` names as ``porepy_tpu``, for
 the part ported so far: single-phase flow in fractured 2d and 3d domains
 (TPFA/MPFA, mortar coupling; the Berre et al. 3d case 2 geometry of
-``mdg_library`` on its native tet mesh), poromechanics (MPSA/Biot, momentum
+``mdg_library`` on its native tet mesh, the Flemisch et al. 2d benchmark
+cases of :mod:`porepy_tpu_torch.examples` on the native simplex mesher),
+poromechanics (MPSA/Biot, momentum
 balance, frictional contact mechanics), mass and energy balance and
 thermoporomechanics, tracer transport with upwinding
 inside the residual and the differentiable-permeability Darcy flux
@@ -38,6 +40,8 @@ from porepy_tpu_torch.compositional.peng_robinson import (  # noqa: F401
 from porepy_tpu_torch.compositional.states import FluidState, PhaseState  # noqa: F401
 from porepy_tpu_torch.fracs.fracture import LineFracture  # noqa: F401
 from porepy_tpu_torch.geometry.domain import Domain  # noqa: F401
+from porepy_tpu_torch.geometry import geometry_property_checks  # noqa: F401
+from porepy_tpu_torch.grids import match_grids  # noqa: F401
 from porepy_tpu_torch.grids.structured import CartGrid  # noqa: F401
 from porepy_tpu_torch.models import constitutive_laws  # noqa: F401
 from porepy_tpu_torch.models.contact_mechanics import ContactMechanics  # noqa: F401
@@ -66,9 +70,17 @@ from porepy_tpu_torch.params.bc import (  # noqa: F401
 )
 from porepy_tpu_torch.params.data import initialize_data  # noqa: F401
 from porepy_tpu_torch.params.tensor import FourthOrderTensor  # noqa: F401
+from porepy_tpu_torch.utils import grid_utils  # noqa: F401
 from porepy_tpu_torch.utils.common_constants import (  # noqa: F401
     DISCRETIZATION_MATRICES,
+    ITERATE_SOLUTIONS,
+    PARAMETERS,
+    TIME_STEP_SOLUTIONS,
 )
+from porepy_tpu_torch.utils.tangential_normal_projection import (  # noqa: F401
+    set_local_coordinate_projections,
+)
+from porepy_tpu_torch.viz.exporter import Exporter  # noqa: F401
 
 __all__ = [
     "constitutive_laws",
@@ -88,6 +100,14 @@ __all__ = [
     "BoundaryConditionVectorial",
     "initialize_data",
     "DISCRETIZATION_MATRICES",
+    "PARAMETERS",
+    "ITERATE_SOLUTIONS",
+    "TIME_STEP_SOLUTIONS",
+    "set_local_coordinate_projections",
+    "Exporter",
+    "match_grids",
+    "grid_utils",
+    "geometry_property_checks",
     "LineFracture",
     "SolidConstants",
     "FluidComponent",

@@ -30,11 +30,16 @@ Configurations ported so far:
     flow on the native fracture-conforming tet mesh (a 16^3 lattice at
     refinement level 0: 31,578 dofs in 106 subdomains), 10 steps of 1.0 in
     fused 4-step blocks.
+  - ``fb2d4``: Flemisch et al. (2018) 2d flow benchmark case 4, the
+    published 63 fractures on 700 m x 600 m, simplex cells of 5 m from the
+    native mesher (43,790 dofs in 149 subdomains and 233 interfaces), the
+    example's fluid and time manager (one step of an incompressible fluid:
+    one linear solve) on the device block-preconditioned FGMRES.
   - ``build_darcy_ad`` (not in :data:`CASE_BUILDERS`): ``DarcysLawAd`` with
     the cubic law and ``k(p)`` on one fracture at 1/128, the one path whose
     flux and pressure trace run the K14 kernels (``kernels/csrc/tpfa_ad.cu``).
 
-These are all of ``porepy_tpu``'s bench cases.
+These are all of ``porepy_tpu``'s bench cases, and ``fb2d4``.
 
 Beside the builders, the inputs that ``chip_smoke.py``, the kernel checks
 and the tests share: K10's region batches (:func:`region_batches`, the
@@ -438,6 +443,25 @@ def berre3d_on(mdg, device: str = "cuda"):
     return Model, params
 
 
+def build_flow_benchmark_2d_case_4(cell_size: float = 5.0, device: str = "cuda"):
+    """Flemisch et al. (2018) 2d flow benchmark case 4 at ``cell_size`` (m)
+    on ``device``: :class:`FlowBenchmark2dCase4Model` with its published
+    solid constants and boundary pressures (4e6 Pa west, 1e6 Pa east), its
+    default fluid and time manager, solved by ``device_gmres``."""
+    from porepy_tpu_torch.examples.flow_benchmark_2d_case_4 import (
+        FlowBenchmark2dCase4Model,
+        solid_constants,
+    )
+
+    params = {
+        "cell_size": cell_size,
+        "material_constants": {"solid": solid_constants},
+        "linear_solver": "device_gmres",
+        "device": device,
+    }
+    return _nosave(FlowBenchmark2dCase4Model), params
+
+
 CASE_BUILDERS = {
     "3d": build_3d_flow,
     "biot": build_biot,
@@ -446,6 +470,7 @@ CASE_BUILDERS = {
     "md256": lambda: build_md_flow(1.0 / 256),
     "thm": build_thm_contact_3d,
     "berre3d": build_berre3d,
+    "fb2d4": build_flow_benchmark_2d_case_4,
 }
 
 

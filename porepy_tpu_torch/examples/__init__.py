@@ -1,4 +1,17 @@
 """Runnable example models (reference ``src/porepy/examples``). The port
-carries tracer transport so far."""
+carries the Flemisch et al. (2018) 2d flow benchmark cases and tracer
+transport so far."""
 
+from porepy_tpu_torch.examples.flow_benchmark_2d_case_1 import (  # noqa: F401
+    FlowBenchmark2dCase1Model,
+    solid_constants_blocking_fractures,
+    solid_constants_conductive_fractures,
+)
+from porepy_tpu_torch.examples.flow_benchmark_2d_case_3 import (  # noqa: F401
+    FlowBenchmark2dCase3aModel,
+    FlowBenchmark2dCase3bModel,
+)
+from porepy_tpu_torch.examples.flow_benchmark_2d_case_4 import (  # noqa: F401
+    FlowBenchmark2dCase4Model,
+)
 from porepy_tpu_torch.examples.tracer_flow import TracerFlowModel  # noqa: F401

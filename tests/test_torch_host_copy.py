@@ -101,6 +101,16 @@ def test_copied_data_files_exist():
     assert lib + "fracture_network.csv" in DATA_FILES
 
 
+@pytest.mark.parametrize("case", ["benchmark_2d_case_4", "benchmark_3d_case_3"])
+def test_benchmark_data_dirs_copied(case):
+    """The data the Flemisch et al. case 4 example and ``mdg_library``'s
+    Berre et al. 3d case 3 read beside themselves are in the port, every
+    file of porepy_tpu's directory."""
+    lib = f"applications/md_grids/file_library/{case}/"
+    want = {lib + f for f in os.listdir(os.path.join(SOURCE, lib))}
+    assert want and want <= set(DATA_FILES)
+
+
 @pytest.mark.parametrize("rel", DATA_FILES)
 def test_data_file_matches_source(rel):
     with open(os.path.join(SOURCE, rel), "rb") as fh:
@@ -116,6 +126,15 @@ def test_data_file_matches_source(rel):
         ("Thermoporomechanics", "porepy_tpu_torch.models.thermoporomechanics"),
         ("MassAndEnergyBalance", "porepy_tpu_torch.models.mass_and_energy_balance"),
         ("mdg_library", "porepy_tpu_torch.applications.md_grids.mdg_library"),
+        ("PARAMETERS", None),
+        ("ITERATE_SOLUTIONS", None),
+        ("TIME_STEP_SOLUTIONS", None),
+        ("DISCRETIZATION_MATRICES", None),
+        ("set_local_coordinate_projections", "porepy_tpu_torch.utils.tangential_normal_projection"),
+        ("Exporter", "porepy_tpu_torch.viz.exporter"),
+        ("match_grids", "porepy_tpu_torch.grids.match_grids"),
+        ("grid_utils", "porepy_tpu_torch.utils.grid_utils"),
+        ("geometry_property_checks", "porepy_tpu_torch.geometry.geometry_property_checks"),
     ],
 )
 def test_exported_names_are_the_ports_own(name, module):
@@ -125,8 +144,121 @@ def test_exported_names_are_the_ports_own(name, module):
     import porepy_tpu_torch as pt
 
     obj = getattr(pt, name)
+    if module is None:
+        # A string key: the port's own constant, equal to porepy_tpu's.
+        from porepy_tpu_torch.utils import common_constants
+
+        assert obj is getattr(common_constants, name) and obj == getattr(pt_jax, name)
+        return
     assert getattr(obj, "__module__", getattr(obj, "__name__", None)) == module
     assert obj is not getattr(pt_jax, name)
     if name == "mdg_library":
         assert obj.benchmark_3d_case_2.__module__ == module
         assert obj.create_mdg.__module__ == "porepy_tpu_torch.grids.mdg_generation"
+
+
+def _module_file(dotted: str):
+    """The file of the port's module ``dotted`` (a package's
+    ``__init__.py``), or None if there is no such module."""
+    base = os.path.join(REPO, *dotted.split("."))
+    if os.path.isfile(os.path.join(base, "__init__.py")):
+        return os.path.join(base, "__init__.py")
+    if os.path.isfile(base + ".py"):
+        return base + ".py"
+    return None
+
+
+def _top_level_names(path: str) -> tuple[set, bool]:
+    """The names a module binds at its top level (definitions, imports,
+    assignments, also inside top-level ``if``/``try``), and whether it
+    star-imports."""
+    import ast
+
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names, star = set(), False
+    for node in tree.body:
+        for sub in ast.walk(node) if isinstance(node, (ast.If, ast.Try)) else [node]:
+            if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                names.add(sub.name)
+            elif isinstance(sub, (ast.Import, ast.ImportFrom)):
+                for alias in sub.names:
+                    star |= alias.name == "*"
+                    names.add((alias.asname or alias.name).split(".")[0])
+            elif isinstance(sub, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
+                targets = sub.targets if isinstance(sub, ast.Assign) else [sub.target]
+                for target in targets:
+                    names.update(n.id for n in ast.walk(target) if isinstance(n, ast.Name))
+    return names, star
+
+
+def _imports_of_absent_modules():
+    """Every import statement inside the port (at any depth, lazy ones
+    too) that names a ``porepy_tpu_torch`` module that does not exist:
+    ``import a.b``, ``from a.b import c`` where ``a.b`` is missing, and
+    ``from a import b`` where ``b`` is neither a module of package ``a``
+    nor a name its ``__init__`` (or module ``a``) binds."""
+    import ast
+
+    bad = []
+    for dirpath, _dirs, files in os.walk(PORT):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            rel = os.path.relpath(path, REPO)
+            with open(path) as fh:
+                tree = ast.parse(fh.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    for alias in node.names:
+                        if alias.name.split(".")[0] == "porepy_tpu_torch" and not _module_file(alias.name):
+                            bad.append(f"{rel}:{node.lineno} import {alias.name}")
+                elif isinstance(node, ast.ImportFrom) and not node.level and node.module:
+                    if node.module.split(".")[0] != "porepy_tpu_torch":
+                        continue
+                    target = _module_file(node.module)
+                    if target is None:
+                        bad.append(f"{rel}:{node.lineno} from {node.module}")
+                        continue
+                    names, star = _top_level_names(target)
+                    for alias in node.names:
+                        sub = f"{node.module}.{alias.name}"
+                        if not (_module_file(sub) or star or alias.name in names):
+                            bad.append(f"{rel}:{node.lineno} from {node.module} import {alias.name}")
+    return bad
+
+
+def test_no_import_of_an_absent_module():
+    """Every ``porepy_tpu_torch`` module named in an import statement of
+    the port exists: a module copied without the modules it imports fails
+    here, not in a user's run. A name imported from a package (say
+    ``kernels.EllOperator``) may be an attribute the package binds rather
+    than a module."""
+    assert _imports_of_absent_modules() == []
+
+
+def test_absent_module_check_finds_the_faults(tmp_path, monkeypatch):
+    """The check above reports an import of a missing module, of a missing
+    submodule from a package, and of a name the package does not bind, and
+    passes a name that the package binds."""
+    pkg = tmp_path / "porepy_tpu_torch"
+    (pkg / "sub").mkdir(parents=True)
+    (pkg / "__init__.py").write_text("from porepy_tpu_torch.sub.here import thing\n")
+    (pkg / "sub" / "__init__.py").write_text("bound = 1\n")
+    (pkg / "sub" / "here.py").write_text(
+        "thing = 2\n"
+        "def f():\n"
+        "    from porepy_tpu_torch.sub import bound, here\n"
+        "    from porepy_tpu_torch.sub import gone\n"
+        "    from porepy_tpu_torch.sub.missing import x\n"
+        "    import porepy_tpu_torch.other\n"
+    )
+    monkeypatch.setitem(globals(), "REPO", str(tmp_path))
+    monkeypatch.setitem(globals(), "PORT", str(pkg))
+    bad = _imports_of_absent_modules()
+    assert [b.split(" ", 1)[1] for b in bad] == [
+        "from porepy_tpu_torch.sub import gone",
+        "from porepy_tpu_torch.sub.missing",
+        "import porepy_tpu_torch.other",
+    ]
