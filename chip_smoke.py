@@ -556,7 +556,10 @@ def check_k1_at(label: str, val, col, batch: int, seed: int) -> dict:
     launcher and of the custom operator in turns, ms per call over
     back-to-back calls (CUDA events) of the kernel, the plain version and one
     PyTorch call on the same matrix in CSR (``torch.mv`` or ``@``), the bound
-    and the share of it the device time reaches."""
+    and the share of it the device time reaches. The bound counts the work
+    the product needs: each nonzero's value and column, ``x`` and the output
+    (and ``c``) once; the padded ELL slots that the kernel also reads are
+    printed beside it as the layout's bound, not counted."""
     from porepy_tpu_torch.kernels import ops, reference
 
     gen = torch.Generator().manual_seed(seed)
@@ -578,9 +581,10 @@ def check_k1_at(label: str, val, col, batch: int, seed: int) -> dict:
     out = {"err": err, "K": K, "n": n, "nnz": nnz}
     for epi in (False, True):
         call = (lambda: op(x, c=c, sign=-1)) if epi else (lambda: op(x))
-        nbytes = n * K * (size + 4) + batch * n * size * (3 if epi else 2)
+        vectors = batch * n * size * (3 if epi else 2)
         flops = 2 * nnz * batch + (batch * n if epi else 0)
-        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        bound_ms, bound_by = _bound(nnz * (size + 4) + vectors, flops, dtype)
+        layout_ms, _ = _bound(n * K * (size + 4) + vectors, flops, dtype)
         dev_us = _graph_us(call)
         host = {"launcher": [], "custom op": []}
         routes = ("launcher", "custom op", "custom op", "launcher") if not epi else ("launcher", "launcher")
@@ -589,10 +593,11 @@ def check_k1_at(label: str, val, col, batch: int, seed: int) -> dict:
             host[route].append(_host_us(fn))
         key = "epilogue" if epi else "product"
         out[key] = {"device_us": dev_us, "host_us": host, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "ms": _cuda_ms(call), "share": 1e3 * bound_ms / dev_us}
+                    "layout_ms": layout_ms, "ms": _cuda_ms(call), "share": 1e3 * bound_ms / dev_us}
         print(f"    {tag}{' with c - A x' if epi else ''}: device {dev_us:.2f} us a launch (graph replay), "
               f"host us a call {host}, {out[key]['ms']:.4f} ms a call back to back; bound "
-              f"{1e3 * bound_ms:.2f} us ({bound_by}), device time at {100 * out[key]['share']:.1f}% of it")
+              f"{1e3 * bound_ms:.2f} us ({bound_by}, the nonzeros), device time at {100 * out[key]['share']:.1f}% "
+              f"of it; the ELL layout's bound (every padded slot) {1e3 * layout_ms:.2f} us")
     out["plain_ms"] = _cuda_ms(lambda: reference.ell_spmv(val, col, x), 20)
     csr = _csr_of_ell(val, col)
     library = (lambda: torch.mv(csr, x)) if batch == 1 else (lambda: csr @ x.T)
@@ -3364,7 +3369,26 @@ def fb2d4_case(cell_size: float, dev) -> tuple:
     return model, None
 
 
-#: The host plain-path runs that phases 26b, 27b and 20 hold the card
+def fb3d3_small_case(dev) -> tuple:
+    """Case 3 on the ``FB3D3_LATTICE`` lattice on ``dev``, the example's one
+    step by ``device_gmres``, with no host fallback and the benchmark's
+    checks (phase 28b, on the card and on the host): the model and
+    ``None``."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import fb3d3_lattice
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    fallbacks0, tic = FALLBACK_COUNTER["count"], time.perf_counter()
+    model, params = _fb3d3_model(dev, grid=fb3d3_lattice(FB3D3_LATTICE))
+    pt.run_time_dependent_model(model, params)
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"fb3d3 at {FB3D3_LATTICE} on {dev}: host fallbacks")
+    print(f"  on {dev}: {model.equation_system.num_dofs()} dofs, {time.perf_counter() - tic:.3f} s, Krylov per "
+          f"solve {model.log['krylov']}, field split {next(iter(model._device_solvers.values()))._builder.methods}")
+    fb3d3_checks(model, f"fb3d3 at {FB3D3_LATTICE} on {dev}")
+    return model, None
+
+
+#: The host plain-path runs that phases 26b, 27b, 28b and 20 hold the card
 #: against: each the phase's own case with the device left out, the
 #: longest first, then in the order the phases need them.
 #: :func:`start_host_runs` starts them in worker processes; a phase finds
@@ -3373,6 +3397,7 @@ HOST_RUNS = (
     functools.partial(tracer_case, 1.0 / 64, False),
     functools.partial(berre3d_small_case),
     functools.partial(fb2d4_case, 20.0),
+    functools.partial(fb3d3_small_case),
     functools.partial(tracer_case, 1.0 / 32, False),
 )
 _HOST = {"pool": None, "futures": {}}
@@ -4152,14 +4177,10 @@ FB2D4_FIELD_TOL = 1e-6
 FB2D4_SIZE = (43790, 149, 233)
 
 
-def _fb2d4_model(dev, cell_size: float):
-    """Case 4 at ``cell_size`` on ``dev`` (``cases.build_flow_benchmark_2d_case_4``),
-    its setup and Newton loop timed (synchronized): the mesh
-    (``set_geometry``), the discretization, each assembly and solve, and
-    each solve's Krylov count."""
-    from porepy_tpu_torch.applications.benchmarking.cases import build_flow_benchmark_2d_case_4
-
-    Model, params = build_flow_benchmark_2d_case_4(cell_size, device=str(dev))
+def _logged_case(Model, params, dev):
+    """``Model`` on ``dev`` with its setup and Newton loop timed
+    (synchronized): the mesh (``set_geometry``), the discretization, each
+    assembly and solve, and each solve's Krylov count, in ``model.log``."""
     log = {key: [] for key in ("mesh", "discretize", "assemble", "solve", "krylov")}
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
@@ -4192,19 +4213,24 @@ def _fb2d4_model(dev, cell_size: float):
     return model, params
 
 
-def run_fb2d4(dev, cell_size: float = 5.0) -> dict:
-    """Phase 27a: Flemisch et al. 2d case 4 at 5 m (43,790 dofs in 149
-    subdomains) on ``dev``: the example's one step, the host Newton loop,
-    each iteration assembled by the K8 pass and solved by the block
-    preconditioned FGMRES (the pressure block above the dense limit takes
-    AMG); then K1 and K3 at its final state's shapes (3c)."""
+def _fb2d4_model(dev, cell_size: float):
+    """Case 4 at ``cell_size`` on ``dev`` (``cases.build_flow_benchmark_2d_case_4``),
+    logged by :func:`_logged_case`."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_flow_benchmark_2d_case_4
+
+    return _logged_case(*build_flow_benchmark_2d_case_4(cell_size, device=str(dev)), dev)
+
+
+def _host_loop_run(model, params, tag: str) -> dict:
+    """A logged case (:func:`_logged_case`) on the card through the host
+    Newton loop: ``prepare_simulation`` (the mesh and the discretization
+    inside it), the equations' compile with the first assembly, and the
+    run, each timed (synchronized), with the preconditioner's builds, the
+    run's launches and its host fallbacks; printed and returned."""
     import porepy_tpu_torch as pt
     from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
     from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
 
-    print(f"phase 27: fb2d4 (Flemisch et al. 2d flow benchmark case 4, 63 fractures, native simplex mesh) at "
-          f"{cell_size:g} m on {dev}, the example's time manager, the host Newton loop")
-    model, params = _fb2d4_model(dev, cell_size)
     log = model.log
     fallbacks0 = FALLBACK_COUNTER["count"]
     with _timed_builds() as builds:
@@ -4242,20 +4268,79 @@ def run_fb2d4(dev, cell_size: float = 5.0) -> dict:
           f"{ms_per_newton:.2f} ms per Newton iteration (assembly {1e3 * sum(log['assemble']):.2f} ms, solve "
           f"{1e3 * solve_s:.2f} ms of which the preconditioner's builds {1e3 * build_s:.2f} ms)")
     ell_k = largest_ell_k(model)
-    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {ell_k}; "
-          f"host fallbacks {FALLBACK_COUNTER['count'] - fallbacks0}")
-    _require((dofs, n_sd, n_intf) == FB2D4_SIZE, f"fb2d4 size {(dofs, n_sd, n_intf)}, not {FB2D4_SIZE}")
-    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"fb2d4: host fallbacks {FALLBACK_COUNTER}")
-    # The pressure block on AMG, the mortar block eliminated: a block the
-    # build demoted (to Jacobi sweeps) would show here.
-    _require(solver._builder.methods == ["amg", "eliminate"], f"fb2d4: field split {solver._builder.methods}")
-    _require(len(builds) > 0, "fb2d4: the preconditioner was never built")
+    fallbacks = FALLBACK_COUNTER["count"] - fallbacks0
+    print(f"  kernel launches in the run: {launches}; largest K of a K1 matrix {ell_k}; host fallbacks {fallbacks}")
+    _require(fallbacks == 0, f"{tag}: host fallbacks {FALLBACK_COUNTER}")
+    _require(len(builds) > 0, f"{tag}: the preconditioner was never built")
     needed = ("ell_spmv", "fgmres_arnoldi", "amg_vcycle") + K8_KERNELS
     missing = [k for k in needed if not launches.get(k)]
+    _require(not missing, f"{tag}: kernels not launched {missing}: {launches}")
+    _require(bool(np.all(np.isfinite(eq_sys.get_variable_values(time_step_index=0)))), f"{tag}: non-finite state")
+    out = {
+        "dofs": dofs, "subdomains": n_sd, "interfaces": n_intf, "mesh_s": mesh_s, "setup_s": setup_s,
+        "disc_s": disc_s, "compile_s": compile_s, "builds": builds, "run_s": run_s, "newton": newton,
+        "krylov": list(log["krylov"]), "ms_per_newton": ms_per_newton, "launches": launches, "ell_k": ell_k,
+        "split": {"assemble": 1e3 * sum(log["assemble"]) / max(newton, 1), "solve": 1e3 * solve_s / max(newton, 1),
+                  "builds": 1e3 * build_s / max(newton, 1)},
+        "methods": list(solver._builder.methods), "sizes": list(solver._builder._sizes),
+    }
+    return out
+
+
+def _case_shapes(model, tag: str, label: str, out: dict) -> None:
+    """After a host-loop case's gates: the launches of one assembly and its
+    median ms of 5, the assembly routes in turns (phase 23), K5/K7
+    re-timed, K1 against its plain version at the Jacobian (f64 with
+    B = 17, f32 with B = 1) and at the widest AMG level, and K3 at every
+    hierarchy (3c); into ``out``."""
+    eq_sys = model.equation_system
+    cs = eq_sys.compiled_system()
+    with _launches_of_block() as per_assembly:
+        cs.assemble(eq_sys)
+    assembly_ms = _timed_assemblies(cs, eq_sys, 5)
+    print(f"  launches of one assembly {per_assembly} (sum {sum(per_assembly.values())}); {len(cs.ces)} equations; "
+          f"an assembly {assembly_ms:.2f} ms (median of 5)")
+    out.update(per_assembly=per_assembly, assembly_ms=assembly_ms)
+    out["routes"] = _assembly_routes_in_turns(model, tag)
+    out["retime"] = retime_solver(model, tag)
+    # K1 and K3 at the case's own shapes, each against its plain version:
+    # the Jacobian as the solve gathers it, and every level of the pressure
+    # block's hierarchy (rows up to the largest K).
+    val, col, solver = _model_jacobian_ell(model)
+    print(f"phase 3c: K1 at {label}'s Jacobian (the final state's, in the solver's ELL layout)")
+    out["k1"] = {"f64 B17": check_k1_at(f"{label}'s Jacobian", val, col, 17, 71),
+                 "f32 B1": check_k1_at(f"{label}'s Jacobian", val.to(torch.float32), col, 1, 70)}
+    del val, col
+    # The widest K1 rows of the path: the AMG level whose A has the largest
+    # K, in the hierarchy's type, one vector, as the V-cycle multiplies by it.
+    lv = max((lv for h in solver._hierarchies.values() for lv in h.state["levels"]),
+             key=lambda lv: lv["A_col"].shape[1])
+    tag = f"{label}'s widest AMG level"
+    print(f"phase 3c: K1 at {tag} (n {lv['A_col'].shape[0]}, K {lv['A_col'].shape[1]})")
+    out["k1"]["level B1"] = check_k1_at(tag, lv["A_val"], lv["A_col"], 1, 72)
+    print(f"phase 3c: K3 at {label}'s hierarchy (the final state's)")
+    out["k3"] = vcycle_times(solver, label)
+
+
+def run_fb2d4(dev, cell_size: float = 5.0) -> dict:
+    """Phase 27a: Flemisch et al. 2d case 4 at 5 m (43,790 dofs in 149
+    subdomains) on ``dev``: the example's one step, the host Newton loop,
+    each iteration assembled by the K8 pass and solved by the block
+    preconditioned FGMRES (the pressure block above the dense limit takes
+    AMG); then K1 and K3 at its final state's shapes (3c)."""
+    print(f"phase 27: fb2d4 (Flemisch et al. 2d flow benchmark case 4, 63 fractures, native simplex mesh) at "
+          f"{cell_size:g} m on {dev}, the example's time manager, the host Newton loop")
+    model, params = _fb2d4_model(dev, cell_size)
+    out = _host_loop_run(model, params, "fb2d4")
+    size = (out["dofs"], out["subdomains"], out["interfaces"])
+    _require(size == FB2D4_SIZE, f"fb2d4 size {size}, not {FB2D4_SIZE}")
+    # The pressure block on AMG, the mortar block eliminated: a block the
+    # build demoted (to Jacobi sweeps) would show here.
+    _require(out["methods"] == ["amg", "eliminate"], f"fb2d4: field split {out['methods']}")
+    launches = out["launches"]
     k15 = launches.get("upwind_flux", 0) + launches.get("upwind_select", 0)
-    _require(not missing and k15 > 0, f"fb2d4: kernels not launched {missing}, K15 {k15}: {launches}")
-    state = eq_sys.get_variable_values(time_step_index=0)
-    _require(bool(np.all(np.isfinite(state))), "fb2d4: non-finite state")
+    _require(k15 > 0, f"fb2d4: K15 not launched: {launches}")
+    eq_sys = model.equation_system
     p = eq_sys.get_variable_values(["pressure"], time_step_index=0)
     print(f"  pressure in [{p.min():.6e}, {p.max():.6e}]")
     _require(p.min() > 1e6 - 1.0 and p.max() < 4e6 + 1.0, f"fb2d4: pressure outside [1e6, 4e6]: {p.min()}, {p.max()}")
@@ -4265,40 +4350,8 @@ def run_fb2d4(dev, cell_size: float = 5.0) -> dict:
           f"card, {time.perf_counter() - tic:.2f} s): |F|/sqrt(n) {res:.3e}, next Newton increment |dx|/sqrt(n) "
           f"{inc:.3e} Pa, tolerance {FB2D4_INCREMENT_TOL:g} Pa (above the 20 m spread of two solution routes)")
     _require(inc <= FB2D4_INCREMENT_TOL, f"fb2d4: Newton increment {inc} > {FB2D4_INCREMENT_TOL}")
-    cs = eq_sys.compiled_system()
-    with _launches_of_block() as per_assembly:
-        cs.assemble(eq_sys)
-    assembly_ms = _timed_assemblies(cs, eq_sys, 5)
-    print(f"  launches of one assembly {per_assembly} (sum {sum(per_assembly.values())}); {len(cs.ces)} equations; "
-          f"an assembly {assembly_ms:.2f} ms (median of 5)")
-    out = {
-        "dofs": dofs, "subdomains": n_sd, "interfaces": n_intf, "mesh_s": mesh_s, "setup_s": setup_s,
-        "disc_s": disc_s, "compile_s": compile_s, "builds": builds, "run_s": run_s, "newton": newton,
-        "krylov": list(log["krylov"]), "ms_per_newton": ms_per_newton, "launches": launches,
-        "per_assembly": per_assembly, "assembly_ms": assembly_ms, "ell_k": ell_k,
-        "increment": inc,
-    }
-    out["routes"] = _assembly_routes_in_turns(model, "fb2d4")
-    out["retime"] = retime_solver(model, "fb2d4")
-    # K1 and K3 at fb2d4's own shapes, each against its plain version: the
-    # Jacobian as the solve gathers it, and every level of the pressure
-    # block's hierarchy (rows up to the largest K).
-    label = f"fb2d4 {cell_size:g} m"
-    val, col, solver = _model_jacobian_ell(model)
-    print(f"phase 3c: K1 at {label}'s Jacobian (the final state's, in the solver's ELL layout)")
-    out["k1"] = {"f64 B17": check_k1_at(f"{label}'s Jacobian", val, col, 17, 71),
-                 "f32 B1": check_k1_at(f"{label}'s Jacobian", val.to(torch.float32), col, 1, 70)}
-    del val, col
-    # The widest K1 rows of the path: the AMG level whose A has the largest
-    # K (the Schur-folded pressure block's), in the hierarchy's type, one
-    # vector, as the V-cycle multiplies by it.
-    lv = max((lv for h in solver._hierarchies.values() for lv in h.state["levels"]),
-             key=lambda lv: lv["A_col"].shape[1])
-    tag = f"{label}'s widest AMG level"
-    print(f"phase 3c: K1 at {tag} (n {lv['A_col'].shape[0]}, K {lv['A_col'].shape[1]})")
-    out["k1"]["level B1"] = check_k1_at(tag, lv["A_val"], lv["A_col"], 1, 72)
-    print(f"phase 3c: K3 at {label}'s hierarchy (the final state's)")
-    out["k3"] = vcycle_times(solver, label)
+    out["increment"] = inc
+    _case_shapes(model, "fb2d4", f"fb2d4 {cell_size:g} m", out)
     return out
 
 
@@ -4313,10 +4366,308 @@ def compare_fb2d4_small(dev, cell_size: float = 20.0) -> None:
     _fields_close(model, host, ("pressure", "interface_darcy_flux"), FB2D4_FIELD_TOL)
 
 
+#: Case 3 at refinement 0: the dofs, subdomains (the matrix, 8 fractures,
+#: 7 intersection lines) and interfaces of the native cut-tet mesh.
+FB3D3_SIZE = (47900, 16, 22)
+#: Its field split: the pressure block (41,302 cells) on AMG above the
+#: dense limit, the mortar block (6,598 cells) eliminated, as the route
+#: splits the case at refinement 0 on the CPU (the 28b lattice takes the
+#: same methods).
+FB3D3_SPLIT = (["amg", "eliminate"], [41302, 6598])
+#: Phase 28's gate on one more Newton increment by the plain route,
+#: ``|dx| / sqrt(n)`` (the pressures, of order 1, carry the norm; the largest
+#: is 0.70 at the 28b lattice). The increment is the distance from the
+#: card's FGMRES solution to the dense LU's: on the CPU the device route's
+#: increment is 4.4e-12 at the 28b lattice and 1.4e-13 at refinement 0,
+#: against the direct solve's own 7.8e-14 and 2.7e-13 (the plain kernels,
+#: ``device_gmres``, then the plain route with scipy); an H100 reads
+#: 8.9e-13. 1e-10 is 23 times the largest, as berre3d's gate.
+FB3D3_INCREMENT_TOL = 1e-10
+#: Phase 28b's tolerance, relative to each field's largest value, between
+#: the card and the host plain path at the lattice. Both run
+#: ``device_gmres`` and differ by rounding through the Krylov solve's
+#: stopping point, at most by as much as two routes that stop at different
+#: points: the port's host direct solve and its ``device_gmres`` differ by
+#: 7.5e-12 (pressure) and 2.5e-11 (mortar fluxes) there on the CPU
+#: (``tests/test_torch_flow_benchmark_3d_case_3.py``). 1e-9 is 40 times the
+#: larger, and 36 times the 2.8e-11 that the mortar fluxes read on an H100
+#: against the host (the pressure 6.3e-12).
+FB3D3_FIELD_TOL = 1e-9
+#: The 28b lattice: 12,302 tets, 8 fractures, 4 intersection lines, 14,936
+#: dofs.
+FB3D3_LATTICE = (6, 14, 6)
+
+
+def _fb3d3_model(dev, grid=None):
+    """Case 3 on ``dev`` (``cases.build_flow_benchmark_3d_case_3``: refinement
+    0, or ``grid``; the two-point flux), with the benchmark's effective
+    permeabilities, logged by :func:`_logged_case`."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_flow_benchmark_3d_case_3
+    from porepy_tpu_torch.applications.test_utils.benchmarks import EffectivePermeability
+
+    Model, params = build_flow_benchmark_3d_case_3(device=str(dev), grid=grid)
+
+    class Case(EffectivePermeability, Model):
+        pass
+
+    return _logged_case(Case, params, dev)
+
+
+def fb3d3_checks(model, tag: str) -> dict:
+    """The checks of ``tests/functional/test_benchmark_3d_case_3.py`` on the
+    model's solution: the inflow through the south band -1/3 and the
+    pressure on the north Dirichlet bands 0, each within 1e-5, and the
+    effective permeabilities of Table 5 (matrix 1, fractures 1e2,
+    intersections 1; normal 2e6 on 2d interfaces, 2e4 on 1d) within the
+    test's 1.5e-6."""
+    from porepy_tpu_torch.utils.common_constants import ITERATE_SOLUTIONS
+
+    es = model.equation_system
+    bg, data_bg = model.mdg.boundaries(return_data=True, dim=2)[0]
+    sides = model.domain_boundary_sides(bg)
+    inflow = float(np.sum(data_bg[ITERATE_SOLUTIONS]["darcy_flux"][0][sides.south]))
+    outlet = float(np.sum(data_bg[ITERATE_SOLUTIONS]["pressure"][0][sides.north]))
+    tangential = max(float(np.abs(es.evaluate(model.effective_tangential_permeability([sd]))
+                                  - (1e2 if sd.dim == 2 else 1.0)).max()) for sd in model.mdg.subdomains())
+    normal = max(float(np.abs(es.evaluate(model.effective_normal_permeability([intf]))
+                              - (2e6 if intf.dim == 2 else 2e4)).max()) for intf in model.mdg.interfaces())
+    p = es.get_variable_values(["pressure"], time_step_index=0)
+    print(f"  {tag}: inflow through the south band {inflow:.12f} (want -1/3), pressure on the north bands "
+          f"{outlet:.3e} (want 0); Table 5's effective permeabilities, largest difference: tangential "
+          f"{tangential:.3e}, normal {normal:.3e}; pressure in [{p.min():.6e}, {p.max():.6e}]")
+    _require(abs(inflow + 1.0 / 3.0) <= 1e-5, f"{tag}: inflow {inflow}, not -1/3")
+    _require(abs(outlet) <= 1e-5, f"{tag}: outlet pressure {outlet}, not 0")
+    _require(tangential < 1.5e-6 and normal < 1.5e-6, f"{tag}: effective permeabilities {tangential}, {normal}")
+    _require(p.max() - p.min() > 1e-3, f"{tag}: the pressure is not driven")
+    return {"inflow": inflow, "outlet": outlet, "tangential": tangential, "normal": normal}
+
+
+def run_fb3d3(dev) -> dict:
+    """Phase 28a: Berre et al. 3d case 3 at refinement 0 (47,900 dofs in 16
+    subdomains) on ``dev``: the example's one step, the host Newton loop,
+    each iteration assembled by the K8 pass and solved by the block
+    preconditioned FGMRES (the pressure block above the dense limit takes
+    AMG, the mortar block eliminated); the benchmark's checks, the
+    plain-route increment, then K1 and K3 at its final state's shapes
+    (3c)."""
+    print(f"phase 28: fb3d3 (Berre et al. 3d flow benchmark case 3, 8 fractures, native cut-tet mesh) at refinement "
+          f"0 on {dev}, the example's time manager, the two-point flux, the host Newton loop")
+    model, params = _fb3d3_model(dev)
+    out = _host_loop_run(model, params, "fb3d3")
+    size = (out["dofs"], out["subdomains"], out["interfaces"])
+    _require(size == FB3D3_SIZE, f"fb3d3 size {size}, not {FB3D3_SIZE}")
+    # No block demoted (to Jacobi sweeps): the split the route picks.
+    _require((out["methods"], out["sizes"]) == FB3D3_SPLIT, f"fb3d3: field split {out['methods']}, {out['sizes']}")
+    out["checks"] = fb3d3_checks(model, "fb3d3 refinement 0")
+    tic = time.perf_counter()
+    res, inc = last_step_check(model, device=str(dev))
+    out["lu_s"] = time.perf_counter() - tic
+    print(f"  the step by the plain route (torch.func with the kernels' plain versions, a dense f64 LU solve of "
+          f"{out['dofs']}^2 x 8 B = {out['dofs'] ** 2 * 8 / 1e9:.1f} GB on the card, {out['lu_s']:.2f} s): |F|/sqrt(n) "
+          f"{res:.3e}, next Newton increment |dx|/sqrt(n) {inc:.3e}, tolerance {FB3D3_INCREMENT_TOL:g}")
+    _require(inc <= FB3D3_INCREMENT_TOL, f"fb3d3: Newton increment {inc} > {FB3D3_INCREMENT_TOL}")
+    out["increment"] = inc
+    torch.cuda.empty_cache()
+    _case_shapes(model, "fb3d3", "fb3d3 refinement 0", out)
+    return out
+
+
+def compare_fb3d3_small(dev) -> None:
+    """Phase 28b: case 3 on the lattice on the card and on the host plain
+    path, both by ``device_gmres`` (:func:`fb3d3_small_case`): pressure and
+    mortar fluxes within ``FB3D3_FIELD_TOL`` of each field's largest
+    value."""
+    print(f"phase 28b: fb3d3 on the {FB3D3_LATTICE} lattice on the card against the host plain path")
+    model, _ = fb3d3_small_case(dev)
+    host = host_fields(functools.partial(fb3d3_small_case))
+    _fields_close(model, host, ("pressure", "interface_darcy_flux"), FB3D3_FIELD_TOL)
+
+
+# -- the verification examples and the line search --------------------------------
+
+#: The errors each verification example collects, with the bounds of
+#: ``tests/examples/test_biot_examples.py`` (None: printed, not bounded).
+VERIFICATION = {
+    "terzaghi": {"error_pressure": 0.07, "error_consolidation_degree": 0.03},
+    "mandel": {"error_pressure": 0.05, "error_displacement": 2e-3, "error_flux": None},
+}
+
+
+def verification_case(name: str, dev):
+    """Terzaghi (20 cells, 6 steps of 0.05 s) or Mandel (the example's
+    cells of 2 m on 100 m x 10 m, 5 steps of 10 s) with the material
+    constants and time managers of ``tests/examples/test_biot_examples.py``,
+    by ``device_gmres`` on ``dev``: the run model."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.examples import MandelModel, TerzaghiModel
+    from porepy_tpu_torch.examples.mandel_biot import mandel_solid_params
+    from porepy_tpu_torch.examples.terzaghi_biot import terzaghi_solid_params
+
+    terzaghi = name == "terzaghi"
+    params = {
+        "material_constants": {
+            "solid": pt.SolidConstants(**(terzaghi_solid_params if terzaghi else mandel_solid_params)),
+            "fluid": pt.FluidComponent(viscosity=1e-3, density=1e3, compressibility=0.0),
+        },
+        "time_manager": (pt.TimeManager([0, 0.05, 0.1, 0.3], 0.05, constant_dt=True) if terzaghi
+                         else pt.TimeManager([0, 10, 50], 10, constant_dt=True)),
+        "suppress_export": True,
+        "linear_solver": "device_gmres",
+        "device": str(dev),
+    }
+    if terzaghi:
+        params.update(num_cells=20, vertical_load=6e8)
+    model = (TerzaghiModel if terzaghi else MandelModel)(params)
+    pt.run_time_dependent_model(model, params)
+    return model
+
+
+def _contact_model(dev, line_search: bool, counts: dict):
+    """``tests/numerics/test_solvers.py``'s sliding-contact
+    ``MomentumBalance`` with ``ContactIndicators`` at cell size 1/32 on
+    ``dev`` by ``device_gmres`` with dense block inverses (the contact
+    block's), up to 20 Newton iterations (the line search takes 12 there on
+    the CPU, above the default 10); with ``line_search``, through
+    ``ConstraintLineSearch + SplineInterpolationLineSearch +
+    LineSearchNewtonSolver``, each of its evaluations counted in
+    ``counts``, with the launches made inside the searches."""
+    import porepy_tpu_torch as pt
+
+    class Model(pt.ContactIndicators, pt.MomentumBalance):
+        def set_fractures(self):
+            self._fractures = [np.array([[0.25, 0.75], [0.5, 0.5]])]
+
+        def meshing_arguments(self):
+            return {"cell_size": 1.0 / 32}
+
+        def bc_values_displacement(self, bg):
+            vals = np.zeros((self.nd, bg.num_cells))
+            north = self.domain_boundary_sides(bg).north
+            vals[0, north] = 0.05
+            vals[1, north] = -0.002
+            return vals.ravel("F")
+
+        def initialize_data_saving(self):
+            pass
+
+        def save_data_time_step(self):
+            pass
+
+    class Solver(pt.ConstraintLineSearch, pt.SplineInterpolationLineSearch, pt.LineSearchNewtonSolver):
+        def nonlinear_line_search(self, model, dx):
+            es = model.equation_system
+            evaluate, assemble = es.evaluate, es.assemble
+
+            def counted_evaluate(*args, **kwargs):
+                counts["evaluations"] += 1
+                return evaluate(*args, **kwargs)
+
+            def counted_assemble(*args, **kwargs):
+                counts["residuals"] += 1
+                return assemble(*args, **kwargs)
+
+            es.evaluate, es.assemble = counted_evaluate, counted_assemble
+            counts["searches"] += 1
+            try:
+                with _launches_of_block() as launched:
+                    return super().nonlinear_line_search(model, dx)
+            finally:
+                del es.evaluate, es.assemble
+                for k, v in launched.items():
+                    counts["launches"][k] = counts["launches"].get(k, 0) + v
+
+    params = {"suppress_export": True, "device": str(dev), "linear_solver": "device_gmres", "dense_precond": True,
+              "max_iterations": 20}
+    if line_search:
+        params.update(global_line_search=True, local_line_search=True, adaptive_indicator_scaling=True,
+                      nonlinear_solver=Solver, nl_convergence_tol_res=1e-10)
+    model = Model(params)
+    pt.run_time_dependent_model(model, params)
+    return model
+
+
+#: Phase 29's gate on the contact tractions of the card's plain Newton run
+#: against the host plain path's (the same route, the kernels' plain
+#: versions), largest absolute difference. Newton converges to rounding
+#: here whatever the linear solve: on the CPU ``device_gmres`` (9 Newton
+#: iterations) and a direct solve (7) give tractions 6.7e-16 apart, of a
+#: largest 1.2e-2. 1e-12 is 1,500 times that, and a hundredth of the
+#: 1e-10 that ``tests/numerics/test_solvers.py`` holds two solvers to.
+CONTACT_HOST_TOL = 1e-12
+
+
+def run_verification(dev) -> dict:
+    """Phase 29: Terzaghi and Mandel on the card by ``device_gmres``, each
+    error within ``tests/examples/test_biot_examples.py``'s bounds and
+    falling in time, and within 1e-8 of the host plain path's (the same
+    route, the kernels' plain versions); then the contact model of
+    ``tests/numerics/test_solvers.py`` at 1/32 on the card by plain Newton
+    and by the constraint line search, the tractions within the test's
+    1e-10 of each other, and plain Newton's within ``CONTACT_HOST_TOL`` of
+    the host plain path's."""
+    tic0 = time.perf_counter()
+    out = {}
+    for name, bounds in VERIFICATION.items():
+        print(f"phase 29: {name} on {dev} by device_gmres, against the analytical solution and the host plain path")
+        tic = time.perf_counter()
+        with _launches_of_block() as launches:
+            model = verification_case(name, dev)
+        secs = time.perf_counter() - tic
+        host = verification_case(name, torch.device("cpu"))
+        errors = {f: [float(getattr(r, f)) for r in model.results] for f in bounds}
+        times = [r.time for r in model.results]
+        print(f"  {model.equation_system.num_dofs()} dofs, {len(times) - 1} steps, {secs:.3f} s on the card; "
+              f"kernel launches {launches}")
+        for f, bound in bounds.items():
+            mine = np.array(errors[f])
+            diff = float(np.abs(mine - np.array([getattr(r, f) for r in host.results])).max())
+            print(f"  {f} at t = {times}: {[float(f'{e:.6e}') for e in mine]}; bound {bound}; host plain path "
+                  f"max |diff| {diff:.3e}")
+            _require(diff <= 1e-8, f"{name}: {f} differs from the host plain path by {diff}")
+            if bound is not None:
+                _require(bool(np.all(mine[1:] < bound)), f"{name}: {f} {mine} above {bound}")
+        ep = errors["error_pressure"]
+        _require(ep[-1] < ep[1], f"{name}: the pressure error does not fall in time: {ep}")
+        _require(launches.get("fgmres_arnoldi", 0) > 0 and any(launches.get(k) for k in K8_KERNELS),
+                 f"{name}: the solve's or the assembly's kernels not launched: {launches}")
+        out[name] = {"errors": errors, "launches": launches, "s": secs, "dofs": model.equation_system.num_dofs()}
+    print(f"phase 29: the sliding-contact model at 1/32 on {dev} by device_gmres (dense block inverses), by plain "
+          f"Newton and by the constraint line search")
+    counts = {"searches": 0, "evaluations": 0, "residuals": 0, "launches": {}}
+    tractions, newton = {}, {}
+    for line_search in (False, True):
+        tic = time.perf_counter()
+        model = _contact_model(dev, line_search, counts)
+        tractions[line_search] = model.equation_system.get_variable_values(["contact_traction"], iterate_index=0)
+        newton[line_search] = model.nonlinear_solver_statistics.num_iteration
+        print(f"  {'line search' if line_search else 'plain Newton'}: {model.equation_system.num_dofs()} dofs, "
+              f"{newton[line_search]} Newton iterations, {time.perf_counter() - tic:.3f} s")
+    tic = time.perf_counter()
+    host = _contact_model(torch.device("cpu"), False, {})
+    host_traction = host.equation_system.get_variable_values(["contact_traction"], iterate_index=0)
+    host_diff = float(np.abs(tractions[False] - host_traction).max())
+    print(f"  the host plain path, plain Newton: {host.nonlinear_solver_statistics.num_iteration} Newton iterations, "
+          f"{time.perf_counter() - tic:.3f} s; the card's contact tractions max |diff| {host_diff:.3e}, tolerance "
+          f"{CONTACT_HOST_TOL:g}")
+    _require(host_diff <= CONTACT_HOST_TOL, f"the card's plain Newton traction differs from the host's by {host_diff}")
+    diff = float(np.abs(tractions[True] - tractions[False]).max())
+    print(f"  the line search: {counts['searches']} searches, {counts['evaluations']} indicator evaluations and "
+          f"{counts['residuals']} residual assemblies on the card, kernel launches inside them {counts['launches']}; "
+          f"contact tractions max |diff| {diff:.3e} (largest {float(np.abs(tractions[False]).max()):.3e}), "
+          f"tolerance 1e-10")
+    _require(diff <= 1e-10, f"the line-search traction differs from plain Newton's by {diff}")
+    _require(counts["evaluations"] > 0, "the line search evaluated no indicator")
+    out["line_search"] = {"newton": newton, "diff": diff, "host_diff": host_diff, **counts}
+    out["seconds"] = time.perf_counter() - tic0
+    print(f"phase 29 took {out['seconds']:.1f} s")
+    return out
+
+
 def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
     """Phases 25 (thm, ``thm_steps`` steps at 1/16), 26 (berre3d,
-    ``berre3d_steps`` steps) and 27 (Flemisch et al. 2d case 4 at 5 m); a
-    phase whose steps are ``None`` is not run."""
+    ``berre3d_steps`` steps), 27 (Flemisch et al. 2d case 4 at 5 m) and 28
+    (Berre et al. 3d case 3 at refinement 0); a phase whose steps are
+    ``None`` is not run."""
     out = {}
     if thm_steps is not None:
         tic = time.perf_counter()
@@ -4345,11 +4696,18 @@ def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
     fb["seconds"] = time.perf_counter() - tic
     print(f"phase 27 took {fb['seconds']:.1f} s")
     out["fb2d4"] = fb
+    tic = time.perf_counter()
+    fb3 = run_fb3d3(dev)
+    torch.cuda.empty_cache()
+    compare_fb3d3_small(dev)
+    fb3["seconds"] = time.perf_counter() - tic
+    print(f"phase 28 took {fb3['seconds']:.1f} s")
+    out["fb3d3"] = fb3
     return out
 
 
 def bench_summary(bench: dict, smi: str) -> None:
-    """Phases 25, 26 and 27's numbers, one line each."""
+    """Phases 25, 26, 27 and 28's numbers, a line or two each."""
     t = bench.get("thm")
     if t:
         s = t["split"]
@@ -4377,24 +4735,31 @@ def bench_summary(bench: dict, smi: str) -> None:
               f"first assembly {b['compile_s']:.3f} s, the preconditioner's builds {[round(x, 3) for x in b['builds']]} s; "
               f"launches of one assembly {sum(b['per_assembly'].values())} "
               f"({b['per_assembly'].get('dual_ew', 0)} dual_ew); the reference's CPU {REF_MS['berre3d']:.0f} ms")
-    f = bench.get("fb2d4")
-    if f:
+    for key, label in (("fb2d4", "fb2d4 (5 m"), ("fb3d3", "fb3d3 (refinement 0")):
+        f = bench.get(key)
+        if not f:
+            continue
         r = f["retime"]
-        print(f"fb2d4 (5 m, {f['dofs']} dofs, {f['subdomains']} subdomains, {f['interfaces']} interfaces) on {smi}: "
-              f"{f['ms_per_newton']:.2f} ms per Newton iteration ({f['newton']} Newton, Krylov {f['krylov']}), setup: "
-              f"mesh {f['mesh_s']:.3f} s, prepare {f['setup_s']:.3f} s (discretization {f['disc_s']:.3f} s), compile "
-              f"and first assembly {f['compile_s']:.3f} s, the preconditioner's builds "
-              f"{[round(x, 3) for x in f['builds']]} s; largest K {f['ell_k']}; launches of one assembly "
-              f"{sum(f['per_assembly'].values())}, an assembly {f['assembly_ms']:.2f} ms; a solve at the final "
-              f"system {r['solve_ms']:.3f} ms ({r['krylov_iters']} Krylov); no reference time")
+        print(f"{label}, {f['dofs']} dofs, {f['subdomains']} subdomains, {f['interfaces']} interfaces) on {smi}: "
+              f"{f['ms_per_newton']:.2f} ms per Newton iteration ({f['newton']} Newton, Krylov {f['krylov']}; assembly "
+              f"{f['split']['assemble']:.2f}, solve {f['split']['solve']:.2f} of which the builds "
+              f"{f['split']['builds']:.2f}), setup: mesh {f['mesh_s']:.3f} s, prepare {f['setup_s']:.3f} s "
+              f"(discretization {f['disc_s']:.3f} s), compile and first assembly {f['compile_s']:.3f} s, the "
+              f"preconditioner's builds {[round(x, 3) for x in f['builds']]} s; field split {f['methods']} "
+              f"{f['sizes']}; largest K {f['ell_k']}; launches in the run {sum(f['launches'].values())}, of one "
+              f"assembly {sum(f['per_assembly'].values())}, an assembly {f['assembly_ms']:.2f} ms; a solve at the "
+              f"final system {r['solve_ms']:.3f} ms ({r['krylov_iters']} Krylov), K7 {r['apply_device_us']:.2f} us "
+              f"device an apply; no reference time")
         k1, k3, kl = f["k1"]["f64 B17"], f["k3"], f["k1"]["level B1"]
-        print(f"fb2d4 (5 m) K1 and K3 on {smi}: the Jacobian n {k1['n']}, K {k1['K']}, f64 B = 17 device "
+        print(f"{label}) K1 and K3 on {smi}: the Jacobian n {k1['n']}, K {k1['K']}, f64 B = 17 device "
               f"{k1['product']['device_us']:.2f} us, f32 B = 1 {f['k1']['f32 B1']['product']['device_us']:.2f} us; "
               f"the widest AMG level n {kl['n']}, K {kl['K']}, nnz {kl['nnz']}, device "
-              f"{kl['product']['device_us']:.2f} us (bound {1e3 * kl['product']['bound_ms']:.2f}); "
-              f"V-cycle levels {k3['levels']}, K of A, P, R {k3['K']}, device {min(k3['device_us']['kernel']):.2f} us "
-              f"an apply (composition {min(k3['device_us']['composition']):.2f}), {k3['ms']:.4f} ms by events, "
-              f"largest error against the composition {max(r['err'] for r in k3['all']):.3e}")
+              f"{kl['product']['device_us']:.2f} us (bound {1e3 * kl['product']['bound_ms']:.2f} us, "
+              f"{100 * kl['product']['share']:.1f}%; the ELL layout's {1e3 * kl['product']['layout_ms']:.2f}), torch.mv "
+              f"{kl['library_ms']:.4f} ms; V-cycle levels {k3['levels']}, K of A, P, R {k3['K']}, device "
+              f"{min(k3['device_us']['kernel']):.2f} us an apply (composition "
+              f"{min(k3['device_us']['composition']):.2f}), {k3['ms']:.4f} ms by events, largest error against "
+              f"the composition {max(r['err'] for r in k3['all']):.3e}")
 
 
 def build_kernels() -> tempfile.TemporaryDirectory:
@@ -4476,6 +4841,7 @@ def _main(dev, smi: str, name: str, build) -> int:
     md256 = run_md256(dev)
     print(f"phases 21 and 24 took {time.perf_counter() - tic:.1f} s")
     bench = bench_cases(dev, THM_STEPS, BERRE3D_STEPS)
+    verification = run_verification(dev)
     tic = time.perf_counter()
     # The AMG run at 1/32 (its first two time steps cost a minute and a half
     # at 1/64, on the card and on the host); the dense run, the assembly in
@@ -4509,7 +4875,7 @@ def _main(dev, smi: str, name: str, build) -> int:
     report["ell_spmv"].update(
         ms=k1["product"]["ms"], plain_ms=k1["plain_ms"], library_ms=k1["library_ms"],
         bound=(k1["product"]["bound_ms"], k1["product"]["bound_by"]),
-        err=max([report["ell_spmv"]["err"]] + [r["err"] for m in (md, md256, bench["fb2d4"])
+        err=max([report["ell_spmv"]["err"]] + [r["err"] for m in (md, md256, bench["fb2d4"], bench["fb3d3"])
                                                 for r in m["k1"].values()]),
     )
 
@@ -4519,7 +4885,8 @@ def _main(dev, smi: str, name: str, build) -> int:
     k3 = md["k3"]
     report["amg_vcycle"] = {
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "library_ms": None, "bound": (k3["bound_ms"], "bytes"),
-        "err": max(r["err"] for m in (md, md256, d3_amg, biot, bench["fb2d4"]) for r in m["k3"]["all"]),
+        "err": max(r["err"] for m in (md, md256, d3_amg, biot, bench["fb2d4"], bench["fb3d3"])
+                   for r in m["k3"]["all"]),
     }
     # K4 in the line: one step at column 8 of md 1/128's Jacobian in f32
     # (phase 3d), the solve's type; every column of a cycle in f32 and f64
@@ -4666,7 +5033,7 @@ def _main(dev, smi: str, name: str, build) -> int:
     for tag, r in (
         ("md 1/128", md), ("3d 32^3", d3_amg), ("biot 1/64", biot), ("tracer 1/64", tracer_dense),
         ("DarcysLawAd 1/128", darcy_ad), ("md 1/256", md256), ("thm 1/16", bench["thm"]),
-        ("berre3d", bench["berre3d"]), ("fb2d4 5 m", bench["fb2d4"]),
+        ("berre3d", bench["berre3d"]), ("fb2d4 5 m", bench["fb2d4"]), ("fb3d3 refinement 0", bench["fb3d3"]),
     ):
         t = r["routes"]
         print(
@@ -4731,7 +5098,8 @@ def _main(dev, smi: str, name: str, build) -> int:
           f"device)")
     for tag, r in (("md 1/128", md), ("md 1/256", md256), ("tracer 1/64", tracer_dense), ("biot 1/64", biot),
                    ("DarcysLawAd 1/128", darcy_ad), ("3d 32^3", d3_amg), ("thm 1/16", bench["thm"]),
-                   ("berre3d", bench["berre3d"]), ("fb2d4 5 m", bench["fb2d4"])):
+                   ("berre3d", bench["berre3d"]), ("fb2d4 5 m", bench["fb2d4"]),
+                   ("fb3d3 refinement 0", bench["fb3d3"])):
         t = r["routes"]["parent_turns"]
         print(f"{tag} assembly on {smi}, the roots' scatter against the parent's route in turns: least ms "
               f"{t['turns']['new']['least']} / {t['turns']['parent']['least']}, median {t['turns']['new']['median']} / "
@@ -4780,6 +5148,16 @@ def _main(dev, smi: str, name: str, build) -> int:
           f"of host time a launch, grid {g['grid']} blocks, plain {g['plain_ms']:.4f} ms, bound {g['bound'][0]:.6f} ms; "
           f"torch.mv(V, w) {g['mv_ms']:.4f} ms")
     bench_summary(bench, smi)
+    for case, v in verification.items():
+        if case == "line_search":
+            print(f"line search on {smi}: Newton iterations plain / line search {v['newton'][False]} / "
+                  f"{v['newton'][True]}, {v['evaluations']} indicator evaluations and {v['residuals']} residual "
+                  f"assemblies in {v['searches']} searches, launches inside them {v['launches']}; tractions "
+                  f"{v['diff']:.3e} apart, plain Newton's {v['host_diff']:.3e} from the host's")
+        elif case != "seconds":
+            print(f"{case} on {smi}: {v['dofs']} dofs, {v['s']:.3f} s by device_gmres, errors "
+                  f"{ {f: float(f'{e[-1]:.6e}') for f, e in v['errors'].items()} } at the last time, launches "
+                  f"{sum(v['launches'].values())}")
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

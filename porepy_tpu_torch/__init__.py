@@ -26,6 +26,12 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
+from porepy_tpu_torch.applications.material_values import (  # noqa: F401
+    fluid_values,
+    numerical_values,
+    reference_values,
+    solid_values,
+)
 from porepy_tpu_torch.applications.md_grids import mdg_library  # noqa: F401
 from porepy_tpu_torch.compositional.flash import ConstantKFlash, Flash  # noqa: F401
 from porepy_tpu_torch.compositional.materials import (  # noqa: F401
@@ -57,12 +63,21 @@ from porepy_tpu_torch.models.mass_and_energy_balance import (  # noqa: F401
 from porepy_tpu_torch.models.momentum_balance import MomentumBalance  # noqa: F401
 from porepy_tpu_torch.models.poromechanics import Poromechanics  # noqa: F401
 from porepy_tpu_torch.models.run_models import run_time_dependent_model  # noqa: F401
+from porepy_tpu_torch.models.solution_strategy import ContactIndicators  # noqa: F401
 from porepy_tpu_torch.models.thermoporomechanics import (  # noqa: F401
     Thermoporomechanics,
 )
 from porepy_tpu_torch.numerics import ad  # noqa: F401
 from porepy_tpu_torch.numerics.fv.biot import Biot  # noqa: F401
 from porepy_tpu_torch.numerics.fv.mpsa import Mpsa  # noqa: F401
+from porepy_tpu_torch.numerics.nonlinear.anderson_acceleration import (  # noqa: F401
+    AndersonAcceleration,
+)
+from porepy_tpu_torch.numerics.nonlinear.line_search import (  # noqa: F401
+    ConstraintLineSearch,
+    LineSearchNewtonSolver,
+    SplineInterpolationLineSearch,
+)
 from porepy_tpu_torch.numerics.time_step_control import TimeManager  # noqa: F401
 from porepy_tpu_torch.params.bc import (  # noqa: F401
     BoundaryCondition,
@@ -124,4 +139,13 @@ __all__ = [
     "PengRobinsonEoS",
     "FluidState",
     "PhaseState",
+    "ContactIndicators",
+    "LineSearchNewtonSolver",
+    "SplineInterpolationLineSearch",
+    "ConstraintLineSearch",
+    "AndersonAcceleration",
+    "fluid_values",
+    "numerical_values",
+    "reference_values",
+    "solid_values",
 ]

@@ -35,17 +35,24 @@ Configurations ported so far:
     native mesher (43,790 dofs in 149 subdomains and 233 interfaces), the
     example's fluid and time manager (one step of an incompressible fluid:
     one linear solve) on the device block-preconditioned FGMRES.
+  - ``fb3d3``: Berre et al. (2021) 3d flow benchmark case 3, eight
+    fractures in the box 1 x 2.25 x 1 on the native cut-tet mesh (a
+    (9, 20, 9) lattice at refinement level 0: 47,900 dofs in 16 subdomains
+    and 22 interfaces), a fracture/matrix permeability contrast of 1e4,
+    the example's one step of an incompressible fluid on the device
+    block-preconditioned FGMRES.
   - ``build_darcy_ad`` (not in :data:`CASE_BUILDERS`): ``DarcysLawAd`` with
     the cubic law and ``k(p)`` on one fracture at 1/128, the one path whose
     flux and pressure trace run the K14 kernels (``kernels/csrc/tpfa_ad.cu``).
 
-These are all of ``porepy_tpu``'s bench cases, and ``fb2d4``.
+These are all of ``porepy_tpu``'s bench cases, and ``fb2d4`` and ``fb3d3``.
 
 Beside the builders, the inputs that ``chip_smoke.py``, the kernel checks
 and the tests share: K10's region batches (:func:`region_batches`, the
 chunks that :func:`capture_chunks` records from biot's discretizations),
 the Biot problem of a grid (:func:`biot_problem`, :func:`biot_matrices`),
 berre3d's small grid (:func:`berre3d_lattice_mdg`, run by :func:`berre3d_on`),
+fb3d3's (:func:`fb3d3_lattice`),
 the route of the region solves (:func:`local_solves`), and K16's table,
 points and system (:func:`lookup_inputs`, :func:`table_system`).
 """
@@ -389,6 +396,12 @@ def build_berre3d(refinement_level: int = 0, device: str = "cuda"):
     return berre3d_on(mdg, device)
 
 
+def _fracture_csv(case: str) -> str:
+    """The fracture network file of a case of ``mdg_library``'s file library."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "md_grids", "file_library", case, "fracture_network.csv")
+
+
 def berre3d_lattice_mdg(lattice: int):
     """Berre et al. 3d case 2's fracture network on a ``lattice``^3 cube
     lattice of tets (``benchmark_3d_case_2`` meshes 16^3 at refinement 0):
@@ -397,9 +410,7 @@ def berre3d_lattice_mdg(lattice: int):
     from porepy_tpu_torch.fracs.fracture_importer import network_3d_from_csv
     from porepy_tpu_torch.fracs.structured_simplex import tet_cart_grid
 
-    lib = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "md_grids", "file_library", "benchmark_3d_case_2")
-    network = network_3d_from_csv(os.path.join(lib, "fracture_network.csv"))
+    network = network_3d_from_csv(_fracture_csv("benchmark_3d_case_2"))
     mdg = tet_cart_grid([f.pts for f in network.fractures], np.array([lattice] * 3), physdims=[1.0, 1.0, 1.0])
     mdg.compute_geometry()
     return mdg
@@ -462,6 +473,67 @@ def build_flow_benchmark_2d_case_4(cell_size: float = 5.0, device: str = "cuda")
     return _nosave(FlowBenchmark2dCase4Model), params
 
 
+def build_flow_benchmark_3d_case_3(refinement_level: int = 0, device: str = "cuda", grid=None):
+    """Berre et al. (2021) 3d flow benchmark case 3 at ``refinement_level``
+    on ``device``: :class:`FlowBenchmark3dCase3Model` with its published
+    solid constants, boundary bands and time manager, solved by
+    ``device_gmres``. ``grid``, an ``(mdg, network)`` pair as
+    :func:`fb3d3_lattice` gives it, replaces the refinement level's mesh.
+
+    The flux is the two-point one, as porepy_tpu's
+    ``tests/functional/test_benchmark_3d_case_3.py`` runs refinement 0 on
+    ``device_gmres``; the example's default is MPFA. MPFA couples the
+    mortar fluxes of each fracture side through its pressure traces, so
+    eliminating the mortar block folds one dense inverse per fracture into
+    the pressure block that SA-AMG is built on: 2,164 nonzeros a row on the
+    (6, 14, 6) lattice against the two-point flux's 4.9
+    (:mod:`.fold_width`)."""
+    from porepy_tpu_torch.examples.flow_benchmark_3d_case_3 import (
+        FlowBenchmark3dCase3Model,
+        solid_constants,
+    )
+
+    Model = _nosave(FlowBenchmark3dCase3Model)
+    if grid is not None:
+        import porepy_tpu_torch as pt
+
+        class OnGrid(Model):
+            def set_geometry(self):
+                self.mdg, self.fracture_network = grid
+                self.nd = 3
+                self._domain = self.fracture_network.domain
+                self._fractures = self.fracture_network.fractures
+                pt.set_local_coordinate_projections(self.mdg)
+                self.set_well_network()
+
+        Model = OnGrid
+    params = {
+        "refinement_level": refinement_level,
+        "material_constants": {"solid": solid_constants},
+        "flux_discretization": "tpfa",
+        "linear_solver": "device_gmres",
+        "device": device,
+    }
+    return Model, params
+
+
+def fb3d3_lattice(nx):
+    """Berre et al. 3d case 3's fracture network on the cut-tet lattice
+    ``nx`` (``benchmark_3d_case_3`` meshes (9, 20, 9) at refinement 0):
+    ``(mdg, network)``, the small grid on which the tests and the
+    card-against-host check run the case. (6, 14, 6) gives 12,302 tets;
+    (3, 7, 3) and (4, 9, 4) are too coarse for the fractures to match mesh
+    faces."""
+    from porepy_tpu_torch.fracs.cut_tet import cut_tet_grid
+    from porepy_tpu_torch.fracs.fracture_importer import network_3d_from_csv
+
+    network = network_3d_from_csv(_fracture_csv("benchmark_3d_case_3"))
+    mdg = cut_tet_grid([f.pts for f in network.fractures], np.array(nx), physdims=[1.0, 2.25, 1.0],
+                       exact_boundary=False)
+    mdg.compute_geometry()
+    return mdg, network
+
+
 CASE_BUILDERS = {
     "3d": build_3d_flow,
     "biot": build_biot,
@@ -471,6 +543,7 @@ CASE_BUILDERS = {
     "thm": build_thm_contact_3d,
     "berre3d": build_berre3d,
     "fb2d4": build_flow_benchmark_2d_case_4,
+    "fb3d3": build_flow_benchmark_3d_case_3,
 }
 
 

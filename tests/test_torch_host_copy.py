@@ -65,6 +65,28 @@ def test_ported_modules_exist():
     assert len(COPIED) >= 80
 
 
+#: The modules copied since the drift check began listing them by name: each
+#: is under :func:`test_host_copy_matches_source`.
+NEW_COPIES = (
+    "examples/flow_benchmark_3d_case_3.py",
+    "examples/terzaghi_biot.py",
+    "examples/mandel_biot.py",
+    "utils/examples_utils.py",
+    "utils/txt_io.py",
+    "applications/convergence_analysis.py",
+    "applications/material_values/numerical_values.py",
+    "applications/material_values/reference_values.py",
+    "applications/material_values/solid_values.py",
+    "numerics/nonlinear/line_search.py",
+    "numerics/nonlinear/anderson_acceleration.py",
+)
+
+
+@pytest.mark.parametrize("rel", NEW_COPIES)
+def test_new_copies_are_checked(rel):
+    assert rel in COPIED and rel not in PORTED
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_host_copy_matches_source(rel):
     with open(os.path.join(SOURCE, rel)) as fh:
@@ -135,6 +157,15 @@ def test_data_file_matches_source(rel):
         ("match_grids", "porepy_tpu_torch.grids.match_grids"),
         ("grid_utils", "porepy_tpu_torch.utils.grid_utils"),
         ("geometry_property_checks", "porepy_tpu_torch.geometry.geometry_property_checks"),
+        ("LineSearchNewtonSolver", "porepy_tpu_torch.numerics.nonlinear.line_search"),
+        ("SplineInterpolationLineSearch", "porepy_tpu_torch.numerics.nonlinear.line_search"),
+        ("ConstraintLineSearch", "porepy_tpu_torch.numerics.nonlinear.line_search"),
+        ("AndersonAcceleration", "porepy_tpu_torch.numerics.nonlinear.anderson_acceleration"),
+        ("ContactIndicators", "porepy_tpu_torch.models.solution_strategy"),
+        ("fluid_values", "porepy_tpu_torch.applications.material_values.fluid_values"),
+        ("numerical_values", "porepy_tpu_torch.applications.material_values.numerical_values"),
+        ("reference_values", "porepy_tpu_torch.applications.material_values.reference_values"),
+        ("solid_values", "porepy_tpu_torch.applications.material_values.solid_values"),
     ],
 )
 def test_exported_names_are_the_ports_own(name, module):
