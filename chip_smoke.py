@@ -336,7 +336,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    rediscretization, the assembly, the solve (the preconditioner's builds
    apart) and the host bookkeeping, the launches of the run and of one
    assembly, beside the reference's 54,683 ms. Then phase 23 at thm's
-   final state (the K8 pass against the functorch route, every K8 call of
+   final state (the median of 2 assemblies a turn, not 5: functorch takes
+   ~3.5 s an assembly; the K8 pass against the functorch route, every K8 call of
    an assembly against its plain version, no node without a dual rule);
    (d) every K15 call of
    one assembly, one launch each, to the bit of its plain version; (c) the
@@ -381,15 +382,61 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``device_gmres`` route on the CPU), pressure and mortar fluxes within
    ``FB2D4_FIELD_TOL`` of each field's max.
 
+28. run Berre et al. (2021) 3d case 3 (``cases.build_flow_benchmark_3d_case_3``:
+   eight fractures on the native cut-tet mesh at refinement 0, 47,900 dofs
+   in 16 subdomains, TPFA, the example's one step on the host Newton loop)
+   with the gates and prints of phase 27 and the benchmark's inflow, outlet
+   and Table 5 checks; then (b) the (6, 14, 6) lattice on the card against
+   the host plain path;
+29. the Terzaghi and Mandel verification examples on the card by
+   ``device_gmres`` against their analytical solutions and the host plain
+   path, and the sliding-contact model of ``tests/numerics/test_solvers.py``
+   at 1/32 by plain Newton and by the constraint line search (the tractions
+   within 1e-10 of each other, plain Newton's within ``CONTACT_HOST_TOL`` of
+   the host's);
+30. run the fracture damage example (``cases.build_fracture_damage``: one
+   sheared fracture, friction and dilation decaying with the damage
+   history, the anisotropic history equation, 3 steps) at 1/128 (33,216
+   dofs) on the card by ``device_gmres`` with dense block inverses: 0 host
+   fallbacks, the route printed (the field split, which blocks are dense,
+   whether each step's Newton loop ran fused on the device), the K1, K4, K8
+   and K6 (or K3) kernels launched, the history >= 0 and non-decreasing in
+   every cell from step to step, the damage factors and the damaged
+   friction bound and dilation gap equal (1e-12) to ``1 + (d0 - 1) exp(-c
+   h)`` from numpy (times the intact value), no node of the last step's
+   system without a dual rule, and no compiled system, solver or dense
+   inverse of a step outliving the next step (the history equation is
+   replaced every step, so each step compiles its system and builds its
+   solver anew); each step's seconds (the history equation's update, the
+   compile, the Newton loop) and ms per Newton iteration; then (b) 1/32 on
+   the card against the host plain path (``HOST_RUNS``): the history, the
+   tractions and the displacements within ``DAMAGE_HOST_TOL`` of each
+   field's largest value, and (c) the isotropic history equation at 1/32 on
+   the card;
+31. conforming fracture propagation under tension (the model of
+   ``tests/numerics/test_propagation.py``, ``_TensionPropagation`` in
+   :func:`propagation_case`) on a 64 x 64 grid on the card, 4 steps of
+   critical SIFs 1e-4 by ``device_gmres`` with dense block inverses: at
+   every step the fracture grows, the growing tips' mode-I SIFs are at
+   least the critical value and the largest is > 0, the rebuilt system has
+   a dual rule at every node, nothing of the topology before a rebuild
+   (compiled system, solver, dense inverses) outlives the next step's
+   solve, the card's allocated bytes after each rebuild stay within 2 MiB
+   of the first's and the compiler's device constants do not grow; the
+   seconds of each rebuild and compile; then (b) 16
+   x 16 on the card against the host plain path (``HOST_RUNS``): the opened
+   host faces and the fracture's cells equal at every step, the tip SIFs
+   within ``PROPAGATION_SIF_TOL``.
+
 Phases 25, 26 and 27 alone, on a card: ``python3 -c "import torch, chip_smoke as c;
 d = c.build_kernels(); c.bench_summary(c.bench_cases(torch.device('cuda'), 10,
 10), '')"`` (``None`` for a phase's steps leaves it out).
 
-The host plain-path runs of phases 26b, 27b and 20 (``HOST_RUNS``) need no
-card: they run in two worker processes that see no CUDA device, started
-after phase 22, the last phase whose times go into the kernels line, and
-running beside phases 21 and 24-27 (phase 20 runs last); each phase waits
-for its own. All fused runs (phases 4-21) assemble through the K8 pass. The line before
+The host plain-path runs of phases 26b, 27b, 28b, 30b, 31b and 20
+(``HOST_RUNS``) need no card: they run in two worker processes that see no
+CUDA device, started after phase 22, the last phase whose times go into the
+kernels line, and running beside phases 21 and 24-31 (phase 20 runs last);
+each phase waits for its own. All fused runs (phases 4-21) assemble through the K8 pass. The line before
 the last is a JSON object with one entry per kernel (ms,
 plain ms, the bound and what sets it, the time of one PyTorch call of the
 same function where there is one); the
@@ -3069,7 +3116,7 @@ def _assembly_routes_in_turns(model, label: str, repeats: int = 5) -> dict:
     _require(max(errs) <= 1e-12, f"{label}: the dual route's assembly differs from functorch's by {errs}")
     with _launches_of_block() as per_assembly:
         cs.assemble(eq_sys)
-    ruleless = {name: list(ce.fn.dual.ruleless) for name, ce in zip(cs.names, cs.ces)}
+    ruleless = _ruleless(model)
     print(
         f"  phase 23, {label} assembly in turns, median ms: functorch {turns['functorch']}, dual "
         f"{turns['dual']}; Jacobian and residual within {max(errs):.1e} of the largest entry"
@@ -3388,9 +3435,232 @@ def fb3d3_small_case(dev) -> tuple:
     return model, None
 
 
-#: The host plain-path runs that phases 26b, 27b, 28b and 20 hold the card
-#: against: each the phase's own case with the device left out, the
-#: longest first, then in the order the phases need them.
+#: Phase 30's gate on the card's fields at 1/32 against the host plain
+#: path (the same ``device_gmres`` route, the kernels' plain versions),
+#: relative to each field's largest value. Newton stops at an increment of
+#: 1e-10 on both, so the fields agree to about that: on the CPU the route
+#: and a direct solve are 1.5e-11 apart at 1/16 (the damage history), and
+#: the H100's history at 1/32 read 2.6e-11, 5.4e-11 and 1.1e-10 from the
+#: host's in three runs (the tractions 7.9e-13 to 3.4e-12). 1e-8 is the
+#: other phases' field gate, ~90 times that spread.
+DAMAGE_HOST_TOL = 1e-8
+#: Phase 31b's gate on the tip SIFs of the card's 16 x 16 run against the
+#: host's, relative to the largest: the H100's read 8.7e-16 from the
+#: host's in three runs; on the CPU the port's and porepy_tpu's device routes
+#: give SIFs 7.1e-14 apart (``tests/test_torch_fracture_propagation.py``).
+PROPAGATION_SIF_TOL = 1e-8
+#: The critical SIFs of phase 31 (``tests/numerics/test_propagation.py``'s
+#: growing case), and its steps.
+CRITICAL_SIF, PROPAGATION_STEPS = 1e-4, 4
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _topology_refs(model) -> list:
+    """Weak references to the objects of the model's current topology that
+    must not outlive it: the compiled system, its device solver and the
+    solver's dense block inverses (K6)."""
+    import weakref
+
+    es = model.equation_system
+    refs = [weakref.ref(cs) for cs in es._compiled_systems.values()]
+    for solver in getattr(model, "_device_solvers", {}).values():
+        refs.append(weakref.ref(solver))
+        state = solver._m_state or {}
+        refs.extend(weakref.ref(t) for t in state.get("dense", {}).values())
+    return refs
+
+
+def _alive(refs) -> int:
+    """How many of ``refs`` still point to an object, after a collection."""
+    import gc
+
+    gc.collect()
+    return sum(r() is not None for r in refs)
+
+
+def _ruleless(model) -> dict:
+    """The nodes without a dual rule of the model's compiled system, by
+    equation (compiling it if it is not yet)."""
+    cs = model.equation_system.compiled_system()
+    return {name: list(ce.fn.dual.ruleless) for name, ce in zip(cs.names, cs.ces)}
+
+
+def damage_case(cell_size: float, dev, history: str = "anisotropic") -> tuple:
+    """The damage case (``cases.build_fracture_damage``) at ``cell_size`` on
+    ``dev`` (phase 30, and the host plain path of 30b), each step logged in
+    ``model.steps``: the seconds of the history equation's rebuild
+    (``before_nonlinear_loop``), of the system's compile, of the Newton
+    loop, whether the fused device Newton loop ran it, the Newton and
+    Krylov counts, the history, and how many objects of the step before's
+    compiled system, solver and dense inverses are still alive at this
+    step's end. The model and ``None``."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.applications.benchmarking.cases import build_fracture_damage
+
+    Model, params = build_fracture_damage(cell_size, device=str(dev), history=history)
+
+    class Logged(Model):
+        def before_nonlinear_loop(self):
+            rec = {"fused": None}
+            self.steps.append(rec)
+            _sync(dev)
+            tic = time.perf_counter()
+            super().before_nonlinear_loop()
+            _sync(dev)
+            rec["update_s"] = time.perf_counter() - tic
+            tic = time.perf_counter()
+            self.equation_system.compiled_system()
+            _sync(dev)
+            rec["compile_s"] = time.perf_counter() - tic
+            rec["tic"] = time.perf_counter()
+
+        def fused_newton_loop(self, nl_params):
+            out = super().fused_newton_loop(nl_params)
+            self.steps[-1]["fused"] = bool(out)
+            return out
+
+        def after_nonlinear_convergence(self):
+            _sync(dev)
+            rec = self.steps[-1]
+            rec["newton_s"] = time.perf_counter() - rec.pop("tic")
+            rec["newton"] = self.nonlinear_solver_statistics.num_iteration
+            solver = next(iter(self._device_solvers.values()))
+            rec["krylov"] = solver.last_stats.get("krylov_iters_per_newton", solver.last_stats["krylov_iters"])
+            super().after_nonlinear_convergence()
+            rec["h"] = self.equation_system.get_variable_values(["damage_history"], time_step_index=0)
+            rec["alive_before"], rec["watched"] = (_alive(self._refs) if self._refs else 0), len(self._refs)
+            self._refs = _topology_refs(self)
+
+    model = Logged(params)
+    model.steps, model._refs = [], []
+    model.smoke_extra = {"steps": model.steps}
+    pt.run_time_dependent_model(model, params)
+    return model, None
+
+
+def propagation_case(n: int, dev, steps: int = PROPAGATION_STEPS) -> tuple:
+    """``tests/numerics/test_propagation.py``'s tension model on an ``n`` x
+    ``n`` Cartesian grid on ``dev`` (phase 31, and the host plain path of
+    31b): the fracture from (0.25, 0.5) to (0.5, 0.5) in the unit square,
+    the plate pulled apart by 0.01 at north and south, ``critical_sifs``
+    ``CRITICAL_SIF``, ``steps`` steps of 1.0, ``device_gmres`` with dense
+    block inverses and up to 20 Newton iterations (the contact cases'
+    route). Each propagation is logged in ``model.steps``: the route of
+    the step's solve (the field split, its dense blocks, whether the Newton
+    loop ran fused on the device), the host faces opened, the fracture's cells, the tip SIFs (mode I) and the tips that
+    grew, the seconds of the criterion and of the rebuild, of the rebuilt
+    system's compile, its nodes without a dual rule, the entries of the
+    compiler's device constants and the card's allocated bytes after the
+    rebuild, and how many objects of the topology before the last rebuild
+    were still alive at this step's end. The model and ``None``."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.fracs import meshing
+    from porepy_tpu_torch.numerics.ad import compiler
+
+    class _TensionPropagation(pt.ConformingFracturePropagation, pt.MomentumBalance):
+        def __init__(self, params, mdg):
+            self._injected_mdg = mdg
+            super().__init__(params)
+
+        def set_geometry(self):
+            self.mdg = self._injected_mdg
+            self.nd = 2
+            self._domain = pt.Domain({"xmin": 0, "xmax": 1, "ymin": 0, "ymax": 1})
+            pt.set_local_coordinate_projections(self.mdg)
+            self.set_well_network()
+
+        def set_well_network(self):
+            self.well_network = None
+
+        def bc_type_mechanics(self, sd):
+            sides = self.domain_boundary_sides(sd)
+            bc = pt.BoundaryConditionVectorial(sd, sides.north | sides.south, "dir")
+            bc.internal_to_dirichlet(sd)
+            return bc
+
+        def bc_values_displacement(self, bg):
+            sides = self.domain_boundary_sides(bg)
+            vals = np.zeros((self.nd, bg.num_cells))
+            vals[1, sides.north] = 0.01
+            vals[1, sides.south] = -0.01
+            return vals.ravel("F")
+
+        def initialize_data_saving(self):
+            pass
+
+        def save_data_time_step(self):
+            pass
+
+        def fused_newton_loop(self, nl_params):
+            out = super().fused_newton_loop(nl_params)
+            self._fused = bool(out)
+            return out
+
+        def evaluate_propagation(self):
+            rec = {"alive_before": _alive(self._refs) if self._refs else 0, "watched": len(self._refs),
+                   "rebuild_s": 0.0, "fused": self._fused}
+            self.steps.append(rec)
+            self._refs = _topology_refs(self)
+            sd_l = self.mdg.subdomains(dim=1)[0]
+            rec["dofs"] = self.equation_system.num_dofs()
+            builder = next(iter(self._device_solvers.values()))._builder
+            rec["route"] = (list(builder.methods), dict(builder._block_dense))
+            del builder  # the rebuild below must free the solver
+            _sync(dev)
+            tic = time.perf_counter()
+            super().evaluate_propagation()
+            _sync(dev)
+            rec["criterion_s"] = time.perf_counter() - tic - rec["rebuild_s"]
+            data_l, data_h = self.mdg.subdomain_data(sd_l), self.mdg.subdomain_data(self.mdg.subdomains(dim=2)[0])
+            sifs = data_l["SIFs"][0]
+            rec["sifs"] = sifs[sifs != 0].copy()
+            rec["grew"] = sifs[data_l["propagate_faces"]].copy()
+            rec["opened"] = np.asarray(data_h.get("new_faces", np.zeros(0, int))).copy()
+            rec["cells"] = sd_l.num_cells
+            rec["propagated"] = self.has_propagated()
+            _alive([])
+            rec["consts"] = len(compiler._DEVICE_CONSTS)
+            if torch.device(dev).type == "cuda":
+                rec["memory"] = torch.cuda.memory_allocated()
+            tic = time.perf_counter()
+            rec["ruleless"] = _ruleless(self)
+            _sync(dev)
+            rec["compile_s"] = time.perf_counter() - tic
+
+        def _rebuild_after_propagation(self):
+            _sync(dev)
+            tic = time.perf_counter()
+            super()._rebuild_after_propagation()
+            _sync(dev)
+            self.steps[-1]["rebuild_s"] = time.perf_counter() - tic
+
+    mdg = meshing.cart_grid([np.array([[0.25, 0.5], [0.5, 0.5]])], np.array([n, n]), physdims=[1.0, 1.0])
+    params = {
+        "critical_sifs": [CRITICAL_SIF, CRITICAL_SIF],
+        "times_to_export": [],
+        "time_manager": pt.TimeManager([0, float(steps)], 1.0, constant_dt=True),
+        "material_constants": {
+            "solid": pt.SolidConstants(shear_modulus=1.0, lame_lambda=1.0, residual_aperture=1e-3),
+        },
+        "linear_solver": "device_gmres",
+        "dense_precond": True,
+        "max_iterations": 20,
+        "device": str(dev),
+    }
+    model = _TensionPropagation(params, mdg)
+    model.steps, model._refs, model._fused = [], [], False
+    model.smoke_extra = {"steps": model.steps}
+    pt.run_time_dependent_model(model, params)
+    return model, None
+
+
+#: The host plain-path runs that phases 26b, 27b, 28b, 30b, 31b and 20 hold
+#: the card against: each the phase's own case with the device left out,
+#: the longest first, then in the order the phases need them.
 #: :func:`start_host_runs` starts them in worker processes; a phase finds
 #: its run by the case and its arguments (:func:`host_fields`).
 HOST_RUNS = (
@@ -3398,6 +3668,8 @@ HOST_RUNS = (
     functools.partial(berre3d_small_case),
     functools.partial(fb2d4_case, 20.0),
     functools.partial(fb3d3_small_case),
+    functools.partial(damage_case, 1.0 / 32),
+    functools.partial(propagation_case, 16),
     functools.partial(tracer_case, 1.0 / 32, False),
 )
 _HOST = {"pool": None, "futures": {}}
@@ -3417,13 +3689,15 @@ def _host_worker_init() -> None:
 
 
 def _host_job(run) -> tuple[str, dict]:
-    """``run`` on the host CPU: its printed lines and its final fields."""
+    """``run`` on the host CPU: its printed lines and its final fields, with
+    what the case records in ``model.smoke_extra``."""
     import io
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         model, _ = run(torch.device("cpu"))
-    return out.getvalue(), _final_fields(model)
+    # A case's own record beside its fields (phases 30b and 31b's steps).
+    return out.getvalue(), {**_final_fields(model), **getattr(model, "smoke_extra", {})}
 
 
 def _host_worker(run) -> tuple[str, dict]:
@@ -3718,6 +3992,7 @@ def check_dual_kernels(dev) -> dict:
 
 # Steps of the full-width runs of phases 25 and 26 (the cases' own: 10).
 THM_STEPS, BERRE3D_STEPS = 10, 10
+
 
 THM_FIELDS = (
     "u", "pressure", "temperature", "contact_traction", "u_interface",
@@ -4485,6 +4760,7 @@ def compare_fb3d3_small(dev) -> None:
 
 # -- the verification examples and the line search --------------------------------
 
+
 #: The errors each verification example collects, with the bounds of
 #: ``tests/examples/test_biot_examples.py`` (None: printed, not bounded).
 VERIFICATION = {
@@ -4663,6 +4939,240 @@ def run_verification(dev) -> dict:
     return out
 
 
+def _damage_gates(model, tag: str) -> dict:
+    """Phase 30's checks of a damage run: no host fallback is the caller's;
+    here the history, >= 0 and non-decreasing from step to step in every
+    cell; the friction bound and the dilation gap equal to
+    ``1 + (d0 - 1) exp(-c h)`` computed in numpy from the run's ``h``,
+    times the intact bound and gap (1e-12 of the largest); every node of
+    the last step's system with a dual rule; a finite state. Returns the
+    largest differences."""
+    from porepy_tpu_torch.models import constitutive_laws as laws
+
+    es = model.equation_system
+    hs = np.stack([rec["h"] for rec in model.steps])
+    _require(bool(np.all(hs >= 0)), f"{tag}: a negative damage history {hs.min()}")
+    _require(bool(np.all(np.diff(hs, axis=0) >= 0)), f"{tag}: the damage history decreased: {np.diff(hs, axis=0).min()}")
+    h = hs[-1]
+    fracture = model.mdg.subdomains(dim=model.nd - 1)
+    solid = model.solid
+    out = {}
+    for factor, law, kind, d0, c in (
+        ("friction_damage", "friction_bound", laws.FrictionDamage, solid.initial_friction_damage,
+         solid.friction_damage_decay),
+        ("dilation_damage", "shear_dilation_gap", laws.DilationDamage, solid.initial_dilation_damage,
+         solid.dilation_damage_decay),
+    ):
+        damage = 1.0 + (d0 - 1.0) * np.exp(-c * h)
+        got = np.asarray(es.evaluate(getattr(model, factor)(fracture)))
+        out[factor] = float(np.abs(got - damage).max())
+        # The damaged bound (gap): the factor times the intact one, the
+        # next class's in the model's order.
+        got = np.asarray(es.evaluate(getattr(model, law)(fracture)))
+        want = damage * np.asarray(es.evaluate(getattr(super(kind, model), law)(fracture)))
+        scale = float(np.abs(want).max())
+        out[law] = float(np.abs(got - want).max())
+        print(f"  {factor}: against 1 + (d0 - 1) exp(-c h) from numpy, max |diff| {out[factor]:.3e}; {law}: against "
+              f"that factor x the intact value, max |diff| {out[law]:.3e} (largest {scale:.3e})")
+        _require(out[factor] <= 1e-12, f"{tag}: {factor} differs by {out[factor]}")
+        _require(out[law] <= 1e-12 * scale, f"{tag}: {law} differs by {out[law]} of {scale}")
+    ruleless = _ruleless(model)
+    print(f"  nodes without a dual rule at the last step: {ruleless}")
+    _require(not any(ruleless.values()), f"{tag}: nodes without a dual rule: {ruleless}")
+    _require(bool(np.all(np.isfinite(es.get_variable_values(time_step_index=0)))), f"{tag}: non-finite state")
+    out["h_max"] = float(h.max())
+    return out
+
+
+def _print_steps(model, tag: str) -> None:
+    for i, rec in enumerate(model.steps, 1):
+        kry = rec["krylov"]
+        print(f"  {tag} step {i}: the history equation's update {rec['update_s']:.3f} s, compile "
+              f"{rec['compile_s']:.3f} s, the Newton loop {rec['newton_s']:.3f} s ({rec['newton']} Newton, Krylov "
+              f"{kry}; {'fused device loop' if rec['fused'] else 'host loop'}), the step before's objects alive "
+              f"{rec['alive_before']} of {rec['watched']}, max h {float(rec['h'].max()):.6e}")
+
+
+def run_damage(dev) -> dict:
+    """Phase 30: the fracture damage example at 1/128 (33,216 dofs) on the
+    card by ``device_gmres`` with dense block inverses, 3 steps, every gate
+    of :func:`_damage_gates` and no host fallback; the route it took and
+    each step's seconds. Then (b) at 1/32 against the host plain path (a
+    ``HOST_RUNS`` worker), and (c) the isotropic history equation at 1/32
+    on the card."""
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    tic0 = time.perf_counter()
+    print(f"phase 30: the fracture damage example (anisotropic history) at 1/128, 3 steps, on {dev} by device_gmres")
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with _timed_builds() as builds, _launches_of_block() as launches:
+        model, _ = damage_case(1.0 / 128, dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - tic
+    es = model.equation_system
+    solver = next(iter(model._device_solvers.values()))
+    b = solver._builder
+    dense = {i: bool(b._block_dense.get(i, False)) for i in range(len(b.methods))}
+    dofs = es.num_dofs()
+    newton = sum(rec["newton"] for rec in model.steps)
+    fused = [rec["fused"] for rec in model.steps]
+    print(f"  {dofs} dofs; the route: device_gmres, field split methods {b.methods}, block sizes {b._sizes}, "
+          f"dense inverse by block {dense}; the Newton loop of each step {['fused device loop' if f else 'host loop' for f in fused]}")
+    _print_steps(model, "1/128")
+    setup_s = run_s - sum(rec["update_s"] + rec["compile_s"] + rec["newton_s"] for rec in model.steps)
+    loop_s = sum(rec["newton_s"] for rec in model.steps)
+    print(f"  the run {run_s:.3f} s (setup and the steps' bookkeeping {setup_s:.3f} s); {newton} Newton iterations, "
+          f"{1e3 * run_s / newton:.2f} ms per Newton iteration over the run, {1e3 * loop_s / newton:.2f} ms in the "
+          f"Newton loops (the preconditioner's builds {[round(t, 3) for t in builds]} s inside them); launches {launches}")
+    fallbacks = FALLBACK_COUNTER["count"] - fallbacks0
+    _require(fallbacks == 0, f"damage: host fallbacks {fallbacks}")
+    _require(dofs == 128 * 128 * 2 + 64 * 3 + 256, f"damage: {dofs} dofs")
+    _require(len(model.steps) == 3, f"damage: {len(model.steps)} steps")
+    _require(all(rec["alive_before"] == 0 for rec in model.steps),
+             f"damage: a step before's compiled system or solver outlived it: {[r['alive_before'] for r in model.steps]}")
+    needed = ("ell_spmv", "fgmres_arnoldi") + K8_KERNELS
+    if any(dense.values()):
+        needed += DENSE_KERNELS
+    if "amg" in [m for i, m in enumerate(b.methods) if not dense[i]]:
+        needed += ("amg_vcycle",)
+    missing = [k for k in needed if not launches.get(k)]
+    _require(not missing, f"damage: kernels not launched {missing}: {launches}")
+    gates = _damage_gates(model, "damage 1/128")
+    out = {"dofs": dofs, "run_s": run_s, "setup_s": setup_s, "newton": newton, "builds": list(builds),
+           "launches": launches, "methods": list(b.methods), "sizes": list(b._sizes), "dense": dense,
+           "steps": [{k: v for k, v in rec.items() if k != "h"} for rec in model.steps], "gates": gates,
+           "ms_per_newton": 1e3 * run_s / newton, "loop_ms_per_newton": 1e3 * loop_s / newton}
+    del model, solver, b
+    torch.cuda.empty_cache()
+
+    print(f"phase 30b: the damage example at 1/32 on {dev} against the host plain path")
+    tic = time.perf_counter()
+    small, _ = damage_case(1.0 / 32, dev)
+    print(f"  on {dev}: {small.equation_system.num_dofs()} dofs, {time.perf_counter() - tic:.3f} s")
+    _print_steps(small, "1/32")
+    _damage_gates(small, "damage 1/32")
+    host = host_fields(functools.partial(damage_case, 1.0 / 32))
+    for rec, hrec in zip(small.steps, host["steps"]):
+        print(f"  the host's step: {hrec['newton']} Newton (card {rec['newton']}), "
+              f"{'fused device loop' if hrec['fused'] else 'host loop'}")
+    _fields_close(small, host, ["damage_history", "contact_traction", "u"], DAMAGE_HOST_TOL)
+    out["small"] = {f: float(np.abs(small.equation_system.get_variable_values([f], time_step_index=0) - host[f]).max()
+                             / np.abs(host[f]).max()) for f in ("damage_history", "contact_traction", "u")}
+
+    print(f"phase 30c: the isotropic history equation at 1/32 on {dev}")
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    tic = time.perf_counter()
+    with _launches_of_block() as iso_launches:
+        iso, _ = damage_case(1.0 / 32, dev, history="isotropic")
+    print(f"  {iso.equation_system.num_dofs()} dofs, {time.perf_counter() - tic:.3f} s; launches {iso_launches}")
+    _print_steps(iso, "isotropic 1/32")
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, "damage, isotropic: host fallbacks")
+    _damage_gates(iso, "damage 1/32, isotropic")
+    h_iso, h_aniso = iso.steps[-1]["h"], small.steps[-1]["h"]
+    out["iso_vs_aniso"] = float(np.abs(h_iso - h_aniso).max())
+    print(f"  the isotropic history against the anisotropic one at 1/32 (the slip never reverses here): max |diff| "
+          f"{out['iso_vs_aniso']:.3e} of {float(np.abs(h_aniso).max()):.3e}")
+    out["seconds"] = time.perf_counter() - tic0
+    print(f"phase 30 took {out['seconds']:.1f} s")
+    return out
+
+
+def _propagation_gates(model, cells0: int, tag: str) -> None:
+    """Phase 31's checks at every step: the fracture grew, every tip that
+    grew had a mode-I SIF at or above the critical one (so > 0), the
+    largest mode-I SIF > 0, the rebuilt system has a dual rule at every
+    node, and nothing of the topology before the last rebuild outlived the
+    step after it."""
+    cells = [cells0] + [rec["cells"] for rec in model.steps]
+    _require(len(model.steps) == PROPAGATION_STEPS, f"{tag}: {len(model.steps)} propagation steps")
+    for i, rec in enumerate(model.steps, 1):
+        _require(rec["propagated"] and cells[i] > cells[i - 1], f"{tag}: no growth at step {i}: cells {cells}")
+        _require(rec["grew"].size > 0 and bool(np.all(rec["grew"] >= CRITICAL_SIF)),
+                 f"{tag}: step {i}'s growing tips' SIFs {rec['grew']}")
+        _require(float(rec["sifs"].max()) > 0, f"{tag}: step {i}'s mode-I SIFs {rec['sifs']}")
+        _require(not any(rec["ruleless"].values()), f"{tag}: step {i}: nodes without a dual rule {rec['ruleless']}")
+        _require(rec["alive_before"] == 0, f"{tag}: step {i}: {rec['alive_before']} objects of an old topology alive")
+
+
+def _print_propagation(model, tag: str) -> None:
+    for i, rec in enumerate(model.steps, 1):
+        mem = f", allocated {rec['memory'] / 2**20:.2f} MiB" if "memory" in rec else ""
+        mem = f", after the rebuild {rec['consts']} device constants{mem}"
+        print(f"  {tag} step {i}: {rec['dofs']} dofs solved; opened host faces {rec['opened'].tolist()}, fracture "
+              f"cells {rec['cells']}, tip SIFs (mode I) {[float(f'{s:.6e}') for s in rec['sifs']]}, the growing tips' "
+              f"{[float(f'{s:.6e}') for s in rec['grew']]}; the criterion {rec['criterion_s']:.3f} s, the rebuild "
+              f"{rec['rebuild_s']:.3f} s, the rebuilt system's compile {rec['compile_s']:.3f} s{mem}; the old "
+              f"topology's objects alive {rec['alive_before']} of {rec['watched']}")
+
+
+def run_propagation(dev) -> dict:
+    """Phase 31: conforming propagation under tension on a 64 x 64 grid
+    (8,300 dofs at the start) on the card, 4 steps, the fracture growing at
+    every step (:func:`_propagation_gates`), no host fallback, the card's
+    allocated bytes after each rebuild within 2 MiB of the first's and the
+    compiler's device constants not growing; then
+    (b) the 16 x 16 run on the card against the host plain path (a
+    ``HOST_RUNS`` worker): the opened faces and the fracture's cells equal
+    at every step, the tip SIFs within ``PROPAGATION_SIF_TOL``."""
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    tic0 = time.perf_counter()
+    print(f"phase 31: conforming fracture propagation under tension on a 64 x 64 grid, {PROPAGATION_STEPS} steps, "
+          f"critical SIFs {CRITICAL_SIF:g}, on {dev} by device_gmres")
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with _timed_builds() as builds, _launches_of_block() as launches:
+        model, _ = propagation_case(64, dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - tic
+    methods, dense = model.steps[0]["route"]
+    print(f"  the run {run_s:.3f} s; the route: device_gmres, field split {methods}, dense inverse by block {dense}, "
+          f"the Newton loops {'fused on the device' if all(r['fused'] for r in model.steps) else 'on the host'}; "
+          f"the preconditioner's builds {[round(t, 3) for t in builds]} s; launches {launches}")
+    _print_propagation(model, "64 x 64")
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, "propagation: host fallbacks")
+    _propagation_gates(model, 16, "propagation 64 x 64")
+    mem = [rec["memory"] for rec in model.steps]
+    consts = [rec["consts"] for rec in model.steps]
+    # A topology's constants left behind are ~5.5 MiB at this size (the
+    # compiler's device constants before they were freed with their host
+    # arrays); a few dofs more a step add kilobytes.
+    _require(max(mem) <= mem[0] + 2 * 2**20 and max(consts) <= consts[0],
+             f"propagation: the allocated bytes or device constants grew after the rebuilds: {mem}, {consts}")
+    missing = [k for k in ("ell_spmv", "fgmres_arnoldi") + K8_KERNELS + DENSE_KERNELS if not launches.get(k)]
+    _require(not missing, f"propagation: kernels not launched {missing}: {launches}")
+    out = {"run_s": run_s, "builds": list(builds), "launches": launches, "memory": mem,
+           "steps": [{k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in rec.items()} for rec in model.steps]}
+    del model
+    torch.cuda.empty_cache()
+
+    print(f"phase 31b: the same run on a 16 x 16 grid on {dev} against the host plain path")
+    tic = time.perf_counter()
+    small, _ = propagation_case(16, dev)
+    print(f"  on {dev}: {time.perf_counter() - tic:.3f} s")
+    _print_propagation(small, "16 x 16")
+    _propagation_gates(small, 4, "propagation 16 x 16")
+    host = host_fields(functools.partial(propagation_case, 16))
+    worst = 0.0
+    for i, (rec, hrec) in enumerate(zip(small.steps, host["steps"]), 1):
+        _require(np.array_equal(rec["opened"], hrec["opened"]) and rec["cells"] == hrec["cells"],
+                 f"propagation 16 x 16, step {i}: opened {rec['opened']} / {hrec['opened']}, cells {rec['cells']} / "
+                 f"{hrec['cells']}")
+        _require(rec["sifs"].shape == hrec["sifs"].shape, f"step {i}: tips {rec['sifs']} / {hrec['sifs']}")
+        worst = max(worst, float(np.abs(rec["sifs"] - hrec["sifs"]).max() / np.abs(hrec["sifs"]).max()))
+    print(f"  the opened faces and fracture cells equal at every step; tip SIFs max relative |diff| {worst:.3e}, "
+          f"tolerance {PROPAGATION_SIF_TOL:g}")
+    _require(len(small.steps) == len(host["steps"]) and worst <= PROPAGATION_SIF_TOL,
+             f"propagation 16 x 16: SIFs {worst} apart")
+    out["small_sif_diff"] = worst
+    out["seconds"] = time.perf_counter() - tic0
+    print(f"phase 31 took {out['seconds']:.1f} s")
+    return out
+
+
 def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
     """Phases 25 (thm, ``thm_steps`` steps at 1/16), 26 (berre3d,
     ``berre3d_steps`` steps), 27 (Flemisch et al. 2d case 4 at 5 m) and 28
@@ -4673,7 +5183,9 @@ def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
         tic = time.perf_counter()
         thm = run_thm(dev, thm_steps)
         model = thm.pop("model")
-        thm["routes"] = _assembly_routes_in_turns(model, "thm")
+        # Two assemblies a turn, not five: thm's functorch assembly takes
+        # ~3.5 s, so three more a turn would add ~21 s to the script.
+        thm["routes"] = _assembly_routes_in_turns(model, "thm", repeats=2)
         thm["k15"] = check_thm_k15(model)
         thm["k10"] = check_thm_k10(dev, model)
         del model
@@ -4842,6 +5354,8 @@ def _main(dev, smi: str, name: str, build) -> int:
     print(f"phases 21 and 24 took {time.perf_counter() - tic:.1f} s")
     bench = bench_cases(dev, THM_STEPS, BERRE3D_STEPS)
     verification = run_verification(dev)
+    damage = run_damage(dev)
+    propagation = run_propagation(dev)
     tic = time.perf_counter()
     # The AMG run at 1/32 (its first two time steps cost a minute and a half
     # at 1/64, on the card and on the host); the dense run, the assembly in
@@ -5158,6 +5672,25 @@ def _main(dev, smi: str, name: str, build) -> int:
             print(f"{case} on {smi}: {v['dofs']} dofs, {v['s']:.3f} s by device_gmres, errors "
                   f"{ {f: float(f'{e[-1]:.6e}') for f, e in v['errors'].items()} } at the last time, launches "
                   f"{sum(v['launches'].values())}")
+    g = damage["gates"]
+    print(f"damage 1/128 ({damage['dofs']} dofs, 3 steps) on {smi}: {damage['run_s']:.3f} s, {damage['newton']} Newton, "
+          f"{damage['ms_per_newton']:.2f} ms per Newton iteration over the run, {damage['loop_ms_per_newton']:.2f} in "
+          f"the Newton loops; per step (update, compile, Newton loop) s "
+          f"{[(round(r['update_s'], 3), round(r['compile_s'], 3), round(r['newton_s'], 3)) for r in damage['steps']]}, "
+          f"the preconditioner's builds {[round(t, 3) for t in damage['builds']]} s; route {damage['methods']} "
+          f"{damage['sizes']} dense {damage['dense']}, {'fused device' if all(r['fused'] for r in damage['steps']) else 'host'} "
+          f"Newton loops; launches {sum(damage['launches'].values())} {damage['launches']}; max h {g['h_max']:.6e}, "
+          f"the damage laws from numpy within {max(g['friction_damage'], g['dilation_damage']):.3e}; 1/32 against "
+          f"the host {damage['small']}; isotropic against anisotropic {damage['iso_vs_aniso']:.3e}; phase 30 "
+          f"{damage['seconds']:.1f} s")
+    print(f"propagation 64 x 64 ({PROPAGATION_STEPS} steps) on {smi}: {propagation['run_s']:.3f} s, the rebuilds "
+          f"{[round(r['rebuild_s'], 3) for r in propagation['steps']]} s, the rebuilt systems' compiles "
+          f"{[round(r['compile_s'], 3) for r in propagation['steps']]} s, the preconditioner's builds "
+          f"{[round(t, 3) for t in propagation['builds']]} s, allocated MiB after each rebuild "
+          f"{[round(m / 2**20, 2) for m in propagation['memory']]}, fracture cells "
+          f"{[r['cells'] for r in propagation['steps']]}; launches {sum(propagation['launches'].values())} "
+          f"{propagation['launches']}; 16 x 16 against the host: SIFs {propagation['small_sif_diff']:.3e} apart; "
+          f"phase 31 {propagation['seconds']:.1f} s")
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

@@ -6,12 +6,14 @@ the part ported so far: single-phase flow in fractured 2d and 3d domains
 ``mdg_library`` on its native tet mesh, the Flemisch et al. 2d benchmark
 cases of :mod:`porepy_tpu_torch.examples` on the native simplex mesher),
 poromechanics (MPSA/Biot, momentum
-balance, frictional contact mechanics), mass and energy balance and
+balance, frictional contact mechanics, fracture damage and conforming
+fracture propagation), mass and energy balance and
 thermoporomechanics, tracer transport with upwinding
 inside the residual and the differentiable-permeability Darcy flux
 (``DarcysLawAd``), assembled and solved on a ``torch.device`` with the
 hand-written kernels of :mod:`porepy_tpu_torch.kernels`, and the constant-K
-and Peng-Robinson flashes::
+and Peng-Robinson flashes. The host discretizations TPSA, mixed VEM and RT0
+build their scipy matrices as ``porepy_tpu``'s do::
 
     import porepy_tpu_torch as pp
 
@@ -67,9 +69,20 @@ from porepy_tpu_torch.models.solution_strategy import ContactIndicators  # noqa:
 from porepy_tpu_torch.models.thermoporomechanics import (  # noqa: F401
     Thermoporomechanics,
 )
+from porepy_tpu_torch.models import fracture_damage  # noqa: F401
 from porepy_tpu_torch.numerics import ad  # noqa: F401
+from porepy_tpu_torch.numerics import displacement_correlation  # noqa: F401
+from porepy_tpu_torch.numerics.fem.rt0 import RT0  # noqa: F401
+from porepy_tpu_torch.numerics.fracture_deformation import (  # noqa: F401
+    propagate_fracture,
+    propagate_fractures,
+)
+from porepy_tpu_torch.numerics.fracture_deformation.conforming_propagation import (  # noqa: F401
+    ConformingFracturePropagation,
+)
 from porepy_tpu_torch.numerics.fv.biot import Biot  # noqa: F401
 from porepy_tpu_torch.numerics.fv.mpsa import Mpsa  # noqa: F401
+from porepy_tpu_torch.numerics.fv.tpsa import Tpsa  # noqa: F401
 from porepy_tpu_torch.numerics.nonlinear.anderson_acceleration import (  # noqa: F401
     AndersonAcceleration,
 )
@@ -79,6 +92,14 @@ from porepy_tpu_torch.numerics.nonlinear.line_search import (  # noqa: F401
     SplineInterpolationLineSearch,
 )
 from porepy_tpu_torch.numerics.time_step_control import TimeManager  # noqa: F401
+from porepy_tpu_torch.numerics.vem.dual_elliptic import project_flux  # noqa: F401
+from porepy_tpu_torch.numerics.vem.hybrid import HybridDualVEM  # noqa: F401
+from porepy_tpu_torch.numerics.vem.mass_matrix import (  # noqa: F401
+    MixedInvMassMatrix,
+    MixedMassMatrix,
+)
+from porepy_tpu_torch.numerics.vem.mvem import MVEM  # noqa: F401
+from porepy_tpu_torch.numerics.vem.vem_source import DualScalarSource  # noqa: F401
 from porepy_tpu_torch.params.bc import (  # noqa: F401
     BoundaryCondition,
     BoundaryConditionVectorial,
@@ -148,4 +169,17 @@ __all__ = [
     "numerical_values",
     "reference_values",
     "solid_values",
+    "propagate_fractures",
+    "propagate_fracture",
+    "ConformingFracturePropagation",
+    "displacement_correlation",
+    "fracture_damage",
+    "Tpsa",
+    "MVEM",
+    "HybridDualVEM",
+    "MixedMassMatrix",
+    "MixedInvMassMatrix",
+    "DualScalarSource",
+    "RT0",
+    "project_flux",
 ]

@@ -41,11 +41,21 @@ Configurations ported so far:
     and 22 interfaces), a fracture/matrix permeability contrast of 1e4,
     the example's one step of an incompressible fluid on the device
     block-preconditioned FGMRES.
+  - ``damage``: the fracture damage example
+    (``examples/fracture_damage.py``): one horizontal fracture in the unit
+    square, sheared from the north side under normal compression, with
+    friction and dilation decaying with the damage history (the
+    anisotropic history equation, or the isotropic one), the example's
+    material constants and 3 steps of 1.0, at cell size 1/128 (32,768
+    displacement dofs, 64 fracture cells, 256 mortar cells: 33,216 dofs),
+    on the device block-preconditioned FGMRES with dense frozen block
+    inverses, as the contact cases run.
   - ``build_darcy_ad`` (not in :data:`CASE_BUILDERS`): ``DarcysLawAd`` with
     the cubic law and ``k(p)`` on one fracture at 1/128, the one path whose
     flux and pressure trace run the K14 kernels (``kernels/csrc/tpfa_ad.cu``).
 
-These are all of ``porepy_tpu``'s bench cases, and ``fb2d4`` and ``fb3d3``.
+These are all of ``porepy_tpu``'s bench cases, and ``fb2d4``, ``fb3d3`` and
+``damage``.
 
 Beside the builders, the inputs that ``chip_smoke.py``, the kernel checks
 and the tests share: K10's region batches (:func:`region_batches`, the
@@ -534,6 +544,68 @@ def fb3d3_lattice(nx):
     return mdg, network
 
 
+def build_fracture_damage(cell_size: float = 1.0 / 128, device: str = "cuda", history: str = "anisotropic"):
+    """The fracture damage example at ``cell_size`` on ``device``:
+    :class:`FractureDamageModel` (``history="anisotropic"``, the example's
+    history equation) or the same model with
+    :class:`~porepy_tpu_torch.models.fracture_damage.IsotropicHistoryEquation`
+    (``"isotropic"``), with the example's material constants, boundary
+    conditions and 3 steps of 1.0, solved by ``device_gmres``.
+
+    Dense frozen block inverses, as for the other contact cases: the
+    contact tractions and the damage history pair with no AMG or
+    elimination slot of the field split, and without the dense inverse
+    their block is preconditioned by Jacobi sweeps, on which Newton does
+    not converge (31 iterations at 1/32 without converging). Each Krylov
+    solve to the linear tolerance (``inexact_newton`` off): with the
+    Eisenstat-Walker forcing the semismooth Newton loop stalls, taking 12,
+    11 and 11 iterations a step at 1/32, 21, 14 and 14 at 1/64, and more
+    than 20 at 1/128 on the H100, where the direct solve takes 8-9 at every
+    size; with exact solves it takes 8, 9 and 9 at 1/32 and 1/64, as the
+    direct solve. Those solves take up to 67 Krylov iterations at 1/32,
+    129 at 1/64 and 273 at 1/128 on the H100, so the cap is 600, not the
+    default 280. 20 Newton iterations at most, as phase 29's contact
+    model."""
+    import porepy_tpu_torch as pt
+    from porepy_tpu_torch.examples.fracture_damage import FractureDamageModel
+    from porepy_tpu_torch.models.fracture_damage import IsotropicHistoryEquation
+
+    if history not in ("anisotropic", "isotropic"):
+        raise ValueError(f"unknown history equation {history!r}")
+    Model = _nosave(FractureDamageModel)
+    if history == "isotropic":
+
+        class Isotropic(IsotropicHistoryEquation, Model):
+            pass
+
+        Model = Isotropic
+    params = {
+        "grid_type": "cartesian",
+        "meshing_arguments": {"cell_size": cell_size},
+        "times_to_export": [],
+        "time_manager": pt.TimeManager([0, 3.0], 1.0, constant_dt=True),
+        "material_constants": {
+            "solid": pt.SolidConstants(
+                shear_modulus=1.0,
+                lame_lambda=1.0,
+                friction_coefficient=0.3,
+                residual_aperture=1e-3,
+                initial_friction_damage=0.5,
+                friction_damage_decay=5.0,
+                initial_dilation_damage=0.5,
+                dilation_damage_decay=5.0,
+            ),
+        },
+        "linear_solver": "device_gmres",
+        "dense_precond": True,
+        "inexact_newton": False,
+        "linear_solver_maxiter": 600,
+        "max_iterations": 20,
+        "device": device,
+    }
+    return Model, params
+
+
 CASE_BUILDERS = {
     "3d": build_3d_flow,
     "biot": build_biot,
@@ -544,6 +616,7 @@ CASE_BUILDERS = {
     "berre3d": build_berre3d,
     "fb2d4": build_flow_benchmark_2d_case_4,
     "fb3d3": build_flow_benchmark_3d_case_3,
+    "damage": build_fracture_damage,
 }
 
 

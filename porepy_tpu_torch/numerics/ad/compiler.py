@@ -36,6 +36,7 @@ device.
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -216,19 +217,21 @@ def _to_tensor(h, device: torch.device) -> torch.Tensor:
     return torch.tensor(arr, dtype=dtype, device=device)
 
 
-# Global device-constant dedup: (id(host array), device) -> (host ref,
-# tensor). The host reference pins the id; entries live for the process
-# lifetime.
-_DEVICE_CONSTS: dict[tuple, tuple] = {}
+# Global device-constant dedup: (id(host array), device) -> tensor. An
+# entry lives as long as its host array: the array's finalizer drops it
+# before the id can name another array. The compiled equations hold their
+# host arrays, so a rebuilt model (a propagated fracture, a replaced
+# equation) frees the device copies of the constants it no longer uses.
+_DEVICE_CONSTS: dict[tuple, torch.Tensor] = {}
 
 
 def _device_const(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     key = (id(arr), device)
     hit = _DEVICE_CONSTS.get(key)
     if hit is None:
-        hit = (arr, _to_tensor(arr, device))
-        _DEVICE_CONSTS[key] = hit
-    return hit[1]
+        hit = _DEVICE_CONSTS[key] = _to_tensor(arr, device)
+        weakref.finalize(arr, _DEVICE_CONSTS.pop, key, None)
+    return hit
 
 
 def _var_key(v: Variable):

@@ -79,6 +79,22 @@ NEW_COPIES = (
     "applications/material_values/solid_values.py",
     "numerics/nonlinear/line_search.py",
     "numerics/nonlinear/anderson_acceleration.py",
+    "numerics/fracture_deformation/__init__.py",
+    "numerics/fracture_deformation/propagate_fracture.py",
+    "numerics/fracture_deformation/propagation_model.py",
+    "numerics/fracture_deformation/conforming_propagation.py",
+    "numerics/displacement_correlation.py",
+    "models/fracture_damage.py",
+    "examples/fracture_damage.py",
+    "numerics/fv/tpsa.py",
+    "numerics/vem/__init__.py",
+    "numerics/vem/dual_elliptic.py",
+    "numerics/vem/mass_matrix.py",
+    "numerics/vem/vem_source.py",
+    "numerics/vem/mvem.py",
+    "numerics/vem/hybrid.py",
+    "numerics/fem/__init__.py",
+    "numerics/fem/rt0.py",
 )
 
 
@@ -166,6 +182,22 @@ def test_data_file_matches_source(rel):
         ("numerical_values", "porepy_tpu_torch.applications.material_values.numerical_values"),
         ("reference_values", "porepy_tpu_torch.applications.material_values.reference_values"),
         ("solid_values", "porepy_tpu_torch.applications.material_values.solid_values"),
+        ("propagate_fractures", "porepy_tpu_torch.numerics.fracture_deformation.propagate_fracture"),
+        ("propagate_fracture", "porepy_tpu_torch.numerics.fracture_deformation.propagate_fracture"),
+        (
+            "ConformingFracturePropagation",
+            "porepy_tpu_torch.numerics.fracture_deformation.conforming_propagation",
+        ),
+        ("displacement_correlation", "porepy_tpu_torch.numerics.displacement_correlation"),
+        ("fracture_damage", "porepy_tpu_torch.models.fracture_damage"),
+        ("Tpsa", "porepy_tpu_torch.numerics.fv.tpsa"),
+        ("MVEM", "porepy_tpu_torch.numerics.vem.mvem"),
+        ("HybridDualVEM", "porepy_tpu_torch.numerics.vem.hybrid"),
+        ("MixedMassMatrix", "porepy_tpu_torch.numerics.vem.mass_matrix"),
+        ("MixedInvMassMatrix", "porepy_tpu_torch.numerics.vem.mass_matrix"),
+        ("DualScalarSource", "porepy_tpu_torch.numerics.vem.vem_source"),
+        ("RT0", "porepy_tpu_torch.numerics.fem.rt0"),
+        ("project_flux", "porepy_tpu_torch.numerics.vem.dual_elliptic"),
     ],
 )
 def test_exported_names_are_the_ports_own(name, module):

@@ -9,7 +9,9 @@ tests/models/test_fused_time_block.py, run through the port on the CPU.
 - partial blocks (fewer steps left than the chunk length),
 - Krylov counts surfaced into ``DeviceLinearSolver.last_stats``,
 - a periodic forcing that the rollback check lets through, committed as
-  ``porepy_tpu`` commits it.
+  ``porepy_tpu`` commits it,
+- the tail commit (``fused_commit_states: "tail"``), which replays stale
+  iterates through ``after_nonlinear_convergence`` as ``porepy_tpu`` does.
 """
 
 import numpy as np
@@ -170,6 +172,60 @@ def test_periodic_forcing_block_matches_porepy_tpu():
         assert np.abs(p_port - p_ref_jax).max() <= 1e-10 * np.abs(p_ref_jax).max()
     step3 = m_ref.saved_times.index(3.0)
     assert _rel(m_ref.saved_pressures[step3], m_blk.saved_pressures[step3]) > 1e-3
+
+
+def _slow_fluid(pkg):
+    """A fluid and solid whose pressure relaxes over several steps of 1.0
+    (porosity x compressibility x viscosity / permeability = 1 s), so each
+    step of a block commits a different state."""
+    return {
+        "solid": pkg.SolidConstants(
+            permeability=1.0, porosity=0.1, residual_aperture=0.01, normal_permeability=1.0
+        ),
+        "fluid": pkg.FluidComponent(compressibility=1e-2, viscosity=1e3, density=1000.0),
+    }
+
+
+def test_tail_commit_replays_stale_iterates_as_porepy_tpu():
+    """``fused_commit_states: "tail"`` (every bench case's setting).
+
+    The tail commit copies to the host only the block's last states (as
+    many as the rings keep), so ``after_nonlinear_convergence`` of the
+    block's earlier steps replays the iterate left from before the block:
+    ``porepy_tpu``'s ``models/solution_strategy.py:823``, kept by the port
+    (same file, same line). Not repaired in either package: this test holds
+    the port to ``porepy_tpu`` there. 6 steps, ``fused_time_steps`` 4:
+    steps 1-2 run per step, steps 3-6 in one block. The state each step's
+    hook saved (the replayed iterate) is the same in both packages (1e-10
+    of the largest pressure; measured 2.3e-16), steps 3-5 save step 2's
+    state, and the ``"all"`` commit saves the true states there, which
+    differ (by 1.8e-3 relative, measured); the final state is the same in
+    every run."""
+    import porepy_tpu as pt_jax
+
+    def run(pkg, commit):
+        tm = pkg.TimeManager([0, 6.0], 1.0, constant_dt=True)
+        m, p = _make_model(
+            {"fused_time_steps": 4, "fused_commit_states": commit, "time_manager": tm,
+             "material_constants": _slow_fluid(pkg)},
+            pkg=pkg,
+        )
+        pkg.run_time_dependent_model(m, p)
+        assert getattr(m, "_ftb_blocks_committed", 0) == 1
+        assert m.saved_times == [0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0]
+        return m
+
+    tail, tail_jax, full = run(pt, "tail"), run(pt_jax, "tail"), run(pt, "all")
+    scale = np.abs(np.stack(tail_jax.saved_pressures)).max()
+    for p_port, p_jax in zip(tail.saved_pressures, tail_jax.saved_pressures):
+        assert np.abs(p_port - p_jax).max() <= 1e-10 * scale
+    saved = dict(zip(tail.saved_times, tail.saved_pressures))
+    truth = dict(zip(full.saved_times, full.saved_pressures))
+    for t in (3.0, 4.0, 5.0):
+        np.testing.assert_array_equal(saved[t], saved[2.0])
+        assert _rel(truth[t], saved[t]) > 1e-3
+    assert _rel(truth[6.0], saved[6.0]) < 1e-10
+    assert _rel(_final_pressure(full), _final_pressure(tail)) < 1e-10
 
 
 def test_missing_card_is_an_error_not_a_fallback():
