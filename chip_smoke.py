@@ -426,7 +426,29 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    seconds of each rebuild and compile; then (b) 16
    x 16 on the card against the host plain path (``HOST_RUNS``): the opened
    host faces and the fracture's cells equal at every step, the tip SIFs
-   within ``PROPAGATION_SIF_TOL``.
+   within ``PROPAGATION_SIF_TOL``;
+32. the profiler, last, on a quiet host: (a) the profiling entry point as a
+   user runs it, ``python3 -m
+   porepy_tpu_torch.applications.profiling.run_profiling --physics flow
+   --geometry G --grid-refinement 2 --trace DIR`` for G = 0, 1, 2
+   (Flemisch et al. case 1 at 1/64, case 3a at 0.025, case 4 at 15 m, one
+   step each, assembled on the card, solved on the host; the three
+   processes side by side): exit 0, the
+   CPU's dofs (``PROFILE_DOFS``), one time step, and K8's kernels
+   (``PROFILE_KERNELS``: ``dual_ew`` and the gathers; this route runs no
+   root scatter) in each Chrome trace; each JSON line printed; (b) md 1/128 as phase 4 builds it, traced whole
+   through ``run_profiling.profile_run`` with phase 4's gates (3 blocks, 0
+   fallbacks, 8 Newton and the parent's Krylov within one a Newton
+   iteration a block, the md kernels and K8's launched, a finite state):
+   the card's busy share over the run and over the three blocks (their
+   ``fused_time_block`` ranges), the blocks' device ms by kernel family,
+   their host time with the card idle by the op or range open during it,
+   the five longest idle gaps, a Newton iteration's ranges
+   (``newton.assemble``, ``newton.solve``, ``newton.flags``), and ms per
+   Newton iteration in the blocks with and without the profiler, in turns;
+   (c) ``DiagnosticsMixin`` on case 1 at 1/64 (``scipy_sparse``), assembled
+   on the card and on the CPU: the same blocks, each block's maximum within
+   1e-12 relative. The trace files live in temporary directories.
 
 Phases 25, 26 and 27 alone, on a card: ``python3 -c "import torch, chip_smoke as c;
 d = c.build_kernels(); c.bench_summary(c.bench_cases(torch.device('cuda'), 10,
@@ -783,10 +805,13 @@ def retime_solver(model, label: str, repeats: int = 10) -> dict:
     """K5 and K7 re-timed at the model's final Newton system (their times
     dated from PRs 1-2): ms a K5 solve (``solve_device``, CUDA events over
     ``repeats`` solves, and the host clock), the card's busy share of one
-    solve (``torch.profiler``'s device time over the host clock), and a K7
+    solve (``torch.profiler``'s trace, the union of its device intervals
+    over the host clock), and a K7
     apply (the block preconditioner on an f32 vector, as the solve calls it):
     device us by graph replay, host us a call, ms by events."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from porepy_tpu_torch.applications.profiling.run_profiling import read_trace
 
     eq_sys = model.equation_system
     data, rhs = eq_sys.compiled_system().assemble(eq_sys)
@@ -804,12 +829,13 @@ def retime_solver(model, label: str, repeats: int = 10) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         tic = time.perf_counter()
-        solver.solve_device(data, rhs)
-        torch.cuda.synchronize()
+        with record_function("solve"):
+            solver.solve_device(data, rhs)
+            torch.cuda.synchronize()
         traced_ms = 1e3 * (time.perf_counter() - tic)
-    device_ms = 1e-3 * sum(
-        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) for e in prof.key_averages()
-    )
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        device_ms = read_trace(os.path.join(tmp, "trace.json"), window="solve")["busy_ms"]
     r = torch.randn(solver.n, generator=torch.Generator().manual_seed(5), dtype=torch.float64).to(
         torch.float32).to(data.device)
 
@@ -5173,6 +5199,205 @@ def run_propagation(dev) -> dict:
     return out
 
 
+#: Phase 32a: the dofs of the profiling entry's finest refinement of each
+#: geometry (``prepare_simulation`` on the CPU gives the same).
+PROFILE_DOFS = {0: 4807, 1: 4000, 2: 6714}
+#: Phase 32a: K8's kernels among each entry run's top device ops. The host-solver route
+#: assembles by ``EquationSystem.assemble`` (each equation's values and
+#: compressed Jacobian, decompressed on the host), which runs no root
+#: scatter: ``dual_ew_scatter`` is the device route's (phase 32b).
+PROFILE_KERNELS = ("dual_ew_kernel", "dual_seed_rows_kernel", "dual_gather_value_kernel")
+
+
+def run_profiling_entry(smi: str) -> dict:
+    """Phase 32a: ``python3 -m porepy_tpu_torch.applications.profiling.run_profiling
+    --physics flow --geometry G --grid-refinement 2 --trace DIR`` for G = 0,
+    1, 2 (Flemisch et al. case 1 at 1/64, case 3a at 0.025, case 4 at 15 m;
+    one time step, assembled on the card, solved by scipy on the host), as a
+    user runs it: exit 0, the CPU's dofs, one time step, and a Chrome trace
+    holding K8's kernels (:data:`PROFILE_KERNELS`). The three processes run
+    side by side (their host setup is most of their time)."""
+    print("phase 32a: the profiling entry point (run_profiling --trace) at the finest refinement of each geometry, "
+          "the three runs started together")
+    out = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        tic = time.perf_counter()
+        procs = {
+            g: subprocess.Popen(
+                [sys.executable, "-m", "porepy_tpu_torch.applications.profiling.run_profiling", "--physics", "flow",
+                 "--geometry", str(g), "--grid-refinement", "2", "--trace", os.path.join(tmp, f"geometry{g}")],
+                cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for g in (0, 1, 2)
+        }
+        try:
+            done = {g: p.communicate(timeout=600) for g, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - tic
+        for g, (stdout, stderr) in done.items():
+            code = procs[g].returncode
+            _require(code == 0, f"run_profiling --geometry {g}: exit {code}: {stderr[-2000:]}")
+            line = json.loads(stdout.strip().splitlines()[-1])
+            print(f"  {json.dumps(line)}")
+            kernels = {name: n for name, n, _ms in line["trace"]["top_ops"]}
+            _require(line["num_dofs"] == PROFILE_DOFS[g], f"geometry {g}: {line['num_dofs']} dofs")
+            _require(line["time_steps"] == 1, f"geometry {g}: {line['time_steps']} time steps")
+            _require(line["trace"]["kernel_launches"] > 0 and line["trace"]["busy_ms"] > 0,
+                     f"geometry {g}: no device events in the trace")
+            _require(all(kernels.get(k, 0) > 0 for k in PROFILE_KERNELS),
+                     f"geometry {g}: K8's kernels not in the trace: {kernels}")
+            out[g] = line
+    print(f"  the three runs took {wall:.1f} s together")
+    return out
+
+
+def _md_run(dev, trace_dir=None, profiled: bool = False, cell_size: float = 1.0 / 128) -> tuple:
+    """md at ``cell_size`` as phase 4 builds it, run once through ``profile_run``
+    (``trace_dir``: traced and exported there; ``profiled``: under
+    ``torch.profiler`` without export), launch counts reset just before:
+    the model, the counts and ``profile_run``'s dict."""
+    from porepy_tpu_torch.applications.benchmarking.cases import build_md_flow
+    from porepy_tpu_torch.applications.profiling.run_profiling import profile_run
+    from porepy_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    Model, params = build_md_flow(cell_size, device=str(dev))
+    model = timed_model(Model, dev)(params)
+    model.block_log = []
+    model.block_states = {}
+    model.prepare_simulation()
+    model._prepared = True
+    reset_launches()
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=activities):
+            out = profile_run(model, params)
+    else:
+        out = profile_run(model, params, trace_dir=trace_dir)
+    _sync(dev)
+    return model, dict(LAUNCHES), out
+
+
+def _ms_per_newton(model) -> float:
+    newton = sum(rec["newton_iters"] for _s, rec in model.block_log)
+    return 1e3 * sum(s for s, _rec in model.block_log) / max(newton, 1)
+
+
+def run_md_profiled(dev, smi: str, cell_size: float = 1.0 / 128) -> dict:
+    """Phase 32b: md 1/128 (phase 4's model: 26 steps, 3 fused 8-step
+    blocks, ``device_gmres``) traced whole through ``profile_run``, with
+    phase 4's gates; from the trace the card's busy share over the run and
+    over the three blocks, the blocks' device ms by kernel family, their
+    host time with the card idle by the op or range open, the five longest
+    idle gaps, and a Newton iteration's split into its ranges; then ms per
+    Newton iteration in the blocks with and without the profiler, in
+    turns."""
+    from porepy_tpu_torch.applications.profiling.run_profiling import read_trace
+    from porepy_tpu_torch.numerics.linalg.krylov import FALLBACK_COUNTER
+
+    print(f"phase 32b: md at cell size {cell_size:g}, 26 steps, traced whole through profile_run on {dev}")
+    fallbacks0 = FALLBACK_COUNTER["count"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tic = time.perf_counter()
+        model, launches, line = _md_run(dev, trace_dir=tmp, cell_size=cell_size)
+        traced_s = time.perf_counter() - tic
+        tic = time.perf_counter()
+        tr = read_trace(line["trace"]["path"], ranges=("fused_time_block",))
+        read_s = time.perf_counter() - tic
+        trace_mb = os.path.getsize(line["trace"]["path"]) / 2**20
+    blocks = [(rec["newton_iters"], rec["krylov_iters"]) for _s, rec in model.block_log]
+    newton_p, krylov_p = PARENT_BLOCKS[""]
+    print(f"  dofs {line['num_dofs']}, run {line['run_s']:.3f} s under the profiler (setup, run, export and read "
+          f"{traced_s:.1f} s; the trace {trace_mb:.1f} MiB, read in {read_s:.1f} s); Newton / Krylov a block "
+          f"{blocks}; wrapped assembly/solve calls {line['iterations']}; launches {launches}")
+    _require(model._ftb_blocks_committed == 3, f"blocks {model._ftb_blocks_committed}")
+    _require(FALLBACK_COUNTER["count"] == fallbacks0, f"host fallbacks {FALLBACK_COUNTER}")
+    _require(all(nw == newton_p and abs(kr - krylov_p) <= nw for nw, kr in blocks),
+             f"Newton / Krylov a block {blocks}, the parent's {(newton_p, krylov_p)}")
+    _require(all(launches.get(k, 0) > 0 for k in MD_KERNELS + K8_KERNELS), f"kernel not launched: {launches}")
+    x = model.equation_system.get_variable_values(time_step_index=0)
+    _require(bool(np.all(np.isfinite(x))), "non-finite state")
+    r = tr["ranges"]
+    _require(r["count"] == 3 and tr["kernel_launches"] > 0, f"blocks in the trace {r['count']}, "
+                                                              f"kernels {tr['kernel_launches']}")
+    _require(r["family_ms"].get("assembly (K8, K15)", 0) > 0 and r["family_ms"].get("solve (K1, K3, K4, K2, K6)", 0) > 0,
+             f"the blocks' families {r['family_ms']}")
+    newton = sum(nw for nw, _kr in blocks)
+    print(f"  the card busy {tr['busy_ms']:.3f} ms of the run's {tr['window_ms']:.3f} ms ({100 * tr['busy_share']:.2f}%), "
+          f"{tr['kernel_launches']} kernels; in the three blocks {r['busy_ms']:.3f} ms of {r['ms']:.3f} "
+          f"({100 * r['busy_share']:.2f}%)")
+    print(f"  the blocks' device ms by family: {json.dumps(r['family_ms'])}")
+    per_it = {k: [n, ms / newton] for k, (n, ms) in r["inner"].items()}
+    print(f"  a Newton iteration in the blocks ({newton}): {r['ms'] / newton:.3f} ms traced; its ranges' host ms "
+          f"(count in the blocks, ms an iteration) {json.dumps(per_it)}")
+    print(f"  the blocks' host time with the card idle: {r['idle_ms']:.3f} ms ({r['idle_ms'] / newton:.3f} an "
+          f"iteration); by range {json.dumps(r['idle_by_range'])}")
+    print(f"  by op {json.dumps(r['idle_by_op'])}")
+    for gap in r["longest_gaps"]:
+        print(f"  idle gap {gap['ms']:.3f} ms at {gap['at_ms']:.3f} ms in {gap['range']}: {gap['ops']}")
+    print(f"  device ops of the run {json.dumps(tr['top_ops'])}")
+    turns = {"profiled": [_ms_per_newton(model)], "plain": []}
+    for profiled in (False, True, False):
+        m, _l, _o = _md_run(dev, profiled=profiled, cell_size=cell_size)
+        turns["profiled" if profiled else "plain"].append(_ms_per_newton(m))
+        del m
+    print(f"  ms per Newton iteration in the blocks on {smi}, in turns: under the profiler {turns['profiled']}, "
+          f"without {turns['plain']}")
+    return {"trace": tr, "line": line, "blocks": blocks, "newton": newton, "turns": turns, "launches": launches}
+
+
+def check_diagnostics(dev) -> dict:
+    """Phase 32c: ``DiagnosticsMixin`` on Flemisch et al. case 1 at 1/64
+    (the profiling entry's geometry 0 at refinement 2, ``scipy_sparse``: a
+    ``device*`` solver keeps no host matrix, and the diagnostics then raise
+    in both packages), assembled once on the card and on the CPU:
+    ``run_diagnostics(default_handlers=("max",))`` gives the same blocks
+    and every block's maximum within 1e-12 relative."""
+    from porepy_tpu_torch.applications.profiling.run_profiling import build_model
+    from porepy_tpu_torch.viz.diagnostics_mixin import DiagnosticsMixin
+
+    print("phase 32c: DiagnosticsMixin on case 1 at 1/64 (geometry 0, scipy_sparse), the card against the CPU")
+    data = {}
+    for device in (str(dev), "cpu"):
+        model, _params = build_model("flow", 0, 2, device=device)
+
+        class Diagnosed(DiagnosticsMixin, type(model)):
+            pass
+
+        model = Diagnosed(model.params)
+        model.prepare_simulation()
+        model.before_nonlinear_loop()
+        model.before_nonlinear_iteration()
+        model.assemble_linear_system()
+        data[device] = model.run_diagnostics(default_handlers=("max",))
+    card, host = data[str(dev)], data["cpu"]
+    _require(set(card) == set(host), f"blocks {sorted(card)} against {sorted(host)}")
+    err = 0.0
+    for key, entry in host.items():
+        _require(card[key]["block_size"] == entry["block_size"], f"block {key}")
+        err = max(err, abs(card[key]["max"] - entry["max"]) / max(abs(entry["max"]), 1e-300))
+    print(f"  {len(card)} blocks, sizes {[e['block_size'] for e in card.values()]}, maxima "
+          f"{[e['max'] for e in card.values()]}; the largest relative difference from the CPU's {err:.3e}")
+    _require(err <= 1e-12, f"block maxima {err} apart")
+    return {"blocks": len(card), "err": err}
+
+
+def run_profiling_phase(dev, smi: str) -> dict:
+    """Phase 32: the profiling entry (a), md 1/128 traced (b), the
+    diagnostics (c)."""
+    tic = time.perf_counter()
+    out = {"entry": run_profiling_entry(smi), "md": run_md_profiled(dev, smi), "diagnostics": check_diagnostics(dev)}
+    out["seconds"] = time.perf_counter() - tic
+    print(f"phase 32 took {out['seconds']:.1f} s")
+    return out
+
+
 def bench_cases(dev, thm_steps, berre3d_steps) -> dict:
     """Phases 25 (thm, ``thm_steps`` steps at 1/16), 26 (berre3d,
     ``berre3d_steps`` steps), 27 (Flemisch et al. 2d case 4 at 5 m) and 28
@@ -5363,6 +5588,9 @@ def _main(dev, smi: str, name: str, build) -> int:
     tracer = run_tracer(dev, dense=False, cell_size=1.0 / 32)
     tracer_dense = run_tracer(dev, dense=True, turns=True)
     print(f"phase 20 took {time.perf_counter() - tic:.1f} s")
+    # Phase 32 last: a quiet host (every host plain-path run has ended) for
+    # the profiles.
+    profiling = run_profiling_phase(dev, smi)
 
     # The roots' scatter in the line: md 1/128's mass-balance root, one
     # launch (phase 4); its error the largest over every case's roots.
@@ -5691,6 +5919,19 @@ def _main(dev, smi: str, name: str, build) -> int:
           f"{[r['cells'] for r in propagation['steps']]}; launches {sum(propagation['launches'].values())} "
           f"{propagation['launches']}; 16 x 16 against the host: SIFs {propagation['small_sif_diff']:.3e} apart; "
           f"phase 31 {propagation['seconds']:.1f} s")
+    for g, line in profiling["entry"].items():
+        t = line["trace"]
+        print(f"run_profiling geometry {g} at refinement 2 on {smi}: {line['num_dofs']} dofs, prepare "
+              f"{line['prepare_s']} s, run {line['run_s']} s, assembly {line['assembly_ms_median']} ms, solve "
+              f"{line['solve_ms_median']} ms; the card busy {t['busy_ms']:.3f} of {t['window_ms']:.3f} ms "
+              f"({100 * t['busy_share']:.2f}%), {t['kernel_launches']} kernels")
+    pm = profiling["md"]
+    t, r = pm["trace"], pm["trace"]["ranges"]
+    print(f"md 1/128 traced on {smi}: the card busy {100 * t['busy_share']:.2f}% of the run, "
+          f"{100 * r['busy_share']:.2f}% of the blocks ({r['busy_ms']:.3f} of {r['ms']:.3f} ms, {pm['newton']} "
+          f"Newton); by family {json.dumps(r['family_ms'])}; idle {r['idle_ms']:.3f} ms by range "
+          f"{json.dumps(r['idle_by_range'])}; ms per Newton iteration profiled {pm['turns']['profiled']}, plain "
+          f"{pm['turns']['plain']}; phase 32 {profiling['seconds']:.1f} s")
     for e in entries:
         print(f"kernel {e['name']} on {smi}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}), library {e['library_ms']}, launches {e['launches']}")

@@ -5,21 +5,26 @@
 prepares the case's model on the card and, at its initial state, prints the
 card's name and power limit, the median wall time and the kernel launches of
 one assembly, the host functions by ``cProfile`` (own time), and the card's
-busy share and kernels by ``torch.profiler``. It needs a CUDA device.
+busy share and device ops by ``torch.profiler`` (a Chrome trace read by
+:func:`~porepy_tpu_torch.applications.profiling.run_profiling.read_trace`).
+It needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import cProfile
+import os
 import pstats
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from porepy_tpu_torch.applications.benchmarking.cases import CASE_BUILDERS
+from porepy_tpu_torch.applications.profiling.run_profiling import read_trace
 from porepy_tpu_torch.kernels import LAUNCHES, build, reset_launches
 
 
@@ -58,14 +63,19 @@ def profile_assembly(case: str = "md", repeats: int = 30) -> None:
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as tprof:
-        span_ms = sum(_timed(cs, eq_sys, repeats))
-    events = tprof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        with torch.profiler.record_function("assemblies"):
+            span_ms = sum(_timed(cs, eq_sys, repeats))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        tprof.export_chrome_trace(path)
+        got = read_trace(path, window="assemblies")
     print(
         f"{case}: under torch.profiler {span_ms / repeats:.3f} ms per assembly, card busy "
-        f"{busy_ms / repeats:.3f} ms of it ({100 * (1 - busy_ms / span_ms):.1f}% idle)"
+        f"{got['busy_ms'] / repeats:.3f} ms of it ({100 * (1 - got['busy_share']):.1f}% idle; the union of the "
+        f"device intervals over the traced window of {got['window_ms']:.3f} ms)"
     )
-    print(events.table(sort_by="self_device_time_total", row_limit=12))
+    for name, count, ms in got["top_ops"]:
+        print(f"  {name}: {count // repeats} a call, {ms / repeats:.4f} ms a call")
 
 
 def main(argv: list[str]) -> int:

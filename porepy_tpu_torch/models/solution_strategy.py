@@ -568,8 +568,12 @@ class SolutionStrategy(FluidMixin):
         ``newton(x0, envs, m_state) -> (x, k, inc_h, res_h, kry_h, done,
         div)``. ``x`` and the norm histories are device tensors, ``k``,
         ``kry_h`` and the flags host values: each iteration reads the
-        convergence and divergence flags from the device once."""
+        convergence and divergence flags from the device once. Each
+        iteration's assembly, solve and flag read are ``record_function``
+        ranges (``newton.assemble``, ``newton.solve``, ``newton.flags``), which
+        a ``torch.profiler`` trace shows and which cost nothing else."""
         import torch
+        from torch.profiler import record_function
 
         max_it = int(nl_params["max_iterations"])
         tol_inc = nl_params["nl_convergence_tol"]
@@ -592,7 +596,8 @@ class SolutionStrategy(FluidMixin):
             k = 0
             done = div = False
             while not done and not div and k < max_it + 1:
-                data, b = cs._data_and_rhs(x, envs)
+                with record_function("newton.assemble"):
+                    data, b = cs._data_and_rhs(x, envs)
                 bnorm = torch.linalg.vector_norm(b)
                 if inexact:
                     eta = torch.where(
@@ -604,10 +609,11 @@ class SolutionStrategy(FluidMixin):
                 else:
                     eta = torch.full_like(bnorm, tight)
                 b_unit = b / torch.clamp(bnorm, min=1e-30)
-                dx_u, _res, it = solver._solve(
-                    data, b_unit, torch.zeros(n, dtype=dtype, device=dev),
-                    m_state, eta,
-                )
+                with record_function("newton.solve"):
+                    dx_u, _res, it = solver._solve(
+                        data, b_unit, torch.zeros(n, dtype=dtype, device=dev),
+                        m_state, eta,
+                    )
                 dx = torch.where(bnorm > 0.0, dx_u * bnorm, torch.zeros_like(dx_u))
                 x_new = x + dx
                 inc_norm = torch.linalg.vector_norm(dx) / sqrt_n
@@ -628,7 +634,8 @@ class SolutionStrategy(FluidMixin):
                 inc_h[k] = inc_norm
                 res_h[k] = res_norm
                 kry_h[k] = it
-                done, div = torch.stack([conv & ~bad, bad]).tolist()
+                with record_function("newton.flags"):
+                    done, div = torch.stack([conv & ~bad, bad]).tolist()
                 x = x_new
                 prev_b = bnorm
                 k += 1
@@ -849,8 +856,10 @@ class SolutionStrategy(FluidMixin):
         previous-time-step env slots replaced by slices of the carried
         state. Stops at the first step that fails. Returns the stacked
         states, the per-step Newton counts, the norm and Krylov histories
-        and the per-step ok flags, one entry per step run."""
+        and the per-step ok flags, one entry per step run. A block is a
+        ``record_function`` range, ``fused_time_block``."""
         import torch
+        from torch.profiler import record_function
 
         newton = self._fused_newton_device_fn(cs, solver, nl_params)
 
@@ -863,6 +872,7 @@ class SolutionStrategy(FluidMixin):
                 for eq_env, smap in zip(envs, subst)
             )
 
+        @record_function("fused_time_block")
         def block(x0, envs, m_state, n_active):
             x_prev = x0
             xs, ks, incs, ress, krys, oks = [], [], [], [], [], []
@@ -870,9 +880,10 @@ class SolutionStrategy(FluidMixin):
                 x_new, k, inc_h, res_h, kry_h, done, div = newton(
                     x_prev, substitute(envs, x_prev), m_state
                 )
-                step_ok = (
-                    done and not div and bool(torch.all(torch.isfinite(x_new)))
-                )
+                with record_function("newton.flags"):
+                    step_ok = (
+                        done and not div and bool(torch.all(torch.isfinite(x_new)))
+                    )
                 x_keep = x_new if step_ok else x_prev
                 xs.append(x_keep)
                 ks.append(k)

@@ -16,6 +16,7 @@ SOURCE = os.path.join(REPO, "porepy_tpu")
 PORTED = {
     "__init__.py",
     "applications/benchmarking/cases.py",
+    "applications/profiling/run_profiling.py",
     "compositional/flash.py",
     "examples/__init__.py",
     "models/constitutive_laws.py",
@@ -95,7 +96,36 @@ NEW_COPIES = (
     "numerics/vem/hybrid.py",
     "numerics/fem/__init__.py",
     "numerics/fem/rt0.py",
+    "grids/refinement.py",
+    "grids/grid_extrusion.py",
+    "fracs/tools.py",
+    "fracs/wells_3d.py",
+    "utils/adtree.py",
+    "utils/permutations.py",
+    "utils/porepy_types.py",
+    "models/protocol.py",
+    "viz/plot_grid.py",
+    "viz/diagnostics_mixin.py",
+    "viz/fracture_visualization.py",
+    "applications/profiling/__init__.py",
 )
+
+
+def _source_files() -> set:
+    return {
+        os.path.relpath(os.path.join(d, f), SOURCE)
+        for d, _dirs, files in os.walk(SOURCE)
+        for f in files
+        if f.endswith(".py")
+    }
+
+
+def test_every_source_module_is_in_the_port():
+    """Of porepy_tpu's modules only the tunnel machinery
+    (``applications/benchmarking/nopull.py``) is absent from the port; every
+    other one is a copy under the drift check or in :data:`PORTED`."""
+    missing = sorted(rel for rel in _source_files() if not os.path.exists(os.path.join(PORT, rel)))
+    assert missing == ["applications/benchmarking/nopull.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_COPIES)
@@ -158,10 +188,26 @@ def test_data_file_matches_source(rel):
     assert got == want, f"porepy_tpu_torch/{rel} differs from porepy_tpu/{rel}"
 
 
-@pytest.mark.parametrize(
-    "name, module",
-    [
-        ("Thermoporomechanics", "porepy_tpu_torch.models.thermoporomechanics"),
+def _flat_names_of_source() -> dict:
+    """``{name: module}`` of every name ``porepy_tpu/__init__.py`` imports
+    from a module of its own package."""
+    import ast
+
+    with open(os.path.join(SOURCE, "__init__.py")) as fh:
+        tree = ast.parse(fh.read())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[0] == "porepy_tpu":
+            for alias in node.names:
+                out[alias.asname or alias.name] = node.module
+    return out
+
+
+#: The module of a case below that is where porepy_tpu defines the name,
+#: in the port's package.
+AS_SOURCE = "as in porepy_tpu"
+_LISTED = (
+    ("Thermoporomechanics", "porepy_tpu_torch.models.thermoporomechanics"),
         ("MassAndEnergyBalance", "porepy_tpu_torch.models.mass_and_energy_balance"),
         ("mdg_library", "porepy_tpu_torch.applications.md_grids.mdg_library"),
         ("PARAMETERS", None),
@@ -198,15 +244,37 @@ def test_data_file_matches_source(rel):
         ("DualScalarSource", "porepy_tpu_torch.numerics.vem.vem_source"),
         ("RT0", "porepy_tpu_torch.numerics.fem.rt0"),
         ("project_flux", "porepy_tpu_torch.numerics.vem.dual_elliptic"),
-    ],
+)
+_SOURCE_NAMES = _flat_names_of_source()
+
+
+@pytest.mark.parametrize(
+    "name, module",
+    list(_LISTED) + [(n, AS_SOURCE) for n in sorted(set(_SOURCE_NAMES) - {n for n, _m in _LISTED})],
 )
 def test_exported_names_are_the_ports_own(name, module):
-    """The names this slice adds to ``porepy_tpu_torch`` resolve to the
-    port's objects, never to porepy_tpu's."""
+    """Every public name of ``porepy_tpu``'s flat namespace resolves in
+    ``porepy_tpu_torch`` to the port's object, never to porepy_tpu's: a
+    class, function or module defined in the port's counterpart of the
+    module that defines porepy_tpu's (``AS_SOURCE``), a constant or a type
+    alias bound from the port's counterpart of the module porepy_tpu binds
+    it from, and equal to porepy_tpu's."""
+    import types
+    from importlib import import_module
+
     import porepy_tpu as pt_jax
     import porepy_tpu_torch as pt
 
     obj = getattr(pt, name)
+    if module == AS_SOURCE:
+        src = getattr(pt_jax, name)
+        where = src.__name__ if isinstance(src, types.ModuleType) else getattr(src, "__module__", None)
+        if not str(where).startswith("porepy_tpu."):
+            # A constant or a typing alias: the same value, the port's binding.
+            port_module = import_module(_SOURCE_NAMES[name].replace("porepy_tpu", "porepy_tpu_torch", 1))
+            assert obj is getattr(port_module, name) and obj == src
+            return
+        module = where.replace("porepy_tpu", "porepy_tpu_torch", 1)
     if module is None:
         # A string key: the port's own constant, equal to porepy_tpu's.
         from porepy_tpu_torch.utils import common_constants
@@ -325,3 +393,66 @@ def test_absent_module_check_finds_the_faults(tmp_path, monkeypatch):
         "from porepy_tpu_torch.sub.missing",
         "import porepy_tpu_torch.other",
     ]
+
+
+def _absent_flat_names():
+    """Every ``pt.X`` in the port's modules and ``chip_smoke.py``, where
+    ``pt`` is a name the file binds to ``porepy_tpu_torch`` (``import
+    porepy_tpu_torch as pt``, ``import porepy_tpu_torch[.sub]``), whose
+    ``X`` is neither a name the package's ``__init__.py`` binds nor a
+    module of the package: the attribute would raise ``AttributeError`` in
+    a user's run."""
+    import ast
+
+    bound, _star = _top_level_names(os.path.join(PORT, "__init__.py"))
+    files = [os.path.join(d, f) for d, _dirs, fs in os.walk(PORT) for f in sorted(fs) if f.endswith(".py")]
+    smoke = os.path.join(REPO, "chip_smoke.py")
+    bad = []
+    for path in sorted(files) + ([smoke] if os.path.exists(smoke) else []):
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        aliases = {
+            alias.asname or "porepy_tpu_torch"
+            for node in ast.walk(tree)
+            if isinstance(node, ast.Import)
+            for alias in node.names
+            if alias.name == "porepy_tpu_torch" or (alias.asname is None and alias.name.startswith("porepy_tpu_torch."))
+        }
+        for node in ast.walk(tree):
+            if (
+                isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id in aliases
+                and not node.attr.startswith("__")
+                and node.attr not in bound
+                and not _module_file(f"porepy_tpu_torch.{node.attr}")
+            ):
+                bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {node.value.id}.{node.attr}")
+    return bad
+
+
+def test_no_absent_flat_name():
+    """Every ``pt.X`` the port and ``chip_smoke.py`` reach is bound by the
+    port's ``__init__.py`` (or is one of its modules)."""
+    assert _absent_flat_names() == []
+
+
+def test_absent_flat_name_check_finds_the_faults(tmp_path, monkeypatch):
+    """The check above reports a name the package does not bind, in a
+    module of the port and in ``chip_smoke.py``, and passes a bound name,
+    an imported name, a module and an alias of another package."""
+    pkg = tmp_path / "porepy_tpu_torch"
+    (pkg / "sub").mkdir(parents=True)
+    (pkg / "__init__.py").write_text("from porepy_tpu_torch.sub.here import thing\nbound = 1\n")
+    (pkg / "sub" / "__init__.py").write_text("")
+    (pkg / "sub" / "here.py").write_text(
+        "import numpy as np\n"
+        "thing = np.gone\n"
+        "def f():\n"
+        "    import porepy_tpu_torch as pt\n"
+        "    return pt.bound, pt.thing, pt.sub, pt.__version__, pt.gone\n"
+    )
+    (tmp_path / "chip_smoke.py").write_text("import porepy_tpu_torch as pp\npp.thing(pp.missing)\n")
+    monkeypatch.setitem(globals(), "REPO", str(tmp_path))
+    monkeypatch.setitem(globals(), "PORT", str(pkg))
+    assert _absent_flat_names() == ["porepy_tpu_torch/sub/here.py:5 pt.gone", "chip_smoke.py:2 pp.missing"]

@@ -27,8 +27,7 @@ from porepy_tpu_torch.fracs.cut_tet import cut_tet_grid, cut_tet_subdomain_lists
 from porepy_tpu_torch.fracs.fracture_network import create_fracture_network
 from porepy_tpu_torch.fracs.gmsh_interface import GmshWriter, PhysicalNames
 from porepy_tpu_torch.fracs.msh_2_grid import create_grids_from_msh, parse_msh
-from porepy_tpu_torch.grids import match_grids
-from porepy_tpu_torch.grids.grid import Grid
+from porepy_tpu_torch.grids import match_grids, refinement
 from porepy_tpu_torch.grids.mdg_generation import create_mdg
 from porepy_tpu_torch.grids.simplex import StructuredTetrahedralGrid, TriangleGrid
 from porepy_tpu_torch.grids.structured import CartGrid, TensorGrid
@@ -486,11 +485,13 @@ def _pair_1d(nodes):
     return out
 
 
-def _port_grid(g):
-    """The port's grid with ``g``'s (a porepy_tpu grid's) topology."""
-    out = Grid(g.dim, np.array(g.nodes), sps.csc_matrix(g.face_nodes), sps.csc_matrix(g.cell_faces), g.name)
-    out.compute_geometry()
-    return out
+def _same_grid(g, g_jax):
+    """The port's grid ``g`` is porepy_tpu's ``g_jax``: nodes, face-node
+    and cell-face maps equal."""
+    np.testing.assert_array_equal(g.nodes, g_jax.nodes)
+    for attr in ("face_nodes", "cell_faces"):
+        a, b = sps.csr_matrix(getattr(g, attr)), sps.csr_matrix(getattr(g_jax, attr))
+        assert a.shape == b.shape and (a != b).nnz == 0, attr
 
 
 @pytest.mark.parametrize("scaling", [None, "averaged", "integrated"])
@@ -509,16 +510,18 @@ def test_match_1d_parity(scaling):
 
 @pytest.mark.parametrize("scaling", [None, "averaged", "integrated"])
 def test_match_2d_parity(scaling):
-    """``test_match_2d_parity`` through the port: the refined triangle grid
-    is porepy_tpu's ``refine_triangle_grid`` (not ported), rebuilt in the
-    port; ``match_2d`` equals porepy_tpu's to the bit."""
+    """``test_match_2d_parity`` through the port: the port's
+    ``refine_triangle_grid`` gives porepy_tpu's grid, and ``match_2d``
+    equals porepy_tpu's to the bit."""
     pts = np.array([[0, 1, 0, 1.0], [0, 0, 1, 1.0]])
     old, old_jax = TriangleGrid(pts.copy()), pt_jax.TriangleGrid(pts.copy())
     old.compute_geometry()
     old_jax.compute_geometry()
     new_jax = refinement_jax.refine_triangle_grid(old_jax)[0]
     new_jax.compute_geometry()
-    new = _port_grid(new_jax)
+    new = refinement.refine_triangle_grid(old)[0]
+    new.compute_geometry()
+    _same_grid(new, new_jax)
     mine = match_grids.match_2d(new, old, tol=1e-8, scaling=scaling)
     theirs = pt_jax.match_grids.match_2d(new_jax, old_jax, tol=1e-8, scaling=scaling)
     assert mine.shape == theirs.shape
@@ -540,8 +543,8 @@ def test_match_2d_rejects_non_simplex():
 
 
 # -- tests/grids/test_mortar_updates.py through the port -----------------------
-# ``refine_grid_1d`` (``grids/refinement.py``) is not ported: the refined 1d
-# grids are porepy_tpu's, rebuilt in the port by ``_port_grid``.
+# The refined 1d grids are the port's ``refine_grid_1d``, each held against
+# porepy_tpu's of the same grid.
 
 FRAC_H = [np.array([[0.25, 0.75], [0.5, 0.5]])]
 
@@ -551,10 +554,13 @@ def _mdg():
 
 
 def _refined_1d(g, ratio):
-    """The port's copy of ``refine_grid_1d(g, ratio)``, by porepy_tpu."""
+    """The port's ``refine_grid_1d(g, ratio)``, equal to porepy_tpu's of
+    the same grid."""
     twin = pt_jax.grids.grid.Grid(g.dim, np.array(g.nodes), sps.csc_matrix(g.face_nodes), sps.csc_matrix(g.cell_faces), g.name)
     twin.compute_geometry()
-    return _port_grid(refinement_jax.refine_grid_1d(twin, ratio=ratio))
+    out = refinement.refine_grid_1d(g, ratio=ratio)
+    _same_grid(out, refinement_jax.refine_grid_1d(twin, ratio=ratio))
+    return out
 
 
 def test_update_mortar_refined_sides():
